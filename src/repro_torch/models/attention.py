@@ -1,0 +1,89 @@
+"""Grouped-query attention against the paged Stem KV cache (port of the
+paged half of ``repro/models/attention.py``: ``init``, ``_project``,
+``apply_decode_paged`` and ``apply_chunk_paged``)."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import chunked as chunked_lib
+from repro_torch.core import policy as policy_lib
+from repro_torch.core.decode import DEFAULT_BUDGET_FRAC
+from repro_torch.models import common
+from repro_torch.runtime import paged as paged_lib
+
+
+def init(ini: common.Initializer, cfg: ArchConfig) -> dict:
+    d, h, hk, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    p = {
+        "wq": ini.normal((d, h, dh)),
+        "wk": ini.normal((d, hk, dh)),
+        "wv": ini.normal((d, hk, dh)),
+        "wo": ini.normal((h, dh, d)),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = ini.zeros((h, dh))
+        p["bk"] = ini.zeros((hk, dh))
+        p["bv"] = ini.zeros((hk, dh))
+    if cfg.qk_norm:
+        p["q_norm"] = ini.zeros((dh,))
+        p["k_norm"] = ini.zeros((dh,))
+    return p
+
+
+def _project(params, x, cfg: ArchConfig, positions, *, use_rope: bool = True):
+    """x: (b, s, d) -> q (b, hq, s, dh), k, v (b, hk, s, dh)."""
+    q = torch.einsum("bsd,dhk->bhsk", x, params["wq"])
+    k = torch.einsum("bsd,dhk->bhsk", x, params["wk"])
+    v = torch.einsum("bsd,dhk->bhsk", x, params["wv"])
+    if cfg.qkv_bias:
+        q = q + params["bq"][None, :, None, :]
+        k = k + params["bk"][None, :, None, :]
+        v = v + params["bv"][None, :, None, :]
+    if cfg.qk_norm:
+        q = common.rms_norm(q, params["q_norm"])
+        k = common.rms_norm(k, params["k_norm"])
+    if use_rope:
+        q = common.apply_rope(q, positions, cfg.rope_theta)
+        k = common.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _out_proj(o, x, params):
+    return torch.einsum("bhsk,hkd->bsd", o.to(x.dtype), params["wo"])
+
+
+def apply_decode_paged(params, x, cfg: ArchConfig, pool, page_table,
+                       cache_lens, stem_cfg, *,
+                       budget_frac: float = DEFAULT_BUDGET_FRAC,
+                       use_rope: bool = True):
+    """One decode step against the paged cache: append the new token's K/V
+    (+ summary increments, in place), then policy page selection + exact
+    attention over the selected pages.  x: (slots, 1, d).
+    Returns (out, pool)."""
+    stem_cfg = policy_lib.as_policy(stem_cfg)
+    lens = cache_lens.to(torch.int32)
+    q, k_new, v_new = _project(params, x, cfg, lens[:, None], use_rope=use_rope)
+    pool = paged_lib.append_token(pool, page_table, lens, k_new, v_new, stem_cfg)
+    o = paged_lib.paged_sparse_decode(q, pool, page_table, lens + 1, stem_cfg,
+                                      budget_frac=budget_frac)
+    return _out_proj(o, x, params), pool
+
+
+def apply_chunk_paged(params, x, cfg: ArchConfig, pool, page_table,
+                      chunk_start, true_len, budgets, stem_cfg, *,
+                      k_max: int = 0, use_rope: bool = True):
+    """One chunked-prefill step against the paged cache: write the chunk's
+    K/V pages + summaries first (in place), then chunked selection + exact
+    attention over history and in-chunk pages at absolute positions.
+    x: (lanes, C, d).  Returns (out, pool)."""
+    stem_cfg = policy_lib.as_policy(stem_cfg)
+    c = x.shape[1]
+    positions = chunk_start[:, None] + torch.arange(c, device=x.device)[None, :]
+    q, k_new, v_new = _project(params, x, cfg, positions, use_rope=use_rope)
+    pool = paged_lib.write_chunk_pages(pool, page_table, chunk_start, k_new,
+                                       v_new, true_len, stem_cfg)
+    o = chunked_lib.chunked_prefill_attention(q, pool, page_table,
+                                              chunk_start, budgets, stem_cfg,
+                                              k_max)
+    return _out_proj(o, x, params), pool

@@ -1,0 +1,219 @@
+"""Differential tests for the module that holds the port's kernels
+(``repro_torch/kernels/paged_attn.py``) and its gather oracle.
+
+On the CPU the fused entry points run the kernels' plain PyTorch versions;
+they are held against the reference's fused entry points (Pallas in
+interpret mode), and the port's "gather" executor against the reference's
+XLA gather oracle.  GQA groups {1, 2, 4}, ragged and unaligned lengths,
+budget_frac {0.25, 1.0}, antidiag / mean pooling and zero-live rows (exact
+zeros) are covered; floats within 1e-4 (fp32), selections exact.  The
+kernel-vs-plain cases on the card are in ``test_torch_kernels_cuda.py``
+(no JAX there: the GPU machine has none).
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.core import chunked as j_chunked
+from repro.core import policy as j_policy
+from repro.kernels import paged_attn as j_kern
+from repro.runtime import paged as j_paged
+
+from repro_torch.core import chunked as t_chunked
+from repro_torch.core import policy as t_policy
+from repro_torch.kernels import paged_attn as t_kern
+from repro_torch.runtime import paged as t_paged
+
+torch.set_num_threads(1)
+
+BS, STRIDE, D, HQ = 8, 4, 8, 4
+TOL = 1e-4
+
+
+def _pair(name="stem", **updates):
+    kw = dict(block_size=BS, stride=STRIDE, sink_blocks=1, local_blocks=1,
+              min_budget_blocks=2, **updates)
+    return (j_policy.get_policy(name).with_updates(ignore_missing=True, **kw),
+            t_policy.get_policy(name).with_updates(ignore_missing=True, **kw))
+
+
+def _to_port(jpool):
+    return t_paged.PagePool(*(torch.from_numpy(np.array(x)) for x in jpool))
+
+
+def _decode_case(group, lens, seed, npages=4, name="stem"):
+    hk = HQ // group
+    rng = np.random.default_rng(seed)
+    jp, tp = _pair(name)
+    b = len(lens)
+    pool = j_paged.init_pool(1 + b * npages, hk, BS, D, STRIDE)
+    pt = np.zeros((b, npages), np.int32)
+    for i in range(b):
+        pt[i] = 1 + i * npages + np.arange(npages)
+        k = rng.standard_normal((hk, npages * BS, D)).astype(np.float32)
+        v = rng.standard_normal((hk, npages * BS, D)).astype(np.float32)
+        pool = j_paged.write_prefill_pages(pool, jnp.asarray(pt[i]), jnp.asarray(k),
+                                           jnp.asarray(v), jnp.asarray(int(lens[i])), jp)
+    q = rng.standard_normal((b, HQ, 1, D)).astype(np.float32)
+    return jp, tp, pool, pt, q, np.asarray(lens, np.int32)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("frac", [0.25, 1.0])
+def test_decode_fused_matches_pallas(group, frac):
+    jp, tp, pool, pt, q, lens = _decode_case(group, [29, 0, 13, 32], seed=group)
+    want = j_kern.fused_paged_decode(jnp.asarray(q), pool, jnp.asarray(pt),
+                                     jnp.asarray(lens), jp, frac)
+    got = t_kern.fused_paged_decode(torch.from_numpy(q), _to_port(pool),
+                                    torch.from_numpy(pt), torch.from_numpy(lens),
+                                    tp, frac)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=0)
+    assert np.all(got.numpy()[1] == 0.0), "zero-live row must be exactly zero"
+
+
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("frac", [0.25, 1.0])
+def test_decode_gather_matches_xla(group, frac):
+    jp, tp, pool, pt, q, lens = _decode_case(group, [17, 31, 0], seed=10 + group)
+    want = j_paged._paged_decode_xla(jnp.asarray(q), pool, jnp.asarray(pt),
+                                     jnp.asarray(lens), jp, frac)
+    got = t_paged._paged_decode_gather(torch.from_numpy(q), _to_port(pool),
+                                       torch.from_numpy(pt), torch.from_numpy(lens),
+                                       tp, frac)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=0)
+    assert np.all(got.numpy()[2] == 0.0), "zero-live row must be exactly zero"
+
+
+def test_decode_streaming_and_scores():
+    """Streaming needs no scorer; the OAM scorer's scores match the
+    reference kernel's (decode_page_scores) directly."""
+    jp, tp, pool, pt, q, lens = _decode_case(2, [17, 32, 5], seed=3,
+                                             name="streaming")
+    want = j_kern.fused_paged_decode(jnp.asarray(q), pool, jnp.asarray(pt),
+                                     jnp.asarray(lens), jp, 1.0)
+    got = t_kern.fused_paged_decode(torch.from_numpy(q), _to_port(pool),
+                                    torch.from_numpy(pt), torch.from_numpy(lens),
+                                    tp, 1.0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=0)
+    sc_j = j_kern.decode_page_scores(jnp.asarray(q), pool.kg, jnp.asarray(pt),
+                                     group=2)
+    sc_t = t_kern.decode_page_scores(torch.from_numpy(q), torch.from_numpy(
+        np.array(pool.kg)), torch.from_numpy(pt), group=2)
+    np.testing.assert_allclose(sc_t.numpy(), np.asarray(sc_j), atol=TOL, rtol=0)
+
+
+def test_pack_selection_matches():
+    rng = np.random.default_rng(1)
+    idx = rng.integers(0, 6, size=(2, 2, 3, 5)).astype(np.int32)
+    live = np.arange(5) < rng.integers(0, 6, size=(2, 2, 3))[..., None]
+    pt = rng.integers(1, 50, size=(2, 6)).astype(np.int32)
+    want = j_kern.pack_selection(jnp.asarray(idx), jnp.asarray(live), jnp.asarray(pt))
+    got = t_kern.pack_selection(torch.from_numpy(idx), torch.from_numpy(live),
+                                torch.from_numpy(pt))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def _chunk_case(group, hist_pages, tail, seed, nc=2, name="stem", **updates):
+    hk = HQ // group
+    rng = np.random.default_rng(seed)
+    jp, tp = _pair(name, **updates)
+    b, maxp, chunk = 2, hist_pages + nc, nc * BS
+    pool = j_paged.init_pool(1 + b * maxp, hk, BS, D, STRIDE)
+    pt = np.zeros((b, maxp), np.int32)
+    start = np.full((b,), hist_pages * BS, np.int32)
+    true_len = np.asarray([start[0] + tail, start[1] + max(1, tail - 3)], np.int32)
+    for i in range(b):
+        pt[i] = 1 + i * maxp + np.arange(maxp)
+        if hist_pages:
+            k = rng.standard_normal((hk, hist_pages * BS, D)).astype(np.float32)
+            v = rng.standard_normal((hk, hist_pages * BS, D)).astype(np.float32)
+            pool = j_paged.write_prefill_pages(
+                pool, jnp.asarray(pt[i, :hist_pages]), jnp.asarray(k),
+                jnp.asarray(v), jnp.asarray(int(start[i])), jp)
+    kc = rng.standard_normal((b, hk, chunk, D)).astype(np.float32)
+    vc = rng.standard_normal((b, hk, chunk, D)).astype(np.float32)
+    pool = j_paged.write_chunk_pages(pool, jnp.asarray(pt), jnp.asarray(start),
+                                     jnp.asarray(kc), jnp.asarray(vc),
+                                     jnp.asarray(true_len), jp)
+    q = rng.standard_normal((b, HQ, chunk, D)).astype(np.float32)
+    budgets = np.stack([j_chunked.chunk_budget_rows(jp, maxp * BS, int(start[i]), nc)
+                        for i in range(b)]).astype(np.int32)
+    jargs = (jnp.asarray(q), pool, jnp.asarray(pt), jnp.asarray(start),
+             jnp.asarray(budgets), jp)
+    targs = (torch.from_numpy(q), _to_port(pool), torch.from_numpy(pt),
+             torch.from_numpy(start), torch.from_numpy(budgets), tp)
+    return jargs, targs
+
+
+CHUNK_CASES = [  # (group, hist_pages, tail, pooling, group_reduce)
+    (1, 2, 11, "antidiag", "none"),
+    (2, 3, 16, "antidiag", "mean"),
+    (4, 1, 5, "mean", "none"),
+    (2, 0, 9, "antidiag", "max"),
+]
+
+
+@pytest.mark.parametrize("group,hist,tail,pooling,reduce", CHUNK_CASES)
+def test_chunk_fused_matches_pallas(group, hist, tail, pooling, reduce):
+    jargs, targs = _chunk_case(group, hist, tail, seed=group + hist,
+                               pooling=pooling, group_reduce=reduce)
+    want = j_kern.fused_paged_chunk(*jargs)
+    got = t_kern.fused_paged_chunk(*targs)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("group,hist,tail,pooling,reduce", CHUNK_CASES)
+def test_chunk_gather_matches_xla(group, hist, tail, pooling, reduce):
+    jargs, targs = _chunk_case(group, hist, tail, seed=7 + group,
+                               pooling=pooling, group_reduce=reduce)
+    want = j_chunked._chunked_prefill_xla(*jargs)
+    got = t_chunked._chunked_prefill_gather(*targs)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=0)
+
+
+def test_chunk_streaming_and_sam_policies():
+    for name in ("streaming", "stem-sam"):
+        jargs, targs = _chunk_case(2, 2, 13, seed=9, name=name)
+        np.testing.assert_allclose(t_kern.fused_paged_chunk(*targs).numpy(),
+                                   np.asarray(j_kern.fused_paged_chunk(*jargs)),
+                                   atol=TOL, rtol=0)
+
+
+def test_attend_plain_zero_live_rows_exact():
+    """cnt == 0 rows of the plain attention are exact zeros in both lanes,
+    whatever the (revisit-filled) page ids point at."""
+    rng = np.random.default_rng(0)
+    k = torch.from_numpy(rng.standard_normal((2, 5, BS, D)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((2, 5, BS, D)).astype(np.float32))
+    gp = torch.tensor([[[[3, 3]], [[1, 2]]]], dtype=torch.int32).expand(1, 2, 1, 2)
+    gp = torch.cat([gp, gp], dim=1).contiguous()            # (1, 4, 1, 2)
+    cnt = torch.tensor([[[0], [2], [0], [1]]], dtype=torch.int32)
+    pos = torch.tensor([12], dtype=torch.int32)
+    for rows, causal in ((1, False), (BS, True)):
+        q = torch.from_numpy(rng.standard_normal((1, 4, 1, rows, D)).astype(np.float32))
+        out = t_kern.attend_pages(q, k, v, gp, gp.clone(), cnt, pos,
+                                  block_size=BS, causal=causal, lane="decode")
+        assert torch.all(out[:, 0] == 0) and torch.all(out[:, 2] == 0)
+        assert torch.isfinite(out).all() and torch.any(out[:, 1] != 0)
+
+
+def test_unsupported_metric_raises():
+    """No silent fallback: a metric the scorer cannot serve raises."""
+    _, tp = _pair()
+
+    class OddMetric:
+        stride = STRIDE
+
+    pol = tp.__class__(metric=OddMetric(), schedule=tp.schedule,
+                       selector=tp.selector, block_size=BS)
+    q = torch.zeros((1, HQ, 1, D))
+    pool = t_paged.init_pool(3, 2, BS, D, STRIDE, device="cpu")
+    with pytest.raises(NotImplementedError):
+        t_kern.fused_paged_decode(q, pool, torch.ones((1, 2), dtype=torch.int32),
+                                  torch.tensor([5], dtype=torch.int32), pol)
+    with pytest.raises(KeyError):
+        t_policy.get_paged_executor("xla")
