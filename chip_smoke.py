@@ -2,29 +2,54 @@
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --profile  # also trace phase 4 with torch.profiler
+    python3 chip_smoke.py --profile-prefill  # also trace phase 5's prefills
 
 Phases:
   1. device   — require CUDA; print the card's name and power limit.
   2. build    — compile every kernel source under
                 src/repro_torch/kernels/csrc/ with nvcc (sm_90a) into
-                build/kernels/, timed.
-  3. kernels  — each kernel against its plain PyTorch version at the
-                serving shapes of qwen3-0.6b (hq 16, hk 8, d 128, block 128,
-                stride 16, 126 pages per row; decode b=4, chunk 1024):
-                fp32 outputs (the scorer, and attention over fp32 pools)
-                within 1e-4 abs; bf16 attention outputs within 2 bf16 ulps
-                of the plain output plus 1e-3 * max|plain|; kernel and
-                plain times from CUDA events.
+                build/kernels/, one nvcc per source started together, timed.
+  3. kernels  — each kernel against its plain PyTorch version, in fp32 and
+                bf16: the paged kernels at the serving shapes of qwen3-0.6b
+                (hq 16, hk 8, d 128, block 128, stride 16, 126 pages per
+                row; decode b=4, chunk 1024); the one-shot prefill kernels
+                (block-sparse attention under the TPD selection of "stem",
+                also with group_dedup and with cnt == 0 rows; flash
+                attention, also against scaled_dot_product_attention; the
+                pool and value-magnitude kernels) at a 16384-token prompt.
+                fp32 outputs within 1e-4 abs; bf16 outputs within 2 bf16
+                ulps of the plain output plus 1e-3 * max|plain|; kernel,
+                plain and library times from CUDA events.  The library call
+                of block-sparse attention is a compiled flex_attention over
+                a BlockMask of the same selection (timed and checked
+                against the plain output, never called by the port).
   4. engine   — StemEngine at the full width of qwen3-0.6b (bf16, random
                 weights from a seeded generator, policy "stem" with paper
                 defaults, budget_frac 0.5, chunk 1024, 2 slots) serves four
                 staggered requests (prompts 2000/6000/11000/16000 tokens, 32
-                new tokens each).  Launch counters are zeroed just before the
-                run and read just after; every kernel of both lanes must have
-                launched, every logit must be finite, every page must return.
-  5. parity   — full width, 2 layers, fp32: the "fused" and "gather"
-                executors serve one short trace; greedy streams must be
-                equal, or the logits at a split differ by < 1e-3.
+                new tokens each) with chunked prefill.  Launch counters are
+                zeroed just before the run and read just after; every kernel
+                of both lanes must have launched, every logit the engine
+                samples must be finite (its "greedy-finite" sampler folds
+                that into one device flag, read after the run), every page
+                must return.
+  5. prefill  — the one-shot prefill (transformer.prefill) of one
+                16384-token prompt at full width, under "stem" (block-sparse,
+                pool and vmag kernels) and dense (stem_cfg=None: the flash
+                kernel); ms and realized density of each, counters zeroed
+                before each run and read after.
+  6. monolithic — the phase-4 trace under EngineConfig(monolithic_prefill=
+                True), then one 4096-token and one 100-token request under
+                "xattention" (the 100-token prompt is one block: the dense
+                arm); counters zeroed before and read after; every kernel
+                of the path (decode-lane paged kernels, block-sparse, flash,
+                pool, vmag) must have launched; the phase-4 checks hold.
+  7. parity   — full width, 2 layers, fp32: the "fused" and "gather"
+                executors serve one short trace with chunked prefill and
+                with monolithic prefill, and run one 4096-token one-shot
+                prefill; greedy streams must be equal (or the logits at a
+                split differ by < 1e-3), prefill logits within 1e-4 and
+                selections equal.
 
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}.  Any failed phase raises (non-zero exit).
@@ -32,7 +57,9 @@ Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last line
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -48,16 +75,57 @@ from repro_torch.configs import QWEN3_0_6B  # noqa: E402
 from repro_torch.core import chunked as chunked_lib  # noqa: E402
 from repro_torch.core import metric as metric_lib  # noqa: E402
 from repro_torch.core import policy as policy_lib  # noqa: E402
+from repro_torch.core.selection import selection_density  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import block_sparse_attn as bsa_kern  # noqa: E402
+from repro_torch.kernels import flash_attention as flash_kern  # noqa: E402
 from repro_torch.kernels import paged_attn as kern  # noqa: E402
+from repro_torch.kernels import stem_metric as metric_kern  # noqa: E402
+from repro_torch.launch import steps as steps_lib  # noqa: E402
+from repro_torch.models import attention as attention_lib  # noqa: E402
+from repro_torch.models import common  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.runtime import engine as engine_lib  # noqa: E402
+from repro_torch.runtime import sampling as sampling_lib  # noqa: E402
 
 HBM_BYTES_S = 3.35e12        # H100 SXM data sheet
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 SOURCE = "src/repro_torch/kernels/csrc/paged_attn.cu"
 REPLACES = {"score": "src/repro/kernels/paged_attn.py:142",
             "attend": "src/repro/kernels/paged_attn.py:249"}
+# The one-shot prefill kernels: (record key, counter module, counter key,
+# source, replaced TPU kernel).
+PREFILL_KERNELS = (
+    ("block_sparse_attention", bsa_kern, "block_sparse_attention",
+     "src/repro_torch/kernels/csrc/block_sparse_attn.cu",
+     "src/repro/kernels/block_sparse_attn.py:52"),
+    ("flash_attention", flash_kern, "flash_attention",
+     "src/repro_torch/kernels/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:34"),
+    ("antidiag_pool", metric_kern, "antidiag_pool",
+     "src/repro_torch/kernels/csrc/stem_metric.cu",
+     "src/repro/kernels/stem_metric.py:27"),
+    ("value_magnitude", metric_kern, "value_magnitude",
+     "src/repro_torch/kernels/csrc/stem_metric.cu",
+     "src/repro/kernels/stem_metric.py:57"),
+)
+COUNTERS = (kern, bsa_kern, flash_kern, metric_kern)
+# The served trace of phases 4 and 6: prompt lengths, arrival steps, new
+# tokens per request.
+PROMPTS, ARRIVALS, NEW_TOKENS = (2000, 6000, 11000, 16000), (0, 0, 2, 4), 32
+
+
+def reset_all_launches() -> None:
+    for mod in COUNTERS:
+        mod.reset_launches()
+
+
+def read_all_launches() -> dict:
+    out = {}
+    for mod in COUNTERS:
+        out.update(mod.LAUNCHES)
+    return out
 
 
 def log(msg: str) -> None:
@@ -106,6 +174,18 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     a = x.abs().clamp(min=1e-30)
     return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def check_library(name: str, lib: torch.Tensor, want: torch.Tensor) -> float:
+    """A library call against the port: fp32 within 1e-4 abs; bf16 within
+    1e-2 * max|lib| (library kernels may round the probabilities to bf16)."""
+    err = float((lib.float() - want.float()).abs().max())
+    limit = 1e-4 if lib.dtype == torch.float32 else float(
+        1e-2 * lib.float().abs().max())
+    log(f"[kernels] {name}: max_abs_err={err:.3e} (limit {limit:.3e})")
+    if not err <= limit:
+        raise AssertionError(f"{name}: library call disagrees")
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -231,33 +311,187 @@ def attend_bytes_flops(args, out, live_pages, bs, d, rows):
     return nbytes, flops
 
 
-def rec_kernel(records, kernel, lane, tag, err, run_k, run_p, bf, dtype):
-    ms = time_ms(run_k, iters=20)
-    plain_ms = time_ms(run_p, iters=3, warmup=1)
+def rec_kernel(records, kernel, lane, tag, err, run_k, run_p, bf, dtype,
+               run_lib=None, iters=20, plain_iters=3):
+    ms = time_ms(run_k, iters=iters)
+    plain_ms = time_ms(run_p, iters=plain_iters, warmup=1)
+    lib_ms = None if run_lib is None else time_ms(run_lib, iters=iters)
     bound_ms, bound_by = bound(*bf, dtype)
     log(f"[kernels] {kernel}/{lane} {tag}: max_abs_err={err:.3e} "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms, bound {bound_ms:.4f} ms "
         f"({bound_by})")
     records.setdefault(f"{kernel}/{lane}", {})[tag] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by)
+        bound_by=bound_by, library_ms=lib_ms)
+
+
+# ---------------------------------------------------------------------------
+# Phase 3b: the one-shot prefill kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def causal_pairs(idx, cnt, bs) -> float:
+    """(query, key) pairs the live selected blocks hold under the causal
+    mask: B*B below the diagonal, B*(B+1)/2 on it."""
+    live = torch.arange(idx.shape[-1], device=idx.device) < cnt[..., None].long()
+    rows = torch.arange(idx.shape[2], device=idx.device)[None, None, :, None]
+    diag = (idx.long() == rows) & live
+    below = (idx.long() < rows) & live
+    return float(below.sum()) * bs * bs + float(diag.sum()) * bs * (bs + 1) / 2
+
+
+def bsa_bytes_flops(q, k, idx, cnt, group, dedup, bs):
+    d, es = q.shape[-1], q.element_size()
+    hsel = idx.shape[1]
+    live = torch.arange(idx.shape[-1], device=idx.device) < cnt[..., None].long()
+    kvh = (torch.arange(hsel, device=idx.device) // (1 if dedup else group))
+    key = (kvh[None, :, None, None].expand_as(idx).long() << 32) | idx.long()
+    blocks = int(torch.unique(key[live]).numel())
+    nbytes = (2 * q.numel() * es + 2 * blocks * bs * d * es
+              + (idx.numel() + cnt.numel()) * 4)
+    heads = group if dedup else 1
+    return nbytes, 4.0 * d * causal_pairs(idx, cnt, bs) * heads
+
+
+def flex_block_mask(idx, cnt, bs):
+    """The selection (indices, live counts) as a flex_attention BlockMask:
+    live blocks below the diagonal as full blocks, the diagonal block under
+    the mask_mod, index lists padded to the nq key blocks.  The mask_mod
+    also holds the selection (eager flex_attention reads only it)."""
+    from torch.nn.attention.flex_attention import BlockMask
+    b, h, nq, k_max = idx.shape
+    dev = idx.device
+    rows = torch.arange(nq, device=dev)[None, None, :, None]
+    live = torch.arange(k_max, device=dev) < cnt[..., None].long()
+    below = live & (idx.long() < rows)
+    picked = torch.zeros((b, h, nq, nq), dtype=torch.int32, device=dev)
+    picked = picked.scatter_add_(-1, idx.long(), live.to(torch.int32)) > 0
+    order = torch.argsort((~below).to(torch.int8), dim=-1, stable=True)
+    full_idx = torch.zeros((b, h, nq, nq), dtype=torch.int32, device=dev)
+    full_idx[..., :k_max] = torch.gather(idx, -1, order)
+    diag_idx = torch.zeros_like(full_idx)
+    diag_idx[..., 0] = rows[..., 0]
+    return BlockMask.from_kv_blocks(
+        (live & (idx.long() == rows)).any(-1).to(torch.int32), diag_idx,
+        below.sum(-1, dtype=torch.int32), full_idx, BLOCK_SIZE=bs,
+        mask_mod=lambda b_, h_, q_idx, kv_idx: (q_idx >= kv_idx)
+        & picked[b_, h_, q_idx // bs, kv_idx // bs])
+
+
+def prefill_kernel_phase(records: dict, dev=torch.device("cuda")) -> None:
+    n, hq, hk, d, bs, s = 16384, 16, 8, 128, 128, 16
+    group = hq // hk
+    policy = policy_lib.get_policy("stem")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    from torch.nn.attention.flex_attention import flex_attention
+    flex = torch.compile(flex_attention, dynamic=False)
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[-1]
+        es = torch.tensor([], dtype=dtype).element_size()
+        q = torch.randn((1, hq, n, d), generator=gen, device=dev).to(dtype)
+        k = torch.randn((1, hk, n, d), generator=gen, device=dev).to(dtype)
+        v = torch.randn((1, hk, n, d), generator=gen, device=dev).to(dtype)
+
+        # -- kernel 5: anti-diagonal pooling of q (rounded to q's dtype) --
+        run_k = lambda: metric_kern.antidiag_pool(q, block_size=bs, stride=s,
+                                                  out_dtype=dtype)
+        run_p = lambda: metric_kern.antidiag_pool_plain(q, block_size=bs, stride=s,
+                                                        out_dtype=dtype)
+        run_l = lambda: q.reshape(1, hq, n // bs, bs // s, s, d).mean(dim=3)
+        got, want = run_k(), run_p()
+        torch.cuda.synchronize()
+        err = check_close(f"antidiag_pool/{tag}", got, want)
+        rec_kernel(records, "antidiag_pool", "prefill", tag, err, run_k, run_p,
+                   (q.numel() * es + got.numel() * es, float(q.numel())), dtype,
+                   run_lib=run_l)
+
+        # -- kernel 6: block max of log ||v|| -------------------------------
+        run_k = lambda: metric_kern.value_magnitude(v, block_size=bs)
+        run_p = lambda: metric_kern.value_magnitude_plain(v, block_size=bs)
+        got, want = run_k(), run_p()
+        torch.cuda.synchronize()
+        err = check_close(f"value_magnitude/{tag}", got, want)
+        rec_kernel(records, "value_magnitude", "prefill", tag, err, run_k, run_p,
+                   (v.numel() * es + got.numel() * 4, 2.0 * v.numel()), dtype)
+
+        # -- kernel 3: block-sparse attention under stem's TPD selection ----
+        for dedup in (False, True):
+            pol = policy.with_updates(group_reduce="mean") if dedup else policy
+            sel, _ = pol.prefill_select(q, k, v, with_block_mask=False)
+            idx, cnt = sel.indices, sel.live_counts
+            if dedup:
+                idx, cnt = idx[:, ::group].contiguous(), cnt[:, ::group].contiguous()
+            run_k = lambda: bsa_kern.block_sparse_attention(
+                q, k, v, idx, live_counts=cnt, block_size=bs, group_dedup=dedup)
+            run_p = lambda: bsa_kern.block_sparse_attention_plain(
+                q, k, v, idx, cnt, block_size=bs, group_dedup=dedup)
+            got, want = run_k(), run_p()
+            torch.cuda.synchronize()
+            name = "block_sparse_attention" + ("/dedup" if dedup else "")
+            err = check_close(f"{name}/{tag}", got, want)
+            if dedup:
+                log(f"[kernels] {name} {tag}: max_abs_err={err:.3e}")
+                continue
+            density = float(selection_density(sel, n // bs))
+            log(f"[kernels] stem selection at n={n}: k_max {idx.shape[-1]}, "
+                f"realized density {density:.4f}")
+            mask = flex_block_mask(idx, cnt, bs)
+            run_l = lambda: flex(q, k, v, block_mask=mask, enable_gqa=True)
+            check_library(f"{name} {tag} vs flex_attention", run_l(), want)
+            rec_kernel(records, "block_sparse_attention", "prefill", tag, err,
+                       run_k, run_p,
+                       bsa_bytes_flops(q, k, idx, cnt, group, False, bs), dtype,
+                       run_lib=run_l, iters=5, plain_iters=1)
+            # rows with cnt == 0 finalize to exact zeros
+            cnt0 = cnt.clone()
+            cnt0[:, :, 1::9] = 0
+            got = bsa_kern.block_sparse_attention(q, k, v, idx, live_counts=cnt0,
+                                                  block_size=bs)
+            want = bsa_kern.block_sparse_attention_plain(q, k, v, idx, cnt0,
+                                                         block_size=bs)
+            torch.cuda.synchronize()
+            check_close(f"block_sparse_attention/cnt0/{tag}", got, want)
+            zero_rows = got.reshape(1, hq, n // bs, bs, d)[cnt0 == 0]
+            if not bool((zero_rows == 0).all()):
+                raise AssertionError("cnt == 0 rows are not exact zeros")
+        del got, want
+
+        # -- kernel 4: dense causal flash attention -------------------------
+        run_k = lambda: flash_kern.flash_attention(q, k, v)
+        run_p = lambda: flash_kern.flash_attention_plain(q, k, v)
+        run_l = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)
+        got, want = run_k(), run_p()
+        torch.cuda.synchronize()
+        err = check_close(f"flash_attention/{tag}", got, want)
+        check_library(f"flash_attention {tag} vs scaled_dot_product_attention",
+                      run_l(), got)
+        pairs = hq * n * (n + 1) / 2
+        rec_kernel(records, "flash_attention", "prefill", tag, err, run_k, run_p,
+                   (2 * q.numel() * es + 2 * k.numel() * es, 4.0 * d * pairs),
+                   dtype, run_lib=run_l, iters=5, plain_iters=1)
+        del q, k, v, got, want, mask
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
 # Phase 4: the engine at full width
 # ---------------------------------------------------------------------------
 
-def _finite_guard(engine):
-    """Wrap the engine's step so every logit it returns is checked."""
-    step = engine._unified
+class FiniteGreedy(sampling_lib.GreedySampler):
+    """Greedy sampling that also folds "every logit sampled was finite" into
+    one device flag, read once after the run (no host sync per step)."""
 
-    def guarded(*a, **kw):
-        dec, chunk, pools = step(*a, **kw)
-        for t in (dec, chunk):
-            if t is not None and not torch.isfinite(t).all():
-                raise AssertionError("non-finite logits in the engine step")
-        return dec, chunk, pools
-    engine._unified = guarded
+    def __init__(self):
+        self.finite = None
+
+    def __call__(self, logits):
+        ok = torch.isfinite(logits).all()
+        self.finite = ok if self.finite is None else self.finite & ok
+        return super().__call__(logits)
+
+
+sampling_lib.register_sampler("greedy-finite", FiniteGreedy)
 
 
 def profile_summary(prof, wall: float, top: int = 12) -> None:
@@ -284,23 +518,103 @@ def engine_phase(profile: bool = False) -> dict:
     bundle = registry.build(cfg)
     params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0),
                                 device="cuda")
-    policy = policy_lib.get_policy("stem")
-    prompts = (2000, 6000, 11000, 16000)
-    arrivals = (0, 0, 2, 4)
-    new = 32
-    ecfg = engine_lib.EngineConfig.for_trace(
-        max_slots=2, max_prompt=max(prompts), max_new_tokens=new,
-        page_size=policy.block_size, budget_frac=0.5, chunk_size=1024)
-    engine = engine_lib.StemEngine(bundle, params, policy, ecfg)
-    _finite_guard(engine)
-    rng = np.random.RandomState(0)
-    reqs = [engine_lib.Request(
-        uid=i, prompt=rng.randint(0, cfg.vocab_size, size=(n,)).astype(np.int32),
-        max_new_tokens=new, arrival_step=a)
-        for i, (n, a) in enumerate(zip(prompts, arrivals))]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kern.reset_launches()
+    reset_all_launches()
+    summary = _serve(bundle, params, policy_lib.get_policy("stem"), PROMPTS,
+                     ARRIVALS, NEW_TOKENS, 0, profile=profile, budget_frac=0.5,
+                     chunk_size=1024)
+    launches = read_all_launches()
+    missing = [k for k in kern.LAUNCHES if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    summary.update(peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   launches={k: launches[k] for k in kern.LAUNCHES})
+    log("[engine] " + json.dumps(summary))
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the one-shot prefill at full width
+# ---------------------------------------------------------------------------
+
+def prefill_phase(profile: bool = False) -> dict:
+    cfg = QWEN3_0_6B
+    params = registry.build(cfg).init_params(
+        torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    policy = policy_lib.get_policy("stem")
+    n = 16384
+    rng = np.random.RandomState(3)
+    tokens = torch.as_tensor(rng.randint(0, cfg.vocab_size, size=(1, n)),
+                             device="cuda")
+    out = {}
+    for arm, stem_cfg, need in (
+            ("stem", policy, ("block_sparse_attention", "antidiag_pool",
+                              "value_magnitude")),
+            ("dense", None, ("flash_attention",))):
+        step = steps_lib.make_prefill_step(registry.build(cfg), max_len=n,
+                                           stem_cfg=stem_cfg)
+        step(params, {"tokens": tokens[:, :1024]})        # warm-up
+        torch.cuda.synchronize()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        logits, caches = step(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = read_all_launches()
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"prefill/{arm}: non-finite logits")
+        missing = [k for k in need if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"prefill/{arm}: kernels never launched: {missing}")
+        density = 1.0
+        if stem_cfg is not None:
+            # realized density of layer 0's selection on this prompt
+            x = transformer._embed_inputs(params, {"tokens": tokens}, cfg)
+            p0 = transformer._index(params["segment0"], 0)["sub0"]
+            h = common.rms_norm(x, p0["norm1"])
+            _, stats = attention_lib.apply_full(
+                p0["attn"], h, cfg, positions=torch.arange(n, device="cuda"),
+                stem_cfg=stem_cfg, return_stats=True)
+            density = float(stats.density)
+        del logits, caches
+        torch.cuda.empty_cache()
+        out[arm] = dict(ms=ms, density=density,
+                        launches={k: v for k, v in launches.items() if v})
+        log(f"[prefill] {arm}: n={n} {ms:.1f} ms, realized density "
+            f"{density:.4f}, launches {out[arm]['launches']}")
+        if profile:                         # a third, traced run
+            act = torch.profiler.ProfilerActivity
+            with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+                t0 = time.perf_counter()
+                step(params, {"tokens": tokens})
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            log(f"[profile] prefill/{arm}:")
+            profile_summary(prof, wall)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the monolithic engine at full width
+# ---------------------------------------------------------------------------
+
+def _serve(bundle, params, policy, prompts, arrivals, new, seed,
+           profile: bool = False, **knobs) -> dict:
+    """Serve one trace (2 slots) with every sampled logit checked finite;
+    checks that every request finished with ``new`` tokens and every page
+    returned.  Returns the end-to-end summary."""
+    ecfg = engine_lib.EngineConfig.for_trace(
+        max_slots=2, max_prompt=max(prompts), max_new_tokens=new,
+        page_size=policy.block_size, sampler="greedy-finite", **knobs)
+    engine = engine_lib.StemEngine(bundle, params, policy, ecfg)
+    rng = np.random.RandomState(seed)
+    reqs = [engine_lib.Request(
+        uid=i, prompt=rng.randint(0, bundle.cfg.vocab_size, size=(n,)).astype(np.int32),
+        max_new_tokens=new, arrival_step=a)
+        for i, (n, a) in enumerate(zip(prompts, arrivals))]
     prof = None
     if profile:
         act = torch.profiler.ProfilerActivity
@@ -313,9 +627,8 @@ def engine_phase(profile: bool = False) -> dict:
     if prof is not None:
         prof.__exit__(None, None, None)
         profile_summary(prof, wall)
-    launches = dict(kern.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-
+    if not bool(engine.sampler.finite):
+        raise AssertionError("non-finite logits in the engine")
     if [f.uid for f in finished] != list(range(len(prompts))):
         raise AssertionError("not every request finished")
     for f in finished:
@@ -324,21 +637,40 @@ def engine_phase(profile: bool = False) -> dict:
     if engine.allocator.available != ecfg.num_pages - 1:
         raise AssertionError("pages leaked")
     engine.allocator.check_conservation([])
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
-    gen_tokens = sum(len(f.tokens) for f in finished)
-    tpots = [f.tpot_s for f in finished]
-    summary = dict(
-        wall_s=wall, tok_s=gen_tokens / wall,
+    return dict(
+        wall_s=wall, tok_s=sum(len(f.tokens) for f in finished) / wall,
         prompt_tok_s=sum(prompts) / wall,
         mean_ttft_s=float(np.mean([f.ttft_s for f in finished])),
-        mean_tpot_s=float(np.mean(tpots)), steps=engine.step_count,
-        chunks=engine.stats["chunks"], decode_steps=engine.stats["decode_steps"],
-        peak_mem_gib=peak / 2 ** 30, num_pages=ecfg.num_pages,
-        launches=launches)
-    log("[engine] " + json.dumps(summary))
-    del engine, params
+        mean_tpot_s=float(np.mean([f.tpot_s for f in finished])),
+        steps=engine.step_count, chunks=engine.stats["chunks"],
+        prefills=engine.stats["prefills"],
+        decode_steps=engine.stats["decode_steps"], num_pages=ecfg.num_pages)
+
+
+def monolithic_phase() -> dict:
+    cfg = QWEN3_0_6B
+    bundle = registry.build(cfg)
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    stem = _serve(bundle, params, policy_lib.get_policy("stem"), PROMPTS,
+                  ARRIVALS, NEW_TOKENS, 0, budget_frac=0.5,
+                  monolithic_prefill=True)
+    xatt = _serve(bundle, params, policy_lib.get_policy("xattention"),
+                  (4096, 100), (0, 0), NEW_TOKENS, 4, budget_frac=0.5,
+                  monolithic_prefill=True)
+    launches = read_all_launches()
+    peak = torch.cuda.max_memory_allocated()
+    need = ("score/decode", "attend/decode") + tuple(k[2] for k in PREFILL_KERNELS)
+    missing = [k for k in need if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the monolithic path: {missing}")
+    summary = dict(stem=stem, xattention=xatt, peak_mem_gib=peak / 2 ** 30,
+                   launches=launches)
+    log("[monolithic] " + json.dumps(summary))
+    del params
     torch.cuda.empty_cache()
     return launches
 
@@ -347,7 +679,7 @@ def engine_phase(profile: bool = False) -> dict:
 # Phase 5: fused vs gather at full width, 2 layers, fp32
 # ---------------------------------------------------------------------------
 
-def parity_phase() -> dict:
+def parity_phase(monolithic: bool) -> dict:
     cfg = QWEN3_0_6B.replace(num_layers=2, dtype="float32")
     bundle = registry.build(cfg)
     params = bundle.init_params(torch.Generator(device="cuda").manual_seed(1),
@@ -362,7 +694,7 @@ def parity_phase() -> dict:
         ecfg = engine_lib.EngineConfig.for_trace(
             max_slots=2, max_prompt=max(prompts), max_new_tokens=new,
             page_size=policy.block_size, budget_frac=0.5, chunk_size=1024,
-            executor=executor)
+            executor=executor, monolithic_prefill=monolithic)
         engine = engine_lib.StemEngine(bundle, params, policy, ecfg)
         calls = []
         step = engine._unified
@@ -398,7 +730,51 @@ def parity_phase() -> dict:
         raise AssertionError(f"executors split with logits diff {split}")
     result = dict(streams_equal=tok_f == tok_g, max_logit_diff=max_diff,
                   split_logit_diff=split)
-    log("[parity] " + json.dumps(result))
+    log(f"[parity] {'monolithic' if monolithic else 'chunked'} "
+        + json.dumps(result))
+    return result
+
+
+@dataclasses.dataclass(frozen=True)
+class RecordingTopK(policy_lib.TopKSelector):
+    """TopKSelector that keeps every selection it makes (indices, live
+    counts); it reaches the path through the policy's selector slot."""
+    selections: list = dataclasses.field(default_factory=list, compare=False)
+
+    def select(self, *a, **kw):
+        sel = super().select(*a, **kw)
+        self.selections.append((sel.indices.clone(), sel.live_counts.clone()))
+        return sel
+
+
+def prefill_parity_phase() -> dict:
+    """One-shot prefill, 2 layers, fp32, 4096 tokens: "fused" vs "gather"
+    logits within 1e-4 and every layer's selection equal."""
+    cfg = QWEN3_0_6B.replace(num_layers=2, dtype="float32")
+    bundle = registry.build(cfg)
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(1),
+                                device="cuda")
+    policy = policy_lib.get_policy("stem").with_updates(min_budget_blocks=4)
+    tokens = torch.as_tensor(np.random.RandomState(5).randint(
+        0, cfg.vocab_size, size=(1, 4096)), device="cuda")
+    runs = {}
+    for executor in ("fused", "gather"):
+        rec = RecordingTopK(sink_blocks=policy.selector.sink_blocks,
+                            local_blocks=policy.selector.local_blocks)
+        logits, _ = transformer.prefill(
+            params, {"tokens": tokens}, cfg, max_len=4096,
+            stem_cfg=dataclasses.replace(
+                policy.with_updates(executor=executor), selector=rec))
+        torch.cuda.synchronize()
+        runs[executor] = (logits, rec.selections)
+    (lf, sf), (lg, sg) = runs["fused"], runs["gather"]
+    diff = float((lf - lg).abs().max())
+    same = len(sf) == len(sg) == cfg.num_layers and all(
+        torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in zip(sf, sg))
+    result = dict(max_logit_diff=diff, selections_equal=same)
+    log("[parity] prefill " + json.dumps(result))
+    if diff > 1e-4 or not same:
+        raise AssertionError(f"one-shot prefill parity failed: {result}")
     return result
 
 
@@ -407,6 +783,9 @@ def main() -> None:
     ap.add_argument("--profile", action="store_true",
                     help="trace the engine phase with torch.profiler and "
                          "print device time by kernel")
+    ap.add_argument("--profile-prefill", action="store_true",
+                    help="trace the one-shot prefill phase with "
+                         "torch.profiler and print device time by kernel")
     args = ap.parse_args()
 
     # Phase 1: device.
@@ -419,6 +798,12 @@ def main() -> None:
     log(f"[device] {torch.cuda.get_device_name(0)} | {smi} | torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
 
+    # Compiler caches (torch.compile of the library call only) stay in
+    # the checkout's gitignored build/ directory.
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                     ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(ROOT / "build" / sub))
+
     # Phase 2: build.
     t0 = time.perf_counter()
     libs = _build.build_all()
@@ -427,10 +812,17 @@ def main() -> None:
     # Phase 3: kernels against their plain versions.
     records: dict = {}
     kernel_phase(records)
+    prefill_kernel_phase(records)
 
-    # Phase 4: the engine at full width (the main path); phase 5: parity.
+    # Phase 4: the chunked engine at full width; phase 5: the one-shot
+    # prefill; phase 6: the monolithic engine (this slice's main path);
+    # phase 7: executor parity.
     launches = engine_phase(profile=args.profile)
-    parity_phase()
+    prefill_phase(profile=args.profile_prefill)
+    mono_launches = monolithic_phase()
+    parity_phase(monolithic=False)
+    parity_phase(monolithic=True)
+    prefill_parity_phase()
 
     kernels = []
     for key in ("score/decode", "score/chunk", "attend/decode", "attend/chunk"):
@@ -443,6 +835,16 @@ def main() -> None:
             ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=None,
             fp32=records[key]["float32"]))
+    for key, _, counter, source, replaces in PREFILL_KERNELS:
+        rec = records[f"{key}/prefill"]["bfloat16"]
+        kernels.append(dict(
+            name=key, route="cuda", source=source, replaces=replaces,
+            launches=mono_launches[counter],
+            max_abs_err=max(r["max_abs_err"]
+                            for r in records[f"{key}/prefill"].values()),
+            ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+            bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+            fp32=records[f"{key}/prefill"]["float32"]))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

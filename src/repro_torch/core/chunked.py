@@ -33,7 +33,8 @@ def validate_chunked_policy(policy) -> None:
     if not getattr(policy.selector, "budget_driven", False):
         raise NotImplementedError(
             f"chunked prefill needs a budget-driven selector; "
-            f"{type(policy.selector).__name__} is threshold-based")
+            f"{type(policy.selector).__name__} is threshold-based — run the "
+            "engine with monolithic_prefill=True for this policy")
     if getattr(policy.metric, "chunk_scores", None) is None:
         raise NotImplementedError(
             f"metric {type(policy.metric).__name__} lacks chunk_scores — "

@@ -1,13 +1,22 @@
-"""Output-Aware Metric pieces used by paged serving (port of
+"""Output-Aware Metric (OAM) and block-wise metric downsampling (port of
 ``repro/core/metric.py``).
 
-Anti-diagonal group-mean pooling, block max-pooled value magnitude, and the
+Anti-diagonal group-mean pooling, block max-pooled value magnitude, the
+one-shot prefill's blockwise routing scores and OAM metric (Eq. 7), and the
 chunk / decode routing scores read off pooled page summaries.  Shapes use
 the (batch, heads, seq, head_dim) convention.
+
+The one-shot prefill metric (``blockwise_routing_scores``, ``oam_scores``)
+pools q, k and v through the metric kernels of ``kernels/stem_metric.py``
+(CUDA on a CUDA tensor, their plain versions on the CPU); ``antidiag_pool``
+and ``value_block_magnitude`` below stay the plain code of the serving
+lanes.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels import stem_metric as metric_kernels
 
 
 def _check_divisible(seq_len: int, block_size: int) -> int:
@@ -65,6 +74,62 @@ def value_block_magnitude(v: torch.Tensor, block_size: int) -> torch.Tensor:
     norms = torch.linalg.vector_norm(v.float(), dim=-1)
     log_norms = torch.log(torch.clamp(norms, min=1e-20))
     return log_norms.reshape(*lead, n_blocks, block_size).amax(dim=-1)
+
+
+def pool_prefill(x: torch.Tensor, block_size: int, stride: int) -> torch.Tensor:
+    """``antidiag_pool`` of a prefill q or k through the pool kernel, rounded
+    to x's dtype as the reference's mean keeps it."""
+    _check_divisible(x.shape[-2], block_size)
+    return metric_kernels.antidiag_pool(x.contiguous(), block_size=block_size,
+                                        stride=stride, out_dtype=x.dtype)
+
+
+def value_magnitude_prefill(v: torch.Tensor, block_size: int) -> torch.Tensor:
+    """``value_block_magnitude`` of a prefill v through the vmag kernel."""
+    _check_divisible(v.shape[-2], block_size)
+    return metric_kernels.value_magnitude(v.contiguous(), block_size=block_size)
+
+
+def blockwise_routing_scores(q: torch.Tensor, k: torch.Tensor, *,
+                             block_size: int, stride: int,
+                             pooling: str = "antidiag") -> torch.Tensor:
+    """Downsampled routing scores between all (query block, key block)
+    pairs.  q: (b, hq, sq, d); k: (b, hk, sk, d).  Returns (b, hq, nq, nk)."""
+    d = q.shape[-1]
+    hq, hk = q.shape[1], k.shape[1]
+    if hq % hk != 0:
+        raise ValueError(f"q_heads {hq} not a multiple of kv_heads {hk}")
+    group = hq // hk
+    if pooling == "antidiag":
+        qp = pool_prefill(q, block_size, stride)              # (b, hq, nq, s, d)
+        kp = torch.repeat_interleave(pool_prefill(k, block_size, stride),
+                                     group, dim=1)
+        return antidiag_routing_scores(qp, kp, d)
+    qp = mean_pool(q, block_size)
+    kp = torch.repeat_interleave(mean_pool(k, block_size), group, dim=1)
+    return mean_routing_scores(qp, kp, d)
+
+
+def routing_scores(q: torch.Tensor, k: torch.Tensor, cfg) -> torch.Tensor:
+    """Flag-record (``StemConfig``) wrapper over ``blockwise_routing_scores``."""
+    return blockwise_routing_scores(q, k, block_size=cfg.block_size,
+                                    stride=cfg.stride, pooling=cfg.pooling)
+
+
+def oam_scores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+               block_size: int, stride: int, pooling: str = "antidiag",
+               beta: float = 0.2) -> torch.Tensor:
+    """Coarse metric of Eq. (7): routing scores + beta * max(0, M_V).
+    ``beta = 0`` is the routing-only SAM.  Returns (b, hq, nq, nk)."""
+    route = blockwise_routing_scores(q, k, block_size=block_size,
+                                     stride=stride, pooling=pooling)
+    if beta == 0.0:
+        return route
+    group = q.shape[1] // k.shape[1]
+    mv = torch.repeat_interleave(value_magnitude_prefill(v, block_size),
+                                 group, dim=1)                # (b, hq, nk)
+    mag = torch.clamp(mv, min=0.0).to(route.dtype)
+    return route + beta * mag[..., None, :]
 
 
 def chunk_routing_scores(q: torch.Tensor, k_groups: torch.Tensor, *,

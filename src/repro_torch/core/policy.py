@@ -1,17 +1,20 @@
 """Composable sparsity policies: metric x schedule x selector (+ executor).
 
-Port of the part of ``repro/core/policy.py`` that the paged serving engine
-reaches: the OAM / routing-only (SAM) / streaming metrics, the four budget
-schedules, the top-k selector with forced sink/local floors, the frozen
-``SparsityPolicy``, the metric/schedule/selector/policy registries
-(``as_policy``, ``policy_from_config``), the paged-executor registry and the
+Port of ``repro/core/policy.py`` without its mesh-sharding contract: the
+OAM / routing-only (SAM, XAttention) / streaming metrics, the four budget
+schedules, the top-k selector with forced sink/local floors and the
+cumulative-mass (XAttention) selector, the frozen ``SparsityPolicy``, the
+metric/schedule/selector/policy registries (``as_policy``,
+``policy_from_config``), the prefill and paged executor registries and the
 built-in policies ``stem``, ``stem-sam``, ``uniform-sam``, ``uniform-oam``,
-``streaming`` and ``dense``.
+``streaming``, ``xattention`` and ``dense``.
 
-Metrics here expose only the serving-lane scores (``decode_scores`` and
-``chunk_scores`` against pooled page summaries); the one-shot prefill path
-is not part of this port yet.  Unlike the reference, an unknown paged
-executor name raises instead of falling back to the gather oracle.
+One ``executor`` field names the backend of both registries: "fused" (the
+CUDA kernels, the default) and "gather" (the plain PyTorch gather
+executors) exist for the one-shot prefill and the paged lanes; "dense" (the
+O(N^2) masked oracle) for the prefill only.  Unlike the reference, an
+unknown paged executor name — "dense" included — raises instead of falling
+back to the gather oracle.
 """
 from __future__ import annotations
 
@@ -44,6 +47,12 @@ class OutputAwareMetric:
     pooling: str = "antidiag"
     stride: int = 16
 
+    def prefill_scores(self, q, k, v, *, block_size: int) -> torch.Tensor:
+        """(b, hq, sq, d) x (b, hk, sk, d) -> (b, hq, nq, nk)."""
+        return metric_lib.oam_scores(
+            q, k, v, block_size=block_size, stride=self.stride,
+            pooling=self.pooling, beta=self.beta)
+
     def decode_scores(self, q, k_groups, v_mag) -> torch.Tensor:
         route = metric_lib.decode_routing_scores(q, k_groups)
         if self.beta == 0.0:
@@ -63,10 +72,16 @@ class OutputAwareMetric:
 
 @dataclasses.dataclass(frozen=True)
 class RoutingMetric:
-    """Routing-only scores (the paper's SAM ablation) — no value term."""
+    """Routing-only scores (the paper's SAM ablation; also XAttention's
+    anti-diagonal block scores) — no value term."""
 
     pooling: str = "antidiag"
     stride: int = 16
+
+    def prefill_scores(self, q, k, v, *, block_size: int) -> torch.Tensor:
+        return metric_lib.blockwise_routing_scores(
+            q, k, block_size=block_size, stride=self.stride,
+            pooling=self.pooling)
 
     def decode_scores(self, q, k_groups, v_mag) -> torch.Tensor:
         return metric_lib.decode_routing_scores(q, k_groups)
@@ -80,6 +95,11 @@ class RoutingMetric:
 class StreamingMetric:
     """Content-free zero metric: selection is driven entirely by the forced
     sink/local floors and the budget schedule (StreamingLLM)."""
+
+    def prefill_scores(self, q, k, v, *, block_size: int) -> torch.Tensor:
+        b, hq, sq, _ = q.shape
+        return torch.zeros((b, hq, sq // block_size, k.shape[2] // block_size),
+                           dtype=torch.float32, device=q.device)
 
     def decode_scores(self, q, k_groups, v_mag) -> torch.Tensor:
         b, hq = q.shape[0], q.shape[1]
@@ -243,8 +263,9 @@ class SinkLocalSchedule:
 
 @dataclasses.dataclass(frozen=True)
 class TopKSelector:
-    """Top-k(i) over the metric with forced sink/local floors; the decode
-    path is the vectorized per-row variant of the paged cache."""
+    """Top-k(i) over the metric with forced sink/local floors
+    (``selection.select_blocks``); the decode path is the vectorized per-row
+    variant of the paged cache."""
 
     sink_blocks: int = 4
     local_blocks: int = 4
@@ -252,6 +273,12 @@ class TopKSelector:
 
     def __post_init__(self) -> None:
         _validate_sink_local(self.sink_blocks, self.local_blocks)
+
+    def select(self, metric, budgets, k_max: int, *,
+               with_block_mask: bool) -> selection_lib.BlockSelection:
+        return selection_lib.select_blocks(
+            metric, budgets, k_max, sink_blocks=self.sink_blocks,
+            local_blocks=self.local_blocks, with_block_mask=with_block_mask)
 
     def select_decode(self, m, cache_lens, *, block_size: int, schedule,
                       budget_frac: float) -> selection_lib.DecodeSelection:
@@ -286,6 +313,78 @@ class TopKSelector:
             budgets=k_budget, n_valid=n_valid)
 
 
+def _cumulative_mass_keep(probs: torch.Tensor, tau: float) -> torch.Tensor:
+    """Keep mask over the last axis: a block is kept iff the cumulative
+    (descending-sorted) probability mass before it is < tau.  The sort is
+    stable, as ``jnp.argsort`` is, so tied blocks keep index order."""
+    order = torch.argsort(-probs, dim=-1, stable=True)
+    sorted_p = torch.take_along_dim(probs, order, dim=-1)
+    keep_sorted = (torch.cumsum(sorted_p, dim=-1) - sorted_p) < tau
+    return torch.zeros_like(keep_sorted).scatter(-1, order, keep_sorted)
+
+
+@dataclasses.dataclass(frozen=True)
+class CumulativeMassSelector:
+    """XAttention-style: per-row softmax over the (causal) metric, keep the
+    smallest prefix of blocks whose cumulative mass reaches ``tau``;
+    sink/local blocks are forced.  Budget-free — pair it with
+    ``DenseSchedule``."""
+
+    tau: float = 0.9
+    sink_blocks: int = 4
+    local_blocks: int = 4
+    budget_driven = False
+
+    def __post_init__(self) -> None:
+        _validate_sink_local(self.sink_blocks, self.local_blocks)
+        if not (0.0 < self.tau <= 1.0):
+            raise ValueError(f"tau must be in (0, 1], got {self.tau}")
+
+    def select(self, metric, budgets, k_max: int, *,
+               with_block_mask: bool) -> selection_lib.BlockSelection:
+        nq, nk = metric.shape[-2], metric.shape[-1]
+        dev = metric.device
+        causal = selection_lib.causal_block_mask(nq, nk, dev)
+        probs = torch.softmax(torch.where(causal, metric, NEG_INF), dim=-1)
+        block_mask = _cumulative_mass_keep(probs, self.tau) & causal
+        forced = selection_lib.forced_block_mask(
+            nq, nk, self.sink_blocks, self.local_blocks, dev)
+        block_mask = block_mask | (forced & causal)
+        score = torch.where(block_mask, probs + 1.0, NEG_INF)
+        vals, idx = selection_lib.stable_topk(score, nk)
+        slot_mask = vals > NEG_INF / 2
+        return selection_lib.BlockSelection(
+            indices=torch.where(slot_mask, idx, 0).to(torch.int32),
+            slot_mask=slot_mask,
+            block_mask=block_mask if with_block_mask else None,
+            budgets=block_mask.sum(dim=-1).amax(dim=(0, 1)).to(torch.int32),
+            live_counts=slot_mask.sum(dim=-1, dtype=torch.int32))
+
+    def select_decode(self, m, cache_lens, *, block_size: int, schedule,
+                      budget_frac: float) -> selection_lib.DecodeSelection:
+        """Threshold selection over cache blocks (k_max = nblk)."""
+        b, _, _, nblk = m.shape
+        bs = block_size
+        dev = m.device
+        cache_lens = torch.as_tensor(cache_lens, dtype=torch.int32,
+                                     device=dev).expand(b)
+        n_valid = torch.div(cache_lens + bs - 1, bs, rounding_mode="floor")
+        blk = torch.arange(nblk, device=dev)
+        is_valid = blk[None, :] < n_valid[:, None]
+        is_sink = blk < self.sink_blocks
+        is_local = (blk[None, :] >= n_valid[:, None] - self.local_blocks) & is_valid
+        forced = (is_sink[None, :] | is_local)[:, None, None, :]
+        valid = is_valid[:, None, None, :]
+        probs = torch.softmax(torch.where(valid, m, NEG_INF), dim=-1)
+        keep = (_cumulative_mass_keep(probs, self.tau) | forced) & valid
+        score = torch.where(keep, probs + 1.0, NEG_INF)
+        vals, idx = selection_lib.stable_topk(score, nblk)
+        return selection_lib.DecodeSelection(
+            indices=idx.to(torch.int32), live=vals > NEG_INF / 2,
+            budgets=keep.sum(dim=-1).amax(dim=(1, 2)).to(torch.int32),
+            n_valid=n_valid)
+
+
 # ---------------------------------------------------------------------------
 # The composed policy
 # ---------------------------------------------------------------------------
@@ -293,8 +392,11 @@ class TopKSelector:
 @dataclasses.dataclass(frozen=True)
 class SparsityPolicy:
     """Metric x schedule x selector + execution knobs (frozen, hashable).
-    ``executor`` names the paged backend: "fused" (the CUDA kernels, the
-    default) or "gather" (the plain PyTorch oracle)."""
+    ``executor`` names the backend of the one-shot prefill and the paged
+    lanes: "fused" (the CUDA kernels, the default), "gather" (the plain
+    PyTorch executors) or, for the prefill only, "dense" (the masked
+    oracle).  ``slot_chunk`` / ``ragged`` shape the gather executor's
+    schedule."""
 
     metric: Any
     schedule: Any
@@ -302,6 +404,8 @@ class SparsityPolicy:
     block_size: int = 128
     group_reduce: str = "none"     # "none" | "mean" | "max" (GQA sharing)
     executor: str = "fused"
+    slot_chunk: int = 8
+    ragged: bool = True
     name: str = ""
 
     def __post_init__(self) -> None:
@@ -314,6 +418,8 @@ class SparsityPolicy:
                 f"metric stride {stride} must divide block_size {self.block_size}")
         if self.group_reduce not in ("none", "mean", "max"):
             raise ValueError(f"unknown group_reduce {self.group_reduce!r}")
+        if self.slot_chunk < 1:
+            raise ValueError(f"slot_chunk must be >= 1, got {self.slot_chunk}")
 
     @property
     def stride(self) -> int:
@@ -337,6 +443,24 @@ class SparsityPolicy:
         return self.schedule.prefill_budgets(
             nq, nk, block_size=self.block_size, kv_len=kv_len)
 
+    def prefill_scores(self, q, k, v) -> torch.Tensor:
+        m = self.metric.prefill_scores(q, k, v, block_size=self.block_size)
+        group = q.shape[1] // k.shape[1]
+        return metric_lib.group_reduce_metric(m, group, self.group_reduce)
+
+    def prefill_select(self, q, k, v, *, with_block_mask: bool = True):
+        """Phase 1 of Algorithm 1: metric + schedule + selection.
+        Returns (BlockSelection, k_max)."""
+        sq, sk = q.shape[2], k.shape[2]
+        m = self.prefill_scores(q, k, v)
+        budgets = self.prefill_budgets(sq, sk)
+        nk = sk // self.block_size
+        k_max = int(budgets.max()) if self.selector.budget_driven else int(nk)
+        sel = self.selector.select(
+            m, torch.as_tensor(budgets, dtype=torch.int32, device=q.device),
+            k_max, with_block_mask=with_block_mask)
+        return sel, k_max
+
     def chunk_scores(self, q, k_groups, v_mag) -> torch.Tensor:
         """Chunk metric against pooled page summaries with the policy's GQA
         group reduction applied.  Returns (b, hq, nc, n)."""
@@ -355,6 +479,8 @@ class SparsityPolicy:
             schedule=self.schedule, budget_frac=budget_frac)
 
     def decode_budget_bound(self, nblk: int, budget_frac: float) -> int:
+        if not self.selector.budget_driven:
+            return max(nblk, 1)
         return self.schedule.decode_budget_bound(
             nblk, self.sink_blocks + self.local_blocks, budget_frac)
 
@@ -463,7 +589,7 @@ def policy_from_config(cfg: StemConfig) -> SparsityPolicy:
         selector=TopKSelector(sink_blocks=cfg.sink_blocks,
                               local_blocks=cfg.local_blocks),
         block_size=cfg.block_size, group_reduce=cfg.group_reduce,
-        executor=cfg.backend,
+        executor=cfg.backend, slot_chunk=cfg.slot_chunk, ragged=cfg.ragged,
         name="stem" if cfg.metric == "oam" else "stem-sam")
 
 
@@ -479,6 +605,51 @@ def as_policy(obj: PolicyLike) -> SparsityPolicy:
     if isinstance(obj, str):
         return get_policy(obj)
     raise TypeError(f"cannot interpret {type(obj).__name__} as a SparsityPolicy")
+
+
+def as_policy_opt(obj: Optional[PolicyLike]) -> Optional[SparsityPolicy]:
+    return None if obj is None else as_policy(obj)
+
+
+# ---------------------------------------------------------------------------
+# Prefill executor registry (one-shot prefill; "fused", "gather" and "dense"
+# registered by core/sparse_attention.py)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ExecutorSpec:
+    """One execution backend for a block selection.
+
+    ``fn(q, k, v, sel, *, policy, scale, indices, slot_mask, live_counts,
+    dedup, budgets)`` — ``indices``/``slot_mask``/``live_counts`` are the
+    (possibly GQA-deduplicated) views of ``sel``; ``budgets`` is the static
+    numpy schedule (None = padded execution / threshold selection)."""
+
+    fn: Callable
+    needs_block_mask: bool = False
+
+
+_EXECUTORS: dict = {}
+
+
+def register_executor(name: str, fn: Callable, *,
+                      needs_block_mask: bool = False,
+                      overwrite: bool = False) -> ExecutorSpec:
+    return _register(_EXECUTORS, "executor", name,
+                     ExecutorSpec(fn=fn, needs_block_mask=needs_block_mask),
+                     overwrite)
+
+
+def get_executor(name: str) -> ExecutorSpec:
+    """Resolve a prefill backend, importing the module that registers the
+    built-in ones."""
+    if name not in _EXECUTORS:
+        from repro_torch.core import sparse_attention  # noqa: F401 (registers)
+    return _lookup(_EXECUTORS, "executor", name)
+
+
+def available_executors() -> tuple:
+    return tuple(sorted(_EXECUTORS))
 
 
 # ---------------------------------------------------------------------------
@@ -531,6 +702,7 @@ def available_paged_executors() -> tuple:
 
 register_metric("oam", OutputAwareMetric())
 register_metric("sam", RoutingMetric())
+register_metric("xattention", RoutingMetric())   # alias: antidiag routing
 register_metric("streaming", StreamingMetric())
 
 register_schedule("tpd", TPDSchedule())
@@ -539,6 +711,7 @@ register_schedule("dense", DenseSchedule())
 register_schedule("sink-local", SinkLocalSchedule())
 
 register_selector("topk", TopKSelector())
+register_selector("cumulative-mass", CumulativeMassSelector())
 
 register_policy("stem", SparsityPolicy(
     metric=OutputAwareMetric(), schedule=TPDSchedule(),
@@ -555,6 +728,9 @@ register_policy("uniform-oam", SparsityPolicy(
 register_policy("streaming", SparsityPolicy(
     metric=StreamingMetric(), schedule=SinkLocalSchedule(),
     selector=TopKSelector()))
+register_policy("xattention", SparsityPolicy(
+    metric=RoutingMetric(), schedule=DenseSchedule(),
+    selector=CumulativeMassSelector()))
 register_policy("dense", SparsityPolicy(
     metric=StreamingMetric(), schedule=DenseSchedule(),
     selector=TopKSelector(sink_blocks=0, local_blocks=0)))

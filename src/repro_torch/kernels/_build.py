@@ -5,8 +5,9 @@ Every ``*.cu`` under ``kernels/csrc/`` is compiled on first use with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o <lib> <source>
 
-(one nvcc per source, all started together) into ``build/kernels/`` at the
-repository root, named by a hash of the sources and flags, and loaded with
+(one nvcc per source, all started together; the shared ``*.cuh`` headers
+are included by the sources) into ``build/kernels/`` at the repository
+root, named by a hash of the source, the headers and the flags, and loaded with
 ``ctypes``.  A library whose hash already exists is loaded without a build.
 Nothing is built when the module is imported.
 """
@@ -37,7 +38,8 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: pathlib.Path) -> pathlib.Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    h = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 

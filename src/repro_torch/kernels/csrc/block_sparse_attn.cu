@@ -1,0 +1,107 @@
+// Stem block-sparse causal attention for Hopper (sm_90a): the executor of
+// every one-shot Stem prefill layer.
+//
+// stem_block_sparse_attention replaces _sparse_kernel
+// (src/repro/kernels/block_sparse_attn.py:52).
+//
+// Built by repro_torch/kernels/_build.py with nvcc into a shared library with
+// a plain C interface (no PyTorch headers), loaded with ctypes.  The entry
+// point launches on the caller's stream, allocates nothing, and returns
+// cudaGetLastError() of its launch; the Python wrapper in
+// repro_torch/kernels/block_sparse_attn.py checks device, dtype, shape and
+// contiguity and holds the plain PyTorch version this kernel is tested
+// against.
+//
+// Bound on the H100: 4 * d flops per (query, key) pair of the selected
+// blocks (causal inside the diagonal block) against one read of q, of each
+// selected K/V block, and of the selection: compute-bound at Stem's budgets.
+// The TPU kernel's scalar-prefetched index map and sequential slot axis
+// become a loop inside the CTA: one CTA per (64 query rows of query block i,
+// query head, batch row) reads its row's live count and selected block ids
+// and stages each selected block's K/V in shared memory once, in two 64-key
+// sub-tiles, with the online softmax of attn_tile.cuh (fp32 CUDA cores).
+// The loop ends at the row's own live count, so dead slots cost nothing
+// and need no revisit filling; a row with cnt == 0 writes exact zeros.
+// Sub-tiles entirely above the diagonal are skipped, the diagonal one is
+// masked exactly.  With group_dedup the selection has one row per KV head:
+// the g query heads of a KV head read the same index row (the reference's
+// fused (g * B, d) query tile, whose row r is query position i*B + r mod B),
+// their CTAs sit next to each other in the grid, and the second head's K/V
+// reads come from L2.  Without it the KV head is head / group.
+#include "attn_tile.cuh"
+
+namespace {
+
+using namespace stem_attn;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+block_sparse_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const int* __restrict__ idx,
+                    const int* __restrict__ cnt, T* __restrict__ out, int hq, int hk,
+                    int dedup, int n, int bs, int kmax, float scale) {
+  extern __shared__ float4 smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  const int tiles = bs / kBQ;
+  const int i = blockIdx.x / tiles, sub = blockIdx.x - i * tiles;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (hq / hk);
+  const int hsel = dedup ? hk : hq;
+  const int nq = n / bs;
+  const long long row = ((long long)b * hsel + (dedup ? kvh : h)) * nq + i;
+  const int q0 = i * bs + sub * kBQ;
+  const long long qrow0 = ((long long)b * hq + h) * n + q0;
+  const long long krow0 = ((long long)b * hk + kvh) * n;
+
+  load_transposed(sm.qt, q + qrow0 * kD, kBQ, scale);
+  RowState st;
+  init_state(st);
+  const int live = min(cnt[row], kmax);
+  for (int s = 0; s < live; ++s) {
+    const int j = idx[row * kmax + s];
+    if (j < 0 || j >= nq) continue;               // an out-of-range id is not read
+    for (int t = 0; t < bs; t += kBK) {
+      const int k0 = j * bs + t;
+      if (k0 > q0 + kBQ - 1) break;               // the rest is above the diagonal
+      stage_and_step(sm, st, k + (krow0 + k0) * kD, v + (krow0 + k0) * kD, kBK, q0,
+                     k0);
+    }
+  }
+  store_rows(st, out + qrow0 * kD, kBQ);
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const int* idx,
+           const int* cnt, void* out, int b, int hq, int hk, int dedup, int n, int bs,
+           int kmax, float scale, cudaStream_t stream) {
+  cudaError_t err = prepare(block_sparse_kernel<T>);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(n / kBQ, hq, b);
+  block_sparse_kernel<T><<<grid, kThreads, sizeof(Smem), stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, idx, cnt, (T*)out, hq, hk, dedup, n, bs,
+      kmax, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// q/out (b, hq, n, d), k/v (b, hk, n, d); idx (b, h_sel, n/bs, kmax) and
+// cnt (b, h_sel, n/bs) int32 with h_sel = hk when dedup else hq; all
+// contiguous.  d must be 128, bs a multiple of 64 dividing n (the wrapper
+// checks).  is_bf16: 0 = float32, 1 = bfloat16 for q/k/v/out.
+int stem_block_sparse_attention(const void* q, const void* k, const void* v,
+                                const int* idx, const int* cnt, void* out, int b,
+                                int hq, int hk, int dedup, int n, int d, int bs,
+                                int kmax, int is_bf16, float scale, void* stream) {
+  if (d != kD || hk <= 0 || hq % hk != 0 || bs <= 0 || bs % kBQ != 0 || n % bs != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (is_bf16)
+    return launch<__nv_bfloat16>(q, k, v, idx, cnt, out, b, hq, hk, dedup, n, bs, kmax,
+                                 scale, st);
+  return launch<float>(q, k, v, idx, cnt, out, b, hq, hk, dedup, n, bs, kmax, scale, st);
+}
+
+}  // extern "C"

@@ -1,16 +1,35 @@
-"""Grouped-query attention against the paged Stem KV cache (port of the
-paged half of ``repro/models/attention.py``: ``init``, ``_project``,
-``apply_decode_paged`` and ``apply_chunk_paged``)."""
+"""Grouped-query attention with a pluggable sparsity policy (port of
+``repro/models/attention.py``: ``init``, ``_project``, the global-attention
+branches of ``apply_full`` and ``prefill_into_cache`` with ``KVCache`` /
+``init_cache``, and the paged ``apply_decode_paged`` / ``apply_chunk_paged``).
+
+Full-sequence attention runs the policy-sparse path
+(``core/sparse_attention.sparse_attention``) when a policy is given and the
+sequence holds at least two whole blocks, and the dense arm
+(``dense_attention_auto``) otherwise.  Windowed (local) attention is not
+ported yet and raises.
+"""
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import chunked as chunked_lib
 from repro_torch.core import policy as policy_lib
 from repro_torch.core.decode import DEFAULT_BUDGET_FRAC
+from repro_torch.core.sparse_attention import (dense_attention_auto,
+                                               sparse_attention)
 from repro_torch.models import common
 from repro_torch.runtime import paged as paged_lib
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor        # (b, hk, L, dh)
+    v: torch.Tensor
+    pos: torch.Tensor      # int32 next write position
 
 
 def init(ini: common.Initializer, cfg: ArchConfig) -> dict:
@@ -51,6 +70,62 @@ def _project(params, x, cfg: ArchConfig, positions, *, use_rope: bool = True):
 
 def _out_proj(o, x, params):
     return torch.einsum("bhsk,hkd->bsd", o.to(x.dtype), params["wo"])
+
+
+def _no_window(window) -> None:
+    if window is not None:
+        raise NotImplementedError("windowed (local) attention is not ported yet")
+
+
+def _sparse_or_dense(q, k, v, pol, n: int, causal: bool, return_stats: bool):
+    """The policy-sparse path for causal sequences of >= 2 whole blocks,
+    the dense arm otherwise.  Returns (o, StemStats | None)."""
+    if pol is not None and causal and n % pol.block_size == 0 \
+            and n // pol.block_size >= 2:
+        if return_stats:
+            return sparse_attention(q, k, v, pol, return_stats=True)
+        return sparse_attention(q, k, v, pol), None
+    return dense_attention_auto(q, k, v, causal=causal), None
+
+
+def apply_full(params, x, cfg: ArchConfig, *, positions, stem_cfg=None,
+               window: Optional[int] = None, use_rope: bool = True,
+               causal: bool = True, return_stats: bool = False):
+    """Training / prefill attention over the full sequence.  ``stem_cfg``:
+    any policy spelling or None (dense).  ``return_stats`` also returns the
+    sparse path's ``StemStats`` (None when the dense arm ran)."""
+    _no_window(window)
+    pol = policy_lib.as_policy_opt(stem_cfg)
+    q, k, v = _project(params, x, cfg, positions, use_rope=use_rope)
+    o, stats = _sparse_or_dense(q, k, v, pol, x.shape[1], causal, return_stats)
+    out = _out_proj(o, x, params)
+    return (out, stats) if return_stats else out
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               window: Optional[int] = None, dtype=torch.bfloat16,
+               device="cuda") -> KVCache:
+    _no_window(window)
+    shape = (batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   pos=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def prefill_into_cache(params, x, cfg: ArchConfig, *, positions, max_len: int,
+                       stem_cfg=None, window: Optional[int] = None,
+                       use_rope: bool = True):
+    """Prefill attention and the populated cache for decode.
+    x: (b, n, d).  Returns (out, KVCache with k/v padded to max_len)."""
+    _no_window(window)
+    pol = policy_lib.as_policy_opt(stem_cfg)
+    q, k, v = _project(params, x, cfg, positions, use_rope=use_rope)
+    o, _ = _sparse_or_dense(q, k, v, pol, x.shape[1], True, False)
+    pad = max_len - k.shape[2]
+    cache = KVCache(k=F.pad(k, (0, 0, 0, pad)), v=F.pad(v, (0, 0, 0, pad)),
+                    pos=torch.tensor(x.shape[1], dtype=torch.int32,
+                                     device=x.device))
+    return _out_proj(o, x, params), cache
 
 
 def apply_decode_paged(params, x, cfg: ArchConfig, pool, page_table,

@@ -1,11 +1,11 @@
-"""Decoder-only LM for paged serving, dense family (port of the paged half
-of ``repro/models/transformer.py``).
+"""Decoder-only LM, dense family: one-shot prefill and paged serving (port
+of the prefill and paged halves of ``repro/models/transformer.py``).
 
 Parameters keep the reference's tree: ``embed``, ``final_norm`` and
 ``segment{si}`` whose leaves are stacked along a leading layer axis.  The
 reference's ``lax.scan`` over a segment becomes a Python loop over that
-axis; page pools are stacked the same way and each layer works on views of
-them, so its in-place writes land in the stacked tensors.
+axis; caches and page pools are stacked the same way, and each layer works
+on views of the pools, so its in-place writes land in the stacked tensors.
 """
 from __future__ import annotations
 
@@ -49,6 +49,8 @@ def _init_sublayer(ini: common.Initializer, cfg: ArchConfig) -> dict:
 def _stack(trees: list) -> Any:
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    if isinstance(trees[0], tuple):               # NamedTuple caches
+        return type(trees[0])(*(_stack(list(f)) for f in zip(*trees)))
     return torch.stack(trees)
 
 
@@ -84,6 +86,143 @@ def init_page_pools(cfg: ArchConfig, num_pages: int, stem_cfg, device="cuda"):
                 layers=n)
              for i, _ in enumerate(kinds)}
             for n, kinds in layer_program(cfg)]
+
+
+def num_layer_groups(cfg: ArchConfig) -> int:
+    """Number of layer groups — the index space of per-layer ``policies``."""
+    return sum(n for n, _ in layer_program(cfg))
+
+
+def _layer_policies(cfg: ArchConfig, stem_cfg, policies):
+    """Per-group effective policy list (length ``num_layer_groups``):
+    ``policies`` maps a layer-group index to an override (any policy
+    spelling); unlisted groups use ``stem_cfg``."""
+    total = num_layer_groups(cfg)
+    base = policy_lib.as_policy_opt(stem_cfg)
+    if not policies:
+        return [base] * total
+    bad = sorted(i for i in policies if not (isinstance(i, int) and 0 <= i < total))
+    if bad:
+        raise ValueError(
+            f"policies keys {bad} out of range for {total} layer groups")
+    return [policy_lib.as_policy_opt(policies[i]) if i in policies else base
+            for i in range(total)]
+
+
+def _policy_runs(eff_seg):
+    """Coalesce consecutive equal policies into (start, length, policy)
+    runs (the reference scans each run; here each run is a loop)."""
+    runs: list = []
+    for i, p in enumerate(eff_seg):
+        if runs and runs[-1][2] == p:
+            runs[-1] = (runs[-1][0], runs[-1][1] + 1, p)
+        else:
+            runs.append((i, 1, p))
+    return runs
+
+
+def _embed_inputs(params, batch: dict, cfg: ArchConfig):
+    """Token (+ optional stub modality prefix) embeddings -> (b, s, d)."""
+    parts = []
+    if cfg.vlm_stub and "patch_embeds" in batch:
+        parts.append(batch["patch_embeds"].to(cfg.torch_dtype))
+    emb = common.embed_lookup(params["embed"], batch["tokens"], cfg.torch_dtype)
+    parts.append(emb * (cfg.d_model ** 0.5) if cfg.embed_scale_flag else emb)
+    return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+
+
+def _sublayer_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
+                    dtype, device):
+    if kind != "dense":
+        raise NotImplementedError(f"sub-layer kind {kind!r} is not ported")
+    return attention.init_cache(cfg, batch, max_len, dtype=dtype, device=device)
+
+
+def _sublayer_prefill(params, x, cfg: ArchConfig, kind: str, *, positions,
+                      stem_cfg, max_len: int):
+    """Returns (x, aux, cache)."""
+    if kind != "dense":
+        raise NotImplementedError(f"sub-layer kind {kind!r} is not ported")
+    h = common.rms_norm(x, params["norm1"])
+    mix, cache = attention.prefill_into_cache(
+        params["attn"], h, cfg, positions=positions, max_len=max_len,
+        stem_cfg=stem_cfg)
+    x = x + mix
+    y = mlp.apply(params["ffn"], common.rms_norm(x, params["norm2"]),
+                  cfg.activation)
+    return x + y, torch.zeros((), dtype=torch.float32, device=x.device), cache
+
+
+def init_caches(cfg: ArchConfig, batch: int, max_len: int, device="cuda"):
+    """Per-segment caches, leaves stacked ``(n_layers, ...)``."""
+    return [{f"sub{i}": _stack([_sublayer_cache(cfg, k, batch, max_len,
+                                                cfg.torch_dtype, device)] * n)
+             for i, k in enumerate(kinds)}
+            for n, kinds in layer_program(cfg)]
+
+
+def prefill(params, batch: dict, cfg: ArchConfig, *, max_len: int,
+            stem_cfg=None, last_pos=None, policies=None):
+    """Process the full prompt: the paper's one-shot pre-filling phase.
+    Returns (last-position logits (b, vocab), caches).
+
+    ``stem_cfg`` is any policy spelling or None (dense); ``policies``
+    optionally overrides it per layer group ({index: policy}).
+    ``last_pos`` (scalar or (b,)) picks which position's logits each row
+    returns (right-padded prompts); default: the final position."""
+    x = _embed_inputs(params, batch, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    eff = _layer_policies(cfg, stem_cfg, policies)
+    caches = []
+    off = 0
+    for si, (n, kinds) in enumerate(layer_program(cfg)):
+        seg = params[f"segment{si}"]
+        layer_caches = []
+        for start, length, pol in _policy_runs(eff[off:off + n]):
+            for layer in range(start, start + length):
+                layer_params = _index(seg, layer)
+                cache = {}
+                for i, k in enumerate(kinds):
+                    x, _, cache[f"sub{i}"] = _sublayer_prefill(
+                        layer_params[f"sub{i}"], x, cfg, k,
+                        positions=positions, stem_cfg=pol, max_len=max_len)
+                layer_caches.append(cache)
+        off += n
+        caches.append(_stack(layer_caches))
+    if last_pos is None:
+        x_last = x[:, -1:]
+    else:
+        lp = torch.as_tensor(last_pos, device=x.device).long().expand(x.shape[0])
+        x_last = torch.take_along_dim(x, lp[:, None, None], dim=1)
+    return _logits(params, x_last, cfg)[:, 0], caches
+
+
+def prefill_kv_pages(params, tokens: torch.Tensor, true_len, pools,
+                     page_row: torch.Tensor, cfg: ArchConfig, stem_cfg):
+    """Prefill ONE request and write its pages + summaries into the pools,
+    in place.
+
+    tokens: (1, Lp) right-padded to a page multiple; true_len: its length;
+    page_row: (max_pages_per_slot,) — every page reserved for the request
+    (prompt pages first, then decode-spill pages), trash-padded.  All of
+    them are reset to pristine before the prompt's Lp / page_size leading
+    pages are written (recycled pages are dirty, and decode increments
+    assume fresh pages).  Returns (next-token logits (vocab,), pools)."""
+    stem_cfg = policy_lib.as_policy(stem_cfg)
+    logits, caches = prefill(params, {"tokens": tokens}, cfg,
+                             max_len=tokens.shape[1], stem_cfg=stem_cfg,
+                             last_pos=true_len - 1)
+    prompt_pages = page_row[:tokens.shape[1] // stem_cfg.block_size]
+    for si, (n, kinds) in enumerate(layer_program(cfg)):
+        for i, _ in enumerate(kinds):
+            cache = caches[si][f"sub{i}"]          # k: (n, 1, hk, Lp, d)
+            for layer in range(n):
+                pool = paged_lib.reset_pages(
+                    paged_lib.layer_view(pools[si][f"sub{i}"], layer), page_row)
+                paged_lib.write_prefill_pages(pool, prompt_pages,
+                                              cache.k[layer, 0], cache.v[layer, 0],
+                                              true_len, stem_cfg)
+    return logits[0], pools
 
 
 def _logits(params, x, cfg: ArchConfig):

@@ -14,11 +14,22 @@ This is what the reference's default ``scheduler="slo"`` reduces to when
 every request has the default priority and no SLOs.  Slots hitting EOS or
 max-new-tokens free their pages and are recycled.
 
+With ``EngineConfig(monolithic_prefill=True)`` a request is instead
+prefilled whole at admission — the paper's one-shot pre-filling phase
+(``transformer.prefill_kv_pages`` through ``launch/steps.py``'s monolithic
+prefill): its reserved pages are reset, the prompt runs through
+``sparse_attention`` (or the dense arm for a one-block prompt), its pages
+and summaries are written, and the first token is sampled on the device;
+the host fetches one int.  Decode then runs in the mixed step as usual.
+This is also the only path that serves budget-free (threshold) selectors
+such as ``xattention``, which chunked prefill refuses.
+
 The loop is synchronous: the step's logits stay on the device, the
 registered sampler (greedy: first maximal index) reduces them to ids, and
-the host fetches only the ids.  Not ported yet: preemption and host
-offload, chaos injection, the prefix cache, the async loop, mesh serving,
-SLO ordering and monolithic prefill.
+the host fetches only the ids.  PyTorch runs eagerly, so the engine has no
+trace counter (the reference's ``traces`` / ``prefill_traces``).  Not
+ported yet: preemption and host offload, chaos injection, the prefix cache,
+the async loop, mesh serving and SLO ordering.
 """
 from __future__ import annotations
 
@@ -90,8 +101,10 @@ class EngineConfig:
     ``max_pages_per_slot``.  ``chunk_size`` (a page multiple; None = 2
     pages) is the prefill-lane width; ``step_token_budget`` (None =
     max_slots + chunk_size) caps the tokens one step may spend.
-    ``executor`` picks the paged attention backend ("fused" kernels |
-    "gather" oracle; None defers to the policy)."""
+    ``executor`` picks the attention backend of the paged lanes and of the
+    monolithic prefill ("fused" kernels | "gather" oracle; None defers to
+    the policy).  ``monolithic_prefill`` prefills each prompt whole at
+    admission instead of in chunks."""
     max_slots: int = 4
     num_pages: int = 64
     max_pages_per_slot: int = 16
@@ -101,6 +114,7 @@ class EngineConfig:
     chunk_size: Optional[int] = None
     step_token_budget: Optional[int] = None
     chunk_starve_steps: int = 4
+    monolithic_prefill: bool = False
     sampler: str = "greedy"
 
     def __post_init__(self):
@@ -112,13 +126,15 @@ class EngineConfig:
                   budget_frac: float = 1.0, eos_id: Optional[int] = None,
                   chunk_size: Optional[int] = None,
                   step_token_budget: Optional[int] = None,
+                  monolithic_prefill: bool = False,
                   **knobs) -> "EngineConfig":
         """Size the pool so every slot can hold the largest trace request."""
         per_slot = pages_needed(max_prompt, max_new_tokens, page_size)
         return cls(max_slots=max_slots, num_pages=1 + max_slots * per_slot,
                    max_pages_per_slot=per_slot, budget_frac=budget_frac,
                    eos_id=eos_id, chunk_size=chunk_size,
-                   step_token_budget=step_token_budget, **knobs)
+                   step_token_budget=step_token_budget,
+                   monolithic_prefill=monolithic_prefill, **knobs)
 
 
 @dataclasses.dataclass
@@ -155,6 +171,8 @@ class StemEngine:
         self.params = params
         self.device = params["embed"].device
         self.policy = policy_lib.as_policy(stem_cfg)
+        if ecfg.executor is not None:
+            self.policy = self.policy.with_updates(executor=ecfg.executor)
         self.ecfg = ecfg
         self.page_size = self.policy.block_size
         self.chunk_size = ecfg.chunk_size or 2 * self.page_size
@@ -166,7 +184,8 @@ class StemEngine:
                              or ecfg.max_slots + self.chunk_size)
         self.chunk_lanes = min(ecfg.max_slots,
                                max(1, self.token_budget // self.chunk_size))
-        chunked_lib.validate_chunked_policy(self.policy)
+        if not ecfg.monolithic_prefill:
+            chunked_lib.validate_chunked_policy(self.policy)
 
         S, P = ecfg.max_slots, ecfg.max_pages_per_slot
         self.pools = transformer.init_page_pools(
@@ -191,10 +210,15 @@ class StemEngine:
         self.sampler = sampling_lib.get_sampler(ecfg.sampler)
         # The static chunk-selection width: the largest block budget any
         # admissible prompt can reach.
-        k_bound = chunked_lib.chunk_budget_bound(self.policy, P)
+        k_bound = (0 if ecfg.monolithic_prefill else
+                   chunked_lib.chunk_budget_bound(self.policy, P))
         self._unified = steps_lib.make_unified_step(
             bundle, stem_cfg=self.policy, budget_frac=ecfg.budget_frac,
-            chunk_k_max=k_bound, executor=ecfg.executor)
+            chunk_k_max=k_bound)
+        self._prefill = None
+        if ecfg.monolithic_prefill:
+            self._prefill = steps_lib.make_monolithic_prefill(
+                bundle, stem_cfg=self.policy, sampler=self.sampler)
 
     # -- scheduling ---------------------------------------------------------
 
@@ -249,17 +273,42 @@ class StemEngine:
         self._slot_ever_used[slot] = True
         self.page_table[slot] = row
         self.slot_pages[slot] = list(pages)
+        now = time.perf_counter()
+        arrival = self._arrival_t.get(req.uid, now)
+        ptoks = np.zeros((padded_len,), np.int32)
+        ptoks[:plen] = req.prompt
+
+        if self.ecfg.monolithic_prefill:
+            # The whole prompt at admission (the reserved pages are reset
+            # inside prefill_kv_pages); the first token is sampled on the
+            # device and the host fetches one int.
+            first_id, self.pools = self._prefill(
+                self.params, torch.as_tensor(ptoks[None], device=self.device),
+                plen, self.pools, torch.as_tensor(row, device=self.device))
+            first = int(first_id)
+            done = time.perf_counter()
+            self.stats["prefills"] += 1
+            self.stats["tokens_generated"] += 1
+            self.cache_lens[slot] = plen
+            st = _SlotState(
+                req=req, tokens=[first], admitted_step=self.step_count,
+                admit_t=now, arrival_t=arrival, phase="decode",
+                prefill_pos=padded_len, padded=np.zeros((0,), np.int32),
+                true_len=plen, ttft_s=done - arrival, first_token_t=done,
+                last_token_t=done, last_sched_step=self.step_count)
+            self.slots[slot] = st
+            if self._is_finished(st):
+                self._recycle(slot)
+            return
+
         # Recycled pages are dirty; chunk writes + decode increments assume
         # pristine pages.  The reset row is trash-padded to a fixed width.
         paged_lib.reset_pools_stacked(
             self.pools, torch.as_tensor(row, device=self.device))
-        ptoks = np.zeros((padded_len,), np.int32)
-        ptoks[:plen] = req.prompt
         self.cache_lens[slot] = 0
-        now = time.perf_counter()
         self.slots[slot] = _SlotState(
             req=req, tokens=[], admitted_step=self.step_count, admit_t=now,
-            arrival_t=self._arrival_t.get(req.uid, now), phase="prefill",
+            arrival_t=arrival, phase="prefill",
             prefill_pos=0, padded=ptoks, true_len=plen,
             last_sched_step=self.step_count)
 

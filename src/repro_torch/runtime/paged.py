@@ -87,6 +87,32 @@ def reset_pools_stacked(pools, page_ids: torch.Tensor):
     return pools
 
 
+def write_prefill_pages(pool: PagePool, page_ids: torch.Tensor,
+                        k: torch.Tensor, v: torch.Tensor, true_len,
+                        cfg) -> PagePool:
+    """Scatter one prefilled sequence's K/V + summaries into the pool, in
+    place.  k, v: (hk, L, d) with L = len(page_ids) * page_size.  Positions
+    >= true_len are zeroed before the write, so pages and summaries match
+    the zero-padded semantics ``append_token`` extends.  The kg / vm
+    summaries come from the metric kernels (the kg group means rounded to
+    k's dtype first, as the reference's pooling keeps it)."""
+    cfg = policy_lib.as_policy(cfg)
+    hk, L, d = k.shape
+    bs = cfg.block_size
+    npages = L // bs
+    keep = (torch.arange(L, device=k.device) < true_len)[None, :, None]
+    k = torch.where(keep, k, torch.zeros((), dtype=k.dtype, device=k.device))
+    v = torch.where(keep, v, torch.zeros((), dtype=v.dtype, device=v.device))
+    kg = metric_lib.pool_prefill(k, bs, cfg.stride)          # (hk, npages, s, d)
+    vm = metric_lib.value_magnitude_prefill(v, bs)           # (hk, npages)
+    ids = page_ids.long()
+    pool.k[:, ids] = k.reshape(hk, npages, bs, d).to(pool.k.dtype)
+    pool.v[:, ids] = v.reshape(hk, npages, bs, d).to(pool.v.dtype)
+    pool.kg[:, ids] = kg.float()
+    pool.vm[:, ids] = vm.float()
+    return pool
+
+
 def write_chunk_pages(pool: PagePool, page_table: torch.Tensor,
                       chunk_start: torch.Tensor, k_chunk: torch.Tensor,
                       v_chunk: torch.Tensor, true_len: torch.Tensor,

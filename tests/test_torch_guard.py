@@ -33,7 +33,11 @@ def test_no_jax_or_reference_imports(path):
 
 def test_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.runtime.engine, "
-            "repro_torch.kernels.paged_attn, repro_torch.weights; "
+            "repro_torch.kernels.paged_attn, repro_torch.kernels.block_sparse_attn, "
+            "repro_torch.kernels.flash_attention, repro_torch.kernels.stem_metric, "
+            "repro_torch.kernels.ops, repro_torch.kernels.ref, "
+            "repro_torch.core.sparse_attention, repro_torch.launch.steps, "
+            "repro_torch.weights; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

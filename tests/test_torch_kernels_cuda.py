@@ -6,12 +6,17 @@ machine:
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_cuda.py
 
 fp32 within 1e-4 abs; bf16 within 2 bf16 ulps of the plain output plus
-1e-3 * max|plain|; ``cnt == 0`` rows must be exact zeros.
+1e-3 * max|plain|; ``cnt == 0`` rows must be exact zeros.  Covers the paged
+scorer and page attention, the one-shot prefill's flash and block-sparse
+attention, and the metric pooling / value-magnitude kernels.
 """
 import pytest
 import torch
 
+from repro_torch.kernels import block_sparse_attn as t_bsa
+from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels import paged_attn as t_kern
+from repro_torch.kernels import stem_metric as t_sm
 
 
 def _assert_close(got, want):
@@ -64,3 +69,61 @@ def test_kernels_match_plain_on_card(cuda, dtype, group):
                                          block_size=bs, causal=causal)
         _assert_close(got, want)
         assert torch.all(got[cnt == 0] == 0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("group", [1, 2])
+@pytest.mark.parametrize("n", [256, 200])
+def test_flash_matches_plain_on_card(cuda, dtype, group, n):
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(n + group)
+    hq, d = 4, 128
+    q = torch.randn((2, hq, n, d), generator=gen, device=cuda).to(dt)
+    k = torch.randn((2, hq // group, n, d), generator=gen, device=cuda).to(dt)
+    v = torch.randn((2, hq // group, n, d), generator=gen, device=cuda).to(dt)
+    got = t_fa.flash_attention(q, k, v)
+    _assert_close(got, t_fa.flash_attention_plain(q, k, v))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dedup", [False, True])
+def test_block_sparse_matches_plain_on_card(cuda, dtype, dedup):
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(int(dedup))
+    b, hq, hk, d, bs, nq, kmax = 2, 4, 2, 128, 128, 6, 4
+    n = nq * bs
+    hsel = hk if dedup else hq
+    q = torch.randn((b, hq, n, d), generator=gen, device=cuda).to(dt)
+    k = torch.randn((b, hk, n, d), generator=gen, device=cuda).to(dt)
+    v = torch.randn((b, hk, n, d), generator=gen, device=cuda).to(dt)
+    # Row i selects its diagonal block first, then lower blocks; live counts
+    # cover 0..min(i+1, kmax) slots, so some rows are empty.
+    rows = torch.arange(nq, device=cuda)[:, None]
+    idx = torch.clamp(rows - torch.arange(kmax, device=cuda)[None, :], min=0)
+    idx = idx.expand(b, hsel, nq, kmax).to(torch.int32).contiguous()
+    cnt = torch.randint(0, kmax + 1, (b, hsel, nq), generator=gen, device=cuda)
+    cnt = torch.minimum(cnt, rows[:, 0] + 1).to(torch.int32).contiguous()
+    got = t_bsa.block_sparse_attention(q, k, v, idx, live_counts=cnt,
+                                       block_size=bs, group_dedup=dedup)
+    want = t_bsa.block_sparse_attention_plain(q, k, v, idx, cnt, block_size=bs,
+                                              group_dedup=dedup)
+    _assert_close(got, want)
+    full = torch.repeat_interleave(cnt, hq // hsel, dim=1)
+    assert torch.all(got.reshape(b, hq, nq, bs, d)[full == 0] == 0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("out_dtype", ["float32", "input"])
+def test_metric_kernels_match_plain_on_card(cuda, dtype, out_dtype):
+    dt = getattr(torch, dtype)
+    od = dt if out_dtype == "input" else torch.float32
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((2, 3, 512, 128), generator=gen, device=cuda).to(dt)
+    x[0, 1, 128:256] = 0                      # an all-zero block: the norm floor
+    got = t_sm.antidiag_pool(x, block_size=128, stride=16, out_dtype=od)
+    assert got.dtype == od
+    _assert_close(got, t_sm.antidiag_pool_plain(x, block_size=128, stride=16,
+                                                out_dtype=od))
+    vm = t_sm.value_magnitude(x, block_size=128)
+    torch.testing.assert_close(vm, t_sm.value_magnitude_plain(x, block_size=128),
+                               atol=1e-4, rtol=0)
