@@ -8,7 +8,11 @@ Phases:
   1. device   — require CUDA; print the card's name and power limit.
   2. build    — compile every kernel source under
                 src/repro_torch/kernels/csrc/ with nvcc (sm_90a) into
-                build/kernels/, one nvcc per source started together, timed.
+                build/kernels/, one nvcc per source started together, timed;
+                print each kernel's registers, stack and local memory
+                (cuobjdump -res-usage: spills would show as stack / local
+                bytes) and require HGMMA (wgmma) in the flash and
+                block-sparse libraries.
   3. kernels  — each kernel against its plain PyTorch version, in fp32 and
                 bf16: the paged kernels at the serving shapes of qwen3-0.6b
                 (hq 16, hk 8, d 128, block 128, stride 16, 126 pages per
@@ -18,18 +22,30 @@ Phases:
                 attention, also against scaled_dot_product_attention; the
                 pool and value-magnitude kernels) at a 16384-token prompt.
                 fp32 outputs within 1e-4 abs; bf16 outputs within 2 bf16
-                ulps of the plain output plus 1e-3 * max|plain|; kernel,
-                plain and library times from CUDA events.  The library call
-                of block-sparse attention is a compiled flex_attention over
-                a BlockMask of the same selection (timed and checked
-                against the plain output, never called by the port).
+                ulps of the plain output plus 1e-3 * the max|plain| of the
+                element's row (last axis), except the bf16 flash and
+                block-sparse attention, whose tensor-core tile rounds P to
+                bf16 before P.V: their row floor is 1e-2 * max|plain|.  The
+                same rule must reject the block-sparse kernel's output with
+                one key tile dropped from each row past 4k (the selection of
+                each bf16 attention check: stem's, and every causal block
+                for flash).
+                Kernel, plain and library times from CUDA events, with each
+                kernel's TFLOP/s and share of its bound.  The library calls
+                are compiled flex_attention over a BlockMask of the same
+                selection (block-sparse attention; page attention over the
+                flattened pool, both lanes) and SDPA (flash), each timed
+                and checked against the plain output, never called by the
+                port.  The page scorer has none (no single call gathers
+                the page table's summaries and contracts them).
   4. engine   — StemEngine at the full width of qwen3-0.6b (bf16, random
                 weights from a seeded generator, policy "stem" with paper
                 defaults, budget_frac 0.5, chunk 1024, 2 slots) serves four
                 staggered requests (prompts 2000/6000/11000/16000 tokens, 32
                 new tokens each) with chunked prefill.  Launch counters are
                 zeroed just before the run and read just after; every kernel
-                of both lanes must have launched, every logit the engine
+                of both lanes must have launched, and the pool and vmag
+                kernels (chunk query pooling, page summaries); every logit the engine
                 samples must be finite (its "greedy-finite" sampler folds
                 that into one device flag, read after the run), every page
                 must return.
@@ -61,6 +77,8 @@ import dataclasses
 import json
 import os
 import pathlib
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -152,28 +170,60 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
-    """fp32 outputs within 1e-4 abs; bf16 outputs within 2 bf16 ulps of
-    the plain value plus a floor of 1e-3 * max|plain| (for values near 0)."""
+def tolerance(want: torch.Tensor, dtype, p_bf16: bool = False):
+    """The limit of |kernel - plain| per element (want in fp32): 1e-4 for
+    fp32 outputs; for bf16 outputs 2 bf16 ulps of the plain value plus a
+    floor of 1e-3 * the max|plain| of its row (the last axis), for values
+    near 0.  The floor is per row because an attention row over m keys has
+    outputs of about sqrt(e / m): a floor over the whole tensor would be as
+    large as a long row's values.  p_bf16: the bf16 prefill attention
+    kernels round the probabilities P to bf16 before P.V on the tensor
+    cores (as SDPA's and flex_attention's kernels do) while the plain
+    version keeps P in fp32, so their row floor is 1e-2 * max|plain|."""
+    if dtype == torch.float32:
+        return 1e-4
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=1e-30))) - 7)
+    floor = (1e-2 if p_bf16 else 1e-3) * want.abs().amax(dim=-1, keepdim=True)
+    return 2 * ulp + floor
+
+
+def check_close(name: str, got: torch.Tensor, want: torch.Tensor, *,
+                p_bf16: bool = False) -> float:
+    """Raises unless every element is within its tolerance; returns the max
+    |kernel - plain|."""
     dtype = got.dtype
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: kernel output not finite")
     diff = (got - want).abs()
-    err = float(diff.max())
-    if dtype == torch.float32:
-        ok = err <= 1e-4
-    else:
-        limit = 2 * bf16_ulp(want) + 1e-3 * want.abs().max()
-        ok = bool((diff <= limit).all())
-    if not ok:
-        raise AssertionError(f"{name}: max |kernel - plain| = {err}")
-    return err
+    over = float((diff / tolerance(want, dtype, p_bf16)).max())
+    if p_bf16:
+        log(f"[kernels] {name}: max |kernel - plain| / limit {over:.3f}")
+    if not over <= 1:
+        raise AssertionError(f"{name}: max |kernel - plain| = {float(diff.max())}, "
+                             f"{over:.2f}x its limit")
+    return float(diff.max())
 
 
-def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
-    a = x.abs().clamp(min=1e-30)
-    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+def check_rejects_dropped_tile(name, q, k, v, idx, cnt, want, bs) -> None:
+    """The bf16 attention rule must see the long rows: the block-sparse
+    kernel over the selection (idx, cnt) passes it, and fails it once the
+    last live block of each row past 4k (with two or more) is dropped."""
+    check_close(f"{name}/block-sparse kernel, same selection",
+                bsa_kern.block_sparse_attention(q, k, v, idx, live_counts=cnt,
+                                                block_size=bs), want, p_bf16=True)
+    past = (torch.arange(idx.shape[2], device=idx.device) * bs >= 4096) & (cnt >= 2)
+    got = bsa_kern.block_sparse_attention(
+        q, k, v, idx, live_counts=torch.where(past, cnt - 1, cnt).to(torch.int32),
+        block_size=bs).float()
+    want = want.float()
+    over = (got - want).abs() / tolerance(want, torch.bfloat16, p_bf16=True)
+    rows = int((over > 1).any(-1).sum())
+    log(f"[kernels] {name} with one key tile dropped from each row past 4k: "
+        f"{rows} of {int(past.sum()) * bs} such rows over the limit, max "
+        f"{float(over.max()):.2f}x")
+    if rows == 0:
+        raise AssertionError(f"{name}: the bf16 rule passes a dropped key tile")
 
 
 def check_library(name: str, lib: torch.Tensor, want: torch.Tensor) -> float:
@@ -188,9 +238,93 @@ def check_library(name: str, lib: torch.Tensor, want: torch.Tensor) -> float:
     return err
 
 
+def build_report(libs: dict) -> None:
+    """Registers, stack and local memory of every kernel (spills would show
+    as stack / local bytes), and the tensor-core instructions (HGMMA in the
+    SASS) of the bf16 attention tile."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    run = lambda *a: subprocess.run([cuobjdump, *a], check=True, capture_output=True,
+                                    text=True).stdout
+    for stem in sorted(libs):
+        name = None
+        for line in run("-res-usage", str(libs[stem])).splitlines():
+            m = re.search(r"Function (\S+):", line)
+            if m:
+                short = re.search(r"[a-z_]+_kernel", m.group(1))
+                name = short.group(0) if short else m.group(1)
+            m = re.search(r"REG:(\d+) STACK:(\d+).*LOCAL:(\d+)", line)
+            if m and name is not None:
+                log(f"[build] {stem}: {name} {m.group(1)} registers, stack "
+                    f"{m.group(2)} B, local {m.group(3)} B")
+                name = None
+    for stem in ("flash_attention", "block_sparse_attn"):
+        sass = run("-sass", str(libs[stem]))
+        n = sass.count("HGMMA")
+        log(f"[build] {stem}: {n} HGMMA instructions in the SASS")
+        if n == 0:
+            raise AssertionError(f"{stem}: no wgmma in the built library")
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
+
+def flex_page_attention(args, *, bs: int, causal: bool, flex):
+    """Page attention as one flex_attention call over the flattened pool:
+    q (b, hq, nc * rows, d) against k / v (b, hk, P * bs, d), the pool
+    broadcast over the batch rows (a stride-0 view), under a BlockMask whose
+    KV blocks are the selected physical pages: those wholly visible to a
+    query block as full blocks, the rest under a mask_mod that maps the
+    physical page back to its logical position (decode: tok < len; chunk:
+    tok <= query position).  Returns a thunk giving (b, hq, nc, rows, d)."""
+    from torch.nn.attention.flex_attention import BlockMask
+    q, k, v, gp, idx, cnt, pos = args
+    b, hq, nc, rows, d = q.shape
+    hk, P = k.shape[0], k.shape[1]
+    dev = q.device
+    kmax = gp.shape[-1]
+    live = torch.arange(kmax, device=dev) < cnt[..., None].long()
+    lo = idx.long() * bs
+    if causal:
+        qmin = (pos.long()[:, None, None, None]
+                + (torch.arange(nc, device=dev) * rows)[None, None, :, None])
+        qmax = qmin + rows - 1
+    else:
+        qmin = qmax = (pos.long() - 1)[:, None, None, None]
+    full = live & (lo + bs - 1 <= qmin)
+    part = live & ~full & (lo <= qmax)
+
+    def pack(sel):
+        order = torch.argsort((~sel).to(torch.int8), dim=-1, stable=True)
+        ids = torch.zeros((b, hq, nc, P), dtype=torch.int32, device=dev)
+        ids[..., :kmax] = torch.gather(gp, -1, order)
+        return sel.sum(-1, dtype=torch.int32), ids
+
+    # logical page index of each physical page per (row, head, q block);
+    # -1 where it is not selected (column P takes the dead slots)
+    logical = torch.full((b, hq, nc, P + 1), -1, dtype=torch.long, device=dev)
+    logical.scatter_(-1, torch.where(live, gp.long(), P), idx.long())
+    logical = logical[..., :P].contiguous()
+    posl = pos.long()
+
+    def mask_mod(b_, h_, q_idx, kv_idx):
+        lg = logical[b_, h_, q_idx // rows, kv_idx // bs]
+        tok = lg * bs + kv_idx % bs
+        seen = (tok <= posl[b_] + q_idx) if causal else (tok < posl[b_])
+        return (lg >= 0) & seen
+
+    (pn, pi), (fn, fi) = pack(part), pack(full)
+    mask = BlockMask.from_kv_blocks(pn, pi, fn, fi, BLOCK_SIZE=(128, bs),
+                                    mask_mod=mask_mod, seq_lengths=(nc * rows, P * bs))
+    qf = q.reshape(b, hq, nc * rows, d)
+    kf = k.reshape(1, hk, P * bs, d).expand(b, hk, P * bs, d)
+    vf = v.reshape(1, hk, P * bs, -1).expand(b, hk, P * bs, v.shape[-1])
+    # the chunk lane's default bf16 config asks for 256 KiB of shared memory
+    # (above the H100's 227 KiB); two stages fit
+    opts = {"num_stages": 2} if causal else None
+    return lambda: flex(qf, kf, vf, block_mask=mask, enable_gqa=True,
+                        kernel_options=opts).reshape(b, hq, nc, rows, -1)
+
 
 def kernel_phase(records: dict, dev=torch.device("cuda")) -> None:
     hq, hk, d, bs, s = 16, 8, 128, 128, 16
@@ -198,6 +332,8 @@ def kernel_phase(records: dict, dev=torch.device("cuda")) -> None:
     maxp, b = 126, 4
     P = 1 + b * maxp
     policy = policy_lib.get_policy("stem")
+    from torch.nn.attention.flex_attention import flex_attention
+    flex = torch.compile(flex_attention, dynamic=False)
     gen = torch.Generator(device=dev).manual_seed(0)
     perm = (1 + torch.randperm(P - 1, generator=gen, device=dev)).to(torch.int32)
     pt = perm[:b * maxp].reshape(b, maxp).contiguous()
@@ -232,6 +368,8 @@ def kernel_phase(records: dict, dev=torch.device("cuda")) -> None:
         at_p = kern.attend_pages_plain(*args, block_size=bs, causal=False)
         torch.cuda.synchronize()
         err_a = check_close(f"attend/decode/{tag}", at_k, at_p)
+        run_l = flex_page_attention(args, bs=bs, causal=False, flex=flex)
+        check_library(f"attend/decode {tag} vs flex_attention", run_l(), at_p)
         rec_kernel(records, "score", "decode", tag, err, run_k, run_p,
                    score_bytes_flops(qp_bytes=q.numel() * 4, pt=pt, hk=hk, s=s,
                                      d=d, out=sc_p), torch.float32)
@@ -241,7 +379,7 @@ def kernel_phase(records: dict, dev=torch.device("cuda")) -> None:
                                              lane="decode"),
                    lambda: kern.attend_pages_plain(*args, block_size=bs, causal=False),
                    attend_bytes_flops(args, at_p, live_pairs, bs, d, rows=1),
-                   dtype)
+                   dtype, run_lib=run_l)
 
         # -- chunk lane (one lane, chunk 1024 at position 8192 of a
         #    16384-token padded prompt) ----------------------------------
@@ -274,13 +412,15 @@ def kernel_phase(records: dict, dev=torch.device("cuda")) -> None:
         at_p = kern.attend_pages_plain(*args, block_size=bs, causal=True)
         torch.cuda.synchronize()
         err_a = check_close(f"attend/chunk/{tag}", at_k, at_p)
+        run_l = flex_page_attention(args, bs=bs, causal=True, flex=flex)
+        check_library(f"attend/chunk {tag} vs flex_attention", run_l(), at_p)
         rec_kernel(records, "attend", "chunk", tag, err_a,
                    lambda: kern.attend_pages(*args, block_size=bs, causal=True,
                                              lane="chunk"),
                    lambda: kern.attend_pages_plain(*args, block_size=bs, causal=True),
                    attend_bytes_flops(args, at_p, live_kv_pages(gp, cnt, group),
                                       bs, d, rows=bs),
-                   dtype)
+                   dtype, run_lib=run_l)
         del k, v, kg, vm
         torch.cuda.empty_cache()
 
@@ -317,13 +457,14 @@ def rec_kernel(records, kernel, lane, tag, err, run_k, run_p, bf, dtype,
     plain_ms = time_ms(run_p, iters=plain_iters, warmup=1)
     lib_ms = None if run_lib is None else time_ms(run_lib, iters=iters)
     bound_ms, bound_by = bound(*bf, dtype)
+    tflops = bf[1] / ms * 1e-9
     log(f"[kernels] {kernel}/{lane} {tag}: max_abs_err={err:.3e} "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
         f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by})")
+        f"({bound_by}); {tflops:.1f} TFLOP/s, {bound_ms / ms:.3f} of bound")
     records.setdefault(f"{kernel}/{lane}", {})[tag] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=lib_ms)
+        bound_by=bound_by, library_ms=lib_ms, tflops=tflops)
 
 
 # ---------------------------------------------------------------------------
@@ -429,7 +570,7 @@ def prefill_kernel_phase(records: dict, dev=torch.device("cuda")) -> None:
             got, want = run_k(), run_p()
             torch.cuda.synchronize()
             name = "block_sparse_attention" + ("/dedup" if dedup else "")
-            err = check_close(f"{name}/{tag}", got, want)
+            err = check_close(f"{name}/{tag}", got, want, p_bf16=True)
             if dedup:
                 log(f"[kernels] {name} {tag}: max_abs_err={err:.3e}")
                 continue
@@ -443,6 +584,8 @@ def prefill_kernel_phase(records: dict, dev=torch.device("cuda")) -> None:
                        run_k, run_p,
                        bsa_bytes_flops(q, k, idx, cnt, group, False, bs), dtype,
                        run_lib=run_l, iters=5, plain_iters=1)
+            if dtype == torch.bfloat16:
+                check_rejects_dropped_tile(name, q, k, v, idx, cnt, want, bs)
             # rows with cnt == 0 finalize to exact zeros
             cnt0 = cnt.clone()
             cnt0[:, :, 1::9] = 0
@@ -451,7 +594,7 @@ def prefill_kernel_phase(records: dict, dev=torch.device("cuda")) -> None:
             want = bsa_kern.block_sparse_attention_plain(q, k, v, idx, cnt0,
                                                          block_size=bs)
             torch.cuda.synchronize()
-            check_close(f"block_sparse_attention/cnt0/{tag}", got, want)
+            check_close(f"block_sparse_attention/cnt0/{tag}", got, want, p_bf16=True)
             zero_rows = got.reshape(1, hq, n // bs, bs, d)[cnt0 == 0]
             if not bool((zero_rows == 0).all()):
                 raise AssertionError("cnt == 0 rows are not exact zeros")
@@ -463,9 +606,18 @@ def prefill_kernel_phase(records: dict, dev=torch.device("cuda")) -> None:
         run_l = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)
         got, want = run_k(), run_p()
         torch.cuda.synchronize()
-        err = check_close(f"flash_attention/{tag}", got, want)
+        err = check_close(f"flash_attention/{tag}", got, want, p_bf16=True)
         check_library(f"flash_attention {tag} vs scaled_dot_product_attention",
                       run_l(), got)
+        if dtype == torch.bfloat16:
+            # every causal block, the diagonal first: the fault drops block i - 1
+            i = torch.arange(n // bs, device=dev)[:, None]
+            j = torch.arange(n // bs, device=dev)[None, :]
+            idx = torch.where(j == 0, i, j - 1).expand(1, hq, n // bs, n // bs)
+            cnt = (i[:, 0] + 1).expand(1, hq, n // bs)
+            check_rejects_dropped_tile("flash_attention", q, k, v,
+                                       idx.to(torch.int32).contiguous(),
+                                       cnt.to(torch.int32).contiguous(), want, bs)
         pairs = hq * n * (n + 1) / 2
         rec_kernel(records, "flash_attention", "prefill", tag, err, run_k, run_p,
                    (2 * q.numel() * es + 2 * k.numel() * es, 4.0 * d * pairs),
@@ -525,11 +677,14 @@ def engine_phase(profile: bool = False) -> dict:
                      ARRIVALS, NEW_TOKENS, 0, profile=profile, budget_frac=0.5,
                      chunk_size=1024)
     launches = read_all_launches()
-    missing = [k for k in kern.LAUNCHES if launches[k] == 0]
+    # the paged kernels of both lanes, and the metric kernels that pool the
+    # chunk scorer's queries and the chunk pages' summaries
+    need = tuple(kern.LAUNCHES) + tuple(metric_kern.LAUNCHES)
+    missing = [k for k in need if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     summary.update(peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-                   launches={k: launches[k] for k in kern.LAUNCHES})
+                   launches={k: launches[k] for k in need})
     log("[engine] " + json.dumps(summary))
     del params
     torch.cuda.empty_cache()
@@ -808,6 +963,7 @@ def main() -> None:
     t0 = time.perf_counter()
     libs = _build.build_all()
     log(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    build_report(libs)
 
     # Phase 3: kernels against their plain versions.
     records: dict = {}
@@ -833,7 +989,7 @@ def main() -> None:
             replaces=REPLACES[kernel], launches=launches[key],
             max_abs_err=max(r["max_abs_err"] for r in records[key].values()),
             ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
-            bound_by=rec["bound_by"], library_ms=None,
+            bound_by=rec["bound_by"], library_ms=rec["library_ms"],
             fp32=records[key]["float32"]))
     for key, _, counter, source, replaces in PREFILL_KERNELS:
         rec = records[f"{key}/prefill"]["bfloat16"]

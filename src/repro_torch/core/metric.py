@@ -6,11 +6,12 @@ one-shot prefill's blockwise routing scores and OAM metric (Eq. 7), and the
 chunk / decode routing scores read off pooled page summaries.  Shapes use
 the (batch, heads, seq, head_dim) convention.
 
-The one-shot prefill metric (``blockwise_routing_scores``, ``oam_scores``)
-pools q, k and v through the metric kernels of ``kernels/stem_metric.py``
-(CUDA on a CUDA tensor, their plain versions on the CPU); ``antidiag_pool``
-and ``value_block_magnitude`` below stay the plain code of the serving
-lanes.
+``antidiag_pool`` and ``value_block_magnitude`` run through the metric
+kernels of ``kernels/stem_metric.py`` (CUDA on a CUDA tensor, their plain
+versions on the CPU), and every pooling of the port goes through them: the
+one-shot prefill metric (``blockwise_routing_scores``, ``oam_scores``), the
+page summaries of both serving lanes' pool writes, and the chunk scorer's
+query pooling (``kernels/paged_attn.chunk_page_scores``).
 """
 from __future__ import annotations
 
@@ -33,12 +34,12 @@ def _f32_scale(x: torch.Tensor, s: int, head_dim: int) -> torch.Tensor:
 
 def antidiag_pool(x: torch.Tensor, block_size: int, stride: int) -> torch.Tensor:
     """(..., seq, dim) -> (..., n_blocks, stride, dim): group u holds the mean
-    of the rows whose within-block position is congruent to u (mod s)."""
-    *lead, seq, dim = x.shape
-    n_blocks = _check_divisible(seq, block_size)
-    per_group = block_size // stride
-    xb = x.reshape(*lead, n_blocks, per_group, stride, dim)
-    return xb.mean(dim=-3)
+    of the rows whose within-block position is congruent to u (mod s),
+    summed in fp32 and rounded to x's dtype as the reference's mean keeps it
+    (the pool kernel)."""
+    _check_divisible(x.shape[-2], block_size)
+    return metric_kernels.antidiag_pool(x.contiguous(), block_size=block_size,
+                                        stride=stride, out_dtype=x.dtype)
 
 
 def mean_pool(x: torch.Tensor, block_size: int) -> torch.Tensor:
@@ -68,24 +69,7 @@ def mean_routing_scores(q_pooled: torch.Tensor, k_pooled: torch.Tensor,
 
 def value_block_magnitude(v: torch.Tensor, block_size: int) -> torch.Tensor:
     """M_V: block max-pool of log ||V_j||_2: (..., seq, dim) -> (..., n_blocks)
-    float32."""
-    *lead, seq, dim = v.shape
-    n_blocks = _check_divisible(seq, block_size)
-    norms = torch.linalg.vector_norm(v.float(), dim=-1)
-    log_norms = torch.log(torch.clamp(norms, min=1e-20))
-    return log_norms.reshape(*lead, n_blocks, block_size).amax(dim=-1)
-
-
-def pool_prefill(x: torch.Tensor, block_size: int, stride: int) -> torch.Tensor:
-    """``antidiag_pool`` of a prefill q or k through the pool kernel, rounded
-    to x's dtype as the reference's mean keeps it."""
-    _check_divisible(x.shape[-2], block_size)
-    return metric_kernels.antidiag_pool(x.contiguous(), block_size=block_size,
-                                        stride=stride, out_dtype=x.dtype)
-
-
-def value_magnitude_prefill(v: torch.Tensor, block_size: int) -> torch.Tensor:
-    """``value_block_magnitude`` of a prefill v through the vmag kernel."""
+    float32 (the value-magnitude kernel)."""
     _check_divisible(v.shape[-2], block_size)
     return metric_kernels.value_magnitude(v.contiguous(), block_size=block_size)
 
@@ -101,8 +85,8 @@ def blockwise_routing_scores(q: torch.Tensor, k: torch.Tensor, *,
         raise ValueError(f"q_heads {hq} not a multiple of kv_heads {hk}")
     group = hq // hk
     if pooling == "antidiag":
-        qp = pool_prefill(q, block_size, stride)              # (b, hq, nq, s, d)
-        kp = torch.repeat_interleave(pool_prefill(k, block_size, stride),
+        qp = antidiag_pool(q, block_size, stride)             # (b, hq, nq, s, d)
+        kp = torch.repeat_interleave(antidiag_pool(k, block_size, stride),
                                      group, dim=1)
         return antidiag_routing_scores(qp, kp, d)
     qp = mean_pool(q, block_size)
@@ -126,7 +110,7 @@ def oam_scores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if beta == 0.0:
         return route
     group = q.shape[1] // k.shape[1]
-    mv = torch.repeat_interleave(value_magnitude_prefill(v, block_size),
+    mv = torch.repeat_interleave(value_block_magnitude(v, block_size),
                                  group, dim=1)                # (b, hq, nk)
     mag = torch.clamp(mv, min=0.0).to(route.dtype)
     return route + beta * mag[..., None, :]

@@ -8,9 +8,10 @@ causal flash attention of each (batch, selection head, query block) over
 that row's ``live_counts`` selected key blocks, fp32 accumulation, output
 in q's dtype, exact zeros for ``cnt == 0`` rows.  With ``group_dedup`` the
 selection has one row per KV head, shared by the query heads of the group;
-without it the KV head is query head // group.  Compute-bound on the H100;
-this first version multiplies on the fp32 CUDA cores.  The kernel reads
-only the live prefix of each index row, so it needs no revisit filling.
+without it the KV head is query head // group.  Compute-bound on the H100:
+bf16 runs on the tensor cores (TMA + wgmma, 128-row tiles, P rounded to
+bf16 before P.V), fp32 on the fp32 CUDA cores.  The kernel reads only the
+live prefix of each index row, so it needs no revisit filling.
 
 Beside the kernel sits its plain PyTorch version
 (``block_sparse_attention_plain``) and a plain-int launch counter in
@@ -25,7 +26,7 @@ import torch
 
 NEG_INF = -1e30
 HEAD_DIM = 128                      # the kernel's head_dim
-TILE = 64                           # the kernel's query / key tile
+TILE = {torch.float32: 64, torch.bfloat16: 128}   # the kernel's query / key tile
 
 LAUNCHES = {"block_sparse_attention": 0}
 
@@ -140,9 +141,11 @@ def block_sparse_attention(q, k, v, indices, slot_mask=None, *,
     _check(d == HEAD_DIM, f"block_sparse_attention: head_dim must be {HEAD_DIM}")
     _check(hk > 0 and hq % hk == 0,
            "block_sparse_attention: kv heads must divide q heads")
-    _check(bs % TILE == 0 and n % bs == 0,
-           f"block_sparse_attention: block size must be a multiple of {TILE} "
-           "dividing the sequence")
+    _check(bs % TILE[q.dtype] == 0 and n % bs == 0,
+           f"block_sparse_attention: block size must be a multiple of "
+           f"{TILE[q.dtype]} dividing the sequence")
+    _check(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
+           "block_sparse_attention: inputs must be 16-byte aligned (TMA)")
     _check(indices.dim() == 4 and tuple(indices.shape[:3]) == (b, hsel, n // bs)
            and tuple(cnt.shape) == (b, hsel, n // bs),
            "block_sparse_attention: selection shapes disagree with q")

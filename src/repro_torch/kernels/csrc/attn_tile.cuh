@@ -1,12 +1,14 @@
-// Shared device code of the one-shot prefill attention kernels
-// (flash_attention.cu, block_sparse_attn.cu): one CTA owns a tile of 64
-// query rows of one (batch, query head) at head_dim 128, stages key/value
-// sub-tiles of 64 keys in shared memory and runs the online softmax over
-// them with fp32 accumulation.
+// Shared device code of the fp32 one-shot prefill attention kernels
+// (flash_attention.cu, block_sparse_attn.cu; bf16 runs on the tensor cores
+// in attn_wgmma.cuh): one CTA owns a tile of 64 query rows of one (batch,
+// query head) at head_dim 128, stages key/value sub-tiles of 64 keys in
+// shared memory and runs the online softmax over them with fp32
+// accumulation.
 //
 // Both kernels do 4 * 64 * 64 * 128 flops per staged sub-tile against
-// 2 * 64 * 128 loaded elements: compute-bound.  This first version
-// multiplies on the fp32 CUDA cores (no wgmma/TMA yet) with a register-tiled
+// 2 * 64 * 128 loaded elements: compute-bound.  fp32 inputs multiply on the
+// fp32 CUDA cores (TF32 tensor cores would not keep the fp32 paths within
+// 1e-4 of their plain versions) with a register-tiled
 // outer product: the 256 threads form a 16 x 16 grid, thread (ty, tx) owns
 // query rows ty*4..ty*4+3, score columns tx*4..tx*4+3 and output columns
 // tx*4..tx*4+3 and 64+tx*4..64+tx*4+3.  Q and K are staged transposed
@@ -20,7 +22,6 @@
 // two CTAs fit on one SM.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace stem_attn {
@@ -48,24 +49,8 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 __device__ __forceinline__ void store4(float* p, float4 x) {
   *reinterpret_cast<float4*>(p) = x;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(x.x, x.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(x.z, x.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<unsigned int*>(&a);
-  raw.y = *reinterpret_cast<unsigned int*>(&b);
-  *reinterpret_cast<uint2*>(p) = raw;
 }
 
 // 64 rows of `src` (row stride kD) into dst[c * 64 + row] times `mul`; rows

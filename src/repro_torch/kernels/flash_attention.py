@@ -6,8 +6,9 @@ prefill (port of ``repro/kernels/flash_attention.py``).
 ``_flash_kernel`` (``src/repro/kernels/flash_attention.py:34``): key blocks
 above the diagonal skipped, the diagonal masked exactly, KV head = query
 head // group, fp32 accumulation, output in q's dtype.  Compute-bound on the
-H100 (4 * d flops per causal pair); this first version multiplies on the
-fp32 CUDA cores.
+H100 (4 * d flops per causal pair): bf16 runs on the tensor cores (TMA +
+wgmma, P rounded to bf16 before P.V as SDPA's kernels do), fp32 on the fp32
+CUDA cores.
 
 Beside the kernel sits its plain PyTorch version (``flash_attention_plain``)
 and a plain-int launch counter in ``LAUNCHES``.  The wrapper takes the plain
@@ -38,6 +39,8 @@ def _lib():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.stem_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, f, p]
         lib.stem_flash_attention.restype = i
+        lib.stem_wgmma_tile_products.argtypes = [p] * 7
+        lib.stem_wgmma_tile_products.restype = i
         lib._stem_typed = True
     return lib
 
@@ -91,6 +94,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            "flash_attention: needs seq_q == seq_k and equal q/k/v head dims")
     _check(d == HEAD_DIM, f"flash_attention: head_dim must be {HEAD_DIM}")
     _check(hk > 0 and hq % hk == 0, "flash_attention: kv heads must divide q heads")
+    _check(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
+           "flash_attention: inputs must be 16-byte aligned (TMA)")
     scale = d ** -0.5 if scale is None else scale
     out = torch.empty_like(q)
     err = _lib().stem_flash_attention(
@@ -101,3 +106,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"stem_flash_attention launch failed: cudaError {err}")
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+def wgmma_tile_products(a: torch.Tensor, b: torch.Tensor, p: torch.Tensor,
+                        v: torch.Tensor) -> tuple:
+    """The bf16 tensor-core tile's two products on one 128 x 128 tile, for
+    testing its shared-memory layouts: (a @ b.T, p @ v) in fp32, computed
+    as the tile computes Q.K^T and P.V.  a, b, p, v: (128, 128) bf16
+    tensors on one CUDA device."""
+    _check(all(t.device.type == "cuda" and t.device == a.device
+               and t.dtype == torch.bfloat16 and tuple(t.shape) == (128, 128)
+               and t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in (a, b, p, v)),
+           "wgmma_tile_products: needs four contiguous (128, 128) bf16 CUDA tensors")
+    s = torch.empty((128, 128), dtype=torch.float32, device=a.device)
+    o = torch.empty_like(s)
+    err = _lib().stem_wgmma_tile_products(
+        a.data_ptr(), b.data_ptr(), p.data_ptr(), v.data_ptr(), s.data_ptr(),
+        o.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"stem_wgmma_tile_products launch failed: cudaError {err}")
+    return s, o

@@ -44,6 +44,7 @@ from repro_torch.core import decode as decode_lib
 from repro_torch.core import metric as metric_lib
 from repro_torch.core import policy as policy_lib
 from repro_torch.core.selection import revisit_indices
+from repro_torch.kernels import stem_metric
 
 NEG_INF = -1e30
 MAX_SMEM_BYTES = 232448          # H100 dynamic shared memory per block
@@ -173,7 +174,8 @@ def chunk_page_scores(q, kg_pool, page_table, *, block_size: int,
     block mean.  q: (b, hq, C, d) -> (b, hq, nc, maxp) f32."""
     d = q.shape[-1]
     s = kg_pool.shape[-2]
-    qp = metric_lib.antidiag_pool(q.float(), block_size, s)   # (b, hq, nc, s, d)
+    qp = stem_metric.antidiag_pool(q.contiguous(), block_size=block_size,
+                                   stride=s)                  # (b, hq, nc, s, d) f32
     if pooling == "antidiag":
         pair = (s - torch.arange(s, device=q.device)) % s
         qp = qp.index_select(-2, pair)

@@ -103,8 +103,8 @@ def write_prefill_pages(pool: PagePool, page_ids: torch.Tensor,
     keep = (torch.arange(L, device=k.device) < true_len)[None, :, None]
     k = torch.where(keep, k, torch.zeros((), dtype=k.dtype, device=k.device))
     v = torch.where(keep, v, torch.zeros((), dtype=v.dtype, device=v.device))
-    kg = metric_lib.pool_prefill(k, bs, cfg.stride)          # (hk, npages, s, d)
-    vm = metric_lib.value_magnitude_prefill(v, bs)           # (hk, npages)
+    kg = metric_lib.antidiag_pool(k, bs, cfg.stride)         # (hk, npages, s, d)
+    vm = metric_lib.value_block_magnitude(v, bs)             # (hk, npages)
     ids = page_ids.long()
     pool.k[:, ids] = k.reshape(hk, npages, bs, d).to(pool.k.dtype)
     pool.v[:, ids] = v.reshape(hk, npages, bs, d).to(pool.v.dtype)
@@ -121,8 +121,9 @@ def write_chunk_pages(pool: PagePool, page_table: torch.Tensor,
 
     Chunk starts are block-aligned and the chunk width is a page multiple,
     so every page a chunk touches is written whole: k/v zeroed at positions
-    >= ``true_len``, kg/vm pooled from the zeroed chunk.  page_table:
-    (slots, max_pages); chunk_start, true_len: (slots,); k_chunk, v_chunk:
+    >= ``true_len``, kg/vm pooled from the zeroed chunk by the metric
+    kernels (kg rounded to k's dtype, as the reference's mean keeps it).
+    page_table: (slots, max_pages); chunk_start, true_len: (slots,); k_chunk, v_chunk:
     (slots, hk, C, d).  Chunk-grid blocks past the page-table width go to
     the trash page."""
     cfg = policy_lib.as_policy(cfg)

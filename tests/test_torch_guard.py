@@ -35,7 +35,6 @@ def test_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.runtime.engine, "
             "repro_torch.kernels.paged_attn, repro_torch.kernels.block_sparse_attn, "
             "repro_torch.kernels.flash_attention, repro_torch.kernels.stem_metric, "
-            "repro_torch.kernels.ops, repro_torch.kernels.ref, "
             "repro_torch.core.sparse_attention, repro_torch.launch.steps, "
             "repro_torch.weights; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

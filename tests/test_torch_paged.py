@@ -183,3 +183,50 @@ def test_allocator_matches_reference():
     ta.free(pages)
     with pytest.raises(ValueError, match="double free"):
         ta.free(pages)
+
+
+def _record_metric_kernels(monkeypatch):
+    """Wrap the metric kernels' wrappers (CUDA kernels on the card, their
+    plain versions here) so a test sees which pooling went through them."""
+    from repro_torch.kernels import stem_metric as t_sm
+    calls = []
+    pool, vmag = t_sm.antidiag_pool, t_sm.value_magnitude
+
+    def rec_pool(x, **kw):
+        calls.append(("pool", x.dtype, kw["out_dtype"]))
+        return pool(x, **kw)
+
+    def rec_vmag(v, **kw):
+        calls.append(("vmag", v.dtype, torch.float32))
+        return vmag(v, **kw)
+
+    monkeypatch.setattr(t_sm, "antidiag_pool", rec_pool)
+    monkeypatch.setattr(t_sm, "value_magnitude", rec_vmag)
+    return calls
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("write", ["chunk", "prefill"])
+def test_pool_writes_summarize_through_metric_kernels(monkeypatch, dtype, write):
+    """Both pool writes take their kg / vm page summaries from the metric
+    kernels, kg rounded to k's dtype (the reference's mean) before it is
+    stored in fp32; the summaries equal the plain pooling of the zeroed
+    pages."""
+    calls = _record_metric_kernels(monkeypatch)
+    hk, npages, plen = 2, 3, 19
+    rng = np.random.default_rng(7)
+    k = torch.from_numpy(rng.standard_normal((hk, npages * BS, D)).astype(np.float32)).to(dtype)
+    v = torch.from_numpy(rng.standard_normal((hk, npages * BS, D)).astype(np.float32)).to(dtype)
+    pool = t_paged.init_pool(1 + npages, hk, BS, D, STEM["stride"], dtype=dtype,
+                             device="cpu")
+    ids = torch.arange(1, 1 + npages, dtype=torch.int32)
+    if write == "chunk":
+        t_paged.write_chunk_pages(pool, ids[None], torch.zeros(1, dtype=torch.int32),
+                                  k[None], v[None], torch.tensor([plen], dtype=torch.int32),
+                                  TCFG)
+    else:
+        t_paged.write_prefill_pages(pool, ids, k, v, plen, TCFG)
+    assert calls == [("pool", dtype, dtype), ("vmag", dtype, torch.float32)]
+    kz = torch.where(torch.arange(npages * BS)[None, :, None] < plen, k, 0)
+    want = kz.float().reshape(hk, npages, BS // STEM["stride"], STEM["stride"], D).mean(2)
+    torch.testing.assert_close(pool.kg[:, 1:], want.to(dtype).float(), atol=0, rtol=0)

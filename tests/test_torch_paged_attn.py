@@ -217,3 +217,29 @@ def test_unsupported_metric_raises():
                                   torch.tensor([5], dtype=torch.int32), pol)
     with pytest.raises(KeyError):
         t_policy.get_paged_executor("xla")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunk_query_pooling_goes_through_pool_kernel(monkeypatch, dtype):
+    """The chunk scorer pools its queries through the pool kernel's wrapper
+    (q read in its own dtype, fp32 group means out) and scores as the plain
+    pooling of the fp32 queries does."""
+    from repro_torch.kernels import stem_metric as t_sm
+    calls = []
+    pool = t_sm.antidiag_pool
+
+    def rec_pool(x, **kw):
+        calls.append((x.dtype, kw.get("out_dtype", torch.float32)))
+        return pool(x, **kw)
+
+    _, targs = _chunk_case(2, 2, 11, seed=3)
+    q, tpool, pt = targs[0].to(getattr(torch, dtype)), targs[1], targs[2]
+    want = t_kern.score_pages_plain(
+        t_sm.antidiag_pool_plain(q, block_size=BS, stride=STRIDE).index_select(
+            -2, (STRIDE - torch.arange(STRIDE)) % STRIDE),
+        tpool.kg, pt, group=2, scale=1.0 / (STRIDE * float(D) ** 0.5))
+    monkeypatch.setattr(t_sm, "antidiag_pool", rec_pool)
+    got = t_kern.chunk_page_scores(q, tpool.kg, pt, block_size=BS,
+                                   pooling="antidiag", group=2)
+    assert calls == [(q.dtype, torch.float32)]
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)

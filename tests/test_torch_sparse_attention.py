@@ -30,8 +30,9 @@ from repro_torch.core import policy as t_policy
 from repro_torch.core import selection as t_selection
 from repro_torch.core import sparse_attention as t_sa
 from repro_torch.core.config import StemConfig as TStem
-from repro_torch.kernels import ops as t_ops
-from repro_torch.kernels import ref as t_ref
+from repro_torch.kernels import block_sparse_attn as t_bsa
+from repro_torch.kernels import flash_attention as t_fa
+from repro_torch.kernels import stem_metric as t_sm
 
 j_sa = sys.modules["repro.core.sparse_attention"]
 torch.set_num_threads(1)
@@ -80,10 +81,10 @@ def _policies(name, **kw):
 @pytest.mark.parametrize("hq,hk", [(4, 2), (8, 1)])
 def test_flash_plain_matches_jax(dtype, hq, hk):
     q, k, v = _arrays(hq, [(1, hq, 256, 32), (1, hk, 256, 32), (1, hk, 256, 32)])
-    got = t_ops.flash_attention(_t(q, dtype), _t(k, dtype), _t(v, dtype))
+    got = t_fa.flash_attention(_t(q, dtype), _t(k, dtype), _t(v, dtype))
     assert got.dtype == getattr(torch, dtype)
     _close(got, j_ops.flash_attention(_j(q, dtype), _j(k, dtype), _j(v, dtype)), dtype)
-    _close(t_ref.flash_attention_ref(_t(q, dtype), _t(k, dtype), _t(v, dtype)),
+    _close(t_fa.flash_attention_plain(_t(q, dtype), _t(k, dtype), _t(v, dtype)),
            j_ref.flash_attention_ref(_j(q, dtype), _j(k, dtype), _j(v, dtype)), dtype)
 
 
@@ -110,7 +111,7 @@ def test_block_sparse_plain_matches_jax(dtype, dedup):
     hsel = hk if dedup else hq
     q, k, v = _arrays(5, [(b, hq, n, d), (b, hk, n, d), (b, hk, n, d)])
     idx, cnt, msk = _selection(7 + dedup, b, hsel, n // bs, kmax)
-    got = t_ops.block_sparse_attention(
+    got = t_bsa.block_sparse_attention(
         _t(q, dtype), _t(k, dtype), _t(v, dtype), torch.from_numpy(idx),
         torch.from_numpy(msk), block_size=bs, group_dedup=dedup,
         live_counts=torch.from_numpy(cnt))
@@ -123,9 +124,9 @@ def test_block_sparse_plain_matches_jax(dtype, dedup):
     assert rows.any()
     assert torch.all(got.reshape(b, hq, n // bs, bs, d)[torch.from_numpy(rows)] == 0)
     if not dedup:
-        _close(t_ref.block_sparse_attention_ref(
+        _close(t_bsa.block_sparse_attention_plain(
                    _t(q, dtype), _t(k, dtype), _t(v, dtype),
-                   torch.from_numpy(idx), torch.from_numpy(msk), block_size=bs),
+                   torch.from_numpy(idx), torch.from_numpy(cnt), block_size=bs),
                j_ref.block_sparse_attention_ref(
                    _j(q, dtype), _j(k, dtype), _j(v, dtype), jnp.asarray(idx),
                    jnp.asarray(msk), block_size=bs), dtype)
@@ -136,12 +137,13 @@ def test_metric_plain_matches_jax(dtype):
     (x,) = _arrays(9, [(2, 3, 256, 32)])
     x[0, 1, 64:128] = 0                             # an all-zero block
     xt, xj = _t(x, dtype), _j(x, dtype)
-    pooled = t_ops.antidiag_pool(xt, block_size=64, stride=8)
+    pooled = t_sm.antidiag_pool(xt, block_size=64, stride=8)
     assert pooled.dtype == torch.float32
     _close(pooled, j_ops.antidiag_pool(xj, block_size=64, stride=8))
-    _close(t_ref.antidiag_pool_ref(xt, 64, 8), j_ref.antidiag_pool_ref(xj, 64, 8))
+    _close(t_sm.antidiag_pool_plain(xt, block_size=64, stride=8),
+           j_ref.antidiag_pool_ref(xj, 64, 8))
     # rounded to the input dtype: the reference's metric.antidiag_pool
-    rounded = t_ops.antidiag_pool(xt, block_size=64, stride=8, out_dtype=xt.dtype)
+    rounded = t_sm.antidiag_pool(xt, block_size=64, stride=8, out_dtype=xt.dtype)
     assert rounded.dtype == xt.dtype
     _close(rounded, j_metric.antidiag_pool(xj, 64, 8), dtype)
     # The reference kernel floors the squared norm at 1e-40, a subnormal
@@ -150,10 +152,10 @@ def test_metric_plain_matches_jax(dtype):
     live = np.ones(x.shape[:2] + (4,), bool)
     live[0, 1, 1] = False
     np.testing.assert_allclose(
-        t_ops.value_magnitude(xt, block_size=64).numpy()[live],
+        t_sm.value_magnitude(xt, block_size=64).numpy()[live],
         np.asarray(j_ops.value_magnitude(xj, block_size=64))[live], atol=TOL, rtol=0)
-    _close(t_ref.value_magnitude_ref(xt, 64), j_ref.value_magnitude_ref(xj, 64))
-    _close(t_ops.value_magnitude(xt, block_size=64),
+    _close(t_sm.value_magnitude_plain(xt, block_size=64), j_ref.value_magnitude_ref(xj, 64))
+    _close(t_sm.value_magnitude(xt, block_size=64),
            j_metric.value_block_magnitude(xj, 64))
 
 
