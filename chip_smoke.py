@@ -11,8 +11,8 @@ Phases:
                 build/kernels/, one nvcc per source started together, timed;
                 print each kernel's registers, stack and local memory
                 (cuobjdump -res-usage: spills would show as stack / local
-                bytes) and require HGMMA (wgmma) in the flash and
-                block-sparse libraries.
+                bytes) and require HGMMA (wgmma) in the flash,
+                block-sparse and paged-attention libraries.
   3. kernels  — each kernel against its plain PyTorch version, in fp32 and
                 bf16: the paged kernels at the serving shapes of qwen3-0.6b
                 (hq 16, hk 8, d 128, block 128, stride 16, 126 pages per
@@ -23,15 +23,21 @@ Phases:
                 pool and value-magnitude kernels) at a 16384-token prompt.
                 fp32 outputs within 1e-4 abs; bf16 outputs within 2 bf16
                 ulps of the plain output plus 1e-3 * the max|plain| of the
-                element's row (last axis), except the bf16 flash and
-                block-sparse attention, whose tensor-core tile rounds P to
-                bf16 before P.V: their row floor is 1e-2 * max|plain|.  The
-                same rule must reject the block-sparse kernel's output with
-                one key tile dropped from each row past 4k (the selection of
-                each bf16 attention check: stem's, and every causal block
-                for flash).
-                Kernel, plain and library times from CUDA events, with each
-                kernel's TFLOP/s and share of its bound.  The library calls
+                element's row (last axis), except the bf16 attention on the
+                tensor-core tile (flash, block-sparse, the paged chunk
+                lane), which rounds P to bf16 before P.V: its row floor is
+                1e-2 * max|plain|.  The same rule must reject the
+                block-sparse kernel's output with one key tile dropped from
+                each row past 4k (the selection of each bf16 attention
+                check: stem's, and every causal block for flash), and the
+                chunk lane's output with the last live page dropped from
+                each row that has two or more.  Both page-attention lanes
+                also write exact zeros for cnt == 0 rows.
+                Kernel, plain and library times are device times from CUDA
+                events around calls queued behind a device-side sleep (so a
+                call's host work does not count), with each kernel's TFLOP/s
+                and share of its bound; each kernel's time a call back to
+                back (host work included) is printed beside it.  The library calls
                 are compiled flex_attention over a BlockMask of the same
                 selection (block-sparse attention; page attention over the
                 flattened pool, both lanes) and SDPA (flash), each timed
@@ -150,18 +156,31 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
+def time_ms(fn, iters: int, warmup: int = 2) -> tuple:
+    """(device ms, host-bound ms) per call.  The second: CUDA events around
+    `iters` back-to-back calls, so a call whose host work (checks, launches)
+    outlasts its kernels measures the host.  The first: the same calls
+    queued behind a device-side sleep that outlasts their enqueueing, with
+    the start event after the sleep, so the card runs them back to back and
+    the events see its time alone."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(iters):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
+
+    def run() -> float:
+        t0.record()
+        for _ in range(iters):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) / iters
+
+    host = run()
+    # 1.5x the host-bound run + 1 ms, at ~2e6 cycles a ms (H100 at <= 2 GHz)
+    torch.cuda._sleep(int(2e6 * (1.5 * host * iters + 1.0)))
+    return run(), host
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
@@ -176,10 +195,11 @@ def tolerance(want: torch.Tensor, dtype, p_bf16: bool = False):
     floor of 1e-3 * the max|plain| of its row (the last axis), for values
     near 0.  The floor is per row because an attention row over m keys has
     outputs of about sqrt(e / m): a floor over the whole tensor would be as
-    large as a long row's values.  p_bf16: the bf16 prefill attention
-    kernels round the probabilities P to bf16 before P.V on the tensor
-    cores (as SDPA's and flex_attention's kernels do) while the plain
-    version keeps P in fp32, so their row floor is 1e-2 * max|plain|."""
+    large as a long row's values.  p_bf16: the bf16 attention kernels on
+    the tensor-core tile (flash, block-sparse, the paged chunk lane at page
+    size 128) round the probabilities P to bf16 before P.V (as SDPA's and
+    flex_attention's kernels do) while the plain version keeps P in fp32,
+    so their row floor is 1e-2 * max|plain| in place of 1e-3."""
     if dtype == torch.float32:
         return 1e-4
     ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=1e-30))) - 7)
@@ -226,6 +246,41 @@ def check_rejects_dropped_tile(name, q, k, v, idx, cnt, want, bs) -> None:
         raise AssertionError(f"{name}: the bf16 rule passes a dropped key tile")
 
 
+def check_rejects_dropped_page(name, args, want, bs) -> None:
+    """The p_bf16 rule must see the chunk lane's rows: the chunk kernel's
+    output with the last live page dropped from every row that has two or
+    more (args as attend_pages takes them) must be over the limit in most
+    of those rows."""
+    q, k, v, gp, idx, cnt, pos = args
+    faulted = cnt >= 2
+    got = kern.attend_pages(q, k, v, gp, idx,
+                            torch.where(faulted, cnt - 1, cnt).to(torch.int32),
+                            pos, block_size=bs, causal=True, lane="chunk").float()
+    want = want.float()
+    over = (got - want).abs() / tolerance(want, torch.bfloat16, p_bf16=True)
+    bad = int((over > 1).any(-1)[faulted].sum())
+    rows = int(faulted.sum()) * q.shape[3]
+    log(f"[kernels] {name} with the last live page dropped from each row with "
+        f"two or more: {bad} of {rows} such rows over the limit, max "
+        f"{float(over.max()):.2f}x")
+    if not 2 * bad > rows:
+        raise AssertionError(f"{name}: the bf16 rule passes a dropped page")
+
+
+def check_zero_rows(name, args, *, bs, causal, lane) -> None:
+    """Rows with cnt == 0 (every 7th row here) finalize to exact zeros, and
+    the other rows still match the plain version."""
+    cnt0 = args[5].clone()
+    cnt0.view(-1)[::7] = 0
+    a0 = args[:5] + (cnt0,) + args[6:]
+    got = kern.attend_pages(*a0, block_size=bs, causal=causal, lane=lane)
+    want = kern.attend_pages_plain(*a0, block_size=bs, causal=causal)
+    torch.cuda.synchronize()
+    check_close(name, got, want, p_bf16=causal and got.dtype == torch.bfloat16)
+    if not bool((got[cnt0 == 0] == 0).all()):
+        raise AssertionError(f"{name}: cnt == 0 rows are not exact zeros")
+
+
 def check_library(name: str, lib: torch.Tensor, want: torch.Tensor) -> float:
     """A library call against the port: fp32 within 1e-4 abs; bf16 within
     1e-2 * max|lib| (library kernels may round the probabilities to bf16)."""
@@ -257,7 +312,7 @@ def build_report(libs: dict) -> None:
                 log(f"[build] {stem}: {name} {m.group(1)} registers, stack "
                     f"{m.group(2)} B, local {m.group(3)} B")
                 name = None
-    for stem in ("flash_attention", "block_sparse_attn"):
+    for stem in ("flash_attention", "block_sparse_attn", "paged_attn"):
         sass = run("-sass", str(libs[stem]))
         n = sass.count("HGMMA")
         log(f"[build] {stem}: {n} HGMMA instructions in the SASS")
@@ -368,6 +423,8 @@ def kernel_phase(records: dict, dev=torch.device("cuda")) -> None:
         at_p = kern.attend_pages_plain(*args, block_size=bs, causal=False)
         torch.cuda.synchronize()
         err_a = check_close(f"attend/decode/{tag}", at_k, at_p)
+        check_zero_rows(f"attend/decode/cnt0/{tag}", args, bs=bs, causal=False,
+                        lane="decode")
         run_l = flex_page_attention(args, bs=bs, causal=False, flex=flex)
         check_library(f"attend/decode {tag} vs flex_attention", run_l(), at_p)
         rec_kernel(records, "score", "decode", tag, err, run_k, run_p,
@@ -411,7 +468,12 @@ def kernel_phase(records: dict, dev=torch.device("cuda")) -> None:
         at_k = kern.attend_pages(*args, block_size=bs, causal=True, lane="chunk")
         at_p = kern.attend_pages_plain(*args, block_size=bs, causal=True)
         torch.cuda.synchronize()
-        err_a = check_close(f"attend/chunk/{tag}", at_k, at_p)
+        err_a = check_close(f"attend/chunk/{tag}", at_k, at_p,
+                            p_bf16=dtype == torch.bfloat16)
+        if dtype == torch.bfloat16:
+            check_rejects_dropped_page("attend/chunk", args, at_p, bs)
+        check_zero_rows(f"attend/chunk/cnt0/{tag}", args, bs=bs, causal=True,
+                        lane="chunk")
         run_l = flex_page_attention(args, bs=bs, causal=True, flex=flex)
         check_library(f"attend/chunk {tag} vs flex_attention", run_l(), at_p)
         rec_kernel(records, "attend", "chunk", tag, err_a,
@@ -453,18 +515,19 @@ def attend_bytes_flops(args, out, live_pages, bs, d, rows):
 
 def rec_kernel(records, kernel, lane, tag, err, run_k, run_p, bf, dtype,
                run_lib=None, iters=20, plain_iters=3):
-    ms = time_ms(run_k, iters=iters)
-    plain_ms = time_ms(run_p, iters=plain_iters, warmup=1)
-    lib_ms = None if run_lib is None else time_ms(run_lib, iters=iters)
+    ms, host_ms = time_ms(run_k, iters=iters)
+    plain_ms = time_ms(run_p, iters=plain_iters, warmup=1)[0]
+    lib_ms = None if run_lib is None else time_ms(run_lib, iters=iters)[0]
     bound_ms, bound_by = bound(*bf, dtype)
     tflops = bf[1] / ms * 1e-9
     log(f"[kernels] {kernel}/{lane} {tag}: max_abs_err={err:.3e} "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        f"kernel {ms:.4f} ms ({host_ms:.4f} ms a call back to back), plain "
+        f"{plain_ms:.4f} ms, library "
         f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms, bound {bound_ms:.4f} ms "
         f"({bound_by}); {tflops:.1f} TFLOP/s, {bound_ms / ms:.3f} of bound")
     records.setdefault(f"{kernel}/{lane}", {})[tag] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=lib_ms, tflops=tflops)
+        max_abs_err=err, ms=ms, host_ms=host_ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms, tflops=tflops)
 
 
 # ---------------------------------------------------------------------------
@@ -647,10 +710,13 @@ sampling_lib.register_sampler("greedy-finite", FiniteGreedy)
 
 
 def profile_summary(prof, wall: float, top: int = 12) -> None:
-    """Device time by kernel name and the device's busy share of the run."""
-    rows = []
+    """Device time by kernel name and the device's busy share of the run,
+    then host time by operator (self CPU time: where a host-bound run
+    goes)."""
+    rows, host = [], []
     for ev in prof.key_averages():
         if not str(ev.device_type).endswith("CUDA"):
+            host.append((ev.self_cpu_time_total / 1e3, ev.count, ev.key))
             continue                       # CPU ops: their kernels count below
         t = getattr(ev, "self_device_time_total", None)
         if t is None:
@@ -658,11 +724,15 @@ def profile_summary(prof, wall: float, top: int = 12) -> None:
         if t > 0:
             rows.append((t / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
+    host.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e3
     log(f"[profile] device busy {busy:.3f} s of {wall:.3f} s wall "
         f"(busy share {busy / wall:.3f}; profiler on)")
     for ms, count, name in rows[:top]:
         log(f"[profile] {ms:10.1f} ms {count:7d} calls  {name[:90]}")
+    log(f"[profile] host self time {sum(r[0] for r in host) / 1e3:.3f} s by operator:")
+    for ms, count, name in host[:top]:
+        log(f"[profile] host {ms:10.1f} ms {count:7d} calls  {name[:85]}")
 
 
 def engine_phase(profile: bool = False) -> dict:
@@ -988,8 +1058,9 @@ def main() -> None:
             name=f"paged_{kernel}/{lane}", route="cuda", source=SOURCE,
             replaces=REPLACES[kernel], launches=launches[key],
             max_abs_err=max(r["max_abs_err"] for r in records[key].values()),
-            ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
-            bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+            ms=rec["ms"], host_ms=rec["host_ms"], plain_ms=rec["plain_ms"],
+            bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+            library_ms=rec["library_ms"],
             fp32=records[key]["float32"]))
     for key, _, counter, source, replaces in PREFILL_KERNELS:
         rec = records[f"{key}/prefill"]["bfloat16"]
@@ -998,8 +1069,9 @@ def main() -> None:
             launches=mono_launches[counter],
             max_abs_err=max(r["max_abs_err"]
                             for r in records[f"{key}/prefill"].values()),
-            ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
-            bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+            ms=rec["ms"], host_ms=rec["host_ms"], plain_ms=rec["plain_ms"],
+            bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+            library_ms=rec["library_ms"],
             fp32=records[f"{key}/prefill"]["float32"]))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -6,7 +6,8 @@
 // One CTA owns 128 query rows of one (batch, query head) at head_dim 128
 // and walks a sequence of 128-key tiles that the kernel names (a `Tiles`
 // iterator: flash walks 0..diagonal, block-sparse the row's selected
-// blocks).  384 threads in three warpgroups:
+// blocks, the paged chunk lane the row's selected pages through the page
+// table).  384 threads in three warpgroups:
 //
 //   * warpgroup 0, the producer, gives its registers up (setmaxnreg) and one
 //     thread issues the TMA loads: Q once, then for each key tile a K and a
@@ -17,7 +18,8 @@
 //     the tile.  Per key tile: S = Q.K^T by 8 wgmma.m64n128k16 with A and B
 //     both K-major in shared memory; the online softmax on S's registers
 //     (exp2f, scale * log2 e folded into one multiply, the causal mask only
-//     on the diagonal tile); P rounded to bf16 in registers becomes the A
+//     on a tile that is not wholly visible); P rounded to bf16 in registers
+//     becomes the A
 //     operand of O += P.V (8 more wgmma, V read MN-major through the
 //     transpose bit).  The accumulator layout of S is the register layout
 //     of wgmma's A operand, so P never touches shared memory.
@@ -232,12 +234,16 @@ __device__ __forceinline__ void value_tile(float (&o)[64], const uint32_t (&p)[8
   fence_regs(o);
 }
 
-// The producer / consumer pipeline of one CTA.  `tiles.next(k0, diag)`
-// yields the key offset (within the KV head's rows) of each 128-key tile
-// to attend, and whether it is the diagonal tile; producer and consumers
-// walk their own copies of the same sequence.  q_row / kv_row: the first
-// global row of the Q tile and of the KV head in the tensor maps; out: the
-// tile's first output row; valid_rows: rows of the tile to write.
+// The producer / consumer pipeline of one CTA.  `tiles.next(k0, off)`
+// yields the row offset k0 (from kv_row) of each 128-key tile to attend,
+// and off = (token of its key 0) - (token of query row 0): key column c is
+// masked from query row r where c + off > r, so a tile with off <= -kBN is
+// wholly visible and takes no mask (flash and block-sparse give off = 0 on
+// their diagonal tile; the paged chunk lane any offset, for a chunk that
+// starts anywhere).  Producer and consumers walk their own copies of the
+// same sequence.  q_row / kv_row: the first global row of the Q tile and of
+// the KV head in the tensor maps; out: the tile's first output row;
+// valid_rows: rows of the tile to write.
 template <class Tiles>
 __device__ __forceinline__ void attend_tile(uint8_t* smem_raw, const CUtensorMap* tq,
                                             const CUtensorMap* tk, const CUtensorMap* tv,
@@ -261,9 +267,8 @@ __device__ __forceinline__ void attend_tile(uint8_t* smem_raw, const CUtensorMap
     if (threadIdx.x == 0) {
       mbar_expect_tx(&sm.q_full, kTileBytes);
       tma_tile(sm.q, tq, &sm.q_full, static_cast<int>(q_row));
-      int k0, it = 0;
-      bool diag;
-      while (tiles.next(k0, diag)) {
+      int k0, off, it = 0;
+      while (tiles.next(k0, off)) {
         const int s = it % kStages;
         mbar_wait(&sm.empty[s], ((it / kStages) & 1) ^ 1);
         const int row = static_cast<int>(kv_row + k0);
@@ -289,17 +294,18 @@ __device__ __forceinline__ void attend_tile(uint8_t* smem_raw, const CUtensorMap
     const uint32_t q_addr = smem_u32(sm.q) + c * 64 * 128;
     mbar_wait(&sm.q_full, 0);
 
-    int k0, it = 0;
-    bool diag;
-    while (tiles.next(k0, diag)) {
+    int k0, off, it = 0;
+    while (tiles.next(k0, off)) {
       const int st = it % kStages;
       const uint32_t ph = (it / kStages) & 1;
+      const bool masked = off > -kBN;
       mbar_wait(&sm.full_k[st], ph);
       float s[64];
       score_tile(s, q_addr, smem_u32(sm.k[st]));
 
-      // online softmax; a processed tile leaves every row at least one key
-      // (its own on the diagonal), so m stays finite after the first tile
+      // online softmax; a row that has seen no key yet (m = -inf, possible
+      // on a partly visible tile) exponentiates against 0, not -inf, so it
+      // adds exact zeros instead of NaN
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         float mx = -INFINITY;
@@ -308,20 +314,21 @@ __device__ __forceinline__ void attend_tile(uint8_t* smem_raw, const CUtensorMap
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             float x = s[4 * j + 2 * h + e] * sc;
-            if (diag && 8 * j + 2 * t + e > row0 + 8 * h) x = -INFINITY;
+            if (masked && 8 * j + 2 * t + e + off > row0 + 8 * h) x = -INFINITY;
             s[4 * j + 2 * h + e] = x;
             mx = fmaxf(mx, x);
           }
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
         const float m_new = fmaxf(m[h], mx);
-        const float corr = exp2f(m[h] - m_new);
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;
+        const float corr = exp2f(m[h] - m_use);
         float sum = 0.f;
 #pragma unroll
         for (int j = 0; j < 16; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const float p = exp2f(s[4 * j + 2 * h + e] - m_new);
+            const float p = exp2f(s[4 * j + 2 * h + e] - m_use);
             s[4 * j + 2 * h + e] = p;
             sum += p;
           }

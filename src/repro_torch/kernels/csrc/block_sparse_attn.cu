@@ -93,16 +93,17 @@ int launch(const void* q, const void* k, const void* v, const int* idx,
 }
 
 // bf16 on the tensor cores: the 128-key tiles of the row's live selected
-// blocks that hold a key at or below the tile's first query row q0.
+// blocks that hold a key at or below the tile's first query row q0; only
+// the diagonal one (off 0) is masked.
 struct SparseTiles {
   const int* ids;
   int live, nq, bs, q0, s, k;     // k: next key offset inside block ids[s]
-  __device__ __forceinline__ bool next(int& k0, bool& diag) {
+  __device__ __forceinline__ bool next(int& k0, int& off) {
     while (s < live) {
       const int j = ids[s];
       if (j >= 0 && j < nq && k < bs && j * bs + k <= q0) {
         k0 = j * bs + k;
-        diag = k0 == q0;
+        off = k0 - q0;
         k += stem_wg::kBN;
         return true;
       }

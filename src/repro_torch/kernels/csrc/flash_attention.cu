@@ -67,13 +67,14 @@ int launch(const void* q, const void* k, const void* v, void* out, int b, int hq
   return (int)cudaGetLastError();
 }
 
-// bf16 on the tensor cores: the key tiles 0..last of one query tile.
+// bf16 on the tensor cores: the key tiles 0..last of one query tile; only
+// the diagonal one (off 0) is masked.
 struct FlashTiles {
   int t, last;
-  __device__ __forceinline__ bool next(int& k0, bool& diag) {
+  __device__ __forceinline__ bool next(int& k0, int& off) {
     if (t > last) return false;
     k0 = t * stem_wg::kBN;
-    diag = t == last;
+    off = (t - last) * stem_wg::kBN;
     ++t;
     return true;
   }

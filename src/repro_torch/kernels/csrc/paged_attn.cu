@@ -3,11 +3,12 @@
 //
 // Built by repro_torch/kernels/_build.py with nvcc into a shared library
 // with a plain C interface (no PyTorch headers), loaded with ctypes.  Each
-// entry point launches on the caller's stream, allocates nothing, and
-// returns cudaGetLastError() of its launch.  The Python wrappers in
-// repro_torch/kernels/paged_attn.py check device, dtype, shape and
-// contiguity before calling in, and hold the plain PyTorch versions these
-// kernels are tested against.
+// entry point launches on the caller's stream, allocates nothing (the
+// decode lane's split partials go to a workspace the wrapper allocates),
+// and returns cudaGetLastError() of its launches.  The Python wrappers in
+// repro_torch/kernels/paged_attn.py check device, dtype, shape, contiguity
+// and alignment before calling in, and hold the plain PyTorch versions
+// these kernels are tested against.
 //
 // stem_paged_score   replaces _score_kernel  (src/repro/kernels/paged_attn.py:142)
 // stem_paged_attend  replaces _attend_kernel (src/repro/kernels/paged_attn.py:249)
@@ -21,24 +22,47 @@
 //    rows (the Pallas grid (b*hq, maxp) re-reads it g times).  The page id
 //    comes from the page table in global memory; reductions are fp32.
 //  * Attention reads each selected K/V page and does 4*rows*bs*d flops
-//    against it.  The decode lane (one query row per head) is bytes-bound;
-//    the chunk lane (block_size query rows) is compute-bound.  This first
-//    version runs the products on the fp32 CUDA cores (no wgmma/TMA yet):
-//      - decode: a CTA owns (batch row, KV head) with the g query heads of
-//        the group; its warps split each head's selected pages (flash-
-//        decoding inside the CTA, partial softmax states merged in shared
-//        memory), reading K/V with lanes across head_dim so every load is
-//        coalesced.  Heads of a group that selected the same page re-read
-//        it from L1/L2, not HBM.
-//      - chunk: a CTA owns (batch row, KV head, chunk row); for each query
-//        head of the group it stages each selected page's K and V in shared
-//        memory once (fp32, K padded to avoid bank conflicts) and all warps
-//        stream the block_size query rows against it, keeping each row's
-//        online-softmax state (m, l, acc) in shared memory.
-//    Masked probabilities are zeroed explicitly (a fully masked first page
-//    adds nothing), and a row with cnt == 0 finalizes 0 / 1e-20 = exact 0.
+//    against it.
+//      - decode (one query row per head): bytes-bound, and a row's pages
+//        are few CTAs' worth of work, so it is split across the card
+//        (flash-decoding).  attend_split_kernel's grid is (hq * nc,
+//        splits, b), heads fastest; each CTA takes a contiguous range of
+//        pages_per_split of its row's live slots in page order (it ranks
+//        the slots by logical page itself), so the g heads of a KV head,
+//        which select mostly the same pages, read them side by side and
+//        the second read can come from L2.  It streams their K and V
+//        through a 3-stage shared-memory ring of 16 KiB chunks, one
+//        cp.async.bulk per operand completing on an mbarrier, issued by a
+//        producer warp, so the next chunks are in flight while this one is
+//        scored.  Eight consumer warps work as 16 half-warps: 16 lanes own
+//        a key, each reading a 16-byte piece of its row, and reduce its dot
+//        product in 4 shuffles; each half-warp keeps its own online-softmax
+//        state (m, l, acc) in registers, merged through shared memory at
+//        the CTA's end into one fp32 partial.  A split past the row's live
+//        count exits at once.  attend_combine_kernel rescales the row's
+//        live partials by exp(m_s - m_max) and finalizes
+//        acc / max(l, 1e-20).  fp32 math throughout (P is never rounded),
+//        for fp32 and bf16 alike.
+//      - chunk (block_size query rows): compute-bound.  bf16 at page size
+//        128 runs on the tensor cores: attend_chunk_wgmma_kernel is the
+//        one-shot prefill's TMA + wgmma tile (attn_wgmma.cuh) with the
+//        page table in its producer: one CTA per (query head, chunk row,
+//        batch row), heads fastest, each selected page one 128-key TMA
+//        tile at row (kv_head * P + page) * 128 of the flattened pool,
+//        pages above the tile's last query skipped, the causal mask at
+//        absolute positions only on pages not wholly visible (the chunk
+//        may start anywhere).  P is rounded to bf16 before P.V.  fp32 (and
+//        bf16 at other page sizes) keep attend_tile_kernel on the fp32
+//        CUDA cores: it stages each selected page's K and V in shared
+//        memory and all warps stream the query rows against it, keeping
+//        each row's online-softmax state in shared memory.
+//    Page ids outside [0, P) are skipped; masked probabilities are exact
+//    zeros, and a row with cnt == 0 finalizes 0 / 1e-20 = exact 0.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
+
+#include "attn_wgmma.cuh"
 
 namespace {
 
@@ -116,124 +140,328 @@ score_kernel(const float* __restrict__ qp, long long sb, long long sh,
 }
 
 // ---------------------------------------------------------------------------
-// Attention over selected pages, one query row per (head, chunk row):
-// the decode lane, keeping tokens < pos[b].  grid (nc, hk, b); dynamic smem
-// nw * (D + 2) floats.
-// Layouts: q/out (b, hq, nc, 1, D); gp/idx (b, hq, nc, kmax); cnt (b, hq, nc).
+// Decode lane, split across the card: one query row per (head, chunk row),
+// keeping tokens < pos[b].
+// Layouts: q/out (b, hq, nc, 1, 128); gp/idx (b, hq, nc, kmax); cnt
+// (b, hq, nc); ws (b * hq * nc, splits, 128 + 2) fp32 partials (acc, m, l),
+// m in log2 units.
 // ---------------------------------------------------------------------------
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-attend_row_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
-                  const T* __restrict__ vpool, const int* __restrict__ gp,
-                  const int* __restrict__ idx, const int* __restrict__ cnt,
-                  const int* __restrict__ pos, T* __restrict__ out, int hq,
-                  int hk, int nc, int kmax, int bs, int num_pages, float scale) {
-  constexpr int C = D / kWarp;             // head_dim columns per lane
-  extern __shared__ float part_s[];        // per warp: acc[D], m, l
-  const int ci = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int g = hq / hk;
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int nw = blockDim.x / kWarp;
-  const int limit = pos[b];                // tokens < limit kept
-  float* part = part_s + warp * (D + 2);
+constexpr int kSplitWarps = 8;                               // consumer warps
+constexpr int kSplitThreads = (kSplitWarps + 1) * kWarp;     // + a producer warp
+constexpr int kHalves = 2 * kSplitWarps;                     // 16 lanes a key
+constexpr int kSplitStages = 3;
+constexpr int kChunkBytes = 16384;                           // K (or V) of a stage
+constexpr int kMaxSplitPages = 16;                           // pages_per_split <= this
 
-  for (int gi = 0; gi < g; ++gi) {
-    const long long row = ((long long)b * hq + kvh * g + gi) * nc + ci;
-    float qr[C], acc[C];
+struct SplitSmem {
+  uint8_t k[kSplitStages][kChunkBytes];
+  uint8_t v[kSplitStages][kChunkBytes];
+  float acc[kHalves][128];
+  float m[kHalves];
+  float l[kHalves];
+  int slot[kMaxSplitPages];                                  // this split's slots
+  uint64_t full[kSplitStages];
+  uint64_t empty[kSplitStages];
+};
+
+// One bulk copy global -> shared of `bytes` (a multiple of 16; both
+// addresses 16-byte aligned), completing on `bar`'s transaction count.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(stem_wg::smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(stem_wg::smem_u32(bar))
+      : "memory");
+}
+
+// A 16-byte piece of a row as floats: 4 fp32 or 8 bf16 values.
+__device__ __forceinline__ void load_piece(const float* p, float (&x)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x;
+  x[1] = v.y;
+  x[2] = v.z;
+  x[3] = v.w;
+}
+
+__device__ __forceinline__ void load_piece(const __nv_bfloat16* p, float (&x)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      qr[c] = to_f32(q[row * D + lane + kWarp * c]) * scale;
-      acc[c] = 0.f;
-    }
-    float m = kNegInf, l = 0.f;
-    const int n = cnt[row];
-    for (int sl = warp; sl < n; sl += nw) {
-      const long long base =
-          ((long long)kvh * num_pages + gp[row * kmax + sl]) * bs * D;
-      const int tok0 = idx[row * kmax + sl] * bs;
-      const T* kp = kpool + base;
-      const T* vp = vpool + base;
-      float sv[kMaxKeyTiles];
-#pragma unroll
-      for (int t = 0; t < kMaxKeyTiles; ++t) {
-        sv[t] = kNegInf;
-        for (int jj = 0; jj < kWarp; ++jj) {
-          const int j = t * kWarp + jj;
-          if (j >= bs) break;
-          float dot = 0.f;
-#pragma unroll
-          for (int c = 0; c < C; ++c) dot += qr[c] * to_f32(kp[j * D + lane + kWarp * c]);
-          dot = warp_sum(dot);
-          if (lane == jj) sv[t] = dot;
-        }
-      }
-      bool keep[kMaxKeyTiles];
-      float mx = kNegInf;
-#pragma unroll
-      for (int t = 0; t < kMaxKeyTiles; ++t) {
-        const int j = t * kWarp + lane;
-        keep[t] = j < bs && tok0 + j < limit;
-        if (!keep[t]) sv[t] = kNegInf;
-        mx = fmaxf(mx, sv[t]);
-      }
-      mx = warp_max(mx);
-      const float m_new = fmaxf(m, mx);
-      const float corr = expf(m - m_new);
-      float pr[kMaxKeyTiles], ps = 0.f;
-#pragma unroll
-      for (int t = 0; t < kMaxKeyTiles; ++t) {
-        pr[t] = keep[t] ? expf(sv[t] - m_new) : 0.f;
-        ps += pr[t];
-      }
-      ps = warp_sum(ps);
-      l = l * corr + ps;
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc[c] *= corr;
-#pragma unroll
-      for (int t = 0; t < kMaxKeyTiles; ++t) {
-        for (int jj = 0; jj < kWarp; ++jj) {
-          const int j = t * kWarp + jj;
-          if (j >= bs) break;
-          const float pj = __shfl_sync(0xffffffffu, pr[t], jj);
-#pragma unroll
-          for (int c = 0; c < C; ++c) acc[c] += pj * to_f32(vp[j * D + lane + kWarp * c]);
-        }
-      }
-      m = m_new;
-    }
-    // Merge the warps' partial softmax states for this head.
-#pragma unroll
-    for (int c = 0; c < C; ++c) part[lane + kWarp * c] = acc[c];
-    if (lane == 0) {
-      part[D] = m;
-      part[D + 1] = l;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      float mm = kNegInf;
-      for (int w = 0; w < nw; ++w) mm = fmaxf(mm, part_s[w * (D + 2) + D]);
-      float ll = 0.f, o[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c) o[c] = 0.f;
-      for (int w = 0; w < nw; ++w) {
-        const float* pw = part_s + w * (D + 2);
-        const float f = expf(pw[D] - mm);
-        ll += pw[D + 1] * f;
-#pragma unroll
-        for (int c = 0; c < C; ++c) o[c] += pw[lane + kWarp * c] * f;
-      }
-      ll = fmaxf(ll, 1e-20f);
-#pragma unroll
-      for (int c = 0; c < C; ++c) out[row * D + lane + kWarp * c] = from_f32<T>(o[c] / ll);
-    }
-    __syncthreads();
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
   }
 }
 
+// The key chunks of one split: each of its slots (slot[0 .. n)) whose page
+// id lies in [0, P) gives its page's chunks of at most kc keys, up to the
+// one holding the last token before `limit` (later keys are all masked).
+// Yields the chunk's element offset within the KV head's pool, its first
+// token and its key count.
+struct DecodeChunks {
+  const int* gp;
+  const int* idx;
+  const int* slot;
+  int s, n, num_pages, bs, kc, limit, c;   // c: next key inside page gp[slot[s]]
+  __device__ __forceinline__ bool next(long long& src, int& tok0, int& nk) {
+    while (s < n) {
+      const int page = gp[slot[s]];
+      const int t0 = idx[slot[s]] * bs + c;
+      if (page >= 0 && page < num_pages && c < bs && t0 < limit) {
+        src = ((long long)page * bs + c) * 128;
+        tok0 = t0;
+        nk = min(kc, bs - c);
+        c += kc;
+        return true;
+      }
+      ++s;
+      c = 0;
+    }
+    return false;
+  }
+};
+
+// grid (hq * nc, splits, b), heads fastest; split y takes the live slots of
+// ranks [y * pps, (y + 1) * pps) in page order (logical id, then slot), so
+// the g heads of a KV head, which select mostly the same pages, read them
+// side by side and the second read can come from L2.  A split past the
+// row's live count exits at once and writes nothing.  Dynamic smem
+// sizeof(SplitSmem).
+template <typename T>
+__global__ void __launch_bounds__(kSplitThreads, 2)
+attend_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
+                    const T* __restrict__ vpool, const int* __restrict__ gp,
+                    const int* __restrict__ idx, const int* __restrict__ cnt,
+                    const int* __restrict__ pos, float* __restrict__ ws, int hq,
+                    int hk, int nc, int kmax, int bs, int num_pages, int pps,
+                    float scale) {
+  constexpr int D = 128;
+  constexpr int V = 16 / sizeof(T);                  // values in a 16-byte piece
+  constexpr int NP = D / (16 * V);                   // pieces a lane holds: 1 / 2
+  constexpr int KC = kChunkBytes / (D * sizeof(T));  // keys a chunk: 64 / 32
+  constexpr int KH = KC / kHalves;                   // keys a half-warp a chunk
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  SplitSmem& sm = *reinterpret_cast<SplitSmem*>(smem_raw);
+  const int h = blockIdx.x % hq, ci = blockIdx.x / hq, b = blockIdx.z;
+  const int kvh = h / (hq / hk);
+  const long long row = ((long long)b * hq + h) * nc + ci;
+  const int n = min(cnt[row], kmax);
+  const int s0 = blockIdx.y * pps;
+  if (s0 >= n) return;                               // the combine reads no partial
+  const int limit = pos[b];
+  const long long head = (long long)kvh * num_pages * bs * D;
+  const int* gpr = gp + row * kmax;
+  const int* idr = idx + row * kmax;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int key = idr[i];
+    int r = 0;
+    for (int j = 0; j < n; ++j) {
+      const int kj = idr[j];
+      r += kj < key || (kj == key && j < i);
+    }
+    if (r >= s0 && r < s0 + pps) sm.slot[r - s0] = i;
+  }
+  DecodeChunks chunks{gpr, idr, sm.slot, 0, min(pps, n - s0), num_pages, bs, KC, limit, 0};
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kSplitStages; ++st) {
+      stem_wg::mbar_init(&sm.full[st], 1);
+      stem_wg::mbar_init(&sm.empty[st], kSplitWarps * kWarp);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  if (warp == kSplitWarps) {
+    // ---- producer warp: one lane issues every copy ----
+    if (lane == 0) {
+      long long src;
+      int tok0, nk, it = 0;
+      while (chunks.next(src, tok0, nk)) {
+        const int st = it % kSplitStages;
+        stem_wg::mbar_wait(&sm.empty[st], ((it / kSplitStages) & 1) ^ 1);
+        const uint32_t bytes = nk * D * sizeof(T);
+        stem_wg::mbar_expect_tx(&sm.full[st], 2 * bytes);
+        bulk_load(sm.k[st], kpool + head + src, bytes, &sm.full[st]);
+        bulk_load(sm.v[st], vpool + head + src, bytes, &sm.full[st]);
+        ++it;
+      }
+    }
+    __syncwarp();
+  } else {
+    // ---- consumers: half-warp hw owns keys hw, hw + 16, ... of a chunk;
+    //      lane li the dims of pieces li, li + 16 (16-byte loads) ----
+    const int hw = 2 * warp + (lane >> 4), li = lane & 15;
+    const float qs = scale * 1.4426950408889634f;    // scores in log2 units
+    float qr[NP * V], acc[NP * V];
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      float x[V];
+      load_piece(q + row * D + (p * 16 + li) * V, x);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        qr[p * V + e] = x[e] * qs;
+        acc[p * V + e] = 0.f;
+      }
+    }
+    float m = -INFINITY, l = 0.f;
+    long long src;
+    int tok0, nk, it = 0;
+    while (chunks.next(src, tok0, nk)) {
+      const int st = it % kSplitStages;
+      stem_wg::mbar_wait(&sm.full[st], (it / kSplitStages) & 1);
+      const T* ks = reinterpret_cast<const T*>(sm.k[st]);
+      const T* vs = reinterpret_cast<const T*>(sm.v[st]);
+      float sc[KH];
+      float mx = -INFINITY;
+#pragma unroll
+      for (int kk = 0; kk < KH; ++kk) {
+        const int j = hw + kk * kHalves;
+        const T* krow = ks + min(j, nk - 1) * D;     // a short chunk re-reads its last key
+        float dot = 0.f;
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          float x[V];
+          load_piece(krow + (p * 16 + li) * V, x);
+#pragma unroll
+          for (int e = 0; e < V; ++e) dot += qr[p * V + e] * x[e];
+        }
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+        sc[kk] = (j < nk && tok0 + j < limit) ? dot : -INFINITY;
+        mx = fmaxf(mx, sc[kk]);
+      }
+      // online softmax; a state that has seen no key (m = -inf) takes 0 in
+      // place of m, so masked keys add exact zeros
+      const float m_new = fmaxf(m, mx);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float corr = exp2f(m - m_use);
+      l *= corr;
+#pragma unroll
+      for (int i = 0; i < NP * V; ++i) acc[i] *= corr;
+#pragma unroll
+      for (int kk = 0; kk < KH; ++kk) {
+        const float pk = exp2f(sc[kk] - m_use);
+        l += pk;
+        const T* vrow = vs + min(hw + kk * kHalves, nk - 1) * D;
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          float x[V];
+          load_piece(vrow + (p * 16 + li) * V, x);
+#pragma unroll
+          for (int e = 0; e < V; ++e) acc[p * V + e] += pk * x[e];
+        }
+      }
+      m = m_new;
+      stem_wg::mbar_arrive(&sm.empty[st]);
+      ++it;
+    }
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int e = 0; e < V; ++e) sm.acc[hw][(p * 16 + li) * V + e] = acc[p * V + e];
+    if (li == 0) {
+      sm.m[hw] = m;
+      sm.l[hw] = l;
+    }
+  }
+  __syncthreads();
+  // merge the 16 half-warp states into this split's partial
+  if (threadIdx.x < D) {
+    const int d = threadIdx.x;
+    float mm = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < kHalves; ++i) mm = fmaxf(mm, sm.m[i]);
+    const float mu = mm == -INFINITY ? 0.f : mm;
+    float ll = 0.f, a = 0.f;
+#pragma unroll
+    for (int i = 0; i < kHalves; ++i) {
+      const float f = exp2f(sm.m[i] - mu);
+      ll += f * sm.l[i];
+      a += f * sm.acc[i][d];
+    }
+    float* part = ws + (row * gridDim.y + blockIdx.y) * (D + 2);
+    part[d] = a;
+    if (d == 0) {
+      part[D] = mm;
+      part[D + 1] = ll;
+    }
+  }
+}
+
+// grid (b * hq * nc); 128 threads, one per head_dim column: merges the
+// partials of a row's live splits (ceil(min(cnt, kmax) / pps) of them) and
+// finalizes acc / max(l, 1e-20) (cnt == 0 rows: 0).
+template <typename T>
+__global__ void __launch_bounds__(128)
+attend_combine_kernel(const float* __restrict__ ws, const int* __restrict__ cnt,
+                      T* __restrict__ out, int kmax, int splits, int pps) {
+  constexpr int D = 128;
+  const long long row = blockIdx.x;
+  const int live = (min(cnt[row], kmax) + pps - 1) / pps;
+  const int d = threadIdx.x;
+  const float* w = ws + row * splits * (D + 2);
+  float mm = -INFINITY;
+  for (int s = 0; s < live; ++s) mm = fmaxf(mm, w[s * (D + 2) + D]);
+  const float mu = mm == -INFINITY ? 0.f : mm;
+  float ll = 0.f, a = 0.f;
+  for (int s = 0; s < live; ++s) {
+    const float f = exp2f(w[s * (D + 2) + D] - mu);  // 0 for a split that saw no key
+    ll += f * w[s * (D + 2) + D + 1];
+    a += f * w[s * (D + 2) + d];
+  }
+  out[row * D + d] = from_f32<T>(a / fmaxf(ll, 1e-20f));
+}
+
 // ---------------------------------------------------------------------------
-// Attention over selected pages for a tile of `rows` query rows per
-// (head, chunk row): the chunk lane, causal at absolute positions (query
-// row r of chunk row ci sits at pos[b] + ci * rows + r).  grid (nc, hk, b).
+// Chunk lane, bf16 at page size 128, on the tensor cores: the selected pages
+// of one (query head, chunk row, batch row) as 128-key tiles of the shared
+// TMA + wgmma tile.  Query row r of chunk row ci sits at token
+// pos[b] + ci * 128 + r.
+// ---------------------------------------------------------------------------
+struct PagedTiles {
+  const int* gp;
+  const int* idx;
+  int live, num_pages, q_tok0, s;
+  __device__ __forceinline__ bool next(int& k0, int& off) {
+    while (s < live) {
+      const int page = gp[s], k_tok0 = idx[s] * stem_wg::kBN;
+      ++s;
+      if (page < 0 || page >= num_pages || k_tok0 > q_tok0 + stem_wg::kBM - 1) continue;
+      k0 = page * stem_wg::kBN;
+      off = k_tok0 - q_tok0;
+      return true;
+    }
+    return false;
+  }
+};
+
+__global__ void __launch_bounds__(stem_wg::kThreads, 1)
+attend_chunk_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const int* __restrict__ gp, const int* __restrict__ idx,
+                          const int* __restrict__ cnt, const int* __restrict__ pos,
+                          __nv_bfloat16* __restrict__ out, int hq, int hk, int nc,
+                          int kmax, int num_pages, float scale) {
+  extern __shared__ uint8_t smem_wg[];
+  const int h = blockIdx.x, ci = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (hq / hk);
+  const long long row = ((long long)b * hq + h) * nc + ci;
+  const long long q_row = row * stem_wg::kBM;
+  const long long kv_row = (long long)kvh * num_pages * stem_wg::kBN;
+  const PagedTiles sel{gp + row * kmax, idx + row * kmax, min(cnt[row], kmax), num_pages,
+                       pos[b] + ci * stem_wg::kBM, 0};
+  stem_wg::attend_tile(smem_wg, &tq, &tk, &tv, q_row, kv_row, sel, out + q_row * stem_wg::kD,
+                       stem_wg::kBM, scale);
+}
+
+// ---------------------------------------------------------------------------
+// Chunk lane on the fp32 CUDA cores (fp32, and bf16 at page sizes other
+// than 128): a tile of `rows` query rows per (head, chunk row), causal at
+// absolute positions.  grid (nc, hk, b).
 // Dynamic smem (floats): K bs*(D+1) | V bs*D | acc rows*D | m,l rows*2 |
 //                        q nw*D | p nw*bs.
 // ---------------------------------------------------------------------------
@@ -268,11 +496,14 @@ attend_tile_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
       ml_s[2 * r] = kNegInf;
       ml_s[2 * r + 1] = 0.f;
     }
-    const int n = cnt[row];
+    const int n = min(cnt[row], kmax);
     for (int sl = 0; sl < n; ++sl) {
-      const long long base =
-          ((long long)kvh * num_pages + gp[row * kmax + sl]) * bs * D;
-      const int tok0 = idx[row * kmax + sl] * bs;
+      // an out-of-range id reads page 0 with every key masked, so every
+      // thread meets the same barriers
+      const int page = gp[row * kmax + sl];
+      const bool ok = page >= 0 && page < num_pages;
+      const long long base = ((long long)kvh * num_pages + (ok ? page : 0)) * bs * D;
+      const int tok0 = ok ? idx[row * kmax + sl] * bs : INT_MAX / 2;
       __syncthreads();                     // previous page fully consumed
       for (int i = threadIdx.x; i < bs * D; i += blockDim.x) {
         const int j = i / D, c = i - j * D;
@@ -349,27 +580,62 @@ size_t tile_smem_bytes(int d, int rows, int bs) {
                           (size_t)rows * 2 + (size_t)nw * d + (size_t)nw * bs);
 }
 
-template <typename T, int D>
-int launch_attend(const void* q, const void* k, const void* v, const int* gp,
+// Splits of the decode lane's grid: a row's kmax slots in ranges of pps;
+// 0 for a shape the split kernel does not take.
+int decode_splits(int kmax, int pps) {
+  if (pps <= 0 || pps > kMaxSplitPages || kmax < 0) return 0;
+  return kmax == 0 ? 1 : (kmax + pps - 1) / pps;
+}
+
+template <typename T>
+int launch_decode(const void* q, const void* k, const void* v, const int* gp,
                   const int* idx, const int* cnt, const int* pos, void* out,
-                  int b, int hq, int hk, int nc, int rows, int bs, int kmax,
-                  int num_pages, float scale, cudaStream_t stream) {
-  const dim3 grid(nc, hk, b);
-  if (rows == 1) {
-    const size_t smem = sizeof(float) * (kThreads / kWarp) * (D + 2);
-    attend_row_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, gp, idx, cnt, pos, (T*)out, hq,
-        hk, nc, kmax, bs, num_pages, scale);
-  } else {
-    const size_t smem = tile_smem_bytes(D, rows, bs);
-    cudaError_t err = cudaFuncSetAttribute(
-        attend_tile_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    attend_tile_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, gp, idx, cnt, pos, (T*)out, hq,
-        hk, nc, rows, kmax, bs, num_pages, scale);
-  }
+                  float* ws, int b, int hq, int hk, int nc, int bs, int kmax,
+                  int num_pages, int splits, int pps, float scale, cudaStream_t stream) {
+  if (splits <= 0 || splits != decode_splits(kmax, pps)) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(SplitSmem);
+  cudaError_t err = cudaFuncSetAttribute(
+      attend_split_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  attend_split_kernel<T><<<dim3(hq * nc, splits, b), kSplitThreads, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, gp, idx, cnt, pos, ws, hq, hk, nc, kmax,
+      bs, num_pages, pps, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  attend_combine_kernel<T><<<b * hq * nc, 128, 0, stream>>>(ws, cnt, (T*)out, kmax, splits,
+                                                            pps);
+  return (int)cudaGetLastError();
+}
+
+int launch_chunk_wgmma(const void* q, const void* k, const void* v, const int* gp,
+                       const int* idx, const int* cnt, const int* pos, void* out, int b,
+                       int hq, int hk, int nc, int kmax, int num_pages, float scale,
+                       cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  const long long kv_rows = (long long)hk * num_pages * stem_wg::kBN;
+  if (!stem_wg::make_map(&tq, q, (long long)b * hq * nc * stem_wg::kBM) ||
+      !stem_wg::make_map(&tk, k, kv_rows) || !stem_wg::make_map(&tv, v, kv_rows))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = stem_wg::prepare(attend_chunk_wgmma_kernel);
+  if (err != cudaSuccess) return (int)err;
+  attend_chunk_wgmma_kernel<<<dim3(hq, nc, b), stem_wg::kThreads, stem_wg::kSmemBytes,
+                              stream>>>(tq, tk, tv, gp, idx, cnt, pos,
+                                        (__nv_bfloat16*)out, hq, hk, nc, kmax,
+                                        num_pages, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_tile(const void* q, const void* k, const void* v, const int* gp,
+                const int* idx, const int* cnt, const int* pos, void* out, int b,
+                int hq, int hk, int nc, int rows, int bs, int kmax, int num_pages,
+                float scale, cudaStream_t stream) {
+  const size_t smem = tile_smem_bytes(D, rows, bs);
+  cudaError_t err = cudaFuncSetAttribute(
+      attend_tile_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  attend_tile_kernel<T, D><<<dim3(nc, hk, b), kThreads, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, gp, idx, cnt, pos, (T*)out, hq, hk, nc,
+      rows, kmax, bs, num_pages, scale);
   return (int)cudaGetLastError();
 }
 
@@ -377,8 +643,12 @@ int launch_attend(const void* q, const void* k, const void* v, const int* gp,
 
 extern "C" {
 
-// Bytes of dynamic shared memory the chunk-lane kernel needs (the wrapper
-// refuses shapes above the card's 227 KiB per-block limit).
+// The decode lane's split count for these shapes (the wrapper sizes its
+// workspace by it); 0 if the split kernel does not take them.
+int stem_paged_decode_splits(int kmax, int pps) { return decode_splits(kmax, pps); }
+
+// Bytes of dynamic shared memory the CUDA-core chunk-lane kernel needs (the
+// wrapper refuses shapes above the card's 227 KiB per-block limit).
 long long stem_paged_attend_tile_smem(int d, int rows, int bs) {
   return (long long)tile_smem_bytes(d, rows, bs);
 }
@@ -401,20 +671,38 @@ int stem_paged_score(const float* qp, long long sb, long long sh, long long sc,
 }
 
 // is_bf16: 0 = float32 q/k/v/out, 1 = bfloat16.  rows == 1 runs the decode
-// lane (length mask), rows > 1 the causal chunk lane.  d must be 128 and bs
-// at most 128 (the wrapper checks both).
+// lane (length mask): the split kernel over `splits` ranges of `pps` slots
+// each (splits from stem_paged_decode_splits) into workspace
+// (b * hq * nc * splits * (d + 2) floats), then the combine kernel.  rows > 1 runs the causal chunk lane: the tensor-core tile for
+// bf16 at rows == bs == 128 (q, k, v 16-byte aligned for TMA), else the
+// CUDA-core tile.  d must be 128 and bs at most 128 (the wrapper checks
+// both, and 16-byte alignment of every pointer the decode lane
+// bulk-copies).
 int stem_paged_attend(const void* q, const void* k, const void* v,
                       const int* gp, const int* idx, const int* cnt,
-                      const int* pos, void* out, int b, int hq, int hk, int nc,
-                      int rows, int d, int bs, int kmax, int num_pages,
-                      int is_bf16, float scale, void* stream) {
+                      const int* pos, void* out, void* workspace, int b, int hq,
+                      int hk, int nc, int rows, int d, int bs,
+                      int kmax, int num_pages, int splits, int pps, int is_bf16,
+                      float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (bs > kMaxKeyTiles * kWarp || d != 128) return (int)cudaErrorInvalidValue;
+  if (bs > kMaxKeyTiles * kWarp || d != 128 || hk <= 0 || hq % hk != 0)
+    return (int)cudaErrorInvalidValue;
+  float* ws = (float*)workspace;
+  if (rows == 1) {
+    if (is_bf16)
+      return launch_decode<__nv_bfloat16>(q, k, v, gp, idx, cnt, pos, out, ws, b, hq, hk,
+                                          nc, bs, kmax, num_pages, splits, pps, scale, st);
+    return launch_decode<float>(q, k, v, gp, idx, cnt, pos, out, ws, b, hq, hk, nc, bs,
+                                kmax, num_pages, splits, pps, scale, st);
+  }
+  if (is_bf16 && rows == stem_wg::kBM && bs == stem_wg::kBN)
+    return launch_chunk_wgmma(q, k, v, gp, idx, cnt, pos, out, b, hq, hk, nc, kmax,
+                              num_pages, scale, st);
   if (is_bf16)
-    return launch_attend<__nv_bfloat16, 128>(q, k, v, gp, idx, cnt, pos, out, b, hq, hk,
-                                             nc, rows, bs, kmax, num_pages, scale, st);
-  return launch_attend<float, 128>(q, k, v, gp, idx, cnt, pos, out, b, hq, hk, nc, rows,
-                                   bs, kmax, num_pages, scale, st);
+    return launch_tile<__nv_bfloat16, 128>(q, k, v, gp, idx, cnt, pos, out, b, hq, hk,
+                                           nc, rows, bs, kmax, num_pages, scale, st);
+  return launch_tile<float, 128>(q, k, v, gp, idx, cnt, pos, out, b, hq, hk, nc, rows,
+                                 bs, kmax, num_pages, scale, st);
 }
 
 }  // extern "C"

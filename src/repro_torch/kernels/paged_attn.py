@@ -15,11 +15,26 @@ Port of ``repro/kernels/paged_attn.py``.  Two hand-written CUDA kernels for
   (``src/repro/kernels/paged_attn.py:249``): flash online-softmax attention
   of each (row, query head, chunk row) over that row's selected pages, fp32
   accumulation, decode masking ``tok < len`` and chunk masking
-  ``tok <= q_pos`` at absolute positions, exact zeros for ``cnt == 0``.
-  The decode lane is bytes-bound (one query row per selected page: coalesced
-  loads, pages split across the CTA's warps); the chunk lane is
-  compute-bound (each staged page serves a whole block of query rows; this
-  first version multiplies on the fp32 CUDA cores, not the tensor cores).
+  ``tok <= q_pos`` at absolute positions, exact zeros for ``cnt == 0``,
+  page ids outside ``[0, P)`` skipped.
+
+  - The decode lane (one query row a head) is bytes-bound, and one row's
+    pages are too little work for one CTA: it is split across the card
+    (flash-decoding).  A split kernel gives each CTA ``PAGES_PER_SPLIT``
+    slots of one (head, row), taken in page order so that the heads of a
+    GQA group read their shared pages side by side, streams their K / V
+    through a shared-memory ring of 16 KiB bulk copies and scores a key per
+    16 lanes with 16-byte loads; a combine kernel merges the row's fp32
+    partials (a workspace the wrapper allocates) and finalizes.  All math
+    fp32, in both dtypes.
+  - The chunk lane (block_size query rows) is compute-bound.  bf16 at page
+    size 128 runs on the tensor cores: the one-shot prefill's TMA + wgmma
+    tile with the page table in its producer, each selected page one
+    128-key tile; it rounds the probabilities P to bf16 before P.V, so its
+    bf16 outputs are held to a looser rule than the other lanes' (the
+    ``p_bf16`` rule of the card tests: 1e-2 of the row's max|plain| in
+    place of 1e-3).  fp32, and bf16 at other page sizes, keep a tile on
+    the fp32 CUDA cores.
 
 Beside each kernel sits its plain PyTorch version (``score_pages_plain``,
 ``attend_pages_plain``) and a plain-int launch counter in ``LAUNCHES``.  A
@@ -48,6 +63,13 @@ from repro_torch.kernels import stem_metric
 
 NEG_INF = -1e30
 MAX_SMEM_BYTES = 232448          # H100 dynamic shared memory per block
+# Slots of a decode row per CTA of the split kernel.  Four pages (256 KiB of
+# bf16 K and V) amortize a CTA's start-up and still give >= 2 CTAs per SM of
+# the H100's 132 in the engine's 2-slot decode at long contexts (16 heads x
+# (16 + 14) CTAs at 16k + 11k tokens, budget_frac 0.5) and in chip_smoke's
+# b = 4 decode (16 heads x 46 CTAs); eight would leave that 2-slot decode
+# under 264 CTAs.
+PAGES_PER_SPLIT = 4
 
 # Kernel launches per (kernel, lane), counted where each wrapper launches
 # its CUDA kernel and nowhere else (the CPU plain path does not count).
@@ -69,11 +91,14 @@ def _lib():
         lib.stem_paged_score.argtypes = [p, ll, ll, ll, ll, p, p, p,
                                          i, i, i, i, i, i, i, i, f, p]
         lib.stem_paged_score.restype = i
-        lib.stem_paged_attend.argtypes = [p, p, p, p, p, p, p, p,
-                                          i, i, i, i, i, i, i, i, i, i, f, p]
+        lib.stem_paged_attend.argtypes = [p, p, p, p, p, p, p, p, p,
+                                          i, i, i, i, i, i, i, i, i, i, i, i,
+                                          f, p]
         lib.stem_paged_attend.restype = i
         lib.stem_paged_attend_tile_smem.argtypes = [i, i, i]
         lib.stem_paged_attend_tile_smem.restype = ll
+        lib.stem_paged_decode_splits.argtypes = [i, i]
+        lib.stem_paged_decode_splits.restype = i
         lib._stem_typed = True
     return lib
 
@@ -231,9 +256,10 @@ def attend_pages_plain(q, k_pool, v_pool, gp, idx, cnt, pos, *,
 def attend_pages(q, k_pool, v_pool, gp, idx, cnt, pos, *, block_size: int,
                  causal: bool, lane: str):
     """Attention over each row's selected pages.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel, which runs the two shapes the
-    lanes give it: one non-causal query row (decode) or a causal tile of
-    block_size rows (chunk), at head_dim 128."""
+    version; CUDA tensors launch the kernels, which run the two shapes the
+    lanes give them: one non-causal query row (decode: the split and
+    combine kernels) or a causal tile of block_size rows (chunk), at
+    head_dim 128."""
     if q.device.type == "cpu":
         return attend_pages_plain(q, k_pool, v_pool, gp, idx, cnt, pos,
                                   block_size=block_size, causal=causal)
@@ -260,15 +286,23 @@ def attend_pages(q, k_pool, v_pool, gp, idx, cnt, pos, *, block_size: int,
            and tuple(idx.shape) == tuple(gp.shape)
            and tuple(cnt.shape) == (b, hq, nc) and tuple(pos.shape) == (b,),
            "attend_pages: selection shapes disagree with q")
+    _check(all(t.data_ptr() % 16 == 0 for t in (q, k_pool, v_pool)),
+           "attend_pages: q/k/v must be 16-byte aligned (bulk copies, TMA)")
     lib = _lib()
-    if rows > 1:
+    splits, ws = 0, None
+    if rows == 1:
+        splits = lib.stem_paged_decode_splits(k_max, PAGES_PER_SPLIT)
+        ws = torch.empty((b * hq * nc, splits, d + 2), dtype=torch.float32,
+                         device=q.device)
+    elif not (q.dtype == torch.bfloat16 and rows == bs == 128):
         _check(lib.stem_paged_attend_tile_smem(d, rows, bs) <= MAX_SMEM_BYTES,
                "attend_pages: query tile exceeds shared memory")
     out = torch.empty((b, hq, nc, rows, d), dtype=q.dtype, device=q.device)
     err = lib.stem_paged_attend(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), gp.data_ptr(),
         idx.data_ptr(), cnt.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        b, hq, hk, nc, rows, d, bs, k_max, num_pages,
+        None if ws is None else ws.data_ptr(),
+        b, hq, hk, nc, rows, d, bs, k_max, num_pages, splits, PAGES_PER_SPLIT,
         int(q.dtype == torch.bfloat16), float(d) ** -0.5,
         _stream_ptr(q.device))
     if err != 0:

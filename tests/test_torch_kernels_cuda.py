@@ -7,13 +7,15 @@ machine:
 
 fp32 within 1e-4 abs; bf16 within 2 bf16 ulps of the plain output plus a
 floor of 1e-3 * max|plain| over the element's row (its last axis), except
-the one-shot prefill's flash and block-sparse attention in bf16: their
-tensor-core tile rounds the probabilities P to bf16 before P.V (as SDPA's
-and flex_attention's kernels do), which the plain version keeps in fp32, so
-their floor is 1e-2 * the row's max|plain|.  The floor is per row because a
-row that attends to m keys has outputs of about sqrt(e / m): one number for
-the whole tensor would be as large as a long row's values.  ``cnt == 0``
-rows must be exact zeros.  Covers the paged scorer and page attention, the
+the attention kernels that run bf16 on the tensor-core tile (the one-shot
+prefill's flash and block-sparse attention, and the paged chunk lane at
+page size 128): the tile rounds the probabilities P to bf16 before P.V (as
+SDPA's and flex_attention's kernels do), which the plain version keeps in
+fp32, so their floor is 1e-2 * the row's max|plain| (the ``p_bf16`` rule).
+The floor is per row because a row that attends to m keys has outputs of
+about sqrt(e / m): one number for the whole tensor would be as large as a
+long row's values.  ``cnt == 0`` rows must be exact zeros.  Covers the
+paged scorer and page attention (both lanes, their selection edges), the
 one-shot prefill's flash and block-sparse attention (and the products of
 their tensor-core tile), and the metric pooling / value-magnitude kernels.
 """
@@ -28,8 +30,10 @@ from repro_torch.kernels import stem_metric as t_sm
 
 
 def _assert_close(got, want, *, p_bf16=False):
-    """p_bf16: the kernel rounds P to bf16 before P.V (bf16 prefill
-    attention), so a bf16 output's row floor is 1e-2 * max|plain|."""
+    """p_bf16: the kernel rounds P to bf16 before P.V (bf16 attention on
+    the tensor-core tile: flash, block-sparse, the paged chunk lane at page
+    size 128), so a bf16 output's row floor is 1e-2 * max|plain| in place
+    of 1e-3."""
     if got.dtype == torch.float32:
         torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
         return
@@ -78,8 +82,160 @@ def test_kernels_match_plain_on_card(cuda, dtype, group):
                                   causal=causal, lane="decode")
         want = t_kern.attend_pages_plain(q, k, v, gp, idx, cnt, pos,
                                          block_size=bs, causal=causal)
-        _assert_close(got, want)
+        _assert_close(got, want, p_bf16=causal)
         assert torch.all(got[cnt == 0] == 0)
+
+
+def _page_lists(rng, lists, kmax, table, bad_id):
+    """Per-row logical page lists -> (gp, idx, cnt) of the raw lists (with
+    one out-of-range physical id inserted where ``bad_id`` gives one) and
+    of the clean lists the plain version is held to.  Dead slots repeat
+    the last live entry; a list of None is a cnt == 0 row."""
+    shape = lists.shape
+    out = {k: np.zeros(shape + (kmax,), np.int32) for k in ("gp", "idx", "gpc", "idxc")}
+    cnt = np.zeros(shape, np.int32)
+    cntc = np.zeros(shape, np.int32)
+    for r in np.ndindex(shape):
+        pages = lists[r]
+        empty = pages is None
+        pages = [0] if empty else pages
+        ids = [int(table[r[0], j]) for j in pages]
+        raw_gp, raw_idx = list(ids), list(pages)
+        bad = bad_id(r)
+        if bad is not None:
+            at = rng.randint(0, len(raw_gp) + 1)
+            raw_gp.insert(at, bad)
+            raw_idx.insert(at, 0)
+        for key, g, i in (("", raw_gp, raw_idx), ("c", ids, pages)):
+            out["gp" + key][r] = g + [g[-1]] * (kmax - len(g))
+            out["idx" + key][r] = i + [i[-1]] * (kmax - len(i))
+        cnt[r] = 0 if empty else len(raw_gp)
+        cntc[r] = 0 if empty else len(ids)
+    return (out["gp"], out["idx"], cnt), (out["gpc"], out["idxc"], cntc)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("group", [1, 2])
+def test_chunk_lane_selection_edges_on_card(cuda, dtype, group):
+    """The chunk lane (bf16: the wgmma kernel) on chunks that start at 130,
+    8192 + 64 and 0: each row lists lower pages, the one or two pages that
+    straddle its tile (anywhere in the list), a page wholly above the tile
+    (skipped) and, in some rows, an out-of-range page id (skipped: held
+    against the plain version on the list without it); some rows are
+    empty (exact zeros)."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(30 + group)
+    rng = np.random.RandomState(30 + group)
+    hq, d, bs, nc, kmax = 4, 128, 128, 2, 12
+    hk = hq // group
+    pos = np.asarray([130, 8192 + 64, 0], np.int32)
+    b = len(pos)
+    maxp = (int(pos.max()) + nc * bs) // bs + 2
+    P = 1 + b * maxp
+    table = (1 + rng.permutation(P - 1)[:b * maxp]).reshape(b, maxp)
+    lists = np.empty((b, hq, nc), object)
+    for r in np.ndindex(lists.shape):
+        q0 = int(pos[r[0]]) + r[2] * bs
+        first, last = q0 // bs, (q0 + bs - 1) // bs
+        pages = [int(x) for x in rng.permutation(first)[:kmax - 4]]
+        for j in list(range(first, last + 1)) + [last + 1]:
+            pages.insert(rng.randint(0, len(pages) + 1), j)
+        lists[r] = None if sum(r) % 5 == 3 else pages
+    raw, clean = _page_lists(rng, lists, kmax, table,
+                             lambda r: [P + 3, -1, None][sum(r) % 3])
+    k = torch.randn((hk, P, bs, d), generator=gen, device=cuda).to(dt)
+    v = torch.randn((hk, P, bs, d), generator=gen, device=cuda).to(dt)
+    q = torch.randn((b, hq, nc, bs, d), generator=gen, device=cuda).to(dt)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    posd = t(pos)
+    got = t_kern.attend_pages(q, k, v, *map(t, raw), posd, block_size=bs,
+                              causal=True, lane="chunk")
+    want = t_kern.attend_pages_plain(q, k, v, *map(t, clean), posd,
+                                     block_size=bs, causal=True)
+    _assert_close(got, want, p_bf16=True)
+    empty = t(raw[2]) == 0
+    assert bool(empty.any()) and torch.all(got[empty] == 0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("group", [1, 2])
+def test_decode_lane_split_edges_on_card(cuda, dtype, group):
+    """The decode lane's split and combine kernels with live counts of 0, 1,
+    exactly one split (PAGES_PER_SPLIT), one more than a split, one more
+    than two splits and the full width.  The two heads of every other head
+    pair list the same pages in another order (the split kernel takes a
+    row's slots in page order); the other pairs list their own pages.
+    Lists hold the row's partial last page (unaligned lengths) and pages
+    past the length (masked), and some rows an out-of-range page id
+    (skipped)."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(40 + group)
+    rng = np.random.RandomState(40 + group)
+    pps = t_kern.PAGES_PER_SPLIT
+    hq, d, bs = 8, 128, 128
+    hk = hq // group
+    kmax = 3 * pps + 1
+    lens = np.asarray([bs * 12 + 37, 700], np.int32)
+    b, maxp = len(lens), 16
+    P = 1 + b * maxp
+    table = (1 + rng.permutation(P - 1)[:b * maxp]).reshape(b, maxp)
+    counts = [0, 1, pps, pps + 1, 2 * pps + 1, kmax - 1]
+    lists = np.empty((b, hq, 1), object)
+    for r in np.ndindex(lists.shape):
+        pair = r[1] // 2
+        n = counts[(r[0] * hq // 2 + pair) % len(counts)]
+        if r[1] % 2 and pair % 2 == 0:                 # the pair's first list
+            twin = lists[r[0], r[1] - 1, 0]
+            lists[r] = None if twin is None else [int(x) for x in rng.permutation(twin)]
+            continue
+        last = (int(lens[r[0]]) - 1) // bs
+        others = [int(x) for x in rng.permutation(maxp) if x != last]
+        pages = others[:max(n - 1, 0)]
+        pages.insert(rng.randint(0, len(pages) + 1), last)
+        lists[r] = None if n == 0 else pages[:n]
+    raw, clean = _page_lists(rng, lists, kmax, table,
+                             lambda r: P + 1 if r[1] % 3 == 1 else None)
+    k = torch.randn((hk, P, bs, d), generator=gen, device=cuda).to(dt)
+    v = torch.randn((hk, P, bs, d), generator=gen, device=cuda).to(dt)
+    q = torch.randn((b, hq, 1, 1, d), generator=gen, device=cuda).to(dt)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    lensd = t(lens)
+    got = t_kern.attend_pages(q, k, v, *map(t, raw), lensd, block_size=bs,
+                              causal=False, lane="decode")
+    want = t_kern.attend_pages_plain(q, k, v, *map(t, clean), lensd,
+                                     block_size=bs, causal=False)
+    _assert_close(got, want)
+    empty = t(raw[2]) == 0
+    assert bool(empty.any()) and torch.all(got[empty] == 0)
+
+
+@pytest.mark.parametrize("group", [1, 2])
+def test_bf16_rule_rejects_a_dropped_page_on_card(cuda, group):
+    """The p_bf16 rule holds the chunk lane's long rows: at a chunk at
+    position 4096 over every causal page (the straddled page first), the
+    wgmma kernel's output passes it, and fails it once the last live page
+    is dropped from every row that has two or more."""
+    gen = torch.Generator(device=cuda).manual_seed(50 + group)
+    hq, d, bs, nc, start = 4, 128, 128, 2, 4096
+    hk = hq // group
+    nk = start // bs + nc
+    k = torch.randn((hk, nk, bs, d), generator=gen, device=cuda).to(torch.bfloat16)
+    v = torch.randn((hk, nk, bs, d), generator=gen, device=cuda).to(torch.bfloat16)
+    q = torch.randn((1, hq, nc, bs, d), generator=gen, device=cuda).to(torch.bfloat16)
+    # chunk row ci lists its own page first, then pages 0 .. its own - 1
+    own = start // bs + torch.arange(nc, device=cuda)[:, None]
+    j = torch.arange(nk, device=cuda)[None, :]
+    idx = torch.where(j == 0, own, j - 1).expand(1, hq, nc, nk).to(torch.int32).contiguous()
+    cnt = (own[:, 0] + 1).expand(1, hq, nc).to(torch.int32).contiguous()
+    pos = torch.tensor([start], dtype=torch.int32, device=cuda)
+    run = lambda c: t_kern.attend_pages(q, k, v, idx, idx, c, pos, block_size=bs,
+                                        causal=True, lane="chunk")
+    want = t_kern.attend_pages_plain(q, k, v, idx, idx, cnt, pos, block_size=bs,
+                                     causal=True)
+    _assert_close(run(cnt), want, p_bf16=True)
+    with pytest.raises(AssertionError):
+        _assert_close(run(torch.where(cnt >= 2, cnt - 1, cnt).contiguous()), want,
+                      p_bf16=True)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -201,6 +201,66 @@ def test_attend_plain_zero_live_rows_exact():
         assert torch.isfinite(out).all() and torch.any(out[:, 1] != 0)
 
 
+def _attend_selection_case(group, causal, seed):
+    """Inputs of the page attention in the order the reference kernel takes
+    them (numpy): q (b, hq, nc, rows, d), the k / v pools, and per row a
+    shuffled list of logical pages mapped to physical ones through a
+    per-batch page table.  Chunk rows start at unaligned positions; their
+    lists hold both pages that straddle the tile (the "diagonal" pages, in
+    any order), lower pages and one page wholly above the tile's last query
+    (it must add nothing).  Decode rows list their pages up to and past an
+    unaligned length.  Some rows have cnt == 0; dead slots repeat the last
+    live one (revisit filling)."""
+    rng = np.random.default_rng(seed)
+    hk = HQ // group
+    b, nc, kmax, maxp = 2, 2, 6, 6
+    P = 1 + b * maxp
+    rows = BS if causal else 1
+    k = rng.standard_normal((hk, P, BS, D)).astype(np.float32)
+    v = rng.standard_normal((hk, P, BS, D)).astype(np.float32)
+    q = rng.standard_normal((b, HQ, nc, rows, D)).astype(np.float32)
+    pos = np.asarray([13, 3] if causal else [29, 5], np.int32)
+    table = 1 + rng.permutation(P - 1)[:b * maxp].reshape(b, maxp)
+    gp = np.zeros((b, HQ, nc, kmax), np.int32)
+    idx = np.zeros_like(gp)
+    cnt = np.zeros((b, HQ, nc), np.int32)
+    for bi in range(b):
+        for h in range(HQ):
+            for ci in range(nc):
+                if causal:
+                    q0 = int(pos[bi]) + ci * BS
+                    first, last = q0 // BS, (q0 + BS - 1) // BS
+                    pages = list(rng.permutation(first))[:kmax - 3]
+                    pages += list(range(first, last + 1)) + [last + 1]
+                else:
+                    pages = list(range((int(pos[bi]) + BS - 1) // BS + 1))
+                pages = [int(x) for x in rng.permutation(pages)[:kmax]]
+                live = 0 if (h + ci + bi) % 4 == 3 else len(pages)
+                row = pages + [pages[-1]] * (kmax - len(pages))
+                idx[bi, h, ci] = row
+                gp[bi, h, ci] = table[bi, row]
+                cnt[bi, h, ci] = live
+    return q, k, v, gp, idx, cnt, pos
+
+
+@pytest.mark.parametrize("group,causal", [(1, True), (2, True), (4, True), (2, False)])
+def test_attend_plain_matches_reference_kernel(group, causal):
+    """The semantics the page-attention kernels must match, pinned on the
+    plain version: the reference kernel (interpret mode) and
+    ``attend_pages_plain`` agree within 1e-4 on unaligned chunk starts, a
+    page above the chunk's tile in the list, the diagonal pages out of order
+    and zero-live rows (exact zeros)."""
+    args = _attend_selection_case(group, causal, seed=40 + group + 10 * causal)
+    want = j_kern._attend_pages(*(jnp.asarray(a) for a in args), block_size=BS,
+                                causal=causal, interpret=True, name="attend_test")
+    got = t_kern.attend_pages_plain(*(torch.from_numpy(a) for a in args),
+                                    block_size=BS, causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=0)
+    cnt = args[5]
+    assert (cnt == 0).any() and np.all(got.numpy()[cnt == 0] == 0.0)
+    assert np.all(np.abs(got.numpy()[cnt > 0]).sum(-1) > 0)
+
+
 def test_unsupported_metric_raises():
     """No silent fallback: a metric the scorer cannot serve raises."""
     _, tp = _pair()
