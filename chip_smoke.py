@@ -16,11 +16,14 @@ Phases:
   3. kernels  — each kernel against its plain PyTorch version, in fp32 and
                 bf16: the paged kernels at the serving shapes of qwen3-0.6b
                 (hq 16, hk 8, d 128, block 128, stride 16, 126 pages per
-                row; decode b=4, chunk 1024); the one-shot prefill kernels
-                (block-sparse attention under the TPD selection of "stem",
-                also with group_dedup and with cnt == 0 rows; flash
+                row; decode b=4, chunk 1024, the chunk scorer with the
+                anti-diagonal pairing folded in); the one-shot prefill
+                kernels (block-sparse attention under the TPD selection of
+                "stem", also with group_dedup and with cnt == 0 rows; flash
                 attention, also against scaled_dot_product_attention; the
-                pool and value-magnitude kernels) at a 16384-token prompt.
+                pool and value-magnitude kernels) at a 16384-token prompt,
+                and the pool also at the chunk lane's shapes (q (1, 16,
+                1024, 128) bf16 -> fp32, k (1, 8, 1024, 128) bf16 -> bf16).
                 fp32 outputs within 1e-4 abs; bf16 outputs within 2 bf16
                 ulps of the plain output plus 1e-3 * the max|plain| of the
                 element's row (last axis), except the bf16 attention on the
@@ -444,11 +447,13 @@ def kernel_phase(records: dict, dev=torch.device("cuda")) -> None:
         start = torch.tensor([8192], dtype=torch.int32, device=dev)
         ptc = pt[:1].contiguous()
         qc = torch.randn((1, hq, C, d), generator=gen, device=dev).to(dtype)
+        # the chunk lane's pooled queries, the anti-diagonal pairing folded
+        # into the scorer (pair=True) as chunk_page_scores runs it
         qpc = metric_lib.antidiag_pool(qc.float(), bs, s)
-        qpc = qpc.index_select(-2, (s - torch.arange(s, device=dev)) % s).contiguous()
         run_k = lambda: kern.score_pages(qpc, kg, ptc, group=group, scale=scale,
-                                         lane="chunk")
-        run_p = lambda: kern.score_pages_plain(qpc, kg, ptc, group=group, scale=scale)
+                                         lane="chunk", pair=True)
+        run_p = lambda: kern.score_pages_plain(qpc, kg, ptc, group=group,
+                                               scale=scale, pair=True)
         sc_k, sc_p = run_k(), run_p()
         torch.cuda.synchronize()
         err = check_close(f"score/chunk/{tag}", sc_k, sc_p)
@@ -582,6 +587,28 @@ def flex_block_mask(idx, cnt, bs):
         & picked[b_, h_, q_idx // bs, kv_idx // bs])
 
 
+def pool_chunk_shapes(records, gen, hq, hk, d, bs, s, dev=torch.device("cuda")):
+    """Kernel 5 at the chunk lane's shapes (one 1024-token chunk): the
+    scorer's query pooling, q (1, hq, 1024, d) bf16 -> fp32, and a chunk's
+    page summaries, k (1, hk, 1024, d) bf16 -> bf16; each against its plain
+    version, timed beside one ``mean`` call of the same output dtype."""
+    for name, heads, out_dtype in (("chunk_q", hq, torch.float32),
+                                   ("chunk_k", hk, torch.bfloat16)):
+        x = torch.randn((1, heads, 1024, d), generator=gen, device=dev).to(torch.bfloat16)
+        run_k = lambda: metric_kern.antidiag_pool(x, block_size=bs, stride=s,
+                                                  out_dtype=out_dtype)
+        run_p = lambda: metric_kern.antidiag_pool_plain(x, block_size=bs, stride=s,
+                                                        out_dtype=out_dtype)
+        run_l = lambda: torch.mean(x.reshape(1, heads, 1024 // bs, bs // s, s, d),
+                                   dim=3, dtype=out_dtype)
+        got, want = run_k(), run_p()
+        torch.cuda.synchronize()
+        err = check_close(f"antidiag_pool/{name}", got, want)
+        rec_kernel(records, "antidiag_pool", name, "bfloat16", err, run_k, run_p,
+                   (x.numel() * 2 + got.numel() * got.element_size(),
+                    float(x.numel())), torch.bfloat16, run_lib=run_l)
+
+
 def prefill_kernel_phase(records: dict, dev=torch.device("cuda")) -> None:
     n, hq, hk, d, bs, s = 16384, 16, 8, 128, 128, 16
     group = hq // hk
@@ -609,6 +636,9 @@ def prefill_kernel_phase(records: dict, dev=torch.device("cuda")) -> None:
         rec_kernel(records, "antidiag_pool", "prefill", tag, err, run_k, run_p,
                    (q.numel() * es + got.numel() * es, float(q.numel())), dtype,
                    run_lib=run_l)
+
+        if dtype == torch.bfloat16:
+            pool_chunk_shapes(records, gen, hq, hk, d, bs, s)
 
         # -- kernel 6: block max of log ||v|| -------------------------------
         run_k = lambda: metric_kern.value_magnitude(v, block_size=bs)
@@ -709,10 +739,16 @@ class FiniteGreedy(sampling_lib.GreedySampler):
 sampling_lib.register_sampler("greedy-finite", FiniteGreedy)
 
 
+# The port's own kernels (their device rows are printed below the top list
+# too, so each kernel's share of the trace is always read).
+PORT_KERNEL = re.compile(r"\b(score(_bcast)?|attend_\w+|block_sparse(_wgmma)?|"
+                         r"flash(_wgmma)?|pool|vmag)_kernel\b")
+
+
 def profile_summary(prof, wall: float, top: int = 12) -> None:
-    """Device time by kernel name and the device's busy share of the run,
-    then host time by operator (self CPU time: where a host-bound run
-    goes)."""
+    """Device time by kernel name and the device's busy share of the run
+    (the top rows, then the rest of the port's own kernels), then host time
+    by operator (self CPU time: where a host-bound run goes)."""
     rows, host = [], []
     for ev in prof.key_averages():
         if not str(ev.device_type).endswith("CUDA"):
@@ -728,8 +764,9 @@ def profile_summary(prof, wall: float, top: int = 12) -> None:
     busy = sum(r[0] for r in rows) / 1e3
     log(f"[profile] device busy {busy:.3f} s of {wall:.3f} s wall "
         f"(busy share {busy / wall:.3f}; profiler on)")
-    for ms, count, name in rows[:top]:
-        log(f"[profile] {ms:10.1f} ms {count:7d} calls  {name[:90]}")
+    for i, (ms, count, name) in enumerate(rows):
+        if i < top or PORT_KERNEL.search(name):
+            log(f"[profile] {ms:10.1f} ms {count:7d} calls  {name[:90]}")
     log(f"[profile] host self time {sum(r[0] for r in host) / 1e3:.3f} s by operator:")
     for ms, count, name in host[:top]:
         log(f"[profile] host {ms:10.1f} ms {count:7d} calls  {name[:85]}")
@@ -1073,6 +1110,10 @@ def main() -> None:
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
             library_ms=rec["library_ms"],
             fp32=records[f"{key}/prefill"]["float32"]))
+    # the pool at the chunk lane's shapes, beside its 16k row
+    pool = next(k for k in kernels if k["name"] == "antidiag_pool")
+    pool["chunk_shapes"] = {lane: records[f"antidiag_pool/{lane}"]["bfloat16"]
+                            for lane in ("chunk_q", "chunk_k")}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

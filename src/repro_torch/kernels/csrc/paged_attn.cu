@@ -15,12 +15,37 @@
 //
 // Bounds on the H100 and what the design does about them:
 //  * Scoring reads every visible page's kg summary tile (stride x d fp32,
-//    8 KiB at s=16, d=128) once and does 2*s*d flops per (query head,
-//    chunk row) against it: bytes-bound.  One CTA owns (batch row, KV head,
-//    8 candidate pages); it stages each page's kg tile in shared memory ONCE
-//    and scores it against all g query heads of the KV head and all nc chunk
-//    rows (the Pallas grid (b*hq, maxp) re-reads it g times).  The page id
-//    comes from the page table in global memory; reductions are fp32.
+//    8 KiB at s = 16, d = 128) once and does 2 * s * d flops per (query
+//    head, chunk row) against it: bytes-bound (phase 3's decode lane: 33 MB,
+//    0.0099 ms at 3.35 TB/s; its chunk lane: 8.5 MB, 0.0028 ms).  Two
+//    kernels, chosen by the query's stride over s; fp32 on the CUDA cores
+//    (TF32 would break the 1e-4 parity), page ids read from the page table
+//    in global memory, a page id outside [0, P) writing NaN in exactly its
+//    column.
+//      - score_bcast_kernel (the query broadcast over s: the decode lane, and
+//        the chunk lane's mean pooling): the score is q . sum_u kg[u], so
+//        one warp owns a page, reads its tile with 16-byte loads (all s rows
+//        of a lane's 4 columns in flight at once), sums it over u in
+//        registers and takes the g * nc dot products against it (s times
+//        fewer FMAs than the contraction).  4 pages a CTA, grid
+//        (ceil(maxp / 4), hk, b): at phase 3's decode shape 4032 warps, one
+//        wave, every page in flight.
+//      - score_kernel (the chunk lane): out(rows, pages) = Q (rows, s*d) .
+//        KG(pages, s*d)^T per KV head, rows = its g heads x nc chunk rows.
+//        The CTA's 256 threads split the s*d contraction, a 16-byte strip of
+//        it per thread, and hold RT = 256 / s query rows of that strip in
+//        registers for the CTA's life (128 floats; the rows tiled over
+//        grid.y where g * nc > RT; the chunk lane's anti-diagonal pairing
+//        u -> (s - u) mod s folded into the load).  Each kg tile goes
+//        straight from global memory into the registers of the threads
+//        that own its strips, the next page's strip loaded while this one
+//        is scored (a thread uses only its own strip, so a shared-memory
+//        ring would add a copy and share nothing), and feeds RT FMAs a
+//        float.  A warp reduce-scatters its RT partial sums (RT - 1
+//        shuffles, not RT warp sums), 8 pages' warp partials meet in shared
+//        memory, one barrier pair a batch.  Pages per CTA are chosen from
+//        the shape so the grid is about one CTA per SM (phase 3's chunk
+//        shape: 8 pages, 128 CTAs).
 //  * Attention reads each selected K/V page and does 4*rows*bs*d flops
 //    against it.
 //      - decode (one query row per head): bytes-bound, and a row's pages
@@ -61,6 +86,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
+#include <stdint.h>
 
 #include "attn_wgmma.cuh"
 
@@ -69,7 +95,6 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr int kWarp = 32;
 constexpr int kThreads = 256;          // 8 warps per CTA
-constexpr int kScorePages = 8;         // candidate pages per scoring CTA
 constexpr int kMaxKeyTiles = 4;        // block_size <= 128 = 4 * 32
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -94,49 +119,237 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// Page scoring: out[b, h, c, p] = scale * sum_{u, k} qp[b, h, c, u, k] *
+// Page scoring: out[b, h, c, p] = scale * sum_{u, k} qp[b, h, c, pair(u), k] *
 //                                 kg[h / g, page_table[b, p], u, k]
-// grid (ceil(maxp / kScorePages), hk, b); dynamic smem s * d floats.
-// qp is addressed through strides (sb, sh, sc, ss) with head_dim contiguous,
-// so the decode lane passes its single query broadcast over s (ss = 0).
+// qp is addressed through strides (sb, sh, sc, ss) with head_dim contiguous
+// (d = 128) and every stride a multiple of 4 floats; pair(u) = (s - u) mod s
+// when `pair`, else u.  s is a template argument (8, 16 or 32).
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-score_kernel(const float* __restrict__ qp, long long sb, long long sh,
-             long long sc, long long ss, const float* __restrict__ kg,
-             const int* __restrict__ page_table, float* __restrict__ out,
-             int hq, int hk, int nc, int s, int d, int maxp, int num_pages,
-             float scale) {
-  extern __shared__ float kg_s[];
-  const int b = blockIdx.z, kvh = blockIdx.y;
-  const int g = hq / hk;
+constexpr int kScoreD = 128;
+constexpr int kBcastWarps = 4;          // pages (one a warp) per score_bcast CTA
+constexpr int kScoreThreads = 256;      // score_kernel: threads splitting s * d
+constexpr int kScoreBatch = 8;          // pages whose warp partials meet in smem
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float dot4(const float4 a, const float4 b, float acc) {
+  return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, fmaf(a.w, b.w, acc))));
+}
+
+__device__ __forceinline__ bool page_ok(int page, int num_pages) {
+  return page >= 0 && page < num_pages;
+}
+
+__device__ __forceinline__ float score_nan() { return __int_as_float(0x7fc00000); }
+
+// The query broadcast over s (ss == 0).  grid (ceil(maxp / 4), hk, b); warp
+// w scores page blockIdx.x * 4 + w against the g * nc query rows of KV head
+// blockIdx.y.  Lane l owns columns 4l .. 4l + 3.
+template <int S>
+__global__ void __launch_bounds__(kBcastWarps * kWarp)
+score_bcast_kernel(const float* __restrict__ qp, long long sb, long long sh,
+                   long long sc, const float* __restrict__ kg,
+                   const int* __restrict__ page_table, float* __restrict__ out,
+                   int hq, int hk, int nc, int maxp, int num_pages, float scale) {
+  constexpr int kChunk = S < 16 ? S : 16;   // rows of the tile in flight at once
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int nw = blockDim.x / kWarp;
-  const int sd = s * d;
-  const int p_end = min(maxp, (blockIdx.x + 1) * kScorePages);
-  for (int p = blockIdx.x * kScorePages; p < p_end; ++p) {
-    const int page = page_table[(long long)b * maxp + p];
-    const bool valid = page >= 0 && page < num_pages;
-    __syncthreads();                       // previous tile fully consumed
-    if (valid) {
-      const float* src = kg + ((long long)kvh * num_pages + page) * sd;
-      for (int i = threadIdx.x; i < sd; i += blockDim.x) kg_s[i] = src[i];
-    }
-    __syncthreads();
-    for (int o = warp; o < g * nc; o += nw) {
-      const int gi = o / nc, ci = o - gi * nc;
-      const int h = kvh * g + gi;
-      const float* qrow = qp + b * sb + h * sh + ci * sc;
-      float acc = 0.f;
-      for (int i = lane; i < sd; i += kWarp) {
-        const int u = i / d;
-        acc += qrow[u * ss + (i - u * d)] * kg_s[i];
-      }
-      acc = warp_sum(acc);
-      if (lane == 0)
-        out[(((long long)b * hq + h) * nc + ci) * maxp + p] =
-            valid ? acc * scale : __int_as_float(0x7fc00000);   // NaN: bad page id
+  const int p = blockIdx.x * kBcastWarps + warp;
+  if (p >= maxp) return;
+  const int b = blockIdx.z, kvh = blockIdx.y, g = hq / hk;
+  const int page = page_table[(long long)b * maxp + p];
+  float* dst = out + (long long)b * hq * nc * maxp + p;
+  if (!page_ok(page, num_pages)) {
+    for (int o = lane; o < g * nc; o += kWarp)
+      dst[((long long)kvh * g * nc + o) * maxp] = score_nan();
+    return;
+  }
+  const float* tile = kg + ((long long)kvh * num_pages + page) * S * kScoreD + 4 * lane;
+  float4 cs = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int u0 = 0; u0 < S; u0 += kChunk) {
+    float4 t[kChunk];
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) t[u] = ld4(tile + (u0 + u) * kScoreD);
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) {
+      cs.x += t[u].x;
+      cs.y += t[u].y;
+      cs.z += t[u].z;
+      cs.w += t[u].w;
     }
   }
+  const float* qb = qp + b * sb + 4 * lane;
+  for (int o = 0; o < g * nc; ++o) {
+    const int gi = o / nc, ci = o - gi * nc;
+    const float dot = warp_sum(dot4(ld4(qb + (kvh * g + gi) * sh + ci * sc), cs, 0.f));
+    if (lane == 0) dst[((long long)kvh * g * nc + o) * maxp] = dot * scale;
+  }
+}
+
+// v[N] holds a lane's partial sums of N rows (N a power of two <= 32).
+// Afterwards v[0] holds the warp's full sum of row reduce_row<N>(lane), and
+// the 32 / N lanes that share a row hold the same value.  Each step trades
+// half of the rows a lane holds with the lane `off` away (N - 1 shuffles in
+// all, not N warp sums), then 5 - log2(N) more finish the sums.
+template <int N, int HALF>
+struct ReduceScatter {
+  __device__ __forceinline__ static void run(float (&v)[N], int lane, int off) {
+    const bool upper = lane & off;
+#pragma unroll
+    for (int i = 0; i < HALF; ++i) {
+      const float send = upper ? v[i] : v[i + HALF];
+      const float keep = upper ? v[i + HALF] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+    }
+    ReduceScatter<N, HALF / 2>::run(v, lane, off >> 1);
+  }
+};
+template <int N>
+struct ReduceScatter<N, 0> {
+  __device__ __forceinline__ static void run(float (&v)[N], int, int off) {
+#pragma unroll
+    for (; off > 0; off >>= 1) v[0] += __shfl_xor_sync(0xffffffffu, v[0], off);
+  }
+};
+
+template <int N>
+__device__ __forceinline__ void reduce_scatter(float (&v)[N], int lane) {
+  ReduceScatter<N, N / 2>::run(v, lane, 16);
+}
+
+// The row whose sum reduce_scatter<N> leaves on `lane`.
+template <int N>
+__device__ __forceinline__ int reduce_row(int lane) {
+  int row = 0;
+#pragma unroll
+  for (int off = 16, half = N / 2; half > 0; off >>= 1, half >>= 1)
+    if (lane & off) row += half;
+  return row;
+}
+
+// A thread's F strips of page `page`'s kg tile (zeros for a bad id): float4
+// tid + 256 f of the tile, `tiles` already offset to the KV head and 4 tid.
+template <int S, int F>
+__device__ __forceinline__ void load_strips(const float* tiles, int page, int num_pages,
+                                            float4 (&t)[F]) {
+  const bool ok = page_ok(page, num_pages);
+  const float* src = tiles + (long long)(ok ? page : 0) * S * kScoreD;
+#pragma unroll
+  for (int f = 0; f < F; ++f)
+    t[f] = ok ? ld4(src + 4 * kScoreThreads * f) : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// grid (ceil(maxp / pages_per_cta), hk * row_tiles, b).  CTA (x, y, b)
+// scores pages [x * ppc, (x + 1) * ppc) against rows [tile * RT, tile * RT
+// + RT) of KV head kvh (y = tile * hk + kvh), row r = gi * nc + ci.
+template <int S>
+__global__ void __launch_bounds__(kScoreThreads, 1)
+score_kernel(const float* __restrict__ qp, long long sb, long long sh,
+             long long sc, long long ss, int pair, const float* __restrict__ kg,
+             const int* __restrict__ page_table, float* __restrict__ out,
+             int hq, int hk, int nc, int maxp, int num_pages, int ppc, float scale) {
+  constexpr int F = S * kScoreD / 4 / kScoreThreads;   // float4 strips a thread
+  constexpr int RT = 32 / F;                           // query rows a CTA
+  constexpr int kWarps = kScoreThreads / kWarp;
+  __shared__ float part[kScoreBatch][kWarps][RT];
+  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
+  const int b = blockIdx.z, kvh = blockIdx.y % hk, tile = blockIdx.y / hk;
+  const int g = hq / hk, rows = g * nc, r0 = tile * RT;
+  const int p_begin = blockIdx.x * ppc, p_end = min(maxp, p_begin + ppc);
+  const int* pt = page_table + (long long)b * maxp;
+
+  // This thread's strips of the contraction: float4 j = tid + 256 f, i.e.
+  // row u = j / 32 of the tile, columns 4 (j % 32) ...
+  float4 q[RT][F];
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    const int row = r0 + r;
+    const int gi = row / nc, ci = row - gi * nc;
+    const float* qb = qp + b * sb + (long long)(kvh * g + gi) * sh + ci * sc;
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      const int j = tid + kScoreThreads * f, u = j / (kScoreD / 4);
+      const int uq = pair ? (S - u) % S : u;
+      q[r][f] = row < rows ? ld4(qb + uq * ss + 4 * (j % (kScoreD / 4)))
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+
+  const float* kv_tiles = kg + (long long)kvh * num_pages * S * kScoreD + 4 * tid;
+  float4 cur[F], nxt[F];
+  if (p_begin < p_end) load_strips<S, F>(kv_tiles, pt[p_begin], num_pages, cur);
+  for (int p = p_begin; p < p_end; ++p) {
+    if (p + 1 < p_end) load_strips<S, F>(kv_tiles, pt[p + 1], num_pages, nxt);
+    float v[RT];
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      float acc = 0.f;
+#pragma unroll
+      for (int f = 0; f < F; ++f) acc = dot4(q[r][f], cur[f], acc);
+      v[r] = acc;
+    }
+    reduce_scatter<RT>(v, lane);
+    const int i = (p - p_begin) % kScoreBatch;
+    if ((lane & (32 / RT - 1)) == 0) part[i][warp][reduce_row<RT>(lane)] = v[0];
+#pragma unroll
+    for (int f = 0; f < F; ++f) cur[f] = nxt[f];
+    if (i == kScoreBatch - 1 || p + 1 == p_end) {
+      __syncthreads();
+      const int pb = p - i;
+      for (int o = tid; o < (i + 1) * RT; o += kScoreThreads) {
+        const int pi = o / RT, r = o - pi * RT, row = r0 + r;
+        if (row >= rows) continue;
+        float sum = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) sum += part[pi][w][r];
+        const int gi = row / nc, ci = row - gi * nc;
+        out[(((long long)b * hq + kvh * g + gi) * nc + ci) * maxp + pb + pi] =
+            page_ok(pt[pb + pi], num_pages) ? sum * scale : score_nan();
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// CTAs of score_kernel<S> the card holds at once (queried once a process).
+template <int S>
+int score_ctas() {
+  static int cap = 0;
+  if (cap == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, score_kernel<S>,
+                                                  kScoreThreads, 0);
+    cap = (sms > 0 ? sms : 132) * (per_sm > 0 ? per_sm : 1);
+  }
+  return cap;
+}
+
+template <int S>
+int launch_score(const float* qp, long long sb, long long sh, long long sc,
+                 long long ss, int pair, const float* kg, const int* page_table,
+                 float* out, int b, int hq, int hk, int nc, int maxp, int num_pages,
+                 float scale, cudaStream_t stream) {
+  if (ss == 0) {
+    const dim3 grid((maxp + kBcastWarps - 1) / kBcastWarps, hk, b);
+    score_bcast_kernel<S><<<grid, kBcastWarps * kWarp, 0, stream>>>(
+        qp, sb, sh, sc, kg, page_table, out, hq, hk, nc, maxp, num_pages, scale);
+    return (int)cudaGetLastError();
+  }
+  constexpr int RT = 32 / (S * kScoreD / 4 / kScoreThreads);
+  const int tiles = (hq / hk * nc + RT - 1) / RT;
+  // pages a CTA: the (b, KV head, row tile, page) work over one wave
+  const long long units = (long long)b * hk * tiles;
+  const long long cap = score_ctas<S>();
+  const int ppc = (int)((units * maxp + cap - 1) / cap);
+  const dim3 grid((maxp + ppc - 1) / ppc, hk * tiles, b);
+  score_kernel<S><<<grid, kScoreThreads, 0, stream>>>(
+      qp, sb, sh, sc, ss, pair, kg, page_table, out, hq, hk, nc, maxp, num_pages,
+      ppc, scale);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -653,21 +866,32 @@ long long stem_paged_attend_tile_smem(int d, int rows, int bs) {
   return (long long)tile_smem_bytes(d, rows, bs);
 }
 
+// qp (b, hq, nc, s, d) fp32 through strides (sb, sh, sc, ss), head_dim
+// contiguous, 16-byte aligned, strides multiples of 4; ss == 0 (the query
+// broadcast over s) runs score_bcast_kernel.  pair: read group (s - u) mod
+// s of qp against group u of kg.  kg (hk, P, s, d) and page_table (b, maxp)
+// contiguous; out (b, hq, nc, maxp).  d must be 128 and s 8, 16 or 32.
 int stem_paged_score(const float* qp, long long sb, long long sh, long long sc,
-                     long long ss, const float* kg, const int* page_table,
+                     long long ss, int pair, const float* kg, const int* page_table,
                      float* out, int b, int hq, int hk, int nc, int s, int d,
                      int maxp, int num_pages, float scale, void* stream) {
-  const dim3 grid((maxp + kScorePages - 1) / kScorePages, hk, b);
-  const size_t smem = sizeof(float) * (size_t)s * d;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        score_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+  if (d != kScoreD || hk <= 0 || hq % hk != 0 || maxp <= 0 || b <= 0 || nc <= 0 ||
+      b > 65535 || (uintptr_t)qp % 16 != 0 || (sb | sh | sc | ss) % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (s) {
+    case 8:
+      return launch_score<8>(qp, sb, sh, sc, ss, pair, kg, page_table, out, b, hq, hk,
+                             nc, maxp, num_pages, scale, st);
+    case 16:
+      return launch_score<16>(qp, sb, sh, sc, ss, pair, kg, page_table, out, b, hq, hk,
+                              nc, maxp, num_pages, scale, st);
+    case 32:
+      return launch_score<32>(qp, sb, sh, sc, ss, pair, kg, page_table, out, b, hq, hk,
+                              nc, maxp, num_pages, scale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  score_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      qp, sb, sh, sc, ss, kg, page_table, out, hq, hk, nc, s, d, maxp,
-      num_pages, scale);
-  return (int)cudaGetLastError();
 }
 
 // is_bf16: 0 = float32 q/k/v/out, 1 = bfloat16.  rows == 1 runs the decode

@@ -5,12 +5,17 @@ Port of ``repro/kernels/paged_attn.py``.  Two hand-written CUDA kernels for
 
 * ``score_pages`` replaces ``_score_kernel``
   (``src/repro/kernels/paged_attn.py:142``): routing score
-  ``scale * sum_u <qp[u], kg[kv_head, page_table[b, p], u]>`` of every
+  ``scale * sum_u <qp[pair(u)], kg[kv_head, page_table[b, p], u]>`` of every
   (row, candidate page), read straight off the pool summaries without
-  materializing ``pool.kg[:, page_table]``.  Bytes-bound on the H100 (each
-  page's fp32 kg tile is read for 2*s*d flops per query row); the kernel
-  stages each tile in shared memory once per KV head and scores it against
-  all g query heads and all chunk rows.
+  materializing ``pool.kg[:, page_table]``; ``pair`` folds the chunk lane's
+  anti-diagonal pairing ``u -> (s - u) % s`` into the kernel's loads.
+  Bytes-bound on the H100 (each page's fp32 kg tile is read for 2*s*d flops
+  per query row).  A query broadcast over s (the decode lane; mean pooling)
+  takes one warp a page: the tile summed over u, then g * nc dot products.
+  Otherwise (the chunk lane) a CTA's threads split the s*d contraction,
+  hold their strip of the KV head's query rows in registers and stream the
+  kg strips of a few pages past them, reduce-scattering the partial sums;
+  pages per CTA are chosen so the grid fills the card.
 * ``attend_pages`` replaces ``_attend_kernel``
   (``src/repro/kernels/paged_attn.py:249``): flash online-softmax attention
   of each (row, query head, chunk row) over that row's selected pages, fp32
@@ -88,7 +93,7 @@ def _lib():
     lib = _build.load("paged_attn")
     if not getattr(lib, "_stem_typed", False):
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        lib.stem_paged_score.argtypes = [p, ll, ll, ll, ll, p, p, p,
+        lib.stem_paged_score.argtypes = [p, ll, ll, ll, ll, i, p, p, p,
                                          i, i, i, i, i, i, i, i, f, p]
         lib.stem_paged_score.restype = i
         lib.stem_paged_attend.argtypes = [p, p, p, p, p, p, p, p, p,
@@ -133,21 +138,30 @@ def pack_selection(indices, live, page_table):
 # Kernel 1: summary-resident page scoring
 # ---------------------------------------------------------------------------
 
-def score_pages_plain(qp, kg_pool, page_table, *, group: int, scale: float):
+SCORE_STRIDES = (8, 16, 32)       # the scorer's summary strides s (d = 128)
+
+
+def score_pages_plain(qp, kg_pool, page_table, *, group: int, scale: float,
+                      pair: bool = False):
     """Plain version: qp (b, hq, nc, s, d) f32; kg_pool (hk, P, s, d) f32;
-    page_table (b, maxp) -> (b, hq, nc, maxp) f32."""
+    page_table (b, maxp) -> (b, hq, nc, maxp) f32.  ``pair``: group u of kg
+    meets group (s - u) % s of qp (the anti-diagonal pairing)."""
+    if pair:
+        s = qp.shape[-2]
+        qp = qp.index_select(-2, (s - torch.arange(s, device=qp.device)) % s)
     rows = kg_pool[:, page_table.long()].transpose(0, 1)   # (b, hk, maxp, s, d)
     rows = torch.repeat_interleave(rows, group, dim=1)     # (b, hq, maxp, s, d)
     return torch.einsum("bhcsd,bhpsd->bhcp", qp.float(), rows.float()) * scale
 
 
 def score_pages(qp, kg_pool, page_table, *, group: int, scale: float,
-                lane: str):
-    """Routing scores of every (row, candidate page) off the pool summaries.
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+                lane: str, pair: bool = False):
+    """Routing scores of every (row, candidate page) off the pool summaries;
+    a page id outside [0, P) scores NaN on the card.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
     if qp.device.type == "cpu":
         return score_pages_plain(qp, kg_pool, page_table, group=group,
-                                 scale=scale)
+                                 scale=scale, pair=pair)
     _check(qp.device.type == "cuda", f"unsupported device {qp.device}")
     b, hq, nc, s, d = qp.shape
     hk, num_pages = kg_pool.shape[0], kg_pool.shape[1]
@@ -160,14 +174,18 @@ def score_pages(qp, kg_pool, page_table, *, group: int, scale: float,
            "score_pages: page_table must be contiguous int32")
     _check(kg_pool.is_contiguous() and tuple(kg_pool.shape[2:]) == (s, d),
            "score_pages: kg pool must be contiguous (hk, P, s, d)")
-    _check(qp.stride(-1) == 1, "score_pages: qp head_dim must be contiguous")
+    _check(d == 128 and s in SCORE_STRIDES,
+           f"score_pages: head_dim must be 128 and stride one of {SCORE_STRIDES}")
+    sb, sh, sc, ss, sd = qp.stride()
+    _check(sd == 1 and qp.data_ptr() % 16 == 0
+           and all(x % 4 == 0 for x in (sb, sh, sc, ss)),
+           "score_pages: qp must be 16-byte aligned with head_dim contiguous "
+           "and its other strides multiples of 4")
     _check(hq == hk * group and page_table.shape[0] == b,
            "score_pages: head/batch shapes disagree")
-    _check(s * d * 4 <= MAX_SMEM_BYTES, "score_pages: kg tile exceeds smem")
     out = torch.empty((b, hq, nc, maxp), dtype=torch.float32, device=qp.device)
-    sb, sh, sc, ss, _ = qp.stride()
     err = _lib().stem_paged_score(
-        qp.data_ptr(), sb, sh, sc, ss, kg_pool.data_ptr(),
+        qp.data_ptr(), sb, sh, sc, ss, int(pair), kg_pool.data_ptr(),
         page_table.data_ptr(), out.data_ptr(), b, hq, hk, nc, s, d, maxp,
         num_pages, float(scale), _stream_ptr(qp.device))
     if err != 0:
@@ -193,24 +211,21 @@ def decode_page_scores(q, kg_pool, page_table, *, group: int):
 def chunk_page_scores(q, kg_pool, page_table, *, block_size: int,
                       pooling: str, group: int):
     """Scorer-backed ``chunk_routing_scores`` against the pool.  The
-    anti-diagonal pairing u -> (s - u) % s is an involution, so permuting the
-    pooled queries turns the paired contraction into the plain
-    ``sum_u qp'[u] . kg[u]`` the kernel computes; mean pooling broadcasts the
-    block mean.  q: (b, hq, C, d) -> (b, hq, nc, maxp) f32."""
+    anti-diagonal pairing u -> (s - u) % s is folded into the scorer's loads
+    (``pair``); mean pooling broadcasts the block mean over s (a stride-0
+    view, which the scorer reads as a single row).
+    q: (b, hq, C, d) -> (b, hq, nc, maxp) f32."""
     d = q.shape[-1]
     s = kg_pool.shape[-2]
     qp = stem_metric.antidiag_pool(q.contiguous(), block_size=block_size,
                                    stride=s)                  # (b, hq, nc, s, d) f32
-    if pooling == "antidiag":
-        pair = (s - torch.arange(s, device=q.device)) % s
-        qp = qp.index_select(-2, pair)
-    elif pooling == "mean":
+    if pooling == "mean":
         qp = qp.mean(dim=-2, keepdim=True).expand(qp.shape)
-    else:
+    elif pooling != "antidiag":
         raise NotImplementedError(f"fused chunk scoring: pooling {pooling!r}")
     scale = 1.0 / (s * float(d) ** 0.5)
-    return score_pages(qp.contiguous(), kg_pool, page_table, group=group,
-                       scale=scale, lane="chunk")
+    return score_pages(qp, kg_pool, page_table, group=group, scale=scale,
+                       lane="chunk", pair=pooling == "antidiag")
 
 
 # ---------------------------------------------------------------------------

@@ -13,10 +13,14 @@ replace the two Pallas TPU kernels:
   of ``log(max(||v_j||_2, 1e-20))`` — ``(..., n, d) -> (..., n / block_size)``
   float32.
 
-Both read each element once: bytes-bound on the H100.  The pool's output
-dtype is an argument: float32 as the reference wrapper writes it, or the
-input dtype where the port replaces ``metric.antidiag_pool``, whose mean
-keeps q's dtype (sum in fp32, then rounded).
+Both read each element once: bytes-bound on the H100.  A pool thread
+sums a strip of 16 bytes (8 bf16 or 4 fp32 columns) over the block's
+groups where ``x`` and ``out`` are 16-byte aligned and a row is a whole
+number of 16-byte strips, and the same kernel runs on scalar loads
+otherwise (``pool_vector_width``).  Its output dtype is an
+argument: float32 as the reference wrapper writes it, or the input dtype
+where the port replaces ``metric.antidiag_pool``, whose mean keeps q's
+dtype (sum in fp32, then rounded).
 
 Beside each kernel sits its plain PyTorch version and a plain-int launch
 counter in ``LAUNCHES``.  A wrapper takes the plain version only for
@@ -47,7 +51,7 @@ def _lib():
     lib = _build.load("stem_metric")
     if not getattr(lib, "_stem_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.stem_antidiag_pool.argtypes = [p, p, i, i, i, i, i, i, i, p]
+        lib.stem_antidiag_pool.argtypes = [p, p, i, i, i, i, i, i, i, i, p]
         lib.stem_antidiag_pool.restype = i
         lib.stem_value_magnitude.argtypes = [p, p, i, i, i, i, i, p]
         lib.stem_value_magnitude.restype = i
@@ -70,6 +74,16 @@ def _check_input(name: str, x: torch.Tensor, block_size: int) -> int:
     bh = math.prod(x.shape[:-2])
     _check(0 < bh <= 65535, f"{name}: {bh} rows exceed the kernel grid")
     return bh
+
+
+def pool_vector_width(x: torch.Tensor, out: torch.Tensor) -> int:
+    """Elements a pool-kernel thread loads at once: 16 bytes' worth when
+    ``x`` and ``out`` are 16-byte aligned and a row of ``x`` is a whole
+    number of 16-byte strips, else 1 (the scalar-load variant)."""
+    elt = x.element_size()
+    wide = (x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+            and (x.shape[-1] * elt) % 16 == 0)
+    return 16 // elt if wide else 1
 
 
 def antidiag_pool_plain(x: torch.Tensor, *, block_size: int, stride: int,
@@ -97,7 +111,7 @@ def antidiag_pool(x: torch.Tensor, *, block_size: int = 128, stride: int = 16,
     err = _lib().stem_antidiag_pool(
         x.data_ptr(), out.data_ptr(), bh, n, d, block_size, stride,
         int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        pool_vector_width(x, out), torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"stem_antidiag_pool launch failed: cudaError {err}")
     LAUNCHES["antidiag_pool"] += 1

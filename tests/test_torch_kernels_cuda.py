@@ -15,9 +15,12 @@ fp32, so their floor is 1e-2 * the row's max|plain| (the ``p_bf16`` rule).
 The floor is per row because a row that attends to m keys has outputs of
 about sqrt(e / m): one number for the whole tensor would be as large as a
 long row's values.  ``cnt == 0`` rows must be exact zeros.  Covers the
-paged scorer and page attention (both lanes, their selection edges), the
-one-shot prefill's flash and block-sparse attention (and the products of
-their tensor-core tile), and the metric pooling / value-magnitude kernels.
+paged scorer (both kernels: the query broadcast over s and the chunk
+lane's strided, paired layouts; bad page ids; ragged page counts) and page
+attention (both lanes, their selection edges), the one-shot prefill's flash
+and block-sparse attention (and the products of their tensor-core tile),
+and the metric pooling (both load widths, every block size and stride the
+port uses, the engine's shapes) / value-magnitude kernels.
 """
 import numpy as np
 import pytest
@@ -380,3 +383,117 @@ def test_metric_kernels_match_plain_on_card(cuda, dtype, out_dtype):
     vm = t_sm.value_magnitude(x, block_size=128)
     torch.testing.assert_close(vm, t_sm.value_magnitude_plain(x, block_size=128),
                                atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("s", [8, 16, 32])
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("nc", [1, 8, 16])
+def test_scorer_layouts_on_card(cuda, nc, group, s):
+    """Both scorer kernels against ``score_pages_plain`` at atol 1e-4, at the
+    lanes' scale 1 / (s sqrt(d)): the query broadcast over s (stride 0: the
+    decode lane and mean pooling; the kernel sums each tile over s before
+    its dot products, another summation order than the plain einsum),
+    contiguous, strided (heads and chunk rows swapped in storage, half of a
+    padded head_dim) and with the anti-diagonal pairing folded in.
+    maxp = 37 is no multiple of any CTA's page count; page ids -1, P and
+    P + 5 score NaN in exactly their columns, the rest as the clean table."""
+    gen = torch.Generator(device=cuda).manual_seed(100 + nc + 7 * group + s)
+    hq, d, b, maxp = 8, 128, 2, 37
+    hk = hq // group
+    P = 1 + b * maxp
+    kg = torch.randn((hk, P, s, d), generator=gen, device=cuda)
+    pt = (1 + torch.randperm(P - 1, generator=gen, device=cuda)[:b * maxp]).to(
+        torch.int32).reshape(b, maxp).contiguous()
+    bad = pt.clone()
+    bad[0, 3], bad[1, 0], bad[1, maxp - 1] = -1, P, P + 5
+    nan = torch.zeros((b, hq, nc, maxp), dtype=torch.bool, device=cuda)
+    nan[0, ..., 3] = nan[1, ..., 0] = nan[1, ..., maxp - 1] = True
+    scale = 1.0 / (s * d ** 0.5)
+    q = torch.randn((b, hq, nc, 1, d), generator=gen, device=cuda)
+    full = torch.randn((b, hq, nc, s, d), generator=gen, device=cuda)
+    wide = torch.randn((b, nc, hq, s, 2 * d), generator=gen, device=cuda)
+    layouts = {"broadcast": (q.expand(b, hq, nc, s, d), False),
+               "contiguous": (full, False),
+               "strided": (wide.transpose(1, 2)[..., d:], False),
+               "paired": (full, True)}
+    for name, (qp, pair) in layouts.items():
+        want = t_kern.score_pages_plain(qp, kg, pt, group=group, scale=scale,
+                                        pair=pair)
+        before = t_kern.LAUNCHES["score/chunk"]
+        got = t_kern.score_pages(qp, kg, pt, group=group, scale=scale,
+                                 lane="chunk", pair=pair)
+        assert t_kern.LAUNCHES["score/chunk"] == before + 1
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0, msg=name)
+        got = t_kern.score_pages(qp, kg, bad, group=group, scale=scale,
+                                 lane="chunk", pair=pair)
+        assert torch.equal(torch.isnan(got), nan), name
+        torch.testing.assert_close(got[~nan], want[~nan], atol=1e-4, rtol=0, msg=name)
+
+
+@pytest.mark.parametrize("s", [8, 16, 32])
+@pytest.mark.parametrize("bs", [64, 128, 256])
+def test_pool_kernel_shapes_on_card(cuda, bs, s):
+    """The pool kernel (16-byte loads) against its plain version over one
+    block and 24 blocks of every (block size, stride) pair, fp32 and bf16
+    inputs, fp32 and input-dtype outputs."""
+    gen = torch.Generator(device=cuda).manual_seed(bs + s)
+    for n in (bs, 24 * bs):
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn((2, 3, n, 128), generator=gen, device=cuda).to(dt)
+            for od in (torch.float32, dt):
+                got = t_sm.antidiag_pool(x, block_size=bs, stride=s, out_dtype=od)
+                assert got.dtype == od and got.shape == (2, 3, n // bs, s, 128)
+                assert t_sm.pool_vector_width(x, got) == 16 // x.element_size()
+                _assert_close(got, t_sm.antidiag_pool_plain(
+                    x, block_size=bs, stride=s, out_dtype=od))
+
+
+@pytest.mark.parametrize("shape,out_dtype", [
+    ((1, 16, 1024, 128), "float32"),      # the chunk lane's query pooling
+    ((1, 8, 1024, 128), "bfloat16"),      # a chunk's page summaries
+    ((1, 16, 16384, 128), "float32"),     # a 16k prompt's metric pooling
+    ((1, 16, 16384, 128), "bfloat16"),
+])
+def test_pool_kernel_engine_shapes_on_card(cuda, shape, out_dtype):
+    """The pool kernel at the shapes the serving lanes and the one-shot
+    prefill give it (bf16 input, block 128, stride 16)."""
+    gen = torch.Generator(device=cuda).manual_seed(shape[1] + shape[2])
+    x = torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+    od = getattr(torch, out_dtype)
+    got = t_sm.antidiag_pool(x, block_size=128, stride=16, out_dtype=od)
+    assert got.dtype == od and t_sm.pool_vector_width(x, got) == 8
+    _assert_close(got, t_sm.antidiag_pool_plain(x, block_size=128, stride=16,
+                                                out_dtype=od))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pool_kernel_scalar_variant_on_card(cuda, monkeypatch, dtype):
+    """A contiguous view one element off 16-byte alignment, and (bf16) a
+    row of 72 bytes, launch the scalar-load variant of the pool kernel —
+    a counted kernel launch that matches the plain version — and never the
+    plain version itself (patched to raise here).  fp32 rows of 144 bytes
+    keep the 16-byte loads."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    buf = torch.randn((2 * 3 * 512 * 128 + 1,), generator=gen, device=cuda).to(dt)
+    cases = [(buf[1:].view(2, 3, 512, 128), 1),
+             (torch.randn((2, 512, 36), generator=gen, device=cuda).to(dt),
+              1 if dt == torch.bfloat16 else 4)]
+    wants = [t_sm.antidiag_pool_plain(x, block_size=128, stride=16, out_dtype=od)
+             for x, _ in cases for od in (torch.float32, dt)]
+
+    def plain(*a, **kw):
+        raise AssertionError("the plain version ran on the card")
+
+    monkeypatch.setattr(t_sm, "antidiag_pool_plain", plain)
+    gots = []
+    for x, width in cases:
+        assert x.is_contiguous()
+        for od in (torch.float32, dt):
+            before = t_sm.LAUNCHES["antidiag_pool"]
+            got = t_sm.antidiag_pool(x, block_size=128, stride=16, out_dtype=od)
+            assert t_sm.LAUNCHES["antidiag_pool"] == before + 1
+            assert t_sm.pool_vector_width(x, got) == width
+            gots.append(got)
+    for got, want in zip(gots, wants):
+        _assert_close(got, want)

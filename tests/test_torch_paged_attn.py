@@ -261,6 +261,32 @@ def test_attend_plain_matches_reference_kernel(group, causal):
     assert np.all(np.abs(got.numpy()[cnt > 0]).sum(-1) > 0)
 
 
+@pytest.mark.parametrize("pair", [False, True])
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("nc", [1, 8])
+def test_score_plain_matches_reference_kernel(nc, group, pair):
+    """The scorer's semantics, pinned on its plain version: the reference
+    ``_score_pages`` (interpret mode) on pooled queries whose groups are
+    already permuted u -> (s - u) % s, against ``score_pages_plain`` given
+    the unpermuted queries and ``pair=True`` (the pairing folded into the
+    scorer), or both the same queries with ``pair=False``; within 1e-4."""
+    rng = np.random.default_rng(60 + 10 * nc + group + 3 * pair)
+    hk, b, maxp = HQ // group, 2, 5
+    P = 1 + b * maxp
+    qp = rng.standard_normal((b, HQ, nc, STRIDE, D)).astype(np.float32)
+    kg = rng.standard_normal((hk, P, STRIDE, D)).astype(np.float32)
+    table = (1 + rng.permutation(P - 1)[:b * maxp]).reshape(b, maxp).astype(np.int32)
+    perm = (STRIDE - np.arange(STRIDE)) % STRIDE
+    scale = 1.0 / (STRIDE * float(D) ** 0.5)
+    want = j_kern._score_pages(jnp.asarray(qp[..., perm, :] if pair else qp),
+                               jnp.asarray(kg), jnp.asarray(table), group=group,
+                               scale=scale, interpret=True, name="score_test")
+    got = t_kern.score_pages_plain(torch.from_numpy(qp), torch.from_numpy(kg),
+                                   torch.from_numpy(table), group=group,
+                                   scale=scale, pair=pair)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=0)
+
+
 def test_unsupported_metric_raises():
     """No silent fallback: a metric the scorer cannot serve raises."""
     _, tp = _pair()

@@ -132,31 +132,32 @@ def test_block_sparse_plain_matches_jax(dtype, dedup):
                    jnp.asarray(msk), block_size=bs), dtype)
 
 
+@pytest.mark.parametrize("bs,s", [(64, 8), (32, 4), (128, 16), (256, 32)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_metric_plain_matches_jax(dtype):
-    (x,) = _arrays(9, [(2, 3, 256, 32)])
-    x[0, 1, 64:128] = 0                             # an all-zero block
+def test_metric_plain_matches_jax(dtype, bs, s):
+    (x,) = _arrays(9, [(2, 3, 512, 32)])
+    x[0, 1, bs:2 * bs] = 0                          # an all-zero block
     xt, xj = _t(x, dtype), _j(x, dtype)
-    pooled = t_sm.antidiag_pool(xt, block_size=64, stride=8)
+    pooled = t_sm.antidiag_pool(xt, block_size=bs, stride=s)
     assert pooled.dtype == torch.float32
-    _close(pooled, j_ops.antidiag_pool(xj, block_size=64, stride=8))
-    _close(t_sm.antidiag_pool_plain(xt, block_size=64, stride=8),
-           j_ref.antidiag_pool_ref(xj, 64, 8))
+    _close(pooled, j_ops.antidiag_pool(xj, block_size=bs, stride=s))
+    _close(t_sm.antidiag_pool_plain(xt, block_size=bs, stride=s),
+           j_ref.antidiag_pool_ref(xj, bs, s))
     # rounded to the input dtype: the reference's metric.antidiag_pool
-    rounded = t_sm.antidiag_pool(xt, block_size=64, stride=8, out_dtype=xt.dtype)
+    rounded = t_sm.antidiag_pool(xt, block_size=bs, stride=s, out_dtype=xt.dtype)
     assert rounded.dtype == xt.dtype
-    _close(rounded, j_metric.antidiag_pool(xj, 64, 8), dtype)
+    _close(rounded, j_metric.antidiag_pool(xj, bs, s), dtype)
     # The reference kernel floors the squared norm at 1e-40, a subnormal
     # that flushes to zero, so its all-zero block reads -inf; the port
     # follows the reference's metric and oracle (log of the 1e-20 floor).
-    live = np.ones(x.shape[:2] + (4,), bool)
+    live = np.ones(x.shape[:2] + (x.shape[2] // bs,), bool)
     live[0, 1, 1] = False
     np.testing.assert_allclose(
-        t_sm.value_magnitude(xt, block_size=64).numpy()[live],
-        np.asarray(j_ops.value_magnitude(xj, block_size=64))[live], atol=TOL, rtol=0)
-    _close(t_sm.value_magnitude_plain(xt, block_size=64), j_ref.value_magnitude_ref(xj, 64))
-    _close(t_sm.value_magnitude(xt, block_size=64),
-           j_metric.value_block_magnitude(xj, 64))
+        t_sm.value_magnitude(xt, block_size=bs).numpy()[live],
+        np.asarray(j_ops.value_magnitude(xj, block_size=bs))[live], atol=TOL, rtol=0)
+    _close(t_sm.value_magnitude_plain(xt, block_size=bs), j_ref.value_magnitude_ref(xj, bs))
+    _close(t_sm.value_magnitude(xt, block_size=bs),
+           j_metric.value_block_magnitude(xj, bs))
 
 
 # ---------------------------------------------------------------------------
