@@ -22,8 +22,11 @@ Phases:
                 "stem", also with group_dedup and with cnt == 0 rows; flash
                 attention, also against scaled_dot_product_attention; the
                 pool and value-magnitude kernels) at a 16384-token prompt,
-                and the pool also at the chunk lane's shapes (q (1, 16,
-                1024, 128) bf16 -> fp32, k (1, 8, 1024, 128) bf16 -> bf16).
+                the pool also at the chunk lane's shapes (q (1, 16,
+                1024, 128) bf16 -> fp32, k (1, 8, 1024, 128) bf16 -> bf16)
+                and vmag at a chunk's (v (1, 8, 1024, 128) bf16); flash and
+                block-sparse also at head_dim 64 and 256 (a 4096-token
+                prompt, bf16 on the CUDA-core tile).
                 fp32 outputs within 1e-4 abs; bf16 outputs within 2 bf16
                 ulps of the plain output plus 1e-3 * the max|plain| of the
                 element's row (last axis), except the bf16 attention on the
@@ -75,6 +78,22 @@ Phases:
                 prefill; greedy streams must be equal (or the logits at a
                 split differ by < 1e-3), prefill logits within 1e-4 and
                 selections equal.
+  8. small    — the small configurations the reference's suites serve:
+                tests/test_engine.py's config (head_dim 8, block 8, stride
+                4) and the reduced qwen3-0.6b (head_dim 16, block 128),
+                fp32, each trace served under "fused" and "gather" on the
+                card and under "fused" on the CPU (the plain versions),
+                with chunked and with monolithic prefill; counters zeroed
+                before each fused card run and read after (every kernel of
+                the path must have launched); the three greedy streams must
+                be equal.  The fused card run records the calls it makes
+                to every kernel (kernels/replay.py: arguments and output,
+                each new set of shapes and the 1st, 2nd, 4th, ... call)
+                and holds each against its plain version on the recorded
+                arguments (fp32 1e-4).  The reduced qwen3-0.6b is also
+                served in bf16 (the CUDA-core tiles' bf16 loads and stores
+                at head_dim 16): its recorded calls held to the bf16 rule
+                of phase 3, its fused stream equal to "gather"'s.
 
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}.  Any failed phase raises (non-zero exit).
@@ -98,7 +117,8 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.configs import QWEN3_0_6B  # noqa: E402
+from repro_torch.configs import QWEN3_0_6B, reduced  # noqa: E402
+from repro_torch.configs.base import ArchConfig  # noqa: E402
 from repro_torch.core import chunked as chunked_lib  # noqa: E402
 from repro_torch.core import metric as metric_lib  # noqa: E402
 from repro_torch.core import policy as policy_lib  # noqa: E402
@@ -107,7 +127,9 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import block_sparse_attn as bsa_kern  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_kern  # noqa: E402
 from repro_torch.kernels import paged_attn as kern  # noqa: E402
+from repro_torch.kernels import replay  # noqa: E402
 from repro_torch.kernels import stem_metric as metric_kern  # noqa: E402
+from repro_torch.kernels.replay import tolerance  # noqa: E402
 from repro_torch.launch import steps as steps_lib  # noqa: E402
 from repro_torch.models import attention as attention_lib  # noqa: E402
 from repro_torch.models import common  # noqa: E402
@@ -190,24 +212,6 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def tolerance(want: torch.Tensor, dtype, p_bf16: bool = False):
-    """The limit of |kernel - plain| per element (want in fp32): 1e-4 for
-    fp32 outputs; for bf16 outputs 2 bf16 ulps of the plain value plus a
-    floor of 1e-3 * the max|plain| of its row (the last axis), for values
-    near 0.  The floor is per row because an attention row over m keys has
-    outputs of about sqrt(e / m): a floor over the whole tensor would be as
-    large as a long row's values.  p_bf16: the bf16 attention kernels on
-    the tensor-core tile (flash, block-sparse, the paged chunk lane at page
-    size 128) round the probabilities P to bf16 before P.V (as SDPA's and
-    flex_attention's kernels do) while the plain version keeps P in fp32,
-    so their row floor is 1e-2 * max|plain| in place of 1e-3."""
-    if dtype == torch.float32:
-        return 1e-4
-    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=1e-30))) - 7)
-    floor = (1e-2 if p_bf16 else 1e-3) * want.abs().amax(dim=-1, keepdim=True)
-    return 2 * ulp + floor
 
 
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor, *,
@@ -640,14 +644,18 @@ def prefill_kernel_phase(records: dict, dev=torch.device("cuda")) -> None:
         if dtype == torch.bfloat16:
             pool_chunk_shapes(records, gen, hq, hk, d, bs, s)
 
-        # -- kernel 6: block max of log ||v|| -------------------------------
-        run_k = lambda: metric_kern.value_magnitude(v, block_size=bs)
-        run_p = lambda: metric_kern.value_magnitude_plain(v, block_size=bs)
-        got, want = run_k(), run_p()
-        torch.cuda.synchronize()
-        err = check_close(f"value_magnitude/{tag}", got, want)
-        rec_kernel(records, "value_magnitude", "prefill", tag, err, run_k, run_p,
-                   (v.numel() * es + got.numel() * 4, 2.0 * v.numel()), dtype)
+        # -- kernel 6: block max of log ||v|| (and at a chunk's v) ---------
+        vc = v[:, :, :1024].contiguous()
+        for lane, x in (("prefill", v), ("chunk", vc)):
+            if lane == "chunk" and dtype != torch.bfloat16:
+                continue
+            run_k = lambda: metric_kern.value_magnitude(x, block_size=bs)
+            run_p = lambda: metric_kern.value_magnitude_plain(x, block_size=bs)
+            got, want = run_k(), run_p()
+            torch.cuda.synchronize()
+            err = check_close(f"value_magnitude/{lane}/{tag}", got, want)
+            rec_kernel(records, "value_magnitude", lane, tag, err, run_k, run_p,
+                       (x.numel() * es + got.numel() * 4, 2.0 * x.numel()), dtype)
 
         # -- kernel 3: block-sparse attention under stem's TPD selection ----
         for dedup in (False, True):
@@ -716,6 +724,48 @@ def prefill_kernel_phase(records: dict, dev=torch.device("cuda")) -> None:
                    (2 * q.numel() * es + 2 * k.numel() * es, 4.0 * d * pairs),
                    dtype, run_lib=run_l, iters=5, plain_iters=1)
         del q, k, v, got, want, mask
+        torch.cuda.empty_cache()
+
+
+def prefill_head_dim_phase(records: dict, dev=torch.device("cuda")) -> None:
+    """Flash and block-sparse attention at head_dim 64 and 256 (bf16 on the
+    CUDA-core tile: fp32 products and probabilities), a 4096-token prompt,
+    16 / 8 heads, block 128, stem's TPD selection: each against its plain
+    version (the 1e-3 bf16 rule: P stays fp32) and timed (flash beside
+    SDPA); the bound is bf16's, the least the card could take for the same
+    work."""
+    n, hq, hk, bs = 4096, 16, 8, 128
+    policy = policy_lib.get_policy("stem")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for d in (64, 256):
+        q = torch.randn((1, hq, n, d), generator=gen, device=dev).to(torch.bfloat16)
+        k = torch.randn((1, hk, n, d), generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn((1, hk, n, d), generator=gen, device=dev).to(torch.bfloat16)
+        run_k = lambda: flash_kern.flash_attention(q, k, v)
+        run_p = lambda: flash_kern.flash_attention_plain(q, k, v)
+        run_l = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)
+        got, want = run_k(), run_p()
+        torch.cuda.synchronize()
+        err = check_close(f"flash_attention/d{d}/bfloat16", got, want)
+        check_library(f"flash_attention d{d} vs scaled_dot_product_attention",
+                      run_l(), got)
+        rec_kernel(records, "flash_attention", f"d{d}", "bfloat16", err, run_k, run_p,
+                   (4 * q.numel() + 4 * k.numel(), 4.0 * d * hq * n * (n + 1) / 2),
+                   torch.bfloat16, run_lib=run_l, iters=5, plain_iters=1)
+        sel, _ = policy.prefill_select(q, k, v, with_block_mask=False)
+        idx, cnt = sel.indices, sel.live_counts
+        run_k = lambda: bsa_kern.block_sparse_attention(q, k, v, idx, live_counts=cnt,
+                                                        block_size=bs)
+        run_p = lambda: bsa_kern.block_sparse_attention_plain(q, k, v, idx, cnt,
+                                                              block_size=bs)
+        got, want = run_k(), run_p()
+        torch.cuda.synchronize()
+        err = check_close(f"block_sparse_attention/d{d}/bfloat16", got, want)
+        rec_kernel(records, "block_sparse_attention", f"d{d}", "bfloat16", err,
+                   run_k, run_p, bsa_bytes_flops(q, k, idx, cnt, hq // hk, False, bs),
+                   torch.bfloat16, iters=5, plain_iters=1)
+        del q, k, v, got, want
         torch.cuda.empty_cache()
 
 
@@ -1040,6 +1090,107 @@ def prefill_parity_phase() -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the small configurations on the card
+# ---------------------------------------------------------------------------
+
+# tests/test_engine.py's config, policy and trace; the reduced qwen3-0.6b
+# (head_dim 16) at block 128 / stride 16 with a smaller budget floor
+TINY = dict(name="engine-tiny", family="dense", num_layers=2, d_model=32,
+            num_heads=4, num_kv_heads=2, head_dim=8, d_ff=64, vocab_size=64,
+            qk_norm=True, dtype="float32")
+SMALL_CONFIGS = {
+    "tiny": (ArchConfig(**TINY),
+             dict(block_size=8, sink_blocks=1, local_blocks=1, min_budget_blocks=2,
+                  stride=4),
+             [(5, 4, 0), (13, 6, 0), (8, 3, 1), (20, 5, 3), (9, 4, 5)]),
+    "qwen3-0.6b-reduced": (reduced(QWEN3_0_6B).replace(dtype="float32"),
+                           dict(sink_blocks=1, local_blocks=1, min_budget_blocks=2),
+                           [(100, 6, 0), (700, 6, 0), (1300, 5, 1), (260, 5, 3)]),
+}
+PATH_KERNELS = {
+    False: ("score/decode", "score/chunk", "attend/decode", "attend/chunk",
+            "antidiag_pool", "value_magnitude"),
+    True: ("score/decode", "attend/decode", "block_sparse_attention",
+           "flash_attention", "antidiag_pool", "value_magnitude"),
+}
+
+
+def _serve_small(cfg, policy, trace, params, executor, monolithic):
+    """Serve a small configuration's trace (2 slots, budget_frac 0.5) on
+    the device of ``params``; returns the greedy streams."""
+    rng = np.random.RandomState(7)
+    ecfg = engine_lib.EngineConfig.for_trace(
+        max_slots=2, max_prompt=max(n for n, _, _ in trace),
+        max_new_tokens=max(m for _, m, _ in trace), page_size=policy.block_size,
+        budget_frac=0.5, executor=executor, monolithic_prefill=monolithic)
+    engine = engine_lib.StemEngine(registry.build(cfg), params, policy, ecfg)
+    reqs = [engine_lib.Request(
+        uid=i, prompt=rng.randint(0, cfg.vocab_size, size=(n,)).astype(np.int32),
+        max_new_tokens=m, arrival_step=a) for i, (n, m, a) in enumerate(trace)]
+    fin = engine.run(reqs)
+    if [f.uid for f in fin] != list(range(len(trace))):
+        raise AssertionError(f"small/{cfg.name}: not every request finished")
+    if engine.allocator.available != ecfg.num_pages - 1:
+        raise AssertionError(f"small/{cfg.name}: pages leaked")
+    return [f.tokens for f in fin]
+
+
+def small_config_phase() -> dict:
+    """Each small configuration's trace (seeded weights) under "fused" and
+    "gather" on the card and "fused" on the CPU, chunked and monolithic:
+    every kernel of the path launched in the fused card run, each recorded
+    kernel call equal to its plain version, the three streams equal; then
+    the reduced qwen3-0.6b in bf16, its recorded kernel calls held to the
+    bf16 rule and its fused stream to "gather"'s."""
+    out = {}
+    runs = [(name, "float32") for name in SMALL_CONFIGS] + [
+        ("qwen3-0.6b-reduced", "bfloat16")]
+    for name, dtype in runs:
+        cfg, knobs, trace = SMALL_CONFIGS[name]
+        cfg = cfg.replace(dtype=dtype)
+        params_cpu = registry.build(cfg).init_params(
+            torch.Generator().manual_seed(0), device="cpu")
+        params = _to_device(params_cpu, "cuda")
+        policy = policy_lib.get_policy("stem").with_updates(**knobs)
+        for monolithic in (False, True):
+            mode = "monolithic" if monolithic else "chunked"
+            torch.cuda.synchronize()
+            reset_all_launches()
+            with replay.Recorder() as rec:
+                fused = _serve_small(cfg, policy, trace, params, "fused", monolithic)
+                torch.cuda.synchronize()
+            launches = read_all_launches()
+            counts = {k: launches[k] for k in PATH_KERNELS[monolithic]}
+            if not all(counts.values()):
+                raise AssertionError(f"small/{name}/{mode}: kernels never launched: "
+                                     f"{counts}")
+            report = rec.check()
+            torch.cuda.synchronize()
+            gather = _serve_small(cfg, policy, trace, params, "gather", monolithic)
+            cpu = _serve_small(cfg, policy, trace, params_cpu, "fused", monolithic)
+            res = dict(launches=counts, kernel_calls=report,
+                       fused_equals_gather=fused == gather, fused_equals_cpu=fused == cpu)
+            out[f"{name}/{dtype}/{mode}"] = res
+            log(f"[small] {name} {dtype} {mode} (head_dim {cfg.head_dim}, block "
+                f"{policy.block_size}, stride {policy.stride}): " + json.dumps(res))
+            # bf16 is held to "gather" on the card only: the CPU run's bf16
+            # matmuls round apart from cuBLAS's, so its stream is logged
+            if fused != gather or (dtype == "float32" and fused != cpu):
+                raise AssertionError(f"small/{name}/{dtype}/{mode}: streams differ "
+                                     f"(fused card, gather card, fused CPU)")
+        del params, params_cpu
+    return out
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(x, device) for k, x in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(x, device) for x in tree)
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1076,6 +1227,7 @@ def main() -> None:
     records: dict = {}
     kernel_phase(records)
     prefill_kernel_phase(records)
+    prefill_head_dim_phase(records)
 
     # Phase 4: the chunked engine at full width; phase 5: the one-shot
     # prefill; phase 6: the monolithic engine (this slice's main path);
@@ -1086,6 +1238,9 @@ def main() -> None:
     parity_phase(monolithic=False)
     parity_phase(monolithic=True)
     prefill_parity_phase()
+
+    # Phase 8: the small configurations under both executors.
+    small_config_phase()
 
     kernels = []
     for key in ("score/decode", "score/chunk", "attend/decode", "attend/chunk"):
@@ -1110,10 +1265,17 @@ def main() -> None:
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
             library_ms=rec["library_ms"],
             fp32=records[f"{key}/prefill"]["float32"]))
-    # the pool at the chunk lane's shapes, beside its 16k row
-    pool = next(k for k in kernels if k["name"] == "antidiag_pool")
-    pool["chunk_shapes"] = {lane: records[f"antidiag_pool/{lane}"]["bfloat16"]
-                            for lane in ("chunk_q", "chunk_k")}
+    # the pool and vmag at the chunk lane's shapes, beside their 16k rows;
+    # flash and block-sparse at head_dim 64 and 256
+    by_name = {k["name"]: k for k in kernels}
+    by_name["antidiag_pool"]["chunk_shapes"] = {
+        lane: records[f"antidiag_pool/{lane}"]["bfloat16"]
+        for lane in ("chunk_q", "chunk_k")}
+    by_name["value_magnitude"]["chunk_shapes"] = {
+        "chunk_v": records["value_magnitude/chunk"]["bfloat16"]}
+    for key in ("flash_attention", "block_sparse_attention"):
+        by_name[key]["head_dims"] = {f"d{d}": records[f"{key}/d{d}"]["bfloat16"]
+                                     for d in (64, 256)}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -56,14 +56,16 @@ def antidiag_routing_scores(q_pooled: torch.Tensor, k_pooled: torch.Tensor,
     s = q_pooled.shape[-2]
     pair = (s - torch.arange(s, device=k_pooled.device)) % s
     k_matched = k_pooled.index_select(-2, pair)
-    scores = torch.einsum("...iud,...jud->...ij", q_pooled, k_matched)
+    dt = torch.promote_types(q_pooled.dtype, k_pooled.dtype)
+    scores = torch.einsum("...iud,...jud->...ij", q_pooled.to(dt), k_matched.to(dt))
     return scores / _f32_scale(scores, s, head_dim).to(scores.dtype)
 
 
 def mean_routing_scores(q_pooled: torch.Tensor, k_pooled: torch.Tensor,
                         head_dim: int) -> torch.Tensor:
     """Blockwise routing from plain mean pooling: (..., nq, nk)."""
-    scores = torch.einsum("...id,...jd->...ij", q_pooled, k_pooled)
+    dt = torch.promote_types(q_pooled.dtype, k_pooled.dtype)
+    scores = torch.einsum("...id,...jd->...ij", q_pooled.to(dt), k_pooled.to(dt))
     return scores / _f32_scale(scores, 1, head_dim).to(scores.dtype)
 
 

@@ -9,8 +9,10 @@ that row's ``live_counts`` selected key blocks, fp32 accumulation, output
 in q's dtype, exact zeros for ``cnt == 0`` rows.  With ``group_dedup`` the
 selection has one row per KV head, shared by the query heads of the group;
 without it the KV head is query head // group.  Compute-bound on the H100:
-bf16 runs on the tensor cores (TMA + wgmma, 128-row tiles, P rounded to
-bf16 before P.V), fp32 on the fp32 CUDA cores.  The kernel reads only the
+bf16 at head_dim 128 and a block that is a multiple of 128 runs on the
+tensor cores (TMA + wgmma, 128-row tiles, P rounded to bf16 before P.V);
+fp32, and bf16 at the other shapes (head_dims of ``HEAD_DIMS``, any block),
+on the fp32 CUDA cores (64-row tiles, or one block's rows under 64).  The kernel reads only the
 live prefix of each index row, so it needs no revisit filling.
 
 Beside the kernel sits its plain PyTorch version
@@ -24,9 +26,9 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import HEAD_DIMS
+
 NEG_INF = -1e30
-HEAD_DIM = 128                      # the kernel's head_dim
-TILE = {torch.float32: 64, torch.bfloat16: 128}   # the kernel's query / key tile
 
 LAUNCHES = {"block_sparse_attention": 0}
 
@@ -138,14 +140,14 @@ def block_sparse_attention(q, k, v, indices, slot_mask=None, *,
            "block_sparse_attention: inputs must be contiguous")
     _check(tuple(k.shape) == (b, hk, n, d) and tuple(v.shape) == (b, hk, n, d),
            "block_sparse_attention: needs seq_q == seq_k and equal q/k/v head dims")
-    _check(d == HEAD_DIM, f"block_sparse_attention: head_dim must be {HEAD_DIM}")
+    _check(d in HEAD_DIMS,
+           f"block_sparse_attention: head_dim must be one of {HEAD_DIMS}")
     _check(hk > 0 and hq % hk == 0,
            "block_sparse_attention: kv heads must divide q heads")
-    _check(bs % TILE[q.dtype] == 0 and n % bs == 0,
-           f"block_sparse_attention: block size must be a multiple of "
-           f"{TILE[q.dtype]} dividing the sequence")
+    _check(bs > 0 and n % bs == 0,
+           "block_sparse_attention: block size must divide the sequence")
     _check(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
-           "block_sparse_attention: inputs must be 16-byte aligned (TMA)")
+           "block_sparse_attention: inputs must be 16-byte aligned (TMA, 16-byte loads)")
     _check(indices.dim() == 4 and tuple(indices.shape[:3]) == (b, hsel, n // bs)
            and tuple(cnt.shape) == (b, hsel, n // bs),
            "block_sparse_attention: selection shapes disagree with q")

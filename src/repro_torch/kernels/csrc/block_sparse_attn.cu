@@ -27,31 +27,39 @@
 // index row (the reference's fused (g * B, d) query tile, whose row r is
 // query position i*B + r mod B); without it the KV head is head / group.
 //
-// bf16 (the serving dtype) runs on the tensor cores (attn_wgmma.cuh): one
-// CTA per 128 query rows (a query block at bs = 128), the selected blocks
-// streamed as 128-key tiles through a TMA ring into wgmma products.  The
-// grid puts the query heads fastest, so the g heads of a KV head run side
-// by side and the second read of each selected K/V block comes from L2, and
-// walks the query blocks from the last (the most selected blocks,
-// min(k_max, i + 1)) to the first.  fp32 keeps the CUDA-core tile of
-// attn_tile.cuh (64-row CTAs, 64-key sub-tiles, fp32 products: within 1e-4
-// of the plain version).
+// bf16 (the serving dtype) at head_dim 128 and a block that is a multiple
+// of 128 runs on the tensor cores (attn_wgmma.cuh): one CTA per 128 query
+// rows (a query block at bs = 128), the selected blocks streamed as 128-key
+// tiles through a TMA ring into wgmma products.  The grid puts the query
+// heads fastest, so the g heads of a KV head run side by side and the
+// second read of each selected K/V block comes from L2, and walks the query
+// blocks from the last (the most selected blocks, min(k_max, i + 1)) to the
+// first.  fp32 at every head_dim and block, and bf16 off that shape, run the
+// CUDA-core tile of attn_tile.cuh (64-key sub-tiles, fp32 products and
+// probabilities: within 1e-4 of the plain version in fp32): a CTA owns 64
+// query rows of a block, or the whole block where it is under 64 rows (the
+// engine's small configurations run block 8), and a block that is no
+// multiple of 64 stages its last sub-tile short, the missing keys masked.
 #include "attn_tile.cuh"
 #include "attn_wgmma.cuh"
+#include "head_dims.cuh"
 
 namespace {
 
 using namespace stem_attn;
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
+// grid (nq * ceil(bs / 64), hq, b): CTA x owns rows [sub * 64, sub * 64 +
+// 64) of query block x / tiles.  KMASK: bs is no multiple of 64, so a
+// CTA's rows and a block's last key sub-tile may be short.
+template <typename T, int D, bool KMASK>
+__global__ void __launch_bounds__(kThreads, tile_min_ctas<D>())
 block_sparse_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ idx,
                     const int* __restrict__ cnt, T* __restrict__ out, int hq, int hk,
                     int dedup, int n, int bs, int kmax, float scale) {
   extern __shared__ float4 smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  const int tiles = bs / kBQ;
+  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw);
+  const int tiles = KMASK ? (bs + kBQ - 1) / kBQ : bs / kBQ;
   const int i = blockIdx.x / tiles, sub = blockIdx.x - i * tiles;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (hq / hk);
@@ -59,11 +67,12 @@ block_sparse_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int nq = n / bs;
   const long long row = ((long long)b * hsel + (dedup ? kvh : h)) * nq + i;
   const int q0 = i * bs + sub * kBQ;
+  const int qrows = KMASK ? min(kBQ, bs - sub * kBQ) : kBQ;
   const long long qrow0 = ((long long)b * hq + h) * n + q0;
   const long long krow0 = ((long long)b * hk + kvh) * n;
 
-  load_transposed(sm.qt, q + qrow0 * kD, kBQ, scale);
-  RowState st;
+  load_transposed<D>(sm.qt, q + qrow0 * D, qrows, scale);
+  RowState<D> st;
   init_state(st);
   const int live = min(cnt[row], kmax);
   for (int s = 0; s < live; ++s) {
@@ -71,25 +80,44 @@ block_sparse_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (j < 0 || j >= nq) continue;               // an out-of-range id is not read
     for (int t = 0; t < bs; t += kBK) {
       const int k0 = j * bs + t;
-      if (k0 > q0 + kBQ - 1) break;               // the rest is above the diagonal
-      stage_and_step(sm, st, k + (krow0 + k0) * kD, v + (krow0 + k0) * kD, kBK, q0,
-                     k0);
+      if (k0 > q0 + qrows - 1) break;             // the rest is above the diagonal
+      stage_and_step<D, KMASK>(sm, st, k + (krow0 + k0) * D, v + (krow0 + k0) * D,
+                               KMASK ? min(kBK, bs - t) : kBK, q0, k0);
     }
   }
-  store_rows(st, out + qrow0 * kD, kBQ);
+  store_rows<D>(st, out + qrow0 * D, qrows);
 }
 
-template <typename T>
+template <typename T, int D, bool KMASK>
 int launch(const void* q, const void* k, const void* v, const int* idx,
            const int* cnt, void* out, int b, int hq, int hk, int dedup, int n, int bs,
            int kmax, float scale, cudaStream_t stream) {
-  cudaError_t err = prepare(block_sparse_kernel<T>);
+  cudaError_t err = prepare<D>(block_sparse_kernel<T, D, KMASK>);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(n / kBQ, hq, b);
-  block_sparse_kernel<T><<<grid, kThreads, sizeof(Smem), stream>>>(
+  const dim3 grid(n / bs * ((bs + kBQ - 1) / kBQ), hq, b);
+  block_sparse_kernel<T, D, KMASK><<<grid, kThreads, sizeof(Smem<D>), stream>>>(
       (const T*)q, (const T*)k, (const T*)v, idx, cnt, (T*)out, hq, hk, dedup, n, bs,
       kmax, scale);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_d(const void* q, const void* k, const void* v, const int* idx,
+             const int* cnt, void* out, int b, int hq, int hk, int dedup, int n, int bs,
+             int kmax, float scale, cudaStream_t stream) {
+  if (bs % kBQ == 0)
+    return launch<T, D, false>(q, k, v, idx, cnt, out, b, hq, hk, dedup, n, bs, kmax,
+                               scale, stream);
+  return launch<T, D, true>(q, k, v, idx, cnt, out, b, hq, hk, dedup, n, bs, kmax, scale,
+                            stream);
+}
+
+template <typename T>
+int launch_tile(const void* q, const void* k, const void* v, const int* idx,
+                const int* cnt, void* out, int b, int hq, int hk, int dedup, int n, int d,
+                int bs, int kmax, float scale, cudaStream_t stream) {
+  STEM_HEAD_DIM_SWITCH(d, launch_d<T, D>(q, k, v, idx, cnt, out, b, hq, hk, dedup, n, bs,
+                                         kmax, scale, stream))
 }
 
 // bf16 on the tensor cores: the 128-key tiles of the row's live selected
@@ -159,20 +187,24 @@ extern "C" {
 
 // q/out (b, hq, n, d), k/v (b, hk, n, d); idx (b, h_sel, n/bs, kmax) and
 // cnt (b, h_sel, n/bs) int32 with h_sel = hk when dedup else hq; all
-// contiguous.  d must be 128, bs a multiple of 64 (float32) or 128
-// (bfloat16) dividing n (the wrapper checks).  is_bf16: 0 = float32 (the
-// CUDA-core tile), 1 = bfloat16 for q/k/v/out (the tensor-core tile; q, k, v
-// 16-byte aligned for TMA).
+// contiguous.  d one of 8, 16, 32, 64, 128, 256 and bs dividing n (the
+// wrapper checks).  is_bf16: 0 = float32 (the CUDA-core tile), 1 =
+// bfloat16 for q/k/v/out: the tensor-core tile at d = 128 and bs a multiple
+// of 128 (q, k, v 16-byte aligned for TMA), else the CUDA-core tile.
 int stem_block_sparse_attention(const void* q, const void* k, const void* v,
                                 const int* idx, const int* cnt, void* out, int b,
                                 int hq, int hk, int dedup, int n, int d, int bs,
                                 int kmax, int is_bf16, float scale, void* stream) {
-  if (d != kD || hk <= 0 || hq % hk != 0 || bs <= 0 || bs % kBQ != 0 || n % bs != 0)
+  if (hk <= 0 || hq % hk != 0 || bs <= 0 || n % bs != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (is_bf16)
+  if (is_bf16 && d == stem_wg::kD && bs % stem_wg::kBM == 0)
     return launch_wgmma(q, k, v, idx, cnt, out, b, hq, hk, dedup, n, bs, kmax, scale, st);
-  return launch<float>(q, k, v, idx, cnt, out, b, hq, hk, dedup, n, bs, kmax, scale, st);
+  if (is_bf16)
+    return launch_tile<__nv_bfloat16>(q, k, v, idx, cnt, out, b, hq, hk, dedup, n, d, bs,
+                                      kmax, scale, st);
+  return launch_tile<float>(q, k, v, idx, cnt, out, b, hq, hk, dedup, n, d, bs, kmax,
+                            scale, st);
 }
 
 }  // extern "C"

@@ -17,54 +17,63 @@
 // axis becomes a loop inside the CTA, with the GQA head mapping kv_head =
 // head / group.
 //
-// bf16 (the serving dtype) runs on the tensor cores (attn_wgmma.cuh): one
-// CTA per (128 query rows, query head, batch row) walks the key tiles
-// 0..its diagonal through a TMA ring, wgmma products and the online softmax
-// in registers; the diagonal tile is masked exactly, which also masks every
-// key past n for the rows < n that are written, so any n runs.  The grid
-// puts the query heads fastest, so the g heads of a KV head run side by side
-// and the second read of each K/V tile comes from L2, and walks the query
-// tiles from the last (the heaviest) to the first, so the causal tail wave
-// holds the light tiles.  fp32 keeps the CUDA-core tile of attn_tile.cuh
-// (64-row CTAs, fp32 products: within 1e-4 of the plain version).
+// bf16 (the serving dtype) at head_dim 128 runs on the tensor cores
+// (attn_wgmma.cuh): one CTA per (128 query rows, query head, batch row) walks
+// the key tiles 0..its diagonal through a TMA ring, wgmma products and the
+// online softmax in registers; the diagonal tile is masked exactly, which
+// also masks every key past n for the rows < n that are written, so any n
+// runs.  The grid puts the query heads fastest, so the g heads of a KV head
+// run side by side and the second read of each K/V tile comes from L2, and
+// walks the query tiles from the last (the heaviest) to the first, so the
+// causal tail wave holds the light tiles.  fp32 at every head_dim, and bf16
+// at head_dim 8-64 and 256, run the CUDA-core tile of attn_tile.cuh
+// (64-row CTAs, fp32 products and probabilities: within 1e-4 of the plain
+// version in fp32, bf16 loads and stores around the same fp32 math).
 #include "attn_tile.cuh"
 #include "attn_wgmma.cuh"
+#include "head_dims.cuh"
 
 namespace {
 
 using namespace stem_attn;
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, tile_min_ctas<D>())
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ out, int hq, int hk, int n,
              float scale) {
   extern __shared__ float4 smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw);
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (hq / hk);
   const int q0 = blockIdx.x * kBQ;
   const long long qrow0 = ((long long)b * hq + h) * n + q0;
   const long long krow0 = ((long long)b * hk + kvh) * n;
 
-  load_transposed(sm.qt, q + qrow0 * kD, min(kBQ, n - q0), scale);
-  RowState st;
+  load_transposed<D>(sm.qt, q + qrow0 * D, min(kBQ, n - q0), scale);
+  RowState<D> st;
   init_state(st);
   for (int k0 = 0; k0 < n && k0 <= q0 + kBQ - 1; k0 += kBK)
-    stage_and_step(sm, st, k + (krow0 + k0) * kD, v + (krow0 + k0) * kD,
-                   min(kBK, n - k0), q0, k0);
-  store_rows(st, out + qrow0 * kD, min(kBQ, n - q0));
+    stage_and_step<D, false>(sm, st, k + (krow0 + k0) * D, v + (krow0 + k0) * D,
+                             min(kBK, n - k0), q0, k0);
+  store_rows<D>(st, out + qrow0 * D, min(kBQ, n - q0));
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, void* out, int b, int hq,
+           int hk, int n, float scale, cudaStream_t stream) {
+  cudaError_t err = prepare<D>(flash_kernel<T, D>);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n + kBQ - 1) / kBQ, hq, b);
+  flash_kernel<T, D><<<grid, kThreads, sizeof(Smem<D>), stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, hq, hk, n, scale);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int b, int hq,
-           int hk, int n, float scale, cudaStream_t stream) {
-  cudaError_t err = prepare(flash_kernel<T>);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n + kBQ - 1) / kBQ, hq, b);
-  flash_kernel<T><<<grid, kThreads, sizeof(Smem), stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, hq, hk, n, scale);
-  return (int)cudaGetLastError();
+int launch_tile(const void* q, const void* k, const void* v, void* out, int b, int hq,
+                int hk, int n, int d, float scale, cudaStream_t stream) {
+  STEM_HEAD_DIM_SWITCH(d, launch<T, D>(q, k, v, out, b, hq, hk, n, scale, stream))
 }
 
 // bf16 on the tensor cores: the key tiles 0..last of one query tile; only
@@ -160,17 +169,20 @@ wgmma_tile_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
 
 extern "C" {
 
-// q/out (b, hq, n, d), k/v (b, hk, n, d), contiguous; d must be 128 and
-// hk must divide hq (the wrapper checks both).  is_bf16: 0 = float32 (the
-// CUDA-core tile), 1 = bfloat16 for all four tensors (the tensor-core tile;
-// q, k, v 16-byte aligned for TMA).
+// q/out (b, hq, n, d), k/v (b, hk, n, d), contiguous; d one of 8, 16, 32,
+// 64, 128, 256 and hk dividing hq (the wrapper checks both).  is_bf16: 0 =
+// float32 (the CUDA-core tile), 1 = bfloat16 for all four tensors (the
+// tensor-core tile at d = 128, q, k, v 16-byte aligned for TMA; the
+// CUDA-core tile at the other head_dims).
 int stem_flash_attention(const void* q, const void* k, const void* v, void* out,
                          int b, int hq, int hk, int n, int d, int is_bf16,
                          float scale, void* stream) {
-  if (d != kD || hk <= 0 || hq % hk != 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  if (hk <= 0 || hq % hk != 0 || n <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (is_bf16) return launch_wgmma(q, k, v, out, b, hq, hk, n, scale, st);
-  return launch<float>(q, k, v, out, b, hq, hk, n, scale, st);
+  if (is_bf16 && d == stem_wg::kD) return launch_wgmma(q, k, v, out, b, hq, hk, n, scale, st);
+  if (is_bf16)
+    return launch_tile<__nv_bfloat16>(q, k, v, out, b, hq, hk, n, d, scale, st);
+  return launch_tile<float>(q, k, v, out, b, hq, hk, n, d, scale, st);
 }
 
 // a, b, p, v: (128, 128) bf16, contiguous and 16-byte aligned; s, o:

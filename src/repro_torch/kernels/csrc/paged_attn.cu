@@ -17,8 +17,9 @@
 //  * Scoring reads every visible page's kg summary tile (stride x d fp32,
 //    8 KiB at s = 16, d = 128) once and does 2 * s * d flops per (query
 //    head, chunk row) against it: bytes-bound (phase 3's decode lane: 33 MB,
-//    0.0099 ms at 3.35 TB/s; its chunk lane: 8.5 MB, 0.0028 ms).  Two
-//    kernels, chosen by the query's stride over s; fp32 on the CUDA cores
+//    0.0099 ms at 3.35 TB/s; its chunk lane: 8.5 MB, 0.0028 ms).  At d = 128
+//    and s 8, 16 or 32 two kernels, chosen by the query's stride over s;
+//    every other shape one general kernel.  fp32 on the CUDA cores
 //    (TF32 would break the 1e-4 parity), page ids read from the page table
 //    in global memory, a page id outside [0, P) writing NaN in exactly its
 //    column.
@@ -46,6 +47,11 @@
 //        memory, one barrier pair a batch.  Pages per CTA are chosen from
 //        the shape so the grid is about one CTA per SM (phase 3's chunk
 //        shape: 8 pages, 128 CTAs).
+//      - score_small_kernel (every other head_dim and stride, either query
+//        layout: the small configurations, s * d = 32 at d 8, s 4): one
+//        warp a page, its lanes splitting the page's s * d tile in 16-byte
+//        loads, one warp sum a query row (the tile stays in L1 across the
+//        rows).  Untimed: no timed configuration serves these shapes.
 //  * Attention reads each selected K/V page and does 4*rows*bs*d flops
 //    against it.
 //      - decode (one query row per head): bytes-bound, and a row's pages
@@ -61,15 +67,17 @@
 //        producer warp, so the next chunks are in flight while this one is
 //        scored.  Eight consumer warps work as 16 half-warps: 16 lanes own
 //        a key, each reading a 16-byte piece of its row, and reduce its dot
-//        product in 4 shuffles; each half-warp keeps its own online-softmax
+//        product in 4 shuffles (a row of fewer than 16 pieces, d < 128 in
+//        bf16 or d < 64 in fp32, takes as many lanes as it has pieces, and
+//        the key groups grow to match); each key group keeps its own online-softmax
 //        state (m, l, acc) in registers, merged through shared memory at
 //        the CTA's end into one fp32 partial.  A split past the row's live
 //        count exits at once.  attend_combine_kernel rescales the row's
 //        live partials by exp(m_s - m_max) and finalizes
 //        acc / max(l, 1e-20).  fp32 math throughout (P is never rounded),
 //        for fp32 and bf16 alike.
-//      - chunk (block_size query rows): compute-bound.  bf16 at page size
-//        128 runs on the tensor cores: attend_chunk_wgmma_kernel is the
+//      - chunk (block_size query rows): compute-bound.  bf16 at head_dim
+//        and page size 128 runs on the tensor cores: attend_chunk_wgmma_kernel is the
 //        one-shot prefill's TMA + wgmma tile (attn_wgmma.cuh) with the
 //        page table in its producer: one CTA per (query head, chunk row,
 //        batch row), heads fastest, each selected page one 128-key TMA
@@ -77,10 +85,13 @@
 //        pages above the tile's last query skipped, the causal mask at
 //        absolute positions only on pages not wholly visible (the chunk
 //        may start anywhere).  P is rounded to bf16 before P.V.  fp32 (and
-//        bf16 at other page sizes) keep attend_tile_kernel on the fp32
+//        bf16 at the other shapes) keep attend_tile_kernel on the fp32
 //        CUDA cores: it stages each selected page's K and V in shared
-//        memory and all warps stream the query rows against it, keeping
-//        each row's online-softmax state in shared memory.
+//        memory (in halves where a page does not fit beside the tile's
+//        state: d 256) and all warps stream the query rows against it,
+//        keeping each row's online-softmax state in shared memory.
+//    Every kernel is instantiated for head_dims 8, 16, 32, 64, 128 and 256
+//    (any other is refused) and page sizes up to 128.
 //    Page ids outside [0, P) are skipped; masked probabilities are exact
 //    zeros, and a row with cnt == 0 finalizes 0 / 1e-20 = exact 0.
 #include <cuda_bf16.h>
@@ -89,6 +100,7 @@
 #include <stdint.h>
 
 #include "attn_wgmma.cuh"
+#include "head_dims.cuh"
 
 namespace {
 
@@ -96,6 +108,7 @@ constexpr float kNegInf = -1e30f;
 constexpr int kWarp = 32;
 constexpr int kThreads = 256;          // 8 warps per CTA
 constexpr int kMaxKeyTiles = 4;        // block_size <= 128 = 4 * 32
+constexpr size_t kMaxSmemBytes = 232448; // dynamic shared memory a block may use
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -122,8 +135,10 @@ __device__ __forceinline__ float warp_max(float v) {
 // Page scoring: out[b, h, c, p] = scale * sum_{u, k} qp[b, h, c, pair(u), k] *
 //                                 kg[h / g, page_table[b, p], u, k]
 // qp is addressed through strides (sb, sh, sc, ss) with head_dim contiguous
-// (d = 128) and every stride a multiple of 4 floats; pair(u) = (s - u) mod s
-// when `pair`, else u.  s is a template argument (8, 16 or 32).
+// and every stride a multiple of 4 floats; pair(u) = (s - u) mod s when
+// `pair`, else u.  score_bcast_kernel and score_kernel take d = 128 with s a
+// template argument (8, 16 or 32); score_small_kernel takes every other
+// head_dim and stride.
 // ---------------------------------------------------------------------------
 constexpr int kScoreD = 128;
 constexpr int kBcastWarps = 4;          // pages (one a warp) per score_bcast CTA
@@ -352,26 +367,95 @@ int launch_score(const float* qp, long long sb, long long sh, long long sc,
   return (int)cudaGetLastError();
 }
 
+// Every shape the two kernels above do not take (any stride, d != 128, the
+// query broadcast or strided): grid (ceil(maxp / 4), hk, b); warp w scores
+// page blockIdx.x * 4 + w against the g * nc query rows of KV head
+// blockIdx.y, its lanes splitting the page's s * d / 4 float4s (lane l: l,
+// l + 32, ...), one warp sum a row.  The kg tile stays in L1 across the
+// rows; ss == 0 reads the broadcast row for every u.
+template <int D>
+__global__ void __launch_bounds__(kBcastWarps * kWarp)
+score_small_kernel(const float* __restrict__ qp, long long sb, long long sh,
+                   long long sc, long long ss, int pair, const float* __restrict__ kg,
+                   const int* __restrict__ page_table, float* __restrict__ out,
+                   int hq, int hk, int nc, int maxp, int num_pages, int s, float scale) {
+  constexpr int NC4 = D / 4;
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int p = blockIdx.x * kBcastWarps + warp;
+  if (p >= maxp) return;
+  const int b = blockIdx.z, kvh = blockIdx.y, g = hq / hk;
+  const int page = page_table[(long long)b * maxp + p];
+  float* dst = out + (long long)b * hq * nc * maxp + p;
+  const bool ok = page_ok(page, num_pages);
+  const float* tile = kg + ((long long)kvh * num_pages + (ok ? page : 0)) * s * D;
+  const int n4 = s * NC4;
+  for (int o = 0; o < g * nc; ++o) {
+    const int gi = o / nc, ci = o - gi * nc;
+    const float* qr = qp + b * sb + (kvh * g + gi) * sh + ci * sc;
+    float dot = 0.f;
+    if (ok) {
+      for (int j = lane; j < n4; j += kWarp) {
+        const int u = j / NC4, c4 = j - u * NC4;
+        const int uq = pair ? (s - u) % s : u;
+        dot = dot4(ld4(qr + uq * ss + 4 * c4), ld4(tile + 4 * j), dot);
+      }
+      dot = warp_sum(dot);
+    }
+    if (lane == 0) dst[((long long)kvh * g * nc + o) * maxp] = ok ? dot * scale : score_nan();
+  }
+}
+
+template <int D>
+int launch_small(const float* qp, long long sb, long long sh, long long sc,
+                 long long ss, int pair, const float* kg, const int* page_table,
+                 float* out, int b, int hq, int hk, int nc, int s, int maxp,
+                 int num_pages, float scale, cudaStream_t stream) {
+  const dim3 grid((maxp + kBcastWarps - 1) / kBcastWarps, hk, b);
+  score_small_kernel<D><<<grid, kBcastWarps * kWarp, 0, stream>>>(
+      qp, sb, sh, sc, ss, pair, kg, page_table, out, hq, hk, nc, maxp, num_pages, s,
+      scale);
+  return (int)cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------------
 // Decode lane, split across the card: one query row per (head, chunk row),
 // keeping tokens < pos[b].
-// Layouts: q/out (b, hq, nc, 1, 128); gp/idx (b, hq, nc, kmax); cnt
-// (b, hq, nc); ws (b * hq * nc, splits, 128 + 2) fp32 partials (acc, m, l),
+// Layouts: q/out (b, hq, nc, 1, D); gp/idx (b, hq, nc, kmax); cnt
+// (b, hq, nc); ws (b * hq * nc, splits, D + 2) fp32 partials (acc, m, l),
 // m in log2 units.
 // ---------------------------------------------------------------------------
 constexpr int kSplitWarps = 8;                               // consumer warps
 constexpr int kSplitThreads = (kSplitWarps + 1) * kWarp;     // + a producer warp
-constexpr int kHalves = 2 * kSplitWarps;                     // 16 lanes a key
 constexpr int kSplitStages = 3;
 constexpr int kChunkBytes = 16384;                           // K (or V) of a stage
 constexpr int kMaxSplitPages = 16;                           // pages_per_split <= this
 
+// The split kernel's shape at head_dim D: a key row is PIECES 16-byte
+// pieces; LK lanes own a key (16 at D = 128, fewer where the row is
+// shorter), each holding NP pieces of it; the consumer warps form GROUPS
+// key groups; a stage holds KC keys (at most a page of 128), a group takes
+// KH of them.  At D = 128: 16 lanes a key, 16 groups, 32 (fp32) or 64
+// (bf16) keys a stage.
+template <typename T, int D>
+struct SplitShape {
+  static constexpr int V = 16 / sizeof(T);                   // values in a piece
+  static constexpr int PIECES = D / V;
+  static constexpr int LK = PIECES < 16 ? PIECES : 16;
+  static constexpr int NP = PIECES / LK;
+  static constexpr int GROUPS = kSplitWarps * kWarp / LK;
+  static constexpr int KC0 = kChunkBytes / (D * (int)sizeof(T));
+  static constexpr int KC = KC0 < 128 ? KC0 : 128;
+  static constexpr int KH = KC / GROUPS > 0 ? KC / GROUPS : 1;
+};
+
+template <typename T, int D>
 struct SplitSmem {
+  static constexpr int G = SplitShape<T, D>::GROUPS;
   uint8_t k[kSplitStages][kChunkBytes];
   uint8_t v[kSplitStages][kChunkBytes];
-  float acc[kHalves][128];
-  float m[kHalves];
-  float l[kHalves];
+  float acc[G][D];
+  float m[G];
+  float l[G];
   int slot[kMaxSplitPages];                                  // this split's slots
   uint64_t full[kSplitStages];
   uint64_t empty[kSplitStages];
@@ -417,13 +501,13 @@ struct DecodeChunks {
   const int* gp;
   const int* idx;
   const int* slot;
-  int s, n, num_pages, bs, kc, limit, c;   // c: next key inside page gp[slot[s]]
+  int s, n, num_pages, bs, d, kc, limit, c;   // c: next key inside page gp[slot[s]]
   __device__ __forceinline__ bool next(long long& src, int& tok0, int& nk) {
     while (s < n) {
       const int page = gp[slot[s]];
       const int t0 = idx[slot[s]] * bs + c;
       if (page >= 0 && page < num_pages && c < bs && t0 < limit) {
-        src = ((long long)page * bs + c) * 128;
+        src = ((long long)page * bs + c) * d;
         tok0 = t0;
         nk = min(kc, bs - c);
         c += kc;
@@ -441,8 +525,8 @@ struct DecodeChunks {
 // the g heads of a KV head, which select mostly the same pages, read them
 // side by side and the second read can come from L2.  A split past the
 // row's live count exits at once and writes nothing.  Dynamic smem
-// sizeof(SplitSmem).
-template <typename T>
+// sizeof(SplitSmem<T, D>).
+template <typename T, int D>
 __global__ void __launch_bounds__(kSplitThreads, 2)
 attend_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
                     const T* __restrict__ vpool, const int* __restrict__ gp,
@@ -450,13 +534,11 @@ attend_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
                     const int* __restrict__ pos, float* __restrict__ ws, int hq,
                     int hk, int nc, int kmax, int bs, int num_pages, int pps,
                     float scale) {
-  constexpr int D = 128;
-  constexpr int V = 16 / sizeof(T);                  // values in a 16-byte piece
-  constexpr int NP = D / (16 * V);                   // pieces a lane holds: 1 / 2
-  constexpr int KC = kChunkBytes / (D * sizeof(T));  // keys a chunk: 64 / 32
-  constexpr int KH = KC / kHalves;                   // keys a half-warp a chunk
+  using Sh = SplitShape<T, D>;
+  constexpr int V = Sh::V, LK = Sh::LK, NP = Sh::NP, G = Sh::GROUPS;
+  constexpr int KC = Sh::KC, KH = Sh::KH;
   extern __shared__ __align__(128) uint8_t smem_raw[];
-  SplitSmem& sm = *reinterpret_cast<SplitSmem*>(smem_raw);
+  SplitSmem<T, D>& sm = *reinterpret_cast<SplitSmem<T, D>*>(smem_raw);
   const int h = blockIdx.x % hq, ci = blockIdx.x / hq, b = blockIdx.z;
   const int kvh = h / (hq / hk);
   const long long row = ((long long)b * hq + h) * nc + ci;
@@ -476,7 +558,7 @@ attend_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
     }
     if (r >= s0 && r < s0 + pps) sm.slot[r - s0] = i;
   }
-  DecodeChunks chunks{gpr, idr, sm.slot, 0, min(pps, n - s0), num_pages, bs, KC, limit, 0};
+  DecodeChunks chunks{gpr, idr, sm.slot, 0, min(pps, n - s0), num_pages, bs, D, KC, limit, 0};
   if (threadIdx.x == 0) {
     for (int st = 0; st < kSplitStages; ++st) {
       stem_wg::mbar_init(&sm.full[st], 1);
@@ -504,15 +586,15 @@ attend_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
     }
     __syncwarp();
   } else {
-    // ---- consumers: half-warp hw owns keys hw, hw + 16, ... of a chunk;
-    //      lane li the dims of pieces li, li + 16 (16-byte loads) ----
-    const int hw = 2 * warp + (lane >> 4), li = lane & 15;
+    // ---- consumers: key group hw owns keys hw, hw + G, ... of a chunk;
+    //      lane li the dims of pieces li, li + LK, ... (16-byte loads) ----
+    const int hw = warp * (kWarp / LK) + lane / LK, li = lane % LK;
     const float qs = scale * 1.4426950408889634f;    // scores in log2 units
     float qr[NP * V], acc[NP * V];
 #pragma unroll
     for (int p = 0; p < NP; ++p) {
       float x[V];
-      load_piece(q + row * D + (p * 16 + li) * V, x);
+      load_piece(q + row * D + (p * LK + li) * V, x);
 #pragma unroll
       for (int e = 0; e < V; ++e) {
         qr[p * V + e] = x[e] * qs;
@@ -531,18 +613,18 @@ attend_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
       float mx = -INFINITY;
 #pragma unroll
       for (int kk = 0; kk < KH; ++kk) {
-        const int j = hw + kk * kHalves;
+        const int j = hw + kk * G;
         const T* krow = ks + min(j, nk - 1) * D;     // a short chunk re-reads its last key
         float dot = 0.f;
 #pragma unroll
         for (int p = 0; p < NP; ++p) {
           float x[V];
-          load_piece(krow + (p * 16 + li) * V, x);
+          load_piece(krow + (p * LK + li) * V, x);
 #pragma unroll
           for (int e = 0; e < V; ++e) dot += qr[p * V + e] * x[e];
         }
 #pragma unroll
-        for (int o = 8; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+        for (int o = LK / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
         sc[kk] = (j < nk && tok0 + j < limit) ? dot : -INFINITY;
         mx = fmaxf(mx, sc[kk]);
       }
@@ -558,11 +640,11 @@ attend_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
       for (int kk = 0; kk < KH; ++kk) {
         const float pk = exp2f(sc[kk] - m_use);
         l += pk;
-        const T* vrow = vs + min(hw + kk * kHalves, nk - 1) * D;
+        const T* vrow = vs + min(hw + kk * G, nk - 1) * D;
 #pragma unroll
         for (int p = 0; p < NP; ++p) {
           float x[V];
-          load_piece(vrow + (p * 16 + li) * V, x);
+          load_piece(vrow + (p * LK + li) * V, x);
 #pragma unroll
           for (int e = 0; e < V; ++e) acc[p * V + e] += pk * x[e];
         }
@@ -574,23 +656,23 @@ attend_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
 #pragma unroll
     for (int p = 0; p < NP; ++p)
 #pragma unroll
-      for (int e = 0; e < V; ++e) sm.acc[hw][(p * 16 + li) * V + e] = acc[p * V + e];
+      for (int e = 0; e < V; ++e) sm.acc[hw][(p * LK + li) * V + e] = acc[p * V + e];
     if (li == 0) {
       sm.m[hw] = m;
       sm.l[hw] = l;
     }
   }
   __syncthreads();
-  // merge the 16 half-warp states into this split's partial
+  // merge the key groups' states into this split's partial
   if (threadIdx.x < D) {
     const int d = threadIdx.x;
     float mm = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < kHalves; ++i) mm = fmaxf(mm, sm.m[i]);
+#pragma unroll 16
+    for (int i = 0; i < G; ++i) mm = fmaxf(mm, sm.m[i]);
     const float mu = mm == -INFINITY ? 0.f : mm;
     float ll = 0.f, a = 0.f;
-#pragma unroll
-    for (int i = 0; i < kHalves; ++i) {
+#pragma unroll 16
+    for (int i = 0; i < G; ++i) {
       const float f = exp2f(sm.m[i] - mu);
       ll += f * sm.l[i];
       a += f * sm.acc[i][d];
@@ -604,14 +686,13 @@ attend_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
   }
 }
 
-// grid (b * hq * nc); 128 threads, one per head_dim column: merges the
+// grid (b * hq * nc); D threads, one per head_dim column: merges the
 // partials of a row's live splits (ceil(min(cnt, kmax) / pps) of them) and
 // finalizes acc / max(l, 1e-20) (cnt == 0 rows: 0).
-template <typename T>
-__global__ void __launch_bounds__(128)
+template <typename T, int D>
+__global__ void __launch_bounds__(D)
 attend_combine_kernel(const float* __restrict__ ws, const int* __restrict__ cnt,
                       T* __restrict__ out, int kmax, int splits, int pps) {
-  constexpr int D = 128;
   const long long row = blockIdx.x;
   const int live = (min(cnt[row], kmax) + pps - 1) / pps;
   const int d = threadIdx.x;
@@ -672,11 +753,13 @@ attend_chunk_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
-// Chunk lane on the fp32 CUDA cores (fp32, and bf16 at page sizes other
-// than 128): a tile of `rows` query rows per (head, chunk row), causal at
-// absolute positions.  grid (nc, hk, b).
-// Dynamic smem (floats): K bs*(D+1) | V bs*D | acc rows*D | m,l rows*2 |
-//                        q nw*D | p nw*bs.
+// Chunk lane on the fp32 CUDA cores (fp32, and bf16 off the tensor-core
+// tile's shape: head_dim != 128 or page size != 128): a tile of `rows`
+// query rows per (head, chunk row), causal at absolute positions.  grid
+// (nc, hk, b).  A page's keys are staged kc at a time (kc = bs unless the
+// page's K and V would not fit beside the tile's state: head_dim 256).
+// Dynamic smem (floats): K kc*(D+1) | V kc*D | acc rows*D | m,l rows*2 |
+//                        q nw*D | p nw*kc.
 // ---------------------------------------------------------------------------
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -684,15 +767,15 @@ attend_tile_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
                    const T* __restrict__ vpool, const int* __restrict__ gp,
                    const int* __restrict__ idx, const int* __restrict__ cnt,
                    const int* __restrict__ pos, T* __restrict__ out, int hq,
-                   int hk, int nc, int rows, int kmax, int bs, int num_pages,
+                   int hk, int nc, int rows, int kmax, int bs, int kc, int num_pages,
                    float scale) {
-  constexpr int C = D / kWarp;
+  constexpr int C = (D + kWarp - 1) / kWarp;   // output columns a lane
   constexpr int KS = D + 1;                // padded K row: conflict-free reads
   extern __shared__ float smem[];
   const int nw = blockDim.x / kWarp;
   float* k_s = smem;
-  float* v_s = k_s + bs * KS;
-  float* acc_s = v_s + bs * D;
+  float* v_s = k_s + kc * KS;
+  float* acc_s = v_s + kc * D;
   float* ml_s = acc_s + rows * D;
   float* q_s = ml_s + rows * 2;
   float* p_s = q_s + nw * D;
@@ -700,7 +783,7 @@ attend_tile_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
   const int g = hq / hk;
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   float* qw = q_s + warp * D;
-  float* pw = p_s + warp * bs;
+  float* pw = p_s + warp * kc;
 
   for (int gi = 0; gi < g; ++gi) {
     const long long row = ((long long)b * hq + kvh * g + gi) * nc + ci;
@@ -716,62 +799,66 @@ attend_tile_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
       const int page = gp[row * kmax + sl];
       const bool ok = page >= 0 && page < num_pages;
       const long long base = ((long long)kvh * num_pages + (ok ? page : 0)) * bs * D;
-      const int tok0 = ok ? idx[row * kmax + sl] * bs : INT_MAX / 2;
-      __syncthreads();                     // previous page fully consumed
-      for (int i = threadIdx.x; i < bs * D; i += blockDim.x) {
-        const int j = i / D, c = i - j * D;
-        k_s[j * KS + c] = to_f32(kpool[base + i]);
-        v_s[i] = to_f32(vpool[base + i]);
-      }
-      __syncthreads();
-      for (int r = warp; r < rows; r += nw) {
-        const T* qsrc = q + (row * rows + r) * D;
-        for (int c = lane; c < D; c += kWarp) qw[c] = to_f32(qsrc[c]) * scale;
-        __syncwarp();
-        const int limit = pos[b] + ci * rows + r + 1;
-        float sv[kMaxKeyTiles];
-        bool keep[kMaxKeyTiles];
-        float mx = kNegInf;
+      const int tok_page = ok ? idx[row * kmax + sl] * bs : INT_MAX / 2;
+      for (int c0 = 0; c0 < bs; c0 += kc) {
+        const int nk = min(kc, bs - c0), tok0 = tok_page + c0;
+        __syncthreads();                     // previous keys fully consumed
+        for (int i = threadIdx.x; i < nk * D; i += blockDim.x) {
+          const int j = i / D, c = i - j * D;
+          k_s[j * KS + c] = to_f32(kpool[base + c0 * D + i]);
+          v_s[i] = to_f32(vpool[base + c0 * D + i]);
+        }
+        __syncthreads();
+        for (int r = warp; r < rows; r += nw) {
+          const T* qsrc = q + (row * rows + r) * D;
+          for (int c = lane; c < D; c += kWarp) qw[c] = to_f32(qsrc[c]) * scale;
+          __syncwarp();
+          const int limit = pos[b] + ci * rows + r + 1;
+          float sv[kMaxKeyTiles];
+          bool keep[kMaxKeyTiles];
+          float mx = kNegInf;
 #pragma unroll
-        for (int t = 0; t < kMaxKeyTiles; ++t) {
-          const int j = t * kWarp + lane;
-          float dot = kNegInf;
-          keep[t] = j < bs && tok0 + j < limit;
-          if (keep[t]) {
-            const float* krow = k_s + j * KS;
-            dot = 0.f;
+          for (int t = 0; t < kMaxKeyTiles; ++t) {
+            const int j = t * kWarp + lane;
+            float dot = kNegInf;
+            keep[t] = j < nk && tok0 + j < limit;
+            if (keep[t]) {
+              const float* krow = k_s + j * KS;
+              dot = 0.f;
 #pragma unroll 8
-            for (int c = 0; c < D; ++c) dot += qw[c] * krow[c];
+              for (int c = 0; c < D; ++c) dot += qw[c] * krow[c];
+            }
+            sv[t] = dot;
+            mx = fmaxf(mx, dot);
           }
-          sv[t] = dot;
-          mx = fmaxf(mx, dot);
-        }
-        mx = warp_max(mx);
-        const float m_old = ml_s[2 * r], l_old = ml_s[2 * r + 1];
-        const float m_new = fmaxf(m_old, mx);
-        const float corr = expf(m_old - m_new);
-        float ps = 0.f;
+          mx = warp_max(mx);
+          const float m_old = ml_s[2 * r], l_old = ml_s[2 * r + 1];
+          const float m_new = fmaxf(m_old, mx);
+          const float corr = expf(m_old - m_new);
+          float ps = 0.f;
 #pragma unroll
-        for (int t = 0; t < kMaxKeyTiles; ++t) {
-          const int j = t * kWarp + lane;
-          const float p = keep[t] ? expf(sv[t] - m_new) : 0.f;
-          if (j < bs) pw[j] = p;
-          ps += p;
-        }
-        ps = warp_sum(ps);
-        __syncwarp();
+          for (int t = 0; t < kMaxKeyTiles; ++t) {
+            const int j = t * kWarp + lane;
+            const float p = keep[t] ? expf(sv[t] - m_new) : 0.f;
+            if (j < nk) pw[j] = p;
+            ps += p;
+          }
+          ps = warp_sum(ps);
+          __syncwarp();
 #pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const int col = lane + kWarp * c;
-          float a = acc_s[r * D + col] * corr;
-          for (int j = 0; j < bs; ++j) a += pw[j] * v_s[j * D + col];
-          acc_s[r * D + col] = a;
+          for (int c = 0; c < C; ++c) {
+            const int col = lane + kWarp * c;
+            if (D % kWarp != 0 && col >= D) continue;
+            float a = acc_s[r * D + col] * corr;
+            for (int j = 0; j < nk; ++j) a += pw[j] * v_s[j * D + col];
+            acc_s[r * D + col] = a;
+          }
+          if (lane == 0) {
+            ml_s[2 * r] = m_new;
+            ml_s[2 * r + 1] = l_old * corr + ps;
+          }
+          __syncwarp();
         }
-        if (lane == 0) {
-          ml_s[2 * r] = m_new;
-          ml_s[2 * r + 1] = l_old * corr + ps;
-        }
-        __syncwarp();
       }
     }
     __syncthreads();
@@ -780,6 +867,7 @@ attend_tile_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         const int col = lane + kWarp * c;
+        if (D % kWarp != 0 && col >= D) continue;
         out[(row * rows + r) * D + col] = from_f32<T>(acc_s[r * D + col] / ll);
       }
     }
@@ -787,10 +875,18 @@ attend_tile_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
   }
 }
 
-size_t tile_smem_bytes(int d, int rows, int bs) {
+size_t tile_smem_bytes(int d, int rows, int kc) {
   const int nw = kThreads / kWarp;
-  return sizeof(float) * ((size_t)bs * (d + 1) + (size_t)bs * d + (size_t)rows * d +
-                          (size_t)rows * 2 + (size_t)nw * d + (size_t)nw * bs);
+  return sizeof(float) * ((size_t)kc * (d + 1) + (size_t)kc * d + (size_t)rows * d +
+                          (size_t)rows * 2 + (size_t)nw * d + (size_t)nw * kc);
+}
+
+// Keys of a page the CUDA-core chunk tile stages at once: the whole page
+// where it fits in a CTA's shared memory, else the largest half that does.
+int tile_keys(int d, int rows, int bs) {
+  int kc = bs;
+  while (kc % 2 == 0 && kc > 8 && tile_smem_bytes(d, rows, kc) > kMaxSmemBytes) kc /= 2;
+  return kc;
 }
 
 // Splits of the decode lane's grid: a row's kmax slots in ranges of pps;
@@ -800,56 +896,71 @@ int decode_splits(int kmax, int pps) {
   return kmax == 0 ? 1 : (kmax + pps - 1) / pps;
 }
 
-template <typename T>
-int launch_decode(const void* q, const void* k, const void* v, const int* gp,
-                  const int* idx, const int* cnt, const int* pos, void* out,
-                  float* ws, int b, int hq, int hk, int nc, int bs, int kmax,
-                  int num_pages, int splits, int pps, float scale, cudaStream_t stream) {
-  if (splits <= 0 || splits != decode_splits(kmax, pps)) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(SplitSmem);
+struct AttendArgs {
+  const void *q, *k, *v;
+  const int *gp, *idx, *cnt, *pos;
+  void* out;
+  float* ws;
+  int b, hq, hk, nc, rows, bs, kmax, num_pages, splits, pps;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int D>
+int launch_decode(const AttendArgs& a) {
+  if (a.splits <= 0 || a.splits != decode_splits(a.kmax, a.pps))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(SplitSmem<T, D>);
   cudaError_t err = cudaFuncSetAttribute(
-      attend_split_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      attend_split_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  attend_split_kernel<T><<<dim3(hq * nc, splits, b), kSplitThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, gp, idx, cnt, pos, ws, hq, hk, nc, kmax,
-      bs, num_pages, pps, scale);
+  attend_split_kernel<T, D><<<dim3(a.hq * a.nc, a.splits, a.b), kSplitThreads, smem,
+                              a.stream>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, a.gp, a.idx, a.cnt, a.pos, a.ws, a.hq,
+      a.hk, a.nc, a.kmax, a.bs, a.num_pages, a.pps, a.scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  attend_combine_kernel<T><<<b * hq * nc, 128, 0, stream>>>(ws, cnt, (T*)out, kmax, splits,
-                                                            pps);
+  attend_combine_kernel<T, D><<<a.b * a.hq * a.nc, D, 0, a.stream>>>(
+      a.ws, a.cnt, (T*)a.out, a.kmax, a.splits, a.pps);
   return (int)cudaGetLastError();
 }
 
-int launch_chunk_wgmma(const void* q, const void* k, const void* v, const int* gp,
-                       const int* idx, const int* cnt, const int* pos, void* out, int b,
-                       int hq, int hk, int nc, int kmax, int num_pages, float scale,
-                       cudaStream_t stream) {
+int launch_chunk_wgmma(const AttendArgs& a) {
   CUtensorMap tq, tk, tv;
-  const long long kv_rows = (long long)hk * num_pages * stem_wg::kBN;
-  if (!stem_wg::make_map(&tq, q, (long long)b * hq * nc * stem_wg::kBM) ||
-      !stem_wg::make_map(&tk, k, kv_rows) || !stem_wg::make_map(&tv, v, kv_rows))
+  const long long kv_rows = (long long)a.hk * a.num_pages * stem_wg::kBN;
+  if (!stem_wg::make_map(&tq, a.q, (long long)a.b * a.hq * a.nc * stem_wg::kBM) ||
+      !stem_wg::make_map(&tk, a.k, kv_rows) || !stem_wg::make_map(&tv, a.v, kv_rows))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = stem_wg::prepare(attend_chunk_wgmma_kernel);
   if (err != cudaSuccess) return (int)err;
-  attend_chunk_wgmma_kernel<<<dim3(hq, nc, b), stem_wg::kThreads, stem_wg::kSmemBytes,
-                              stream>>>(tq, tk, tv, gp, idx, cnt, pos,
-                                        (__nv_bfloat16*)out, hq, hk, nc, kmax,
-                                        num_pages, scale);
+  attend_chunk_wgmma_kernel<<<dim3(a.hq, a.nc, a.b), stem_wg::kThreads, stem_wg::kSmemBytes,
+                              a.stream>>>(tq, tk, tv, a.gp, a.idx, a.cnt, a.pos,
+                                          (__nv_bfloat16*)a.out, a.hq, a.hk, a.nc, a.kmax,
+                                          a.num_pages, a.scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
-int launch_tile(const void* q, const void* k, const void* v, const int* gp,
-                const int* idx, const int* cnt, const int* pos, void* out, int b,
-                int hq, int hk, int nc, int rows, int bs, int kmax, int num_pages,
-                float scale, cudaStream_t stream) {
-  const size_t smem = tile_smem_bytes(D, rows, bs);
+int launch_tile(const AttendArgs& a) {
+  const int kc = tile_keys(D, a.rows, a.bs);
+  const size_t smem = tile_smem_bytes(D, a.rows, kc);
   cudaError_t err = cudaFuncSetAttribute(
       attend_tile_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  attend_tile_kernel<T, D><<<dim3(nc, hk, b), kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, gp, idx, cnt, pos, (T*)out, hq, hk, nc,
-      rows, kmax, bs, num_pages, scale);
+  attend_tile_kernel<T, D><<<dim3(a.nc, a.hk, a.b), kThreads, smem, a.stream>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, a.gp, a.idx, a.cnt, a.pos, (T*)a.out,
+      a.hq, a.hk, a.nc, a.rows, a.kmax, a.bs, kc, a.num_pages, a.scale);
   return (int)cudaGetLastError();
+}
+
+// One lane at head_dim D: rows == 1 the decode lane (split + combine), else
+// the chunk lane (the tensor-core tile for bf16 at d = rows = bs = 128).
+template <typename T, int D>
+int launch_attend(const AttendArgs& a) {
+  if (a.rows == 1) return launch_decode<T, D>(a);
+  if constexpr (D == stem_wg::kD && sizeof(T) == 2) {
+    if (a.rows == stem_wg::kBM && a.bs == stem_wg::kBN) return launch_chunk_wgmma(a);
+  }
+  return launch_tile<T, D>(a);
 }
 
 }  // namespace
@@ -860,46 +971,54 @@ extern "C" {
 // workspace by it); 0 if the split kernel does not take them.
 int stem_paged_decode_splits(int kmax, int pps) { return decode_splits(kmax, pps); }
 
-// Bytes of dynamic shared memory the CUDA-core chunk-lane kernel needs (the
-// wrapper refuses shapes above the card's 227 KiB per-block limit).
+// Bytes of dynamic shared memory the CUDA-core chunk-lane kernel needs at
+// these shapes (the wrapper refuses shapes above the card's 227 KiB
+// per-block limit).
 long long stem_paged_attend_tile_smem(int d, int rows, int bs) {
-  return (long long)tile_smem_bytes(d, rows, bs);
+  return (long long)tile_smem_bytes(d, rows, tile_keys(d, rows, bs));
 }
 
 // qp (b, hq, nc, s, d) fp32 through strides (sb, sh, sc, ss), head_dim
-// contiguous, 16-byte aligned, strides multiples of 4; ss == 0 (the query
-// broadcast over s) runs score_bcast_kernel.  pair: read group (s - u) mod
-// s of qp against group u of kg.  kg (hk, P, s, d) and page_table (b, maxp)
-// contiguous; out (b, hq, nc, maxp).  d must be 128 and s 8, 16 or 32.
+// contiguous, 16-byte aligned, strides multiples of 4.  pair: read group
+// (s - u) mod s of qp against group u of kg.  kg (hk, P, s, d) and
+// page_table (b, maxp) contiguous; out (b, hq, nc, maxp).  d one of 8, 16,
+// 32, 64, 128, 256; any s >= 1.  d = 128 with s 8, 16 or 32 runs
+// score_bcast_kernel where ss == 0 (the query broadcast over s), else
+// score_kernel; every other shape runs score_small_kernel.
 int stem_paged_score(const float* qp, long long sb, long long sh, long long sc,
                      long long ss, int pair, const float* kg, const int* page_table,
                      float* out, int b, int hq, int hk, int nc, int s, int d,
                      int maxp, int num_pages, float scale, void* stream) {
-  if (d != kScoreD || hk <= 0 || hq % hk != 0 || maxp <= 0 || b <= 0 || nc <= 0 ||
+  if (s <= 0 || hk <= 0 || hq % hk != 0 || maxp <= 0 || b <= 0 || nc <= 0 ||
       b > 65535 || (uintptr_t)qp % 16 != 0 || (sb | sh | sc | ss) % 4 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (s) {
-    case 8:
-      return launch_score<8>(qp, sb, sh, sc, ss, pair, kg, page_table, out, b, hq, hk,
-                             nc, maxp, num_pages, scale, st);
-    case 16:
-      return launch_score<16>(qp, sb, sh, sc, ss, pair, kg, page_table, out, b, hq, hk,
-                              nc, maxp, num_pages, scale, st);
-    case 32:
-      return launch_score<32>(qp, sb, sh, sc, ss, pair, kg, page_table, out, b, hq, hk,
-                              nc, maxp, num_pages, scale, st);
-    default:
-      return (int)cudaErrorInvalidValue;
+  if (d == kScoreD) {
+    switch (s) {
+      case 8:
+        return launch_score<8>(qp, sb, sh, sc, ss, pair, kg, page_table, out, b, hq, hk,
+                               nc, maxp, num_pages, scale, st);
+      case 16:
+        return launch_score<16>(qp, sb, sh, sc, ss, pair, kg, page_table, out, b, hq, hk,
+                                nc, maxp, num_pages, scale, st);
+      case 32:
+        return launch_score<32>(qp, sb, sh, sc, ss, pair, kg, page_table, out, b, hq, hk,
+                                nc, maxp, num_pages, scale, st);
+      default:
+        break;
+    }
   }
+  STEM_HEAD_DIM_SWITCH(d, launch_small<D>(qp, sb, sh, sc, ss, pair, kg, page_table, out, b,
+                                          hq, hk, nc, s, maxp, num_pages, scale, st))
 }
 
 // is_bf16: 0 = float32 q/k/v/out, 1 = bfloat16.  rows == 1 runs the decode
 // lane (length mask): the split kernel over `splits` ranges of `pps` slots
 // each (splits from stem_paged_decode_splits) into workspace
-// (b * hq * nc * splits * (d + 2) floats), then the combine kernel.  rows > 1 runs the causal chunk lane: the tensor-core tile for
-// bf16 at rows == bs == 128 (q, k, v 16-byte aligned for TMA), else the
-// CUDA-core tile.  d must be 128 and bs at most 128 (the wrapper checks
+// (b * hq * nc * splits * (d + 2) floats), then the combine kernel.  rows >
+// 1 runs the causal chunk lane: the tensor-core tile for bf16 at d = rows
+// == bs == 128 (q, k, v 16-byte aligned for TMA), else the CUDA-core tile.
+// d one of 8, 16, 32, 64, 128, 256 and bs at most 128 (the wrapper checks
 // both, and 16-byte alignment of every pointer the decode lane
 // bulk-copies).
 int stem_paged_attend(const void* q, const void* k, const void* v,
@@ -908,25 +1027,14 @@ int stem_paged_attend(const void* q, const void* k, const void* v,
                       int hk, int nc, int rows, int d, int bs,
                       int kmax, int num_pages, int splits, int pps, int is_bf16,
                       float scale, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (bs > kMaxKeyTiles * kWarp || d != 128 || hk <= 0 || hq % hk != 0)
+  if (bs > kMaxKeyTiles * kWarp || bs <= 0 || hk <= 0 || hq % hk != 0)
     return (int)cudaErrorInvalidValue;
-  float* ws = (float*)workspace;
-  if (rows == 1) {
-    if (is_bf16)
-      return launch_decode<__nv_bfloat16>(q, k, v, gp, idx, cnt, pos, out, ws, b, hq, hk,
-                                          nc, bs, kmax, num_pages, splits, pps, scale, st);
-    return launch_decode<float>(q, k, v, gp, idx, cnt, pos, out, ws, b, hq, hk, nc, bs,
-                                kmax, num_pages, splits, pps, scale, st);
+  const AttendArgs a{q, k, v, gp, idx, cnt, pos, out, (float*)workspace, b, hq, hk, nc,
+                     rows, bs, kmax, num_pages, splits, pps, scale, (cudaStream_t)stream};
+  if (is_bf16) {
+    STEM_HEAD_DIM_SWITCH(d, launch_attend<__nv_bfloat16, D>(a))
   }
-  if (is_bf16 && rows == stem_wg::kBM && bs == stem_wg::kBN)
-    return launch_chunk_wgmma(q, k, v, gp, idx, cnt, pos, out, b, hq, hk, nc, kmax,
-                              num_pages, scale, st);
-  if (is_bf16)
-    return launch_tile<__nv_bfloat16, 128>(q, k, v, gp, idx, cnt, pos, out, b, hq, hk,
-                                           nc, rows, bs, kmax, num_pages, scale, st);
-  return launch_tile<float, 128>(q, k, v, gp, idx, cnt, pos, out, b, hq, hk, nc, rows,
-                                 bs, kmax, num_pages, scale, st);
+  STEM_HEAD_DIM_SWITCH(d, launch_attend<float, D>(a))
 }
 
 }  // extern "C"

@@ -34,16 +34,40 @@
 // the serving lanes' small calls (128 slabs of a 1024-token chunk, 256 or
 // 128 CTAs) still spread over every SM.  A view that is not 16-byte aligned, or a row that is not a
 // whole number of 16-byte strips, runs the same kernel with VEC = 1
-// (scalar loads).  vmag_kernel: one CTA per (block of bs tokens, batch x
-// head); each warp reduces whole rows, lanes on neighbouring columns.
+// (scalar loads).
+//
+// vmag_kernel reads each element once for two flops: bytes-bound (a 16k
+// prompt's v, 8 KV heads, d 128, bf16: 33.5 MB, 0.0100 ms at 3.35 TB/s).
+// It takes the pool's design: a thread owns a 16-byte strip of a row (the
+// d / 8 bf16 or d / 4 fp32 strips of a row are lanes of one warp, d / 4 =
+// 64 fp32 strips two a lane), loads are cache-streaming, a thread loads
+// the strips of 4 of its rows before it reduces any (128-thread CTAs at
+// 31-64 registers, 8 or more an SM, so one wave holds every block of a 16k
+// prompt; loading a row at a time in 256-thread CTAs was slower at every
+// shape, 8 rows a batch no faster), and the lanes of a row sum its squared
+// norm with shuffles across the row's lanes only.
+// Each thread keeps the running max of its rows' squared norms, and one
+// sqrt and one log run a block, at the end (both monotone, so the max
+// commutes with them).  The grid is capped at the resident CTAs, each CTA
+// striding over the (batch x head, block) units; where the units are fewer
+// than the SMs (a 1024-token chunk of the serving lanes: 64 blocks), a
+// thread-block cluster of 2 or 4 CTAs splits each block's rows and rank 0
+// takes the max of the ranks' maxima from distributed shared memory, so
+// the call covers the card without a second launch.  A view that is not
+// 16-byte aligned, or a row that is not a power-of-two number of 16-byte
+// strips (at most 64), runs the same kernel on scalar loads.  An all-zero
+// block gives log(1e-20), as metric.value_block_magnitude does.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kWarp = 32;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -56,6 +80,9 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 
 constexpr int kPoolThreads = 128;
+constexpr int kVmagThreads = 128;
+constexpr int kVmagBatch = 4;                // rows a thread loads before reducing
+constexpr int kVmagMaxParts = 4;             // CTAs of a vmag cluster
 
 // A strip of VEC elements of T read as one load (16 bytes for VEC > 1) and
 // widened to fp32, or VEC fp32 values narrowed to T and written with 16-byte
@@ -151,34 +178,101 @@ pool_kernel(const Tin* __restrict__ x, Tout* __restrict__ out, long long strips,
   }
 }
 
-// out[bh, blk] = max_{j in block} log(max(||v[bh, j]||_2, 1e-20)).
-// grid (n / bs, b * h); each warp reduces whole rows.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-vmag_kernel(const T* __restrict__ v, float* __restrict__ out, int n, int d, int bs) {
-  __shared__ float warp_max[kThreads / kWarp];
-  const int blk = blockIdx.x;
-  const long long bh = blockIdx.y;
+// Sum of squares of a loaded strip of VEC elements.
+template <typename T, int VEC>
+__device__ __forceinline__ float strip_sq(const typename Strip<T, VEC>::raw& r) {
+  float x[VEC];
+  Strip<T, VEC>::widen(r, x);
+  float ss = 0.f;
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) ss = fmaf(x[e], x[e], ss);
+  return ss;
+}
+
+// out[u] = max_{j in block u} log(max(||v[u * bs + j]||_2, 1e-20)) over the
+// units u = (batch x head, block) of a (bh, n, d) tensor, as
+// log(max(sqrt(max_j ||v_j||^2), 1e-20)): sqrt and log are monotone, so one
+// of each a block.  A thread owns strip li (and li + lpr, ... : CPT strips,
+// or every lpr-th element in the scalar variant, CPT = 0) of rows rsub,
+// rsub + rpp, ... of its rank's rows, and loads the strips of kVmagBatch of
+// them before it reduces any (the loads of a batch are in flight together);
+// the lpr lanes of a row reduce its squared norm with shuffles, each thread
+// keeps the running max, the CTA's max meets in shared memory.  With parts > 1 a thread-block cluster of
+// `parts` CTAs splits each block's rows and the ranks' maxima meet in rank
+// 0's shared memory (distributed shared memory, one cluster barrier a
+// block).  The 1-D grid of clusters strides over the units.
+template <typename T, int VEC, int CPT>
+__global__ void __launch_bounds__(kVmagThreads)
+vmag_kernel(const T* __restrict__ v, float* __restrict__ out, long long units, int d,
+            int bs, int lpr, int parts) {
+  __shared__ float warp_best[2][kVmagThreads / kWarp];
+  __shared__ float part_best[2][kVmagMaxParts];
+  const int spr = d / VEC;                           // strips a row
+  const int li = threadIdx.x % lpr, rsub = threadIdx.x / lpr;
+  const int rpp = kVmagThreads / lpr;                // rows a pass
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int nw = blockDim.x / kWarp;
-  const T* src = v + (bh * n + (long long)blk * bs) * d;
-  float best = -INFINITY;
-  for (int r = warp; r < bs; r += nw) {
-    float ss = 0.f;
-    for (int c = lane; c < d; c += kWarp) {
-      const float e = to_f32(src[(long long)r * d + c]);
-      ss = fmaf(e, e, ss);
+  const unsigned group = lpr == kWarp ? 0xffffffffu
+                                      : ((1u << lpr) - 1u) << (lane & ~(lpr - 1));
+  const int rank = blockIdx.x % parts, rows = bs / parts;
+  const int r_begin = rank * rows, r_end = r_begin + rows;
+  int it = 0;
+  for (long long u = blockIdx.x / parts; u < units; u += gridDim.x / parts, ++it) {
+    const T* base = v + u * bs * d;
+    float best = 0.f;                                // max squared norm
+    for (int r0 = r_begin + rsub; r0 < r_end; r0 += kVmagBatch * rpp) {
+      float ss[kVmagBatch];
+      if constexpr (CPT > 0) {
+        typename Strip<T, VEC>::raw x[kVmagBatch][CPT];
+#pragma unroll
+        for (int b = 0; b < kVmagBatch; ++b) {
+          const T* row = base + (long long)(r0 + b * rpp) * d + li * VEC;
+#pragma unroll
+          for (int c = 0; c < CPT; ++c)
+            if (r0 + b * rpp < r_end) x[b][c] = Strip<T, VEC>::load(row + c * lpr * VEC);
+        }
+#pragma unroll
+        for (int b = 0; b < kVmagBatch; ++b) {
+          ss[b] = 0.f;
+#pragma unroll
+          for (int c = 0; c < CPT; ++c)
+            if (r0 + b * rpp < r_end) ss[b] += strip_sq<T, VEC>(x[b][c]);
+        }
+      } else {
+#pragma unroll
+        for (int b = 0; b < kVmagBatch; ++b) {
+          ss[b] = 0.f;
+          if (r0 + b * rpp >= r_end) continue;
+          const T* row = base + (long long)(r0 + b * rpp) * d;
+          for (int c = li; c < spr; c += lpr) ss[b] += strip_sq<T, 1>(Strip<T, 1>::load(row + c));
+        }
+      }
+      for (int o = lpr / 2; o > 0; o >>= 1)
+#pragma unroll
+        for (int b = 0; b < kVmagBatch; ++b) ss[b] += __shfl_xor_sync(group, ss[b], o);
+#pragma unroll
+      for (int b = 0; b < kVmagBatch; ++b) best = fmaxf(best, ss[b]);
     }
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-    best = fmaxf(best, logf(fmaxf(sqrtf(ss), 1e-20f)));
-  }
-  if (lane == 0) warp_max[warp] = best;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float m = warp_max[0];
-    for (int w = 1; w < nw; ++w) m = fmaxf(m, warp_max[w]);
-    out[bh * (n / bs) + blk] = m;
+    for (int o = 16; o > 0; o >>= 1) best = fmaxf(best, __shfl_xor_sync(0xffffffffu, best, o));
+    if (lane == 0) warp_best[it & 1][warp] = best;
+    __syncthreads();                                 // (buffers alternate: one barrier a unit)
+    if (threadIdx.x == 0) {
+      float m = warp_best[it & 1][0];
+#pragma unroll
+      for (int w = 1; w < kVmagThreads / kWarp; ++w) m = fmaxf(m, warp_best[it & 1][w]);
+      if (parts == 1)
+        out[u] = logf(fmaxf(sqrtf(m), 1e-20f));
+      else
+        cg::this_cluster().map_shared_rank(&part_best[it & 1][0], 0)[rank] = m;
+    }
+    if (parts > 1) {
+      cg::this_cluster().sync();
+      if (rank == 0 && threadIdx.x == 0) {
+        float m = part_best[it & 1][0];
+        for (int k = 1; k < parts; ++k) m = fmaxf(m, part_best[it & 1][k]);
+        out[u] = logf(fmaxf(sqrtf(m), 1e-20f));
+      }
+    }
   }
 }
 
@@ -220,6 +314,58 @@ int launch_pool_vec(const void* x, void* out, int bh, int n, int d, int bs, int 
   return launch_pool<Tin, Tout, kVec>(x, out, bh, n, d, bs, s, stream);
 }
 
+// CTAs of vmag_kernel<T, VEC, CPT> the card holds at once, and its SM
+// count (queried once a process).
+template <typename T, int VEC, int CPT>
+void vmag_grid_info(int& cap, int& sms) {
+  static int cap_ = 0, sms_ = 0;
+  if (cap_ == 0) {
+    int dev = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms_, cudaDevAttrMultiProcessorCount, dev);
+    if (sms_ <= 0) sms_ = 132;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, vmag_kernel<T, VEC, CPT>,
+                                                  kVmagThreads, 0);
+    cap_ = sms_ * (per_sm > 0 ? per_sm : 1);
+  }
+  cap = cap_;
+  sms = sms_;
+}
+
+// One CTA a unit where the units fill the SMs; where they do not (the
+// serving lanes' chunks: 64 blocks of a 1024-token chunk), clusters of 2
+// or 4 CTAs split each block's rows, so the call spreads over the card in
+// one launch.
+template <typename T, int VEC, int CPT>
+int launch_vmag(const void* v, float* out, long long units, int d, int bs, int lpr,
+                cudaStream_t stream) {
+  int cap = 0, sms = 0;
+  vmag_grid_info<T, VEC, CPT>(cap, sms);
+  int parts = 1;
+  while (parts < kVmagMaxParts && units * parts < sms && bs % (2 * parts) == 0) parts *= 2;
+  const long long clusters = units < cap / parts ? units : cap / parts;
+  const T* vp = (const T*)v;
+  if (parts == 1) {
+    vmag_kernel<T, VEC, CPT><<<(int)clusters, kVmagThreads, 0, stream>>>(vp, out, units, d,
+                                                                         bs, lpr, 1);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(clusters * parts));
+  cfg.blockDim = dim3(kVmagThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = parts;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, vmag_kernel<T, VEC, CPT>, vp, out, units, d, bs, lpr,
+                                 parts);
+}
+
 }  // namespace
 
 extern "C" {
@@ -242,18 +388,29 @@ int stem_antidiag_pool(const void* x, void* out, int bh, int n, int d, int bs, i
   return launch_pool_vec<float, float>(x, out, bh, n, d, bs, s, vec, st);
 }
 
-// v (bh, n, d) contiguous -> out (bh, n/bs) float32.
+// v (bh, n, d) contiguous -> out (bh, n/bs) float32, bs dividing n.  vec:
+// elements a thread loads at once, 16 / sizeof(element) (v 16-byte
+// aligned, a row a power-of-two number of 16-byte strips, at most 64) or 1
+// (scalar loads, any alignment and d).
 int stem_value_magnitude(const void* v, float* out, int bh, int n, int d, int bs,
-                         int is_bf16, void* stream) {
-  if (bs <= 0 || n % bs != 0 || bh > 65535) return (int)cudaErrorInvalidValue;
+                         int is_bf16, int vec, void* stream) {
+  if (bs <= 0 || n % bs != 0 || bh <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid(n / bs, bh);
+  const long long units = (long long)bh * (n / bs);
+  if (vec == 1) {
+    if (is_bf16) return launch_vmag<__nv_bfloat16, 1, 0>(v, out, units, d, bs, kWarp, st);
+    return launch_vmag<float, 1, 0>(v, out, units, d, bs, kWarp, st);
+  }
+  const int want = is_bf16 ? 8 : 4, spr = d / want;
+  if (vec != want || d % want != 0 || (uintptr_t)v % 16 != 0 || spr > 2 * kWarp ||
+      (spr & (spr - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  const int lpr = spr < kWarp ? spr : kWarp;
   if (is_bf16)
-    vmag_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        (const __nv_bfloat16*)v, out, n, d, bs);
-  else
-    vmag_kernel<float><<<grid, kThreads, 0, st>>>((const float*)v, out, n, d, bs);
-  return (int)cudaGetLastError();
+    return spr > kWarp ? launch_vmag<__nv_bfloat16, 8, 2>(v, out, units, d, bs, lpr, st)
+                       : launch_vmag<__nv_bfloat16, 8, 1>(v, out, units, d, bs, lpr, st);
+  return spr > kWarp ? launch_vmag<float, 4, 2>(v, out, units, d, bs, lpr, st)
+                     : launch_vmag<float, 4, 1>(v, out, units, d, bs, lpr, st);
 }
 
 }  // extern "C"

@@ -6,9 +6,10 @@ prefill (port of ``repro/kernels/flash_attention.py``).
 ``_flash_kernel`` (``src/repro/kernels/flash_attention.py:34``): key blocks
 above the diagonal skipped, the diagonal masked exactly, KV head = query
 head // group, fp32 accumulation, output in q's dtype.  Compute-bound on the
-H100 (4 * d flops per causal pair): bf16 runs on the tensor cores (TMA +
-wgmma, P rounded to bf16 before P.V as SDPA's kernels do), fp32 on the fp32
-CUDA cores.
+H100 (4 * d flops per causal pair): bf16 at head_dim 128 runs on the tensor
+cores (TMA + wgmma, P rounded to bf16 before P.V as SDPA's kernels do);
+fp32, and bf16 at the other head_dims of ``HEAD_DIMS`` (8-256), on the fp32
+CUDA cores (bf16 loaded and stored, the math in fp32).
 
 Beside the kernel sits its plain PyTorch version (``flash_attention_plain``)
 and a plain-int launch counter in ``LAUNCHES``.  The wrapper takes the plain
@@ -21,8 +22,9 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import HEAD_DIMS
+
 NEG_INF = -1e30
-HEAD_DIM = 128                      # the kernel's head_dim
 
 LAUNCHES = {"flash_attention": 0}
 
@@ -92,10 +94,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            "flash_attention: inputs must be contiguous")
     _check(tuple(k.shape) == (b, hk, n, d) and tuple(v.shape) == (b, hk, n, d),
            "flash_attention: needs seq_q == seq_k and equal q/k/v head dims")
-    _check(d == HEAD_DIM, f"flash_attention: head_dim must be {HEAD_DIM}")
+    _check(d in HEAD_DIMS, f"flash_attention: head_dim must be one of {HEAD_DIMS}")
     _check(hk > 0 and hq % hk == 0, "flash_attention: kv heads must divide q heads")
     _check(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
-           "flash_attention: inputs must be 16-byte aligned (TMA)")
+           "flash_attention: inputs must be 16-byte aligned (TMA, 16-byte loads)")
     scale = d ** -0.5 if scale is None else scale
     out = torch.empty_like(q)
     err = _lib().stem_flash_attention(

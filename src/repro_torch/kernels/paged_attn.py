@@ -15,7 +15,10 @@ Port of ``repro/kernels/paged_attn.py``.  Two hand-written CUDA kernels for
   Otherwise (the chunk lane) a CTA's threads split the s*d contraction,
   hold their strip of the KV head's query rows in registers and stream the
   kg strips of a few pages past them, reduce-scattering the partial sums;
-  pages per CTA are chosen so the grid fills the card.
+  pages per CTA are chosen so the grid fills the card.  Those two kernels
+  take head_dim 128 with stride 8, 16 or 32; every other head_dim and
+  stride (the small configurations: head_dim 8, stride 4) takes one warp a
+  page over the whole s*d tile.
 * ``attend_pages`` replaces ``_attend_kernel``
   (``src/repro/kernels/paged_attn.py:249``): flash online-softmax attention
   of each (row, query head, chunk row) over that row's selected pages, fp32
@@ -32,14 +35,17 @@ Port of ``repro/kernels/paged_attn.py``.  Two hand-written CUDA kernels for
     16 lanes with 16-byte loads; a combine kernel merges the row's fp32
     partials (a workspace the wrapper allocates) and finalizes.  All math
     fp32, in both dtypes.
-  - The chunk lane (block_size query rows) is compute-bound.  bf16 at page
-    size 128 runs on the tensor cores: the one-shot prefill's TMA + wgmma
-    tile with the page table in its producer, each selected page one
+  - The chunk lane (block_size query rows) is compute-bound.  bf16 at head_dim
+    and page size 128 runs on the tensor cores: the one-shot prefill's TMA +
+    wgmma tile with the page table in its producer, each selected page one
     128-key tile; it rounds the probabilities P to bf16 before P.V, so its
     bf16 outputs are held to a looser rule than the other lanes' (the
     ``p_bf16`` rule of the card tests: 1e-2 of the row's max|plain| in
-    place of 1e-3).  fp32, and bf16 at other page sizes, keep a tile on
+    place of 1e-3).  fp32, and bf16 at the other shapes, keep a tile on
     the fp32 CUDA cores.
+
+  Every kernel is built for the head_dims of ``HEAD_DIMS`` (8-256) and page
+  sizes up to 128; the scorer takes any stride.
 
 Beside each kernel sits its plain PyTorch version (``score_pages_plain``,
 ``attend_pages_plain``) and a plain-int launch counter in ``LAUNCHES``.  A
@@ -64,7 +70,7 @@ from repro_torch.core import decode as decode_lib
 from repro_torch.core import metric as metric_lib
 from repro_torch.core import policy as policy_lib
 from repro_torch.core.selection import revisit_indices
-from repro_torch.kernels import stem_metric
+from repro_torch.kernels import HEAD_DIMS, stem_metric
 
 NEG_INF = -1e30
 MAX_SMEM_BYTES = 232448          # H100 dynamic shared memory per block
@@ -138,9 +144,6 @@ def pack_selection(indices, live, page_table):
 # Kernel 1: summary-resident page scoring
 # ---------------------------------------------------------------------------
 
-SCORE_STRIDES = (8, 16, 32)       # the scorer's summary strides s (d = 128)
-
-
 def score_pages_plain(qp, kg_pool, page_table, *, group: int, scale: float,
                       pair: bool = False):
     """Plain version: qp (b, hq, nc, s, d) f32; kg_pool (hk, P, s, d) f32;
@@ -174,8 +177,7 @@ def score_pages(qp, kg_pool, page_table, *, group: int, scale: float,
            "score_pages: page_table must be contiguous int32")
     _check(kg_pool.is_contiguous() and tuple(kg_pool.shape[2:]) == (s, d),
            "score_pages: kg pool must be contiguous (hk, P, s, d)")
-    _check(d == 128 and s in SCORE_STRIDES,
-           f"score_pages: head_dim must be 128 and stride one of {SCORE_STRIDES}")
+    _check(d in HEAD_DIMS, f"score_pages: head_dim must be one of {HEAD_DIMS}")
     sb, sh, sc, ss, sd = qp.stride()
     _check(sd == 1 and qp.data_ptr() % 16 == 0
            and all(x % 4 == 0 for x in (sb, sh, sc, ss)),
@@ -273,8 +275,8 @@ def attend_pages(q, k_pool, v_pool, gp, idx, cnt, pos, *, block_size: int,
     """Attention over each row's selected pages.  CPU tensors take the plain
     version; CUDA tensors launch the kernels, which run the two shapes the
     lanes give them: one non-causal query row (decode: the split and
-    combine kernels) or a causal tile of block_size rows (chunk), at
-    head_dim 128."""
+    combine kernels) or a causal tile of block_size rows (chunk), at the
+    head_dims of ``HEAD_DIMS`` and page sizes up to 128."""
     if q.device.type == "cpu":
         return attend_pages_plain(q, k_pool, v_pool, gp, idx, cnt, pos,
                                   block_size=block_size, causal=causal)
@@ -292,11 +294,11 @@ def attend_pages(q, k_pool, v_pool, gp, idx, cnt, pos, *, block_size: int,
            "attend_pages: gp/idx/cnt/pos must be int32")
     _check(all(t.is_contiguous() for t in (q,) + tensors),
            "attend_pages: inputs must be contiguous")
-    _check(d == 128 and dk == d and tuple(v_pool.shape) == tuple(k_pool.shape),
-           "attend_pages: head_dim must be 128, equal for q/k/v")
+    _check(d in HEAD_DIMS and dk == d and tuple(v_pool.shape) == tuple(k_pool.shape),
+           f"attend_pages: head_dim must be one of {HEAD_DIMS}, equal for q/k/v")
     _check(causal == (rows > 1),
            "attend_pages: the kernel runs one non-causal row or a causal tile")
-    _check(bs == block_size and bs <= 128, "attend_pages: page size must be <= 128")
+    _check(bs == block_size and 0 < bs <= 128, "attend_pages: page size must be <= 128")
     _check(hq % hk == 0 and tuple(gp.shape) == (b, hq, nc, k_max)
            and tuple(idx.shape) == tuple(gp.shape)
            and tuple(cnt.shape) == (b, hq, nc) and tuple(pos.shape) == (b,),
@@ -309,7 +311,7 @@ def attend_pages(q, k_pool, v_pool, gp, idx, cnt, pos, *, block_size: int,
         splits = lib.stem_paged_decode_splits(k_max, PAGES_PER_SPLIT)
         ws = torch.empty((b * hq * nc, splits, d + 2), dtype=torch.float32,
                          device=q.device)
-    elif not (q.dtype == torch.bfloat16 and rows == bs == 128):
+    elif not (q.dtype == torch.bfloat16 and d == rows == bs == 128):
         _check(lib.stem_paged_attend_tile_smem(d, rows, bs) <= MAX_SMEM_BYTES,
                "attend_pages: query tile exceeds shared memory")
     out = torch.empty((b, hq, nc, rows, d), dtype=q.dtype, device=q.device)

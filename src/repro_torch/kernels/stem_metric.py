@@ -17,7 +17,11 @@ Both read each element once: bytes-bound on the H100.  A pool thread
 sums a strip of 16 bytes (8 bf16 or 4 fp32 columns) over the block's
 groups where ``x`` and ``out`` are 16-byte aligned and a row is a whole
 number of 16-byte strips, and the same kernel runs on scalar loads
-otherwise (``pool_vector_width``).  Its output dtype is an
+otherwise (``pool_vector_width``).  A vmag thread likewise owns a 16-byte
+strip of a row, the row's threads summing its squared norm with shuffles;
+it takes the scalar loads where ``v`` is misaligned or a row is not a
+power-of-two number of strips, at most 64 (``vmag_vector_width``).  Both
+take any head_dim, block size and stride.  The pool's output dtype is an
 argument: float32 as the reference wrapper writes it, or the input dtype
 where the port replaces ``metric.antidiag_pool``, whose mean keeps q's
 dtype (sum in fp32, then rounded).
@@ -53,7 +57,7 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.stem_antidiag_pool.argtypes = [p, p, i, i, i, i, i, i, i, i, p]
         lib.stem_antidiag_pool.restype = i
-        lib.stem_value_magnitude.argtypes = [p, p, i, i, i, i, i, p]
+        lib.stem_value_magnitude.argtypes = [p, p, i, i, i, i, i, i, p]
         lib.stem_value_magnitude.restype = i
         lib._stem_typed = True
     return lib
@@ -72,7 +76,7 @@ def _check_input(name: str, x: torch.Tensor, block_size: int) -> int:
     _check(x.shape[-2] % block_size == 0,
            f"{name}: length {x.shape[-2]} is not a multiple of {block_size}")
     bh = math.prod(x.shape[:-2])
-    _check(0 < bh <= 65535, f"{name}: {bh} rows exceed the kernel grid")
+    _check(bh > 0, f"{name}: empty input")
     return bh
 
 
@@ -83,6 +87,18 @@ def pool_vector_width(x: torch.Tensor, out: torch.Tensor) -> int:
     elt = x.element_size()
     wide = (x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
             and (x.shape[-1] * elt) % 16 == 0)
+    return 16 // elt if wide else 1
+
+
+def vmag_vector_width(v: torch.Tensor) -> int:
+    """Elements a vmag-kernel thread loads at once: 16 bytes' worth when
+    ``v`` is 16-byte aligned and a row of it is a power-of-two number of
+    16-byte strips, at most 64 (head_dims 8-256), else 1 (the scalar-load
+    variant)."""
+    elt = v.element_size()
+    strips, rem = divmod(v.shape[-1] * elt, 16)
+    wide = (v.data_ptr() % 16 == 0 and rem == 0 and 0 < strips <= 64
+            and strips & (strips - 1) == 0)
     return 16 // elt if wide else 1
 
 
@@ -136,7 +152,7 @@ def value_magnitude(v: torch.Tensor, *, block_size: int = 128) -> torch.Tensor:
     out = torch.empty((*lead, n // block_size), dtype=torch.float32, device=v.device)
     err = _lib().stem_value_magnitude(
         v.data_ptr(), out.data_ptr(), bh, n, d, block_size,
-        int(v.dtype == torch.bfloat16),
+        int(v.dtype == torch.bfloat16), vmag_vector_width(v),
         torch.cuda.current_stream(v.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"stem_value_magnitude launch failed: cudaError {err}")

@@ -30,6 +30,8 @@ from repro_torch.kernels import block_sparse_attn as t_bsa
 from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels import paged_attn as t_kern
 from repro_torch.kernels import stem_metric as t_sm
+from repro_torch.kernels import replay
+from repro_torch.kernels.replay import tolerance
 
 
 def _assert_close(got, want, *, p_bf16=False):
@@ -41,10 +43,8 @@ def _assert_close(got, want, *, p_bf16=False):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
         return
     got, want = got.float(), want.float()
-    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=1e-30))) - 7)
-    floor = (1e-2 if p_bf16 else 1e-3) * want.abs().amax(dim=-1, keepdim=True)
     diff = (got - want).abs()
-    assert bool((diff <= 2 * ulp + floor).all()), \
+    assert bool((diff <= tolerance(want, torch.bfloat16, p_bf16)).all()), \
         f"max |kernel - plain| = {float(diff.max())}"
 
 
@@ -497,3 +497,376 @@ def test_pool_kernel_scalar_variant_on_card(cuda, monkeypatch, dtype):
             gots.append(got)
     for got, want in zip(gots, wants):
         _assert_close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# Every shape the reference serves: head_dims 8-256, any stride, blocks and
+# pages of 8-128 (the CUDA-core paths beside the d = 128 kernels)
+# ---------------------------------------------------------------------------
+
+SHAPE_DIMS = [8, 16, 64, 128, 256]
+SHAPE_BLOCKS = [8, 16, 64, 128]
+
+
+def _on_wgmma(dtype, d, bs):
+    """Whether a bf16 attention call takes the tensor-core tile (the only
+    path that rounds P to bf16, held to the p_bf16 rule)."""
+    return dtype == torch.bfloat16 and d == 128 and bs % 128 == 0
+
+
+@pytest.mark.parametrize("s", [2, 4, 8, 16, 32, 64])
+@pytest.mark.parametrize("d", SHAPE_DIMS)
+def test_scorer_head_dims_and_strides_on_card(cuda, d, s):
+    """Both scorer kernels (fp32 only, as the lanes call them) at every head
+    dim and stride: the tiled chunk kernel where s * d is 1024, 2048 or
+    4096, the one-warp-a-page kernel elsewhere; broadcast, contiguous,
+    strided and paired query layouts, and bad page ids -> NaN columns."""
+    gen = torch.Generator(device=cuda).manual_seed(200 + d + s)
+    hq, hk, b, nc, maxp = 4, 2, 2, 3, 13
+    P = 1 + b * maxp
+    kg = torch.randn((hk, P, s, d), generator=gen, device=cuda)
+    pt = (1 + torch.randperm(P - 1, generator=gen, device=cuda)[:b * maxp]).to(
+        torch.int32).reshape(b, maxp).contiguous()
+    bad = pt.clone()
+    bad[0, 2], bad[1, maxp - 1] = -1, P
+    nan = torch.zeros((b, hq, nc, maxp), dtype=torch.bool, device=cuda)
+    nan[0, ..., 2] = nan[1, ..., maxp - 1] = True
+    scale = 1.0 / (s * d ** 0.5)
+    q = torch.randn((b, hq, nc, 1, d), generator=gen, device=cuda)
+    full = torch.randn((b, hq, nc, s, d), generator=gen, device=cuda)
+    wide = torch.randn((b, nc, hq, s, 2 * d), generator=gen, device=cuda)
+    layouts = {"broadcast": (q.expand(b, hq, nc, s, d), False),
+               "contiguous": (full, False),
+               "strided": (wide.transpose(1, 2)[..., d:], False),
+               "paired": (full, True)}
+    for name, (qp, pair) in layouts.items():
+        want = t_kern.score_pages_plain(qp, kg, pt, group=2, scale=scale, pair=pair)
+        got = t_kern.score_pages(qp, kg, pt, group=2, scale=scale, lane="chunk",
+                                 pair=pair)
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0, msg=name)
+        got = t_kern.score_pages(qp, kg, bad, group=2, scale=scale, lane="chunk",
+                                 pair=pair)
+        assert torch.equal(torch.isnan(got), nan), name
+        torch.testing.assert_close(got[~nan], want[~nan], atol=1e-4, rtol=0, msg=name)
+
+
+def _visible_page_lists(causal, bs, nc, pos, hq, kmax):
+    """Logical page lists whose every page holds a key the row sees: a chunk
+    row lists its own (straddled) page first, then the pages below it in
+    order; a decode row its last page first, then the earlier ones.  So
+    the last live page of a row with two or more is a wholly visible page
+    (the planted fault drops it).  Rows (b + h + ci) % 4 == 3 are empty."""
+    b = len(pos)
+    idx = np.zeros((b, hq, nc, kmax), np.int32)
+    cnt = np.zeros((b, hq, nc), np.int32)
+    for r in np.ndindex(b, hq, nc):
+        own = (pos[r[0]] + r[2] * bs + bs - 1) // bs if causal else (pos[r[0]] - 1) // bs
+        pages = [own] + list(range(own))[:kmax - 1]
+        idx[r] = pages + [pages[-1]] * (kmax - len(pages))
+        cnt[r] = 0 if sum(r) % 4 == 3 else len(pages)
+    return idx, cnt
+
+
+@pytest.mark.parametrize("lane", ["decode", "chunk"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bs", SHAPE_BLOCKS)
+@pytest.mark.parametrize("d", SHAPE_DIMS)
+def test_attend_head_dims_and_pages_on_card(cuda, d, bs, dtype, lane):
+    """Page attention at every head_dim and page size, both lanes: the
+    decode lane's split + combine kernels (rows past two splits, a partial
+    last page, cnt == 0) and the chunk lane (an aligned and an unaligned
+    chunk start); exact zeros for empty rows; and the rule must reject the
+    output with the last live page dropped from each row with two or more."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(300 + d + bs)
+    causal = lane == "chunk"
+    hq, hk = 4, 2
+    nc, rows = (2, bs) if causal else (1, 1)
+    pos = np.asarray([3 * bs, 5] if causal else [9 * bs + bs // 2 + 1, 2 * bs], np.int32)
+    b, maxp = len(pos), 12
+    kmax = maxp
+    P = 1 + b * maxp
+    table = torch.randperm(P - 1, generator=gen, device=cuda)[:b * maxp] + 1
+    table = table.reshape(b, maxp)
+    idx, cnt = _visible_page_lists(causal, bs, nc, pos, hq, kmax)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    idx, cnt, posd = t(idx), t(cnt), t(pos)
+    gp = torch.take_along_dim(table[:, None, None, :].expand(b, hq, nc, maxp).long(),
+                              idx.long(), dim=-1).to(torch.int32).contiguous()
+    k = torch.randn((hk, P, bs, d), generator=gen, device=cuda).to(dt)
+    v = torch.randn((hk, P, bs, d), generator=gen, device=cuda).to(dt)
+    q = torch.randn((b, hq, nc, rows, d), generator=gen, device=cuda).to(dt)
+    run = lambda c: t_kern.attend_pages(q, k, v, gp, idx, c, posd, block_size=bs,
+                                        causal=causal, lane=lane)
+    want = t_kern.attend_pages_plain(q, k, v, gp, idx, cnt, posd, block_size=bs,
+                                     causal=causal)
+    p_bf16 = causal and _on_wgmma(dt, d, bs)
+    got = run(cnt)
+    _assert_close(got, want, p_bf16=p_bf16)
+    assert bool((cnt == 0).any()) and torch.all(got[cnt == 0] == 0)
+    with pytest.raises(AssertionError):
+        _assert_close(run(torch.where(cnt >= 2, cnt - 1, cnt).contiguous()), want,
+                      p_bf16=p_bf16)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bs", SHAPE_BLOCKS)
+@pytest.mark.parametrize("d", SHAPE_DIMS)
+def test_block_sparse_head_dims_and_blocks_on_card(cuda, d, bs, dtype):
+    """Block-sparse attention at every head_dim and block size (a block
+    under 64 rows takes a CTA of one block's rows), with and without group
+    dedup: each row lists its diagonal block first, then the blocks below
+    it; some rows are empty (exact zeros); and the rule must reject the
+    output with the last live block dropped from each row with two or
+    more."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(400 + d + bs)
+    b, hq, hk, nq = 1, 4, 2, 6
+    n = nq * bs
+    q = torch.randn((b, hq, n, d), generator=gen, device=cuda).to(dt)
+    k = torch.randn((b, hk, n, d), generator=gen, device=cuda).to(dt)
+    v = torch.randn((b, hk, n, d), generator=gen, device=cuda).to(dt)
+    p_bf16 = _on_wgmma(dt, d, bs)
+    for dedup in (False, True):
+        hsel = hk if dedup else hq
+        i = torch.arange(nq, device=cuda)[:, None]
+        j = torch.arange(nq, device=cuda)[None, :]
+        idx = torch.where(j == 0, i, j - 1).expand(b, hsel, nq, nq)
+        idx = idx.to(torch.int32).contiguous()
+        cnt = (i[:, 0] + 1).expand(b, hsel, nq).clone()
+        cnt[:, 1, 2] = 0
+        cnt = cnt.to(torch.int32).contiguous()
+        run = lambda c: t_bsa.block_sparse_attention(
+            q, k, v, idx, live_counts=c, block_size=bs, group_dedup=dedup)
+        want = t_bsa.block_sparse_attention_plain(q, k, v, idx, cnt, block_size=bs,
+                                                  group_dedup=dedup)
+        got = run(cnt)
+        _assert_close(got, want, p_bf16=p_bf16)
+        full = torch.repeat_interleave(cnt, hq // hsel, dim=1)
+        assert torch.all(got.reshape(b, hq, nq, bs, d)[full == 0] == 0)
+        with pytest.raises(AssertionError):
+            _assert_close(run(torch.where(cnt >= 2, cnt - 1, cnt).contiguous()), want,
+                          p_bf16=p_bf16)
+
+
+@pytest.mark.parametrize("n", [100, 1000])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [8, 16, 64, 256])
+def test_flash_head_dims_on_card(cuda, d, dtype, n):
+    """Flash attention at the head_dims off the tensor-core tile (the
+    CUDA-core tile, bf16 loaded and stored around fp32 math), at lengths
+    that are no multiple of the 64-row tile.  The rule must reject a
+    dropped key tile at these shapes: over the first n - n % 8 rows, the
+    block-sparse kernel with every causal 8-key block selected passes it
+    against the plain flash output, and fails it once the last block below
+    the diagonal is dropped from each row."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(500 + d + n)
+    q = torch.randn((2, 4, n, d), generator=gen, device=cuda).to(dt)
+    k = torch.randn((2, 2, n, d), generator=gen, device=cuda).to(dt)
+    v = torch.randn((2, 2, n, d), generator=gen, device=cuda).to(dt)
+    _assert_close(t_fa.flash_attention(q, k, v), t_fa.flash_attention_plain(q, k, v))
+    m, bs = n - n % 8, 8
+    qm, km, vm = (x[:, :, :m].contiguous() for x in (q, k, v))
+    want = t_fa.flash_attention_plain(qm, km, vm)
+    i = torch.arange(m // bs, device=cuda)[:, None]
+    j = torch.arange(m // bs, device=cuda)[None, :]
+    idx = torch.where(j == 0, i, j - 1).expand(2, 4, m // bs, m // bs)
+    idx = idx.to(torch.int32).contiguous()
+    cnt = (i[:, 0] + 1).expand(2, 4, m // bs).to(torch.int32).contiguous()
+    run = lambda c: t_bsa.block_sparse_attention(qm, km, vm, idx, live_counts=c,
+                                                 block_size=bs)
+    _assert_close(run(cnt), want)
+    with pytest.raises(AssertionError):
+        _assert_close(run(torch.where(cnt >= 2, cnt - 1, cnt).contiguous()), want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bs", SHAPE_BLOCKS)
+@pytest.mark.parametrize("d", SHAPE_DIMS)
+def test_vmag_head_dims_and_blocks_on_card(cuda, d, bs, dtype):
+    """The value-magnitude kernel (16-byte strips) at every head_dim and
+    block size, a block count that leaves the card idle (thread-block
+    clusters split each block's rows) and one that fills it, with an
+    all-zero block (log of the 1e-20 floor)."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(600 + d + bs)
+    for nb in (3, 200):
+        v = torch.randn((2, 3, nb * bs, d), generator=gen, device=cuda).to(dt)
+        v[0, 1, bs:2 * bs] = 0
+        assert t_sm.vmag_vector_width(v) == 16 // v.element_size()
+        got = t_sm.value_magnitude(v, block_size=bs)
+        want = t_sm.value_magnitude_plain(v, block_size=bs)
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+        assert float(got[0, 1, 1]) == pytest.approx(float(np.log(np.float32(1e-20))))
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 8, 1024, 128),        # a chunk's page summaries (the chunk lane)
+    (1, 8, 128, 128),         # one page
+    (1, 8, 16384, 128),       # a 16k prompt
+])
+def test_vmag_engine_shapes_on_card(cuda, shape):
+    gen = torch.Generator(device=cuda).manual_seed(shape[2])
+    v = torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+    v[0, 0, :128] = 0
+    torch.testing.assert_close(t_sm.value_magnitude(v, block_size=128),
+                               t_sm.value_magnitude_plain(v, block_size=128),
+                               atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vmag_scalar_variant_on_card(cuda, monkeypatch, dtype):
+    """A contiguous view one element off 16-byte alignment, and rows that
+    are not a power-of-two number of 16-byte strips (d 96, 36), launch the
+    scalar-load variant of the vmag kernel — a counted kernel launch that
+    matches the plain version — and never the plain version itself."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    buf = torch.randn((2 * 3 * 512 * 128 + 1,), generator=gen, device=cuda).to(dt)
+    cases = [buf[1:].view(2, 3, 512, 128),
+             torch.randn((2, 512, 96), generator=gen, device=cuda).to(dt),
+             torch.randn((2, 512, 36), generator=gen, device=cuda).to(dt)]
+    cases[1][1, 128:256] = 0
+    wants = [t_sm.value_magnitude_plain(x, block_size=128) for x in cases]
+
+    def plain(*a, **kw):
+        raise AssertionError("the plain version ran on the card")
+
+    monkeypatch.setattr(t_sm, "value_magnitude_plain", plain)
+    for x, want in zip(cases, wants):
+        assert x.is_contiguous() and t_sm.vmag_vector_width(x) == 1
+        before = t_sm.LAUNCHES["value_magnitude"]
+        got = t_sm.value_magnitude(x, block_size=128)
+        assert t_sm.LAUNCHES["value_magnitude"] == before + 1
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+def test_unsupported_shapes_raise_on_card(cuda):
+    """Outside the kernels' shapes the wrappers raise ValueError: no
+    fallback to the plain version."""
+    x = torch.zeros((1, 2, 256, 96), device=cuda)
+    idx = torch.zeros((1, 2, 2, 1), dtype=torch.int32, device=cuda)
+    cnt = torch.ones((1, 2, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        t_fa.flash_attention(x, x, x)
+    with pytest.raises(ValueError, match="head_dim"):
+        t_bsa.block_sparse_attention(x, x, x, idx, live_counts=cnt, block_size=128)
+    kg = torch.zeros((2, 3, 4, 96), device=cuda)
+    pt = torch.ones((1, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        t_kern.score_pages(torch.zeros((1, 2, 1, 4, 96), device=cuda), kg, pt, group=1,
+                           scale=1.0, lane="chunk")
+    sel = torch.zeros((1, 2, 1, 1), dtype=torch.int32, device=cuda)
+    lens = torch.ones((1,), dtype=torch.int32, device=cuda)
+    for d, page in ((96, 8), (8, 256)):
+        pool = torch.zeros((2, 3, page, d), device=cuda)
+        with pytest.raises(ValueError):
+            t_kern.attend_pages(torch.zeros((1, 2, 1, 1, d), device=cuda), pool, pool,
+                                sel, sel, cnt[:, :, :1].contiguous(), lens,
+                                block_size=page, causal=False, lane="decode")
+
+
+# ---------------------------------------------------------------------------
+# The small configurations served on the card under the default executor
+# ---------------------------------------------------------------------------
+
+# tests/test_engine.py's config, policy and trace, and the reduced qwen3-0.6b
+# (head_dim 16) at block 128 / stride 16 with a smaller budget floor
+TINY = dict(name="engine-tiny", family="dense", num_layers=2, d_model=32,
+            num_heads=4, num_kv_heads=2, head_dim=8, d_ff=64, vocab_size=64,
+            qk_norm=True, dtype="float32")
+TINY_STEM = dict(block_size=8, sink_blocks=1, local_blocks=1, min_budget_blocks=2,
+                 stride=4)
+TINY_TRACE = [(5, 4, 0), (13, 6, 0), (8, 3, 1), (20, 5, 3), (9, 4, 5)]
+REDUCED_STEM = dict(sink_blocks=1, local_blocks=1, min_budget_blocks=2)
+REDUCED_TRACE = [(100, 6, 0), (700, 6, 0), (1300, 5, 1), (260, 5, 3)]
+CHUNKED_KERNELS = ("score/decode", "score/chunk", "attend/decode", "attend/chunk",
+                   "antidiag_pool", "value_magnitude")
+MONOLITHIC_KERNELS = ("score/decode", "attend/decode", "block_sparse_attention",
+                      "flash_attention", "antidiag_pool", "value_magnitude")
+
+
+def _small_config(name, dtype="float32"):
+    from repro_torch.configs import QWEN3_0_6B, reduced
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.core import policy as t_policy
+    if name == "tiny":
+        return ArchConfig(**TINY), t_policy.get_policy("stem").with_updates(
+            **TINY_STEM), TINY_TRACE
+    return (reduced(QWEN3_0_6B).replace(dtype=dtype),
+            t_policy.get_policy("stem").with_updates(**REDUCED_STEM), REDUCED_TRACE)
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(x, device) for k, x in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(x, device) for x in tree)
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+def serve_small(name, device, executor, monolithic, dtype="float32"):
+    """Serve a small configuration's trace (2 slots, budget_frac 0.5) with
+    seeded weights drawn on the CPU; returns the greedy streams and the
+    launch counts of the run (zeroed just before it, read just after).  On
+    the card every call the run makes to a kernel is recorded
+    (kernels/replay.py) and held against its plain version on the recorded
+    arguments (fp32 1e-4; bf16 2 ulps + 1e-3 of the row's max|plain|)."""
+    from repro_torch.models import registry as t_registry
+    from repro_torch.runtime import engine as t_engine
+    cfg, policy, trace = _small_config(name, dtype)
+    bundle = t_registry.build(cfg)
+    params = _to_device(bundle.init_params(torch.Generator().manual_seed(0),
+                                           device="cpu"), device)
+    ecfg = t_engine.EngineConfig.for_trace(
+        max_slots=2, max_prompt=max(p for p, _, _ in trace),
+        max_new_tokens=max(m for _, m, _ in trace), page_size=policy.block_size,
+        budget_frac=0.5, executor=executor, monolithic_prefill=monolithic)
+    engine = t_engine.StemEngine(bundle, params, policy, ecfg)
+    rng = np.random.RandomState(7)
+    reqs = [t_engine.Request(uid=i, prompt=rng.randint(0, cfg.vocab_size, size=(p,))
+                             .astype(np.int32), max_new_tokens=m, arrival_step=a)
+            for i, (p, m, a) in enumerate(trace)]
+    counters = (t_kern, t_bsa, t_fa, t_sm)
+    for mod in counters:
+        mod.reset_launches()
+    with replay.Recorder() as rec:
+        finished = engine.run(reqs)
+    launches = {}
+    for mod in counters:
+        launches.update(mod.LAUNCHES)
+    if device.type == "cuda":
+        rec.check()
+    assert [f.uid for f in finished] == list(range(len(trace)))
+    assert engine.allocator.available == ecfg.num_pages - 1
+    return [f.tokens for f in finished], launches
+
+
+@pytest.mark.parametrize("monolithic", [False, True], ids=["chunked", "monolithic"])
+@pytest.mark.parametrize("name", ["tiny", "qwen3-0.6b-reduced"])
+def test_small_configs_serve_fused_on_card(cuda, name, monolithic):
+    """TINY (head_dim 8, stride 4, block 8) and the reduced qwen3-0.6b
+    (head_dim 16) in fp32 serve under the default "fused" executor on the
+    card: every kernel of the path launches, and the greedy streams equal
+    the "gather" executor's on the card and the port's CPU run."""
+    fused, launches = serve_small(name, cuda, "fused", monolithic)
+    need = MONOLITHIC_KERNELS if monolithic else CHUNKED_KERNELS
+    assert all(launches[k] > 0 for k in need), launches
+    assert serve_small(name, cuda, "gather", monolithic)[0] == fused
+    assert serve_small(name, torch.device("cpu"), "fused", monolithic)[0] == fused
+
+
+@pytest.mark.parametrize("monolithic", [False, True], ids=["chunked", "monolithic"])
+def test_reduced_qwen3_serves_bf16_on_card(cuda, monolithic):
+    """The reduced qwen3-0.6b in its own dtype (bf16: the CUDA-core tiles'
+    bf16 loads and stores at head_dim 16) serves under "fused" through every
+    kernel of the path, each recorded kernel call within the bf16 rule of
+    its plain version, and its greedy streams equal the "gather"
+    executor's on the card."""
+    streams, launches = serve_small("qwen3-0.6b-reduced", cuda, "fused", monolithic,
+                                    dtype="bfloat16")
+    need = MONOLITHIC_KERNELS if monolithic else CHUNKED_KERNELS
+    assert all(launches[k] > 0 for k in need), launches
+    assert serve_small("qwen3-0.6b-reduced", cuda, "gather", monolithic,
+                       dtype="bfloat16")[0] == streams

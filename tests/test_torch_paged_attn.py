@@ -201,7 +201,7 @@ def test_attend_plain_zero_live_rows_exact():
         assert torch.isfinite(out).all() and torch.any(out[:, 1] != 0)
 
 
-def _attend_selection_case(group, causal, seed):
+def _attend_selection_case(group, causal, seed, d=D):
     """Inputs of the page attention in the order the reference kernel takes
     them (numpy): q (b, hq, nc, rows, d), the k / v pools, and per row a
     shuffled list of logical pages mapped to physical ones through a
@@ -216,9 +216,9 @@ def _attend_selection_case(group, causal, seed):
     b, nc, kmax, maxp = 2, 2, 6, 6
     P = 1 + b * maxp
     rows = BS if causal else 1
-    k = rng.standard_normal((hk, P, BS, D)).astype(np.float32)
-    v = rng.standard_normal((hk, P, BS, D)).astype(np.float32)
-    q = rng.standard_normal((b, HQ, nc, rows, D)).astype(np.float32)
+    k = rng.standard_normal((hk, P, BS, d)).astype(np.float32)
+    v = rng.standard_normal((hk, P, BS, d)).astype(np.float32)
+    q = rng.standard_normal((b, HQ, nc, rows, d)).astype(np.float32)
     pos = np.asarray([13, 3] if causal else [29, 5], np.int32)
     table = 1 + rng.permutation(P - 1)[:b * maxp].reshape(b, maxp)
     gp = np.zeros((b, HQ, nc, kmax), np.int32)
@@ -259,6 +259,46 @@ def test_attend_plain_matches_reference_kernel(group, causal):
     cnt = args[5]
     assert (cnt == 0).any() and np.all(got.numpy()[cnt == 0] == 0.0)
     assert np.all(np.abs(got.numpy()[cnt > 0]).sum(-1) > 0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [8, 16, 256])
+def test_attend_plain_head_dims_match_reference_kernel(d, causal):
+    """The page attention's semantics at the head_dims the card's CUDA-core
+    paths take (8, 16, 256; page size 8): the reference kernel (interpret
+    mode) against ``attend_pages_plain`` within 1e-4, on the selection case
+    above."""
+    args = _attend_selection_case(2, causal, seed=70 + d + causal, d=d)
+    want = j_kern._attend_pages(*(jnp.asarray(a) for a in args), block_size=BS,
+                                causal=causal, interpret=True, name="attend_test")
+    got = t_kern.attend_pages_plain(*(torch.from_numpy(a) for a in args),
+                                    block_size=BS, causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=0)
+    assert np.all(got.numpy()[args[5] == 0] == 0.0)
+
+
+@pytest.mark.parametrize("pair", [False, True])
+@pytest.mark.parametrize("d", [8, 16, 256])
+def test_score_plain_head_dims_match_reference_kernel(d, pair):
+    """The scorer's semantics at head_dims 8, 16 and 256 and stride 4 (the
+    one-warp-a-page kernel's shapes on the card): the reference
+    ``_score_pages`` (interpret mode) against ``score_pages_plain``, the
+    pairing folded in or not, within 1e-4."""
+    rng = np.random.default_rng(80 + d + pair)
+    hk, b, maxp, nc = 2, 2, 5, 3
+    P = 1 + b * maxp
+    qp = rng.standard_normal((b, HQ, nc, STRIDE, d)).astype(np.float32)
+    kg = rng.standard_normal((hk, P, STRIDE, d)).astype(np.float32)
+    table = (1 + rng.permutation(P - 1)[:b * maxp]).reshape(b, maxp).astype(np.int32)
+    perm = (STRIDE - np.arange(STRIDE)) % STRIDE
+    scale = 1.0 / (STRIDE * float(d) ** 0.5)
+    want = j_kern._score_pages(jnp.asarray(qp[..., perm, :] if pair else qp),
+                               jnp.asarray(kg), jnp.asarray(table), group=2,
+                               scale=scale, interpret=True, name="score_test")
+    got = t_kern.score_pages_plain(torch.from_numpy(qp), torch.from_numpy(kg),
+                                   torch.from_numpy(table), group=2,
+                                   scale=scale, pair=pair)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=0)
 
 
 @pytest.mark.parametrize("pair", [False, True])

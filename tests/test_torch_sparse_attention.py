@@ -160,6 +160,43 @@ def test_metric_plain_matches_jax(dtype, bs, s):
            j_metric.value_block_magnitude(xj, bs))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [8, 16, 256])
+def test_metric_plain_head_dims_match_jax(d, dtype):
+    """The pool and value-magnitude kernels' semantics at head_dims 8, 16
+    and 256, stride 4, block 8 (the small configurations' shapes): the
+    reference kernels (interpret mode) against the plain versions; an
+    all-zero block compared as in the test above."""
+    bs, s = 8, 4
+    (x,) = _arrays(10 + d, [(2, 3, 64, d)])
+    x[1, 2, bs:2 * bs] = 0
+    xt, xj = _t(x, dtype), _j(x, dtype)
+    _close(t_sm.antidiag_pool_plain(xt, block_size=bs, stride=s),
+           j_ops.antidiag_pool(xj, block_size=bs, stride=s))
+    live = np.ones(x.shape[:2] + (x.shape[2] // bs,), bool)
+    live[1, 2, 1] = False
+    np.testing.assert_allclose(
+        t_sm.value_magnitude_plain(xt, block_size=bs).numpy()[live],
+        np.asarray(j_ops.value_magnitude(xj, block_size=bs))[live], atol=TOL, rtol=0)
+    _close(t_sm.value_magnitude_plain(xt, block_size=bs),
+           j_metric.value_block_magnitude(xj, bs))
+
+
+@pytest.mark.parametrize("pooling", ["antidiag", "mean"])
+def test_chunk_routing_scores_mixed_dtypes_match_jax(pooling):
+    """A bf16 chunk against the pool's fp32 key summaries (the gather
+    executor of a bf16 model): the scores are taken in fp32, as the
+    reference's einsum promotes bf16 x fp32."""
+    from repro_torch.core import metric as t_metric
+    q, kg = _arrays(12, [(1, 4, 32, 16), (1, 2, 5, 4, 16)])
+    got = t_metric.chunk_routing_scores(_t(q, "bfloat16"), _t(kg), block_size=16,
+                                        pooling=pooling)
+    want = j_metric.chunk_routing_scores(_j(q, "bfloat16"), _j(kg), block_size=16,
+                                         pooling=pooling)
+    assert got.dtype == torch.float32 and want.dtype == jnp.float32
+    _close(got, want)
+
+
 # ---------------------------------------------------------------------------
 # Dense attention (the dense arm and its plain versions)
 # ---------------------------------------------------------------------------
