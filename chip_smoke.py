@@ -23,10 +23,11 @@ Phases:
                 attention, also against scaled_dot_product_attention; the
                 pool and value-magnitude kernels) at a 16384-token prompt,
                 the pool also at the chunk lane's shapes (q (1, 16,
-                1024, 128) bf16 -> fp32, k (1, 8, 1024, 128) bf16 -> bf16)
+                1024, 128) and k (1, 8, 1024, 128), bf16 -> bf16)
                 and vmag at a chunk's (v (1, 8, 1024, 128) bf16); flash and
                 block-sparse also at head_dim 64 and 256 (a 4096-token
-                prompt, bf16 on the CUDA-core tile).
+                prompt, bf16 on the CUDA-core tile; flash beside SDPA,
+                block-sparse beside flex_attention).
                 fp32 outputs within 1e-4 abs; bf16 outputs within 2 bf16
                 ulps of the plain output plus 1e-3 * the max|plain| of the
                 element's row (last axis), except the bf16 attention on the
@@ -94,6 +95,33 @@ Phases:
                 served in bf16 (the CUDA-core tiles' bf16 loads and stores
                 at head_dim 16): its recorded calls held to the bf16 rule
                 of phase 3, its fused stream equal to "gather"'s.
+  9. contiguous — the serving CLI (launch/serve.py main) on full-width
+                qwen3-0.6b, bf16, "stem" at the CLI's geometry (block 128,
+                stride 4): 2 requests of 2000-6000 tokens, 16 new tokens, in
+                engine mode (chunked, the paged kernels) and --fixed-batch
+                (ragged contiguous caches: flash prefill, then sparse decode
+                re-summarizing the whole cache with the pool and vmag
+                kernels every step); counters zeroed before and read after
+                each; prints TTFT, ms per token and summarize_cache's share
+                of the decode time (CUDA events around each call).  Then,
+                each under a replay recorder whose kernel calls are held
+                against the plain versions: the CLI runs again; the engine
+                ("fused", decode at budget 1.0, chunk 1024) against
+                contiguous prefill + sparse decode (the reference's oracle
+                for the engine), 2 prompts of 1531 / 3907 tokens, 16 new
+                tokens, fp32 (streams equal, or parted where both arms' logits
+                rank the two tokens within 1e-3) and bf16 (reported: within
+                phase 3's p_bf16 rule at the token or not); loss_fn (stem,
+                dense) and forward_with_stats (stem) on one 8192-token
+                sequence: CE, realized density per layer; glm4-9b (GQA
+                group 16, untied fp32 head) through the CLI's run_engine
+                (2 requests of 2048-4096 tokens) and run_fixed_batch (2 of
+                4096, a sparse prefill), 8 new tokens, under "fused" and
+                "gather": in fp32 at full width with the depth cut to 4
+                layers (streams equal, or parted within 1e-3), and in bf16
+                at 4 and 40 layers, reported with where the executors'
+                chunk selections first differ, beside the 40-layer engine
+                trace under "dense" (no selection to flip); peak memory.
 
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}.  Any failed phase raises (non-zero exit).
@@ -101,6 +129,7 @@ Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last line
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -117,9 +146,10 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.configs import QWEN3_0_6B, reduced  # noqa: E402
+from repro_torch.configs import GLM4_9B, QWEN3_0_6B, reduced  # noqa: E402
 from repro_torch.configs.base import ArchConfig  # noqa: E402
 from repro_torch.core import chunked as chunked_lib  # noqa: E402
+from repro_torch.core import decode as decode_lib  # noqa: E402
 from repro_torch.core import metric as metric_lib  # noqa: E402
 from repro_torch.core import policy as policy_lib  # noqa: E402
 from repro_torch.core.selection import selection_density  # noqa: E402
@@ -130,6 +160,7 @@ from repro_torch.kernels import paged_attn as kern  # noqa: E402
 from repro_torch.kernels import replay  # noqa: E402
 from repro_torch.kernels import stem_metric as metric_kern  # noqa: E402
 from repro_torch.kernels.replay import tolerance  # noqa: E402
+from repro_torch.launch import serve as serve_lib  # noqa: E402
 from repro_torch.launch import steps as steps_lib  # noqa: E402
 from repro_torch.models import attention as attention_lib  # noqa: E402
 from repro_torch.models import common  # noqa: E402
@@ -453,7 +484,7 @@ def kernel_phase(records: dict, dev=torch.device("cuda")) -> None:
         qc = torch.randn((1, hq, C, d), generator=gen, device=dev).to(dtype)
         # the chunk lane's pooled queries, the anti-diagonal pairing folded
         # into the scorer (pair=True) as chunk_page_scores runs it
-        qpc = metric_lib.antidiag_pool(qc.float(), bs, s)
+        qpc = metric_lib.antidiag_pool(qc, bs, s).float()
         run_k = lambda: kern.score_pages(qpc, kg, ptc, group=group, scale=scale,
                                          lane="chunk", pair=True)
         run_p = lambda: kern.score_pages_plain(qpc, kg, ptc, group=group,
@@ -593,10 +624,10 @@ def flex_block_mask(idx, cnt, bs):
 
 def pool_chunk_shapes(records, gen, hq, hk, d, bs, s, dev=torch.device("cuda")):
     """Kernel 5 at the chunk lane's shapes (one 1024-token chunk): the
-    scorer's query pooling, q (1, hq, 1024, d) bf16 -> fp32, and a chunk's
+    scorer's query pooling, q (1, hq, 1024, d) bf16 -> bf16, and a chunk's
     page summaries, k (1, hk, 1024, d) bf16 -> bf16; each against its plain
     version, timed beside one ``mean`` call of the same output dtype."""
-    for name, heads, out_dtype in (("chunk_q", hq, torch.float32),
+    for name, heads, out_dtype in (("chunk_q", hq, torch.bfloat16),
                                    ("chunk_k", hk, torch.bfloat16)):
         x = torch.randn((1, heads, 1024, d), generator=gen, device=dev).to(torch.bfloat16)
         run_k = lambda: metric_kern.antidiag_pool(x, block_size=bs, stride=s,
@@ -732,11 +763,14 @@ def prefill_head_dim_phase(records: dict, dev=torch.device("cuda")) -> None:
     CUDA-core tile: fp32 products and probabilities), a 4096-token prompt,
     16 / 8 heads, block 128, stem's TPD selection: each against its plain
     version (the 1e-3 bf16 rule: P stays fp32) and timed (flash beside
-    SDPA); the bound is bf16's, the least the card could take for the same
-    work."""
+    SDPA, block-sparse beside a compiled flex_attention over the same
+    BlockMask); the bound is bf16's, the least the card could take for the
+    same work."""
     n, hq, hk, bs = 4096, 16, 8, 128
     policy = policy_lib.get_policy("stem")
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    from torch.nn.attention.flex_attention import flex_attention
+    flex = torch.compile(flex_attention, dynamic=False)
     gen = torch.Generator(device=dev).manual_seed(4)
     for d in (64, 256):
         q = torch.randn((1, hq, n, d), generator=gen, device=dev).to(torch.bfloat16)
@@ -762,9 +796,18 @@ def prefill_head_dim_phase(records: dict, dev=torch.device("cuda")) -> None:
         got, want = run_k(), run_p()
         torch.cuda.synchronize()
         err = check_close(f"block_sparse_attention/d{d}/bfloat16", got, want)
+        mask = flex_block_mask(idx, cnt, bs)
+        run_l = lambda: flex(q, k, v, block_mask=mask, enable_gqa=True)
+        try:
+            check_library(f"block_sparse_attention d{d} vs flex_attention",
+                          run_l(), want)
+        except Exception as e:  # the library is only timed beside the kernel
+            log(f"[kernels] flex_attention at d{d} failed, no library time: "
+                f"{type(e).__name__}: {str(e).splitlines()[0][:200]}")
+            run_l = None
         rec_kernel(records, "block_sparse_attention", f"d{d}", "bfloat16", err,
                    run_k, run_p, bsa_bytes_flops(q, k, idx, cnt, hq // hk, False, bs),
-                   torch.bfloat16, iters=5, plain_iters=1)
+                   torch.bfloat16, run_lib=run_l, iters=5, plain_iters=1)
         del q, k, v, got, want
         torch.cuda.empty_cache()
 
@@ -1183,6 +1226,448 @@ def small_config_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: contiguous decode, the CLI and the evaluation passes
+# ---------------------------------------------------------------------------
+
+# The margin under which two arms' logits may choose different tokens: fp32
+# phase 7's split rule; bf16 the p_bf16 rule of phase 3 at the chosen
+# token (both arms run the wgmma tiles, which round P to bf16).
+FP32_MARGIN = 1e-3
+# The CLI's serving geometry of "stem" at block 128 (serve.main's rescale).
+CLI_POLICY = dict(block_size=128, stride=4, sink_blocks=1, local_blocks=1,
+                  min_budget_blocks=2)
+ALL_KERNELS = ("score/decode", "score/chunk", "attend/decode", "attend/chunk",
+               "block_sparse_attention", "flash_attention", "antidiag_pool",
+               "value_magnitude")
+
+
+def margin_limit(row: torch.Tensor, tok: int, dtype: str) -> float:
+    if dtype == "float32":
+        return FP32_MARGIN
+    return float(tolerance(row[None], torch.bfloat16, p_bf16=True)[0, tok])
+
+
+def check_partings(name, streams_a, rows_a, streams_b, rows_b, dtype,
+                   strict=True) -> dict:
+    """Streams of two arms, request by request: equal, or they part at a
+    step where each arm's logits row (the row its token was sampled from)
+    ranks the two tokens within the margin of a near tie.  Later tokens of
+    a parted request follow different inputs and are not compared.  With
+    ``strict`` a parting over the margin raises."""
+    out = {}
+    for uid in sorted(streams_a):
+        a, b = streams_a[uid], streams_b[uid]
+        t = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if t is None:
+            out[uid] = {"equal": len(a) == len(b)}
+            continue
+        ra, rb = rows_a[uid][t], rows_b[uid][t]
+        margin = max(float(ra[a[t]] - ra[b[t]]), float(rb[b[t]] - rb[a[t]]))
+        limit = max(margin_limit(ra, a[t], dtype), margin_limit(rb, b[t], dtype))
+        out[uid] = {"equal": False, "parting_step": t, "margin": margin,
+                    "limit": limit, "max_logit_diff": float((ra - rb).abs().max())}
+    log(f"[phase9] {name}: " + json.dumps(out))
+    bad = [u for u, r in out.items() if not r["equal"]
+           and ("margin" not in r or not r["margin"] <= r["limit"])]
+    if bad and strict:
+        raise AssertionError(f"{name}: streams part over the margin: {bad}")
+    out["within_rule"] = not bad
+    return out
+
+
+class LogitTap:
+    """Keeps, per request, the logits row (host, fp32) each of its tokens
+    was sampled from, in the engine runs made inside the block: the decode
+    rows of the granted slots, and the row of a chunk lane whose chunk
+    completes its prompt.  ``engine_lib.StemEngine`` is replaced by module
+    attribute, so engines the CLI builds are tapped."""
+
+    def __init__(self):
+        self.rows: dict = {}
+        self._saved = None
+
+    def __enter__(self):
+        base, rows = engine_lib.StemEngine, self.rows
+        self._saved = base
+
+        class TappedEngine(base):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                step = self._unified
+
+                def tapped(params, pools, tokens, table, lens, chunk=None):
+                    dec, ch, pools = step(params, pools, tokens, table, lens, chunk)
+                    for s in torch.nonzero(lens > 0).flatten().tolist():
+                        rows.setdefault(self.slots[s].req.uid, []).append(
+                            dec[s].float().cpu())
+                    if chunk is not None:
+                        tables = chunk["page_table"].cpu().numpy()
+                        for lane in torch.nonzero(chunk["true_len"] > 0).flatten().tolist():
+                            s = next(i for i, st in enumerate(self.slots)
+                                     if st is not None and st.phase == "prefill"
+                                     and (self.page_table[i] == tables[lane]).all())
+                            st = self.slots[s]
+                            if st.prefill_pos + self.chunk_size >= len(st.padded):
+                                rows.setdefault(st.req.uid, []).append(
+                                    ch[lane].float().cpu())
+                    return dec, ch, pools
+                self._unified = tapped
+
+        engine_lib.StemEngine = TappedEngine
+        return self
+
+    def __exit__(self, *exc):
+        engine_lib.StemEngine = self._saved
+        return False
+
+
+class SamplerTap:
+    """Keeps every logits tensor the sampler reduces (host, fp32) in the
+    fixed-batch runs made inside the block (``sampling_lib.get_sampler``
+    replaced by module attribute): call t holds every row's token t."""
+
+    def __init__(self):
+        self.calls: list = []
+
+    def __enter__(self):
+        self._saved = sampling_lib.get_sampler
+        calls, get = self.calls, self._saved
+
+        def tapped_get(name):
+            inner = get(name)
+
+            def sample(logits):
+                calls.append(logits.float().cpu())
+                return inner(logits)
+            return sample
+        sampling_lib.get_sampler = tapped_get
+        return self
+
+    def __exit__(self, *exc):
+        sampling_lib.get_sampler = self._saved
+        return False
+
+    def rows(self) -> dict:
+        return {i: [c[i] for c in self.calls] for i in range(self.calls[0].shape[0])}
+
+
+class SummarizeTimer:
+    """CUDA events around every ``decode_lib.summarize_cache`` call made
+    inside the block (replaced by module attribute; ``apply_decode`` calls
+    it there): the device timeline between a call's first and last event,
+    summed — the call's kernels, or its host work where the device waits
+    on the host."""
+
+    def __init__(self):
+        self.events: list = []
+
+    def __enter__(self):
+        self._saved = fn = decode_lib.summarize_cache
+        events = self.events
+
+        def timed(*a, **kw):
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0.record()
+            out = fn(*a, **kw)
+            t1.record()
+            events.append((t0, t1))
+            return out
+        decode_lib.summarize_cache = timed
+        return self
+
+    def __exit__(self, *exc):
+        decode_lib.summarize_cache = self._saved
+        return False
+
+    def total_ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+class SelectionTap:
+    """Keeps every chunk-lane selection (live block ids of each query block
+    row, on the host) made inside the block (``chunked_lib.
+    select_chunk_blocks`` replaced by module attribute; both executors call
+    it there).  Each prefill step calls it once a layer, in layer order."""
+
+    def __init__(self):
+        self.calls: list = []
+
+    def __enter__(self):
+        self._saved = fn = chunked_lib.select_chunk_blocks
+        calls = self.calls
+
+        def tapped(*a, **kw):
+            sel = fn(*a, **kw)
+            calls.append(torch.where(sel.live, sel.indices, -1).cpu())
+            return sel
+        chunked_lib.select_chunk_blocks = tapped
+        return self
+
+    def __exit__(self, *exc):
+        chunked_lib.select_chunk_blocks = self._saved
+        return False
+
+
+def selection_splits(a: list, b: list, layers: int) -> dict:
+    """Where two runs' chunk selections first differ (call i = prefill step
+    i // layers, layer i % layers), how many calls differ, and the share of
+    (head, query block) rows that differ in the first such call."""
+    diff = [i for i, (x, y) in enumerate(zip(a, b))
+            if x.shape != y.shape or not torch.equal(x, y)]
+    out = {"calls": len(a), "differing_calls": len(diff)}
+    if diff:
+        i = diff[0]
+        rows = (a[i] != b[i]).any(-1)
+        out.update(first_step=i // layers, first_layer=i % layers,
+                   rows_differing=float(rows.float().mean()),
+                   layers_differing_in_step_0=sorted({j % layers for j in diff
+                                                      if j < layers}))
+    return out
+
+
+def cli_args(arch, lo, hi, new, *extra):
+    return ["--arch", arch, "--policy", "stem", "--requests", "2", "--min-prompt",
+            str(lo), "--max-prompt", str(hi), "--decode-tokens", str(new),
+            "--max-slots", "2", *extra]
+
+
+def _fixed_batch_teacher_forced(bundle, params, policy, prompt, stream):
+    """The contiguous arm of the engine differential (the reference's
+    ``_fixed_batch_tokens``): the prompt padded to a page multiple through
+    the one-shot prefill, then policy-sparse decode at budget 1.0, fed with
+    ``stream`` (teacher forcing).  Returns the logits rows (host, fp32) its
+    tokens are chosen from: row t gives token t."""
+    plen, new = len(prompt), len(stream)
+    bs = policy.block_size
+    max_len = -(-(plen + new) // bs) * bs
+    lp = -(-plen // bs) * bs
+    toks = torch.zeros((1, lp), dtype=torch.int32, device="cuda")
+    toks[0, :plen] = torch.as_tensor(prompt, device="cuda")
+    serve = steps_lib.make_serve_step(bundle, stem_cfg=policy, budget_frac=1.0)
+    logits, caches = bundle.prefill(params, {"tokens": toks}, max_len=max_len,
+                                    stem_cfg=policy,
+                                    last_pos=torch.tensor([plen - 1], device="cuda"))
+    rows = [logits[0].float().cpu()]
+    lens = torch.tensor([plen], dtype=torch.int32, device="cuda")
+    for i in range(new - 1):
+        tok = torch.tensor([[stream[i]]], dtype=torch.int32, device="cuda")
+        logits, caches = serve(params, tok, caches, lens if i == 0 else None)
+        rows.append(logits[0].float().cpu())
+    return rows
+
+
+def engine_vs_fixed_batch(dtype: str, rec) -> dict:
+    """qwen3-0.6b at full width: the chunked engine ("fused", decode at
+    budget 1.0) against contiguous prefill + sparse decode, per request,
+    the contiguous arm teacher-forced on the engine's stream."""
+    cfg = QWEN3_0_6B.replace(dtype=dtype)
+    bundle = registry.build(cfg)
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(5),
+                                device="cuda")
+    policy = policy_lib.get_policy("stem").with_updates(**CLI_POLICY)
+    rng = np.random.RandomState(11)
+    prompts = [rng.randint(0, cfg.vocab_size, size=(n,)).astype(np.int32)
+               for n in (1531, 3907)]
+    new = 16
+    ecfg = engine_lib.EngineConfig.for_trace(
+        max_slots=2, max_prompt=max(map(len, prompts)), max_new_tokens=new,
+        page_size=policy.block_size, budget_frac=1.0, chunk_size=1024,
+        executor="fused")
+    with rec, LogitTap() as tap:
+        engine = engine_lib.StemEngine(bundle, params, policy, ecfg)
+        fin = engine.run([engine_lib.Request(uid=i, prompt=p, max_new_tokens=new)
+                          for i, p in enumerate(prompts)])
+        streams = {f.uid: f.tokens for f in fin}
+        rows_f = {i: _fixed_batch_teacher_forced(bundle, params, policy, p, streams[i])
+                  for i, p in enumerate(prompts)}
+    fixed = {i: [int(r.argmax()) for r in rows] for i, rows in rows_f.items()}
+    # the contiguous arm's own stream equals the engine's up to the first
+    # parting, where teacher forcing takes over
+    res = check_partings(f"engine vs fixed-batch {dtype}", streams, tap.rows,
+                         fixed, rows_f, dtype, strict=dtype == "float32")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def eval_passes(rec) -> dict:
+    """loss_fn and forward_with_stats at full width, bf16, one 8192-token
+    sequence: CE under stem and dense, realized density per layer."""
+    cfg = QWEN3_0_6B
+    bundle = registry.build(cfg)
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                device="cuda")
+    rng = np.random.RandomState(13)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, size=(1, 8193)),
+                           device="cuda")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    stem = policy_lib.get_policy("stem")
+    out = {}
+    with rec:
+        for arm, pol in (("stem", stem), ("dense", None)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, metrics = bundle.loss_fn(params, batch, stem_cfg=pol)
+            torch.cuda.synchronize()
+            out[f"ce_{arm}"] = float(metrics["ce"])
+            out[f"loss_fn_ms_{arm}"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        logits, records = transformer.forward_with_stats(params, batch, cfg,
+                                                         stem_cfg=stem)
+        torch.cuda.synchronize()
+        out["forward_with_stats_ms"] = (time.perf_counter() - t0) * 1e3
+        ce_stats = float(common.cross_entropy(logits, batch["labels"]))
+        del logits
+    out["density_per_layer"] = [float(r["stats"].density) for r in records]
+    out["ce_from_forward_with_stats"] = ce_stats
+    log("[phase9] eval " + json.dumps(out))
+    if not all(np.isfinite(out[k]) for k in ("ce_stem", "ce_dense", "ce_from_forward_with_stats")):
+        raise AssertionError("eval: non-finite CE")
+    if abs(ce_stats - out["ce_stem"]) > 1e-3:
+        raise AssertionError("eval: loss_fn and forward_with_stats disagree")
+    if not all(0 < d <= 1 for d in out["density_per_layer"]):
+        raise AssertionError("eval: realized density outside (0, 1]")
+    if len(records) != cfg.num_layers:
+        raise AssertionError("eval: not one record a layer")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _glm_cli(fixed, cfg, bundle, params, policy, executor, rec=None) -> tuple:
+    """The CLI's run_engine / run_fixed_batch (serve.py) under
+    ``executor``: the engine on 2 requests of 2048-4096 tokens, the fixed
+    batch on 2 of 4096 (a block multiple, so its prefill is sparse), 8 new
+    tokens; logits rows and chunk selections tapped.  Returns (result,
+    rows by request, chunk selections)."""
+    args = serve_lib.build_parser().parse_args(
+        cli_args("glm4-9b", 4096 if fixed else 2048, 4096, 8,
+                 *(("--fixed-batch",) if fixed else ())))
+    pol = policy.with_updates(executor=executor)
+    tap = SamplerTap() if fixed else LogitTap()
+    with (rec if rec is not None else contextlib.nullcontext()), tap, \
+            SelectionTap() as sels:
+        run = serve_lib.run_fixed_batch if fixed else serve_lib.run_engine
+        res = run(args, cfg, bundle, params, pol, args.budget_frac)
+    torch.cuda.synchronize()
+    return res, (tap.rows() if fixed else tap.rows), sels.calls
+
+
+def glm4_runs(recs: dict) -> dict:
+    """glm4-9b (32 query / 2 KV heads: GQA group 16; untied fp32 head)
+    through the CLI's engine and fixed-batch modes under "fused" and
+    "gather".  fp32 at full width with the depth cut to 4 of 40 layers:
+    streams equal or parted within 1e-3 (raises otherwise).  bf16 at 4 and
+    at 40 layers: reported (streams, parting steps, margins, where the two
+    executors' chunk selections first differ), with the 40-layer engine
+    trace also under the "dense" policy, where no selection can flip; peak
+    memory of each configuration."""
+    out = {}
+    stem = policy_lib.get_policy("stem").with_updates(**CLI_POLICY)
+    dense = policy_lib.get_policy("dense").with_updates(**CLI_POLICY,
+                                                        ignore_missing=True)
+    # (dtype, layers, arms: (name, fixed batch?, policy))
+    plan = (("float32", 4, (("engine", False, stem), ("fixed-batch", True, stem))),
+            ("bfloat16", 4, (("engine", False, stem),)),
+            ("bfloat16", GLM4_9B.num_layers, (("engine", False, stem),
+                                              ("fixed-batch", True, stem),
+                                              ("engine/dense", False, dense))))
+    for dtype, depth, arms in plan:
+        cfg = GLM4_9B.replace(dtype=dtype, num_layers=depth)
+        bundle = registry.build(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                    device="cuda")
+        for mode, fixed, pol in arms:
+            tag = f"{dtype}/{depth}/{mode}"
+            rec = recs.setdefault(f"glm4-9b/{tag}", replay.Recorder())
+            (res_f, rows_f, sel_f), (res_g, rows_g, sel_g) = (
+                _glm_cli(fixed, cfg, bundle, params, pol, ex,
+                         rec if ex == "fused" else None)
+                for ex in ("fused", "gather"))
+            keys = ("ttft_s", "ms_per_token") if fixed else (
+                "wall_s", "ttft_ms_mean", "tpot_ms_mean")
+            out[tag] = dict(
+                **{k: res_f[k] for k in keys},
+                chunk_selections=selection_splits(sel_f, sel_g, depth),
+                parting=check_partings(
+                    f"glm4-9b {dtype} {depth} layers {mode} fused vs gather",
+                    res_f["tokens"], rows_f, res_g["tokens"], rows_g, dtype,
+                    strict=dtype == "float32"))
+        out[f"{dtype}/{depth}/peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del params
+        torch.cuda.empty_cache()
+    log("[phase9] glm4-9b " + json.dumps(out))
+    return out
+
+
+def contiguous_phase() -> dict:
+    """Phase 9.  (a) The CLI (serve.main) in engine and fixed-batch mode on
+    full-width qwen3-0.6b, bf16, "stem": 2 requests of 2000-6000 tokens, 16
+    new tokens; counters zeroed before and read after, the fixed-batch run
+    timing summarize_cache.  (b) The engine vs fixed-batch differential,
+    fp32 (streams equal or parted at a near tie) and bf16 (reported).  (c)
+    loss_fn / forward_with_stats at 8192 tokens.  (d) glm4-9b
+    (``glm4_runs``).  Every fused run is recorded and each recorded kernel
+    call held against its plain version (kernels/replay.py)."""
+    out = {}
+    base = cli_args("qwen3-0.6b", 2000, 6000, 16)
+    launches = {}
+    recs = {}
+    for mode, extra in (("engine", ()), ("fixed-batch", ("--fixed-batch",))):
+        torch.cuda.synchronize()
+        reset_all_launches()
+        with recs.setdefault(f"cli/{mode}", replay.Recorder()), \
+                SummarizeTimer() as timer:
+            res = serve_lib.main(base + list(extra))
+        counts = read_all_launches()
+        launches.update({f"{mode}/{k}": v for k, v in counts.items()})
+        summary = {k: res[k] for k in res if k not in ("tokens", "engine_stats")}
+        if mode == "fixed-batch":
+            decode_ms = res["ms_per_token"] * 15
+            summary["summarize_ms"] = timer.total_ms()
+            summary["summarize_calls"] = len(timer.events)
+            summary["summarize_share_of_decode"] = summary["summarize_ms"] / decode_ms
+        out[f"cli/{mode}"] = summary
+        log(f"[phase9] cli {mode}: " + json.dumps(summary))
+        for uid, toks in res["tokens"].items():
+            if len(toks) != 16:
+                raise AssertionError(f"cli {mode}: request {uid} has {len(toks)} tokens")
+    need = {"engine": ("score/decode", "score/chunk", "attend/decode", "attend/chunk",
+                       "antidiag_pool", "value_magnitude"),
+            "fixed-batch": ("flash_attention", "antidiag_pool", "value_magnitude")}
+    missing = [f"{m}/{k}" for m, ks in need.items() for k in ks
+               if launches[f"{m}/{k}"] == 0]
+    if missing:
+        raise AssertionError(f"phase 9: kernels never launched: {missing}")
+    out["launches"] = launches
+
+    # the differential, the evaluation passes and glm4-9b, each fused run
+    # under a recorder of its own
+    for dtype in ("float32", "bfloat16"):
+        recs[f"diff/{dtype}"] = replay.Recorder()
+        out[f"diff/{dtype}"] = engine_vs_fixed_batch(dtype, recs[f"diff/{dtype}"])
+    recs["eval"] = replay.Recorder()
+    out["eval"] = eval_passes(recs["eval"])
+    out["glm4-9b"] = glm4_runs(recs)
+    need = {"score_pages/decode", "score_pages/chunk", "attend_pages/decode",
+            "attend_pages/chunk", "antidiag_pool", "value_magnitude",
+            "block_sparse_attention", "flash_attention"}
+    seen = set()
+    for name, rec in recs.items():
+        report = rec.check()
+        seen |= set(report)
+        out[f"kernel_calls/{name}"] = report
+        log(f"[phase9] recorded kernel calls, {name}: " + json.dumps(report))
+    if need - seen:
+        raise AssertionError(f"phase 9: kernels never recorded: {sorted(need - seen)}")
+    torch.cuda.empty_cache()
+    return out
+
+
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(x, device) for k, x in tree.items()}
@@ -1242,6 +1727,9 @@ def main() -> None:
     # Phase 8: the small configurations under both executors.
     small_config_phase()
 
+    # Phase 9: contiguous decode, the CLI and the evaluation passes.
+    p9 = contiguous_phase()
+
     kernels = []
     for key in ("score/decode", "score/chunk", "attend/decode", "attend/chunk"):
         kernel, lane = key.split("/")
@@ -1249,6 +1737,8 @@ def main() -> None:
         kernels.append(dict(
             name=f"paged_{kernel}/{lane}", route="cuda", source=SOURCE,
             replaces=REPLACES[kernel], launches=launches[key],
+            phase9_launches={m: p9["launches"][f"{m}/{key}"]
+                             for m in ("engine", "fixed-batch")},
             max_abs_err=max(r["max_abs_err"] for r in records[key].values()),
             ms=rec["ms"], host_ms=rec["host_ms"], plain_ms=rec["plain_ms"],
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
@@ -1259,6 +1749,8 @@ def main() -> None:
         kernels.append(dict(
             name=key, route="cuda", source=source, replaces=replaces,
             launches=mono_launches[counter],
+            phase9_launches={m: p9["launches"][f"{m}/{counter}"]
+                             for m in ("engine", "fixed-batch")},
             max_abs_err=max(r["max_abs_err"]
                             for r in records[f"{key}/prefill"].values()),
             ms=rec["ms"], host_ms=rec["host_ms"], plain_ms=rec["plain_ms"],

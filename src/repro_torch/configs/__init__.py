@@ -1,13 +1,17 @@
 """Config registry of the port: ``get_config(arch_id)`` + ``reduced``.
 
-Only the dense ``qwen3-0.6b`` is served by this slice of the port.
+The dense configurations the port serves: ``qwen3-0.6b``, ``qwen1.5-4b``,
+``glm4-9b`` and ``gemma-2b``.
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.gemma_2b import CONFIG as GEMMA_2B
+from repro_torch.configs.glm4_9b import CONFIG as GLM4_9B
+from repro_torch.configs.qwen1_5_4b import CONFIG as QWEN1_5_4B
 from repro_torch.configs.qwen3_0_6b import CONFIG as QWEN3_0_6B
 
-ALL = {QWEN3_0_6B.name: QWEN3_0_6B}
+ALL = {c.name: c for c in (QWEN3_0_6B, GLM4_9B, GEMMA_2B, QWEN1_5_4B)}
 
 
 def get_config(name: str) -> ArchConfig:

@@ -219,11 +219,15 @@ def chunk_page_scores(q, kg_pool, page_table, *, block_size: int,
     q: (b, hq, C, d) -> (b, hq, nc, maxp) f32."""
     d = q.shape[-1]
     s = kg_pool.shape[-2]
+    # The pooled queries are rounded to q's dtype, as the reference (and the
+    # gather executor's metric) keep them, then read by the scorer in fp32.
     qp = stem_metric.antidiag_pool(q.contiguous(), block_size=block_size,
-                                   stride=s)                  # (b, hq, nc, s, d) f32
+                                   stride=s, out_dtype=q.dtype)  # (b, hq, nc, s, d)
     if pooling == "mean":
-        qp = qp.mean(dim=-2, keepdim=True).expand(qp.shape)
-    elif pooling != "antidiag":
+        qp = qp.mean(dim=-2, keepdim=True).float().expand(qp.shape)
+    elif pooling == "antidiag":
+        qp = qp.float()
+    else:
         raise NotImplementedError(f"fused chunk scoring: pooling {pooling!r}")
     scale = 1.0 / (s * float(d) ** 0.5)
     return score_pages(qp, kg_pool, page_table, group=group, scale=scale,

@@ -1,7 +1,8 @@
 """Grouped-query attention with a pluggable sparsity policy (port of
 ``repro/models/attention.py``: ``init``, ``_project``, the global-attention
-branches of ``apply_full`` and ``prefill_into_cache`` with ``KVCache`` /
-``init_cache``, and the paged ``apply_decode_paged`` / ``apply_chunk_paged``).
+branches of ``apply_full``, ``prefill_into_cache`` and ``apply_decode`` with
+``KVCache`` / ``init_cache``, and the paged ``apply_decode_paged`` /
+``apply_chunk_paged``).
 
 Full-sequence attention runs the policy-sparse path
 (``core/sparse_attention.sparse_attention``) when a policy is given and the
@@ -18,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import chunked as chunked_lib
+from repro_torch.core import decode as decode_lib
 from repro_torch.core import policy as policy_lib
 from repro_torch.core.decode import DEFAULT_BUDGET_FRAC
 from repro_torch.core.sparse_attention import (dense_attention_auto,
@@ -29,7 +31,8 @@ from repro_torch.runtime import paged as paged_lib
 class KVCache(NamedTuple):
     k: torch.Tensor        # (b, hk, L, dh)
     v: torch.Tensor
-    pos: torch.Tensor      # int32 next write position
+    pos: torch.Tensor      # int32 next write position: scalar (uniform
+                           # batch) or (b,) per sequence (ragged batch)
 
 
 def init(ini: common.Initializer, cfg: ArchConfig) -> dict:
@@ -126,6 +129,62 @@ def prefill_into_cache(params, x, cfg: ArchConfig, *, positions, max_len: int,
                     pos=torch.tensor(x.shape[1], dtype=torch.int32,
                                      device=x.device))
     return _out_proj(o, x, params), cache
+
+
+def apply_decode(params, x, cfg: ArchConfig, cache: KVCache, *,
+                 window: Optional[int] = None, use_rope: bool = True,
+                 stem_cfg=None, budget_frac: float = DEFAULT_BUDGET_FRAC):
+    """One decode step against the contiguous cache.  x: (b, 1, d).
+    Returns (out, KVCache): the new token's K/V are written into
+    ``cache.k`` / ``cache.v`` in place, and ``pos`` advances by one.
+
+    ``cache.pos`` may be a scalar (every row at one length) or a ``(b,)``
+    vector (ragged batch: each row writes and masks at its own length, and
+    rope uses the per-row position).  Without a policy the step is dense
+    decode in fp32 over the valid prefix.  With ``stem_cfg`` (any policy
+    spelling) the step is policy-sparse: the whole cache is re-summarized
+    (O(L) a step: the fixed-batch reference arm of the paged engine, not a
+    serving path), then the policy's metric and budget rule select blocks
+    and the step attends over them only."""
+    _no_window(window)
+    pos = cache.pos
+    b = x.shape[0]
+    if stem_cfg is not None:
+        # Validate before any projection: the summaries need whole blocks.
+        pol = policy_lib.as_policy(stem_cfg)
+        L0 = cache.k.shape[2]
+        if L0 % pol.block_size != 0:
+            raise ValueError(
+                f"policy-sparse decode needs the cache capacity to be a "
+                f"multiple of the policy block size, but cache len {L0} % "
+                f"block {pol.block_size} != 0. Allocate the cache padded to "
+                f"a block/page multiple — ceil(max_len / {pol.block_size}) "
+                f"* {pol.block_size} — as the paged engine does with whole "
+                f"pages (per-row valid lengths may still be ragged; only "
+                f"the buffer capacity must align).")
+    rope_pos = pos[None] if pos.ndim == 0 else pos[:, None]      # (1,)|(b,1)
+    q, k_new, v_new = _project(params, x, cfg, rope_pos, use_rope=use_rope)
+    L = cache.k.shape[2]
+    posv = pos.expand(b)                                         # (b,)
+    ck, cv = common.update_cache(cache.k, cache.v, pos, k_new, v_new)
+    new_cache = KVCache(k=ck, v=cv, pos=pos + 1)
+    if stem_cfg is not None:
+        summary = decode_lib.summarize_cache(ck, cv, pol)
+        o = decode_lib.sparse_decode_attention(
+            q, ck, cv, summary, posv + 1, pol, budget_frac=budget_frac)
+        return _out_proj(o, x, params), new_cache
+    h = q.shape[1]
+    hk = ck.shape[1]
+    group = h // hk
+    valid = torch.arange(L, device=x.device)[None, :] <= posv[:, None]   # (b, L)
+    s = torch.einsum("bhgd,bhkd->bhgk",
+                     q[:, :, 0].reshape(b, hk, group, -1).float(),
+                     ck.float()) * (cfg.head_dim ** -0.5)
+    s = torch.where(valid[:, None, None, :], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgk,bhkd->bhgd", p, cv.float())
+    o = o.reshape(b, h, 1, cfg.head_dim)
+    return _out_proj(o, x, params), new_cache
 
 
 def apply_decode_paged(params, x, cfg: ArchConfig, pool, page_table,

@@ -1,4 +1,7 @@
-"""Shared model building blocks (port of ``repro/models/common.py``).
+"""Shared model building blocks (port of ``repro/models/common.py``: the
+initializer, norm, rope, embedding and tied head, cross entropy and the
+contiguous KV-cache write; the ring cache of windowed attention is not
+ported yet).
 
 Parameters are nested dicts of tensors with the reference's tree layout.
 ``Initializer`` draws them from an explicit ``torch.Generator`` with the
@@ -80,3 +83,33 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
 def lm_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Tied LM head in float32: (b, s, d) @ (vocab, d)^T -> (b, s, vocab)."""
     return torch.einsum("bsd,vd->bsv", x.float(), table.float())
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token CE over unmasked positions, fp32 logsumexp."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.take_along_dim(logits, labels.long()[..., None], dim=-1)[..., 0]
+    nll = lse - tgt
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def update_cache(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                 pos: torch.Tensor, new_k: torch.Tensor, new_v: torch.Tensor):
+    """Write one step at position ``pos`` into the cache, in place, and
+    return it.  cache: (b, hk, L, d) (a view of the stacked caches);
+    new: (b, hk, 1, d).  ``pos`` is a scalar (uniform batch) or a ``(b,)``
+    vector (ragged batch — every row writes at its own length)."""
+    if pos.ndim == 0:
+        idx = pos.reshape(1).long()
+        cache_k.index_copy_(2, idx, new_k.to(cache_k.dtype))
+        cache_v.index_copy_(2, idx, new_v.to(cache_v.dtype))
+        return cache_k, cache_v
+    bidx = torch.arange(cache_k.shape[0], device=cache_k.device)
+    cache_k[bidx, :, pos.long()] = new_k[:, :, 0].to(cache_k.dtype)
+    cache_v[bidx, :, pos.long()] = new_v[:, :, 0].to(cache_v.dtype)
+    return cache_k, cache_v

@@ -1,5 +1,8 @@
-"""Decoder-only LM, dense family: one-shot prefill and paged serving (port
-of the prefill and paged halves of ``repro/models/transformer.py``).
+"""Decoder-only LM, dense family (port of ``repro/models/transformer.py``):
+the evaluation passes (``loss_fn``, ``forward_hiddens``,
+``forward_with_stats``), one-shot prefill, contiguous-cache decode
+(``decode_step``) and paged serving (``paged_mixed_step``,
+``paged_decode_step``), with tied or untied LM heads.
 
 Parameters keep the reference's tree: ``embed``, ``final_norm`` and
 ``segment{si}`` whose leaves are stacked along a leading layer axis.  The
@@ -72,6 +75,9 @@ def init_params(generator: torch.Generator, cfg: ArchConfig, device="cuda") -> d
         p[f"segment{si}"] = _stack([
             {f"sub{i}": _init_sublayer(ini, cfg) for i, _ in enumerate(kinds)}
             for _ in range(n)])
+    if not cfg.tie_embeddings:
+        p["head"] = ini.normal((cfg.d_model, cfg.padded_vocab), scale=0.02,
+                               dtype=torch.float32)
     return p
 
 
@@ -131,18 +137,148 @@ def _embed_inputs(params, batch: dict, cfg: ArchConfig):
     return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
 
 
-def _sublayer_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
-                    dtype, device):
+def _check_kind(kind: str) -> None:
     if kind != "dense":
         raise NotImplementedError(f"sub-layer kind {kind!r} is not ported")
+
+
+def _sublayer_full(params, x, cfg: ArchConfig, kind: str, *, positions,
+                   stem_cfg, return_stats: bool = False):
+    """Returns (x, aux_loss) — or (x, aux_loss, StemStats | None) when
+    ``return_stats`` (stats exist only when the sparse attention path ran)."""
+    _check_kind(kind)
+    h = common.rms_norm(x, params["norm1"])
+    stats = None
+    if return_stats:
+        mix, stats = attention.apply_full(params["attn"], h, cfg,
+                                          positions=positions,
+                                          stem_cfg=stem_cfg, return_stats=True)
+    else:
+        mix = attention.apply_full(params["attn"], h, cfg, positions=positions,
+                                   stem_cfg=stem_cfg)
+    x = x + mix
+    x = x + mlp.apply(params["ffn"], common.rms_norm(x, params["norm2"]),
+                      cfg.activation)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return (x, aux, stats) if return_stats else (x, aux)
+
+
+def _group_full(params, x, cfg, kinds, *, positions, stem_cfg):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, k in enumerate(kinds):
+        x, a = _sublayer_full(params[f"sub{i}"], x, cfg, k,
+                              positions=positions, stem_cfg=stem_cfg)
+        aux = aux + a
+    return x, aux
+
+
+def _run_segments(params, x, cfg: ArchConfig, *, positions, stem_cfg,
+                  policies=None):
+    """Every layer over the full sequence, each under its effective policy
+    (``policies`` overrides ``stem_cfg`` per layer group).  Returns
+    (x, summed aux loss)."""
+    eff = _layer_policies(cfg, stem_cfg, policies)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    off = 0
+    for si, (n, kinds) in enumerate(layer_program(cfg)):
+        seg = params[f"segment{si}"]
+        for layer in range(n):
+            x, a = _group_full(_index(seg, layer), x, cfg, kinds,
+                               positions=positions, stem_cfg=eff[off + layer])
+            aux_total = aux_total + a
+        off += n
+    return x, aux_total
+
+
+@torch.no_grad()
+def loss_fn(params, batch: dict, cfg: ArchConfig, *, stem_cfg=None,
+            remat: bool = True, policies=None):
+    """Next-token CE.  batch: tokens (b, s), labels (b, s), optional
+    loss_mask (b, s).  Returns (loss, {"ce", "aux", "loss"}).
+
+    A forward-only evaluation pass: the kernels have no backward, so it
+    runs under ``torch.no_grad``.  ``remat`` is accepted for the
+    reference's signature and has no effect (there are no activations kept
+    for a backward pass).  ``stem_cfg`` is any policy spelling;
+    ``policies`` optionally overrides it per layer group ({index: policy}).
+    The multi-token-prediction head does not apply to the dense family and
+    raises."""
+    if cfg.mtp:
+        raise NotImplementedError("the multi-token-prediction loss is not ported")
+    x = _embed_inputs(params, batch, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, aux = _run_segments(params, x, cfg, positions=positions,
+                           stem_cfg=stem_cfg, policies=policies)
+    txt_len = batch["tokens"].shape[1]
+    logits = _logits(params, x[:, -txt_len:], cfg)
+    ce = common.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+    total = ce + aux
+    return total, {"ce": ce, "aux": aux, "loss": total}
+
+
+@torch.no_grad()
+def forward_hiddens(params, batch: dict, cfg: ArchConfig, *, stem_cfg=None):
+    """Forward pass that also returns every layer's residual stream — the
+    per-layer sparse-vs-dense MSE measurements.  Returns (logits (b, s,
+    vocab) fp32, list of (n_layers_i, b, s, d) per segment)."""
+    x = _embed_inputs(params, batch, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    hiddens = []
+    for si, (n, kinds) in enumerate(layer_program(cfg)):
+        seg = params[f"segment{si}"]
+        ys = []
+        for layer in range(n):
+            x, _ = _group_full(_index(seg, layer), x, cfg, kinds,
+                               positions=positions, stem_cfg=stem_cfg)
+            ys.append(x)
+        hiddens.append(torch.stack(ys))
+    return _logits(params, x, cfg), hiddens
+
+
+@torch.no_grad()
+def forward_with_stats(params, batch: dict, cfg: ArchConfig, *,
+                       stem_cfg=None, policies=None):
+    """Diagnostic forward pass with per-sub-layer sparse-attention stats:
+    every attention sub-layer reports the realized ``StemStats`` of its own
+    effective policy (realized density per layer).
+
+    Returns (logits (b, s, vocab), records), each record a dict
+    ``{"layer": group index, "kind": sub-layer kind, "policy": policy name
+    or None, "stats": StemStats | None}`` (None where the sparse path did
+    not run)."""
+    x = _embed_inputs(params, batch, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    eff = _layer_policies(cfg, stem_cfg, policies)
+    records = []
+    li = 0
+    for si, (n, kinds) in enumerate(layer_program(cfg)):
+        seg = params[f"segment{si}"]
+        for j in range(n):
+            layer_params = _index(seg, j)
+            pol = eff[li]
+            for i, kind in enumerate(kinds):
+                x, _, st = _sublayer_full(
+                    layer_params[f"sub{i}"], x, cfg, kind, positions=positions,
+                    stem_cfg=pol, return_stats=True)
+                records.append({
+                    "layer": li, "kind": kind,
+                    "policy": (pol.name or None) if pol is not None else None,
+                    "stats": st,
+                })
+            li += 1
+    return _logits(params, x, cfg), records
+
+
+def _sublayer_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
+                    dtype, device):
+    _check_kind(kind)
     return attention.init_cache(cfg, batch, max_len, dtype=dtype, device=device)
 
 
 def _sublayer_prefill(params, x, cfg: ArchConfig, kind: str, *, positions,
                       stem_cfg, max_len: int):
     """Returns (x, aux, cache)."""
-    if kind != "dense":
-        raise NotImplementedError(f"sub-layer kind {kind!r} is not ported")
+    _check_kind(kind)
     h = common.rms_norm(x, params["norm1"])
     mix, cache = attention.prefill_into_cache(
         params["attn"], h, cfg, positions=positions, max_len=max_len,
@@ -227,9 +363,9 @@ def prefill_kv_pages(params, tokens: torch.Tensor, true_len, pools,
 
 def _logits(params, x, cfg: ArchConfig):
     x = common.rms_norm(x, params["final_norm"])
-    if not cfg.tie_embeddings:
-        raise NotImplementedError("untied LM heads are not ported yet")
-    return common.lm_logits(x, params["embed"])
+    if cfg.tie_embeddings:
+        return common.lm_logits(x, params["embed"])
+    return torch.einsum("bsd,dv->bsv", x.float(), params["head"].float())
 
 
 def paged_mixed_step(params, tokens, pools, page_table, cache_lens,
@@ -282,3 +418,62 @@ def paged_mixed_step(params, tokens, pools, page_table, cache_lens,
         xl = torch.take_along_dim(xc, last[:, None, None], dim=1)
         chunk_logits = _logits(params, xl, cfg)[:, 0]
     return dec_logits, chunk_logits, pools
+
+
+def paged_decode_step(params, tokens, pools, page_table, cache_lens,
+                      cfg: ArchConfig, *, stem_cfg, budget_frac: float = 1.0):
+    """One token for every engine slot against the paged cache — the
+    decode-only view of ``paged_mixed_step``.  Returns (logits (slots,
+    vocab), pools)."""
+    logits, _, pools = paged_mixed_step(
+        params, tokens, pools, page_table, cache_lens, cfg,
+        stem_cfg=stem_cfg, budget_frac=budget_frac, chunk=None)
+    return logits, pools
+
+
+def _sublayer_decode(params, x, cfg: ArchConfig, kind: str, cache, *,
+                     stem_cfg=None, budget_frac: float = 1.0):
+    _check_kind(kind)
+    h = common.rms_norm(x, params["norm1"])
+    mix, cache = attention.apply_decode(params["attn"], h, cfg, cache,
+                                        stem_cfg=stem_cfg,
+                                        budget_frac=budget_frac)
+    x = x + mix
+    y = mlp.apply(params["ffn"], common.rms_norm(x, params["norm2"]),
+                  cfg.activation)
+    return x + y, cache
+
+
+def decode_step(params, tokens, caches, cfg: ArchConfig, *, stem_cfg=None,
+                budget_frac: float = 1.0):
+    """One token for every sequence in the batch.  tokens: (b, 1).
+    Returns (logits (b, vocab), caches): each layer writes its token's K/V
+    into its view of the stacked caches in place, and every ``pos`` leaf
+    advances by one.
+
+    With ``stem_cfg`` the attention sub-layers decode policy-sparse over
+    the contiguous cache (summarize + select every step) — the fixed-batch
+    reference for the paged engine's sparse decode."""
+    if stem_cfg is not None:
+        assert_paged_servable(cfg)
+    x = common.embed_lookup(params["embed"], tokens, cfg.torch_dtype)
+    if cfg.embed_scale_flag:
+        x = x * (cfg.d_model ** 0.5)
+    new_caches = []
+    for si, (n, kinds) in enumerate(layer_program(cfg)):
+        seg = params[f"segment{si}"]
+        seg_cache = caches[si]
+        new_pos = {f"sub{i}": [] for i, _ in enumerate(kinds)}
+        for layer in range(n):
+            layer_params = _index(seg, layer)
+            for i, k in enumerate(kinds):
+                c = seg_cache[f"sub{i}"]
+                view = attention.KVCache(k=c.k[layer], v=c.v[layer],
+                                         pos=c.pos[layer])
+                x, view = _sublayer_decode(layer_params[f"sub{i}"], x, cfg, k,
+                                           view, stem_cfg=stem_cfg,
+                                           budget_frac=budget_frac)
+                new_pos[f"sub{i}"].append(view.pos)
+        new_caches.append({key: seg_cache[key]._replace(pos=torch.stack(ps))
+                           for key, ps in new_pos.items()})
+    return _logits(params, x, cfg)[:, 0], new_caches

@@ -4,7 +4,8 @@
 leaf already converted to numpy (the caller does the conversion, so this
 module needs no JAX) and returns the port's tree: the same nesting, the
 stacked ``segment{si}`` layer axis kept as the leading dimension, the fp32
-embedding table kept fp32, every other leaf in ``cfg``'s dtype.
+embedding table and the fp32 untied LM head kept fp32, every other leaf in
+``cfg``'s dtype.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import transformer
 
 
 def _to_tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -28,13 +30,17 @@ def from_jax_params(tree, cfg: ArchConfig, device="cuda") -> dict:
     def convert(node, path):
         if isinstance(node, dict):
             return {k: convert(v, path + (k,)) for k, v in node.items()}
-        dtype = torch.float32 if path == ("embed",) else cfg.torch_dtype
-        return _to_tensor(node, dtype, device)
+        fp32 = path in (("embed",), ("head",))
+        return _to_tensor(node, torch.float32 if fp32 else cfg.torch_dtype,
+                          device)
 
     expected = {"embed", "final_norm"} | {
-        k for k in tree if k.startswith("segment")}
+        f"segment{si}" for si, _ in enumerate(transformer.layer_program(cfg))}
+    if not cfg.tie_embeddings:
+        expected.add("head")
     if set(tree) != expected:
         raise ValueError(
-            f"unsupported parameter tree keys {sorted(set(tree) - expected)} "
-            "(the port serves tied-embedding dense models)")
+            f"parameter tree keys {sorted(tree)} are not the dense "
+            f"{'tied' if cfg.tie_embeddings else 'untied'}-head set "
+            f"{sorted(expected)}")
     return convert(dict(tree), ())

@@ -89,6 +89,67 @@ def test_kernels_match_plain_on_card(cuda, dtype, group):
         assert torch.all(got[cnt == 0] == 0)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gqa_group_16_on_card(cuda, dtype):
+    """glm4-9b's heads (32 query / 2 KV, GQA group 16) through every
+    attention kernel: the page scorer (decode broadcast and chunk
+    layouts), both page-attention lanes, block-sparse attention (with and
+    without group dedup) and flash attention."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    hq, hk, d, bs, s, maxp, b = 32, 2, 128, 128, 16, 6, 2
+    group = hq // hk
+    P = 1 + b * maxp
+    k = torch.randn((hk, P, bs, d), generator=gen, device=cuda).to(dt)
+    v = torch.randn((hk, P, bs, d), generator=gen, device=cuda).to(dt)
+    kg = torch.randn((hk, P, s, d), generator=gen, device=cuda)
+    pt = (1 + torch.randperm(P - 1, generator=gen, device=cuda)).to(
+        torch.int32).reshape(b, maxp)
+    for nc, lane, pair in ((1, "decode", False), (2, "chunk", True)):
+        qp = torch.randn((b, hq, nc, s, d), generator=gen, device=cuda)
+        if lane == "decode":
+            qp = qp[:, :, :, :1].expand(b, hq, nc, s, d)
+        got = t_kern.score_pages(qp, kg, pt, group=group, scale=0.1, lane=lane,
+                                 pair=pair)
+        want = t_kern.score_pages_plain(qp, kg, pt, group=group, scale=0.1,
+                                        pair=pair)
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    for rows, causal, nc, lane in ((1, False, 1, "decode"), (bs, True, 2, "chunk")):
+        kmax = 4
+        gp = pt[:, None, None, :kmax].expand(b, hq, nc, kmax).contiguous()
+        idx = torch.arange(kmax, dtype=torch.int32, device=cuda).expand(
+            b, hq, nc, kmax).contiguous()
+        cnt = torch.randint(0, kmax + 1, (b, hq, nc), generator=gen,
+                            device=cuda).to(torch.int32)
+        pos = torch.tensor([300, 2 * bs], dtype=torch.int32, device=cuda)
+        q = torch.randn((b, hq, nc, rows, d), generator=gen, device=cuda).to(dt)
+        got = t_kern.attend_pages(q, k, v, gp, idx, cnt, pos, block_size=bs,
+                                  causal=causal, lane=lane)
+        want = t_kern.attend_pages_plain(q, k, v, gp, idx, cnt, pos,
+                                         block_size=bs, causal=causal)
+        _assert_close(got, want, p_bf16=causal)
+        assert torch.all(got[cnt == 0] == 0)
+    n, nq = 4 * bs, 4
+    q = torch.randn((1, hq, n, d), generator=gen, device=cuda).to(dt)
+    kk = torch.randn((1, hk, n, d), generator=gen, device=cuda).to(dt)
+    vv = torch.randn((1, hk, n, d), generator=gen, device=cuda).to(dt)
+    _assert_close(t_fa.flash_attention(q, kk, vv),
+                  t_fa.flash_attention_plain(q, kk, vv), p_bf16=True)
+    rows_ = torch.arange(nq, device=cuda)[:, None]
+    for dedup in (False, True):
+        hsel = hk if dedup else hq
+        idx = torch.clamp(rows_ - torch.arange(3, device=cuda)[None, :], min=0)
+        idx = idx.expand(1, hsel, nq, 3).to(torch.int32).contiguous()
+        cnt = torch.minimum(torch.randint(1, 4, (1, hsel, nq), generator=gen,
+                                          device=cuda), rows_[:, 0] + 1)
+        cnt = cnt.to(torch.int32).contiguous()
+        got = t_bsa.block_sparse_attention(q, kk, vv, idx, live_counts=cnt,
+                                           block_size=bs, group_dedup=dedup)
+        want = t_bsa.block_sparse_attention_plain(q, kk, vv, idx, cnt, block_size=bs,
+                                                  group_dedup=dedup)
+        _assert_close(got, want, p_bf16=True)
+
+
 def _page_lists(rng, lists, kmax, table, bad_id):
     """Per-row logical page lists -> (gp, idx, cnt) of the raw lists (with
     one out-of-range physical id inserted where ``bad_id`` gives one) and

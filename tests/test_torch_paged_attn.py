@@ -348,8 +348,8 @@ def test_unsupported_metric_raises():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_chunk_query_pooling_goes_through_pool_kernel(monkeypatch, dtype):
     """The chunk scorer pools its queries through the pool kernel's wrapper
-    (q read in its own dtype, fp32 group means out) and scores as the plain
-    pooling of the fp32 queries does."""
+    (q read in its own dtype, group means rounded to it, as the reference
+    keeps them) and scores as the plain pooling does."""
     from repro_torch.kernels import stem_metric as t_sm
     calls = []
     pool = t_sm.antidiag_pool
@@ -361,11 +361,33 @@ def test_chunk_query_pooling_goes_through_pool_kernel(monkeypatch, dtype):
     _, targs = _chunk_case(2, 2, 11, seed=3)
     q, tpool, pt = targs[0].to(getattr(torch, dtype)), targs[1], targs[2]
     want = t_kern.score_pages_plain(
-        t_sm.antidiag_pool_plain(q, block_size=BS, stride=STRIDE).index_select(
+        t_sm.antidiag_pool_plain(q, block_size=BS, stride=STRIDE,
+                                 out_dtype=q.dtype).float().index_select(
             -2, (STRIDE - torch.arange(STRIDE)) % STRIDE),
         tpool.kg, pt, group=2, scale=1.0 / (STRIDE * float(D) ** 0.5))
     monkeypatch.setattr(t_sm, "antidiag_pool", rec_pool)
     got = t_kern.chunk_page_scores(q, tpool.kg, pt, block_size=BS,
                                    pooling="antidiag", group=2)
-    assert calls == [(q.dtype, torch.float32)]
+    assert calls == [(q.dtype, q.dtype)]
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("pooling", ["antidiag", "mean"])
+def test_bf16_chunk_scores_match_reference(pooling):
+    """bf16 queries: the fused chunk scorer (its plain version here) scores
+    as the reference's kernel-backed scorer and as the gather executor's
+    metric do — pooled queries rounded to bf16, then fp32 products."""
+    from repro_torch.core import metric as t_metric
+    jargs, targs = _chunk_case(2, 2, 11, seed=5)
+    q, tpool, pt = targs[0].to(torch.bfloat16), targs[1], targs[2]
+    got = t_kern.chunk_page_scores(q, tpool.kg, pt, block_size=BS,
+                                   pooling=pooling, group=2)
+    want = j_kern.chunk_page_scores(
+        jargs[0].astype(jnp.bfloat16), jargs[1].kg, jargs[2], block_size=BS,
+        pooling=pooling, group=2, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                               atol=1e-5, rtol=0)
+    kg_rows = tpool.kg[:, pt.long()].transpose(0, 1)
+    gather = t_metric.chunk_routing_scores(q, kg_rows, block_size=BS,
+                                           pooling=pooling)
+    torch.testing.assert_close(got, gather.float(), atol=1e-5, rtol=0)
