@@ -122,6 +122,32 @@ Phases:
                 at 4 and 40 layers, reported with where the executors'
                 chunk selections first differ, beside the 40-layer engine
                 trace under "dense" (no selection to flip); peak memory.
+ 10. overload — full-width qwen3-0.6b, "stem" at paper defaults
+                (budget_frac 0.5, chunk 1024), pools sized by
+                EngineConfig.for_trace, counters zeroed before each arm and
+                read after (every kernel of the engine path must launch).
+                (a) bf16, 28 layers, one slot: one 6000-token request (32
+                new) preempted after 2 chunks and again after 8 tokens,
+                restored at the next admission each time: restored pages
+                equal the pinned host snapshot bitwise, the stream equals
+                the uninterrupted run's, chunks and prefills equal (zero
+                recompute), every page back; snapshot bytes, preempt /
+                restore ms and GB/s, and the link's raw pinned copy rate.
+                (b) 2 slots: prompts of 4000 / 6000 / 8000 / 11000 tokens
+                (32 new) at step 0 and two priority-1 requests of 2000
+                tokens (16 new, TTFT SLO 2 s, TPOT SLO 0.2 s) at steps 2
+                and 12, under scheduler "fcfs", "slo" and "slo" with the
+                CLI's chaos plan (its restore failure moved to the trace's
+                first restore step, found by a probe run): the SLO arms
+                preempt a prefilling and a decoding victim and restore
+                both, the chaos arm counts one alloc denial, one step
+                failure and one restore failure and aborts nothing; fp32
+                at 4 layers the three arms' streams are equal, bf16 at 28
+                layers reported (check_partings); HP TTFT / TPOT, LP TPOT,
+                wall, offload peak bytes and the restore bandwidth EMA per
+                arm.  (c) The CLI (serve.main) with --hp-every 2
+                --max-waiting 6 --chaos: no failed request, its
+                engine_metrics line printed.
 
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}.  Any failed phase raises (non-zero exit).
@@ -166,7 +192,9 @@ from repro_torch.models import attention as attention_lib  # noqa: E402
 from repro_torch.models import common  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
+from repro_torch.runtime import chaos as chaos_lib  # noqa: E402
 from repro_torch.runtime import engine as engine_lib  # noqa: E402
+from repro_torch.runtime import offload as offload_lib  # noqa: E402
 from repro_torch.runtime import sampling as sampling_lib  # noqa: E402
 
 HBM_BYTES_S = 3.35e12        # H100 SXM data sheet
@@ -1249,7 +1277,7 @@ def margin_limit(row: torch.Tensor, tok: int, dtype: str) -> float:
 
 
 def check_partings(name, streams_a, rows_a, streams_b, rows_b, dtype,
-                   strict=True) -> dict:
+                   strict=True, phase="phase9") -> dict:
     """Streams of two arms, request by request: equal, or they part at a
     step where each arm's logits row (the row its token was sampled from)
     ranks the two tokens within the margin of a near tie.  Later tokens of
@@ -1267,7 +1295,7 @@ def check_partings(name, streams_a, rows_a, streams_b, rows_b, dtype,
         limit = max(margin_limit(ra, a[t], dtype), margin_limit(rb, b[t], dtype))
         out[uid] = {"equal": False, "parting_step": t, "margin": margin,
                     "limit": limit, "max_logit_diff": float((ra - rb).abs().max())}
-    log(f"[phase9] {name}: " + json.dumps(out))
+    log(f"[{phase}] {name}: " + json.dumps(out))
     bad = [u for u, r in out.items() if not r["equal"]
            and ("margin" not in r or not r["margin"] <= r["limit"])]
     if bad and strict:
@@ -1668,6 +1696,288 @@ def contiguous_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: overload — preemption with host offload, the SLO scheduler, chaos
+# ---------------------------------------------------------------------------
+
+# The overload trace: four low-priority prompts at step 0 (32 new tokens
+# each) and two priority-1 requests (16 new, TTFT SLO 2 s, TPOT SLO 0.2 s).
+# With 2 slots and one 1024-token chunk lane, the first (step 2) finds both
+# slots busy and evicts the cheapest victim, the 4000-token request after 2
+# of its 4 chunks (prefilling); the second (step 12) finds the first HP
+# request decoding beside the 6000-token one, decoding since step 9, and
+# evicts that.
+OVERLOAD_LP, OVERLOAD_HP = (4000, 6000, 8000, 11000), ((2000, 2), (2000, 12))
+HP_SLO = dict(ttft_slo_s=2.0, tpot_slo_s=0.2)
+ENGINE_KERNELS = ("score/decode", "score/chunk", "attend/decode", "attend/chunk",
+                  "antidiag_pool", "value_magnitude")
+
+
+def _engine_launches(arm: str) -> dict:
+    launches = read_all_launches()
+    missing = [k for k in ENGINE_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"phase 10 {arm}: kernels never launched: {missing}")
+    return launches
+
+
+def _overload_ecfg(max_slots, max_prompt, new, **knobs):
+    return engine_lib.EngineConfig.for_trace(
+        max_slots=max_slots, max_prompt=max_prompt, max_new_tokens=new,
+        page_size=128, budget_frac=0.5, chunk_size=1024,
+        sampler="greedy-finite", **knobs)
+
+
+def _gbs(nbytes, ms):
+    return nbytes / (ms * 1e6)
+
+
+def forced_preempt_arm(bundle, params) -> dict:
+    """One 6000-token request (32 new) in a 1-slot engine, preempted after 2
+    chunks and again after 8 tokens, each time restored at the next
+    admission and its pages read back; then drained.  Strict: restored
+    pages == snapshot bitwise, stream == the uninterrupted run's, chunks and
+    prefills equal (zero recompute), every page back."""
+    policy = policy_lib.get_policy("stem")
+    prompt = np.random.RandomState(10).randint(
+        0, bundle.cfg.vocab_size, size=(6000,)).astype(np.int32)
+    ecfg = _overload_ecfg(1, 6000, 32)
+    req = lambda: engine_lib.Request(uid=0, prompt=prompt, max_new_tokens=32)
+    ref_eng = engine_lib.StemEngine(bundle, params, policy, ecfg)
+    ref = ref_eng.run([req()])[0]
+    torch.cuda.synchronize()
+    reset_all_launches()
+    eng = engine_lib.StemEngine(bundle, params, policy, ecfg)
+    eng.submit(req())
+    swaps = []
+    for phase, due in (("prefill", lambda: eng.stats["chunks"] >= 2),
+                       ("decode", lambda: len(eng.slots[0].tokens) >= 8)):
+        while not due():
+            eng.step()
+        if eng.slots[0].phase != phase:
+            raise AssertionError(f"forced preempt: slot in {eng.slots[0].phase}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.preempt(0)                   # gather, pinned D2H copy, synchronize
+        d2h_ms = (time.perf_counter() - t0) * 1e3
+        nbytes = eng.host_store.nbytes
+        snap = [t.clone() for t in offload_lib.leaves(eng.host_store.get(0))]
+        eng.allocator.check_conservation([])
+        t0 = time.perf_counter()
+        eng._admit()                     # the restore (H2D scatter)
+        torch.cuda.synchronize()
+        h2d_ms = (time.perf_counter() - t0) * 1e3
+        back = offload_lib.leaves(offload_lib.gather_pages(
+            eng.pools, torch.as_tensor(eng.slot_pages[0], device="cuda")))
+        if not all(torch.equal(b.cpu(), a) for b, a in zip(back, snap)):
+            raise AssertionError(f"forced preempt ({phase}): restored pages "
+                                 "differ from the snapshot")
+        swaps.append(dict(phase=phase, pages=len(eng.slot_pages[0]),
+                          snapshot_bytes=nbytes, preempt_ms=d2h_ms,
+                          preempt_gb_s=_gbs(nbytes, d2h_ms), restore_ms=h2d_ms,
+                          restore_gb_s=_gbs(nbytes, h2d_ms),
+                          restore_ema_gb_s=eng.metrics["h2d_bw_bytes_per_s"] / 1e9))
+    fin = eng.run()[0]
+    torch.cuda.synchronize()
+    launches = _engine_launches("forced")
+    if fin.tokens != ref.tokens:
+        raise AssertionError("forced preempt: stream differs from the "
+                             "uninterrupted run")
+    for key in ("chunks", "prefills"):
+        if eng.stats[key] != ref_eng.stats[key]:
+            raise AssertionError(f"forced preempt: {key} {eng.stats[key]} != "
+                                 f"{ref_eng.stats[key]} (recompute)")
+    if (fin.preemptions, eng.stats["restores"]) != (2, 2):
+        raise AssertionError("forced preempt: not two swaps")
+    if not bool(eng.sampler.finite):
+        raise AssertionError("forced preempt: non-finite logits")
+    eng.allocator.check_conservation([])
+
+    # The link alone: the same bytes copied device -> pinned host -> device.
+    nbytes = swaps[-1]["snapshot_bytes"]
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    link = {}
+    for name, dst, src in (("d2h", host, dev), ("h2d", dev, host)):
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dst.copy_(src, non_blocking=True)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        link[name] = dict(bytes=nbytes, ms=min(ms), gb_s=_gbs(nbytes, min(ms)))
+    del dev, host
+    out = dict(swaps=swaps, link=link, tokens_equal=True,
+               chunks=eng.stats["chunks"], prefills=eng.stats["prefills"],
+               launches=launches)
+    log("[phase10] forced " + json.dumps(out))
+    return out
+
+
+def overload_trace(vocab: int) -> list:
+    rng = np.random.RandomState(11)
+    reqs = [engine_lib.Request(
+        uid=i, prompt=rng.randint(0, vocab, size=(n,)).astype(np.int32),
+        max_new_tokens=32) for i, n in enumerate(OVERLOAD_LP)]
+    reqs += [engine_lib.Request(
+        uid=len(OVERLOAD_LP) + i,
+        prompt=rng.randint(0, vocab, size=(n,)).astype(np.int32),
+        max_new_tokens=16, arrival_step=a, priority=1, **HP_SLO)
+        for i, (n, a) in enumerate(OVERLOAD_HP)]
+    return reqs
+
+
+def overload_run(bundle, params, arm: str, scheduler: str, plan=None) -> dict:
+    """Serve the overload trace (2 slots, pool sized by for_trace) under
+    ``scheduler`` and an optional chaos plan; counters zeroed before and
+    read after.  Records each preemption's (step, uid, victim phase) and
+    each restore's step."""
+    policy = policy_lib.get_policy("stem")
+    ecfg = _overload_ecfg(2, max(OVERLOAD_LP), 32, scheduler=scheduler)
+    chaos = chaos_lib.ChaosInjector(plan) if plan is not None else None
+    eng = engine_lib.StemEngine(bundle, params, policy, ecfg, chaos=chaos)
+    victims, restores = [], []
+    preempt, restore = eng.preempt, eng._admit_restore
+
+    def recorded_preempt(slot):
+        st = eng.slots[slot]
+        victims.append((eng.step_count, st.req.uid, st.phase))
+        preempt(slot)
+
+    def recorded_restore(rec, slot, pages):
+        restores.append(eng.step_count)
+        return restore(rec, slot, pages)
+    eng.preempt, eng._admit_restore = recorded_preempt, recorded_restore
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    fin = eng.run(overload_trace(bundle.cfg.vocab_size))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _engine_launches(arm)
+    if not bool(eng.sampler.finite):
+        raise AssertionError(f"phase 10 {arm}: non-finite logits")
+    errors = {f.uid: f.error for f in fin if f.error is not None}
+    if errors:
+        raise AssertionError(f"phase 10 {arm}: failed requests {errors}")
+    eng.allocator.check_conservation([])
+    hp = [f for f in fin if f.priority == 1]
+    lp = [f for f in fin if f.priority == 0]
+    metrics = eng.metrics
+    s = eng.stats
+    return dict(
+        arm=arm, wall_s=wall,
+        hp_ttft_s=[f.ttft_s for f in hp], hp_tpot_s=[f.tpot_s for f in hp],
+        lp_tpot_s=float(np.mean([f.tpot_s for f in lp])),
+        lp_ttft_s=float(np.mean([f.ttft_s for f in lp])),
+        offload_peak_bytes=metrics["offload_peak_bytes"],
+        h2d_bw_bytes_per_s=metrics["h2d_bw_bytes_per_s"],
+        chaos=metrics["chaos"], victims=victims, restore_steps=restores,
+        steps=eng.step_count,
+        stats={k: s[k] for k in ("preemptions", "restores", "restore_failures",
+                                 "step_failures", "aborts", "alloc_denials",
+                                 "chunks", "prefills", "restore_bytes")},
+        launches=launches, tokens={f.uid: f.tokens for f in fin})
+
+
+def _check_overload(run: dict, chaos: bool) -> None:
+    s, arm = run["stats"], run["arm"]
+    if run["arm"].startswith("fcfs"):
+        if s["preemptions"]:
+            raise AssertionError(f"phase 10 {arm}: fcfs preempted")
+        return
+    if s["preemptions"] < 2 or s["restores"] != s["preemptions"]:
+        raise AssertionError(f"phase 10 {arm}: preemptions {s['preemptions']}, "
+                             f"restores {s['restores']}")
+    phases = {p for _, _, p in run["victims"]}
+    if phases != {"prefill", "decode"}:
+        raise AssertionError(f"phase 10 {arm}: victim phases {run['victims']}")
+    if chaos and (run["chaos"] != {"alloc_denied": 1, "step_failed": 1,
+                                   "restore_failed": 1} or s["aborts"]):
+        raise AssertionError(f"phase 10 {arm}: chaos {run['chaos']}, "
+                             f"aborts {s['aborts']}")
+
+
+def overload_arms(dtype: str, layers: int, plan=None) -> tuple:
+    """FCFS, SLO and SLO under the chaos ``plan`` (None: find the plan
+    first: the CLI's ``chaos.CLI_PLAN`` with its restore failure moved to
+    the first restore step of an SLO run under the CLI's other two faults,
+    since no request of this trace is restored by step 7) at ``layers``
+    layers of full-width
+    qwen3-0.6b; every sampled logits row tapped.  Returns (runs, rows by
+    arm, plan)."""
+    cfg = QWEN3_0_6B.replace(num_layers=layers, dtype=dtype)
+    bundle = registry.build(cfg)
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                device="cuda")
+    if plan is None:
+        probe = dataclasses.replace(chaos_lib.CLI_PLAN, fail_restore_steps=())
+        first = overload_run(bundle, params, "probe", "slo", probe)["restore_steps"]
+        plan = dataclasses.replace(chaos_lib.CLI_PLAN,
+                                   fail_restore_steps=(first[0],))
+    runs, rows = {}, {}
+    for arm, scheduler, arm_plan in (("fcfs", "fcfs", None), ("slo", "slo", None),
+                                     ("slo+chaos", "slo", plan)):
+        with LogitTap() as tap:
+            run = overload_run(bundle, params, f"{arm}/{dtype}/{layers}",
+                               scheduler, arm_plan)
+        _check_overload(run, arm_plan is not None)
+        runs[arm], rows[arm] = run, tap.rows
+        summary = {k: v for k, v in run.items() if k != "tokens"}
+        log(f"[phase10] {arm} {dtype} {layers} layers: " + json.dumps(summary))
+    del params
+    torch.cuda.empty_cache()
+    return runs, rows, plan
+
+
+def overload_phase() -> dict:
+    """Phase 10.  (1) The forced preempt / restore, bf16, full depth.  (2)
+    The overload trace under FCFS, SLO and SLO + chaos: fp32 at 4 layers
+    (streams of the three arms equal), bf16 at 28 (reported with
+    ``check_partings``).  (3) The CLI with --hp-every 2 --max-waiting 6
+    --chaos."""
+    out, launches = {}, {}
+    bundle = registry.build(QWEN3_0_6B)
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                device="cuda")
+    out["forced"] = forced_preempt_arm(bundle, params)
+    launches["forced"] = out["forced"]["launches"]
+    del params
+    torch.cuda.empty_cache()
+
+    runs32, rows32, plan = overload_arms("float32", 4)
+    for arm in ("fcfs", "slo+chaos"):
+        check_partings(f"fp32/4 slo vs {arm}", runs32["slo"]["tokens"],
+                       rows32["slo"], runs32[arm]["tokens"], rows32[arm],
+                       "float32", strict=False, phase="phase10")
+        if runs32[arm]["tokens"] != runs32["slo"]["tokens"]:
+            raise AssertionError(f"phase 10: fp32 streams of slo and {arm} differ")
+    runs16, rows16, _ = overload_arms("bfloat16", 28, plan)
+    out["plan"] = dataclasses.asdict(plan)
+    out["bf16_partings"] = {
+        arm: check_partings(f"bf16/28 slo vs {arm}", runs16["slo"]["tokens"],
+                            rows16["slo"], runs16[arm]["tokens"], rows16[arm],
+                            "bfloat16", strict=False, phase="phase10")
+        for arm in ("fcfs", "slo+chaos")}
+    for tag, runs in (("fp32/4", runs32), ("bf16/28", runs16)):
+        for arm, run in runs.items():
+            out[f"{tag}/{arm}"] = {k: v for k, v in run.items() if k != "tokens"}
+            launches[f"{tag}/{arm}"] = run["launches"]
+
+    torch.cuda.synchronize()
+    reset_all_launches()
+    res = serve_lib.main(cli_args("qwen3-0.6b", 2000, 6000, 16, "--hp-every", "2",
+                                  "--max-waiting", "6", "--chaos"))
+    launches["cli"] = _engine_launches("cli")
+    if res["failed"]:
+        raise AssertionError(f"phase 10 cli: failed requests {res['failed']}")
+    out["cli"] = {k: res[k] for k in res if k not in ("tokens", "engine_stats")}
+    log("[phase10] cli " + json.dumps(out["cli"]))
+    out["launches"] = launches
+    return out
+
+
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(x, device) for k, x in tree.items()}
@@ -1730,6 +2040,10 @@ def main() -> None:
     # Phase 9: contiguous decode, the CLI and the evaluation passes.
     p9 = contiguous_phase()
 
+    # Phase 10: overload (preemption with host offload, SLO, chaos).
+    p10 = overload_phase()
+    p10_launches = lambda key: {arm: n[key] for arm, n in p10["launches"].items()}
+
     kernels = []
     for key in ("score/decode", "score/chunk", "attend/decode", "attend/chunk"):
         kernel, lane = key.split("/")
@@ -1739,6 +2053,7 @@ def main() -> None:
             replaces=REPLACES[kernel], launches=launches[key],
             phase9_launches={m: p9["launches"][f"{m}/{key}"]
                              for m in ("engine", "fixed-batch")},
+            phase10_launches=p10_launches(key),
             max_abs_err=max(r["max_abs_err"] for r in records[key].values()),
             ms=rec["ms"], host_ms=rec["host_ms"], plain_ms=rec["plain_ms"],
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
@@ -1751,6 +2066,7 @@ def main() -> None:
             launches=mono_launches[counter],
             phase9_launches={m: p9["launches"][f"{m}/{counter}"]
                              for m in ("engine", "fixed-batch")},
+            phase10_launches=p10_launches(counter),
             max_abs_err=max(r["max_abs_err"]
                             for r in records[f"{key}/prefill"].values()),
             ms=rec["ms"], host_ms=rec["host_ms"], plain_ms=rec["plain_ms"],

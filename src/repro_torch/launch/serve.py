@@ -17,6 +17,13 @@ recycles slots on completion.  Three modes:
     run policy-sparse (decode re-summarizes the whole cache every step: the
     reference arm of the paged engine's sparse decode).
 
+In engine mode, ``--hp-every N`` makes every Nth request priority 1 with
+the ``--hp-*-slo-ms`` SLOs (the SLO scheduler may preempt a lower-priority
+request for it; ``--scheduler fcfs`` never does), ``--max-waiting`` sheds
+waiting-queue overflow, ``--admission-control`` rejects requests whose TTFT
+SLO is infeasible, and ``--chaos`` injects a fixed fault plan; failed
+requests are reported under ``failed``.
+
 ``--policy <name>`` resolves a registered ``SparsityPolicy`` and rescales it
 to the serving geometry; without it, ``--stem`` picks the flag-built stem
 policy's sparse arm.  The port runs on ``--device`` (default ``cuda``).
@@ -32,6 +39,7 @@ Examples:
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import numpy as np
@@ -46,14 +54,6 @@ _UNPORTED = (
      "--mesh: mesh serving is ROADMAP.md queue 1 item 6"),
     (lambda a: a.async_depth > 0,
      "--async-depth > 0: the async loop is ROADMAP.md queue 1 item 5.4"),
-    (lambda a: a.chaos,
-     "--chaos: chaos injection is ROADMAP.md queue 1 item 5.2"),
-    (lambda a: a.hp_every > 0 or a.max_waiting > 0 or a.admission_control
-     or a.scheduler != "slo",
-     "--hp-every / --max-waiting / --admission-control / --scheduler fcfs: "
-     "priorities, shedding, admission control and FCFS ordering arrive with "
-     "the SLO scheduler, ROADMAP.md queue 1 item 5.1 (the port's engine "
-     "reproduces the default 'slo' scheduler at uniform priority)"),
     (lambda a: a.sampler != "greedy",
      "--sampler: only greedy sampling is ported; the temperature sampler is "
      "ROADMAP.md queue 1 item 5.4"),
@@ -73,26 +73,32 @@ def _sync(device: torch.device) -> None:
 
 def build_trace(rng: np.random.RandomState, n_requests: int, min_prompt: int,
                 max_prompt: int, decode_tokens: int, vocab: int,
-                arrival_every: int):
-    """Mixed-length, staggered-arrival request trace (uniform priority: the
-    reference's high-priority class arrives with the SLO scheduler)."""
+                arrival_every: int, hp_every: int = 0,
+                hp_ttft_slo_s: float = None, hp_tpot_slo_s: float = None):
+    """Mixed-length, staggered-arrival request trace.  With ``hp_every``,
+    every hp_every-th request is priority 1 and carries the given SLOs —
+    the interactive class of the overload study."""
     from repro_torch.runtime.engine import Request
     reqs = []
     for i in range(n_requests):
         plen = int(rng.randint(min_prompt, max_prompt + 1))
+        hp = bool(hp_every) and (i % hp_every == hp_every - 1)
         reqs.append(Request(
             uid=i,
             prompt=rng.randint(0, vocab, size=(plen,)).astype(np.int32),
             max_new_tokens=decode_tokens,
             arrival_step=i * arrival_every,
+            priority=1 if hp else 0,
+            ttft_slo_s=hp_ttft_slo_s if hp else None,
+            tpot_slo_s=hp_tpot_slo_s if hp else None,
         ))
     return reqs
 
 
 def _latency_stats(finished):
     """Serving-latency summary: inter-token decode gaps (p50/p95/p99), TTFT
-    and TPOT.  NaN entries (single-token requests have no TPOT) are
-    excluded."""
+    and TPOT.  NaN entries (failed requests never emitted a token;
+    single-token requests have no TPOT) are excluded."""
     lats = np.asarray([t for f in finished for t in f.token_latencies_s])
     ttfts = np.asarray([f.ttft_s for f in finished], np.float64)
     ttfts = ttfts[~np.isnan(ttfts)] if ttfts.size else ttfts
@@ -122,48 +128,80 @@ def run_engine(args, cfg, bundle, params, stem_cfg, budget_frac):
         chunk_size=args.chunk_size or None,
         step_token_budget=args.step_token_budget or None,
         monolithic_prefill=args.monolithic,
+        scheduler=args.scheduler,
+        max_waiting=args.max_waiting or None,
         executor=args.executor or None,
+        admission_control=args.admission_control,
         sampler=args.sampler)
-    engine = StemEngine(bundle, params, stem_cfg, ecfg)
+    chaos = None
+    if args.chaos:
+        from repro_torch.runtime.chaos import CLI_PLAN, ChaosInjector
+        chaos = ChaosInjector(CLI_PLAN)
+    engine = StemEngine(bundle, params, stem_cfg, ecfg, chaos=chaos)
     rng = np.random.RandomState(args.seed + 1)
     trace = build_trace(rng, args.requests, args.min_prompt, args.max_prompt,
-                        args.decode_tokens, cfg.vocab_size, args.arrival_every)
+                        args.decode_tokens, cfg.vocab_size, args.arrival_every,
+                        hp_every=args.hp_every,
+                        hp_ttft_slo_s=args.hp_ttft_slo_ms * 1e-3,
+                        hp_tpot_slo_s=args.hp_tpot_slo_ms * 1e-3)
     t0 = time.perf_counter()
     finished = engine.run(trace)
     _sync(engine.device)
     wall = time.perf_counter() - t0
-    stats = _latency_stats(finished)
+    ok = [f for f in finished if f.error is None]
+    failed = [f for f in finished if f.error is not None]
+    stats = _latency_stats(ok)
     total_tokens = sum(len(f.tokens) for f in finished)
-    # The reference's keys where the port has the quantity.  Left out:
-    # "engine_metrics" (the step-time monitor, straggler, offload and chaos
-    # counters belong to unported engine features), and the engine stats
-    # "traces" / "prefill_traces" / "pallas_fallbacks" (PyTorch runs
-    # eagerly and the port has no fallback path).  Every request finishes,
-    # so "failed" is empty.
+    metrics = engine.metrics
+    # The reference's keys, but for its engine stats "traces" /
+    # "prefill_traces" / "pallas_fallbacks" (PyTorch runs eagerly and the
+    # port has no fallback path).
     out = {
         "mode": "engine",
         "prefill": "monolithic" if args.monolithic else "chunked",
         "loop": "sync",
-        "scheduler": args.scheduler,
+        "scheduler": ecfg.scheduler,
         "mesh": None,
         "chunk_size": engine.chunk_size,
         "step_token_budget": engine.token_budget,
         "requests": len(finished),
-        "failed": {},
+        "failed": {f.uid: f.error for f in failed},
         "total_tokens": total_tokens,
         "wall_s": wall,
         "throughput_tok_s": total_tokens / max(wall, 1e-9),
         "engine_stats": dict(engine.stats),
+        "engine_metrics": {
+            "step_time_ema_s": metrics["step_time_ema_s"],
+            "straggler_steps": metrics["straggler_steps"],
+            "offload_peak_bytes": metrics["offload_peak_bytes"],
+            "chaos": metrics["chaos"],
+        },
         "tokens": {f.uid: f.tokens for f in finished},
         **stats,
     }
-    print(f"engine ({out['prefill']}, {out['loop']}, {args.scheduler}): "
-          f"{len(finished)} reqs (0 failed), {total_tokens} tokens in "
-          f"{wall*1e3:.0f} ms -> {out['throughput_tok_s']:.1f} tok/s; TTFT "
-          f"{out['ttft_ms_mean']:.1f} ms; TPOT {out['tpot_ms_mean']:.2f} ms; "
-          f"inter-token p50 {out['p50_ms']:.2f} / p95 {out['p95_ms']:.2f} ms; "
-          f"slots reused {engine.stats['slots_reused']}, max concurrency "
+    print(f"engine ({out['prefill']}, {out['loop']}, {ecfg.scheduler}): "
+          f"{len(finished)} reqs ({len(failed)} failed), {total_tokens} "
+          f"tokens in {wall*1e3:.0f} ms -> {out['throughput_tok_s']:.1f} "
+          f"tok/s; TTFT {out['ttft_ms_mean']:.1f} ms; TPOT "
+          f"{out['tpot_ms_mean']:.2f} ms; inter-token p50 {out['p50_ms']:.2f} "
+          f"/ p95 {out['p95_ms']:.2f} ms; slots reused "
+          f"{engine.stats['slots_reused']}, max concurrency "
           f"{engine.stats['max_concurrency']}", flush=True)
+    s = engine.stats
+    if any(s[k] for k in ("preemptions", "shed", "aborts", "step_failures",
+                          "restore_failures", "straggler_steps")):
+        print(f"  resilience: preemptions {s['preemptions']} "
+              f"(restores {s['restores']}), shed {s['shed']}, aborts "
+              f"{s['aborts']}, step failures {s['step_failures']}, restore "
+              f"failures {s['restore_failures']}; offload peak "
+              f"{metrics['offload_peak_bytes']} B", flush=True)
+    if metrics["straggler_steps"]:
+        worst = max(metrics["straggler_steps"], key=lambda f: f[1])
+        print(f"  stragglers: {len(metrics['straggler_steps'])} flagged "
+              f"steps (EMA {metrics['step_time_ema_s']*1e3:.2f} ms; worst "
+              f"step {worst[0]} at {worst[1]*1e3:.1f} ms vs EMA "
+              f"{worst[2]*1e3:.2f} ms)", flush=True)
+    print("  engine_metrics " + json.dumps(out["engine_metrics"]), flush=True)
     return out
 
 
@@ -261,15 +299,19 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--monolithic", action="store_true",
                     help="one-shot admission prefill in place of chunks")
     ap.add_argument("--scheduler", choices=("slo", "fcfs"), default="slo",
-                    help="'slo' (uniform priority); 'fcfs' is not ported yet")
+                    help="token-budget scheduling order: 'slo' = priority + "
+                         "SLO headroom (preemption-capable), 'fcfs' = "
+                         "admission order")
     ap.add_argument("--max-waiting", type=int, default=0,
-                    help="not ported yet (ROADMAP.md queue 1 item 5.1)")
+                    help="waiting-queue bound; overflow sheds the lowest-"
+                         "priority waiting request (0 = unbounded)")
     ap.add_argument("--hp-every", type=int, default=0,
-                    help="not ported yet (ROADMAP.md queue 1 item 5.1)")
+                    help="every Nth request is priority 1 with the --hp-* "
+                         "SLOs (0 = uniform priority)")
     ap.add_argument("--hp-ttft-slo-ms", type=float, default=500.0,
-                    help="TTFT SLO of the high-priority class (with --hp-every)")
+                    help="TTFT SLO of the high-priority class")
     ap.add_argument("--hp-tpot-slo-ms", type=float, default=50.0,
-                    help="TPOT SLO of the high-priority class (with --hp-every)")
+                    help="TPOT SLO of the high-priority class")
     ap.add_argument("--mesh", default="",
                     help="not ported yet (ROADMAP.md queue 1 item 6)")
     ap.add_argument("--executor", choices=("", "fused", "gather"), default="",
@@ -280,14 +322,17 @@ def build_parser() -> argparse.ArgumentParser:
                     default="lru",
                     help="not ported yet (ROADMAP.md queue 1 item 5.3)")
     ap.add_argument("--admission-control", action="store_true",
-                    help="not ported yet (ROADMAP.md queue 1 item 5.1)")
+                    help="reject waiting requests whose TTFT SLO is "
+                         "infeasible at the measured step time")
     ap.add_argument("--async-depth", type=int, default=0,
                     help="0 = synchronous engine loop; > 0 is not ported "
                          "yet (ROADMAP.md queue 1 item 5.4)")
     ap.add_argument("--sampler", default="greedy",
                     help="registered sampler; only 'greedy' is ported")
     ap.add_argument("--chaos", action="store_true",
-                    help="not ported yet (ROADMAP.md queue 1 item 5.2)")
+                    help="inject a fixed fault plan (alloc denial at step 2, "
+                         "step failure at 4, restore failure at 7); the run "
+                         "must still end every request")
     ap.add_argument("--fixed-batch", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     return ap

@@ -242,7 +242,8 @@ policy_lib.register_paged_executor(
 class PageAllocator:
     """Free-list page allocator; page 0 (the trash page) is never handed
     out.  Every page id 1..num_pages-1 is either on the free list or in the
-    allocated set.  (The reference's prefix index, cached set and
+    allocated set.  ``evict`` / ``restore`` are the preemption path's free
+    and alloc, counted.  (The reference's prefix index, cached set and
     copy-on-write are not part of this port yet.)"""
 
     def __init__(self, num_pages: int):
@@ -252,6 +253,8 @@ class PageAllocator:
         self._free = list(range(num_pages - 1, 0, -1))  # pop() -> lowest id
         self._allocated: set = set()
         self.total_alloced = 0
+        self.evictions = 0
+        self.restores = 0
 
     @property
     def available(self) -> int:
@@ -274,6 +277,20 @@ class PageAllocator:
                 raise ValueError(f"double free of page {p}")
             self._allocated.discard(p)
             self._free.append(p)
+
+    def evict(self, pages) -> None:
+        """Free a preemption victim's pages (contents live on in the host
+        snapshot; the device pages are immediately reusable)."""
+        self.free(pages)
+        self.evictions += 1
+
+    def restore(self, n: int) -> Optional[list]:
+        """Allocate pages for a re-admitted (offloaded) request.  The ids
+        need not match the evicted ones — the page table re-maps."""
+        pages = self.alloc(n)
+        if pages is not None:
+            self.restores += 1
+        return pages
 
     def check_conservation(self, held=None) -> bool:
         """Assert the free list and the allocated set partition pages

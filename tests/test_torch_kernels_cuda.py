@@ -931,3 +931,60 @@ def test_reduced_qwen3_serves_bf16_on_card(cuda, monolithic):
     assert all(launches[k] > 0 for k in need), launches
     assert serve_small("qwen3-0.6b-reduced", cuda, "gather", monolithic,
                        dtype="bfloat16")[0] == streams
+
+
+def serve_preempted(device, monolithic):
+    """TINY in fp32 under "fused", one slot: a priority-1 arrival preempts
+    the running request (its pages offloaded to host memory and restored
+    into other pages), under an alloc denial and a step failure.  Returns
+    the streams, the engine counts and the offload peak bytes."""
+    from repro_torch.models import registry as t_registry
+    from repro_torch.runtime import chaos as t_chaos
+    from repro_torch.runtime import engine as t_engine
+    cfg, policy, _ = _small_config("tiny")
+    bundle = t_registry.build(cfg)
+    params = _to_device(bundle.init_params(torch.Generator().manual_seed(0),
+                                           device="cpu"), device)
+    ecfg = t_engine.EngineConfig.for_trace(
+        max_slots=1, max_prompt=20, max_new_tokens=8, page_size=policy.block_size,
+        budget_frac=0.5, monolithic_prefill=monolithic)
+    chaos = t_chaos.ChaosInjector(t_chaos.ChaosConfig(deny_alloc_steps=(0,),
+                                                      fail_steps=(2,)))
+    engine = t_engine.StemEngine(bundle, params, policy, ecfg, chaos=chaos)
+    rng = np.random.RandomState(23)
+    reqs = [t_engine.Request(uid=0, prompt=rng.randint(0, 64, size=(20,)).astype(
+                np.int32), max_new_tokens=8),
+            t_engine.Request(uid=1, prompt=rng.randint(0, 64, size=(13,)).astype(
+                np.int32), max_new_tokens=4, priority=1, arrival_step=4)]
+    finished = engine.run(reqs)
+    assert all(f.error is None for f in finished)
+    engine.allocator.check_conservation([])
+    counts = {k: engine.stats[k] for k in ("preemptions", "restores", "aborts",
+                                           "step_failures", "alloc_denials")}
+    return [f.tokens for f in finished], counts, engine.metrics["offload_peak_bytes"]
+
+
+@pytest.mark.parametrize("monolithic", [False, True], ids=["chunked", "monolithic"])
+def test_tiny_preempts_and_restores_on_card(cuda, monolithic):
+    """Preemption with host offload on the card: the pinned host snapshot
+    round-trips bitwise into other pages, and TINY's preempted run (under
+    an alloc denial and a step failure) equals the port's CPU run: streams,
+    counts and offloaded bytes."""
+    from repro_torch.runtime import offload as t_offload
+    from repro_torch.runtime import paged as t_paged
+    pool = t_paged.init_pool(8, 2, 8, 8, 4, device=cuda, layers=2)
+    for leaf in pool:
+        leaf.normal_()
+    tree = [{"sub0": pool}]
+    store = t_offload.HostPageStore()
+    store.put(0, t_offload.gather_pages(tree, torch.tensor([2, 5, 3], device=cuda)))
+    snap = store.get(0)
+    assert all(t.is_pinned() for t in t_offload.leaves(snap))
+    want = [t.clone() for t in t_offload.leaves(snap)]
+    t_offload.scatter_pages(tree, torch.tensor([6, 1, 4], device=cuda), store.pop(0))
+    back = t_offload.gather_pages(tree, torch.tensor([6, 1, 4], device=cuda))
+    assert all(torch.equal(b.cpu(), w) for b, w in zip(t_offload.leaves(back), want))
+
+    card = serve_preempted(cuda, monolithic)
+    assert card[1]["preemptions"] == card[1]["restores"] == 1, card[1]
+    assert card == serve_preempted(torch.device("cpu"), monolithic)

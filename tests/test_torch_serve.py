@@ -6,10 +6,12 @@ differential oracle.
   (``make_serve_step`` re-summarizing the whole cache) for every policy
   family, at decode ``budget_frac=1.0`` with prompts padded to a page
   multiple (``tests/test_engine.py``'s config and trace).
-* The CLI's engine mode (chunked and ``--monolithic``) and
+* The CLI's engine mode (chunked and ``--monolithic``; priorities,
+  shedding, admission control, FCFS and the chaos plan) and
   ``--fixed-batch`` against the reference CLI's ``run_engine`` /
   ``run_fixed_batch`` with the same arguments and carried weights: equal
-  tokens, and equal engine step / chunk / decode-step counts.
+  tokens and errors, and equal engine step / chunk / decode-step and
+  preemption / restore / shed / chaos counts.
 * ``main`` end to end on the reduced qwen3-0.6b on the CPU, and every flag
   whose feature the port lacks raises ``SystemExit``."""
 import numpy as np
@@ -134,6 +136,19 @@ def _serving_policies(args):
     ("chunked-dense", []),
     ("fixed-batch", ["--policy", "stem", "--fixed-batch"]),
     ("fixed-batch-dense", ["--fixed-batch"]),
+    ("chaos", ["--policy", "stem", "--chaos"]),
+    ("hp-every", ["--policy", "stem", "--hp-every", "2"]),
+    ("max-waiting", ["--policy", "stem", "--max-waiting", "4"]),
+    # request 1 (priority 1) arrives at step 2 with a TTFT SLO no step
+    # time can meet: both CLIs reject it
+    ("admission-control", ["--policy", "stem", "--admission-control",
+                           "--hp-every", "2", "--hp-ttft-slo-ms", "0.001"]),
+    ("fcfs", ["--policy", "stem", "--scheduler", "fcfs"]),
+    # one slot, arrivals every step: a preemption and its restore, three
+    # requests shed, an alloc denial and a step failure
+    ("overload", ["--policy", "stem", "--requests", "4", "--max-slots", "1",
+                  "--arrival-every", "1", "--hp-every", "3", "--max-waiting", "2",
+                  "--chaos"]),
 ])
 def test_cli_matches_reference(carried, capsys, mode, flags):
     jcfg, jb, jparams, tcfg, tb, tparams = carried
@@ -150,11 +165,28 @@ def test_cli_matches_reference(carried, capsys, mode, flags):
         want = j_serve.run_engine(args, jcfg, jb, jparams, jpol, frac)
         got = t_serve.run_engine(args, tcfg, tb, tparams, tpol, frac)
         for key in ("step_calls", "chunks", "decode_steps", "prefills",
-                    "tokens_generated", "slots_reused", "max_concurrency"):
+                    "tokens_generated", "slots_reused", "max_concurrency",
+                    "preemptions", "restores", "restore_failures", "shed",
+                    "aborts", "step_failures", "alloc_denials",
+                    "admission_rejects", "restore_bytes"):
             assert got["engine_stats"][key] == want["engine_stats"][key], key
+        assert got["engine_metrics"]["chaos"] == want["engine_metrics"]["chaos"]
+        # The port offloads a victim's own pages, the reference a padded row.
+        peak = (got["engine_metrics"]["offload_peak_bytes"],
+                want["engine_metrics"]["offload_peak_bytes"])
+        assert 0 < peak[0] <= peak[1] if got["engine_stats"]["preemptions"] \
+            else peak == (0, 0)
+        assert set(got["engine_stats"]) <= set(want["engine_stats"])
         for key in ("mode", "prefill", "loop", "scheduler", "mesh", "chunk_size",
-                    "step_token_budget", "requests", "failed", "total_tokens"):
+                    "step_token_budget", "requests", "total_tokens"):
             assert got[key] == want[key], key
+        # An admission-control rejection ends in a wall-clock estimate.
+        heads = [{uid: err.split(" ~ ")[0] for uid, err in out["failed"].items()}
+                 for out in (got, want)]
+        assert heads[0] == heads[1]
+        if mode == "admission-control":
+            assert got["engine_stats"]["admission_rejects"] == 1
+            assert list(got["failed"]) == [1]
     assert got["tokens"] == want["tokens"]
     assert set(got) <= set(want)
     printed = capsys.readouterr().out
@@ -163,12 +195,19 @@ def test_cli_matches_reference(carried, capsys, mode, flags):
 
 
 def test_build_trace_matches_reference():
-    j = j_serve.build_trace(np.random.RandomState(3), 4, 10, 90, 7, 512, 2)
-    t = t_serve.build_trace(np.random.RandomState(3), 4, 10, 90, 7, 512, 2)
-    for a, b in zip(j, t):
-        assert (a.uid, a.max_new_tokens, a.arrival_step) == \
-            (b.uid, b.max_new_tokens, b.arrival_step)
-        np.testing.assert_array_equal(a.prompt, b.prompt)
+    for hp in ({}, dict(hp_every=2, hp_ttft_slo_s=0.5, hp_tpot_slo_s=0.05)):
+        j = j_serve.build_trace(np.random.RandomState(3), 4, 10, 90, 7, 512, 2,
+                                **hp)
+        t = t_serve.build_trace(np.random.RandomState(3), 4, 10, 90, 7, 512, 2,
+                                **hp)
+        assert len(j) == len(t) == 4
+        for a, b in zip(j, t):
+            assert (a.uid, a.max_new_tokens, a.arrival_step, a.priority,
+                    a.ttft_slo_s, a.tpot_slo_s) == \
+                (b.uid, b.max_new_tokens, b.arrival_step, b.priority,
+                 b.ttft_slo_s, b.tpot_slo_s)
+            np.testing.assert_array_equal(a.prompt, b.prompt)
+        assert [r.priority for r in t] == ([0, 1, 0, 1] if hp else [0] * 4)
 
 
 @pytest.mark.parametrize("extra", [[], ["--fixed-batch"], ["--policy", "streaming"]])
@@ -186,9 +225,7 @@ def test_main_runs_on_cpu(capsys, extra):
 
 @pytest.mark.parametrize("flags", [
     ["--prefix-cache"], ["--prefix-evict", "hit-rate"], ["--mesh", "1,1"],
-    ["--async-depth", "1"], ["--chaos"], ["--hp-every", "2"],
-    ["--max-waiting", "4"], ["--admission-control"], ["--scheduler", "fcfs"],
-    ["--sampler", "temperature"], ["--executor", "pallas"],
+    ["--async-depth", "1"], ["--sampler", "temperature"], ["--executor", "pallas"],
 ])
 def test_unported_flags_raise(flags):
     with pytest.raises(SystemExit) as info:
