@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase, one card
-    python3 chip_smoke.py --profile  # also trace phase 4 with torch.profiler
+    python3 chip_smoke.py --profile  # also trace phase 4 and phase 11's
+                                     # loops with torch.profiler
     python3 chip_smoke.py --profile-prefill  # also trace phase 5's prefills
 
 Phases:
@@ -148,6 +149,36 @@ Phases:
                 arm.  (c) The CLI (serve.main) with --hp-every 2
                 --max-waiting 6 --chaos: no failed request, its
                 engine_metrics line printed.
+ 11. prefix + async — full-width qwen3-0.6b, "stem" at paper defaults
+                (budget_frac 0.5, chunk 1024, page 128, 2 slots),
+                counters zeroed before each arm and read after (every
+                kernel of the engine path must launch).  (a) A 4096-token
+                system prompt (32 pages) behind suffixes of 300 / 900 /
+                1500 / 2100 tokens arriving at steps 0 / 0 / 6 / 10 and the
+                bare prompt at step 10 (a copy on write), 32 new tokens
+                each, with the prefix cache off and on: hits >= 2, pages
+                shared >= 64, one copy on write, fewer chunks, every page
+                back; fp32 at 4 layers the streams equal strictly (the "on"
+                arm's kernel calls recorded and held against their plain
+                versions), also under prefix_evict="hit-rate" with a pool
+                that forces reclaims of cached pages and through the async
+                loop; bf16 at 28 layers reported (check_partings); the late
+                tenants' TTFT.  (b) fp32, 4 layers: a sharer preempted by a
+                priority-1 request snapshots its private pages only, its
+                shared pages keep their references while it is out, and its
+                restored stream equals the uninterrupted run's.  (c) Phase
+                10 (b)'s trace through the sync and the async loop, fp32 at
+                4 layers (also with a mid-stream EOS: a lookahead step
+                discarded; and under the CLI's chaos plan with its restore
+                failure at the async run's first restore) and bf16 at 28
+                layers: streams bitwise equal, host_syncs <= 2 * finished,
+                step_calls <= id_fetches <= 2 * step_calls, nothing in
+                flight at the end, every _dispatch run under
+                torch.cuda.set_sync_debug_mode("error"); wall, TTFT, TPOT
+                and tok/s of both loops (with --profile also each loop's
+                device busy share).  (d) The CLI with --prefix-cache
+                --async-depth 1 and with --prefix-cache --prefix-evict
+                hit-rate: no failed request.
 
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}.  Any failed phase raises (non-zero exit).
@@ -1713,11 +1744,11 @@ ENGINE_KERNELS = ("score/decode", "score/chunk", "attend/decode", "attend/chunk"
                   "antidiag_pool", "value_magnitude")
 
 
-def _engine_launches(arm: str) -> dict:
+def _engine_launches(arm: str, phase: str = "phase 10") -> dict:
     launches = read_all_launches()
     missing = [k for k in ENGINE_KERNELS if launches[k] == 0]
     if missing:
-        raise AssertionError(f"phase 10 {arm}: kernels never launched: {missing}")
+        raise AssertionError(f"{phase} {arm}: kernels never launched: {missing}")
     return launches
 
 
@@ -1828,13 +1859,15 @@ def overload_trace(vocab: int) -> list:
     return reqs
 
 
-def overload_run(bundle, params, arm: str, scheduler: str, plan=None) -> dict:
+def overload_run(bundle, params, arm: str, scheduler: str, plan=None,
+                 phase: str = "phase 10", **knobs) -> dict:
     """Serve the overload trace (2 slots, pool sized by for_trace) under
-    ``scheduler`` and an optional chaos plan; counters zeroed before and
-    read after.  Records each preemption's (step, uid, victim phase) and
-    each restore's step."""
+    ``scheduler``, an optional chaos plan and further engine ``knobs``
+    (``async_depth``, ``eos_id``); counters zeroed before and read after.
+    Records each preemption's (step, uid, victim phase) and each restore's
+    step."""
     policy = policy_lib.get_policy("stem")
-    ecfg = _overload_ecfg(2, max(OVERLOAD_LP), 32, scheduler=scheduler)
+    ecfg = _overload_ecfg(2, max(OVERLOAD_LP), 32, scheduler=scheduler, **knobs)
     chaos = chaos_lib.ChaosInjector(plan) if plan is not None else None
     eng = engine_lib.StemEngine(bundle, params, policy, ecfg, chaos=chaos)
     victims, restores = [], []
@@ -1855,19 +1888,23 @@ def overload_run(bundle, params, arm: str, scheduler: str, plan=None) -> dict:
     fin = eng.run(overload_trace(bundle.cfg.vocab_size))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = _engine_launches(arm)
+    launches = _engine_launches(arm, phase)
     if not bool(eng.sampler.finite):
-        raise AssertionError(f"phase 10 {arm}: non-finite logits")
+        raise AssertionError(f"{phase} {arm}: non-finite logits")
     errors = {f.uid: f.error for f in fin if f.error is not None}
     if errors:
-        raise AssertionError(f"phase 10 {arm}: failed requests {errors}")
+        raise AssertionError(f"{phase} {arm}: failed requests {errors}")
     eng.allocator.check_conservation([])
     hp = [f for f in fin if f.priority == 1]
     lp = [f for f in fin if f.priority == 0]
     metrics = eng.metrics
     s = eng.stats
     return dict(
-        arm=arm, wall_s=wall,
+        arm=arm, wall_s=wall, loop=serving_summary(fin, wall),
+        async_stats={k: s[k] for k in ("host_syncs", "id_fetches", "step_calls",
+                                       "lookahead_discards", "dispatch_s",
+                                       "sync_wait_s")},
+        inflight_steps=metrics["inflight_steps"], finished=len(fin),
         hp_ttft_s=[f.ttft_s for f in hp], hp_tpot_s=[f.tpot_s for f in hp],
         lp_tpot_s=float(np.mean([f.tpot_s for f in lp])),
         lp_ttft_s=float(np.mean([f.ttft_s for f in lp])),
@@ -1978,6 +2015,389 @@ def overload_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the prefix cache and the async loop
+# ---------------------------------------------------------------------------
+
+# The shared-prefix trace: a 4096-token system prompt (32 pages) behind
+# suffixes of 300 / 900 / 1500 / 2100 tokens arriving at steps 0 / 0 / 6 /
+# 10, and one prompt of exactly the system prompt (a full match of a page
+# multiple: its last page is copied on write) at step 10; 32 new tokens
+# each.  The two late tenants and the copy find the system pages
+# registered by the first prompt's prefill.
+SYSTEM_TOKENS = 4096
+PREFIX_SUFFIXES = ((300, 0), (900, 0), (1500, 6), (2100, 10))
+PREFIX_COPY_ARRIVAL = 10
+# The pool of the hit-rate arm: one request's reservation plus 8 pages, so
+# admissions reclaim the cached pages of finished requests (14 of them on
+# this trace; the page flow depends on no value).
+HIT_RATE_SPARE = 8
+
+
+def serving_summary(fin, wall: float) -> dict:
+    """Wall, mean TTFT / TPOT and generated tok/s of a finished run."""
+    ttft = [f.ttft_s for f in fin if not np.isnan(f.ttft_s)]
+    tpot = [f.tpot_s for f in fin if not np.isnan(f.tpot_s)]
+    tokens = sum(len(f.tokens) for f in fin)
+    return dict(wall_s=wall, ttft_s=float(np.mean(ttft)) if ttft else None,
+                tpot_s=float(np.mean(tpot)) if tpot else None,
+                tok_s=tokens / wall)
+
+
+class SyncFreeDispatch:
+    """Runs every ``StemEngine._dispatch`` made inside the block (replaced
+    by class attribute, so engines the CLI builds are covered) under
+    ``torch.cuda.set_sync_debug_mode("error")``: a call of the async step
+    path that waits on the card (``.item()``, a blocking copy, a boolean
+    mask, a synchronize) raises.  ``calls`` counts the dispatches."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def __enter__(self):
+        self._saved = dispatch = engine_lib.StemEngine._dispatch
+        box = self
+
+        def checked(eng, dec, grant):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                dispatch(eng, dec, grant)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            box.calls += 1
+        engine_lib.StemEngine._dispatch = checked
+        return self
+
+    def __exit__(self, *exc):
+        engine_lib.StemEngine._dispatch = self._saved
+        return False
+
+
+def prefix_trace(vocab: int) -> list:
+    rng = np.random.RandomState(12)
+    system = rng.randint(0, vocab, size=(SYSTEM_TOKENS,)).astype(np.int32)
+    reqs = [engine_lib.Request(
+        uid=i, prompt=np.concatenate(
+            [system, rng.randint(0, vocab, size=(n,)).astype(np.int32)]),
+        max_new_tokens=32, arrival_step=a)
+        for i, (n, a) in enumerate(PREFIX_SUFFIXES)]
+    reqs.append(engine_lib.Request(uid=len(reqs), prompt=system.copy(),
+                                   max_new_tokens=32,
+                                   arrival_step=PREFIX_COPY_ARRIVAL))
+    return reqs
+
+
+def _prefix_ecfg(**knobs):
+    longest = SYSTEM_TOKENS + max(n for n, _ in PREFIX_SUFFIXES)
+    return _overload_ecfg(2, longest, 32, **knobs)
+
+
+def prefix_run(bundle, params, arm: str, num_pages=None, **knobs) -> dict:
+    """Serve the shared-prefix trace (2 slots, paper-default "stem", budget
+    0.5, chunk 1024) with the engine ``knobs`` (and ``num_pages`` in place
+    of for_trace's pool); counters zeroed before and read after; every page
+    back at the end."""
+    ecfg = _prefix_ecfg(**knobs)
+    if num_pages is not None:
+        ecfg = dataclasses.replace(ecfg, num_pages=num_pages)
+    eng = engine_lib.StemEngine(bundle, params, policy_lib.get_policy("stem"),
+                                ecfg)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    fin = eng.run(prefix_trace(bundle.cfg.vocab_size))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _engine_launches(arm, "phase 11")
+    if not bool(eng.sampler.finite):
+        raise AssertionError(f"phase 11 {arm}: non-finite logits")
+    errors = {f.uid: f.error for f in fin if f.error is not None}
+    if errors:
+        raise AssertionError(f"phase 11 {arm}: failed requests {errors}")
+    eng.allocator.check_conservation([])
+    if eng.allocator.available != ecfg.num_pages - 1:
+        raise AssertionError(f"phase 11 {arm}: pages not back")
+    s = eng.stats
+    late = [f for f in fin if f.uid >= 2]
+    return dict(
+        arm=arm, loop=serving_summary(fin, wall), num_pages=ecfg.num_pages,
+        late_ttft_s={f.uid: f.ttft_s for f in late},
+        stats={k: s[k] for k in ("prefix_hits", "prefix_pages_shared",
+                                 "prefix_cows", "chunks", "prefills",
+                                 "step_calls", "host_syncs", "id_fetches",
+                                 "lookahead_discards")},
+        allocator={k: getattr(eng.allocator, k) for k in (
+            "shares", "cows", "cache_reclaims", "total_alloced")},
+        launches=launches, tokens={f.uid: f.tokens for f in fin})
+
+
+def prefix_arms(dtype: str, layers: int, recorded: bool = False) -> dict:
+    """(a) The shared-prefix trace with the prefix cache off and on (fp32:
+    streams strictly equal; bf16: reported with ``check_partings``), the
+    "on" arm optionally under the replay recorder; fp32 also under
+    ``prefix_evict="hit-rate"`` with a pool that forces reclaims, and with
+    the cache on through the async loop."""
+    cfg = QWEN3_0_6B.replace(num_layers=layers, dtype=dtype)
+    bundle = registry.build(cfg)
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                device="cuda")
+    tag = f"{dtype}/{layers}"
+    runs, rows = {}, {}
+    for arm, knobs in (("off", {}), ("on", dict(prefix_cache=True))):
+        rec = replay.Recorder() if recorded and arm == "on" else contextlib.nullcontext()
+        with LogitTap() as tap, rec:
+            runs[arm] = prefix_run(bundle, params, f"prefix-{arm}/{tag}", **knobs)
+        rows[arm] = tap.rows
+        if recorded and arm == "on":
+            report = rec.check()
+            log(f"[phase11] prefix-on/{tag}: {len(report)} recorded kernel calls "
+                "held against their plain versions")
+    on, off = runs["on"], runs["off"]
+    st = on["stats"]
+    if not (st["prefix_hits"] >= 2 and st["prefix_pages_shared"] >= 64
+            and st["prefix_cows"] == 1):
+        raise AssertionError(f"phase 11 prefix {tag}: {st}")
+    if not on["stats"]["chunks"] < off["stats"]["chunks"]:
+        raise AssertionError(f"phase 11 prefix {tag}: chunks on "
+                             f"{on['stats']['chunks']} vs off {off['stats']['chunks']}")
+    strict = dtype == "float32"
+    out = {"partings": check_partings(
+        f"prefix on vs off {tag}", off["tokens"], rows["off"], on["tokens"],
+        rows["on"], dtype, strict=strict, phase="phase11")}
+    if strict and on["tokens"] != off["tokens"]:
+        raise AssertionError(f"phase 11 prefix {tag}: streams differ")
+    if strict:
+        spare = _prefix_ecfg().max_pages_per_slot + HIT_RATE_SPARE
+        hit = prefix_run(bundle, params, f"prefix-hit-rate/{tag}",
+                         prefix_cache=True, prefix_evict="hit-rate",
+                         num_pages=1 + spare)
+        if not hit["allocator"]["cache_reclaims"] > 0:
+            raise AssertionError(f"phase 11 hit-rate {tag}: no cached page "
+                                 f"reclaimed {hit['allocator']}")
+        if hit["tokens"] != off["tokens"]:
+            raise AssertionError(f"phase 11 hit-rate {tag}: streams differ")
+        runs["hit-rate"] = hit
+        with SyncFreeDispatch() as guard:
+            both = prefix_run(bundle, params, f"prefix-async/{tag}",
+                              prefix_cache=True, async_depth=1)
+        if both["tokens"] != off["tokens"] or guard.calls != both["stats"]["step_calls"]:
+            raise AssertionError(f"phase 11 prefix+async {tag}: streams differ "
+                                 f"or {guard.calls} checked dispatches")
+        for key in ("prefix_hits", "prefix_pages_shared", "prefix_cows"):
+            if both["stats"][key] != st[key]:
+                raise AssertionError(f"phase 11 prefix+async {tag}: {key}")
+        runs["async"] = both
+    for arm, run in runs.items():
+        out[arm] = {k: v for k, v in run.items() if k != "tokens"}
+        log(f"[phase11] prefix {arm} {tag}: " + json.dumps(out[arm]))
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def shared_preempt_arm() -> dict:
+    """(b) fp32, 4 layers, 2 slots: a sharer of the system prompt (32
+    shared pages) decoding beside the prompt's first owner is preempted by
+    a priority-1 request.  The snapshot holds its private pages only, the
+    shared pages keep their references while it is out, and its restored
+    stream equals the uninterrupted run's (the same trace with the
+    interloper at priority 0)."""
+    cfg = QWEN3_0_6B.replace(num_layers=4, dtype="float32")
+    bundle = registry.build(cfg)
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                device="cuda")
+    base = prefix_trace(cfg.vocab_size)[:2]
+    base[1] = dataclasses.replace(base[1], arrival_step=6)
+    hp_prompt = np.random.RandomState(14).randint(
+        0, cfg.vocab_size, size=(2000,)).astype(np.int32)
+    ecfg = _prefix_ecfg(prefix_cache=True)
+    runs = {}
+    for arm, prio in (("uninterrupted", 0), ("preempted", 1)):
+        reqs = [dataclasses.replace(r) for r in base] + [engine_lib.Request(
+            uid=2, prompt=hp_prompt, max_new_tokens=16, arrival_step=10,
+            priority=prio)]
+        eng = engine_lib.StemEngine(bundle, params, policy_lib.get_policy("stem"),
+                                    ecfg)
+        seen = []
+        preempt = eng.preempt
+
+        def watched(slot, eng=eng, preempt=preempt, seen=seen):
+            n = eng.slot_nshared[slot]
+            shared = list(eng.slot_pages[slot][:n])
+            private = len(eng.slot_pages[slot]) - n
+            refs = [eng.allocator.refcount(p) for p in shared]
+            preempt(slot)
+            uid = eng.preempted[-1].st.req.uid
+            seen.append(dict(uid=uid, shared=len(shared), private=private,
+                             snapshot_bytes=eng.host_store.nbytes,
+                             private_bytes=private * eng._page_nbytes,
+                             pinned=eng.host_store.pinned(uid) == shared,
+                             refs_kept=[eng.allocator.refcount(p)
+                                        for p in shared] == refs))
+        eng.preempt = watched
+        torch.cuda.synchronize()
+        reset_all_launches()
+        fin = eng.run(reqs)
+        torch.cuda.synchronize()
+        launches = _engine_launches(f"shared-preempt/{arm}", "phase 11")
+        if any(f.error for f in fin):
+            raise AssertionError(f"phase 11 shared preempt {arm}: failed requests")
+        eng.allocator.check_conservation([])
+        runs[arm] = dict(tokens={f.uid: f.tokens for f in fin}, swaps=seen,
+                         stats={k: eng.stats[k] for k in (
+                             "preemptions", "restores", "restore_bytes",
+                             "prefix_hits", "prefix_pages_shared")},
+                         launches=launches)
+    pre = runs["preempted"]
+    swap = pre["swaps"][0] if pre["swaps"] else None
+    if (swap is None or swap["uid"] != 1 or not swap["shared"]
+            or swap["snapshot_bytes"] != swap["private_bytes"]
+            or not swap["pinned"] or not swap["refs_kept"]):
+        raise AssertionError(f"phase 11 shared preempt: swaps {pre['swaps']}")
+    if pre["stats"]["restores"] != 1 or runs["uninterrupted"]["stats"]["preemptions"]:
+        raise AssertionError(f"phase 11 shared preempt: {pre['stats']}")
+    want = runs["uninterrupted"]["tokens"]
+    if any(pre["tokens"][u] != want[u] for u in (0, 1)):
+        raise AssertionError("phase 11 shared preempt: a restored stream differs")
+    out = {arm: {k: v for k, v in r.items() if k != "tokens"}
+           for arm, r in runs.items()}
+    log("[phase11] shared preempt " + json.dumps(out))
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def async_arms(dtype: str, layers: int) -> dict:
+    """(c) Phase 10 (b)'s overload trace through the sync and the async
+    loop (scheduler "slo": two preemptions and restores); streams bitwise
+    equal; the async counters bounded; every dispatch sync-free.  fp32 also
+    with a mid-stream EOS (a lookahead discarded) and under the CLI's chaos
+    plan; bf16 timed twice each, in turns."""
+    cfg = QWEN3_0_6B.replace(num_layers=layers, dtype=dtype)
+    bundle = registry.build(cfg)
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                device="cuda")
+    tag = f"{dtype}/{layers}"
+    runs = {"sync": overload_run(bundle, params, f"sync/{tag}", "slo",
+                                 phase="phase 11")}
+    arms = [("async", None, {})]
+    if dtype == "float32":
+        eos = runs["sync"]["tokens"][1][12]
+        runs["sync+eos"] = overload_run(bundle, params, f"sync+eos/{tag}", "slo",
+                                        phase="phase 11", eos_id=eos)
+        # The CLI's chaos plan with its restore failure moved to the first
+        # restore step of an async run under the other two faults.
+        probe = dataclasses.replace(chaos_lib.CLI_PLAN, fail_restore_steps=())
+        first = overload_run(bundle, params, f"probe/{tag}", "slo", probe,
+                             phase="phase 11", async_depth=1)["restore_steps"]
+        plan = dataclasses.replace(chaos_lib.CLI_PLAN,
+                                   fail_restore_steps=(first[0],))
+        arms += [("async+eos", None, dict(eos_id=eos)),
+                 ("async+chaos", plan, {})]
+    else:
+        # Timed in turns (sync, async, async, sync): walls move by several
+        # per cent between runs of one loop on one card.
+        arms += [("async#2", None, {}), ("sync#2", None, {})]
+    for arm, plan, knobs in arms:
+        if arm == "sync#2":
+            run = overload_run(bundle, params, f"{arm}/{tag}", "slo",
+                               phase="phase 11")
+            if run["tokens"] != runs["sync"]["tokens"]:
+                raise AssertionError(f"phase 11 {arm} {tag}: streams differ")
+            runs[arm] = run
+            continue
+        with SyncFreeDispatch() as guard:
+            run = overload_run(bundle, params, f"{arm}/{tag}", "slo", plan,
+                               phase="phase 11", async_depth=1, **knobs)
+        a = run["async_stats"]
+        if guard.calls != a["step_calls"] or run["inflight_steps"]:
+            raise AssertionError(f"phase 11 {arm} {tag}: {guard.calls} checked "
+                                 f"dispatches, {a}")
+        if not (a["host_syncs"] <= 2 * run["finished"]
+                and a["step_calls"] <= a["id_fetches"] <= 2 * a["step_calls"]):
+            raise AssertionError(f"phase 11 {arm} {tag}: async counters {a}")
+        if plan is not None:
+            _check_overload(run, chaos=True)
+        want = runs["sync+eos" if "eos" in arm else "sync"]["tokens"]
+        if run["tokens"] != want:
+            raise AssertionError(f"phase 11 {arm} {tag}: streams differ from sync")
+        if "eos" in arm:
+            early = [u for u, t in run["tokens"].items() if t[-1] == eos
+                     and len(t) < (16 if u >= len(OVERLOAD_LP) else 32)]
+            if not early or not 1 <= a["lookahead_discards"] <= len(early):
+                raise AssertionError(f"phase 11 {arm}: early EOS {early}, "
+                                     f"discards {a['lookahead_discards']}")
+        runs[arm] = run
+    out = {}
+    for arm, run in runs.items():
+        out[arm] = {k: v for k, v in run.items() if k != "tokens"}
+        log(f"[phase11] loop {arm} {tag}: " + json.dumps(out[arm]))
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_loops(profile: bool) -> dict:
+    """With ``--profile``: the device's busy share of the bf16 overload
+    trace under each loop (torch.profiler around the run)."""
+    if not profile:
+        return {}
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    cfg = QWEN3_0_6B
+    bundle = registry.build(cfg)
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                device="cuda")
+    out = {}
+    for arm, depth in (("sync", 0), ("async", 1)):
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            run = overload_run(bundle, params, f"profile-{arm}", "slo",
+                               phase="phase 11", async_depth=depth)
+        log(f"[phase11] --profile {arm}:")
+        profile_summary(prof, run["wall_s"])
+        out[arm] = run["wall_s"]
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def prefix_async_phase(profile: bool = False) -> dict:
+    """Phase 11: (a) the prefix cache off / on (fp32 4 layers, strict, the
+    "on" arm recorded; hit-rate and async arms; bf16 28 layers reported),
+    (b) preemption of a sharer, (c) the async loop against the sync loop
+    on phase 10 (b)'s trace (fp32 4 layers with EOS and chaos arms; bf16
+    28 layers timed), (d) the CLI with --prefix-cache --async-depth 1 and
+    with --prefix-cache --prefix-evict hit-rate."""
+    out, launches = {}, {}
+    out["prefix/fp32/4"] = prefix_arms("float32", 4, recorded=True)
+    out["prefix/bf16/28"] = prefix_arms("bfloat16", 28)
+    out["shared_preempt"] = shared_preempt_arm()
+    out["loops/fp32/4"] = async_arms("float32", 4)
+    out["loops/bf16/28"] = async_arms("bfloat16", 28)
+    for key in ("prefix/fp32/4", "prefix/bf16/28", "loops/fp32/4", "loops/bf16/28"):
+        for arm, run in out[key].items():
+            if isinstance(run, dict) and "launches" in run:
+                launches[f"{key}/{arm}"] = run["launches"]
+    for arm, run in out["shared_preempt"].items():
+        launches[f"shared_preempt/{arm}"] = run["launches"]
+    out["profile"] = profile_loops(profile)
+    for tag, extra in (("prefix+async", ("--async-depth", "1")),
+                       ("prefix hit-rate", ("--prefix-evict", "hit-rate"))):
+        torch.cuda.synchronize()
+        reset_all_launches()
+        with SyncFreeDispatch():
+            res = serve_lib.main(cli_args("qwen3-0.6b", 1000, 3000, 8,
+                                          "--prefix-cache", *extra))
+        launches[f"cli/{tag}"] = _engine_launches(f"cli {tag}", "phase 11")
+        if res["failed"]:
+            raise AssertionError(f"phase 11 cli {tag}: failed {res['failed']}")
+        out[f"cli/{tag}"] = {k: res[k] for k in res if k not in ("tokens",)}
+        log(f"[phase11] cli {tag} " + json.dumps(out[f"cli/{tag}"]))
+    out["launches"] = launches
+    return out
+
+
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(x, device) for k, x in tree.items()}
@@ -2044,6 +2464,10 @@ def main() -> None:
     p10 = overload_phase()
     p10_launches = lambda key: {arm: n[key] for arm, n in p10["launches"].items()}
 
+    # Phase 11: the prefix cache and the async loop.
+    p11 = prefix_async_phase(profile=args.profile)
+    p11_launches = lambda key: {arm: n[key] for arm, n in p11["launches"].items()}
+
     kernels = []
     for key in ("score/decode", "score/chunk", "attend/decode", "attend/chunk"):
         kernel, lane = key.split("/")
@@ -2054,6 +2478,7 @@ def main() -> None:
             phase9_launches={m: p9["launches"][f"{m}/{key}"]
                              for m in ("engine", "fixed-batch")},
             phase10_launches=p10_launches(key),
+            phase11_launches=p11_launches(key),
             max_abs_err=max(r["max_abs_err"] for r in records[key].values()),
             ms=rec["ms"], host_ms=rec["host_ms"], plain_ms=rec["plain_ms"],
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
@@ -2067,6 +2492,7 @@ def main() -> None:
             phase9_launches={m: p9["launches"][f"{m}/{counter}"]
                              for m in ("engine", "fixed-batch")},
             phase10_launches=p10_launches(counter),
+            phase11_launches=p11_launches(counter),
             max_abs_err=max(r["max_abs_err"]
                             for r in records[f"{key}/prefill"].values()),
             ms=rec["ms"], host_ms=rec["host_ms"], plain_ms=rec["plain_ms"],

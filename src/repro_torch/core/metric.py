@@ -28,8 +28,8 @@ def _check_divisible(seq_len: int, block_size: int) -> int:
 
 def _f32_scale(x: torch.Tensor, s: int, head_dim: int) -> torch.Tensor:
     """``s * sqrt(head_dim)`` computed in float32, as the reference does."""
-    return s * torch.sqrt(torch.tensor(float(head_dim), dtype=torch.float32,
-                                       device=x.device))
+    return s * torch.sqrt(torch.full((), float(head_dim), dtype=torch.float32,
+                                     device=x.device))
 
 
 def antidiag_pool(x: torch.Tensor, block_size: int, stride: int) -> torch.Tensor:

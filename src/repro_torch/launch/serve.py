@@ -22,13 +22,16 @@ the ``--hp-*-slo-ms`` SLOs (the SLO scheduler may preempt a lower-priority
 request for it; ``--scheduler fcfs`` never does), ``--max-waiting`` sheds
 waiting-queue overflow, ``--admission-control`` rejects requests whose TTFT
 SLO is infeasible, and ``--chaos`` injects a fixed fault plan; failed
-requests are reported under ``failed``.
+requests are reported under ``failed``.  ``--prefix-cache`` shares whole
+prompt pages between requests (``--prefix-evict`` picks the cached pages'
+reclaim order) and ``--async-depth 1`` runs the async loop (on-device
+sampling, one-step lookahead dispatch).
 
 ``--policy <name>`` resolves a registered ``SparsityPolicy`` and rescales it
 to the serving geometry; without it, ``--stem`` picks the flag-built stem
 policy's sparse arm.  The port runs on ``--device`` (default ``cuda``).
-Flags whose feature the port does not have yet raise ``SystemExit`` naming
-the ``ROADMAP.md`` item that will lift them.
+``--mesh``, whose feature the port does not have yet, raises ``SystemExit``
+naming the ``ROADMAP.md`` item that will lift it.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
@@ -47,16 +50,8 @@ import torch
 
 # Flags of the reference whose feature the port lacks: (is it set, message).
 _UNPORTED = (
-    (lambda a: a.prefix_cache or a.prefix_evict != "lru",
-     "--prefix-cache / --prefix-evict: the prefix cache is ROADMAP.md queue 1 "
-     "item 5.3"),
     (lambda a: bool(a.mesh),
      "--mesh: mesh serving is ROADMAP.md queue 1 item 6"),
-    (lambda a: a.async_depth > 0,
-     "--async-depth > 0: the async loop is ROADMAP.md queue 1 item 5.4"),
-    (lambda a: a.sampler != "greedy",
-     "--sampler: only greedy sampling is ported; the temperature sampler is "
-     "ROADMAP.md queue 1 item 5.4"),
 )
 
 
@@ -128,10 +123,13 @@ def run_engine(args, cfg, bundle, params, stem_cfg, budget_frac):
         chunk_size=args.chunk_size or None,
         step_token_budget=args.step_token_budget or None,
         monolithic_prefill=args.monolithic,
+        prefix_cache=args.prefix_cache,
+        prefix_evict=args.prefix_evict,
         scheduler=args.scheduler,
         max_waiting=args.max_waiting or None,
         executor=args.executor or None,
         admission_control=args.admission_control,
+        async_depth=args.async_depth,
         sampler=args.sampler)
     chaos = None
     if args.chaos:
@@ -159,7 +157,7 @@ def run_engine(args, cfg, bundle, params, stem_cfg, budget_frac):
     out = {
         "mode": "engine",
         "prefill": "monolithic" if args.monolithic else "chunked",
-        "loop": "sync",
+        "loop": "async" if ecfg.async_depth else "sync",
         "scheduler": ecfg.scheduler,
         "mesh": None,
         "chunk_size": engine.chunk_size,
@@ -188,6 +186,10 @@ def run_engine(args, cfg, bundle, params, stem_cfg, budget_frac):
           f"{engine.stats['slots_reused']}, max concurrency "
           f"{engine.stats['max_concurrency']}", flush=True)
     s = engine.stats
+    if ecfg.async_depth:
+        print(f"  async: depth {ecfg.async_depth}, blocking host syncs "
+              f"{s['host_syncs']} over {s['id_fetches']} id fetches, "
+              f"lookahead discards {s['lookahead_discards']}", flush=True)
     if any(s[k] for k in ("preemptions", "shed", "aborts", "step_failures",
                           "restore_failures", "straggler_steps")):
         print(f"  resilience: preemptions {s['preemptions']} "
@@ -195,6 +197,12 @@ def run_engine(args, cfg, bundle, params, stem_cfg, budget_frac):
               f"{s['aborts']}, step failures {s['step_failures']}, restore "
               f"failures {s['restore_failures']}; offload peak "
               f"{metrics['offload_peak_bytes']} B", flush=True)
+    if args.prefix_cache:
+        print(f"  prefix cache: hits {s['prefix_hits']}, pages shared "
+              f"{s['prefix_pages_shared']}, cows {s['prefix_cows']}; "
+              f"allocator shares {engine.allocator.shares}, cached pages "
+              f"{engine.allocator.cached_pages}, total alloced "
+              f"{engine.allocator.total_alloced}", flush=True)
     if metrics["straggler_steps"]:
         worst = max(metrics["straggler_steps"], key=lambda f: f[1])
         print(f"  stragglers: {len(metrics['straggler_steps'])} flagged "
@@ -295,7 +303,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "first, then prefill chunks); 0 = auto "
                          "(max_slots + chunk)")
     ap.add_argument("--prefix-cache", action="store_true",
-                    help="not ported yet (ROADMAP.md queue 1 item 5.3)")
+                    help="share whole prompt pages between requests "
+                         "(chunked prefill only)")
     ap.add_argument("--monolithic", action="store_true",
                     help="one-shot admission prefill in place of chunks")
     ap.add_argument("--scheduler", choices=("slo", "fcfs"), default="slo",
@@ -320,15 +329,16 @@ def build_parser() -> argparse.ArgumentParser:
                          "oracle); empty = policy default")
     ap.add_argument("--prefix-evict", choices=("lru", "hit-rate"),
                     default="lru",
-                    help="not ported yet (ROADMAP.md queue 1 item 5.3)")
+                    help="reclaim order of cached prefix pages: least "
+                         "recently parked, or fewest prefix hits")
     ap.add_argument("--admission-control", action="store_true",
                     help="reject waiting requests whose TTFT SLO is "
                          "infeasible at the measured step time")
     ap.add_argument("--async-depth", type=int, default=0,
-                    help="0 = synchronous engine loop; > 0 is not ported "
-                         "yet (ROADMAP.md queue 1 item 5.4)")
+                    help="0 = synchronous engine loop; 1 = on-device "
+                         "sampling with one-step lookahead dispatch")
     ap.add_argument("--sampler", default="greedy",
-                    help="registered sampler; only 'greedy' is ported")
+                    help="registered on-device sampler (runtime/sampling.py)")
     ap.add_argument("--chaos", action="store_true",
                     help="inject a fixed fault plan (alloc denial at step 2, "
                          "step failure at 4, restore failure at 7); the run "

@@ -2,7 +2,9 @@
 ``make_prefill_step``, ``set_cache_positions`` and ``make_serve_step`` from
 ``repro/launch/steps.py``, single device).  PyTorch runs eagerly, so each
 step is a plain closure; the reference's trace counting and mesh wrapping
-have no counterpart here."""
+have no counterpart here, and the page extract / restore / copy steps are
+the engine's direct calls of ``runtime/offload.py`` and
+``paged.copy_pages_stacked``."""
 from __future__ import annotations
 
 import torch
@@ -12,10 +14,16 @@ from repro_torch.models import attention, transformer
 
 
 def make_unified_step(bundle, *, stem_cfg, budget_frac: float = 1.0,
-                      chunk_k_max: int = 0):
+                      chunk_k_max: int = 0, sampler=None):
     """(params, pools, tokens (S, 1), page_table (S, P), cache_lens (S,),
     chunk) -> (decode logits (S, vocab), chunk logits (L, vocab) | None,
     pools), one mixed batch per call (``transformer.paged_mixed_step``).
+
+    With ``sampler`` the step is the async engine's sampled one
+    (``transformer.paged_sampled_step``): (params, pools, token_buf
+    (S + 1,), dec_mask (S,), page_table, cache_lens, chunk) -> (dec_ids
+    (S,), chunk_ids (L,) | None, token_buf, pools); ``chunk`` then also
+    carries ``slot`` and ``emit``.
 
     Every layer reads the paged backend from ``policy.executor`` ("fused" |
     "gather")."""
@@ -24,12 +32,22 @@ def make_unified_step(bundle, *, stem_cfg, budget_frac: float = 1.0,
     policy = policy_lib.as_policy(stem_cfg)
     policy_lib.get_paged_executor(policy.executor)   # unknown names raise now
 
-    def unified_step(params, pools, tokens, page_table, cache_lens, chunk=None):
-        return transformer.paged_mixed_step(
-            params, tokens, pools, page_table, cache_lens, cfg,
-            stem_cfg=policy, budget_frac=budget_frac, chunk=chunk,
-            chunk_k_max=chunk_k_max)
-    return unified_step
+    if sampler is None:
+        def unified_step(params, pools, tokens, page_table, cache_lens,
+                         chunk=None):
+            return transformer.paged_mixed_step(
+                params, tokens, pools, page_table, cache_lens, cfg,
+                stem_cfg=policy, budget_frac=budget_frac, chunk=chunk,
+                chunk_k_max=chunk_k_max)
+        return unified_step
+
+    def unified_sampled(params, pools, token_buf, dec_mask, page_table,
+                        cache_lens, chunk=None):
+        return transformer.paged_sampled_step(
+            params, token_buf, pools, page_table, cache_lens, dec_mask, cfg,
+            stem_cfg=policy, sampler=sampler, budget_frac=budget_frac,
+            chunk=chunk, chunk_k_max=chunk_k_max)
+    return unified_sampled
 
 
 def make_prefill_step(bundle, *, max_len: int, stem_cfg=None, policies=None):

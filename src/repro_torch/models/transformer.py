@@ -17,6 +17,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import chunked as chunked_lib
 from repro_torch.core import policy as policy_lib
 from repro_torch.models import attention, common, mlp
 from repro_torch.runtime import paged as paged_lib
@@ -361,6 +362,50 @@ def prefill_kv_pages(params, tokens: torch.Tensor, true_len, pools,
     return logits[0], pools
 
 
+def prefill_kv_pages_suffix(params, tokens, true_len, start: int, pools,
+                            page_row: torch.Tensor, cfg: ArchConfig, stem_cfg):
+    """Prefill ONE request's unmatched suffix against already-written prefix
+    pages, in place: the prefix cache's admission entry.
+
+    Positions ``[start, Lp)`` run as one chunk lane of ``paged_mixed_step``:
+    the chunk's queries attend causally over the whole prompt through the
+    page table, so the leading ``start / page_size`` pages of ``page_row``
+    may be prefix pages shared with other slots — read, never written.  The
+    caller resets the private (suffix + spill) pages beforehand and leaves
+    the shared ones alone.
+
+    tokens: (1, Lp) right-padded to a page multiple; true_len: its length
+    (> start); start: the block-aligned matched-prefix offset; page_row:
+    (max_pages_per_slot,) trash-padded.  The policy's executor is the
+    chunk lane's backend.  Returns (next-token logits (vocab,), pools)."""
+    stem_cfg = policy_lib.as_policy(stem_cfg)
+    bs = stem_cfg.block_size
+    lp = tokens.shape[1]
+    if start % bs != 0 or not 0 <= start < lp:
+        raise ValueError(f"matched-prefix offset {start} must be a block "
+                         f"multiple inside the padded prompt (Lp={lp})")
+    nc = (lp - start) // bs
+    dev = tokens.device
+    tl = int(true_len)
+    budgets = chunked_lib.chunk_budget_rows(stem_cfg, lp, start, nc)
+    chunk = {
+        "tokens": tokens[:, start:],
+        "page_table": page_row[None].to(torch.int32),
+        "start": torch.full((1,), start, dtype=torch.int32, device=dev),
+        "true_len": torch.full((1,), tl, dtype=torch.int32, device=dev),
+        "budgets": torch.as_tensor(budgets[None], dtype=torch.int32, device=dev),
+        "last": torch.full((1,), tl - 1 - start, dtype=torch.int32, device=dev),
+    }
+    # Idle decode lane: a zero page table sends its write to the trash page.
+    maxp = page_row.shape[0]
+    _, chunk_logits, pools = paged_mixed_step(
+        params, torch.zeros((1, 1), dtype=torch.int32, device=dev), pools,
+        torch.zeros((1, maxp), dtype=torch.int32, device=dev),
+        torch.zeros((1,), dtype=torch.int32, device=dev), cfg,
+        stem_cfg=stem_cfg, chunk=chunk)
+    return chunk_logits[0], pools
+
+
 def _logits(params, x, cfg: ArchConfig):
     x = common.rms_norm(x, params["final_norm"])
     if cfg.tie_embeddings:
@@ -418,6 +463,41 @@ def paged_mixed_step(params, tokens, pools, page_table, cache_lens,
         xl = torch.take_along_dim(xc, last[:, None, None], dim=1)
         chunk_logits = _logits(params, xl, cfg)[:, 0]
     return dec_logits, chunk_logits, pools
+
+
+def paged_sampled_step(params, token_buf, pools, page_table, cache_lens,
+                       dec_mask, cfg: ArchConfig, *, stem_cfg, sampler,
+                       budget_frac: float = 1.0, chunk=None,
+                       chunk_k_max: int = 0):
+    """``paged_mixed_step`` with sampling on the device: the async engine's
+    step.  The decode lane reads its tokens from ``token_buf`` — the
+    device-resident fed-back token buffer, ``(slots + 1,)`` int32 whose last
+    entry is a trash entry — and the buffer is advanced in place:
+
+      * decode lanes granted this step (``dec_mask`` (slots,) bool) write
+        their sampled id back (the next step's input); the others keep
+        their pending token;
+      * a chunk lane that completes a prefill (``chunk["emit"]`` (L,) bool)
+        writes its sampled first token into the entry of ``chunk["slot"]``;
+        the other lanes write into the trash entry (the reference drops
+        out-of-range targets; a boolean mask would give a data-dependent
+        shape and a host sync).
+
+    Returns (dec_ids (slots,) int32, chunk_ids (L,) int32 | None, token_buf,
+    pools)."""
+    slots = dec_mask.shape[0]
+    dec_logits, chunk_logits, pools = paged_mixed_step(
+        params, token_buf[:slots, None], pools, page_table, cache_lens, cfg,
+        stem_cfg=stem_cfg, budget_frac=budget_frac, chunk=chunk,
+        chunk_k_max=chunk_k_max)
+    dec_ids = sampler(dec_logits)
+    token_buf[:slots] = torch.where(dec_mask, dec_ids, token_buf[:slots])
+    chunk_ids = None
+    if chunk is not None:
+        chunk_ids = sampler(chunk_logits)
+        target = torch.where(chunk["emit"], chunk["slot"].long(), slots)
+        token_buf.index_copy_(0, target, chunk_ids)
+    return dec_ids, chunk_ids, token_buf, pools
 
 
 def paged_decode_step(params, tokens, pools, page_table, cache_lens,

@@ -50,13 +50,35 @@ the host fetches one int.  Decode then runs in the mixed step as usual.
 This is also the only path that serves budget-free (threshold) selectors
 such as ``xattention``, which chunked prefill refuses.
 
-The loop is synchronous: the step's logits stay on the device, the
-registered sampler (greedy: first maximal index) reduces them to ids, and
-the host fetches only the ids.  The pools are updated in place (the
-reference's are functional), which is why every failure injection sits
-ahead of the pool writes it guards.  PyTorch runs eagerly, so the engine
-has no trace counter (the reference's ``traces`` / ``prefill_traces``).
-Not ported yet: the prefix cache, the async loop and mesh serving.
+With ``EngineConfig(prefix_cache=True)`` admission probes the allocator's
+prefix index for the prompt's whole pages (chained content keys,
+``paged.prefix_page_keys``), maps the hits read-only at the head of the
+slot's page table and starts the prefill past them: only the unmatched
+suffix is prefilled and only its pages are allocated.  The page holding
+the prompt's last token is always replayed; when it matched (a fully
+matched page-multiple prompt) it is copied on write into a private page.
+A completed prompt registers its full pages; at refcount 0 they park in
+the allocator's cached set until ``alloc`` reclaims them (``prefix_evict``
+"lru" | "hit-rate").  A preempted request snapshots only its private
+pages and keeps one reference on each shared page until it is restored.
+
+The synchronous loop (``async_depth=0``, the differential oracle): the
+step's logits stay on the device, the registered sampler (greedy: first
+maximal index) reduces them to ids, and the host blocks on the ids.  With
+``async_depth=1`` the sampler runs inside the step
+(``transformer.paged_sampled_step``), the fed-back decode tokens live in a
+device-resident buffer, and the host dispatches step N+1 while step N is
+still running: the step's inputs go up from pinned host buffers without
+blocking, its ids come back the same way behind an event, and only
+``_reconcile`` waits.  EOS is reconciled one step late; the one
+speculative step of a finished request writes only into its own
+still-reserved pages, and every pool write runs on the one compute stream,
+so the streams equal the synchronous loop's bitwise.
+
+The pools are updated in place (the reference's are functional), which is
+why every failure injection sits ahead of the pool writes it guards.
+PyTorch runs eagerly, so the engine has no trace counter (the reference's
+``traces`` / ``prefill_traces``).  Not ported yet: mesh serving.
 """
 from __future__ import annotations
 
@@ -161,7 +183,13 @@ class EngineConfig:
     without a chunk before one is forced; ``straggler_threshold`` the
     step-time outlier factor of the ``StragglerMonitor``;
     ``admission_control`` rejects an arrived request whose TTFT SLO is
-    infeasible at the measured step time (off by default)."""
+    infeasible at the measured step time (off by default).
+
+    ``prefix_cache`` shares whole prompt pages between requests through
+    the allocator's prefix index (chunked prefill only); ``prefix_evict``
+    is the cached pages' reclaim order, "lru" or "hit-rate".
+    ``async_depth`` 0 is the synchronous loop, 1 the one-step-lookahead
+    async loop (chunked prefill only)."""
     max_slots: int = 4
     num_pages: int = 64
     max_pages_per_slot: int = 16
@@ -171,6 +199,7 @@ class EngineConfig:
     chunk_size: Optional[int] = None
     step_token_budget: Optional[int] = None
     monolithic_prefill: bool = False
+    prefix_cache: bool = False
     scheduler: str = "slo"
     preemption: bool = True
     max_waiting: Optional[int] = None
@@ -178,13 +207,33 @@ class EngineConfig:
     max_restore_retries: int = 2
     chunk_starve_steps: int = 4
     straggler_threshold: float = 3.0
+    prefix_evict: str = "lru"
     admission_control: bool = False
+    async_depth: int = 0
     sampler: str = "greedy"
 
     def __post_init__(self):
         if self.scheduler not in ("slo", "fcfs"):
             raise ValueError(f"unknown scheduler {self.scheduler!r} "
                              "(expected 'slo' or 'fcfs')")
+        if self.prefix_cache and self.monolithic_prefill:
+            raise ValueError(
+                "prefix_cache needs chunked prefill (the matched-prefix "
+                "skip is chunk-granular); disable monolithic_prefill")
+        if self.prefix_evict not in paged_lib.PageAllocator.EVICT_POLICIES:
+            raise ValueError(
+                f"prefix_evict must be one of "
+                f"{paged_lib.PageAllocator.EVICT_POLICIES}, "
+                f"got {self.prefix_evict!r}")
+        if self.async_depth not in (0, 1):
+            raise ValueError(
+                f"async_depth must be 0 (synchronous) or 1 (one-step "
+                f"lookahead), got {self.async_depth!r}")
+        if self.async_depth and self.monolithic_prefill:
+            raise ValueError(
+                "the async pipeline runs through the unified chunked step "
+                "(monolithic admission prefill blocks the host per "
+                "admission); disable monolithic_prefill")
         sampling_lib.get_sampler(self.sampler)   # validate the name early
 
     @classmethod
@@ -221,22 +270,120 @@ class _SlotState:
     token_latencies_s: list = dataclasses.field(default_factory=list)
     preemptions: int = 0
     last_sched_step: int = 0      # last step granted a decode token
+    prefix_keys: list = dataclasses.field(default_factory=list)
+                                  # chained key per full prompt page, to
+                                  # register once the prefill completes
+    inflight: int = 0             # async: dispatched, unreconciled tokens
+    finished: bool = False        # async: terminal — in-flight results for
+                                  # this request are discarded
 
 
 @dataclasses.dataclass
 class _Preempted:
-    """A swapped-out request: slot state frozen, its pages on the host."""
+    """A swapped-out request: slot state frozen, its private pages on the
+    host.  Shared prefix pages are not snapshotted (co-tenants may read
+    them); the record keeps one reference on each until the restore."""
     st: _SlotState
-    npages: int                   # device pages to re-reserve
+    npages: int                   # private device pages to re-reserve
     cache_len: int                # cache_lens value at preemption
     seq: int                      # original submission order
     preempt_step: int
     restore_attempts: int = 0
+    shared_pages: list = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class _InFlight:
+    """One dispatched, unreconciled async step.  Its sampled ids land in
+    the host buffer ``buf`` of the staging ring once ``event`` completes
+    (None on the CPU).  The slot states pin the requests the ids belong
+    to: a slot may be recycled before the reconcile, its state cannot, and
+    a finished state marks its entries for discard."""
+    buf: int
+    event: Optional[object]
+    dec: list                     # [(slot, _SlotState), ...]
+    chunks: list                  # [(lane, slot, _SlotState, completes)]
+    step: int                     # engine step at dispatch
+    dispatch_t: float
+
+
+@dataclasses.dataclass
+class _PrefixMatch:
+    """Admission-time prefix probe, references already taken.  ``shared``:
+    matched pages mapped read-only (ahead of the replayed last-token page).
+    ``cow``: a matched last-token page (a fully matched page-multiple
+    prompt), which the replayed chunk rewrites — copied on write.
+    ``keys``: the chained key of every full prompt page."""
+    keys: list
+    shared: list
+    cow: list
+
+
+class _StagingRing:
+    """Host staging of the async step: ``depth + 1`` sets, each one int32
+    input buffer (the step's whole host-built input, packed) and one int32
+    output buffer (its sampled ids).  On a card the buffers are pinned: the
+    input goes up with one ``non_blocking`` copy into a device buffer
+    (stream order keeps a later copy behind the step that reads it), the
+    ids come back with ``non_blocking`` copies and an event, and a set is
+    written again only after the event behind its last use has completed.
+    On the CPU the step reads the input buffer itself."""
+
+    def __init__(self, n_in: int, n_out: int, depth: int,
+                 device: torch.device):
+        self.cuda = device.type == "cuda"
+        mk = lambda n: torch.zeros((n,), dtype=torch.int32,
+                                   pin_memory=self.cuda)
+        self.inp = [mk(n_in) for _ in range(depth + 1)]
+        self.out = [mk(n_out) for _ in range(depth + 1)]
+        self.done: list = [None] * (depth + 1)
+        self.dev = (torch.zeros((n_in,), dtype=torch.int32, device=device)
+                    if self.cuda else None)
+        self._next = 0
+
+    def acquire(self) -> int:
+        """The next set, once the event behind its last use completed."""
+        k = self._next
+        self._next = (k + 1) % len(self.inp)
+        if self.done[k] is not None:
+            self.done[k].synchronize()
+            self.done[k] = None
+        return k
+
+    def upload(self, k: int, n: int) -> torch.Tensor:
+        """The first ``n`` entries of input set ``k`` on the device."""
+        if not self.cuda:
+            return self.inp[k][:n]
+        dev = self.dev[:n]
+        dev.copy_(self.inp[k][:n], non_blocking=True)
+        return dev
+
+    def fetch(self, k: int, parts) -> Optional[object]:
+        """Copy each ``(offset, ids)`` into output set ``k``; returns the
+        event that completes with the copies (None on the CPU)."""
+        for off, ids in parts:
+            self.out[k][off:off + ids.shape[0]].copy_(ids, non_blocking=True)
+        if not self.cuda:
+            return None
+        ev = torch.cuda.Event()
+        ev.record()
+        self.done[k] = ev
+        return ev
 
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` without blocking the host: through pinned
+    memory on a card (the caching host allocator keeps the block until the
+    copy has run)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 class StemEngine:
@@ -277,10 +424,12 @@ class StemEngine:
         S, P = ecfg.max_slots, ecfg.max_pages_per_slot
         self.pools = transformer.init_page_pools(
             bundle.cfg, ecfg.num_pages, self.policy, device=self.device)
-        self.allocator = paged_lib.PageAllocator(ecfg.num_pages)
+        self.allocator = paged_lib.PageAllocator(
+            ecfg.num_pages, evict_policy=ecfg.prefix_evict)
         self.page_table = np.zeros((S, P), np.int32)
         self.cache_lens = np.zeros((S,), np.int32)
         self.slot_pages: list = [None] * S
+        self.slot_nshared = [0] * S            # leading prefix-shared pages
         self.slots: list = [None] * S
         self.waiting: collections.deque = collections.deque()
         self.preempted: list = []              # _Preempted records
@@ -294,8 +443,12 @@ class StemEngine:
                       "step_failures": 0, "aborts": 0, "shed": 0,
                       "decode_deferrals": 0, "chunk_caps": 0,
                       "starvation_grants": 0, "alloc_denials": 0,
-                      "straggler_steps": 0, "admission_rejects": 0,
-                      "restore_bytes": 0}
+                      "straggler_steps": 0, "prefix_hits": 0,
+                      "prefix_pages_shared": 0, "prefix_cows": 0,
+                      "admission_rejects": 0, "host_syncs": 0,
+                      "id_fetches": 0, "lookahead_discards": 0,
+                      "restore_bytes": 0, "dispatch_s": 0.0,
+                      "sync_wait_s": 0.0}
         self._slot_ever_used = [False] * S
         self._seq: dict = {}                   # uid -> submission order
         self._arrival_t: dict = {}             # uid -> first-schedulable wall
@@ -307,13 +460,38 @@ class StemEngine:
         # admissible prompt can reach.
         k_bound = (0 if ecfg.monolithic_prefill else
                    chunked_lib.chunk_budget_bound(self.policy, P))
+        self._async = ecfg.async_depth > 0
         self._unified = steps_lib.make_unified_step(
             bundle, stem_cfg=self.policy, budget_frac=ecfg.budget_frac,
-            chunk_k_max=k_bound)
+            chunk_k_max=k_bound, sampler=self.sampler if self._async else None)
         self._prefill = None
         if ecfg.monolithic_prefill:
             self._prefill = steps_lib.make_monolithic_prefill(
                 bundle, stem_cfg=self.policy, sampler=self.sampler)
+        # Async pipeline state: the device-resident fed-back token buffer
+        # (one entry per slot plus a trash entry for idle chunk lanes), the
+        # host staging ring and the dispatched, unreconciled steps.
+        self._inflight: collections.deque = collections.deque()
+        self.token_buf = None
+        self._ring = None
+        if self._async:
+            L, C = self.chunk_lanes, self.chunk_size
+            nc = C // self.page_size
+            self.token_buf = torch.zeros((S + 1,), dtype=torch.int32,
+                                         device=self.device)
+            # The packed input of a step: (name, offset, rows, width), the
+            # decode lane's fields first (a decode-only step sends those).
+            fields = (("mask", S, 1), ("lens", S, 1), ("table", S, P),
+                      ("tokens", L, C), ("page_table", L, P),
+                      ("budgets", L, nc), ("start", L, 1), ("true_len", L, 1),
+                      ("last", L, 1), ("slot", L, 1), ("emit", L, 1))
+            self._layout, off = [], 0
+            for name, rows, width in fields:
+                self._layout.append((name, off, rows, width))
+                off += rows * width
+            self._dec_n = S * (P + 2)
+            self._ring = _StagingRing(off, S + L, ecfg.async_depth,
+                                      self.device)
         # Restore-cost model: preemption victims are priced by the bytes
         # their restore moves host -> device over a measured-bandwidth EMA
         # (seeded pessimistically until the first timed restore).
@@ -343,15 +521,16 @@ class StemEngine:
         or the allocator — e.g. after a warm-up pass.  The straggler EMA
         stays warm; only its flag history resets."""
         self.finished.clear()
-        self.stats.update({k: 0 for k in self.stats})
+        self.stats.update({k: type(v)() for k, v in self.stats.items()})
         self._slot_ever_used = [False] * self.ecfg.max_slots
         self.monitor.flagged.clear()
 
     @property
     def metrics(self) -> dict:
-        """Live observability: straggler flags, offload residency, chaos
-        counters."""
+        """Live observability: in-flight steps, straggler flags, offload
+        residency, prefix sharing, chaos counters."""
         return {
+            "inflight_steps": len(self._inflight),
             "h2d_bw_bytes_per_s": self._h2d_bw_ema,
             "step_time_ema_s": self.monitor.ema,
             "straggler_steps": list(self.monitor.flagged),
@@ -361,6 +540,8 @@ class StemEngine:
             "allocator_evictions": self.allocator.evictions,
             "allocator_restores": self.allocator.restores,
             "allocator_total_alloced": self.allocator.total_alloced,
+            "prefix_shares": self.allocator.shares,
+            "prefix_cached_pages": self.allocator.cached_pages,
             "chaos": self.chaos.counts if self.chaos else None,
         }
 
@@ -368,42 +549,57 @@ class StemEngine:
         return next((s for s, st in enumerate(self.slots) if st is None), None)
 
     def _check_pages(self) -> None:
-        """Conservation after any path that moves pages: the pages the
-        slots hold must be exactly the allocator's allocated set."""
-        self.allocator.check_conservation(
-            [p for pages in self.slot_pages if pages for p in pages])
+        """Refcount conservation after any path that moves pages: one
+        reference per slot-held page plus one per shared page an offloaded
+        request pins must equal the allocator's refcounts (a multiset: a
+        page shared by k slots appears k times)."""
+        held = [p for pages in self.slot_pages if pages for p in pages]
+        held += [p for rec in self.preempted for p in rec.shared_pages]
+        self.allocator.check_conservation(held)
 
     # -- preemption + host offload ------------------------------------------
 
     def preempt(self, slot: int) -> None:
-        """Swap a running request out to host memory: gather its pages
-        (K/V + kg / vm summaries) into a pinned host snapshot, evict them,
-        and park the frozen slot state on the preempted list.  Re-admission
-        restores bit-identically with zero recompute."""
+        """Swap a running request out to host memory: gather its private
+        pages (K/V + kg / vm summaries) into a pinned host snapshot, evict
+        them, and park the frozen slot state on the preempted list.  Shared
+        prefix pages stay on the device for their co-tenants; the record
+        keeps this request's reference on each.  Re-admission restores
+        bit-identically with zero recompute.  Async: the in-flight steps
+        are reconciled first (host tokens and ``cache_lens`` must agree
+        with the pages the snapshot gathers)."""
+        if self._async and self._inflight:
+            self._drain()
         st = self.slots[slot]
         if st is None:
             raise ValueError(f"slot {slot} is not active")
         pages = self.slot_pages[slot]
+        nshared = self.slot_nshared[slot]
+        shared, private = pages[:nshared], pages[nshared:]
         snap = offload_lib.gather_pages(
-            self.pools, torch.as_tensor(pages, device=self.device))
-        self.host_store.put(st.req.uid, snap)
+            self.pools, torch.as_tensor(private, device=self.device))
+        self.host_store.put(st.req.uid, snap, pinned=shared)
         st.preemptions += 1
         self.preempted.append(_Preempted(
-            st=st, npages=len(pages), cache_len=int(self.cache_lens[slot]),
-            seq=self._seq[st.req.uid], preempt_step=self.step_count))
-        self.allocator.evict(pages)
+            st=st, npages=len(private), cache_len=int(self.cache_lens[slot]),
+            seq=self._seq[st.req.uid], preempt_step=self.step_count,
+            shared_pages=list(shared)))
+        self.allocator.evict(private)
         self.page_table[slot] = 0
         self.cache_lens[slot] = 0
         self.slot_pages[slot] = None
+        self.slot_nshared[slot] = 0
         self.slots[slot] = None
         self.stats["preemptions"] += 1
         self._check_pages()
 
     def _admit_restore(self, rec: _Preempted, slot: int, pages: list) -> bool:
-        """Swap a preempted request back in: scatter its snapshot into the
-        fresh pages.  On an injected restore failure: free the fresh pages,
-        keep the snapshot, retry on a later step — or abort the request
-        with an explicit error once ``max_restore_retries`` is exhausted."""
+        """Swap a preempted request back in: scatter its private snapshot
+        into the fresh pages; its pinned shared pages re-enter the page
+        table first, untouched.  On an injected restore failure: free the
+        fresh pages, keep the snapshot and the pins, retry on a later step
+        — or abort the request with an explicit error once
+        ``max_restore_retries`` is exhausted (releasing the pins)."""
         uid = rec.st.req.uid
         # Injection point: ahead of the scatter, which writes the pools in
         # place — a failed restore must leave no page written.
@@ -416,6 +612,8 @@ class StemEngine:
             self.stats["restore_failures"] += 1
             if rec.restore_attempts > self.ecfg.max_restore_retries:
                 self.host_store.drop(uid)
+                if rec.shared_pages:
+                    self.allocator.free(rec.shared_pages)
                 self.stats["aborts"] += 1
                 self._finish_with_error(
                     rec.st, slot=-1,
@@ -425,6 +623,10 @@ class StemEngine:
                 self.preempted.append(rec)
             self._check_pages()
             return False
+        if self._async and self._inflight:
+            # Reconcile first, so the synchronized scatter below times the
+            # link and not the in-flight steps.
+            self._drain()
         snap = self.host_store.pop(uid)
         ids = torch.as_tensor(pages, device=self.device)
         # Time the host -> device scatter (synchronized on both sides) for
@@ -439,14 +641,20 @@ class StemEngine:
             bw = nbytes / max(time.perf_counter() - t0, 1e-9)
             self._h2d_bw_ema = (bw if self._h2d_bw_ema is None
                                 else 0.5 * self._h2d_bw_ema + 0.5 * bw)
+        if self._async and rec.st.tokens:
+            # Re-seed the fed-back token buffer: the restored request's next
+            # decode step feeds its last emitted token.
+            self.token_buf[slot:slot + 1].fill_(rec.st.tokens[-1])
+        all_pages = list(rec.shared_pages) + list(pages)
         row = np.zeros((self.ecfg.max_pages_per_slot,), np.int32)
-        row[:len(pages)] = pages
+        row[:len(all_pages)] = all_pages
         if self._slot_ever_used[slot]:
             self.stats["slots_reused"] += 1
         self._slot_ever_used[slot] = True
         self.page_table[slot] = row
         self.cache_lens[slot] = rec.cache_len
-        self.slot_pages[slot] = list(pages)
+        self.slot_pages[slot] = all_pages
+        self.slot_nshared[slot] = len(rec.shared_pages)
         self.slots[slot] = rec.st
         self.stats["restores"] += 1
         self._check_pages()
@@ -463,7 +671,23 @@ class StemEngine:
                    if st is not None and st.req.priority < priority]
         if not victims:
             return False
-        reclaimable = sum(len(self.slot_pages[s]) for s in victims)
+        if self._async and self._inflight:
+            # Reconcile before evicting anyone: an in-flight step may finish
+            # a request outright, freeing its slot and pages.  (The
+            # reference drains before looking for a victim, so a queue
+            # blocked on slots drains the pipeline every step; with no
+            # victim there is nothing to evict and no reason to wait.)
+            self._drain()
+            if (self._free_slot() is not None
+                    and self.allocator.available >= need_pages):
+                return True
+            victims = [s for s in victims if self.slots[s] is not None]
+            if not victims:
+                return False
+        # Only a victim's private pages come back (its shared pages stay
+        # pinned by its preemption record).
+        reclaimable = sum(len(self.slot_pages[s]) - self.slot_nshared[s]
+                          for s in victims)
         if self.allocator.available + reclaimable < need_pages:
             return False
         # The victim class is the LOWEST priority present; within it, evict
@@ -481,14 +705,17 @@ class StemEngine:
     _BW_SEED = 8e9
 
     def _restore_cost_s(self, slot: int) -> float:
-        """Estimated seconds to swap ``slot`` back in: its pages x page
-        bytes over the measured restore bandwidth EMA."""
-        return (len(self.slot_pages[slot]) * self._page_nbytes
+        """Estimated seconds to swap ``slot`` back in: its private pages x
+        page bytes over the measured restore bandwidth EMA (shared pages
+        stay on the device either way)."""
+        private = len(self.slot_pages[slot]) - self.slot_nshared[slot]
+        return (private * self._page_nbytes
                 / (self._h2d_bw_ema or self._BW_SEED))
 
     # -- failure paths ------------------------------------------------------
 
     def _finish_with_error(self, st: _SlotState, slot: int, error: str) -> None:
+        st.finished = True   # async: in-flight work for it is discarded
         tpot = (float("nan") if len(st.tokens) < 2 else
                 (st.last_token_t - st.first_token_t) / (len(st.tokens) - 1))
         self.finished.append(FinishedRequest(
@@ -502,10 +729,14 @@ class StemEngine:
         self._seq.pop(st.req.uid, None)   # the uid may be resubmitted
 
     def _release_slot(self, slot: int) -> None:
+        # Shared references drop by one (co-tenants keep the pages); a
+        # registered page at refcount 0 parks in the cached set, contents
+        # intact, so the next tenant with this prefix still hits.
         self.allocator.free(self.slot_pages[slot])
         self.page_table[slot] = 0
         self.cache_lens[slot] = 0
         self.slot_pages[slot] = None
+        self.slot_nshared[slot] = 0
         self.slots[slot] = None
 
     def _abort(self, slot: int, error: str) -> None:
@@ -630,17 +861,48 @@ class StemEngine:
         self._admit_loop()
         self._shed()
 
+    def _probe_prefix(self, req: Request) -> _PrefixMatch:
+        """Probe the prefix index for the request's whole prompt pages and
+        take a reference on every hit before any allocation (an alloc
+        drawing on the cached set could otherwise reclaim a probed page);
+        the caller releases them if admission blocks.  The longest matched
+        chain wins: a miss at page j ends the scan."""
+        plen = len(req.prompt)
+        bs = self.page_size
+        budgets = self.policy.prefill_budgets(-(-plen // bs) * bs)
+        keys = paged_lib.prefix_page_keys(req.prompt, budgets, bs)
+        # The page holding the prompt's last token is always replayed (it
+        # yields the first token's logits) and its chunk rewrites it: a hit
+        # there is copied on write.
+        last_page = (plen - 1) // bs
+        shared, cow = [], []
+        for j, key in enumerate(keys):
+            p = self.allocator.probe(key)
+            if p is None:
+                break
+            self.allocator.share(p)
+            (shared if j < last_page else cow).append(p)
+        return _PrefixMatch(keys=keys, shared=shared, cow=cow)
+
+    def _release_prefix(self, prefix: Optional[_PrefixMatch]) -> None:
+        if prefix is not None and (prefix.shared or prefix.cow):
+            self.allocator.free(prefix.shared + prefix.cow)
+
     def _admit_loop(self) -> None:
         while True:
             cand = self._next_candidate()
             if cand is None:
                 return
             kind, idx = cand
+            prefix = None
             if kind == "new":
                 req = self.waiting[idx]
                 prio = req.priority
                 npages = pages_needed(len(req.prompt), req.max_new_tokens,
                                       self.page_size)
+                if self.ecfg.prefix_cache:
+                    prefix = self._probe_prefix(req)
+                    npages -= len(prefix.shared)
             else:
                 rec = self.preempted[idx]
                 prio = rec.st.req.priority
@@ -648,34 +910,44 @@ class StemEngine:
             slot = self._free_slot()
             if slot is None:
                 if not self._try_preempt_for(prio, npages):
+                    self._release_prefix(prefix)
                     return                  # slot-blocked: the head waits
                 slot = self._free_slot()
             pages, denied = self._try_alloc(npages, restore=(kind == "pre"))
             while pages is None and not denied:
                 if not self._try_preempt_for(prio, npages):
-                    return                  # memory-blocked: the head waits
+                    break
                 pages, denied = self._try_alloc(npages,
                                                 restore=(kind == "pre"))
-            if denied:
-                return                      # transient exhaustion: retry later
+            if pages is None:
+                # memory-blocked, or a transient denial: the head waits
+                self._release_prefix(prefix)
+                return
             if kind == "pre":
                 del self.preempted[idx]
                 if not self._admit_restore(rec, slot, pages):
                     return                  # restore failed: handled inside
                 continue
             del self.waiting[idx]
-            self._admit_new(req, slot, pages)
+            self._admit_new(req, slot, pages, prefix)
 
-    def _admit_new(self, req: Request, slot: int, pages: list) -> None:
+    def _admit_new(self, req: Request, slot: int, pages: list,
+                   prefix: Optional[_PrefixMatch] = None) -> None:
         plen = len(req.prompt)
         padded_len = -(-plen // self.page_size) * self.page_size
+        shared = list(prefix.shared) if prefix else []
+        n_share = len(shared)
+        all_pages = shared + list(pages)
+        # Shared prefix pages first (the page table is position-ordered),
+        # then the private allocation, trash-padded.
         row = np.zeros((self.ecfg.max_pages_per_slot,), np.int32)
-        row[:len(pages)] = pages
+        row[:len(all_pages)] = all_pages
         if self._slot_ever_used[slot]:
             self.stats["slots_reused"] += 1
         self._slot_ever_used[slot] = True
         self.page_table[slot] = row
-        self.slot_pages[slot] = list(pages)
+        self.slot_pages[slot] = all_pages
+        self.slot_nshared[slot] = n_share
         now = time.perf_counter()
         arrival = self._arrival_t.get(req.uid, now)
         ptoks = np.zeros((padded_len,), np.int32)
@@ -689,6 +961,7 @@ class StemEngine:
                 self.params, torch.as_tensor(ptoks[None], device=self.device),
                 plen, self.pools, torch.as_tensor(row, device=self.device))
             first = int(first_id)
+            self.stats["id_fetches"] += 1
             done = time.perf_counter()
             self.stats["prefills"] += 1
             self.stats["tokens_generated"] += 1
@@ -705,15 +978,35 @@ class StemEngine:
             return
 
         # Recycled pages are dirty; chunk writes + decode increments assume
-        # pristine pages.  The reset row is trash-padded to a fixed width.
-        paged_lib.reset_pools_stacked(
-            self.pools, torch.as_tensor(row, device=self.device))
+        # pristine pages.  Only the private reservation is reset: shared
+        # prefix pages hold live contents.  The row is trash-padded.
+        fresh = np.zeros((self.ecfg.max_pages_per_slot,), np.int32)
+        fresh[:len(pages)] = pages
+        paged_lib.reset_pools_stacked(self.pools, _upload(fresh, self.device))
+        if prefix and prefix.cow:
+            # Copy on write: the matched last-token page of a fully matched
+            # page-multiple prompt is replayed, and its chunk rewrites it —
+            # so its contents go to the private page at table index n_share
+            # and the probe's reference on the original is dropped.
+            src = prefix.cow[0]
+            paged_lib.copy_pages_stacked(self.pools, src, pages[0])
+            self.allocator.free([src])
+            self.allocator.cows += 1      # the private page came from the
+                                          # bulk alloc, not allocator.cow()
+            self.stats["prefix_cows"] += 1
+        if prefix and (prefix.shared or prefix.cow):
+            self.stats["prefix_hits"] += 1
+            self.stats["prefix_pages_shared"] += n_share
         self.cache_lens[slot] = 0
+        # The prefill cursor starts past the matched prefix: only the
+        # unmatched suffix (at least the replayed last-token page) runs
+        # through the chunk lane.
         self.slots[slot] = _SlotState(
             req=req, tokens=[], admitted_step=self.step_count, admit_t=now,
             arrival_t=arrival, phase="prefill",
-            prefill_pos=0, padded=ptoks, true_len=plen,
-            last_sched_step=self.step_count)
+            prefill_pos=n_share * self.page_size, padded=ptoks, true_len=plen,
+            last_sched_step=self.step_count,
+            prefix_keys=list(prefix.keys) if prefix else [])
 
     def _is_finished(self, st: _SlotState) -> bool:
         if len(st.tokens) >= st.req.max_new_tokens:
@@ -722,6 +1015,7 @@ class StemEngine:
 
     def _recycle(self, slot: int) -> None:
         st = self.slots[slot]
+        st.finished = True   # async: the EOS lookahead step is discarded
         tpot = (float("nan") if len(st.tokens) < 2 else
                 (st.last_token_t - st.first_token_t) / (len(st.tokens) - 1))
         self.finished.append(FinishedRequest(
@@ -733,6 +1027,13 @@ class StemEngine:
             queue_s=st.admit_t - st.arrival_t))
         self._seq.pop(st.req.uid, None)
         self._release_slot(slot)
+
+    def _register_prefix(self, s: int, st: _SlotState) -> None:
+        """A completed prompt's full pages are final: content-address them
+        for later tenants (idempotent for the pages it shared itself; the
+        partial tail page has no key and stays private)."""
+        for j, key in enumerate(st.prefix_keys):
+            self.allocator.register(self.slot_pages[s][j], key)
 
     def _decode_key(self, s: int, now: float):
         """Decode-token grant order.  SLO: priority first, then remaining
@@ -754,9 +1055,24 @@ class StemEngine:
         headroom = (slo - (now - st.arrival_t)) if slo else float("inf")
         return (-st.req.priority, headroom, st.admitted_step, s)
 
+    def _grantable_decodes(self) -> list:
+        """Decode-phase slots still owed a token.  The count includes the
+        in-flight tokens (async): a max-new-tokens finish is known at
+        dispatch and never speculates; only an EOS earns the one lookahead
+        step, whose result is discarded."""
+        return [s for s, st in enumerate(self.slots)
+                if st is not None and st.phase == "decode"
+                and len(st.tokens) + st.inflight < st.req.max_new_tokens]
+
+    def _work(self) -> tuple:
+        """(grantable decode slots, prefilling slots)."""
+        pre = [s for s, st in enumerate(self.slots)
+               if st is not None and st.phase == "prefill"]
+        return self._grantable_decodes(), pre
+
     def _schedule(self, dec_all: list, pre_all: list, sched_now: float) -> tuple:
-        """The token-budget grant pass: (granted decode slots, granted chunk
-        slots)."""
+        """The token-budget grant pass, shared by both loops and pure host
+        bookkeeping: (granted decode slots, granted chunk slots)."""
         self.stats["max_concurrency"] = max(self.stats["max_concurrency"],
                                             len(dec_all) + len(pre_all))
         C = self.chunk_size
@@ -796,13 +1112,28 @@ class StemEngine:
             self._last_chunk_step = self.step_count
         return dec, grant
 
+    def _fill_chunk(self, grant: list, ctoks, ctable, cstart, ctrue, cbud,
+                    clast) -> None:
+        """The chunk lanes' host inputs, lane i carrying ``grant[i]``'s next
+        chunk (rows of idle lanes stay zero)."""
+        C, nc = self.chunk_size, self.chunk_size // self.page_size
+        for lane, s in enumerate(grant):
+            st = self.slots[s]
+            pos = st.prefill_pos
+            avail = st.padded[pos:pos + C]
+            ctoks[lane, :len(avail)] = avail
+            ctable[lane] = self.page_table[s]
+            cstart[lane] = pos
+            ctrue[lane] = st.true_len
+            cbud[lane] = chunked_lib.chunk_budget_rows(
+                self.policy, len(st.padded), pos, nc)
+            clast[lane] = min(max(st.true_len - 1 - pos, 0), C - 1)
+
     def _mixed_step(self) -> bool:
-        """One synchronous mixed step: the scheduled decode tokens plus the
-        granted prefill chunks; the host blocks on the sampled ids."""
-        dec_all = [s for s, st in enumerate(self.slots)
-                   if st is not None and st.phase == "decode"]
-        pre_all = [s for s, st in enumerate(self.slots)
-                   if st is not None and st.phase == "prefill"]
+        """One synchronous mixed step (``async_depth=0``, the differential
+        oracle): the scheduled decode tokens plus the granted prefill
+        chunks; the host blocks on the sampled ids."""
+        dec_all, pre_all = self._work()
         if not dec_all and not pre_all:
             self._last_chunk_step = self.step_count
             return False
@@ -828,34 +1159,33 @@ class StemEngine:
         chunk = None
         if grant:
             L, nc = self.chunk_lanes, C // self.page_size
-            ctoks = np.zeros((L, C), np.int32)
-            ctable = np.zeros((L, P), np.int32)
-            cstart = np.zeros((L,), np.int32)
-            ctrue = np.zeros((L,), np.int32)
-            cbud = np.zeros((L, nc), np.int32)
-            clast = np.zeros((L,), np.int32)
-            for lane, s in enumerate(grant):
-                st = self.slots[s]
-                pos = st.prefill_pos
-                avail = st.padded[pos:pos + C]
-                ctoks[lane, :len(avail)] = avail
-                ctable[lane] = self.page_table[s]
-                cstart[lane] = pos
-                ctrue[lane] = st.true_len
-                cbud[lane] = chunked_lib.chunk_budget_rows(
-                    self.policy, len(st.padded), pos, nc)
-                clast[lane] = min(max(st.true_len - 1 - pos, 0), C - 1)
-            chunk = {k: torch.as_tensor(v, device=dev) for k, v in (
-                ("tokens", ctoks), ("page_table", ctable), ("start", cstart),
-                ("true_len", ctrue), ("budgets", cbud), ("last", clast))}
+            host = dict(tokens=np.zeros((L, C), np.int32),
+                        page_table=np.zeros((L, P), np.int32),
+                        start=np.zeros((L,), np.int32),
+                        true_len=np.zeros((L,), np.int32),
+                        budgets=np.zeros((L, nc), np.int32),
+                        last=np.zeros((L,), np.int32))
+            self._fill_chunk(grant, host["tokens"], host["page_table"],
+                             host["start"], host["true_len"], host["budgets"],
+                             host["last"])
+            chunk = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
 
+        t0 = time.perf_counter()
         dec_logits, chunk_logits, self.pools = self._unified(
             self.params, self.pools, torch.as_tensor(tokens, device=dev),
             torch.as_tensor(dec_table, device=dev),
             torch.as_tensor(dec_lens, device=dev), chunk)
-        dec_ids = self.sampler(dec_logits).cpu().numpy() if dec else None
-        chunk_ids = self.sampler(chunk_logits).cpu().numpy() if grant else None
+        t1 = time.perf_counter()
+        self.stats["dispatch_s"] += t1 - t0
+        dec_ids = chunk_ids = None
+        if dec:
+            dec_ids = self.sampler(dec_logits).cpu().numpy()
+            self.stats["host_syncs"] += 1
+        if grant:
+            chunk_ids = self.sampler(chunk_logits).cpu().numpy()
+            self.stats["host_syncs"] += 1
         now = time.perf_counter()
+        self.stats["sync_wait_s"] += now - t1
         self.stats["step_calls"] += 1
         if dec:
             self.stats["decode_steps"] += 1
@@ -880,6 +1210,7 @@ class StemEngine:
                 st.tokens = [int(chunk_ids[lane])]
                 st.phase = "decode"
                 self.cache_lens[s] = st.true_len
+                self._register_prefix(s, st)
                 st.first_token_t = st.last_token_t = now
                 st.ttft_s = now - st.arrival_t
                 self.stats["prefills"] += 1
@@ -888,29 +1219,210 @@ class StemEngine:
                     self._recycle(s)
         return True
 
+    # -- async pipeline -----------------------------------------------------
+
+    def _unpack(self, buf, n: int) -> dict:
+        """Named views of a staging buffer's first ``n`` entries (numpy on
+        the host, a tensor on the device): (rows,) or (rows, width)."""
+        return {name: buf[o:o + r * w].reshape((r,) if w == 1 else (r, w))
+                for name, o, r, w in self._layout if o < n}
+
+    def _dispatch(self, dec: list, grant: list) -> None:
+        """Launch one sampled step and return without waiting for it.  The
+        inputs are packed into a pinned staging buffer and go up with one
+        ``non_blocking`` copy; the ids come back the same way behind an
+        event, so nothing here waits on the device.  Every value-independent
+        state change happens now, so the next ``_schedule`` sees it:
+        ``cache_lens`` (+1 per granted decode), ``prefill_pos`` and phase
+        flips, prefix registration (the completing chunk's page writes run
+        before any later-dispatched reader, in stream order) and the
+        counters.  Token values, EOS and timestamps wait for
+        ``_reconcile``."""
+        S, C = self.ecfg.max_slots, self.chunk_size
+        ring = self._ring
+        k = ring.acquire()
+        n = self._dec_n if not grant else ring.inp[k].shape[0]
+        h = ring.inp[k].numpy()
+        h[:n] = 0
+        v = self._unpack(h, n)
+        dec_entries = []
+        for s in dec:
+            st = self.slots[s]
+            v["mask"][s] = 1
+            v["table"][s] = self.page_table[s]
+            v["lens"][s] = self.cache_lens[s]
+            st.last_sched_step = self.step_count
+            dec_entries.append((s, st))
+        chunk_entries = []
+        if grant:
+            self._fill_chunk(grant, v["tokens"], v["page_table"], v["start"],
+                             v["true_len"], v["budgets"], v["last"])
+            for lane, s in enumerate(grant):
+                st = self.slots[s]
+                completes = st.prefill_pos + C >= len(st.padded)
+                # A completing chunk's sampled id is the request's first
+                # token: "emit" steers it into the slot's token_buf entry.
+                v["slot"][lane] = s
+                v["emit"][lane] = completes
+                chunk_entries.append((lane, s, st, completes))
+
+        t0 = time.perf_counter()
+        d = self._unpack(ring.upload(k, n), n)
+        chunk = None
+        if grant:
+            chunk = {name: d[name] for name in ("tokens", "page_table",
+                                                "budgets", "start", "true_len",
+                                                "last", "slot")}
+            chunk["emit"] = d["emit"] != 0
+        dec_ids, chunk_ids, self.token_buf, self.pools = self._unified(
+            self.params, self.pools, self.token_buf, d["mask"] != 0,
+            d["table"], d["lens"], chunk)
+        event = ring.fetch(k, [(0, dec_ids)]
+                           + ([(S, chunk_ids)] if grant else []))
+        t1 = time.perf_counter()
+        self.stats["dispatch_s"] += t1 - t0
+        self.stats["step_calls"] += 1
+        if dec:
+            self.stats["decode_steps"] += 1
+
+        for s in dec:
+            self.cache_lens[s] += 1   # the fed-back token will be cached
+            self.slots[s].inflight += 1
+        for lane, s, st, completes in chunk_entries:
+            st.prefill_pos += C
+            self.stats["chunks"] += 1
+            if completes:
+                st.phase = "decode"
+                self.cache_lens[s] = st.true_len
+                st.inflight += 1      # the first token is in flight
+                self._register_prefix(s, st)
+                self.stats["prefills"] += 1
+        self._inflight.append(_InFlight(
+            buf=k, event=event, dec=dec_entries, chunks=chunk_entries,
+            step=self.step_count, dispatch_t=t1))
+
+    def _reconcile(self, infl: _InFlight) -> None:
+        """Absorb one in-flight step's sampled ids: append decode tokens,
+        the completing chunks' first tokens, timestamps, EOS /
+        max-new-tokens finishes and recycling.  Entries of a request that
+        finished meanwhile (the EOS lookahead, or an abort) are discarded:
+        that step wrote only into the request's own still-reserved pages.
+        ``host_syncs`` counts only the waits with no newer step queued
+        behind (the ones that can leave the device idle)."""
+        overlapped = bool(self._inflight)
+        t0 = time.perf_counter()
+        if infl.event is not None:
+            infl.event.synchronize()
+        ids = self._ring.out[infl.buf].numpy()
+        self.stats["id_fetches"] += bool(infl.dec) + bool(infl.chunks)
+        now = time.perf_counter()
+        self.stats["sync_wait_s"] += now - t0
+        if not overlapped and (infl.dec or infl.chunks):
+            self.stats["host_syncs"] += 1
+        self.monitor.observe(infl.step, now - infl.dispatch_t)
+        self.stats["straggler_steps"] = len(self.monitor.flagged)
+
+        S = self.ecfg.max_slots
+        for s, st in infl.dec:
+            st.inflight -= 1
+            if st.finished:
+                self.stats["lookahead_discards"] += 1
+                continue
+            st.tokens.append(int(ids[s]))
+            st.token_latencies_s.append(now - st.last_token_t)
+            st.last_token_t = now
+            self.stats["tokens_generated"] += 1
+            if self._is_finished(st):
+                self._recycle(s)
+        for lane, s, st, completes in infl.chunks:
+            if not completes:
+                continue
+            st.inflight -= 1
+            if st.finished:
+                self.stats["lookahead_discards"] += 1
+                continue
+            st.tokens = [int(ids[S + lane])]
+            st.first_token_t = st.last_token_t = now
+            st.ttft_s = now - st.arrival_t
+            self.stats["tokens_generated"] += 1
+            if self._is_finished(st):
+                self._recycle(s)
+
+    def _drain(self) -> None:
+        """Reconcile every in-flight step, oldest first.  Whatever changes
+        pools or host token state out of band (preemption, restore, an
+        abort, the end of ``run``) drains first: the device runs in stream
+        order, but the host's tokens run one step behind it."""
+        while self._inflight:
+            self._reconcile(self._inflight.popleft())
+
+    def drain(self) -> None:
+        """Block until every dispatched step is reconciled (a no-op for the
+        synchronous engine).  Callers stepping the engine by hand call it
+        before reading ``finished`` / ``stats`` as final."""
+        self._drain()
+
+    def _async_step(self) -> bool:
+        """One async iteration: schedule from the host state (one step
+        stale in values, exact in structure), dispatch without waiting,
+        then reconcile what exceeds ``async_depth`` — the host prepares and
+        launches step N+1 while the device runs step N."""
+        dec_all, pre_all = self._work()
+        if not dec_all and not pre_all:
+            self._last_chunk_step = self.step_count
+            self._drain()
+            return False
+        # The sync loop's injection point: before this step's dispatch, so
+        # a retry never applies anything twice, and the in-flight step is
+        # untouched by the failure.
+        if self.chaos:
+            self.chaos.maybe_fail_step(self.step_count)
+        dec, grant = self._schedule(dec_all, pre_all, time.perf_counter())
+        if not dec and not grant:
+            # Every grantable token is already in flight: reconcile to make
+            # progress instead of dispatching an empty step.
+            self._drain()
+            return False
+        self._dispatch(dec, grant)
+        while len(self._inflight) > self.ecfg.async_depth:
+            self._reconcile(self._inflight.popleft())
+        return True
+
     def _guarded_step(self) -> None:
         """The failure boundary around the mixed step: bounded retry of a
         failed step (the injection precedes every pool write, so a retry
         is sound), then graceful degradation — abort the lowest-priority
-        active request and retry with the smaller batch.  Working steps
-        are timed by the StragglerMonitor; failed or idle ones are not."""
+        active request and retry with the smaller batch.  Sync: working
+        steps are timed by the StragglerMonitor (failed or idle ones are
+        not); async: each reconcile feeds it the dispatch -> ids time."""
         retries = 0
         while True:
-            self.monitor.start()
+            if not self._async:
+                self.monitor.start()
             try:
-                did_work = self._mixed_step()
+                did_work = (self._async_step() if self._async
+                            else self._mixed_step())
             except InjectedFailure as e:
-                self.monitor.cancel()
+                if not self._async:
+                    self.monitor.cancel()
                 self.stats["step_failures"] += 1
                 retries += 1
                 if retries > self.ecfg.max_step_retries:
+                    if self._async:
+                        # The in-flight steps may finish the victim, and the
+                        # abort frees pages they still reference.
+                        self._drain()
                     victim = self._lowest_priority_active()
                     if victim is None:
+                        if self._async:
+                            continue       # the drain emptied the slots
                         raise
                     self._abort(victim,
                                 f"aborted: step failed {retries} times ({e})")
                     retries = 0
                 continue
+            if self._async:
+                return
             if did_work:
                 self.monitor.stop(self.step_count)
                 self.stats["straggler_steps"] = len(self.monitor.flagged)
@@ -953,4 +1465,5 @@ class StemEngine:
                     waiting=[r.uid for r in self.waiting],
                     preempted=[rec.st.req.uid for rec in self.preempted])
             self.step()
+        self._drain()
         return sorted(self.finished, key=lambda f: f.uid)

@@ -103,25 +103,35 @@ class HostPageStore:
 
     def __init__(self):
         self._store: dict = {}
+        self._pinned: dict = {}      # uid -> device pages pinned, not copied
         self.nbytes = 0
         self.peak_nbytes = 0
 
     def __len__(self) -> int:
         return len(self._store)
 
-    def put(self, uid, snapshot) -> None:
+    def put(self, uid, snapshot, pinned=()) -> None:
+        """Store a request's private-page snapshot.  ``pinned`` lists the
+        prefix-shared pages that stay on the device (the engine keeps one
+        allocator reference on each): recorded, no bytes copied."""
         if uid in self._store:
             raise ValueError(f"request {uid} already offloaded")
         host = _to_host(snapshot)
         self._store[uid] = host
+        self._pinned[uid] = list(pinned)
         self.nbytes += snapshot_nbytes(host)
         self.peak_nbytes = max(self.peak_nbytes, self.nbytes)
 
     def get(self, uid):
         return self._store[uid]
 
+    def pinned(self, uid) -> list:
+        """Device pages this offloaded request keeps pinned (shared prefix)."""
+        return list(self._pinned.get(uid, ()))
+
     def pop(self, uid):
         snap = self._store.pop(uid)
+        self._pinned.pop(uid, None)
         self.nbytes -= snapshot_nbytes(snap)
         return snap
 

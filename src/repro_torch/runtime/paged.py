@@ -17,8 +17,11 @@ so call sites read like the reference.
 """
 from __future__ import annotations
 
+import hashlib
+from collections import Counter, OrderedDict
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import chunked as chunked_lib
@@ -85,6 +88,37 @@ def reset_pools_stacked(pools, page_ids: torch.Tensor):
             pool.kg[:, :, ids] = 0
             pool.vm[:, :, ids] = decode_lib.V_MAG_FLOOR
     return pools
+
+
+def copy_pages_stacked(pools, src: int, dst: int):
+    """Copy one page's contents (K/V + kg / vm summaries) ``src`` -> ``dst``
+    across every layer's stacked pool, in place: the device half of
+    copy-on-write (``PageAllocator.cow`` is the bookkeeping half)."""
+    for seg in pools:
+        for pool in seg.values():
+            for leaf in pool:
+                leaf[:, :, dst] = leaf[:, :, src]
+    return pools
+
+
+def prefix_page_keys(tokens, budgets, page_size: int) -> list:
+    """Chained content keys (hex strings) for every full page of a prompt.
+
+    Page j's K/V at layers past the first depend on the whole prefix up to
+    page j, and chunked prefill's budget rows on the prompt's padded
+    length, so key_j = blake2b(key_{j-1} || tokens of page j (int32 bytes)
+    || budget row j).  Two tenants share page j iff every token and every
+    budget row through page j agree.  The partial tail page gets no key."""
+    full = len(tokens) // page_size
+    keys = []
+    h = b"stem-prefix-v1"
+    for j in range(full):
+        page = np.asarray(
+            tokens[j * page_size:(j + 1) * page_size], np.int32).tobytes()
+        row = int(budgets[j]).to_bytes(4, "little")
+        h = hashlib.blake2b(h + page + row, digest_size=16).digest()
+        keys.append(h.hex())
+    return keys
 
 
 def write_prefill_pages(pool: PagePool, page_ids: torch.Tensor,
@@ -240,43 +274,163 @@ policy_lib.register_paged_executor(
 
 
 class PageAllocator:
-    """Free-list page allocator; page 0 (the trash page) is never handed
-    out.  Every page id 1..num_pages-1 is either on the free list or in the
-    allocated set.  ``evict`` / ``restore`` are the preemption path's free
-    and alloc, counted.  (The reference's prefix index, cached set and
-    copy-on-write are not part of this port yet.)"""
+    """Ref-counted free-list page allocator with a hash-keyed prefix index.
+    Page 0 (the trash page) is never handed out.
 
-    def __init__(self, num_pages: int):
+    Every page id is in exactly one of three places: the free list, the
+    cached set (registered prefix pages at refcount 0, contents kept for
+    future hits, reclaimable) or the allocated set (refcount >= 1);
+    ``check_conservation`` asserts that partition and the refcounts.
+    ``evict`` / ``restore`` are the preemption path's free and alloc,
+    counted.
+
+    Prefix caching (the engine drives it):
+
+    * ``register(page, key)`` content-addresses a full prompt page by its
+      chained key (``prefix_page_keys``) once its contents are final.
+    * ``probe(key)`` answers admission's per-page lookup; ``share(page)``
+      takes a reference on a hit (reviving a cached page).
+    * ``free`` drops one reference: a page leaves the allocated set only at
+      refcount 0, and a registered page then parks in the cached set.
+    * ``cow(page)`` exchanges the caller's reference on a shared page for a
+      fresh private page (the device copy is ``copy_pages_stacked``).
+
+    ``evict_policy`` picks the cached page ``alloc`` reclaims when the free
+    list runs dry: "lru" (least recently parked) or "hit-rate" (fewest
+    prefix hits since registration, LRU among ties)."""
+
+    EVICT_POLICIES = ("lru", "hit-rate")
+
+    def __init__(self, num_pages: int, evict_policy: str = "lru"):
         if num_pages < 2:
             raise ValueError("need at least 2 pages (page 0 is reserved)")
+        if evict_policy not in self.EVICT_POLICIES:
+            raise ValueError(f"evict_policy must be one of "
+                             f"{self.EVICT_POLICIES}, got {evict_policy!r}")
         self.num_pages = num_pages
+        self.evict_policy = evict_policy
         self._free = list(range(num_pages - 1, 0, -1))  # pop() -> lowest id
         self._allocated: set = set()
-        self.total_alloced = 0
+        self._ref: dict = {}            # page -> live reference count (>= 1)
+        self._index: dict = {}          # prefix key -> page id
+        self._key_of: dict = {}         # page id -> its prefix key
+        self._cached: OrderedDict = OrderedDict()   # ref-0 registered, LRU
+        self._hits: dict = {}           # registered page -> prefix-hit count
         self.evictions = 0
         self.restores = 0
+        self.total_alloced = 0          # pages handed out, lifetime
+        self.shares = 0                 # references taken via prefix hits
+        self.cows = 0
+        self.cache_reclaims = 0         # cached pages reclaimed by alloc
 
     @property
     def available(self) -> int:
-        return len(self._free)
+        """Pages an ``alloc`` could obtain: free plus cached."""
+        return len(self._free) + len(self._cached)
+
+    @property
+    def cached_pages(self) -> int:
+        return len(self._cached)
+
+    def refcount(self, page: int) -> int:
+        return self._ref.get(page, 0)
 
     def alloc(self, n: int) -> Optional[list]:
-        """Return n page ids, or None (all-or-nothing)."""
+        """Return n page ids at refcount 1, or None (all-or-nothing): the
+        free list first, then cached pages reclaimed per ``evict_policy``
+        (unregistered: their contents are gone)."""
         if n > self.available:
             return None
-        pages = [self._free.pop() for _ in range(n)]
+        pages = []
+        for _ in range(n):
+            p = self._free.pop() if self._free else self._reclaim_cached()
+            pages.append(p)
+            self._ref[p] = 1
         self._allocated.update(pages)
         self.total_alloced += n
         return pages
 
+    def _reclaim_cached(self) -> int:
+        if self.evict_policy == "hit-rate":
+            lru_rank = {q: i for i, q in enumerate(self._cached)}
+            p = min(self._cached,
+                    key=lambda q: (self._hits.get(q, 0), lru_rank[q]))
+            del self._cached[p]
+        else:
+            p, _ = self._cached.popitem(last=False)
+        self._unregister(p)
+        self.cache_reclaims += 1
+        return p
+
     def free(self, pages) -> None:
+        """Drop one reference per listed page; at refcount 0 a registered
+        page parks in the cached set, any other goes back to the free
+        list."""
         for p in pages:
             if not (0 < p < self.num_pages):
                 raise ValueError(f"bad page id {p}")
             if p not in self._allocated:
                 raise ValueError(f"double free of page {p}")
+            self._ref[p] -= 1
+            if self._ref[p] > 0:
+                continue
+            del self._ref[p]
             self._allocated.discard(p)
-            self._free.append(p)
+            if p in self._key_of:
+                self._cached[p] = None          # most recently used end
+            else:
+                self._free.append(p)
+
+    def probe(self, key) -> Optional[int]:
+        """The page holding the content addressed by ``key`` (live or
+        cached), or None.  Probing does not pin: ``share`` every hit before
+        any ``alloc`` that could reclaim a cached page."""
+        return self._index.get(key)
+
+    def share(self, page: int) -> int:
+        """Take one reference on an indexed page (a prefix hit); a cached
+        page is revived into the allocated set."""
+        if page in self._cached:
+            del self._cached[page]
+            self._allocated.add(page)
+            self._ref[page] = 1
+        elif page in self._allocated:
+            self._ref[page] += 1
+        else:
+            raise ValueError(f"page {page} is neither allocated nor cached")
+        self.shares += 1
+        self._hits[page] = self._hits.get(page, 0) + 1
+        return page
+
+    def register(self, page: int, key) -> None:
+        """Content-address an allocated page under ``key``.  First writer
+        wins: a key already indexed keeps its page (the newcomer, with
+        identical contents, stays private)."""
+        if page not in self._allocated:
+            raise ValueError(f"cannot register unallocated page {page}")
+        old = self._key_of.get(page)
+        if old == key or key in self._index:
+            return
+        if old is not None:
+            del self._index[old]
+        self._index[key] = page
+        self._key_of[page] = key
+
+    def cow(self, page: int) -> Optional[int]:
+        """Exchange the caller's reference on a shared page for a fresh
+        private page (None, reference untouched, if none is available)."""
+        fresh = self.alloc(1)
+        if fresh is None:
+            return None
+        self.free([page])
+        self.cows += 1
+        return fresh[0]
+
+    def _unregister(self, page: int) -> None:
+        key = self._key_of.pop(page, None)
+        if key is not None and self._index.get(key) == page:
+            del self._index[key]
+        self._hits.pop(page, None)
 
     def evict(self, pages) -> None:
         """Free a preemption victim's pages (contents live on in the host
@@ -293,23 +447,50 @@ class PageAllocator:
         return pages
 
     def check_conservation(self, held=None) -> bool:
-        """Assert the free list and the allocated set partition pages
-        1..num_pages-1; with ``held`` (the page ids the caller believes it
-        holds) they must equal the allocated set exactly."""
+        """Assert the three-way partition (free list, cached set, allocated
+        set, together pages 1..num_pages-1), refcounts >= 1 on allocated
+        pages, a key on every cached page and a consistent prefix index.
+        With ``held`` (a multiset: one entry per reference the caller
+        believes it holds) the per-page counts must equal the refcounts."""
         free = set(self._free)
         if len(free) != len(self._free):
             raise AssertionError("duplicate page ids in the free list")
-        if free & self._allocated:
-            raise AssertionError(
-                f"pages both free and allocated: {sorted(free & self._allocated)}")
+        cached = set(self._cached)
+        parts = [("free", free), ("cached", cached),
+                 ("allocated", self._allocated)]
+        for i, (na, a) in enumerate(parts):
+            for nb, b in parts[i + 1:]:
+                if a & b:
+                    raise AssertionError(
+                        f"pages both {na} and {nb}: {sorted(a & b)}")
         universe = set(range(1, self.num_pages))
-        if free | self._allocated != universe:
-            lost = sorted(universe - free - self._allocated)
+        if free | cached | self._allocated != universe:
+            lost = sorted(universe - free - cached - self._allocated)
             raise AssertionError(f"orphaned pages: {lost}")
-        if held is not None:
-            held = list(held)
-            if len(held) != len(set(held)) or set(held) != self._allocated:
+        if set(self._ref) != self._allocated:
+            raise AssertionError(
+                f"refcount table out of sync with the allocated set: refs "
+                f"{sorted(self._ref)} vs {sorted(self._allocated)}")
+        bad = {p: r for p, r in self._ref.items() if r < 1}
+        if bad:
+            raise AssertionError(f"allocated pages with refcount < 1: {bad}")
+        for p in cached:
+            if p not in self._key_of:
+                raise AssertionError(f"cached page {p} has no prefix key")
+        for key, p in self._index.items():
+            if self._key_of.get(p) != key:
                 raise AssertionError(
-                    f"allocator/holder mismatch: held {sorted(held)} vs "
-                    f"allocated {sorted(self._allocated)}")
+                    f"prefix index out of sync: key {key!r} -> page {p}")
+            if p in free:
+                raise AssertionError(f"indexed page {p} is on the free list")
+        if held is not None:
+            counts = dict(Counter(held))
+            if counts != self._ref:
+                over = {p: c for p, c in counts.items()
+                        if c != self._ref.get(p, 0)}
+                under = {p: r for p, r in self._ref.items()
+                         if r != counts.get(p, 0)}
+                raise AssertionError(
+                    f"allocator/holder refcount mismatch: held {over} vs "
+                    f"allocated {under}")
         return True

@@ -988,3 +988,79 @@ def test_tiny_preempts_and_restores_on_card(cuda, monolithic):
     card = serve_preempted(cuda, monolithic)
     assert card[1]["preemptions"] == card[1]["restores"] == 1, card[1]
     assert card == serve_preempted(torch.device("cpu"), monolithic)
+
+
+def _shared_prefix_trace(name, vocab):
+    """A system prompt of two pages shared by four tenants (suffixes of
+    about half a page to two and a half pages, two of them arriving late)
+    and one prompt equal to the system prompt (copy on write)."""
+    bs = 8 if name == "tiny" else 128
+    rng = np.random.RandomState(29)
+    system = rng.randint(0, vocab, size=(2 * bs,))
+    specs = [(bs // 2 + 1, 5, 0), (bs + 3, 4, 0), (2 * bs + 5, 5, 4),
+             (bs // 2 + 3, 3, 6), (0, 4, 7)]
+    return [(np.concatenate([system, rng.randint(0, vocab, size=(suf,))]), m, a)
+            for suf, m, a in specs]
+
+
+def serve_prefix_async(name, device, executor, prefix_cache, async_depth,
+                       sync_free=False):
+    """A small configuration serves the shared-prefix trace (2 slots,
+    budget_frac 0.5, fp32) with the prefix cache on or off, through the
+    sync or the async loop.  With ``sync_free`` every ``_dispatch`` runs
+    under ``torch.cuda.set_sync_debug_mode("error")``: a call in the step
+    path that waits on the card raises.  Returns (streams, counts)."""
+    from repro_torch.models import registry as t_registry
+    from repro_torch.runtime import engine as t_engine
+    cfg, policy, _ = _small_config(name)
+    trace = _shared_prefix_trace(name, cfg.vocab_size)
+    bundle = t_registry.build(cfg)
+    params = _to_device(bundle.init_params(torch.Generator().manual_seed(0),
+                                           device="cpu"), device)
+    ecfg = t_engine.EngineConfig.for_trace(
+        max_slots=2, max_prompt=max(len(p) for p, _, _ in trace),
+        max_new_tokens=max(m for _, m, _ in trace), page_size=policy.block_size,
+        budget_frac=0.5, executor=executor, prefix_cache=prefix_cache,
+        async_depth=async_depth)
+    engine = t_engine.StemEngine(bundle, params, policy, ecfg)
+    dispatch = engine._dispatch
+    calls = []
+
+    def checked(dec, grant):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            dispatch(dec, grant)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        calls.append(1)
+    if sync_free:
+        engine._dispatch = checked
+    reqs = [t_engine.Request(uid=i, prompt=p.astype(np.int32), max_new_tokens=m,
+                             arrival_step=a) for i, (p, m, a) in enumerate(trace)]
+    finished = engine.run(reqs)
+    assert all(f.error is None for f in finished)
+    engine.allocator.check_conservation([])
+    if sync_free:
+        assert len(calls) == engine.stats["step_calls"] > 0
+    counts = {k: engine.stats[k] for k in ("prefix_hits", "prefix_pages_shared",
+                                           "prefix_cows", "chunks", "prefills")}
+    return [f.tokens for f in finished], counts
+
+
+@pytest.mark.parametrize("name", ["tiny", "qwen3-0.6b-reduced"])
+def test_prefix_cache_and_async_on_card(cuda, name):
+    """Under "fused" on the card: prefix cache on == off and the async loop
+    == the sync loop (each alone and together), equal to "gather" on the
+    card and to the port's CPU run; the prefix counters agree; and no
+    ``_dispatch`` of the async loop waits on the card."""
+    off, _ = serve_prefix_async(name, cuda, "fused", False, 0)
+    on, counts = serve_prefix_async(name, cuda, "fused", True, 0)
+    assert counts["prefix_hits"] >= 2 and counts["prefix_cows"] == 1, counts
+    assert on == off
+    both, both_counts = serve_prefix_async(name, cuda, "fused", True, 1,
+                                           sync_free=True)
+    assert both == off and both_counts == counts
+    assert serve_prefix_async(name, cuda, "fused", False, 1, sync_free=True)[0] == off
+    assert serve_prefix_async(name, cuda, "gather", True, 1)[0] == off
+    assert serve_prefix_async(name, torch.device("cpu"), "fused", True, 1) == \
+        (both, both_counts)

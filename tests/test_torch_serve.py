@@ -12,8 +12,9 @@ differential oracle.
   ``run_fixed_batch`` with the same arguments and carried weights: equal
   tokens and errors, and equal engine step / chunk / decode-step and
   preemption / restore / shed / chaos counts.
-* ``main`` end to end on the reduced qwen3-0.6b on the CPU, and every flag
-  whose feature the port lacks raises ``SystemExit``."""
+* ``main`` end to end on the reduced qwen3-0.6b on the CPU; ``--mesh``,
+  whose feature the port lacks, raises ``SystemExit``, and a bad sampler
+  or async depth the reference's ``ValueError``."""
 import numpy as np
 import pytest
 import torch
@@ -149,6 +150,12 @@ def _serving_policies(args):
     ("overload", ["--policy", "stem", "--requests", "4", "--max-slots", "1",
                   "--arrival-every", "1", "--hp-every", "3", "--max-waiting", "2",
                   "--chaos"]),
+    ("prefix-cache", ["--policy", "stem", "--prefix-cache"]),
+    ("prefix-hit-rate", ["--policy", "stem", "--prefix-cache", "--prefix-evict",
+                         "hit-rate", "--requests", "4", "--arrival-every", "1"]),
+    ("async", ["--policy", "stem", "--async-depth", "1"]),
+    ("async-prefix-chaos", ["--policy", "stem", "--async-depth", "1",
+                            "--prefix-cache", "--chaos", "--hp-every", "2"]),
 ])
 def test_cli_matches_reference(carried, capsys, mode, flags):
     jcfg, jb, jparams, tcfg, tb, tparams = carried
@@ -164,11 +171,25 @@ def test_cli_matches_reference(carried, capsys, mode, flags):
     else:
         want = j_serve.run_engine(args, jcfg, jb, jparams, jpol, frac)
         got = t_serve.run_engine(args, tcfg, tb, tparams, tpol, frac)
-        for key in ("step_calls", "chunks", "decode_steps", "prefills",
-                    "tokens_generated", "slots_reused", "max_concurrency",
-                    "preemptions", "restores", "restore_failures", "shed",
-                    "aborts", "step_failures", "alloc_denials",
-                    "admission_rejects", "restore_bytes"):
+        keys = ["step_calls", "chunks", "decode_steps", "prefills",
+                "tokens_generated", "slots_reused", "max_concurrency",
+                "preemptions", "restores", "restore_failures", "shed",
+                "aborts", "step_failures", "alloc_denials",
+                "admission_rejects", "restore_bytes", "prefix_hits",
+                "prefix_pages_shared", "prefix_cows", "host_syncs"]
+        if args.async_depth:
+            # The reference drains its pipeline whenever a waiting request
+            # is slot-blocked, the port only when there is a victim to
+            # preempt: the step schedule (and so the step, sync and reuse
+            # counts) may differ; the work done may not.
+            keys = ["chunks", "prefills", "tokens_generated", "preemptions",
+                    "restores", "restore_failures", "shed", "aborts",
+                    "step_failures", "alloc_denials", "prefix_hits",
+                    "prefix_pages_shared", "prefix_cows"]
+            s = got["engine_stats"]
+            assert s["host_syncs"] <= 2 * got["requests"]
+            assert s["step_calls"] <= s["id_fetches"] <= 2 * s["step_calls"]
+        for key in keys:
             assert got["engine_stats"][key] == want["engine_stats"][key], key
         assert got["engine_metrics"]["chaos"] == want["engine_metrics"]["chaos"]
         # The port offloads a victim's own pages, the reference a padded row.
@@ -223,12 +244,38 @@ def test_main_runs_on_cpu(capsys, extra):
             else "engine (chunked, sync, slo)") in printed
 
 
-@pytest.mark.parametrize("flags", [
-    ["--prefix-cache"], ["--prefix-evict", "hit-rate"], ["--mesh", "1,1"],
-    ["--async-depth", "1"], ["--sampler", "temperature"], ["--executor", "pallas"],
-])
+@pytest.mark.parametrize("flags", [["--mesh", "1,1"], ["--executor", "pallas"]])
 def test_unported_flags_raise(flags):
     with pytest.raises(SystemExit) as info:
         t_serve.main(["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu"] + flags)
     if flags[0] != "--executor":            # argparse's own choice check
         assert "ROADMAP.md" in str(info.value)
+
+
+@pytest.mark.parametrize("flags", [["--sampler", "temperature"],
+                                   ["--async-depth", "2"],
+                                   ["--prefix-cache", "--monolithic"]])
+def test_bad_engine_flags_fail_like_reference(flags, capsys):
+    """A non-greedy sampler, an async depth past 1 and the prefix cache
+    under monolithic prefill fail with the reference's ``ValueError``."""
+    argv = ["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu"] + flags
+    with pytest.raises(ValueError) as got:
+        t_serve.main(argv)
+    with pytest.raises(ValueError) as want:
+        j_serve.main(argv[:3] + flags)
+    assert str(got.value) == str(want.value)
+    if flags[0] == "--sampler":
+        assert "unknown sampler 'temperature'" in str(got.value)
+
+
+def test_main_prefix_cache_async_on_cpu(capsys):
+    out = t_serve.main(["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu",
+                        "--requests", "3", "--decode-tokens", "4", "--max-slots",
+                        "2", "--prefix-cache", "--prefix-evict", "hit-rate",
+                        "--async-depth", "1"])
+    assert out["loop"] == "async" and not out["failed"]
+    assert all(len(toks) == 4 for toks in out["tokens"].values())
+    printed = capsys.readouterr().out
+    assert "engine (chunked, async, slo)" in printed
+    assert "  async: depth 1, blocking host syncs" in printed
+    assert "  prefix cache: hits 0, pages shared 0, cows 0" in printed
