@@ -179,6 +179,35 @@ Phases:
                 device busy share).  (d) The CLI with --prefix-cache
                 --async-depth 1 and with --prefix-cache --prefix-evict
                 hit-rate: no failed request.
+ 12. arctic   — the MoE family: arctic-480b at its published widths
+                (d_model 7168, 56 query / 8 KV heads: GQA group 7, head_dim
+                128, 128 experts top-2 of d_ff 4864, the parallel dense
+                residual FFN of d_ff 4864, vocab 32000, untied head) with
+                its depth cut from 35 layers to what one 80 GB card holds:
+                2 layers in bf16 (2 x 27.22 GB of layers, 26.78 GB of each
+                the expert tables, plus the fp32 embedding and head) and 1
+                in fp32; random weights drawn on the card from a seeded
+                generator in slices of at most 1 GiB.  (a) bf16 2 layers:
+                phase 4's chunked trace ("stem" at paper defaults, budget
+                0.5, chunk 1024, 2 slots), counters zeroed before and read
+                after (every kernel of the engine path), every kernel call
+                recorded and held against its plain version (group 7);
+                TTFT, TPOT, tok/s, peak memory, the MoE FFN's device ms
+                per lane and layer (CUDA events) beside two bounds of its
+                expert products (every expert's weights read once, as the
+                static capacity buffer does, and the routed experts'
+                alone), dropped (token, k) slots per lane.  (b) The same
+                weights: phase 11's shared-prefix trace with the prefix
+                cache on through the sync and the async loop, every
+                _dispatch under set_sync_debug_mode("error"), streams
+                equal.  (d) The CLI's run_engine and run_fixed_batch on the
+                same weights ("fused", kernel calls held against the plain
+                versions).  (c) fp32 1 layer: "fused" == "gather" on a
+                chunked trace of 1531 / 3907 / 2600 tokens, and the
+                monolithic engine (budget 1.0) == a 1-request fixed batch
+                (one-shot prefill of the same 4096 tokens, then sparse
+                contiguous decode) over 16 new tokens, or parted at a tie
+                within 1e-3.
 
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}.  Any failed phase raises (non-zero exit).
@@ -188,6 +217,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import pathlib
@@ -203,7 +233,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.configs import GLM4_9B, QWEN3_0_6B, reduced  # noqa: E402
+from repro_torch.configs import ARCTIC_480B, GLM4_9B, QWEN3_0_6B, reduced  # noqa: E402
 from repro_torch.configs.base import ArchConfig  # noqa: E402
 from repro_torch.core import chunked as chunked_lib  # noqa: E402
 from repro_torch.core import decode as decode_lib  # noqa: E402
@@ -221,6 +251,7 @@ from repro_torch.launch import serve as serve_lib  # noqa: E402
 from repro_torch.launch import steps as steps_lib  # noqa: E402
 from repro_torch.models import attention as attention_lib  # noqa: E402
 from repro_torch.models import common  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.runtime import chaos as chaos_lib  # noqa: E402
@@ -1595,14 +1626,15 @@ def eval_passes(rec) -> dict:
     return out
 
 
-def _glm_cli(fixed, cfg, bundle, params, policy, executor, rec=None) -> tuple:
-    """The CLI's run_engine / run_fixed_batch (serve.py) under
-    ``executor``: the engine on 2 requests of 2048-4096 tokens, the fixed
-    batch on 2 of 4096 (a block multiple, so its prefill is sparse), 8 new
-    tokens; logits rows and chunk selections tapped.  Returns (result,
-    rows by request, chunk selections)."""
+def _glm_cli(fixed, cfg, bundle, params, policy, executor, rec=None,
+             arch="glm4-9b") -> tuple:
+    """The CLI's run_engine / run_fixed_batch (serve.py) for ``arch``
+    under ``executor``: the engine on 2 requests of 2048-4096 tokens, the
+    fixed batch on 2 of 4096 (a block multiple, so its prefill is sparse),
+    8 new tokens; logits rows and chunk selections tapped.  Returns
+    (result, rows by request, chunk selections)."""
     args = serve_lib.build_parser().parse_args(
-        cli_args("glm4-9b", 4096 if fixed else 2048, 4096, 8,
+        cli_args(arch, 4096 if fixed else 2048, 4096, 8,
                  *(("--fixed-batch",) if fixed else ())))
     pol = policy.with_updates(executor=executor)
     tap = SamplerTap() if fixed else LogitTap()
@@ -2398,6 +2430,253 @@ def prefix_async_phase(profile: bool = False) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the MoE family at full width (arctic-480b)
+# ---------------------------------------------------------------------------
+
+class MoETap:
+    """CUDA events around every ``moe.apply`` and ``moe.expert_ffn`` call
+    made inside the block (replaced by module attribute: ``transformer``
+    calls ``moe.apply``, which calls ``route`` and ``expert_ffn`` there),
+    by lane: "decode" for rows of one token, "chunk" for rows of
+    ``chunk`` tokens, "prefill" otherwise; and the (token, k) slots each
+    lane dropped past its capacity, summed on the device (no host sync)."""
+
+    def __init__(self, chunk: int):
+        self.chunk = chunk
+        self.events: dict = {}
+        self.drops: dict = {}
+        self.slots: dict = {}
+        self.shapes: dict = {}
+
+    def lane(self, x) -> str:
+        s = x.shape[1]
+        return "decode" if s == 1 else "chunk" if s == self.chunk else "prefill"
+
+    def __enter__(self):
+        self._saved = {k: getattr(moe_lib, k) for k in ("apply", "route", "expert_ffn")}
+        tap = self
+
+        def timed(name, fn):
+            def run(*a, **kw):
+                x = a[1] if name == "apply" else a[0]
+                t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                t0.record()
+                out = fn(*a, **kw)
+                t1.record()
+                tap.events.setdefault((tap.lane(x), name), []).append((t0, t1))
+                return out
+            return run
+
+        def route(params, x, moe):
+            out = self._saved["route"](params, x, moe)
+            lane = tap.lane(x)
+            keep = out[4]
+            tap.drops[lane] = tap.drops.get(lane, 0) + (~keep).sum()
+            tap.slots[lane] = tap.slots.get(lane, 0) + keep.numel()
+            tap.shapes[lane] = (tuple(x.shape), out[5])
+            return out
+        moe_lib.apply = timed("apply", self._saved["apply"])
+        moe_lib.expert_ffn = timed("expert_ffn", self._saved["expert_ffn"])
+        moe_lib.route = route
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self._saved.items():
+            setattr(moe_lib, k, fn)
+        return False
+
+    def report(self, cfg) -> dict:
+        """Per lane: calls (one a layer), mean device ms of the MoE FFN and
+        of its expert products, the capacity, drops; the bounds of the
+        expert products: every expert's weights read once (what the static
+        capacity buffer reads) and the routed experts' alone (their
+        bytes, and the products of the slots the capacity can keep)."""
+        torch.cuda.synchronize()
+        moe, d = cfg.moe, cfg.d_model
+        elt = torch.tensor([], dtype=cfg.torch_dtype).element_size()
+        per_expert = 3 * d * moe.expert_d_ff * elt
+        out = {}
+        for lane, (shape, cap) in self.shapes.items():
+            b, s, _ = shape
+            ms = {name: float(np.mean([a.elapsed_time(c) for a, c in
+                                       self.events[(lane, name)]]))
+                  for name in ("apply", "expert_ffn")}
+            flops = 2 * 3 * b * moe.num_experts * cap * d * moe.expert_d_ff
+            routed = min(moe.num_experts, b * s * moe.top_k)
+            kept = min(b * s * moe.top_k, b * moe.num_experts * cap)
+            out[lane] = dict(
+                calls=len(self.events[(lane, "apply")]), rows=b, tokens=s,
+                capacity=cap, moe_ms=ms["apply"], experts_ms=ms["expert_ffn"],
+                bound_all_experts_ms=bound(moe.num_experts * per_expert, flops,
+                                           cfg.torch_dtype)[0],
+                bound_routed_ms=bound(routed * per_expert,
+                                      2 * 3 * kept * d * moe.expert_d_ff,
+                                      cfg.torch_dtype)[0],
+                dropped_slots=int(self.drops[lane]), slots=self.slots[lane])
+        return out
+
+
+def arctic_phase() -> dict:
+    """Phase 12: arctic-480b at its published widths (d_model 7168, 56 / 8
+    heads, 128 experts top-2 of d_ff 4864, the dense residual FFN of d_ff
+    4864, vocab 32000, untied head), depth cut to fit one card: 2 of 35
+    layers in bf16 (2 x 27.22 GB of layers + the fp32 embedding and head),
+    1 layer in fp32.  Random weights drawn on the card from a seeded
+    generator.  (a) bf16 2 layers: phase 4's chunked trace (stem, budget
+    0.5, chunk 1024, 2 slots), every kernel call recorded and held against
+    its plain version, the MoE's device ms per lane and layer beside its
+    bounds, drops per lane (also of (c)'s monolithic prefill).  (b) The same weights: a shared-prefix trace
+    with the prefix cache through the sync and the async loop (every
+    ``_dispatch`` sync-free), streams equal.  (d) The CLI's engine and
+    --fixed-batch modes on the same weights.  (c) fp32 1 layer: "fused"
+    == "gather" on a chunked trace; the monolithic engine == a 1-request
+    fixed batch on a 4096-token prompt, 16 new tokens."""
+    out, launches, recs = {}, {}, {}
+    # Earlier phases' engines (the logit taps', the recorded preemptions')
+    # hold their weights in reference cycles: collect them before drawing
+    # 52 GiB.
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["allocated_before_gib"] = torch.cuda.memory_allocated() / 2 ** 30
+    policy = policy_lib.get_policy("stem")
+    cfg = ARCTIC_480B.replace(num_layers=2)
+    bundle = registry.build(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                device="cuda")
+    torch.cuda.synchronize()
+    out["bf16/init"] = dict(s=time.perf_counter() - t0,
+                            allocated_before_gib=out["allocated_before_gib"],
+                            weights_gib=torch.cuda.memory_allocated() / 2 ** 30,
+                            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    log("[phase12] bf16 2 layers drawn: " + json.dumps(out["bf16/init"]))
+
+    # (a) phase 4's trace, chunked
+    reset_all_launches()
+    with replay.Recorder() as rec, MoETap(1024) as tap:
+        summary = _serve(bundle, params, policy, PROMPTS, ARRIVALS, NEW_TOKENS, 0,
+                         budget_frac=0.5, chunk_size=1024)
+        torch.cuda.synchronize()
+    launches["a/chunked"] = _engine_launches("arctic bf16 chunked", "phase 12")
+    summary.update(peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   moe=tap.report(cfg), kernel_calls=rec.check(),
+                   launches=launches["a/chunked"])
+    out["a/chunked"] = summary
+    log("[phase12] (a) bf16 2 layers, phase 4's trace: " + json.dumps(summary))
+
+    # (b) the prefix cache through the sync and the async loop
+    runs = {}
+    for arm, depth in (("sync", 0), ("async", 1)):
+        torch.cuda.reset_peak_memory_stats()
+        with SyncFreeDispatch() as guard:
+            run = prefix_run(bundle, params, f"arctic {arm}", prefix_cache=True,
+                             async_depth=depth)
+        if depth and guard.calls != run["stats"]["step_calls"]:
+            raise AssertionError(f"phase 12 async: {guard.calls} checked "
+                                 f"dispatches, {run['stats']}")
+        if run["stats"]["prefix_hits"] < 2:
+            raise AssertionError(f"phase 12 {arm}: prefix stats {run['stats']}")
+        run["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        runs[arm] = run
+        launches[f"b/{arm}"] = run["launches"]
+    if runs["async"]["tokens"] != runs["sync"]["tokens"]:
+        raise AssertionError("phase 12: the async loop's streams differ from sync")
+    out["b/prefix"] = {arm: {k: v for k, v in r.items() if k != "tokens"}
+                       for arm, r in runs.items()}
+    log("[phase12] (b) prefix cache, sync vs async: " + json.dumps(out["b/prefix"]))
+
+    # (d) the CLI's engine and fixed-batch modes
+    cli_pol = policy.with_updates(**CLI_POLICY)
+    for mode, fixed, need in (("engine", False, ENGINE_KERNELS),
+                              ("fixed-batch", True, ("block_sparse_attention",
+                                                     "antidiag_pool",
+                                                     "value_magnitude"))):
+        torch.cuda.synchronize()
+        reset_all_launches()
+        rec = recs.setdefault(f"cli/{mode}", replay.Recorder())
+        res, _, _ = _glm_cli(fixed, cfg, bundle, params, cli_pol, "fused", rec,
+                             arch="arctic-480b")
+        n = read_all_launches()
+        missing = [k for k in need if n[k] == 0]
+        if missing:
+            raise AssertionError(f"phase 12 cli {mode}: kernels never launched: "
+                                 f"{missing}")
+        if res.get("failed"):
+            raise AssertionError(f"phase 12 cli {mode}: failed {res['failed']}")
+        launches[f"d/cli {mode}"] = n
+        keys = ("ttft_s", "ms_per_token") if fixed else (
+            "wall_s", "ttft_ms_mean", "tpot_ms_mean")
+        out[f"d/cli/{mode}"] = dict({k: res[k] for k in keys},
+                                    kernel_calls=rec.check())
+        log(f"[phase12] (d) cli {mode}: " + json.dumps(out[f"d/cli/{mode}"]))
+    del params, rec, recs
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[phase12] bf16 freed: {torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB "
+        "still allocated")
+
+    # (c) fp32, 1 layer, strict
+    cfg = ARCTIC_480B.replace(num_layers=1, dtype="float32")
+    bundle = registry.build(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(1),
+                                device="cuda")
+    torch.cuda.synchronize()
+    out["fp32/init"] = dict(weights_gib=torch.cuda.memory_allocated() / 2 ** 30)
+    trace = [(1531, 16, 0), (3907, 16, 0), (2600, 8, 2)]
+    reset_all_launches()
+    with replay.Recorder() as rec:
+        fused = _serve_small(cfg, policy, trace, params, "fused", False)
+        torch.cuda.synchronize()
+    launches["c/fused"] = _engine_launches("arctic fp32 fused", "phase 12")
+    gather = _serve_small(cfg, policy, trace, params, "gather", False)
+    if fused != gather:
+        raise AssertionError("phase 12 fp32: fused and gather streams differ")
+    out["c/fused_vs_gather"] = dict(equal=True, kernel_calls=rec.check(),
+                                    launches=launches["c/fused"])
+    rng = np.random.RandomState(13)
+    prompt = rng.randint(0, cfg.vocab_size, size=(4096,)).astype(np.int32)
+    new = 16
+    ecfg = engine_lib.EngineConfig.for_trace(
+        max_slots=1, max_prompt=len(prompt), max_new_tokens=new,
+        page_size=policy.block_size, budget_frac=1.0, monolithic_prefill=True)
+    reset_all_launches()
+    with replay.Recorder() as rec, MoETap(chunk=0) as tap:
+        fin = engine_lib.StemEngine(bundle, params, policy, ecfg).run(
+            [engine_lib.Request(uid=0, prompt=prompt, max_new_tokens=new)])
+        torch.cuda.synchronize()
+    n = read_all_launches()
+    need = ("score/decode", "attend/decode", "block_sparse_attention",
+            "antidiag_pool", "value_magnitude")
+    missing = [k for k in need if n[k] == 0]
+    if missing:
+        raise AssertionError(f"phase 12 monolithic: kernels never launched: {missing}")
+    launches["c/monolithic"] = n
+    stream = fin[0].tokens
+    rows = _fixed_batch_teacher_forced(bundle, params, policy, prompt, stream)
+    fixed = [int(r.argmax()) for r in rows]
+    t = next((i for i, (a, b) in enumerate(zip(stream, fixed)) if a != b), None)
+    res = dict(equal=t is None, kernel_calls=rec.check(), moe=tap.report(cfg),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    if t is not None:
+        margin = float(rows[t][fixed[t]] - rows[t][stream[t]])
+        res.update(parting_step=t, margin=margin)
+        if not margin <= FP32_MARGIN:
+            raise AssertionError(f"phase 12 fp32: monolithic engine parts from "
+                                 f"the fixed batch at step {t} by {margin}")
+    out["c/monolithic_vs_fixed"] = res
+    log("[phase12] (c) fp32 1 layer: " + json.dumps(
+        {k: out[k] for k in ("fp32/init", "c/fused_vs_gather",
+                             "c/monolithic_vs_fixed")}))
+    del params
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(x, device) for k, x in tree.items()}
@@ -2468,6 +2747,10 @@ def main() -> None:
     p11 = prefix_async_phase(profile=args.profile)
     p11_launches = lambda key: {arm: n[key] for arm, n in p11["launches"].items()}
 
+    # Phase 12: the MoE family (arctic-480b at full width, depth cut).
+    p12 = arctic_phase()
+    p12_launches = lambda key: {arm: n[key] for arm, n in p12["launches"].items()}
+
     kernels = []
     for key in ("score/decode", "score/chunk", "attend/decode", "attend/chunk"):
         kernel, lane = key.split("/")
@@ -2479,6 +2762,7 @@ def main() -> None:
                              for m in ("engine", "fixed-batch")},
             phase10_launches=p10_launches(key),
             phase11_launches=p11_launches(key),
+            phase12_launches=p12_launches(key),
             max_abs_err=max(r["max_abs_err"] for r in records[key].values()),
             ms=rec["ms"], host_ms=rec["host_ms"], plain_ms=rec["plain_ms"],
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
@@ -2493,6 +2777,7 @@ def main() -> None:
                              for m in ("engine", "fixed-batch")},
             phase10_launches=p10_launches(counter),
             phase11_launches=p11_launches(counter),
+            phase12_launches=p12_launches(counter),
             max_abs_err=max(r["max_abs_err"]
                             for r in records[f"{key}/prefill"].values()),
             ms=rec["ms"], host_ms=rec["host_ms"], plain_ms=rec["plain_ms"],

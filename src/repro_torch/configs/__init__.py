@@ -1,17 +1,21 @@
 """Config registry of the port: ``get_config(arch_id)`` + ``reduced``.
 
-The dense configurations the port serves: ``qwen3-0.6b``, ``qwen1.5-4b``,
-``glm4-9b`` and ``gemma-2b``.
+The configurations the port serves: the dense ``qwen3-0.6b``,
+``qwen1.5-4b``, ``glm4-9b`` and ``gemma-2b``, and the MoE ``arctic-480b``.
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import ArchConfig
+import dataclasses
+
+from repro_torch.configs.arctic_480b import CONFIG as ARCTIC_480B
+from repro_torch.configs.base import ArchConfig, MoEConfig  # noqa: F401
 from repro_torch.configs.gemma_2b import CONFIG as GEMMA_2B
 from repro_torch.configs.glm4_9b import CONFIG as GLM4_9B
 from repro_torch.configs.qwen1_5_4b import CONFIG as QWEN1_5_4B
 from repro_torch.configs.qwen3_0_6b import CONFIG as QWEN3_0_6B
 
-ALL = {c.name: c for c in (QWEN3_0_6B, GLM4_9B, GEMMA_2B, QWEN1_5_4B)}
+ALL = {c.name: c for c in (QWEN3_0_6B, GLM4_9B, GEMMA_2B, QWEN1_5_4B,
+                           ARCTIC_480B)}
 
 
 def get_config(name: str) -> ArchConfig:
@@ -21,15 +25,16 @@ def get_config(name: str) -> ArchConfig:
 
 
 def reduced(cfg: ArchConfig) -> ArchConfig:
-    """CPU smoke-test variant of a dense config: tiny widths and tables,
-    the same GQA ratio and code paths (the reference ``reduced`` restricted
-    to the dense family)."""
-    if cfg.family != "dense":
+    """CPU smoke-test variant of a dense or MoE config: tiny widths and
+    tables, the same GQA ratio, MoE routing and code paths (the reference
+    ``reduced`` restricted to those families)."""
+    if cfg.family not in ("dense", "moe") or cfg.mla is not None:
         raise NotImplementedError(
-            f"reduced() is ported for the dense family only, got {cfg.family!r}")
+            f"reduced() is ported for the dense and MoE families only, got "
+            f"{cfg.family!r}{' with MLA' if cfg.mla is not None else ''}")
     kv_ratio = max(1, cfg.num_heads // max(cfg.num_kv_heads, 1))
     heads = 4
-    return cfg.replace(
+    kw: dict = dict(
         name=cfg.name + "-reduced",
         num_layers=2,
         d_model=64,
@@ -39,3 +44,16 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
         d_ff=128 if cfg.d_ff else 0,
         vocab_size=512,
     )
+    if cfg.moe is not None:
+        kw["num_layers"] = 3
+        kw["moe"] = dataclasses.replace(
+            cfg.moe,
+            num_experts=8,
+            top_k=min(cfg.moe.top_k, 2),
+            expert_d_ff=64,
+            shared_d_ff=64 if cfg.moe.shared_experts else 0,
+            residual_d_ff=64 if cfg.moe.residual_dense else 0,
+            first_k_dense=1 if cfg.moe.first_k_dense else 0,
+            first_dense_d_ff=128 if cfg.moe.first_k_dense else 0,
+        )
+    return cfg.replace(**kw)

@@ -1,9 +1,9 @@
 """Architecture configuration (port of ``repro/configs/base.py``).
 
 Same field names as the reference ``ArchConfig``; ``torch_dtype`` takes the
-place of ``jnp_dtype``.  Only the dense family is served by this port, so
-the sub-configs of the other families (MoE, MLA, RG-LRU, SSD, enc-dec) are
-carried as opaque optional values.
+place of ``jnp_dtype``.  The port serves the dense and MoE families, so
+``MoEConfig`` is the reference's dataclass; the sub-configs of the other
+families (MLA, RG-LRU, SSD, enc-dec) are carried as opaque optional values.
 """
 from __future__ import annotations
 
@@ -11,6 +11,21 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    expert_d_ff: int
+    capacity_factor: float = 1.25
+    shared_experts: int = 0          # deepseek: 1 shared expert
+    shared_d_ff: int = 0
+    residual_dense: bool = False     # arctic: dense FFN branch in parallel
+    residual_d_ff: int = 0
+    first_k_dense: int = 0           # deepseek: first 3 layers are dense
+    first_dense_d_ff: int = 0
+    router_aux_weight: float = 0.001
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,7 +45,7 @@ class ArchConfig:
     rope_theta: float = 10000.0
     tie_embeddings: bool = True
     norm: str = "rms"             # rms | layer
-    moe: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
     mla: Optional[Any] = None
     rglru: Optional[Any] = None
     ssd: Optional[Any] = None

@@ -33,8 +33,13 @@ policy's sparse arm.  The port runs on ``--device`` (default ``cuda``).
 ``--mesh``, whose feature the port does not have yet, raises ``SystemExit``
 naming the ``ROADMAP.md`` item that will lift it.
 
+``--arch`` takes a dense configuration or the MoE ``arctic-480b`` (the
+MoE FFN runs per lane: a row's expert capacity counts its own tokens).
+
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
+      --reduced --device cpu --requests 3 --decode-tokens 6 --max-slots 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch arctic-480b \\
       --reduced --device cpu --requests 3 --decode-tokens 6 --max-slots 2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --policy stem --requests 2 --min-prompt 2000 --max-prompt 6000

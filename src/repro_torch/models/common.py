@@ -17,26 +17,82 @@ from typing import Sequence
 import torch
 
 
+# The largest fp32 temporary one draw allocates; a larger leaf is drawn in
+# slices along its leading axis (an arctic-480b expert table is 17.8 GB in
+# fp32).
+DRAW_BYTES = 1 << 30
+
+
 class Initializer:
-    """Draws parameters from one generator on one device."""
+    """Draws parameters from one generator on one device.
+
+    Inside ``stacked(n, build)`` every leaf gains a leading layer axis: the
+    first of ``n`` calls of ``build`` allocates each leaf at its stacked
+    shape and fills layer 0, and the later calls fill layers 1.. of the
+    same tensors in the same order, so no per-layer copy of a tree is ever
+    alive beside the stacked one."""
 
     def __init__(self, generator: torch.Generator, dtype: torch.dtype,
                  device):
         self.generator = generator
         self.dtype = dtype
         self.device = torch.device(device)
+        self._layers = 0            # n inside stacked(), else 0
+        self._layer = 0
+        self._leaves: list = []
+        self._slot = 0
+
+    def stacked(self, n: int, build):
+        """``build()``'s tree with every leaf stacked ``(n, ...)``, drawn
+        layer by layer."""
+        self._layers, self._leaves = n, []
+        try:
+            for layer in range(n):
+                self._layer, self._slot = layer, 0
+                tree = build()
+        finally:
+            self._layers, self._leaves = 0, []
+        return tree
+
+    def _leaf(self, shape, dtype, fill) -> torch.Tensor:
+        """The tensor of the next leaf and the part this call fills."""
+        if not self._layers:
+            out = torch.empty(tuple(shape), dtype=dtype, device=self.device)
+            fill(out)
+            return out
+        if self._layer == 0:
+            self._leaves.append(torch.empty((self._layers, *shape), dtype=dtype,
+                                            device=self.device))
+        out = self._leaves[self._slot]
+        self._slot += 1
+        fill(out[self._layer])
+        return out
+
+    def _fill_normal(self, dst: torch.Tensor, scale: float) -> None:
+        """normal * scale in fp32, cast into ``dst``: one draw of the whole
+        shape when its fp32 temporary fits ``DRAW_BYTES``, else slices of
+        the leading axis."""
+        step = dst.shape[0]
+        if dst.numel() * 4 > DRAW_BYTES and dst.ndim > 1:
+            step = max(1, DRAW_BYTES // (4 * dst[0].numel()))
+        for i in range(0, dst.shape[0], step):
+            part = dst[i:i + step]
+            part.copy_(torch.randn(part.shape, generator=self.generator,
+                                   dtype=torch.float32,
+                                   device=self.device).mul_(scale))
 
     def normal(self, shape: Sequence[int], scale: float | None = None,
                dtype=None) -> torch.Tensor:
+        """normal / sqrt(fan_in), fan_in = the product of all but the last
+        dimension of ``shape`` (the whole per-layer shape, whatever the
+        slices a large leaf is drawn in)."""
         fan_in = max(int(math.prod(shape[:-1])) or shape[-1], 1)
         scale = (1.0 / math.sqrt(fan_in)) if scale is None else scale
-        v = torch.randn(tuple(shape), generator=self.generator,
-                        dtype=torch.float32, device=self.device) * scale
-        return v.to(dtype or self.dtype)
+        return self._leaf(shape, dtype or self.dtype,
+                          lambda dst: self._fill_normal(dst, scale))
 
     def zeros(self, shape: Sequence[int], dtype=None) -> torch.Tensor:
-        return torch.zeros(tuple(shape), dtype=dtype or self.dtype,
-                           device=self.device)
+        return self._leaf(shape, dtype or self.dtype, lambda dst: dst.zero_())
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

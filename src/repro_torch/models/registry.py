@@ -1,5 +1,5 @@
 """Model bundle of the port (``repro/models/registry.py`` for the dense
-family): ``cfg``, ``init_params``, ``loss_fn``, ``prefill``,
+and MoE families): ``cfg``, ``init_params``, ``loss_fn``, ``prefill``,
 ``decode_step`` and ``init_caches``, with the reference's call shapes."""
 from __future__ import annotations
 

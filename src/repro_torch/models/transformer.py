@@ -1,14 +1,20 @@
-"""Decoder-only LM, dense family (port of ``repro/models/transformer.py``):
-the evaluation passes (``loss_fn``, ``forward_hiddens``,
-``forward_with_stats``), one-shot prefill, contiguous-cache decode
-(``decode_step``) and paged serving (``paged_mixed_step``,
-``paged_decode_step``), with tied or untied LM heads.
+"""Decoder-only LM, dense and MoE families (port of
+``repro/models/transformer.py``): the evaluation passes (``loss_fn``,
+``forward_hiddens``, ``forward_with_stats``), one-shot prefill,
+contiguous-cache decode (``decode_step``) and paged serving
+(``paged_mixed_step``, ``paged_decode_step``), with tied or untied LM
+heads.
 
 Parameters keep the reference's tree: ``embed``, ``final_norm`` and
 ``segment{si}`` whose leaves are stacked along a leading layer axis.  The
 reference's ``lax.scan`` over a segment becomes a Python loop over that
 axis; caches and page pools are stacked the same way, and each layer works
 on views of the pools, so its in-place writes land in the stacked tensors.
+
+Sub-layer kinds: ``dense`` (attention + MLP) and ``moe`` (attention + the
+MoE FFN of ``models/moe.py``).  An MoE FFN runs per lane: a batch row's
+capacity counts that row's own tokens (1 for a decode row, C for a chunk,
+Lp for a one-shot prompt).
 """
 from __future__ import annotations
 
@@ -19,16 +25,24 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import chunked as chunked_lib
 from repro_torch.core import policy as policy_lib
-from repro_torch.models import attention, common, mlp
+from repro_torch.models import attention, common, mlp, moe
 from repro_torch.runtime import paged as paged_lib
 
-PAGED_KINDS = ("dense",)   # attention sub-layers this port serves
+PAGED_KINDS = ("dense", "moe")   # attention sub-layers this port serves
 
 
 def layer_program(cfg: ArchConfig) -> list[tuple[int, tuple[str, ...]]]:
+    """Segments ``(num_groups, kinds)``: one ``("dense",)`` segment for the
+    dense / vlm backbones; for MoE an optional ``first_k_dense`` dense
+    segment, then the ``("moe",)`` layers."""
+    if cfg.family == "moe" and cfg.mla is None:
+        first = cfg.moe.first_k_dense
+        return ([(first, ("dense",))] if first else []) + [
+            (cfg.num_layers - first, ("moe",))]
     if cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(
-            f"the port serves the dense family only, got {cfg.family!r}")
+            f"the port serves the dense and MoE families only, got "
+            f"{cfg.family!r}{' with MLA' if cfg.mla is not None else ''}")
     return [(cfg.num_layers, ("dense",))]
 
 
@@ -41,13 +55,24 @@ def assert_paged_servable(cfg: ArchConfig) -> None:
                     f"{k!r} (arch {cfg.name})")
 
 
-def _init_sublayer(ini: common.Initializer, cfg: ArchConfig) -> dict:
+def _init_sublayer(ini: common.Initializer, cfg: ArchConfig, kind: str) -> dict:
+    _check_kind(kind)
     return {
         "norm1": ini.zeros((cfg.d_model,)),
         "attn": attention.init(ini, cfg),
         "norm2": ini.zeros((cfg.d_model,)),
-        "ffn": mlp.init(ini, cfg.d_model, cfg.d_ff, cfg.activation),
+        "ffn": (moe.init(ini, cfg.d_model, cfg.moe, cfg.activation)
+                if kind == "moe" else
+                mlp.init(ini, cfg.d_model, cfg.d_ff, cfg.activation)),
     }
+
+
+def _ffn(params, h, cfg: ArchConfig, kind: str):
+    """The sub-layer's FFN on ``h`` (b, s, d): (y, aux loss fp32 scalar)."""
+    if kind == "moe":
+        return moe.apply(params, h, cfg.moe, cfg.activation)
+    return (mlp.apply(params, h, cfg.activation),
+            torch.zeros((), dtype=torch.float32, device=h.device))
 
 
 def _stack(trees: list) -> Any:
@@ -66,16 +91,17 @@ def _index(tree, i: int):
 
 def init_params(generator: torch.Generator, cfg: ArchConfig, device="cuda") -> dict:
     """Random parameters with the reference's tree, shapes and scales,
-    drawn from ``generator`` on ``device``."""
+    drawn from ``generator`` on ``device`` straight into the stacked
+    tensors, layer by layer (the peak is the parameters plus one draw of
+    at most ``common.DRAW_BYTES``)."""
     ini = common.Initializer(generator, cfg.torch_dtype, device)
     p: dict[str, Any] = {
         "embed": common.embed_init(ini, cfg.padded_vocab, cfg.d_model),
         "final_norm": ini.zeros((cfg.d_model,)),
     }
     for si, (n, kinds) in enumerate(layer_program(cfg)):
-        p[f"segment{si}"] = _stack([
-            {f"sub{i}": _init_sublayer(ini, cfg) for i, _ in enumerate(kinds)}
-            for _ in range(n)])
+        p[f"segment{si}"] = ini.stacked(n, lambda kinds=kinds: {
+            f"sub{i}": _init_sublayer(ini, cfg, k) for i, k in enumerate(kinds)})
     if not cfg.tie_embeddings:
         p["head"] = ini.normal((cfg.d_model, cfg.padded_vocab), scale=0.02,
                                dtype=torch.float32)
@@ -139,7 +165,7 @@ def _embed_inputs(params, batch: dict, cfg: ArchConfig):
 
 
 def _check_kind(kind: str) -> None:
-    if kind != "dense":
+    if kind not in PAGED_KINDS:
         raise NotImplementedError(f"sub-layer kind {kind!r} is not ported")
 
 
@@ -158,9 +184,8 @@ def _sublayer_full(params, x, cfg: ArchConfig, kind: str, *, positions,
         mix = attention.apply_full(params["attn"], h, cfg, positions=positions,
                                    stem_cfg=stem_cfg)
     x = x + mix
-    x = x + mlp.apply(params["ffn"], common.rms_norm(x, params["norm2"]),
-                      cfg.activation)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    y, aux = _ffn(params["ffn"], common.rms_norm(x, params["norm2"]), cfg, kind)
+    x = x + y
     return (x, aux, stats) if return_stats else (x, aux)
 
 
@@ -285,9 +310,8 @@ def _sublayer_prefill(params, x, cfg: ArchConfig, kind: str, *, positions,
         params["attn"], h, cfg, positions=positions, max_len=max_len,
         stem_cfg=stem_cfg)
     x = x + mix
-    y = mlp.apply(params["ffn"], common.rms_norm(x, params["norm2"]),
-                  cfg.activation)
-    return x + y, torch.zeros((), dtype=torch.float32, device=x.device), cache
+    y, aux = _ffn(params["ffn"], common.rms_norm(x, params["norm2"]), cfg, kind)
+    return x + y, aux, cache
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int, device="cuda"):
@@ -436,7 +460,7 @@ def paged_mixed_step(params, tokens, pools, page_table, cache_lens,
         seg = params[f"segment{si}"]
         for layer in range(n):
             layer_params = _index(seg, layer)
-            for i, _ in enumerate(kinds):
+            for i, kind in enumerate(kinds):
                 p = layer_params[f"sub{i}"]
                 pl = paged_lib.layer_view(pools[si][f"sub{i}"], layer)
                 if chunk is not None:
@@ -451,11 +475,13 @@ def paged_mixed_step(params, tokens, pools, page_table, cache_lens,
                     p["attn"], h, cfg, pl, page_table, cache_lens, stem_cfg,
                     budget_frac=budget_frac)
                 x = x + mix
-                x = x + mlp.apply(p["ffn"], common.rms_norm(x, p["norm2"]),
-                                  cfg.activation)
+                # each lane through the FFN on its own: an MoE row's
+                # capacity counts that row's tokens only
+                x = x + _ffn(p["ffn"], common.rms_norm(x, p["norm2"]), cfg,
+                             kind)[0]
                 if chunk is not None:
-                    xc = xc + mlp.apply(p["ffn"], common.rms_norm(xc, p["norm2"]),
-                                        cfg.activation)
+                    xc = xc + _ffn(p["ffn"], common.rms_norm(xc, p["norm2"]),
+                                   cfg, kind)[0]
     dec_logits = _logits(params, x, cfg)[:, 0]
     chunk_logits = None
     if chunk is not None:
@@ -519,8 +545,7 @@ def _sublayer_decode(params, x, cfg: ArchConfig, kind: str, cache, *,
                                         stem_cfg=stem_cfg,
                                         budget_frac=budget_frac)
     x = x + mix
-    y = mlp.apply(params["ffn"], common.rms_norm(x, params["norm2"]),
-                  cfg.activation)
+    y, _ = _ffn(params["ffn"], common.rms_norm(x, params["norm2"]), cfg, kind)
     return x + y, cache
 
 

@@ -3,9 +3,11 @@
 ``from_jax_params`` takes the JAX ``init_params`` values tree with every
 leaf already converted to numpy (the caller does the conversion, so this
 module needs no JAX) and returns the port's tree: the same nesting, the
-stacked ``segment{si}`` layer axis kept as the leading dimension, the fp32
-embedding table and the fp32 untied LM head kept fp32, every other leaf in
-``cfg``'s dtype.
+stacked ``segment{si}`` layer axis kept as the leading dimension (an MoE
+program's ``first_k_dense`` segment beside its MoE segment, and the MoE
+FFN's ``shared`` / ``residual`` subtrees as they come), the embedding
+table, the untied LM head and every MoE ``router`` kept fp32, every other
+leaf in ``cfg``'s dtype.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ def from_jax_params(tree, cfg: ArchConfig, device="cuda") -> dict:
     def convert(node, path):
         if isinstance(node, dict):
             return {k: convert(v, path + (k,)) for k, v in node.items()}
-        fp32 = path in (("embed",), ("head",))
+        fp32 = path in (("embed",), ("head",)) or path[-1] == "router"
         return _to_tensor(node, torch.float32 if fp32 else cfg.torch_dtype,
                           device)
 
@@ -40,7 +42,7 @@ def from_jax_params(tree, cfg: ArchConfig, device="cuda") -> dict:
         expected.add("head")
     if set(tree) != expected:
         raise ValueError(
-            f"parameter tree keys {sorted(tree)} are not the dense "
+            f"parameter tree keys {sorted(tree)} are not the {cfg.family} "
             f"{'tied' if cfg.tie_embeddings else 'untied'}-head set "
             f"{sorted(expected)}")
     return convert(dict(tree), ())

@@ -12,6 +12,9 @@ differential oracle.
   ``run_fixed_batch`` with the same arguments and carried weights: equal
   tokens and errors, and equal engine step / chunk / decode-step and
   preemption / restore / shed / chaos counts.
+* The same on the reduced ``arctic-480b`` (the MoE family: 3 layers, 8
+  experts, top-2, a residual dense FFN), in engine (chunked and
+  ``--monolithic``) and ``--fixed-batch`` modes.
 * ``main`` end to end on the reduced qwen3-0.6b on the CPU; ``--mesh``,
   whose feature the port lacks, raises ``SystemExit``, and a bad sampler
   or async depth the reference's ``ValueError``."""
@@ -107,14 +110,23 @@ BASE = ["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu", "--requests", "3
         "--max-slots", "2"]
 
 
-@pytest.fixture(scope="module")
-def carried():
-    jcfg = j_configs.reduced(j_configs.get_config("qwen3-0.6b")).replace(dtype="float32")
-    tcfg = t_configs.reduced(t_configs.get_config("qwen3-0.6b")).replace(dtype="float32")
+def _carry(arch):
+    jcfg = j_configs.reduced(j_configs.get_config(arch)).replace(dtype="float32")
+    tcfg = t_configs.reduced(t_configs.get_config(arch)).replace(dtype="float32")
     jb, tb = j_registry.build(jcfg), t_registry.build(tcfg)
     jparams = jb.init_params(jax.random.PRNGKey(0))
     tparams = from_jax_params(jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
     return jcfg, jb, jparams, tcfg, tb, tparams
+
+
+@pytest.fixture(scope="module")
+def carried():
+    return _carry("qwen3-0.6b")
+
+
+@pytest.fixture(scope="module")
+def carried_arctic():
+    return _carry("arctic-480b")
 
 
 def _serving_policies(args):
@@ -158,8 +170,24 @@ def _serving_policies(args):
                             "--prefix-cache", "--chaos", "--hp-every", "2"]),
 ])
 def test_cli_matches_reference(carried, capsys, mode, flags):
+    _cli_matches_reference(carried, capsys, mode, BASE + flags)
+
+
+@pytest.mark.parametrize("mode,flags", [
+    ("chunked", ["--policy", "stem"]),
+    ("monolithic", ["--policy", "stem", "--monolithic"]),
+    ("fixed-batch", ["--policy", "stem", "--fixed-batch"]),
+    ("fixed-batch-dense", ["--fixed-batch"]),
+])
+def test_arctic_cli_matches_reference(carried_arctic, capsys, mode, flags):
+    """``--arch arctic-480b --reduced``: the MoE FFN in every lane."""
+    _cli_matches_reference(carried_arctic, capsys, mode,
+                           ["--arch", "arctic-480b"] + BASE[2:] + flags)
+
+
+def _cli_matches_reference(carried, capsys, mode, argv):
     jcfg, jb, jparams, tcfg, tb, tparams = carried
-    args = t_serve.build_parser().parse_args(BASE + flags)
+    args = t_serve.build_parser().parse_args(argv)
     jpol, tpol, sparse = _serving_policies(args)
     frac = args.budget_frac if sparse else 1.0
     if args.fixed_batch:
@@ -242,6 +270,15 @@ def test_main_runs_on_cpu(capsys, extra):
     assert "serve: arch=qwen3-0.6b-reduced device=cpu" in printed
     assert ("fixed-batch (ragged lens" if extra == ["--fixed-batch"]
             else "engine (chunked, sync, slo)") in printed
+
+
+@pytest.mark.parametrize("extra", [[], ["--fixed-batch"]])
+def test_main_runs_arctic_on_cpu(capsys, extra):
+    out = t_serve.main(["--arch", "arctic-480b", "--reduced", "--device", "cpu",
+                        "--requests", "3", "--decode-tokens", "4", "--max-slots",
+                        "2", "--policy", "stem"] + extra)
+    assert all(len(toks) == 4 for toks in out["tokens"].values())
+    assert "serve: arch=arctic-480b-reduced device=cpu" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("flags", [["--mesh", "1,1"], ["--executor", "pallas"]])
