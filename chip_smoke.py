@@ -3,7 +3,8 @@
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --profile  # also trace phase 4 and phase 11's
                                      # loops with torch.profiler
-    python3 chip_smoke.py --profile-prefill  # also trace phase 5's prefills
+    python3 chip_smoke.py --profile-prefill  # also trace phase 5's and
+                                             # phase 13's prefills
 
 Phases:
   1. device   — require CUDA; print the card's name and power limit.
@@ -208,6 +209,32 @@ Phases:
                 (one-shot prefill of the same 4096 tokens, then sparse
                 contiguous decode) over 16 new tokens, or parted at a tie
                 within 1e-3.
+ 13. deepseek — MLA and deepseek-v3-671b, the paper's DSA + Stem backbone.
+                (d) flash and block-sparse attention at MLA's head dims
+                (q/k 192 with v 128, and the MTP layer's 192 / 192), 128
+                heads, a 16384-token prompt under stem's selection, on the
+                CUDA-core tile: fp32 and bf16 against the plain versions
+                (the 1e-3 row rule, which must reject a dropped key tile),
+                bf16 timed beside the bound, SDPA and flex_attention where
+                they take the shape; the reduced config's (24, 16) checked.
+                Then the model at its published widths (d_model 7168, 128
+                heads, MLA q rank 1536 / latent 512 / rope 64 / nope 128 /
+                v 128, 256 experts top-8 of d_ff 2048 + a shared expert,
+                first_k_dense 3 of d_ff 18432, vocab 129280, untied head,
+                the MTP head) with its depth cut from 61 layers: (a) bf16 4
+                layers (3 mla_dense + 1 mla_moe; 33.2 GiB of weights drawn
+                on the card): the CLI's --fixed-batch (dense: MLA decodes
+                densely, as in the reference) on 3 prompts of 2000-6000
+                tokens, 16 new tokens (TTFT, ms a token, peak memory, every
+                kernel call held against its plain version); the engine
+                modes and the policy-sparse fixed batch refused with the
+                reference's NotImplementedError; (b) one 16384-token
+                one-shot prefill, stem against dense (ms, realized density,
+                launches; device time by kernel with --profile-prefill);
+                (c) fp32 2 layers (first_k_dense cut to 1): "fused" ==
+                "gather" prefill logits and greedy streams, loss_fn's ce /
+                mtp_ce / aux equal under fused, gather, the dense oracle
+                executor and dense attention.
 
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}.  Any failed phase raises (non-zero exit).
@@ -233,7 +260,8 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.configs import ARCTIC_480B, GLM4_9B, QWEN3_0_6B, reduced  # noqa: E402
+from repro_torch.configs import (ARCTIC_480B, DEEPSEEK_V3_671B, GLM4_9B,  # noqa: E402
+                                 QWEN3_0_6B, reduced)
 from repro_torch.configs.base import ArchConfig  # noqa: E402
 from repro_torch.core import chunked as chunked_lib  # noqa: E402
 from repro_torch.core import decode as decode_lib  # noqa: E402
@@ -251,6 +279,7 @@ from repro_torch.launch import serve as serve_lib  # noqa: E402
 from repro_torch.launch import steps as steps_lib  # noqa: E402
 from repro_torch.models import attention as attention_lib  # noqa: E402
 from repro_torch.models import common  # noqa: E402
+from repro_torch.models import mla as mla_lib  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
@@ -353,19 +382,21 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor, *,
     return float(diff.max())
 
 
-def check_rejects_dropped_tile(name, q, k, v, idx, cnt, want, bs) -> None:
-    """The bf16 attention rule must see the long rows: the block-sparse
+def check_rejects_dropped_tile(name, q, k, v, idx, cnt, want, bs,
+                               p_bf16: bool = True) -> None:
+    """The bf16 attention rule (the tensor-core tile's p_bf16 rule, or the
+    CUDA-core tile's 1e-3 one) must see the long rows: the block-sparse
     kernel over the selection (idx, cnt) passes it, and fails it once the
     last live block of each row past 4k (with two or more) is dropped."""
     check_close(f"{name}/block-sparse kernel, same selection",
                 bsa_kern.block_sparse_attention(q, k, v, idx, live_counts=cnt,
-                                                block_size=bs), want, p_bf16=True)
+                                                block_size=bs), want, p_bf16=p_bf16)
     past = (torch.arange(idx.shape[2], device=idx.device) * bs >= 4096) & (cnt >= 2)
     got = bsa_kern.block_sparse_attention(
         q, k, v, idx, live_counts=torch.where(past, cnt - 1, cnt).to(torch.int32),
         block_size=bs).float()
     want = want.float()
-    over = (got - want).abs() / tolerance(want, torch.bfloat16, p_bf16=True)
+    over = (got - want).abs() / tolerance(want, torch.bfloat16, p_bf16=p_bf16)
     rows = int((over > 1).any(-1).sum())
     log(f"[kernels] {name} with one key tile dropped from each row past 4k: "
         f"{rows} of {int(past.sum()) * bs} such rows over the limit, max "
@@ -674,17 +705,21 @@ def causal_pairs(idx, cnt, bs) -> float:
     return float(below.sum()) * bs * bs + float(diag.sum()) * bs * (bs + 1) / 2
 
 
-def bsa_bytes_flops(q, k, idx, cnt, group, dedup, bs):
+def bsa_bytes_flops(q, k, idx, cnt, group, dedup, bs, dv=None):
+    """Bytes (q read, the output written at v's head dim dv, each selected
+    K / V block read once, the selection) and flops (2 * (d + dv) a causal
+    pair) of one block-sparse call; dv defaults to q's head dim."""
     d, es = q.shape[-1], q.element_size()
+    dv = d if dv is None else dv
     hsel = idx.shape[1]
     live = torch.arange(idx.shape[-1], device=idx.device) < cnt[..., None].long()
     kvh = (torch.arange(hsel, device=idx.device) // (1 if dedup else group))
     key = (kvh[None, :, None, None].expand_as(idx).long() << 32) | idx.long()
     blocks = int(torch.unique(key[live]).numel())
-    nbytes = (2 * q.numel() * es + 2 * blocks * bs * d * es
+    nbytes = (q.numel() * (d + dv) // d * es + blocks * bs * (d + dv) * es
               + (idx.numel() + cnt.numel()) * 4)
     heads = group if dedup else 1
-    return nbytes, 4.0 * d * causal_pairs(idx, cnt, bs) * heads
+    return nbytes, 2.0 * (d + dv) * causal_pairs(idx, cnt, bs) * heads
 
 
 def flex_block_mask(idx, cnt, bs):
@@ -2677,6 +2712,418 @@ def arctic_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: MLA and deepseek-v3-671b
+# ---------------------------------------------------------------------------
+
+# MLA's (q/k, v) head_dim pairs at deepseek-v3-671b's published widths: its
+# attention (nope 128 + rope 64 against v 128) and its MTP layer's dense
+# attention (192 throughout); the record tags of the kernels line.
+MLA_PAIRS = {"d192v128": (192, 128), "d192": (192, 192)}
+# The reference's refusal of a config without a page layout.
+MLA_REFUSAL = ("paged serving supports ('dense', 'moe') sub-layers, got "
+               "'mla_dense' (arch deepseek-v3-671b)")
+
+
+def mla_kernel_phase(records: dict, dev=torch.device("cuda")) -> None:
+    """Phase 13 (d): flash and block-sparse attention at MLA's pairs and
+    deepseek-v3-671b's 128 query / 128 KV heads, one 16384-token prompt,
+    block 128, stem's TPD selection, on the CUDA-core tile (fp32 products
+    and probabilities): each against its plain version in fp32 (1e-4) and
+    bf16 (the 1e-3 row rule; the rule must reject a dropped key tile), the
+    bf16 calls timed beside their bound, SDPA (flash) and a compiled
+    flex_attention over the same BlockMask (block-sparse), where those take
+    the shape.  Then the reduced config's (24, 16), checked only (4 heads,
+    4096 tokens, block 8)."""
+    n, h, bs = 16384, 128, 128
+    policy = policy_lib.get_policy("stem")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    from torch.nn.attention.flex_attention import flex_attention
+    # Earlier phases' flex_attention shapes used up dynamo's recompile
+    # limit, past which it runs flex eagerly (the full score matrix: 128
+    # GiB here); start from empty caches.
+    torch._dynamo.reset()
+    flex = torch.compile(flex_attention, dynamic=False)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for tag, (d, dv) in MLA_PAIRS.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            es = torch.tensor([], dtype=dtype).element_size()
+            q = torch.randn((1, h, n, d), generator=gen, device=dev).to(dtype)
+            k = torch.randn((1, h, n, d), generator=gen, device=dev).to(dtype)
+            v = torch.randn((1, h, n, dv), generator=gen, device=dev).to(dtype)
+            bf16 = dtype == torch.bfloat16
+
+            # -- kernel 4: flash ------------------------------------------
+            run_k = lambda: flash_kern.flash_attention(q, k, v)
+            run_p = lambda: flash_kern.flash_attention_plain(q, k, v)
+            got, want = run_k(), run_p()
+            torch.cuda.synchronize()
+            err = check_close(f"flash_attention/{tag}/{dname}", got, want)
+            log(f"[phase13] flash_attention {tag} {dname}: max_abs_err={err:.3e}")
+            if bf16:
+                nb = n // bs
+                i = torch.arange(nb, device=dev)[:, None]
+                j = torch.arange(nb, device=dev)[None, :]
+                idx = torch.where(j == 0, i, j - 1).expand(1, h, nb, nb)
+                cnt = (i[:, 0] + 1).expand(1, h, nb)
+                check_rejects_dropped_tile(f"flash_attention {tag}", q, k, v,
+                                           idx.to(torch.int32).contiguous(),
+                                           cnt.to(torch.int32).contiguous(), want, bs,
+                                           p_bf16=False)
+                run_l = lambda: sdpa(q, k, v, is_causal=True)
+                try:
+                    check_library(f"flash_attention {tag} vs "
+                                  "scaled_dot_product_attention", run_l(), got)
+                except Exception as e:  # the library is only timed beside it
+                    log(f"[phase13] SDPA at {tag} failed, no library time: "
+                        f"{type(e).__name__}: {str(e).splitlines()[0][:200]}")
+                    run_l = None
+                pairs = h * n * (n + 1) / 2
+                rec_kernel(records, "flash_attention", tag, dname, err, run_k, run_p,
+                           ((q.numel() + k.numel()) * es + 2 * v.numel() * es,
+                            2.0 * (d + dv) * pairs), dtype, run_lib=run_l,
+                           iters=3, plain_iters=1)
+            del got, want
+
+            # -- kernel 3: block-sparse under stem's selection ------------
+            sel, _ = policy.prefill_select(q, k, v, with_block_mask=False)
+            idx, cnt = sel.indices, sel.live_counts
+            run_k = lambda: bsa_kern.block_sparse_attention(q, k, v, idx, live_counts=cnt,
+                                                            block_size=bs)
+            run_p = lambda: bsa_kern.block_sparse_attention_plain(q, k, v, idx, cnt,
+                                                                  block_size=bs)
+            got, want = run_k(), run_p()
+            torch.cuda.synchronize()
+            err = check_close(f"block_sparse_attention/{tag}/{dname}", got, want)
+            log(f"[phase13] block_sparse_attention {tag} {dname}: max_abs_err="
+                f"{err:.3e}, k_max {idx.shape[-1]}, realized density "
+                f"{float(selection_density(sel, n // bs)):.4f}")
+            if bf16:
+                check_rejects_dropped_tile(f"block_sparse_attention {tag}", q, k, v,
+                                           idx, cnt, want, bs, p_bf16=False)
+                mask = flex_block_mask(idx, cnt, bs)
+                run_l = lambda: flex(q, k, v, block_mask=mask)
+                try:
+                    check_library(f"block_sparse_attention {tag} vs flex_attention",
+                                  run_l(), want)
+                except Exception as e:  # the library is only timed beside it
+                    log(f"[phase13] flex_attention at {tag} failed, no library "
+                        f"time: {type(e).__name__}: {str(e).splitlines()[0][:200]}")
+                    run_l = None
+                rec_kernel(records, "block_sparse_attention", tag, dname, err,
+                           run_k, run_p,
+                           bsa_bytes_flops(q, k, idx, cnt, 1, False, bs, dv=dv),
+                           dtype, run_lib=run_l, iters=3, plain_iters=1)
+                del mask
+            del q, k, v, got, want, sel, idx, cnt
+            torch.cuda.empty_cache()
+
+    # the reduced config's (24, 16): checked, not timed
+    gen = torch.Generator(device=dev).manual_seed(22)
+    n, h, bs = 4096, 4, 8
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn((1, h, n, 24), generator=gen, device=dev).to(dtype)
+        k = torch.randn((1, h, n, 24), generator=gen, device=dev).to(dtype)
+        v = torch.randn((1, h, n, 16), generator=gen, device=dev).to(dtype)
+        pol = policy.with_updates(block_size=bs, stride=4)
+        sel, _ = pol.prefill_select(q, k, v, with_block_mask=False)
+        errs = [check_close(f"flash_attention/d24v16/{dtype}",
+                            flash_kern.flash_attention(q, k, v),
+                            flash_kern.flash_attention_plain(q, k, v)),
+                check_close(f"block_sparse_attention/d24v16/{dtype}",
+                            bsa_kern.block_sparse_attention(
+                                q, k, v, sel.indices, live_counts=sel.live_counts,
+                                block_size=bs),
+                            bsa_kern.block_sparse_attention_plain(
+                                q, k, v, sel.indices, sel.live_counts, block_size=bs))]
+        log(f"[phase13] d24v16 {dtype}: flash / block-sparse max_abs_err "
+            f"{errs[0]:.3e} / {errs[1]:.3e}")
+    del q, k, v, sel
+    torch.cuda.empty_cache()
+
+
+def _need(launches: dict, need, what: str) -> dict:
+    missing = [k for k in need if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"phase 13 {what}: kernels never launched: {missing}")
+    return launches
+
+
+def _refuses(what: str, fn) -> str:
+    """``fn()`` must raise the reference's NotImplementedError for MLA."""
+    try:
+        fn()
+    except NotImplementedError as e:
+        if str(e) != MLA_REFUSAL:
+            raise AssertionError(f"phase 13 {what}: refused with {e!r}") from e
+        log(f"[phase13] {what} refused: {e}")
+        return str(e)
+    raise AssertionError(f"phase 13 {what}: MLA was not refused")
+
+
+def _stem_vs_dense_prefill(cfg, params, n: int, profile: bool) -> dict:
+    """(b) One n-token one-shot prefill, stem (paper defaults, block 128)
+    against dense: ms (host clock around a synchronized call, after a
+    1024-token warm-up), layer 0's realized density, launches; with
+    ``profile`` a third, traced run of each arm."""
+    bundle = registry.build(cfg)
+    policy = policy_lib.get_policy("stem")
+    rng = np.random.RandomState(23)
+    tokens = torch.as_tensor(rng.randint(0, cfg.vocab_size, size=(1, n)), device="cuda")
+    out = {}
+    for arm, stem_cfg, need in (
+            ("stem", policy, ("block_sparse_attention", "antidiag_pool",
+                              "value_magnitude")),
+            ("dense", None, ("flash_attention",))):
+        step = steps_lib.make_prefill_step(bundle, max_len=n, stem_cfg=stem_cfg)
+        step(params, {"tokens": tokens[:, :1024]})        # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        logits, caches = step(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = _need(read_all_launches(), need, f"prefill {arm}")
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"phase 13 prefill {arm}: non-finite logits")
+        if caches[0]["sub0"].c_kv.dtype != torch.bfloat16:
+            raise AssertionError("phase 13: the latent cache is not bf16")
+        del logits, caches
+        density = 1.0
+        if stem_cfg is not None:
+            x = transformer._embed_inputs(params, {"tokens": tokens}, cfg)
+            p0 = transformer._index(params["segment0"], 0)["sub0"]
+            h = common.rms_norm(x, p0["norm1"])
+            _, stats = mla_lib.apply_full(p0["attn"], h, cfg,
+                                          positions=torch.arange(n, device="cuda"),
+                                          stem_cfg=stem_cfg, return_stats=True)
+            density = float(stats.density)
+            del x, h, stats
+        out[arm] = dict(ms=ms, density=density,
+                        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                        launches={k: v for k, v in launches.items() if v})
+        log(f"[phase13] (b) prefill {arm}: n={n} {ms:.1f} ms, realized density "
+            f"{density:.4f}, launches {out[arm]['launches']}")
+        torch.cuda.empty_cache()
+        if profile:
+            act = torch.profiler.ProfilerActivity
+            with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+                t0 = time.perf_counter()
+                step(params, {"tokens": tokens})
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            log(f"[profile] phase 13 prefill/{arm}:")
+            profile_summary(prof, wall)
+            torch.cuda.empty_cache()
+    return out
+
+
+def _fixed_batch_stream(bundle, params, toks, lens, new: int, stem_cfg):
+    """The fixed batch's path with a policy-sparse prefill: a right-padded
+    ragged prefill under ``stem_cfg``, then dense decode (MLA decodes
+    densely) for ``new`` tokens.  Returns (prefill logits, {row: stream},
+    {row: the logits rows (host, fp32) its tokens were chosen from})."""
+    last = torch.as_tensor(lens - 1, device="cuda")
+    logits, caches = bundle.prefill(params, {"tokens": toks}, max_len=toks.shape[1] + new,
+                                    stem_cfg=stem_cfg, last_pos=last)
+    first = logits.float().clone()
+    serve = steps_lib.make_serve_step(bundle)
+    streams, rows = {i: [] for i in range(len(lens))}, {i: [] for i in range(len(lens))}
+    for t in range(new):
+        host = logits.float().cpu()
+        tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        for i in streams:
+            streams[i].append(int(tok[i, 0]))
+            rows[i].append(host[i])
+        if t + 1 < new:
+            logits, caches = serve(params, tok, caches,
+                                   torch.as_tensor(lens, device="cuda") if t == 0 else None)
+    return first, streams, rows
+
+
+def deepseek_phase(profile: bool = False) -> dict:
+    """Phase 13: deepseek-v3-671b (MLA: q rank 1536, latent 512, rope 64,
+    nope 128, v 128; 128 heads; 256 experts top-8 of d_ff 2048, one shared
+    expert, first_k_dense 3 of d_ff 18432; vocab 129280, untied head; the
+    MTP head) at its published widths, depth cut from 61 layers to what
+    one 80 GB card holds.  Random weights drawn on the card from a seeded
+    generator.  (a) bf16 4 layers (3 mla_dense + 1 mla_moe): the CLI's
+    --fixed-batch (MLA decodes densely, as in the reference) on 3 prompts
+    of 2000-6000 tokens, 16 new tokens, every kernel call recorded and
+    held against its plain version; the engine modes and the policy-sparse
+    fixed batch refused with the reference's NotImplementedError.  (b) The
+    same weights: one 16384-token one-shot prefill, stem against dense.
+    (c) fp32 2 layers (first_k_dense cut to 1: one mla_dense + one
+    mla_moe), stem at the CLI's geometry (block 128, stride 4): "fused" ==
+    "gather" prefill logits (within 1e-4 of their scale) and greedy streams
+    (then dense decode, 16 tokens) on a ragged batch of 3072 / 1900, and
+    loss_fn's ce / mtp_ce / aux under "fused", "gather" and the "dense"
+    oracle executor and dense attention within 1e-4 (aux 1e-5 relative)."""
+    out, launches = {}, {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["allocated_before_gib"] = torch.cuda.memory_allocated() / 2 ** 30
+    cfg = DEEPSEEK_V3_671B.replace(num_layers=4)
+    bundle = registry.build(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                device="cuda")
+    torch.cuda.synchronize()
+    out["bf16/init"] = dict(s=time.perf_counter() - t0,
+                            program=transformer.layer_program(cfg),
+                            weights_gib=torch.cuda.memory_allocated() / 2 ** 30,
+                            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    log("[phase13] bf16 4 layers drawn: " + json.dumps(out["bf16/init"]))
+
+    # (a) the CLI's fixed batch, and its refusals
+    args = serve_lib.build_parser().parse_args(
+        ["--arch", "deepseek-v3-671b", "--requests", "3", "--min-prompt", "2000",
+         "--max-prompt", "6000", "--decode-tokens", "16", "--fixed-batch"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    with replay.Recorder() as rec, SamplerTap() as tap:
+        res = serve_lib.run_fixed_batch(args, cfg, bundle, params, None, 1.0)
+        torch.cuda.synchronize()
+    launches["a/fixed-batch"] = _need(read_all_launches(), ("flash_attention",),
+                                      "cli fixed batch")
+    if not all(bool(torch.isfinite(c).all()) for c in tap.calls):
+        raise AssertionError("phase 13 cli fixed batch: non-finite logits")
+    if any(len(t) != 16 for t in res["tokens"].values()):
+        raise AssertionError(f"phase 13 cli fixed batch: {res['tokens']}")
+    out["a/fixed-batch"] = dict(
+        prompt_lens=res["prompt_lens"], ttft_s=res["ttft_s"],
+        ms_per_token=res["ms_per_token"],
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        kernel_calls=rec.check(), launches=launches["a/fixed-batch"])
+    log("[phase13] (a) cli fixed batch, bf16 4 layers: " + json.dumps(out["a/fixed-batch"]))
+    del rec, tap
+    pol = policy_lib.get_policy("stem").with_updates(**CLI_POLICY)
+    base = cli_args("deepseek-v3-671b", 2000, 6000, 16)
+    for mode, extra in (("engine", ()), ("monolithic", ("--monolithic",)),
+                        ("fixed-batch --policy stem", ("--fixed-batch",))):
+        a = serve_lib.build_parser().parse_args(base + list(extra))
+        run = serve_lib.run_fixed_batch if a.fixed_batch else serve_lib.run_engine
+        out[f"a/refused/{mode}"] = _refuses(
+            f"cli {mode}", lambda: run(a, cfg, bundle, params, pol, a.budget_frac))
+    torch.cuda.empty_cache()
+
+    # (b) the paper's comparison on this backbone
+    out["b/prefill"] = _stem_vs_dense_prefill(cfg, params, 16384, profile)
+    for arm, r in out["b/prefill"].items():
+        launches[f"b/{arm}"] = {k: r["launches"].get(k, 0) for k in read_all_launches()}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[phase13] bf16 freed: {torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB "
+        "still allocated")
+
+    # (c) fp32, 2 layers, strict
+    cfg = DEEPSEEK_V3_671B.replace(
+        num_layers=2, dtype="float32",
+        moe=dataclasses.replace(DEEPSEEK_V3_671B.moe, first_k_dense=1))
+    bundle = registry.build(cfg)
+    meta = bundle.init_params(torch.Generator(), device="meta")
+    need_gib = sum(t.numel() * t.element_size() for t in _leaves(meta)) / 2 ** 30
+    free_gib = torch.cuda.mem_get_info()[0] / 2 ** 30
+    log(f"[phase13] fp32 2 layers: {need_gib:.2f} GiB of weights, {free_gib:.2f} GiB free")
+    if need_gib + 12 > free_gib:
+        raise AssertionError(f"phase 13 fp32: {need_gib:.2f} GiB of weights do not "
+                             f"fit {free_gib:.2f} GiB with 12 GiB to run")
+    torch.cuda.reset_peak_memory_stats()
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(1),
+                                device="cuda")
+    torch.cuda.synchronize()
+    out["fp32/init"] = dict(program=transformer.layer_program(cfg),
+                            weights_gib=torch.cuda.memory_allocated() / 2 ** 30)
+    # the CLI's stem geometry (sparse at these lengths); the gather
+    # executor streams 2 slots a chunk, to bound its temporaries at 128 heads
+    policy = policy_lib.get_policy("stem").with_updates(slot_chunk=2, **CLI_POLICY)
+    rng = np.random.RandomState(29)
+    lens = np.array([3072, 1900], np.int32)
+    toks = torch.zeros((2, 3072), dtype=torch.int32, device="cuda")
+    for i, L in enumerate(lens):
+        toks[i, :L] = torch.as_tensor(rng.randint(0, cfg.vocab_size, size=(int(L),)))
+    runs = {}
+    for executor in ("fused", "gather"):
+        reset_all_launches()
+        rec = replay.Recorder() if executor == "fused" else contextlib.nullcontext()
+        with rec:
+            runs[executor] = _fixed_batch_stream(
+                bundle, params, toks, lens, 16, policy.with_updates(executor=executor))
+            torch.cuda.synchronize()
+        if executor == "fused":
+            launches["c/fused"] = _need(read_all_launches(),
+                                        ("block_sparse_attention", "antidiag_pool",
+                                         "value_magnitude"), "fp32 fused prefill")
+            out["c/kernel_calls"] = rec.check()
+    (lf, sf, rf), (lg, sg, rg) = runs["fused"], runs["gather"]
+    scale = float(lg.abs().max())
+    diff = float((lf - lg).abs().max())
+    out["c/prefill_logits"] = dict(max_abs_diff=diff, scale=scale,
+                                   limit=1e-4 * scale)
+    if not diff <= 1e-4 * scale:
+        raise AssertionError(f"phase 13 fp32: fused and gather prefill logits differ "
+                             f"by {diff} (scale {scale})")
+    out["c/streams"] = check_partings("fp32 fused vs gather (prefill, dense decode)",
+                                      sf, rf, sg, rg, "float32", phase="phase13")
+    if sf != sg:
+        raise AssertionError("phase 13 fp32: fused and gather streams differ")
+    del runs, lf, lg, rf, rg
+    # loss_fn under every executor and dense attention, 2048 tokens
+    seq = torch.as_tensor(rng.randint(0, cfg.vocab_size, size=(1, 2049)), device="cuda")
+    batch = {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+    losses = {}
+    for arm, pol in (("fused", policy), ("gather", policy.with_updates(executor="gather")),
+                     ("dense-oracle", policy.with_updates(executor="dense")),
+                     ("dense", None)):
+        reset_all_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = bundle.loss_fn(params, batch, stem_cfg=pol)
+        torch.cuda.synchronize()
+        losses[arm] = {k: float(v) for k, v in m.items()}
+        losses[arm]["ms"] = (time.perf_counter() - t0) * 1e3
+        if arm == "fused":
+            launches["c/loss_fn"] = _need(read_all_launches(),
+                                          ("block_sparse_attention", "flash_attention",
+                                           "antidiag_pool", "value_magnitude"),
+                                          "fp32 loss_fn")
+    out["c/loss_fn"] = losses
+    log("[phase13] (c) fp32 loss_fn: " + json.dumps(losses))
+    for arm in ("gather", "dense-oracle"):
+        for key in ("ce", "mtp_ce", "loss"):
+            if not abs(losses[arm][key] - losses["fused"][key]) <= 1e-4:
+                raise AssertionError(f"phase 13 fp32 loss_fn: {key} of {arm} "
+                                     f"differs from fused")
+        if not abs(losses[arm]["aux"] - losses["fused"]["aux"]) <= \
+                1e-5 * abs(losses["fused"]["aux"]):
+            raise AssertionError(f"phase 13 fp32 loss_fn: aux of {arm} differs")
+    if not all(np.isfinite(v) for r in losses.values() for v in r.values()):
+        raise AssertionError("phase 13 fp32 loss_fn: non-finite values")
+    out["fp32/peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log("[phase13] (c) fp32 2 layers: " + json.dumps(
+        {k: out[k] for k in ("fp32/init", "c/prefill_logits", "c/kernel_calls",
+                             "fp32/peak_gib")}))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(x, device) for k, x in tree.items()}
@@ -2751,6 +3198,12 @@ def main() -> None:
     p12 = arctic_phase()
     p12_launches = lambda key: {arm: n[key] for arm, n in p12["launches"].items()}
 
+    # Phase 13: MLA and deepseek-v3-671b (the kernels at MLA's head dims,
+    # then the model at full width, depth cut).
+    mla_kernel_phase(records)
+    p13 = deepseek_phase(profile=args.profile_prefill)
+    p13_launches = lambda key: {arm: n[key] for arm, n in p13["launches"].items()}
+
     kernels = []
     for key in ("score/decode", "score/chunk", "attend/decode", "attend/chunk"):
         kernel, lane = key.split("/")
@@ -2778,6 +3231,7 @@ def main() -> None:
             phase10_launches=p10_launches(counter),
             phase11_launches=p11_launches(counter),
             phase12_launches=p12_launches(counter),
+            phase13_launches=p13_launches(counter),
             max_abs_err=max(r["max_abs_err"]
                             for r in records[f"{key}/prefill"].values()),
             ms=rec["ms"], host_ms=rec["host_ms"], plain_ms=rec["plain_ms"],
@@ -2793,8 +3247,9 @@ def main() -> None:
     by_name["value_magnitude"]["chunk_shapes"] = {
         "chunk_v": records["value_magnitude/chunk"]["bfloat16"]}
     for key in ("flash_attention", "block_sparse_attention"):
-        by_name[key]["head_dims"] = {f"d{d}": records[f"{key}/d{d}"]["bfloat16"]
-                                     for d in (64, 256)}
+        by_name[key]["head_dims"] = {
+            tag: records[f"{key}/{tag}"]["bfloat16"]
+            for tag in ("d64", "d256", *MLA_PAIRS)}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

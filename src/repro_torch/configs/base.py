@@ -1,9 +1,10 @@
 """Architecture configuration (port of ``repro/configs/base.py``).
 
 Same field names as the reference ``ArchConfig``; ``torch_dtype`` takes the
-place of ``jnp_dtype``.  The port serves the dense and MoE families, so
-``MoEConfig`` is the reference's dataclass; the sub-configs of the other
-families (MLA, RG-LRU, SSD, enc-dec) are carried as opaque optional values.
+place of ``jnp_dtype``.  The port serves the dense and MoE families and
+MLA, so ``MoEConfig`` and ``MLAConfig`` are the reference's dataclasses;
+the sub-configs of the other families (RG-LRU, SSD, enc-dec) are carried as
+opaque optional values.
 """
 from __future__ import annotations
 
@@ -29,6 +30,15 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    rope_head_dim: int = 64
+    nope_head_dim: int = 128
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
     family: str                   # dense | moe | ssm | hybrid | encdec | vlm
@@ -46,7 +56,7 @@ class ArchConfig:
     tie_embeddings: bool = True
     norm: str = "rms"             # rms | layer
     moe: Optional[MoEConfig] = None
-    mla: Optional[Any] = None
+    mla: Optional[MLAConfig] = None
     rglru: Optional[Any] = None
     ssd: Optional[Any] = None
     encdec: Optional[Any] = None

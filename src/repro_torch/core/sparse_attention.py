@@ -108,12 +108,12 @@ def dense_attention_chunked(q, k, v, *, causal: bool = True, scale=None,
 def dense_attention_auto(q, k, v, *, causal: bool = True, scale=None,
                          mask=None, threshold: int = 2048):
     """Dense attention dispatch.  On a CUDA tensor, causal self-attention
-    without a mask (sq == sk, equal head dims) runs the flash kernel; no
-    other form runs on the card yet.  On the CPU: the chunked plain path for
-    long sequences without a mask, the direct masked softmax otherwise."""
+    without a mask (sq == sk; v's head dim may differ from q/k's, as MLA's
+    does) runs the flash kernel; no other form runs on the card yet.  On
+    the CPU: the chunked plain path for long sequences without a mask, the
+    direct masked softmax otherwise."""
     if q.device.type == "cuda":
-        if (mask is None and causal and q.shape[2] == k.shape[2]
-                and v.shape[-1] == q.shape[-1]):
+        if mask is None and causal and q.shape[2] == k.shape[2]:
             return flash_kernels.flash_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(), scale=scale)
         raise NotImplementedError(
@@ -138,7 +138,8 @@ def _gather_executor(q, k, v, indices, slot_mask, *, block_size: int,
     per query head and a row is one (block, d) tile.  ``budgets`` (static
     numpy per query-block row) runs the ragged schedule — budget-sorted
     segments, each streaming only the slot chunks its rows use; None runs
-    the padded schedule.  q: (b, hq, sq, d); k, v: (b, hk, sk, d)."""
+    the padded schedule.  q: (b, hq, sq, d); k: (b, hk, sk, d); v: (b, hk,
+    sk, dv)."""
     b, hq, sq, d = q.shape
     hk, sk, dv = k.shape[1], k.shape[2], v.shape[-1]
     group = hq // hk
@@ -266,10 +267,10 @@ def sparse_attention(q, k, v, policy, executor: Optional[str] = None,
                      return_stats: bool = False):
     """Block-sparse causal attention under a ``SparsityPolicy``.
 
-    q: (b, hq, seq, d); k, v: (b, hk, seq, d); policy: SparsityPolicy |
-    registered name | StemConfig; executor: "fused" | "gather" | "dense"
-    (None uses ``policy.executor``).  Returns (b, hq, seq, d)
-    [, StemStats]."""
+    q: (b, hq, seq, d); k: (b, hk, seq, d); v: (b, hk, seq, dv) (MLA's
+    dv differs from d); policy: SparsityPolicy | registered name |
+    StemConfig; executor: "fused" | "gather" | "dense" (None uses
+    ``policy.executor``).  Returns (b, hq, seq, dv) [, StemStats]."""
     policy = policy_lib.as_policy(policy)
     spec = policy_lib.get_executor(executor or policy.executor)
     hq, d, sq = q.shape[1], q.shape[3], q.shape[2]

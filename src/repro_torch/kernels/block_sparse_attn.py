@@ -9,10 +9,11 @@ that row's ``live_counts`` selected key blocks, fp32 accumulation, output
 in q's dtype, exact zeros for ``cnt == 0`` rows.  With ``group_dedup`` the
 selection has one row per KV head, shared by the query heads of the group;
 without it the KV head is query head // group.  Compute-bound on the H100:
-bf16 at head_dim 128 and a block that is a multiple of 128 runs on the
-tensor cores (TMA + wgmma, 128-row tiles, P rounded to bf16 before P.V);
-fp32, and bf16 at the other shapes (head_dims of ``HEAD_DIMS``, any block),
-on the fp32 CUDA cores (64-row tiles, or one block's rows under 64).  The kernel reads only the
+bf16 at q/k = v head_dim 128 and a block that is a multiple of 128 runs on
+the tensor cores (TMA + wgmma, 128-row tiles, P rounded to bf16 before
+P.V); fp32, and bf16 at the other shapes (the (q/k, v) head_dim pairs of
+``HEAD_DIM_PAIRS``, MLA's v narrower than q/k among them, any block), on
+the fp32 CUDA cores (64-row tiles, or one block's rows under 64).  The kernel reads only the
 live prefix of each index row, so it needs no revisit filling.
 
 Beside the kernel sits its plain PyTorch version
@@ -26,7 +27,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import HEAD_DIMS
+from repro_torch.kernels import check_head_dim_pair
 
 NEG_INF = -1e30
 
@@ -44,7 +45,7 @@ def _lib():
     if not getattr(lib, "_stem_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.stem_block_sparse_attention.argtypes = [
-            p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]
+            p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, f, p]
         lib.stem_block_sparse_attention.restype = i
         lib._stem_typed = True
     return lib
@@ -62,8 +63,9 @@ def block_sparse_attention_plain(q, k, v, indices, live_counts, *,
     K/V blocks and take the causal masked softmax in fp32, with the kernel's
     ``max(l, 1e-20)`` normalizer floor (cnt == 0 rows give exact zeros).
     Streams over chunks of query-block rows to bound memory.
-    q: (b, hq, n, d); k, v: (b, hk, n, d); indices (b, h_sel, nq, k_max);
-    live_counts (b, h_sel, nq).  Returns (b, hq, n, dv) in q's dtype."""
+    q: (b, hq, n, d); k: (b, hk, n, d); v: (b, hk, n, dv); indices (b,
+    h_sel, nq, k_max); live_counts (b, h_sel, nq).  Returns (b, hq, n, dv)
+    in q's dtype."""
     b, hq, n, d = q.shape
     hk = k.shape[1]
     dv = v.shape[-1]
@@ -112,11 +114,12 @@ def block_sparse_attention(q, k, v, indices, slot_mask=None, *,
                            group_dedup: bool = False, live_counts=None):
     """Sparse causal attention over selected key blocks.
 
-    q: (b, hq, n, d); k, v: (b, hk, n, d); indices: (b, h_sel, nq, k_max)
-    int32 selected block ids with h_sel = hq, or hk with ``group_dedup``;
-    live slots form a prefix of each row, counted by ``live_counts``
-    (derived from ``slot_mask`` when omitted).  CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    q: (b, hq, n, d); k: (b, hk, n, d); v: (b, hk, n, dv); indices: (b,
+    h_sel, nq, k_max) int32 selected block ids with h_sel = hq, or hk with
+    ``group_dedup``; live slots form a prefix of each row, counted by
+    ``live_counts`` (derived from ``slot_mask`` when omitted).  CPU tensors
+    take the plain version; CUDA tensors launch the kernel.  Returns (b,
+    hq, n, dv)."""
     cnt = (slot_mask.sum(dim=-1, dtype=torch.int32) if live_counts is None
            else live_counts)
     if q.device.type == "cpu":
@@ -126,7 +129,7 @@ def block_sparse_attention(q, k, v, indices, slot_mask=None, *,
     _check(q.device.type == "cuda",
            f"block_sparse_attention: unsupported device {q.device}")
     b, hq, n, d = q.shape
-    hk = k.shape[1]
+    hk, dv = k.shape[1], v.shape[-1]
     hsel = hk if group_dedup else hq
     bs = block_size
     _check(all(t.device == q.device for t in (k, v, indices, cnt)),
@@ -138,10 +141,10 @@ def block_sparse_attention(q, k, v, indices, slot_mask=None, *,
            "block_sparse_attention: indices and live counts must be int32")
     _check(all(t.is_contiguous() for t in (q, k, v, indices, cnt)),
            "block_sparse_attention: inputs must be contiguous")
-    _check(tuple(k.shape) == (b, hk, n, d) and tuple(v.shape) == (b, hk, n, d),
-           "block_sparse_attention: needs seq_q == seq_k and equal q/k/v head dims")
-    _check(d in HEAD_DIMS,
-           f"block_sparse_attention: head_dim must be one of {HEAD_DIMS}")
+    _check(tuple(k.shape) == (b, hk, n, d) and tuple(v.shape) == (b, hk, n, dv),
+           "block_sparse_attention: needs seq_q == seq_k, equal q/k head dims and "
+           "v of shape (b, hk, n, dv)")
+    check_head_dim_pair("block_sparse_attention", d, dv)
     _check(hk > 0 and hq % hk == 0,
            "block_sparse_attention: kv heads must divide q heads")
     _check(bs > 0 and n % bs == 0,
@@ -152,10 +155,10 @@ def block_sparse_attention(q, k, v, indices, slot_mask=None, *,
            and tuple(cnt.shape) == (b, hsel, n // bs),
            "block_sparse_attention: selection shapes disagree with q")
     scale = d ** -0.5 if scale is None else scale
-    out = torch.empty_like(q)
+    out = torch.empty((b, hq, n, dv), dtype=q.dtype, device=q.device)
     err = _lib().stem_block_sparse_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), indices.data_ptr(),
-        cnt.data_ptr(), out.data_ptr(), b, hq, hk, int(group_dedup), n, d, bs,
+        cnt.data_ptr(), out.data_ptr(), b, hq, hk, int(group_dedup), n, d, dv, bs,
         indices.shape[-1], int(q.dtype == torch.bfloat16), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:

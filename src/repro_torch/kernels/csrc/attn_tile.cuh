@@ -1,34 +1,37 @@
 // Shared device code of the one-shot prefill attention kernels on the CUDA
 // cores (flash_attention.cu, block_sparse_attn.cu): fp32 at every head_dim,
-// and bf16 off the tensor-core tile's shape (head_dim != 128, or a
-// block-sparse block that is no multiple of 128; bf16 at head_dim 128 runs
+// and bf16 off the tensor-core tile's shape (head_dims other than q/k = v =
+// 128, or a block-sparse block that is no multiple of 128; bf16 at 128 runs
 // attn_wgmma.cuh).  One CTA owns a tile of 64 query rows of one (batch,
 // query head), stages key/value sub-tiles of 64 keys in shared memory and
 // runs the online softmax over them with fp32 accumulation; bf16 inputs are
 // widened to fp32 as they are staged and the output is rounded once.
 //
-// Both kernels do 4 * 64 * 64 * D flops per staged sub-tile against
-// 2 * 64 * D loaded elements: compute-bound.  The products run on the fp32
-// CUDA cores (TF32 tensor cores would not keep the fp32 paths within 1e-4
-// of their plain versions) with a register-tiled outer product: the 256
-// threads form a 16 x 16 grid, thread (ty, tx) owns query rows
+// Both kernels do 2 * 64 * 64 * (D + DV) flops per staged sub-tile against
+// 64 * (D + DV) loaded elements: compute-bound.  The products run on the
+// fp32 CUDA cores (TF32 tensor cores would not keep the fp32 paths within
+// 1e-4 of their plain versions) with a register-tiled outer product: the
+// 256 threads form a 16 x 16 grid, thread (ty, tx) owns query rows
 // ty*4..ty*4+3, score columns tx*4..tx*4+3 and, in each 64-column group g
-// of the head_dim, output columns 64g+tx*4..64g+tx*4+3.  Q and K are staged
-// transposed (column-major) so each step of the score product is two
+// of the value head_dim, output columns 64g+tx*4..64g+tx*4+3.  Q and K are
+// staged transposed (column-major) so each step of the score product is two
 // 16-byte shared loads for 16 FMAs; P is staged transposed for the P.V
 // product.  A row's softmax state (m, l) lives in the registers of the 16
 // threads that share the row, reduced with half-warp shuffles.  Masked
 // probabilities are zero, and a row that saw no key finalizes 0 / 1e-20 =
 // exact 0.
 //
-// The head_dim D is a template argument (8 .. 256): a head_dim under 64 is
-// zero-filled to 64 columns in shared memory (the score product stops at
-// D; the zero columns of V give zero outputs that are not stored).  A
-// sub-tile whose keys are fewer than 64 (a block-sparse block that is no
+// The q/k head_dim D and the v head_dim DV are template arguments (8 ..
+// 256; MLA runs D = 192 with DV = 128): the score product and Q^T / K^T go
+// by D, the V tile, the output columns and the store by DV.  A head_dim
+// under 64 is zero-filled to 64 columns in shared memory (the score product
+// stops at D; the zero columns of V give zero outputs that are not stored).
+// A sub-tile whose keys are fewer than 64 (a block-sparse block that is no
 // multiple of 64) masks the missing keys (KMASK).
 //
-// Shared memory: Q^T, K^T, V (64 * max(D, 64) floats each) + P^T (4096):
-// 64 KiB at D <= 64, 112 KiB at 128 (two CTAs an SM), 208 KiB at 256 (one).
+// Shared memory: Q^T, K^T (64 * max(D, 64) floats each), V (64 * max(DV,
+// 64)) + P^T (4096): 64 KiB at D, DV <= 64, 112 KiB at 128 (two CTAs an
+// SM), 144 KiB at (192, 128), 160 KiB at 192 and 208 KiB at 256 (one).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -46,22 +49,27 @@ constexpr float kNegInf = -1e30f;
 template <int D>
 __host__ __device__ constexpr int tile_cols() { return D < 64 ? 64 : D; }
 
-// CTAs of a tile kernel an SM holds (its __launch_bounds__ minimum).
-template <int D>
-__host__ __device__ constexpr int tile_min_ctas() { return D > 128 ? 1 : 2; }
-
-template <int D>
+template <int D, int DV>
 struct Smem {
   static constexpr int DP = tile_cols<D>();
+  static constexpr int DVP = tile_cols<DV>();
   float qt[DP * kBQ];           // Q^T, pre-scaled: qt[c * kBQ + row]
   float kt[DP * kBK];           // K^T: kt[c * kBK + key]
-  float v[kBK * DP];            // V:   v[key * DP + c]
+  float v[kBK * DVP];           // V:   v[key * DVP + c]
   float pt[kBK * kBQ];          // P^T: pt[key * kBQ + row]
 };
 
-template <int D>
+// CTAs of a tile kernel an SM holds (its __launch_bounds__ minimum): two
+// where two tiles and their 1 KiB reserves fit the SM's 228 KiB.
+template <int D, int DV>
+__host__ __device__ constexpr int tile_min_ctas() {
+  return 2 * (sizeof(Smem<D, DV>) + 1024) <= 228 * 1024 ? 2 : 1;
+}
+
+// DV: the value head_dim (the output columns).
+template <int DV>
 struct RowState {
-  static constexpr int OC = tile_cols<D>() / 16;   // output columns a thread
+  static constexpr int OC = tile_cols<DV>() / 16;  // output columns a thread
   float o[4][OC];               // rows ty*4+i; column 64g+tx*4+e at o[i][4g+e]
   float m[4];
   float l[4];
@@ -122,14 +130,14 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src, int valid) {
   }
 }
 
-template <int D>
-__device__ __forceinline__ void init_state(RowState<D>& st) {
+template <int DV>
+__device__ __forceinline__ void init_state(RowState<DV>& st) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     st.m[i] = kNegInf;
     st.l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < RowState<D>::OC; ++c) st.o[i][c] = 0.f;
+    for (int c = 0; c < RowState<DV>::OC; ++c) st.o[i][c] = 0.f;
   }
 }
 
@@ -138,11 +146,11 @@ __device__ __forceinline__ void init_state(RowState<D>& st) {
 // also only the sub-tile's first kvalid keys.  Expects sm.qt / sm.kt /
 // sm.v filled and a __syncthreads() after the fill; ends with a
 // __syncthreads() so the caller may refill the key/value buffers.
-template <int D, bool KMASK>
-__device__ __forceinline__ void tile_step(Smem<D>& sm, RowState<D>& st, int qpos0, int kpos0,
-                                          int kvalid) {
-  constexpr int DP = tile_cols<D>();
-  constexpr int OC = RowState<D>::OC;
+template <int D, int DV, bool KMASK>
+__device__ __forceinline__ void tile_step(Smem<D, DV>& sm, RowState<DV>& st, int qpos0,
+                                          int kpos0, int kvalid) {
+  constexpr int DVP = tile_cols<DV>();
+  constexpr int OC = RowState<DV>::OC;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   float s[4][4];
 #pragma unroll
@@ -203,7 +211,7 @@ __device__ __forceinline__ void tile_step(Smem<D>& sm, RowState<D>& st, int qpos
     float vv[OC];
 #pragma unroll
     for (int g = 0; g < OC / 4; ++g) {
-      const float4 x = *reinterpret_cast<const float4*>(sm.v + j * DP + 64 * g + tx * 4);
+      const float4 x = *reinterpret_cast<const float4*>(sm.v + j * DVP + 64 * g + tx * 4);
       vv[4 * g] = x.x;
       vv[4 * g + 1] = x.y;
       vv[4 * g + 2] = x.z;
@@ -217,43 +225,44 @@ __device__ __forceinline__ void tile_step(Smem<D>& sm, RowState<D>& st, int qpos
   __syncthreads();
 }
 
-// Stage one 64-key sub-tile (rows >= valid zeroed) and run tile_step.
-template <int D, bool KMASK, typename T>
-__device__ __forceinline__ void stage_and_step(Smem<D>& sm, RowState<D>& st, const T* kbase,
-                                               const T* vbase, int valid, int qpos0,
-                                               int kpos0) {
+// Stage one 64-key sub-tile (rows >= valid zeroed; K rows of D, V rows of
+// DV) and run tile_step.
+template <int D, int DV, bool KMASK, typename T>
+__device__ __forceinline__ void stage_and_step(Smem<D, DV>& sm, RowState<DV>& st,
+                                               const T* kbase, const T* vbase, int valid,
+                                               int qpos0, int kpos0) {
   load_transposed<D>(sm.kt, kbase, valid, 1.f);
-  load_rows<D>(sm.v, vbase, valid);
+  load_rows<DV>(sm.v, vbase, valid);
   __syncthreads();
-  tile_step<D, KMASK>(sm, st, qpos0, kpos0, valid);
+  tile_step<D, DV, KMASK>(sm, st, qpos0, kpos0, valid);
 }
 
-// out rows ty*4 + i that are < valid_rows, columns < D: acc / max(l, 1e-20)
-// in T.
-template <int D, typename T>
-__device__ __forceinline__ void store_rows(const RowState<D>& st, T* out, int valid_rows) {
-  constexpr int OC = RowState<D>::OC;
+// out rows ty*4 + i that are < valid_rows (row stride DV), columns < DV:
+// acc / max(l, 1e-20) in T.
+template <int DV, typename T>
+__device__ __forceinline__ void store_rows(const RowState<DV>& st, T* out, int valid_rows) {
+  constexpr int OC = RowState<DV>::OC;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
     if (r >= valid_rows) continue;
     const float l = fmaxf(st.l[i], 1e-20f);
-    T* dst = out + (long long)r * D;
+    T* dst = out + (long long)r * DV;
 #pragma unroll
     for (int g = 0; g < OC / 4; ++g) {
       const int col = 64 * g + tx * 4;
-      if (D >= 64 || col < D)
+      if (DV >= 64 || col < DV)
         store4(dst + col, make_float4(st.o[i][4 * g] / l, st.o[i][4 * g + 1] / l,
                                       st.o[i][4 * g + 2] / l, st.o[i][4 * g + 3] / l));
     }
   }
 }
 
-template <int D, typename Kernel>
+template <int D, int DV, typename Kernel>
 inline cudaError_t prepare(Kernel kernel) {
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(Smem<D>));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(Smem<D, DV>));
   if (err != cudaSuccess) return err;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                               (int)cudaSharedmemCarveoutMaxShared);

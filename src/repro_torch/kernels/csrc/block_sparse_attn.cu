@@ -34,7 +34,8 @@
 // heads fastest, so the g heads of a KV head run side by side and the
 // second read of each selected K/V block comes from L2, and walks the query
 // blocks from the last (the most selected blocks, min(k_max, i + 1)) to the
-// first.  fp32 at every head_dim and block, and bf16 off that shape, run the
+// first.  fp32 at every (q/k, v) head_dim pair of head_dims.cuh and every
+// block, and bf16 off that shape (MLA's q/k 192 with v 128 among them), run the
 // CUDA-core tile of attn_tile.cuh (64-key sub-tiles, fp32 products and
 // probabilities: within 1e-4 of the plain version in fp32): a CTA owns 64
 // query rows of a block, or the whole block where it is under 64 rows (the
@@ -51,14 +52,14 @@ using namespace stem_attn;
 // grid (nq * ceil(bs / 64), hq, b): CTA x owns rows [sub * 64, sub * 64 +
 // 64) of query block x / tiles.  KMASK: bs is no multiple of 64, so a
 // CTA's rows and a block's last key sub-tile may be short.
-template <typename T, int D, bool KMASK>
-__global__ void __launch_bounds__(kThreads, tile_min_ctas<D>())
+template <typename T, int D, int DV, bool KMASK>
+__global__ void __launch_bounds__(kThreads, tile_min_ctas<D, DV>())
 block_sparse_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ idx,
                     const int* __restrict__ cnt, T* __restrict__ out, int hq, int hk,
                     int dedup, int n, int bs, int kmax, float scale) {
   extern __shared__ float4 smem_raw[];
-  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw);
+  Smem<D, DV>& sm = *reinterpret_cast<Smem<D, DV>*>(smem_raw);
   const int tiles = KMASK ? (bs + kBQ - 1) / kBQ : bs / kBQ;
   const int i = blockIdx.x / tiles, sub = blockIdx.x - i * tiles;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -72,7 +73,7 @@ block_sparse_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long krow0 = ((long long)b * hk + kvh) * n;
 
   load_transposed<D>(sm.qt, q + qrow0 * D, qrows, scale);
-  RowState<D> st;
+  RowState<DV> st;
   init_state(st);
   const int live = min(cnt[row], kmax);
   for (int s = 0; s < live; ++s) {
@@ -81,43 +82,43 @@ block_sparse_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int t = 0; t < bs; t += kBK) {
       const int k0 = j * bs + t;
       if (k0 > q0 + qrows - 1) break;             // the rest is above the diagonal
-      stage_and_step<D, KMASK>(sm, st, k + (krow0 + k0) * D, v + (krow0 + k0) * D,
-                               KMASK ? min(kBK, bs - t) : kBK, q0, k0);
+      stage_and_step<D, DV, KMASK>(sm, st, k + (krow0 + k0) * D, v + (krow0 + k0) * DV,
+                                   KMASK ? min(kBK, bs - t) : kBK, q0, k0);
     }
   }
-  store_rows<D>(st, out + qrow0 * D, qrows);
+  store_rows<DV>(st, out + qrow0 * DV, qrows);
 }
 
-template <typename T, int D, bool KMASK>
+template <typename T, int D, int DV, bool KMASK>
 int launch(const void* q, const void* k, const void* v, const int* idx,
            const int* cnt, void* out, int b, int hq, int hk, int dedup, int n, int bs,
            int kmax, float scale, cudaStream_t stream) {
-  cudaError_t err = prepare<D>(block_sparse_kernel<T, D, KMASK>);
+  cudaError_t err = prepare<D, DV>(block_sparse_kernel<T, D, DV, KMASK>);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(n / bs * ((bs + kBQ - 1) / kBQ), hq, b);
-  block_sparse_kernel<T, D, KMASK><<<grid, kThreads, sizeof(Smem<D>), stream>>>(
+  block_sparse_kernel<T, D, DV, KMASK><<<grid, kThreads, sizeof(Smem<D, DV>), stream>>>(
       (const T*)q, (const T*)k, (const T*)v, idx, cnt, (T*)out, hq, hk, dedup, n, bs,
       kmax, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 int launch_d(const void* q, const void* k, const void* v, const int* idx,
              const int* cnt, void* out, int b, int hq, int hk, int dedup, int n, int bs,
              int kmax, float scale, cudaStream_t stream) {
   if (bs % kBQ == 0)
-    return launch<T, D, false>(q, k, v, idx, cnt, out, b, hq, hk, dedup, n, bs, kmax,
-                               scale, stream);
-  return launch<T, D, true>(q, k, v, idx, cnt, out, b, hq, hk, dedup, n, bs, kmax, scale,
-                            stream);
+    return launch<T, D, DV, false>(q, k, v, idx, cnt, out, b, hq, hk, dedup, n, bs, kmax,
+                                   scale, stream);
+  return launch<T, D, DV, true>(q, k, v, idx, cnt, out, b, hq, hk, dedup, n, bs, kmax,
+                                scale, stream);
 }
 
 template <typename T>
 int launch_tile(const void* q, const void* k, const void* v, const int* idx,
                 const int* cnt, void* out, int b, int hq, int hk, int dedup, int n, int d,
-                int bs, int kmax, float scale, cudaStream_t stream) {
-  STEM_HEAD_DIM_SWITCH(d, launch_d<T, D>(q, k, v, idx, cnt, out, b, hq, hk, dedup, n, bs,
-                                         kmax, scale, stream))
+                int dv, int bs, int kmax, float scale, cudaStream_t stream) {
+  STEM_HEAD_DIM_PAIR_SWITCH(d, dv, launch_d<T, D, DV>(q, k, v, idx, cnt, out, b, hq, hk,
+                                                      dedup, n, bs, kmax, scale, stream))
 }
 
 // bf16 on the tensor cores: the 128-key tiles of the row's live selected
@@ -185,25 +186,26 @@ int launch_wgmma(const void* q, const void* k, const void* v, const int* idx, co
 
 extern "C" {
 
-// q/out (b, hq, n, d), k/v (b, hk, n, d); idx (b, h_sel, n/bs, kmax) and
-// cnt (b, h_sel, n/bs) int32 with h_sel = hk when dedup else hq; all
-// contiguous.  d one of 8, 16, 32, 64, 128, 256 and bs dividing n (the
-// wrapper checks).  is_bf16: 0 = float32 (the CUDA-core tile), 1 =
-// bfloat16 for q/k/v/out: the tensor-core tile at d = 128 and bs a multiple
-// of 128 (q, k, v 16-byte aligned for TMA), else the CUDA-core tile.
+// q (b, hq, n, d), k (b, hk, n, d), v (b, hk, n, dv), out (b, hq, n, dv);
+// idx (b, h_sel, n/bs, kmax) and cnt (b, h_sel, n/bs) int32 with h_sel =
+// hk when dedup else hq; all contiguous.  (d, dv) a pair of head_dims.cuh
+// and bs dividing n (the wrapper checks).  is_bf16: 0 = float32 (the
+// CUDA-core tile), 1 = bfloat16 for q/k/v/out: the tensor-core tile at d =
+// dv = 128 and bs a multiple of 128 (q, k, v 16-byte aligned for TMA),
+// else the CUDA-core tile.
 int stem_block_sparse_attention(const void* q, const void* k, const void* v,
                                 const int* idx, const int* cnt, void* out, int b,
-                                int hq, int hk, int dedup, int n, int d, int bs,
+                                int hq, int hk, int dedup, int n, int d, int dv, int bs,
                                 int kmax, int is_bf16, float scale, void* stream) {
   if (hk <= 0 || hq % hk != 0 || bs <= 0 || n % bs != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (is_bf16 && d == stem_wg::kD && bs % stem_wg::kBM == 0)
+  if (is_bf16 && d == stem_wg::kD && dv == stem_wg::kD && bs % stem_wg::kBM == 0)
     return launch_wgmma(q, k, v, idx, cnt, out, b, hq, hk, dedup, n, bs, kmax, scale, st);
   if (is_bf16)
-    return launch_tile<__nv_bfloat16>(q, k, v, idx, cnt, out, b, hq, hk, dedup, n, d, bs,
-                                      kmax, scale, st);
-  return launch_tile<float>(q, k, v, idx, cnt, out, b, hq, hk, dedup, n, d, bs, kmax,
+    return launch_tile<__nv_bfloat16>(q, k, v, idx, cnt, out, b, hq, hk, dedup, n, d, dv,
+                                      bs, kmax, scale, st);
+  return launch_tile<float>(q, k, v, idx, cnt, out, b, hq, hk, dedup, n, d, dv, bs, kmax,
                             scale, st);
 }
 

@@ -6,10 +6,11 @@ prefill (port of ``repro/kernels/flash_attention.py``).
 ``_flash_kernel`` (``src/repro/kernels/flash_attention.py:34``): key blocks
 above the diagonal skipped, the diagonal masked exactly, KV head = query
 head // group, fp32 accumulation, output in q's dtype.  Compute-bound on the
-H100 (4 * d flops per causal pair): bf16 at head_dim 128 runs on the tensor
-cores (TMA + wgmma, P rounded to bf16 before P.V as SDPA's kernels do);
-fp32, and bf16 at the other head_dims of ``HEAD_DIMS`` (8-256), on the fp32
-CUDA cores (bf16 loaded and stored, the math in fp32).
+H100 (2 * (d + dv) flops per causal pair): bf16 at q/k = v head_dim 128
+runs on the tensor cores (TMA + wgmma, P rounded to bf16 before P.V as
+SDPA's kernels do); fp32, and bf16 at the other (q/k, v) head_dim pairs of
+``HEAD_DIM_PAIRS`` (8-256, and MLA's v narrower than q/k), on the fp32 CUDA
+cores (bf16 loaded and stored, the math in fp32).
 
 Beside the kernel sits its plain PyTorch version (``flash_attention_plain``)
 and a plain-int launch counter in ``LAUNCHES``.  The wrapper takes the plain
@@ -22,7 +23,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import HEAD_DIMS
+from repro_torch.kernels import check_head_dim_pair
 
 NEG_INF = -1e30
 
@@ -39,7 +40,7 @@ def _lib():
     lib = _build.load("flash_attention")
     if not getattr(lib, "_stem_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.stem_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, f, p]
+        lib.stem_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, i, f, p]
         lib.stem_flash_attention.restype = i
         lib.stem_wgmma_tile_products.argtypes = [p] * 7
         lib.stem_wgmma_tile_products.restype = i
@@ -56,7 +57,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           scale=None) -> torch.Tensor:
     """Plain version: causal masked softmax in fp32, GQA, streamed over
     query-row chunks (each sees keys up to its last row).
-    q: (b, hq, n, d); k, v: (b, hk, n, d) -> (b, hq, n, dv) in q's dtype."""
+    q: (b, hq, n, d); k: (b, hk, n, d); v: (b, hk, n, dv) -> (b, hq, n, dv)
+    in q's dtype."""
     b, hq, n, d = q.shape
     hk = k.shape[1]
     group = hq // hk
@@ -78,13 +80,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale=None) -> torch.Tensor:
-    """Causal flash attention.  q: (b, hq, n, d); k, v: (b, hk, n, d).
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    """Causal flash attention.  q: (b, hq, n, d); k: (b, hk, n, d); v:
+    (b, hk, n, dv) -> (b, hq, n, dv).  CPU tensors take the plain version;
+    CUDA tensors launch the kernel."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale=scale)
     _check(q.device.type == "cuda", f"flash_attention: unsupported device {q.device}")
     b, hq, n, d = q.shape
-    hk = k.shape[1]
+    hk, dv = k.shape[1], v.shape[-1]
     _check(k.device == q.device and v.device == q.device,
            "flash_attention: all tensors must be on one device")
     _check(q.dtype in (torch.float32, torch.bfloat16)
@@ -92,17 +95,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            "flash_attention: q/k/v must share a float32 or bfloat16 dtype")
     _check(all(t.is_contiguous() for t in (q, k, v)),
            "flash_attention: inputs must be contiguous")
-    _check(tuple(k.shape) == (b, hk, n, d) and tuple(v.shape) == (b, hk, n, d),
-           "flash_attention: needs seq_q == seq_k and equal q/k/v head dims")
-    _check(d in HEAD_DIMS, f"flash_attention: head_dim must be one of {HEAD_DIMS}")
+    _check(tuple(k.shape) == (b, hk, n, d) and tuple(v.shape) == (b, hk, n, dv),
+           "flash_attention: needs seq_q == seq_k, equal q/k head dims and v "
+           "of shape (b, hk, n, dv)")
+    check_head_dim_pair("flash_attention", d, dv)
     _check(hk > 0 and hq % hk == 0, "flash_attention: kv heads must divide q heads")
     _check(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
            "flash_attention: inputs must be 16-byte aligned (TMA, 16-byte loads)")
     scale = d ** -0.5 if scale is None else scale
-    out = torch.empty_like(q)
+    out = torch.empty((b, hq, n, dv), dtype=q.dtype, device=q.device)
     err = _lib().stem_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hk, n,
-        d, int(q.dtype == torch.bfloat16), float(scale),
+        d, dv, int(q.dtype == torch.bfloat16), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"stem_flash_attention launch failed: cudaError {err}")

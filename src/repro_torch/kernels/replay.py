@@ -78,12 +78,13 @@ KERNELS = {
             block_size=a["block_size"], scale=a["scale"],
             group_dedup=a["group_dedup"]),
         lambda a: (a["q"].dtype == torch.bfloat16 and a["q"].shape[-1] == 128
-                   and a["block_size"] % 128 == 0)),
+                   and a["v"].shape[-1] == 128 and a["block_size"] % 128 == 0)),
     "flash_attention": (
         flash_kern,
         lambda a: flash_kern.flash_attention_plain(a["q"], a["k"], a["v"],
                                                    scale=a["scale"]),
-        lambda a: a["q"].dtype == torch.bfloat16 and a["q"].shape[-1] == 128),
+        lambda a: (a["q"].dtype == torch.bfloat16 and a["q"].shape[-1] == 128
+                   and a["v"].shape[-1] == 128)),
     "antidiag_pool": (
         metric_kern,
         lambda a: metric_kern.antidiag_pool_plain(

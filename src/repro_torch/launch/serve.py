@@ -33,8 +33,13 @@ policy's sparse arm.  The port runs on ``--device`` (default ``cuda``).
 ``--mesh``, whose feature the port does not have yet, raises ``SystemExit``
 naming the ``ROADMAP.md`` item that will lift it.
 
-``--arch`` takes a dense configuration or the MoE ``arctic-480b`` (the
-MoE FFN runs per lane: a row's expert capacity counts its own tokens).
+``--arch`` takes a dense configuration, the MoE ``arctic-480b`` (the MoE
+FFN runs per lane: a row's expert capacity counts its own tokens) or the
+MLA + MoE ``deepseek-v3-671b``.  MLA has no page layout, so as in the
+reference ``deepseek-v3-671b`` serves through ``--fixed-batch`` only (and
+there decodes densely: with a policy its decode raises, as the
+reference's does), and the engine modes refuse it with the reference's
+``NotImplementedError``.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
@@ -43,6 +48,8 @@ Examples:
       --reduced --device cpu --requests 3 --decode-tokens 6 --max-slots 2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --policy stem --requests 2 --min-prompt 2000 --max-prompt 6000
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b \\
+      --reduced --device cpu --requests 2 --decode-tokens 6 --fixed-batch
 """
 from __future__ import annotations
 
@@ -225,8 +232,19 @@ def run_fixed_batch(args, cfg, bundle, params, stem_cfg, budget_frac=1.0):
     the paged engine)."""
     from repro_torch.core import policy as policy_lib
     from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import transformer
     from repro_torch.runtime import sampling as sampling_lib
 
+    # Right-padded ragged prompts are sound only for global-attention
+    # mixers: per-row masking hides the padding K/V, and decode overwrites
+    # it (the reference's check; recurrent and ring states are not ported).
+    kinds = {k for _, ks in transformer.layer_program(cfg) for k in ks}
+    unsafe = kinds - {"dense", "moe", "mla_dense", "mla_moe"}
+    if unsafe:
+        raise NotImplementedError(
+            f"--fixed-batch ragged prompts unsupported for sub-layers "
+            f"{sorted(unsafe)} ({cfg.name}): padding would contaminate "
+            "recurrent/ring state")
     device = params["embed"].device
     rng = np.random.RandomState(args.seed + 1)
     lens = rng.randint(args.min_prompt, args.max_prompt + 1,

@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import policy as policy_lib
-from repro_torch.models import attention, transformer
+from repro_torch.models import attention, mla, transformer
 
 
 def make_unified_step(bundle, *, stem_cfg, budget_frac: float = 1.0,
@@ -61,15 +61,15 @@ def make_prefill_step(bundle, *, max_len: int, stem_cfg=None, policies=None):
 
 
 def set_cache_positions(caches, cache_lens):
-    """Pin every attention cache's write position to per-sequence lengths
-    (``(b,)`` int).  Cache leaves are stacked ``(n_layers, ...)``, so the
-    position leaf becomes ``(n_layers, b)`` and each layer reads its
+    """Pin every attention / MLA cache's write position to per-sequence
+    lengths (``(b,)`` int).  Cache leaves are stacked ``(n_layers, ...)``,
+    so the position leaf becomes ``(n_layers, b)`` and each layer reads its
     ``(b,)`` row."""
     def fix(c):
-        if isinstance(c, attention.KVCache):
+        if isinstance(c, (attention.KVCache, mla.MLACache)):
             lens = torch.as_tensor(cache_lens, dtype=torch.int32,
-                                   device=c.k.device)
-            return c._replace(pos=lens.expand((c.k.shape[0],) + lens.shape))
+                                   device=c.pos.device)
+            return c._replace(pos=lens.expand((c[0].shape[0],) + lens.shape))
         if isinstance(c, dict):
             return {k: fix(v) for k, v in c.items()}
         if isinstance(c, list):

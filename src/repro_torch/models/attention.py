@@ -80,7 +80,7 @@ def _no_window(window) -> None:
         raise NotImplementedError("windowed (local) attention is not ported yet")
 
 
-def _sparse_or_dense(q, k, v, pol, n: int, causal: bool, return_stats: bool):
+def sparse_or_dense(q, k, v, pol, n: int, causal: bool, return_stats: bool):
     """The policy-sparse path for causal sequences of >= 2 whole blocks,
     the dense arm otherwise.  Returns (o, StemStats | None)."""
     if pol is not None and causal and n % pol.block_size == 0 \
@@ -100,7 +100,7 @@ def apply_full(params, x, cfg: ArchConfig, *, positions, stem_cfg=None,
     _no_window(window)
     pol = policy_lib.as_policy_opt(stem_cfg)
     q, k, v = _project(params, x, cfg, positions, use_rope=use_rope)
-    o, stats = _sparse_or_dense(q, k, v, pol, x.shape[1], causal, return_stats)
+    o, stats = sparse_or_dense(q, k, v, pol, x.shape[1], causal, return_stats)
     out = _out_proj(o, x, params)
     return (out, stats) if return_stats else out
 
@@ -123,7 +123,7 @@ def prefill_into_cache(params, x, cfg: ArchConfig, *, positions, max_len: int,
     _no_window(window)
     pol = policy_lib.as_policy_opt(stem_cfg)
     q, k, v = _project(params, x, cfg, positions, use_rope=use_rope)
-    o, _ = _sparse_or_dense(q, k, v, pol, x.shape[1], True, False)
+    o, _ = sparse_or_dense(q, k, v, pol, x.shape[1], True, False)
     pad = max_len - k.shape[2]
     cache = KVCache(k=F.pad(k, (0, 0, 0, pad)), v=F.pad(v, (0, 0, 0, pad)),
                     pos=torch.tensor(x.shape[1], dtype=torch.int32,

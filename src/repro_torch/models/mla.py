@@ -1,0 +1,161 @@
+"""Multi-head Latent Attention (DeepSeek-V3) with Stem (port of
+``repro/models/mla.py``).
+
+MLA compresses K/V into a small latent ``c_kv`` (512) plus a shared 64-dim
+rotary key.  The decode cache stores only (c_kv, k_rope), in bf16 whatever
+the model dtype, and queries use a low-rank down / up projection.
+
+Stem (the paper's DSA + Stem experiment): full-sequence attention expands
+the latents to per-head keys (nope 128 + rope 64 = 192) and values (128)
+and runs the policy-sparse path over them when the sequence holds at least
+two whole blocks, the dense arm otherwise.  The OAM value term reads the
+expanded values handed to ``sparse_attention``.  Decode attends densely
+over the latent cache with the up-projections absorbed into the query and
+the output (fp32 scores and probabilities).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import policy as policy_lib
+from repro_torch.models import attention, common
+
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor     # (b, L, kv_rank) compressed latents
+    k_rope: torch.Tensor   # (b, L, rope_dim) shared rotary key
+    pos: torch.Tensor      # int32 next write position: scalar or (b,)
+
+
+def init(ini: common.Initializer, cfg: ArchConfig) -> dict:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    dh_q = m.nope_head_dim + m.rope_head_dim
+    return {
+        "w_dq": ini.normal((d, m.q_lora_rank)),
+        "q_norm": ini.zeros((m.q_lora_rank,)),
+        "w_uq": ini.normal((m.q_lora_rank, h, dh_q)),
+        "w_dkv": ini.normal((d, m.kv_lora_rank)),
+        "kv_norm": ini.zeros((m.kv_lora_rank,)),
+        "w_uk": ini.normal((m.kv_lora_rank, h, m.nope_head_dim)),
+        "w_uv": ini.normal((m.kv_lora_rank, h, m.v_head_dim)),
+        "w_kr": ini.normal((d, m.rope_head_dim)),
+        "wo": ini.normal((h, m.v_head_dim, d)),
+    }
+
+
+def _queries(params, x, cfg: ArchConfig, positions):
+    """x (b, s, d) -> q_nope (b, h, s, nope), q_rope (b, h, s, rope)."""
+    m = cfg.mla
+    cq = common.rms_norm(torch.einsum("bsd,dr->bsr", x, params["w_dq"]),
+                         params["q_norm"])
+    q = torch.einsum("bsr,rhk->bhsk", cq, params["w_uq"])
+    q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
+    return q_nope, common.apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _latents(params, x, cfg: ArchConfig, positions):
+    """x (b, s, d) -> c (b, s, kv_rank), kr (b, s, rope)."""
+    c = common.rms_norm(torch.einsum("bsd,dr->bsr", x, params["w_dkv"]),
+                        params["kv_norm"])
+    kr = torch.einsum("bsd,dk->bsk", x, params["w_kr"])
+    kr = common.apply_rope(kr[:, None], positions, cfg.rope_theta)[:, 0]
+    return c, kr
+
+
+def _expand(params, c, kr, cfg: ArchConfig):
+    """Latents to per-head keys (b, h, s, nope + rope) — the shared rope key
+    concatenated to every head — and values (b, h, s, v)."""
+    k_nope = torch.einsum("bsr,rhk->bhsk", c, params["w_uk"])
+    v = torch.einsum("bsr,rhk->bhsk", c, params["w_uv"])
+    kr_h = kr[:, None].expand(kr.shape[0], cfg.num_heads, *kr.shape[1:])
+    return torch.cat([k_nope, kr_h], dim=-1), v
+
+
+def _full(params, x, cfg: ArchConfig, positions, stem_cfg, return_stats: bool):
+    """Full-sequence attention: (out (b, s, d), StemStats | None, the
+    latents c and kr)."""
+    q_nope, q_rope = _queries(params, x, cfg, positions)
+    c, kr = _latents(params, x, cfg, positions)
+    k, v = _expand(params, c, kr, cfg)
+    # q/k's head dim is nope + rope, so the default scale is MLA's
+    o, stats = attention.sparse_or_dense(
+        torch.cat([q_nope, q_rope], dim=-1), k, v,
+        policy_lib.as_policy_opt(stem_cfg), x.shape[1], True, return_stats)
+    return torch.einsum("bhsk,hkd->bsd", o, params["wo"]), stats, c, kr
+
+
+def apply_full(params, x, cfg: ArchConfig, *, positions, stem_cfg=None,
+               return_stats: bool = False):
+    """Training / prefill attention over the full sequence.  ``stem_cfg``:
+    any policy spelling or None (dense).  ``return_stats`` also returns the
+    sparse path's ``StemStats`` (None when the dense arm ran)."""
+    out, stats, _, _ = _full(params, x, cfg, positions, stem_cfg, return_stats)
+    return (out, stats) if return_stats else out
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device="cuda") -> MLACache:
+    m = cfg.mla
+    return MLACache(
+        c_kv=torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype, device=device),
+        k_rope=torch.zeros((batch, max_len, m.rope_head_dim), dtype=dtype,
+                           device=device),
+        pos=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def prefill_into_cache(params, x, cfg: ArchConfig, *, positions, max_len: int,
+                       stem_cfg=None):
+    """Prefill attention and the latent cache for decode: (out, MLACache
+    with c_kv / k_rope padded to max_len and stored in bf16)."""
+    out, _, c, kr = _full(params, x, cfg, positions, stem_cfg, False)
+    pad = max_len - x.shape[1]
+    cache = MLACache(
+        c_kv=F.pad(c, (0, 0, 0, pad)).to(torch.bfloat16),
+        k_rope=F.pad(kr, (0, 0, 0, pad)).to(torch.bfloat16),
+        pos=torch.tensor(x.shape[1], dtype=torch.int32, device=x.device))
+    return out, cache
+
+
+def apply_decode(params, x, cfg: ArchConfig, cache: MLACache):
+    """One decode step over the latent cache.  x: (b, 1, d).  Returns (out,
+    MLACache): the token's latents are written into ``cache.c_kv`` /
+    ``cache.k_rope`` in place (in the cache's dtype), and ``pos`` advances
+    by one.  ``cache.pos`` is a scalar or a ``(b,)`` vector (ragged batch:
+    each row writes and masks at its own length).
+
+    Absorbed attention: score = (q_nope W_UK) . c + q_rope . k_rope, the
+    latent output p . c then W_UV and wo; scores, probabilities and the
+    latent output in fp32."""
+    m = cfg.mla
+    pos = cache.pos
+    b = x.shape[0]
+    rope_pos = pos[None] if pos.ndim == 0 else pos[:, None]
+    q_nope, q_rope = _queries(params, x, cfg, rope_pos)
+    c_new, kr_new = _latents(params, x, cfg, rope_pos)
+    ck, ckr = cache.c_kv, cache.k_rope
+    if pos.ndim == 0:
+        idx = pos.reshape(1).long()
+        ck.index_copy_(1, idx, c_new.to(ck.dtype))
+        ckr.index_copy_(1, idx, kr_new.to(ckr.dtype))
+    else:
+        bidx = torch.arange(b, device=x.device)
+        ck[bidx, pos.long()] = c_new[:, 0].to(ck.dtype)
+        ckr[bidx, pos.long()] = kr_new[:, 0].to(ckr.dtype)
+    L = ck.shape[1]
+    valid = torch.arange(L, device=x.device)[None, :] <= pos.expand(b)[:, None]
+    ckf = ck.float()
+    q_abs = torch.einsum("bhsk,rhk->bhsr", q_nope, params["w_uk"])
+    s = torch.einsum("bhsr,blr->bhsl", q_abs.float(), ckf)
+    s = s + torch.einsum("bhsk,blk->bhsl", q_rope.float(), ckr.float())
+    s = s * (m.nope_head_dim + m.rope_head_dim) ** -0.5
+    s = torch.where(valid[:, None, None, :], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhsl,blr->bhsr", p, ckf)
+    o = torch.einsum("bhsr,rhk->bhsk", o_lat.to(x.dtype), params["w_uv"])
+    out = torch.einsum("bhsk,hkd->bsd", o, params["wo"])
+    return out, MLACache(c_kv=ck, k_rope=ckr, pos=pos + 1)

@@ -1,6 +1,9 @@
 """Model bundle of the port (``repro/models/registry.py`` for the dense
-and MoE families): ``cfg``, ``init_params``, ``loss_fn``, ``prefill``,
-``decode_step`` and ``init_caches``, with the reference's call shapes."""
+and MoE families, MLA included): ``cfg``, ``init_params``, ``loss_fn``,
+``prefill``, ``decode_step`` and ``init_caches``, with the reference's call
+shapes.  Building a bundle checks nothing about paged serving: the engine
+and the paged steps refuse a config without a page layout (MLA) themselves,
+as the reference's do."""
 from __future__ import annotations
 
 import dataclasses
@@ -21,7 +24,6 @@ class ModelBundle:
 
 
 def build(cfg: ArchConfig) -> ModelBundle:
-    transformer.assert_paged_servable(cfg)
     return ModelBundle(
         cfg=cfg,
         init_params=lambda generator, device="cuda": transformer.init_params(

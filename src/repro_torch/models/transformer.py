@@ -1,9 +1,9 @@
-"""Decoder-only LM, dense and MoE families (port of
-``repro/models/transformer.py``): the evaluation passes (``loss_fn``,
-``forward_hiddens``, ``forward_with_stats``), one-shot prefill,
-contiguous-cache decode (``decode_step``) and paged serving
-(``paged_mixed_step``, ``paged_decode_step``), with tied or untied LM
-heads.
+"""Decoder-only LM, dense and MoE families with MLA (port of
+``repro/models/transformer.py``): the evaluation passes (``loss_fn`` with
+the multi-token-prediction head, ``forward_hiddens``,
+``forward_with_stats``), one-shot prefill, contiguous-cache decode
+(``decode_step``) and paged serving (``paged_mixed_step``,
+``paged_decode_step``), with tied or untied LM heads.
 
 Parameters keep the reference's tree: ``embed``, ``final_norm`` and
 ``segment{si}`` whose leaves are stacked along a leading layer axis.  The
@@ -11,10 +11,13 @@ reference's ``lax.scan`` over a segment becomes a Python loop over that
 axis; caches and page pools are stacked the same way, and each layer works
 on views of the pools, so its in-place writes land in the stacked tensors.
 
-Sub-layer kinds: ``dense`` (attention + MLP) and ``moe`` (attention + the
-MoE FFN of ``models/moe.py``).  An MoE FFN runs per lane: a batch row's
-capacity counts that row's own tokens (1 for a decode row, C for a chunk,
-Lp for a one-shot prompt).
+Sub-layer kinds: ``dense`` (attention + MLP), ``moe`` (attention + the
+MoE FFN of ``models/moe.py``), and ``mla_dense`` / ``mla_moe`` (MLA of
+``models/mla.py`` + MLP / MoE FFN).  An MoE FFN runs per lane: a batch
+row's capacity counts that row's own tokens (1 for a decode row, C for a
+chunk, Lp for a one-shot prompt).  MLA has no page layout: its kinds serve
+through ``loss_fn``, ``prefill`` and ``decode_step`` only, and the paged
+paths refuse them (``assert_paged_servable``), as the reference's do.
 """
 from __future__ import annotations
 
@@ -25,24 +28,27 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import chunked as chunked_lib
 from repro_torch.core import policy as policy_lib
-from repro_torch.models import attention, common, mlp, moe
+from repro_torch.models import attention, common, mla, mlp, moe
 from repro_torch.runtime import paged as paged_lib
 
-PAGED_KINDS = ("dense", "moe")   # attention sub-layers this port serves
+PAGED_KINDS = ("dense", "moe")   # attention sub-layers the paged engine serves
+MLA_KINDS = ("mla_dense", "mla_moe")
+MOE_KINDS = ("moe", "mla_moe")
 
 
 def layer_program(cfg: ArchConfig) -> list[tuple[int, tuple[str, ...]]]:
     """Segments ``(num_groups, kinds)``: one ``("dense",)`` segment for the
     dense / vlm backbones; for MoE an optional ``first_k_dense`` dense
-    segment, then the ``("moe",)`` layers."""
-    if cfg.family == "moe" and cfg.mla is None:
+    segment, then the MoE layers (``mla_dense`` / ``mla_moe`` with MLA)."""
+    if cfg.family == "moe":
         first = cfg.moe.first_k_dense
-        return ([(first, ("dense",))] if first else []) + [
-            (cfg.num_layers - first, ("moe",))]
+        dense, kind = ("mla_dense", "mla_moe") if cfg.mla else ("dense", "moe")
+        return ([(first, (dense,))] if first else []) + [
+            (cfg.num_layers - first, (kind,))]
     if cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(
             f"the port serves the dense and MoE families only, got "
-            f"{cfg.family!r}{' with MLA' if cfg.mla is not None else ''}")
+            f"{cfg.family!r}")
     return [(cfg.num_layers, ("dense",))]
 
 
@@ -57,19 +63,22 @@ def assert_paged_servable(cfg: ArchConfig) -> None:
 
 def _init_sublayer(ini: common.Initializer, cfg: ArchConfig, kind: str) -> dict:
     _check_kind(kind)
-    return {
-        "norm1": ini.zeros((cfg.d_model,)),
-        "attn": attention.init(ini, cfg),
-        "norm2": ini.zeros((cfg.d_model,)),
-        "ffn": (moe.init(ini, cfg.d_model, cfg.moe, cfg.activation)
-                if kind == "moe" else
-                mlp.init(ini, cfg.d_model, cfg.d_ff, cfg.activation)),
-    }
+    p = {"norm1": ini.zeros((cfg.d_model,)),
+         "attn": (mla.init if kind in MLA_KINDS else attention.init)(ini, cfg),
+         "norm2": ini.zeros((cfg.d_model,))}
+    if kind in MOE_KINDS:
+        p["ffn"] = moe.init(ini, cfg.d_model, cfg.moe, cfg.activation)
+    else:
+        d_ff = cfg.d_ff
+        if kind == "mla_dense" and cfg.moe and cfg.moe.first_dense_d_ff:
+            d_ff = cfg.moe.first_dense_d_ff
+        p["ffn"] = mlp.init(ini, cfg.d_model, d_ff, cfg.activation)
+    return p
 
 
 def _ffn(params, h, cfg: ArchConfig, kind: str):
     """The sub-layer's FFN on ``h`` (b, s, d): (y, aux loss fp32 scalar)."""
-    if kind == "moe":
+    if kind in MOE_KINDS:
         return moe.apply(params, h, cfg.moe, cfg.activation)
     return (mlp.apply(params, h, cfg.activation),
             torch.zeros((), dtype=torch.float32, device=h.device))
@@ -105,6 +114,11 @@ def init_params(generator: torch.Generator, cfg: ArchConfig, device="cuda") -> d
     if not cfg.tie_embeddings:
         p["head"] = ini.normal((cfg.d_model, cfg.padded_vocab), scale=0.02,
                                dtype=torch.float32)
+    if cfg.mtp:
+        p["mtp_proj"] = ini.normal((2 * cfg.d_model, cfg.d_model))
+        p["mtp_norm"] = ini.zeros((cfg.d_model,))
+        p["mtp_layer"] = ini.stacked(1, lambda: {
+            "sub0": _init_sublayer(ini, cfg, "dense")})
     return p
 
 
@@ -165,7 +179,7 @@ def _embed_inputs(params, batch: dict, cfg: ArchConfig):
 
 
 def _check_kind(kind: str) -> None:
-    if kind not in PAGED_KINDS:
+    if kind not in PAGED_KINDS + MLA_KINDS:
         raise NotImplementedError(f"sub-layer kind {kind!r} is not ported")
 
 
@@ -176,13 +190,13 @@ def _sublayer_full(params, x, cfg: ArchConfig, kind: str, *, positions,
     _check_kind(kind)
     h = common.rms_norm(x, params["norm1"])
     stats = None
+    mixer = mla if kind in MLA_KINDS else attention
     if return_stats:
-        mix, stats = attention.apply_full(params["attn"], h, cfg,
-                                          positions=positions,
-                                          stem_cfg=stem_cfg, return_stats=True)
+        mix, stats = mixer.apply_full(params["attn"], h, cfg, positions=positions,
+                                      stem_cfg=stem_cfg, return_stats=True)
     else:
-        mix = attention.apply_full(params["attn"], h, cfg, positions=positions,
-                                   stem_cfg=stem_cfg)
+        mix = mixer.apply_full(params["attn"], h, cfg, positions=positions,
+                               stem_cfg=stem_cfg)
     x = x + mix
     y, aux = _ffn(params["ffn"], common.rms_norm(x, params["norm2"]), cfg, kind)
     x = x + y
@@ -227,19 +241,35 @@ def loss_fn(params, batch: dict, cfg: ArchConfig, *, stem_cfg=None,
     reference's signature and has no effect (there are no activations kept
     for a backward pass).  ``stem_cfg`` is any policy spelling;
     ``policies`` optionally overrides it per layer group ({index: policy}).
-    The multi-token-prediction head does not apply to the dense family and
-    raises."""
-    if cfg.mtp:
-        raise NotImplementedError("the multi-token-prediction loss is not ported")
+    With ``cfg.mtp`` the multi-token-prediction head adds ``mtp_weight *
+    mtp_ce``: the final hidden state at t (normed) and the embedding of
+    label t, projected by ``mtp_proj`` through one dense layer (dense
+    attention), predict label t + 1."""
     x = _embed_inputs(params, batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     x, aux = _run_segments(params, x, cfg, positions=positions,
                            stem_cfg=stem_cfg, policies=policies)
     txt_len = batch["tokens"].shape[1]
-    logits = _logits(params, x[:, -txt_len:], cfg)
+    x_txt = x[:, -txt_len:]
+    logits = _logits(params, x_txt, cfg)
     ce = common.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+    del logits
+    metrics = {"ce": ce, "aux": aux}
     total = ce + aux
-    return total, {"ce": ce, "aux": aux, "loss": total}
+    if cfg.mtp:
+        h = common.rms_norm(x_txt[:, :-1], params["mtp_norm"])
+        nxt = common.embed_lookup(params["embed"], batch["labels"][:, :-1],
+                                  cfg.torch_dtype)
+        hm = torch.einsum("bse,ed->bsd", torch.cat([h, nxt], dim=-1),
+                          params["mtp_proj"])
+        hm, _ = _group_full(_index(params["mtp_layer"], 0), hm, cfg, ("dense",),
+                            positions=positions[:-1], stem_cfg=None)
+        mtp_ce = common.cross_entropy(_logits(params, hm, cfg),
+                                      batch["labels"][:, 1:])
+        metrics["mtp_ce"] = mtp_ce
+        total = total + cfg.mtp_weight * mtp_ce
+    metrics["loss"] = total
+    return total, metrics
 
 
 @torch.no_grad()
@@ -298,7 +328,8 @@ def forward_with_stats(params, batch: dict, cfg: ArchConfig, *,
 def _sublayer_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
                     dtype, device):
     _check_kind(kind)
-    return attention.init_cache(cfg, batch, max_len, dtype=dtype, device=device)
+    mixer = mla if kind in MLA_KINDS else attention
+    return mixer.init_cache(cfg, batch, max_len, dtype=dtype, device=device)
 
 
 def _sublayer_prefill(params, x, cfg: ArchConfig, kind: str, *, positions,
@@ -306,7 +337,8 @@ def _sublayer_prefill(params, x, cfg: ArchConfig, kind: str, *, positions,
     """Returns (x, aux, cache)."""
     _check_kind(kind)
     h = common.rms_norm(x, params["norm1"])
-    mix, cache = attention.prefill_into_cache(
+    mixer = mla if kind in MLA_KINDS else attention
+    mix, cache = mixer.prefill_into_cache(
         params["attn"], h, cfg, positions=positions, max_len=max_len,
         stem_cfg=stem_cfg)
     x = x + mix
@@ -541,9 +573,12 @@ def _sublayer_decode(params, x, cfg: ArchConfig, kind: str, cache, *,
                      stem_cfg=None, budget_frac: float = 1.0):
     _check_kind(kind)
     h = common.rms_norm(x, params["norm1"])
-    mix, cache = attention.apply_decode(params["attn"], h, cfg, cache,
-                                        stem_cfg=stem_cfg,
-                                        budget_frac=budget_frac)
+    if kind in MLA_KINDS:      # dense over the latent cache, as the reference
+        mix, cache = mla.apply_decode(params["attn"], h, cfg, cache)
+    else:
+        mix, cache = attention.apply_decode(params["attn"], h, cfg, cache,
+                                            stem_cfg=stem_cfg,
+                                            budget_frac=budget_frac)
     x = x + mix
     y, _ = _ffn(params["ffn"], common.rms_norm(x, params["norm2"]), cfg, kind)
     return x + y, cache
@@ -558,7 +593,9 @@ def decode_step(params, tokens, caches, cfg: ArchConfig, *, stem_cfg=None,
 
     With ``stem_cfg`` the attention sub-layers decode policy-sparse over
     the contiguous cache (summarize + select every step) — the fixed-batch
-    reference for the paged engine's sparse decode."""
+    reference for the paged engine's sparse decode.  Only the paged kinds
+    decode sparse, so with ``stem_cfg`` any other config (MLA) raises, as
+    in the reference."""
     if stem_cfg is not None:
         assert_paged_servable(cfg)
     x = common.embed_lookup(params["embed"], tokens, cfg.torch_dtype)
@@ -572,9 +609,8 @@ def decode_step(params, tokens, caches, cfg: ArchConfig, *, stem_cfg=None,
         for layer in range(n):
             layer_params = _index(seg, layer)
             for i, k in enumerate(kinds):
-                c = seg_cache[f"sub{i}"]
-                view = attention.KVCache(k=c.k[layer], v=c.v[layer],
-                                         pos=c.pos[layer])
+                c = seg_cache[f"sub{i}"]       # KVCache or MLACache
+                view = type(c)(*(leaf[layer] for leaf in c))
                 x, view = _sublayer_decode(layer_params[f"sub{i}"], x, cfg, k,
                                            view, stem_cfg=stem_cfg,
                                            budget_frac=budget_frac)

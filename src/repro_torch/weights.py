@@ -4,10 +4,12 @@
 leaf already converted to numpy (the caller does the conversion, so this
 module needs no JAX) and returns the port's tree: the same nesting, the
 stacked ``segment{si}`` layer axis kept as the leading dimension (an MoE
-program's ``first_k_dense`` segment beside its MoE segment, and the MoE
-FFN's ``shared`` / ``residual`` subtrees as they come), the embedding
-table, the untied LM head and every MoE ``router`` kept fp32, every other
-leaf in ``cfg``'s dtype.
+program's ``first_k_dense`` segment beside its MoE segment, the MoE FFN's
+``shared`` / ``residual`` subtrees and the MLA sub-layers' ``attn``
+subtrees as they come, and with ``cfg.mtp`` the MTP head's ``mtp_proj``,
+``mtp_norm`` and one-layer stacked ``mtp_layer``), the embedding table, the
+untied LM head and every MoE ``router`` kept fp32, every other leaf in
+``cfg``'s dtype.
 """
 from __future__ import annotations
 
@@ -40,9 +42,11 @@ def from_jax_params(tree, cfg: ArchConfig, device="cuda") -> dict:
         f"segment{si}" for si, _ in enumerate(transformer.layer_program(cfg))}
     if not cfg.tie_embeddings:
         expected.add("head")
+    if cfg.mtp:
+        expected |= {"mtp_proj", "mtp_norm", "mtp_layer"}
     if set(tree) != expected:
         raise ValueError(
             f"parameter tree keys {sorted(tree)} are not the {cfg.family} "
-            f"{'tied' if cfg.tie_embeddings else 'untied'}-head set "
-            f"{sorted(expected)}")
+            f"{'tied' if cfg.tie_embeddings else 'untied'}-head"
+            f"{' MTP' if cfg.mtp else ''} set {sorted(expected)}")
     return convert(dict(tree), ())

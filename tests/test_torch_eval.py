@@ -144,10 +144,25 @@ def test_forward_with_stats_matches(qwen, arm):
 
 
 def test_loss_fn_rejects_mtp(qwen):
-    _, tcfg, _, _, tb, tparams = qwen
-    with pytest.raises(NotImplementedError, match="multi-token"):
-        t_transformer.loss_fn(tparams, {k: T(v) for k, v in _batch(0).items()},
+    """The multi-token-prediction loss (ported with deepseek-v3-671b) needs
+    the MTP head's parameters: on a tree without them, ``mtp=True`` is
+    rejected with the reference's KeyError; on the dense qwen3 built with
+    ``mtp=True`` (head included), ce / mtp_ce / loss equal the
+    reference's within 1e-4."""
+    jcfg, tcfg, _, jparams, _, tparams = qwen
+    batch = _batch(0)
+    with pytest.raises(KeyError, match="mtp_norm"):
+        t_transformer.loss_fn(tparams, {k: T(v) for k, v in batch.items()},
                               tcfg.replace(mtp=True))
+    with pytest.raises(KeyError, match="mtp_norm"):
+        j_transformer.loss_fn(jparams, jax.tree.map(jnp.asarray, batch),
+                              jcfg.replace(mtp=True))
+    jb, jp, tb, tp = _build(jcfg.replace(mtp=True), tcfg.replace(mtp=True))
+    _, jm = jax.jit(lambda p, b: jb.loss_fn(p, b))(jp, jax.tree.map(jnp.asarray, batch))
+    _, tm = tb.loss_fn(tp, {k: T(v) for k, v in batch.items()})
+    assert set(tm) == set(jm) == {"ce", "aux", "mtp_ce", "loss"}
+    for key in jm:
+        np.testing.assert_allclose(float(tm[key]), float(jm[key]), atol=TOL, rtol=0)
 
 
 # ---------------------------------------------------------------------------

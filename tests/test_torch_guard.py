@@ -36,6 +36,7 @@ def test_import_leaves_jax_out():
             "repro_torch.kernels.paged_attn, repro_torch.kernels.block_sparse_attn, "
             "repro_torch.kernels.flash_attention, repro_torch.kernels.stem_metric, "
             "repro_torch.core.sparse_attention, repro_torch.launch.steps, "
+            "repro_torch.models.mla, repro_torch.configs.deepseek_v3_671b, "
             "repro_torch.launch.serve, repro_torch.models.registry, "
             "repro_torch.weights; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

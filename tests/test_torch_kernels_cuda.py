@@ -753,6 +753,82 @@ def test_flash_head_dims_on_card(cuda, d, dtype, n):
         _assert_close(run(torch.where(cnt >= 2, cnt - 1, cnt).contiguous()), want)
 
 
+# MLA's (q/k, v) head_dim pairs: deepseek-v3-671b's attention and its MTP
+# layer, and the reduced config's.
+MLA_PAIRS = [(192, 128), (192, 192), (24, 16), (24, 24)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,dv", MLA_PAIRS, ids=lambda p: str(p))
+def test_flash_separate_v_head_dim_on_card(cuda, d, dv, dtype):
+    """Flash attention at MLA's pairs (the CUDA-core tile: V, the output
+    and its store at dv, the scores at d), 128 query / KV heads as
+    deepseek-v3-671b has them at a short length and GQA group 2 at a length
+    that is no multiple of the 64-row tile; the output is (b, hq, n, dv)."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(900 + d + dv)
+    for b, hq, hk, n in ((1, 128, 128, 256), (2, 4, 2, 300)):
+        q = torch.randn((b, hq, n, d), generator=gen, device=cuda).to(dt)
+        k = torch.randn((b, hk, n, d), generator=gen, device=cuda).to(dt)
+        v = torch.randn((b, hk, n, dv), generator=gen, device=cuda).to(dt)
+        got = t_fa.flash_attention(q, k, v)
+        assert tuple(got.shape) == (b, hq, n, dv) and got.dtype == dt
+        _assert_close(got, t_fa.flash_attention_plain(q, k, v))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bs", [8, 128])
+@pytest.mark.parametrize("d,dv", MLA_PAIRS, ids=lambda p: str(p))
+def test_block_sparse_separate_v_head_dim_on_card(cuda, d, dv, bs, dtype):
+    """Block-sparse attention at MLA's pairs, with and without group
+    dedup, block 8 (the reduced config's) and 128 (the published): every
+    causal block selected, some rows empty (exact zeros), and the rule
+    must reject the output with the last live block dropped from each row
+    with two or more."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(950 + d + dv + bs)
+    b, hq, hk, nq = 1, 4, 2, 6
+    n = nq * bs
+    q = torch.randn((b, hq, n, d), generator=gen, device=cuda).to(dt)
+    k = torch.randn((b, hk, n, d), generator=gen, device=cuda).to(dt)
+    v = torch.randn((b, hk, n, dv), generator=gen, device=cuda).to(dt)
+    for dedup in (False, True):
+        hsel = hk if dedup else hq
+        i = torch.arange(nq, device=cuda)[:, None]
+        j = torch.arange(nq, device=cuda)[None, :]
+        idx = torch.where(j == 0, i, j - 1).expand(b, hsel, nq, nq)
+        idx = idx.to(torch.int32).contiguous()
+        cnt = (i[:, 0] + 1).expand(b, hsel, nq).clone()
+        cnt[:, 1, 2] = 0
+        cnt = cnt.to(torch.int32).contiguous()
+        run = lambda c: t_bsa.block_sparse_attention(
+            q, k, v, idx, live_counts=c, block_size=bs, group_dedup=dedup)
+        want = t_bsa.block_sparse_attention_plain(q, k, v, idx, cnt, block_size=bs,
+                                                  group_dedup=dedup)
+        got = run(cnt)
+        assert tuple(got.shape) == (b, hq, n, dv)
+        _assert_close(got, want)
+        full = torch.repeat_interleave(cnt, hq // hsel, dim=1)
+        assert torch.all(got.reshape(b, hq, nq, bs, dv)[full == 0] == 0)
+        with pytest.raises(AssertionError):
+            _assert_close(run(torch.where(cnt >= 2, cnt - 1, cnt).contiguous()), want)
+
+
+def test_unlisted_head_dim_pairs_raise_on_card(cuda):
+    """A (q/k, v) pair outside kernels.HEAD_DIM_PAIRS raises ValueError in
+    both prefill wrappers: no fallback to the plain version."""
+    idx = torch.zeros((1, 2, 2, 1), dtype=torch.int32, device=cuda)
+    cnt = torch.ones((1, 2, 2), dtype=torch.int32, device=cuda)
+    for d, dv in ((192, 64), (128, 192), (24, 8)):
+        qk = torch.zeros((1, 2, 256, d), device=cuda)
+        v = torch.zeros((1, 2, 256, dv), device=cuda)
+        with pytest.raises(ValueError, match="head_dim"):
+            t_fa.flash_attention(qk, qk, v)
+        with pytest.raises(ValueError, match="head_dim"):
+            t_bsa.block_sparse_attention(qk, qk, v, idx, live_counts=cnt,
+                                         block_size=128)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("bs", SHAPE_BLOCKS)
 @pytest.mark.parametrize("d", SHAPE_DIMS)
@@ -1106,3 +1182,69 @@ def test_moe_apply_on_card_matches_cpu(cuda, variant):
     assert not bool(want[0][4].all())
     torch.testing.assert_close(got[1][0].cpu(), want[1][0], atol=1e-4, rtol=0)
     torch.testing.assert_close(got[1][1].cpu(), want[1][1], atol=0, rtol=1e-6)
+
+
+def _deepseek_reduced_run(device, executor, dtype):
+    """The reduced deepseek-v3-671b (MLA at q/k 24, v 16; the MTP layer at
+    24 / 24): loss_fn under stem (block 8: the sparse path at 64 tokens;
+    the MTP layer's dense flash at 63), then a ragged stem prefill of 40
+    tokens and 6 dense decode steps (the fixed batch's path).  Seeded
+    weights drawn on the CPU.  Returns (loss metrics, greedy streams,
+    launches, the recorder)."""
+    from repro_torch.configs import DEEPSEEK_V3_671B, reduced
+    from repro_torch.core import policy as t_policy
+    from repro_torch.launch import steps as t_steps
+    from repro_torch.models import registry as t_registry
+    cfg = reduced(DEEPSEEK_V3_671B).replace(dtype=dtype)
+    policy = t_policy.get_policy("stem").with_updates(executor=executor, **TINY_STEM)
+    bundle = t_registry.build(cfg)
+    params = _to_device(bundle.init_params(torch.Generator().manual_seed(0),
+                                           device="cpu"), device)
+    rng = np.random.RandomState(9)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, size=(2, 65)), device=device)
+    counters = (t_kern, t_bsa, t_fa, t_sm)
+    for mod in counters:
+        mod.reset_launches()
+    with replay.Recorder() as rec:
+        _, metrics = bundle.loss_fn(params, {"tokens": toks[:, :-1],
+                                             "labels": toks[:, 1:]}, stem_cfg=policy)
+        last = torch.tensor([39, 22], device=device)
+        logits, caches = bundle.prefill(params, {"tokens": toks[:, :40]}, max_len=48,
+                                        stem_cfg=policy, last_pos=last)
+        serve = t_steps.make_serve_step(bundle)
+        tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        stream = [tok[:, 0].tolist()]
+        for i in range(6):
+            logits, caches = serve(params, tok, caches, None if i else last + 1)
+            assert bool(torch.isfinite(logits).all())
+            tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+            stream.append(tok[:, 0].tolist())
+    launches = {}
+    for mod in counters:
+        launches.update(mod.LAUNCHES)
+    return {k: float(v) for k, v in metrics.items()}, stream, launches, rec
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduced_deepseek_fused_on_card(cuda, dtype):
+    """MLA on the card at the reduced widths: flash and block-sparse at
+    (24, 16) and (24, 24), the pool on q / k at 24 and vmag on v at 16 all
+    launch under "fused", and every recorded call matches its plain
+    version.  In fp32 the loss metrics equal the "gather" executor's on the
+    card and the CPU run's within 1e-4 and the greedy streams are equal; in
+    bf16 they are finite."""
+    metrics, stream, launches, rec = _deepseek_reduced_run(cuda, "fused", dtype)
+    assert all(launches[k] > 0 for k in ("block_sparse_attention", "flash_attention",
+                                         "antidiag_pool", "value_magnitude")), launches
+    shapes = {tuple(a["v"].shape[-1:]) + tuple(a["q"].shape[-1:])
+              for key in ("flash_attention", "block_sparse_attention")
+              for a, _ in rec.calls[key]}
+    assert {(16, 24), (24, 24)} <= shapes, shapes
+    rec.check()
+    assert all(np.isfinite(v) for v in metrics.values())
+    if dtype == "float32":
+        for executor, device in (("gather", cuda), ("fused", torch.device("cpu"))):
+            m, s, _, _ = _deepseek_reduced_run(device, executor, dtype)
+            for key in metrics:
+                assert abs(m[key] - metrics[key]) <= 1e-4, (executor, device, key)
+            assert s == stream, (executor, device)

@@ -15,6 +15,10 @@ differential oracle.
 * The same on the reduced ``arctic-480b`` (the MoE family: 3 layers, 8
   experts, top-2, a residual dense FFN), in engine (chunked and
   ``--monolithic``) and ``--fixed-batch`` modes.
+* The reduced ``deepseek-v3-671b`` (MLA, no page layout): ``--fixed-batch``
+  gives the reference CLI's tokens; the engine modes, and ``--fixed-batch``
+  under a policy (whose decode would be sparse), raise the reference's
+  ``NotImplementedError`` with its message.
 * ``main`` end to end on the reduced qwen3-0.6b on the CPU; ``--mesh``,
   whose feature the port lacks, raises ``SystemExit``, and a bad sampler
   or async depth the reference's ``ValueError``."""
@@ -110,11 +114,12 @@ BASE = ["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu", "--requests", "3
         "--max-slots", "2"]
 
 
-def _carry(arch):
+def _carry(arch, jit=False):
     jcfg = j_configs.reduced(j_configs.get_config(arch)).replace(dtype="float32")
     tcfg = t_configs.reduced(t_configs.get_config(arch)).replace(dtype="float32")
     jb, tb = j_registry.build(jcfg), t_registry.build(tcfg)
-    jparams = jb.init_params(jax.random.PRNGKey(0))
+    init = jax.jit(jb.init_params) if jit else jb.init_params
+    jparams = init(jax.random.PRNGKey(0))
     tparams = from_jax_params(jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
     return jcfg, jb, jparams, tcfg, tb, tparams
 
@@ -127,6 +132,11 @@ def carried():
 @pytest.fixture(scope="module")
 def carried_arctic():
     return _carry("arctic-480b")
+
+
+@pytest.fixture(scope="module")
+def carried_deepseek():
+    return _carry("deepseek-v3-671b", jit=True)
 
 
 def _serving_policies(args):
@@ -183,6 +193,44 @@ def test_arctic_cli_matches_reference(carried_arctic, capsys, mode, flags):
     """``--arch arctic-480b --reduced``: the MoE FFN in every lane."""
     _cli_matches_reference(carried_arctic, capsys, mode,
                            ["--arch", "arctic-480b"] + BASE[2:] + flags)
+
+
+@pytest.mark.parametrize("flags", [[], ["--requests", "2", "--min-prompt", "64",
+                                         "--max-prompt", "96"]],
+                         ids=["dense-arm", "longer-prompts"])
+def test_deepseek_fixed_batch_matches_reference(carried_deepseek, capsys, flags):
+    """``--arch deepseek-v3-671b --reduced --fixed-batch``: MLA prefill over
+    the latent cache, then dense absorbed decode (per-row positions)."""
+    _cli_matches_reference(carried_deepseek, capsys, "fixed-batch-dense",
+                           ["--arch", "deepseek-v3-671b"] + BASE[2:]
+                           + ["--fixed-batch"] + flags)
+
+
+@pytest.mark.parametrize("flags", [["--policy", "stem"],
+                                   ["--policy", "stem", "--monolithic"],
+                                   ["--policy", "stem", "--fixed-batch"]],
+                         ids=["engine", "monolithic", "fixed-batch-sparse"])
+def test_deepseek_refusals_match_reference(carried_deepseek, flags):
+    """MLA has no page layout: the engine refuses it when it is built, and
+    the fixed batch's policy-sparse decode when it first steps; both
+    packages raise NotImplementedError with one message."""
+    jcfg, jb, jparams, tcfg, tb, tparams = carried_deepseek
+    args = t_serve.build_parser().parse_args(
+        ["--arch", "deepseek-v3-671b"] + BASE[2:] + flags)
+    jpol, tpol, _ = _serving_policies(args)
+    run = "run_fixed_batch" if args.fixed_batch else "run_engine"
+    with pytest.raises(NotImplementedError) as want:
+        getattr(j_serve, run)(args, jcfg, jb, jparams, jpol, args.budget_frac)
+    with pytest.raises(NotImplementedError) as got:
+        getattr(t_serve, run)(args, tcfg, tb, tparams, tpol, args.budget_frac)
+    assert str(got.value) == str(want.value)
+    assert "got 'mla_dense' (arch deepseek-v3-671b-reduced)" in str(got.value)
+
+
+def test_main_refuses_deepseek_engine_on_cpu():
+    with pytest.raises(NotImplementedError, match="paged serving supports"):
+        t_serve.main(["--arch", "deepseek-v3-671b", "--reduced", "--device", "cpu",
+                      "--requests", "2", "--decode-tokens", "3"])
 
 
 def _cli_matches_reference(carried, capsys, mode, argv):
@@ -279,6 +327,16 @@ def test_main_runs_arctic_on_cpu(capsys, extra):
                         "2", "--policy", "stem"] + extra)
     assert all(len(toks) == 4 for toks in out["tokens"].values())
     assert "serve: arch=arctic-480b-reduced device=cpu" in capsys.readouterr().out
+
+
+def test_main_runs_deepseek_fixed_batch_on_cpu(capsys):
+    out = t_serve.main(["--arch", "deepseek-v3-671b", "--reduced", "--device",
+                        "cpu", "--requests", "3", "--decode-tokens", "4",
+                        "--fixed-batch"])
+    assert all(len(toks) == 4 for toks in out["tokens"].values())
+    printed = capsys.readouterr().out
+    assert "serve: arch=deepseek-v3-671b-reduced device=cpu" in printed
+    assert "fixed-batch (ragged lens" in printed
 
 
 @pytest.mark.parametrize("flags", [["--mesh", "1,1"], ["--executor", "pallas"]])

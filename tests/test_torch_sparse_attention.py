@@ -6,10 +6,16 @@ reference's Pallas kernels in interpret mode and its ``ref.py`` oracles, and
 "gather" / "dense" / "fused"-on-CPU executors against the reference's
 "xla" / "dense" / "pallas".  Inputs come from seeded numpy.
 
+MLA's shape, a v head dim apart from q/k's, runs through the same plain
+versions and executors at the reduced deepseek-v3-671b's (24, 16) and its
+MTP layer's (24, 24).
+
 Selections (indices, slot masks, live counts, budgets) must be exactly
 equal; float outputs agree within 1e-4 in fp32 (both sides sum in fp32 in
 different orders) and within 2 bf16 ulps + 1e-3 * max|ref| in bf16 (the
 two frameworks round the fp32 result to bf16 at different points)."""
+import pathlib
+import re
 import sys
 
 import numpy as np
@@ -30,6 +36,7 @@ from repro_torch.core import policy as t_policy
 from repro_torch.core import selection as t_selection
 from repro_torch.core import sparse_attention as t_sa
 from repro_torch.core.config import StemConfig as TStem
+from repro_torch import kernels as t_kernels
 from repro_torch.kernels import block_sparse_attn as t_bsa
 from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels import stem_metric as t_sm
@@ -130,6 +137,92 @@ def test_block_sparse_plain_matches_jax(dtype, dedup):
                j_ref.block_sparse_attention_ref(
                    _j(q, dtype), _j(k, dtype), _j(v, dtype), jnp.asarray(idx),
                    jnp.asarray(msk), block_size=bs), dtype)
+
+
+@pytest.mark.parametrize("dv", [16, 24])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_separate_v_head_dim_matches_jax(dtype, dv):
+    """q/k at 24 with v at 16 (MLA's shape, reduced) and 24: the wrapper
+    (the plain version on the CPU) and the plain version against the
+    reference's Pallas kernel; at dv == d also against ``ref.py``'s
+    oracle (which reshapes its output to d, so it takes no other dv)."""
+    q, k, v = _arrays(dv, [(1, 4, 128, 24), (1, 2, 128, 24), (1, 2, 128, dv)])
+    got = t_fa.flash_attention(_t(q, dtype), _t(k, dtype), _t(v, dtype))
+    assert tuple(got.shape) == (1, 4, 128, dv) and got.dtype == getattr(torch, dtype)
+    want = j_ops.flash_attention(_j(q, dtype), _j(k, dtype), _j(v, dtype))
+    _close(got, want, dtype)
+    _close(t_fa.flash_attention_plain(_t(q, dtype), _t(k, dtype), _t(v, dtype)),
+           want, dtype)
+    if dv == 24:
+        _close(got, j_ref.flash_attention_ref(_j(q, dtype), _j(k, dtype),
+                                              _j(v, dtype)), dtype)
+
+
+@pytest.mark.parametrize("dv", [16, 24])
+@pytest.mark.parametrize("dedup", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_sparse_plain_separate_v_head_dim_matches_jax(dtype, dedup, dv):
+    """Block-sparse attention at q/k 24 with v 16 and 24, with and without
+    group dedup: against the reference's Pallas kernel; empty rows exact
+    zeros; at dv == d without dedup also against ``ref.py``."""
+    b, hq, hk, n, d, bs, kmax = 2, 4, 2, 128, 24, 32, 3
+    hsel = hk if dedup else hq
+    q, k, v = _arrays(40 + dv, [(b, hq, n, d), (b, hk, n, d), (b, hk, n, dv)])
+    idx, cnt, msk = _selection(11 + dedup, b, hsel, n // bs, kmax)
+    got = t_bsa.block_sparse_attention(
+        _t(q, dtype), _t(k, dtype), _t(v, dtype), torch.from_numpy(idx),
+        torch.from_numpy(msk), block_size=bs, group_dedup=dedup,
+        live_counts=torch.from_numpy(cnt))
+    assert tuple(got.shape) == (b, hq, n, dv)
+    want = j_ops.block_sparse_attention(
+        _j(q, dtype), _j(k, dtype), _j(v, dtype), jnp.asarray(idx),
+        jnp.asarray(msk), block_size=bs, group_dedup=dedup,
+        live_counts=jnp.asarray(cnt))
+    _close(got, want, dtype)
+    rows = np.repeat(cnt, hq // hsel, axis=1) == 0
+    assert torch.all(got.reshape(b, hq, n // bs, bs, dv)[torch.from_numpy(rows)] == 0)
+    if dv == d and not dedup:
+        _close(got, j_ref.block_sparse_attention_ref(
+            _j(q, dtype), _j(k, dtype), _j(v, dtype), jnp.asarray(idx),
+            jnp.asarray(msk), block_size=bs), dtype)
+
+
+@pytest.mark.parametrize("executors", EXECUTORS, ids=lambda e: e[1])
+def test_sparse_attention_separate_v_head_dim_matches_jax(executors):
+    """sparse_attention under stem at q/k 24, v 16 (the reduced MLA's
+    sparse path): the port's gather / dense / fused-on-CPU executors
+    against the reference's xla / dense / pallas, selections through the
+    OAM value term read off the 16-wide v; and the dense arm."""
+    q, k, v = _arrays(3, [(1, 4, 256, 24), (1, 2, 256, 24), (1, 2, 256, 16)])
+    jpol, tpol = _policies("stem")
+    jout, jstats = j_sa.sparse_attention(q, k, v, jpol, executor=executors[0],
+                                         return_stats=True)
+    tout, tstats = t_sa.sparse_attention(_t(q), _t(k), _t(v), tpol,
+                                         executor=executors[1], return_stats=True)
+    assert tuple(tout.shape) == (1, 4, 256, 16)
+    _close(tout, jout)
+    np.testing.assert_allclose(float(tstats.density), float(jstats.density), rtol=1e-6)
+    assert float(tstats.density) < 0.9
+    _close(t_sa.dense_attention_auto(_t(q), _t(k), _t(v), scale=0.2),
+           j_sa.dense_attention_auto(q, k, v, scale=0.2))
+
+
+def test_head_dim_pairs_match_the_cuda_switch():
+    """kernels.HEAD_DIM_PAIRS lists exactly the (q/k, v) pairs that
+    csrc/head_dims.cuh instantiates, every head_dim of HEAD_DIMS at v = q/k
+    among them; the wrappers' check raises ValueError on any other pair."""
+    src = (pathlib.Path(t_kernels.__file__).parent / "csrc" / "head_dims.cuh").read_text()
+    switch = src[src.index("#define STEM_HEAD_DIM_PAIR_SWITCH"):]
+    pairs = {(int(a), int(b)) for a, b in
+             re.findall(r"STEM_HEAD_DIM_PAIR_CASE\((\d+), (\d+),", switch)}
+    assert pairs == set(t_kernels.HEAD_DIM_PAIRS)
+    assert {(d, d) for d in t_kernels.HEAD_DIMS} < pairs
+    assert {(24, 16), (24, 24), (192, 128), (192, 192)} < pairs
+    for d, dv in t_kernels.HEAD_DIM_PAIRS:
+        t_kernels.check_head_dim_pair("flash_attention", d, dv)
+    for d, dv in ((24, 8), (192, 64), (128, 192), (96, 96), (16, 24)):
+        with pytest.raises(ValueError, match="head_dim"):
+            t_kernels.check_head_dim_pair("block_sparse_attention", d, dv)
 
 
 @pytest.mark.parametrize("bs,s", [(64, 8), (32, 4), (128, 16), (256, 32)])
