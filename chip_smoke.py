@@ -3,8 +3,9 @@
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --profile  # also trace phase 4 and phase 11's
                                      # loops with torch.profiler
-    python3 chip_smoke.py --profile-prefill  # also trace phase 5's and
-                                             # phase 13's prefills
+    python3 chip_smoke.py --profile-prefill  # also trace phase 5's,
+                                             # phase 13's and phase 14's
+                                             # prefills
 
 Phases:
   1. device   — require CUDA; print the card's name and power limit.
@@ -236,6 +237,35 @@ Phases:
                 mtp_ce / aux equal under fused, gather, the dense oracle
                 executor and dense attention.
 
+ 14. families — the SSM, hybrid, encoder-decoder and VLM-stub families at
+                their published widths and full depth, random weights drawn
+                on the card from a seeded generator, one family at a time
+                (each frees its weights before the next).  (a) mamba2-370m
+                (48 SSD layers) bf16: a 16384-token prefill and 32 greedy
+                decode steps (ms, ms a token); fp32 at 4 layers: decode
+                after prefill(1000) == prefill(1001)'s logits within 1e-4.
+                (b) recurrentgemma-2b (26 layers: 8 x (rec, rec, local) + 2
+                rec) bf16: an 8192-token prompt (past the 2048 window), 32
+                decode steps over the 2048-slot ring caches, peak memory;
+                fp32 at 4 layers: the same check at n = 2100.  (c)
+                whisper-medium (24 + 24 layers) bf16: 1500 stub frames and
+                a 4096-token decoder prompt prefilled under stem at the
+                CLI's geometry (block 128, stride 4, sink 1, local 1, min
+                budget 2) and dense: realized density, kernels 3, 5, 6
+                launched under stem and 4 dense, all at head_dim 64, every
+                call recorded and held against its plain version, layer
+                0's calls timed beside their bound, SDPA / flex_attention
+                / a mean; loss_fn at 4096 under both; 16 greedy decode
+                steps; fp32 at 4 + 4 layers: "fused" == "gather" (2048
+                tokens, prefill logits within 1e-4 of their scale, streams
+                equal).  (d) pixtral-12b (40 layers) bf16: 4096 patch
+                embeddings + 12288 text tokens prefilled one-shot under
+                stem at the paper's defaults and dense (kernels 3-6
+                launched, the attention calls on the wgmma tile, every call
+                held against its plain version; with --profile-prefill the
+                device's busy share), 16 decode steps; fp32 at 4 layers:
+                "fused" == "gather" (512 patches + 1536 tokens).
+
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}.  Any failed phase raises (non-zero exit).
 """
@@ -261,7 +291,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import (ARCTIC_480B, DEEPSEEK_V3_671B, GLM4_9B,  # noqa: E402
-                                 QWEN3_0_6B, reduced)
+                                 MAMBA2_370M, PIXTRAL_12B, QWEN3_0_6B,
+                                 RECURRENTGEMMA_2B, WHISPER_MEDIUM, reduced)
 from repro_torch.configs.base import ArchConfig  # noqa: E402
 from repro_torch.core import chunked as chunked_lib  # noqa: E402
 from repro_torch.core import decode as decode_lib  # noqa: E402
@@ -279,6 +310,7 @@ from repro_torch.launch import serve as serve_lib  # noqa: E402
 from repro_torch.launch import steps as steps_lib  # noqa: E402
 from repro_torch.models import attention as attention_lib  # noqa: E402
 from repro_torch.models import common  # noqa: E402
+from repro_torch.models import encdec as encdec_lib  # noqa: E402
 from repro_torch.models import mla as mla_lib  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
@@ -963,10 +995,11 @@ PORT_KERNEL = re.compile(r"\b(score(_bcast)?|attend_\w+|block_sparse(_wgmma)?|"
                          r"flash(_wgmma)?|pool|vmag)_kernel\b")
 
 
-def profile_summary(prof, wall: float, top: int = 12) -> None:
+def profile_summary(prof, wall: float, top: int = 12) -> float:
     """Device time by kernel name and the device's busy share of the run
     (the top rows, then the rest of the port's own kernels), then host time
-    by operator (self CPU time: where a host-bound run goes)."""
+    by operator (self CPU time: where a host-bound run goes).  Returns the
+    busy share."""
     rows, host = [], []
     for ev in prof.key_averages():
         if not str(ev.device_type).endswith("CUDA"):
@@ -988,6 +1021,7 @@ def profile_summary(prof, wall: float, top: int = 12) -> None:
     log(f"[profile] host self time {sum(r[0] for r in host) / 1e3:.3f} s by operator:")
     for ms, count, name in host[:top]:
         log(f"[profile] host {ms:10.1f} ms {count:7d} calls  {name[:85]}")
+    return busy / wall
 
 
 def engine_phase(profile: bool = False) -> dict:
@@ -2846,7 +2880,7 @@ def mla_kernel_phase(records: dict, dev=torch.device("cuda")) -> None:
 def _need(launches: dict, need, what: str) -> dict:
     missing = [k for k in need if launches[k] == 0]
     if missing:
-        raise AssertionError(f"phase 13 {what}: kernels never launched: {missing}")
+        raise AssertionError(f"{what}: kernels never launched: {missing}")
     return launches
 
 
@@ -2885,7 +2919,7 @@ def _stem_vs_dense_prefill(cfg, params, n: int, profile: bool) -> dict:
         logits, caches = step(params, {"tokens": tokens})
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        launches = _need(read_all_launches(), need, f"prefill {arm}")
+        launches = _need(read_all_launches(), need, f"phase 13 prefill {arm}")
         if not torch.isfinite(logits).all():
             raise AssertionError(f"phase 13 prefill {arm}: non-finite logits")
         if caches[0]["sub0"].c_kv.dtype != torch.bfloat16:
@@ -2990,7 +3024,7 @@ def deepseek_phase(profile: bool = False) -> dict:
         res = serve_lib.run_fixed_batch(args, cfg, bundle, params, None, 1.0)
         torch.cuda.synchronize()
     launches["a/fixed-batch"] = _need(read_all_launches(), ("flash_attention",),
-                                      "cli fixed batch")
+                                      "phase 13 cli fixed batch")
     if not all(bool(torch.isfinite(c).all()) for c in tap.calls):
         raise AssertionError("phase 13 cli fixed batch: non-finite logits")
     if any(len(t) != 16 for t in res["tokens"].values()):
@@ -3059,7 +3093,7 @@ def deepseek_phase(profile: bool = False) -> dict:
         if executor == "fused":
             launches["c/fused"] = _need(read_all_launches(),
                                         ("block_sparse_attention", "antidiag_pool",
-                                         "value_magnitude"), "fp32 fused prefill")
+                                         "value_magnitude"), "phase 13 fp32 fused prefill")
             out["c/kernel_calls"] = rec.check()
     (lf, sf, rf), (lg, sg, rg) = runs["fused"], runs["gather"]
     scale = float(lg.abs().max())
@@ -3092,7 +3126,7 @@ def deepseek_phase(profile: bool = False) -> dict:
             launches["c/loss_fn"] = _need(read_all_launches(),
                                           ("block_sparse_attention", "flash_attention",
                                            "antidiag_pool", "value_magnitude"),
-                                          "fp32 loss_fn")
+                                          "phase 13 fp32 loss_fn")
     out["c/loss_fn"] = losses
     log("[phase13] (c) fp32 loss_fn: " + json.dumps(losses))
     for arm in ("gather", "dense-oracle"):
@@ -3113,6 +3147,453 @@ def deepseek_phase(profile: bool = False) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     out["launches"] = launches
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the SSM, hybrid, encoder-decoder and VLM-stub families
+# ---------------------------------------------------------------------------
+
+# Phase 14's sizes: (a) mamba2's prompt, (b) recurrentgemma's (past its 2048
+# window), (c) whisper's decoder prompt over its 1500 stub frames, (d)
+# pixtral's patch and text positions; greedy decode steps after (a) / (b)
+# and after (c) / (d); the depth and prompt lengths of the fp32 checks.
+P14 = dict(mamba_n=16384, rg_n=8192, whisper_n=4096, pixtral_patches=4096,
+           pixtral_text=12288, decode=32, decode_short=16, check_layers=4,
+           mamba_check_n=1000, rg_check_n=2100, whisper_check_n=2048,
+           pixtral_check_patches=512, pixtral_check_text=1536, warm=1024)
+STEM_KERNELS = ("block_sparse_attention", "antidiag_pool", "value_magnitude")
+
+
+def _free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _draw(cfg, seed: int, what: str):
+    """registry.build(cfg) and its parameters drawn on the card from a
+    seeded generator.  Returns (bundle, params, info)."""
+    bundle = registry.build(cfg)
+    _free()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(seed),
+                                device="cuda")
+    torch.cuda.synchronize()
+    info = dict(s=time.perf_counter() - t0, params=registry.param_counts(cfg)[0],
+                weights_gib=(torch.cuda.memory_allocated() - before) / 2 ** 30,
+                layers=cfg.num_layers, dtype=cfg.dtype)
+    log(f"[phase14] {what} drawn: " + json.dumps(info))
+    return bundle, params, info
+
+
+def _family_batch(cfg, n: int, seed: int, patches: int = 0, b: int = 1) -> dict:
+    """Token prompts (b, n) and the stub inputs: whisper's frame embeddings,
+    pixtral's ``patches`` patch embeddings; seeded, on the card."""
+    rng = np.random.RandomState(seed)
+    batch = {"tokens": torch.as_tensor(rng.randint(0, cfg.vocab_size, size=(b, n)),
+                                       dtype=torch.int32, device="cuda")}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((b, cfg.encdec.encoder_frames, cfg.d_model),
+                                      generator=gen, device="cuda").to(cfg.torch_dtype)
+    if patches:
+        batch["patch_embeds"] = torch.randn((b, patches, cfg.d_model), generator=gen,
+                                            device="cuda").to(cfg.torch_dtype)
+    return batch
+
+
+def _head(batch: dict, n: int, patches: int = 0) -> dict:
+    """The batch cut to its first ``n`` tokens (and ``patches`` patches)."""
+    out = {k: v for k, v in batch.items() if k not in ("tokens", "patch_embeds")}
+    out["tokens"] = batch["tokens"][:, :n]
+    if "patch_embeds" in batch:
+        out["patch_embeds"] = batch["patch_embeds"][:, :patches]
+    return out
+
+
+def _generate(bundle, params, batch: dict, max_len: int, steps: int, stem_cfg=None):
+    """The prefill (timed: host clock around a synchronized call), then
+    ``steps`` greedy dense decode steps (timed the same way).  Returns
+    (prefill logits fp32, stream (b, steps), every decode logits row fp32 on
+    the host, prefill ms, decode ms per token, caches)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = bundle.prefill(params, batch, max_len=max_len, stem_cfg=stem_cfg)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    first = logits.float().clone()
+    toks, rows = [], []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        rows.append(logits.float())
+        tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        toks.append(tok)
+        logits, caches = bundle.decode_step(params, tok, caches)
+    torch.cuda.synchronize()
+    per_token = (time.perf_counter() - t0) * 1e3 / max(steps, 1)
+    rows = torch.stack(rows, 1).cpu()
+    if not (torch.isfinite(first).all() and torch.isfinite(rows).all()):
+        raise AssertionError("phase 14: non-finite logits")
+    return first, torch.cat(toks, 1).cpu(), rows, prefill_ms, per_token, caches
+
+
+def _decode_equals_prefill(cfg, n: int, seed: int, what: str) -> dict:
+    """fp32 at full width, depth cut: ``decode_step`` after ``prefill(n)``
+    against ``prefill(n + 1)``'s last logits, within 1e-4."""
+    bundle, params, info = _draw(cfg, seed, f"{what} fp32 {cfg.num_layers} layers")
+    batch = _family_batch(cfg, n + 1, seed + 1)
+    _, caches = bundle.prefill(params, _head(batch, n), max_len=n + 1)
+    step, _ = bundle.decode_step(params, batch["tokens"][:, n:n + 1], caches)
+    full, _ = bundle.prefill(params, batch, max_len=n + 1)
+    gap = float((step.float() - full.float()).abs().max())
+    out = dict(n=n, max_abs_gap=gap, logit_scale=float(full.float().abs().max()),
+               weights_gib=info["weights_gib"])
+    log(f"[phase14] {what} fp32: decode after prefill({n}) vs prefill({n + 1}): "
+        + json.dumps(out))
+    if not gap <= 1e-4:
+        raise AssertionError(f"phase 14 {what}: decode after prefill({n}) differs "
+                             f"from prefill({n + 1}) by {gap}")
+    del params, caches
+    _free()
+    return out
+
+
+def _fused_equals_gather(cfg, batch_fn, n_prompt: int, steps: int, seed: int,
+                         what: str) -> dict:
+    """fp32 at full width, depth cut: the prefill under stem at the CLI's
+    geometry (block 128, stride 4) with the "fused" and the "gather"
+    executor, then ``steps`` greedy dense decode steps: prefill logits
+    within 1e-4 of their scale, streams equal; the fused run's kernel calls
+    recorded and held against their plain versions."""
+    bundle, params, info = _draw(cfg, seed, f"{what} fp32 {cfg.num_layers} layers")
+    batch = batch_fn(cfg)
+    policy = policy_lib.get_policy("stem").with_updates(**CLI_POLICY)
+    runs, out = {}, dict(weights_gib=info["weights_gib"])
+    for executor in ("fused", "gather"):
+        reset_all_launches()
+        rec = replay.Recorder() if executor == "fused" else contextlib.nullcontext()
+        with rec:
+            runs[executor] = _generate(bundle, params, batch, n_prompt + steps, steps,
+                                       policy.with_updates(executor=executor))[:3]
+        if executor == "fused":
+            out["launches"] = _need(read_all_launches(), STEM_KERNELS,
+                                    f"phase 14 {what} fp32 fused")
+            out["kernel_calls"] = rec.check()
+    (lf, sf, _), (lg, sg, _) = runs["fused"], runs["gather"]
+    scale = float(lg.abs().max())
+    out.update(max_abs_diff=float((lf - lg).abs().max()), scale=scale,
+               streams_equal=bool(torch.equal(sf, sg)))
+    log(f"[phase14] {what} fp32 fused vs gather: " + json.dumps(out))
+    if not out["max_abs_diff"] <= 1e-4 * scale:
+        raise AssertionError(f"phase 14 {what}: fused and gather prefill logits differ")
+    if not out["streams_equal"]:
+        raise AssertionError(f"phase 14 {what}: fused and gather streams differ")
+    del params
+    _free()
+    return out
+
+
+def _layer0_density(cfg, params, batch, stem_cfg) -> float:
+    """Realized density of the first attention layer's selection."""
+    if cfg.family == "encdec":
+        layer = transformer._index(params["dec_layers"], 0)
+        x = encdec_lib._dec_embed(params, batch["tokens"], cfg)
+        h = common.layer_norm_simple(x, layer["norm1"])
+        attn = layer["self_attn"]
+    else:
+        x = transformer._embed_inputs(params, batch, cfg)
+        p0 = transformer._index(params["segment0"], 0)["sub0"]
+        h = common.rms_norm(x, p0["norm1"])
+        attn = p0["attn"]
+    _, stats = attention_lib.apply_full(attn, h, cfg,
+                                        positions=torch.arange(h.shape[1], device="cuda"),
+                                        stem_cfg=stem_cfg, return_stats=True)
+    return float(stats.density)
+
+
+def _prefill_arms(what, cfg, bundle, params, batch, warm, max_len, stem_cfg,
+                  profile: bool) -> tuple:
+    """One prefill under ``stem_cfg`` and one dense, each after a short
+    warm-up: ms (host clock around a synchronized call), launches (kernels
+    3, 5 and 6 must launch under stem, kernel 4 dense), peak memory, the
+    realized density of the first attention layer; every kernel call
+    recorded and held against its plain version.  With ``profile`` a third,
+    traced run of each arm gives the device's busy share.  Returns (report,
+    {arm: the recorder})."""
+    out, recs = {}, {}
+    for arm, pol, need in (("stem", stem_cfg, STEM_KERNELS),
+                           ("dense", None, ("flash_attention",))):
+        bundle.prefill(params, warm, max_len=max_len, stem_cfg=pol)
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        with replay.Recorder() as rec:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = bundle.prefill(params, batch, max_len=max_len, stem_cfg=pol)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        launches = _need(read_all_launches(), need, f"phase 14 {what} prefill {arm}")
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"phase 14 {what} prefill {arm}: non-finite logits")
+        del logits
+        r = dict(ms=ms, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 launches=launches, kernel_calls=rec.check(),
+                 density=1.0 if pol is None else _layer0_density(cfg, params, batch, pol))
+        if profile:
+            act = torch.profiler.ProfilerActivity
+            with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+                t0 = time.perf_counter()
+                bundle.prefill(params, batch, max_len=max_len, stem_cfg=pol)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            log(f"[profile] phase 14 {what} prefill/{arm}:")
+            r["busy_share"] = profile_summary(prof, wall)
+        out[arm], recs[arm] = r, rec
+        log(f"[phase14] {what} prefill {arm}: " + json.dumps(
+            {k: v for k, v in r.items() if k != "kernel_calls"}))
+        _free()
+    return out, recs
+
+
+def _time_recorded(records: dict, lane: str, recs: dict, flex) -> None:
+    """Each kernel's first recorded call of a prefill (layer 0's shapes)
+    timed against its plain version on the recorded arguments, beside its
+    bound and a library call of the same function (SDPA for flash, a
+    compiled flex_attention over the same BlockMask for block-sparse, one
+    ``mean`` for the pool; none for vmag)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    _, bsa_plain, _ = replay.KERNELS["block_sparse_attention"]
+    a = recs["stem"].calls["block_sparse_attention"][0][0]
+    q, k, v = a["q"], a["k"], a["v"]
+    bs, group = a["block_size"], q.shape[1] // k.shape[1]
+    idx, cnt = a["indices"], replay._live_counts(a)
+    run_k = lambda: bsa_kern.block_sparse_attention(**a)
+    run_p = lambda: bsa_plain(a)
+    got, want = run_k(), run_p()
+    torch.cuda.synchronize()
+    err = check_close(f"block_sparse_attention/{lane}", got, want,
+                      p_bf16=replay.KERNELS["block_sparse_attention"][2](a))
+    mask = flex_block_mask(idx, cnt, bs)
+    run_l = lambda: flex(q, k, v, block_mask=mask, enable_gqa=True, scale=a["scale"])
+    try:
+        check_library(f"block_sparse_attention {lane} vs flex_attention", run_l(), want)
+    except Exception as e:  # the library is only timed beside the kernel
+        log(f"[phase14] flex_attention at {lane} failed, no library time: "
+            f"{type(e).__name__}: {str(e).splitlines()[0][:200]}")
+        run_l = None
+    rec_kernel(records, "block_sparse_attention", lane, "bfloat16", err, run_k, run_p,
+               bsa_bytes_flops(q, k, idx, cnt, group, a["group_dedup"], bs),
+               q.dtype, run_lib=run_l, iters=5, plain_iters=1)
+
+    a = recs["dense"].calls["flash_attention"][0][0]
+    q, k, v = a["q"], a["k"], a["v"]
+    d, n = q.shape[-1], q.shape[2]
+    run_k = lambda: flash_kern.flash_attention(**a)
+    run_p = lambda: replay.KERNELS["flash_attention"][1](a)
+    run_l = lambda: sdpa(q, k, v, is_causal=True, scale=a["scale"], enable_gqa=True)
+    got, want = run_k(), run_p()
+    torch.cuda.synchronize()
+    err = check_close(f"flash_attention/{lane}", got, want,
+                      p_bf16=replay.KERNELS["flash_attention"][2](a))
+    check_library(f"flash_attention {lane} vs scaled_dot_product_attention",
+                  run_l(), got)
+    es = q.element_size()
+    rec_kernel(records, "flash_attention", lane, "bfloat16", err, run_k, run_p,
+               ((2 * q.numel() + k.numel() + v.numel()) * es,
+                2.0 * (d + v.shape[-1]) * q.shape[1] * n * (n + 1) / 2),
+               q.dtype, run_lib=run_l, iters=5, plain_iters=1)
+
+    pools = recs["stem"].calls["antidiag_pool"]
+    for name, (a, _) in (("q", pools[0]), ("k", pools[1])):
+        x, bsz, st, od = a["x"], a["block_size"], a["stride"], a["out_dtype"]
+        run_k = lambda: metric_kern.antidiag_pool(**a)
+        run_p = lambda: replay.KERNELS["antidiag_pool"][1](a)
+        run_l = lambda: torch.mean(x.reshape(*x.shape[:-2], x.shape[-2] // bsz,
+                                             bsz // st, st, x.shape[-1]), dim=-3, dtype=od)
+        got, want = run_k(), run_p()
+        torch.cuda.synchronize()
+        err = check_close(f"antidiag_pool/{lane}_{name}", got, want)
+        rec_kernel(records, "antidiag_pool", f"{lane}_{name}", "bfloat16", err, run_k,
+                   run_p, (x.numel() * x.element_size() + got.numel() * got.element_size(),
+                           float(x.numel())), x.dtype, run_lib=run_l)
+    a = recs["stem"].calls["value_magnitude"][0][0]
+    run_k = lambda: metric_kern.value_magnitude(**a)
+    run_p = lambda: replay.KERNELS["value_magnitude"][1](a)
+    got, want = run_k(), run_p()
+    torch.cuda.synchronize()
+    err = check_close(f"value_magnitude/{lane}", got, want)
+    rec_kernel(records, "value_magnitude", lane, "bfloat16", err, run_k, run_p,
+               (a["v"].numel() * a["v"].element_size() + got.numel() * 4,
+                2.0 * a["v"].numel()), a["v"].dtype)
+
+
+def _timed_family(cfg, n: int, seed: int, what: str, sizes: dict) -> tuple:
+    """bf16 at full width and depth: an n-token prefill (after a short
+    warm-up) and ``sizes["decode"]`` greedy decode steps; peak memory,
+    the caches' GiB, the launches.  Returns (report, caches)."""
+    bundle, params, info = _draw(cfg, 0, f"{what} bf16")
+    steps = sizes["decode"]
+    batch = _family_batch(cfg, n, seed)
+    bundle.prefill(params, _head(batch, sizes["warm"]), max_len=sizes["warm"])
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    _, _, _, pre_ms, tok_ms, caches = _generate(bundle, params, batch, n + steps, steps)
+    out = dict(init=info, n=n, prefill_ms=pre_ms, decode_ms_per_token=tok_ms,
+               decode_tokens=steps, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               cache_gib=sum(t.numel() * t.element_size() for c in caches
+                             for s in c.values() for t in s) / 2 ** 30,
+               launches=read_all_launches())
+    log(f"[phase14] {what} bf16: " + json.dumps(out))
+    del params
+    _free()
+    return out, caches
+
+
+def mamba_arm(sizes: dict) -> dict:
+    """(a) mamba2-370m, 48 SSD layers, bf16: an n-token prefill and greedy
+    decode (the SSD blocks are einsums and scans, no kernel of the port);
+    then the fp32 check at full width, 4 layers."""
+    cfg = MAMBA2_370M
+    out, _ = _timed_family(cfg, sizes["mamba_n"], 31, "(a) mamba2-370m", sizes)
+    out["fp32_decode_check"] = _decode_equals_prefill(
+        cfg.replace(num_layers=sizes["check_layers"], dtype="float32"),
+        sizes["mamba_check_n"], 32, "(a) mamba2-370m")
+    return out
+
+
+def recurrentgemma_arm(sizes: dict) -> dict:
+    """(b) recurrentgemma-2b, 26 layers (8 x (rec, rec, local) + 2 rec),
+    bf16: a prompt past the 2048 window prefilled, greedy decode over the
+    ring caches (their slots checked), peak memory; then the fp32 check at
+    full width, 4 layers, at n >= the window."""
+    cfg = RECURRENTGEMMA_2B
+    out, caches = _timed_family(cfg, sizes["rg_n"], 33, "(b) recurrentgemma-2b", sizes)
+    out["ring_slots"] = int(caches[0]["sub2"].k.shape[3])
+    if out["ring_slots"] != min(cfg.rglru.window, sizes["rg_n"] + sizes["decode"]):
+        raise AssertionError(f"phase 14 (b): ring cache of {out['ring_slots']} slots")
+    del caches
+    out["fp32_decode_check"] = _decode_equals_prefill(
+        cfg.replace(num_layers=sizes["check_layers"], dtype="float32"),
+        sizes["rg_check_n"], 34, "(b) recurrentgemma-2b")
+    return out
+
+
+def whisper_arm(records: dict, sizes: dict, flex, profile: bool) -> tuple:
+    """(c) whisper-medium, 24 encoder + 24 decoder layers, bf16, 1500 stub
+    frames and a decoder prompt: the prefill under stem at the CLI's
+    geometry (block 128, stride 4) and dense (kernels 3, 5, 6 and 4 at
+    head_dim 64, every call held against its plain version, layer 0's calls
+    timed), loss_fn under both, greedy decode after the stem prefill; then
+    fp32 at 4 + 4 layers: fused == gather.  Returns (report, launches)."""
+    cfg = WHISPER_MEDIUM
+    bundle, params, info = _draw(cfg, 0, "whisper-medium bf16")
+    n, steps = sizes["whisper_n"], sizes["decode_short"]
+    batch = _family_batch(cfg, n + 1, 41)
+    prompt = _head(batch, n)
+    stem = policy_lib.get_policy("stem").with_updates(**CLI_POLICY)
+    out = dict(init=info, n=n, frames=cfg.encdec.encoder_frames)
+    out["prefill"], recs = _prefill_arms("(c) whisper-medium", cfg, bundle, params,
+                                         prompt, _head(batch, sizes["warm"]), n + steps,
+                                         stem, profile)
+    for arm, key, arg in (("stem", "block_sparse_attention", "q"),
+                          ("stem", "antidiag_pool", "x"),
+                          ("stem", "value_magnitude", "v"),
+                          ("dense", "flash_attention", "q")):
+        if any(a[arg].shape[-1] != cfg.head_dim for a, _ in recs[arm].calls[key]):
+            raise AssertionError(f"phase 14 (c): {key} not at head_dim {cfg.head_dim}")
+    launches = {f"whisper/{arm}": r["launches"] for arm, r in out["prefill"].items()}
+    _time_recorded(records, "whisper", recs, flex)
+    del recs
+    _free()
+    labels = {**prompt, "labels": batch["tokens"][:, 1:n + 1]}
+    for arm, pol in (("stem", stem), ("dense", None)):
+        reset_all_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ce, _ = bundle.loss_fn(params, labels, stem_cfg=pol)
+        torch.cuda.synchronize()
+        out[f"loss_fn/{arm}"] = dict(ms=(time.perf_counter() - t0) * 1e3, ce=float(ce),
+                                     launches={k: v for k, v in read_all_launches().items()
+                                               if v})
+        if not np.isfinite(float(ce)):
+            raise AssertionError(f"phase 14 (c) loss_fn {arm}: non-finite")
+    reset_all_launches()
+    _, stream, _, pre_ms, tok_ms, _ = _generate(bundle, params, prompt, n + steps, steps,
+                                                stem)
+    out["generate"] = dict(prefill_ms=pre_ms, decode_ms_per_token=tok_ms,
+                           decode_tokens=steps)
+    log("[phase14] (c) whisper-medium bf16: " + json.dumps(
+        {k: v for k, v in out.items() if k != "prefill"}))
+    del params
+    _free()
+    layers = sizes["check_layers"]
+    cfg32 = cfg.replace(num_layers=layers, dtype="float32",
+                        encdec=dataclasses.replace(cfg.encdec, encoder_layers=layers))
+    m = sizes["whisper_check_n"]
+    out["fp32_fused_vs_gather"] = _fused_equals_gather(
+        cfg32, lambda c: _family_batch(c, m, 42), m, steps, 43, "(c) whisper-medium")
+    return out, launches
+
+
+def pixtral_arm(sizes: dict, profile: bool) -> tuple:
+    """(d) pixtral-12b, 40 layers, bf16: patch embeddings + text tokens
+    prefilled one-shot under stem at the paper's defaults and dense (kernels
+    3-6 on the wgmma tile: bf16, head_dim 128, block 128; every call held
+    against its plain version), then greedy decode; then fp32 at 4 layers:
+    fused == gather.  Returns (report, launches)."""
+    cfg = PIXTRAL_12B
+    bundle, params, info = _draw(cfg, 0, "pixtral-12b bf16")
+    patches, text, steps = sizes["pixtral_patches"], sizes["pixtral_text"], sizes["decode_short"]
+    n = patches + text
+    batch = _family_batch(cfg, text, 51, patches=patches)
+    w = sizes["warm"]
+    warm = _head(batch, w - w // 4, w // 4)
+    stem = policy_lib.get_policy("stem")
+    out = dict(init=info, n=n, patches=patches, text=text)
+    out["prefill"], recs = _prefill_arms("(d) pixtral-12b", cfg, bundle, params, batch,
+                                         warm, n + steps, stem, profile)
+    on_tile = [replay.KERNELS[key][2](a) for arm, key in
+               (("stem", "block_sparse_attention"), ("dense", "flash_attention"))
+               for a, _ in recs[arm].calls[key]]
+    if not all(on_tile):
+        raise AssertionError("phase 14 (d): an attention call off the wgmma tile")
+    launches = {f"pixtral/{arm}": r["launches"] for arm, r in out["prefill"].items()}
+    del recs
+    _free()
+    _, stream, _, pre_ms, tok_ms, _ = _generate(bundle, params, batch, n + steps, steps, stem)
+    out["generate"] = dict(prefill_ms=pre_ms, decode_ms_per_token=tok_ms,
+                           decode_tokens=steps)
+    log("[phase14] (d) pixtral-12b bf16: " + json.dumps(
+        {k: v for k, v in out.items() if k != "prefill"}))
+    del params
+    _free()
+    cp, ct = sizes["pixtral_check_patches"], sizes["pixtral_check_text"]
+    out["fp32_fused_vs_gather"] = _fused_equals_gather(
+        cfg.replace(num_layers=sizes["check_layers"], dtype="float32"),
+        lambda c: _family_batch(c, ct, 52, patches=cp), cp + ct, steps, 53,
+        "(d) pixtral-12b")
+    return out, launches
+
+
+def families_phase(records: dict, profile: bool = False, sizes: dict = P14) -> dict:
+    """Phase 14: the four remaining families at their published widths and
+    full depth, one after the other (each frees its weights first)."""
+    t0 = time.perf_counter()
+    torch._dynamo.reset()
+    from torch.nn.attention.flex_attention import flex_attention
+    flex = torch.compile(flex_attention, dynamic=False)
+    out = {"a/mamba2-370m": mamba_arm(sizes),
+           "b/recurrentgemma-2b": recurrentgemma_arm(sizes)}
+    out["c/whisper-medium"], launches = whisper_arm(records, sizes, flex, profile)
+    out["d/pixtral-12b"], more = pixtral_arm(sizes, profile)
+    launches.update(more)
+    out["launches"] = launches
+    out["s"] = time.perf_counter() - t0
+    log(f"[phase14] done in {out['s']:.1f} s")
     return out
 
 
@@ -3204,6 +3685,11 @@ def main() -> None:
     p13 = deepseek_phase(profile=args.profile_prefill)
     p13_launches = lambda key: {arm: n[key] for arm, n in p13["launches"].items()}
 
+    # Phase 14: the SSM, hybrid, encoder-decoder and VLM-stub families at
+    # full width and depth.
+    p14 = families_phase(records, profile=args.profile_prefill)
+    p14_launches = lambda key: {arm: n[key] for arm, n in p14["launches"].items()}
+
     kernels = []
     for key in ("score/decode", "score/chunk", "attend/decode", "attend/chunk"):
         kernel, lane = key.split("/")
@@ -3216,6 +3702,7 @@ def main() -> None:
             phase10_launches=p10_launches(key),
             phase11_launches=p11_launches(key),
             phase12_launches=p12_launches(key),
+            phase14_launches=p14_launches(key),
             max_abs_err=max(r["max_abs_err"] for r in records[key].values()),
             ms=rec["ms"], host_ms=rec["host_ms"], plain_ms=rec["plain_ms"],
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
@@ -3232,6 +3719,7 @@ def main() -> None:
             phase11_launches=p11_launches(counter),
             phase12_launches=p12_launches(counter),
             phase13_launches=p13_launches(counter),
+            phase14_launches=p14_launches(counter),
             max_abs_err=max(r["max_abs_err"]
                             for r in records[f"{key}/prefill"].values()),
             ms=rec["ms"], host_ms=rec["host_ms"], plain_ms=rec["plain_ms"],
@@ -3250,6 +3738,13 @@ def main() -> None:
         by_name[key]["head_dims"] = {
             tag: records[f"{key}/{tag}"]["bfloat16"]
             for tag in ("d64", "d256", *MLA_PAIRS)}
+    # phase 14: each kernel at whisper-medium's decoder shapes
+    for key, lanes in (("flash_attention", ("whisper",)),
+                       ("block_sparse_attention", ("whisper",)),
+                       ("antidiag_pool", ("whisper_q", "whisper_k")),
+                       ("value_magnitude", ("whisper",))):
+        by_name[key]["whisper_shapes"] = {
+            lane: records[f"{key}/{lane}"]["bfloat16"] for lane in lanes}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,23 +1,52 @@
 """Config registry of the port: ``get_config(arch_id)`` + ``reduced``.
 
-The configurations the port serves: the dense ``qwen3-0.6b``,
-``qwen1.5-4b``, ``glm4-9b`` and ``gemma-2b``, the MoE ``arctic-480b`` and
-the MLA + MoE ``deepseek-v3-671b``.
+The reference's registry name for name: the assigned architectures (dense,
+MoE, MLA + MoE, SSM, hybrid RG-LRU + local attention, encoder-decoder and
+the VLM stub) and the paper's own dense evaluation backbones
+(``llama3.1-8b`` and ``qwen3-8b``).
 """
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.configs.arctic_480b import CONFIG as ARCTIC_480B
-from repro_torch.configs.base import ArchConfig, MLAConfig, MoEConfig  # noqa: F401
+from repro_torch.configs.base import (ArchConfig, EncDecConfig,  # noqa: F401
+                                      MLAConfig, MoEConfig, RGLRUConfig,
+                                      SSDConfig)
 from repro_torch.configs.deepseek_v3_671b import CONFIG as DEEPSEEK_V3_671B
 from repro_torch.configs.gemma_2b import CONFIG as GEMMA_2B
 from repro_torch.configs.glm4_9b import CONFIG as GLM4_9B
+from repro_torch.configs.mamba2_370m import CONFIG as MAMBA2_370M
+from repro_torch.configs.pixtral_12b import CONFIG as PIXTRAL_12B
 from repro_torch.configs.qwen1_5_4b import CONFIG as QWEN1_5_4B
 from repro_torch.configs.qwen3_0_6b import CONFIG as QWEN3_0_6B
+from repro_torch.configs.recurrentgemma_2b import CONFIG as RECURRENTGEMMA_2B
+from repro_torch.configs.whisper_medium import CONFIG as WHISPER_MEDIUM
 
-ALL = {c.name: c for c in (QWEN3_0_6B, GLM4_9B, GEMMA_2B, QWEN1_5_4B,
-                           ARCTIC_480B, DEEPSEEK_V3_671B)}
+# The paper's own dense evaluation backbones (Section 3.1).
+LLAMA31_8B = ArchConfig(
+    name="llama3.1-8b", family="dense", num_layers=32, d_model=4096,
+    num_heads=32, num_kv_heads=8, head_dim=128, d_ff=14336,
+    vocab_size=128256, activation="silu", rope_theta=5e5,
+    tie_embeddings=False, use_stem=True,
+)
+QWEN3_8B = ArchConfig(
+    name="qwen3-8b", family="dense", num_layers=36, d_model=4096,
+    num_heads=32, num_kv_heads=8, head_dim=128, d_ff=12288,
+    vocab_size=151936, activation="silu", qk_norm=True, rope_theta=1e6,
+    tie_embeddings=False, use_stem=True,
+)
+
+ASSIGNED = {
+    c.name: c
+    for c in (
+        QWEN3_0_6B, GLM4_9B, GEMMA_2B, QWEN1_5_4B, RECURRENTGEMMA_2B,
+        ARCTIC_480B, DEEPSEEK_V3_671B, MAMBA2_370M, WHISPER_MEDIUM,
+        PIXTRAL_12B,
+    )
+}
+EXTRA = {c.name: c for c in (LLAMA31_8B, QWEN3_8B)}
+ALL = {**ASSIGNED, **EXTRA}
 
 
 def get_config(name: str) -> ArchConfig:
@@ -27,13 +56,9 @@ def get_config(name: str) -> ArchConfig:
 
 
 def reduced(cfg: ArchConfig) -> ArchConfig:
-    """CPU smoke-test variant of a dense, MoE or MLA config: tiny widths
-    and tables, the same GQA ratio, MoE routing, MLA, MTP and code paths
-    (the reference ``reduced`` restricted to those families)."""
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"reduced() is ported for the dense and MoE families only, got "
-            f"{cfg.family!r}")
+    """CPU smoke-test variant of the same family: tiny widths, layers and
+    tables, the same code paths (GQA ratio, MoE routing, MLA, the hybrid
+    pattern with its leftover layers, MTP, the stubs)."""
     kv_ratio = max(1, cfg.num_heads // max(cfg.num_kv_heads, 1))
     heads = 4
     kw: dict = dict(
@@ -46,6 +71,13 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
         d_ff=128 if cfg.d_ff else 0,
         vocab_size=512,
     )
+    if cfg.family == "hybrid":
+        kw["num_layers"] = 4  # one full (rec, rec, attn) group + 1 leftover rec
+        kw["rglru"] = RGLRUConfig(lru_width=64, conv_width=4, attn_period=3, window=32)
+    if cfg.ssd is not None:
+        kw["ssd"] = SSDConfig(state_dim=16, head_dim=16, expand=2, conv_width=4,
+                              chunk_size=32)
+        kw["num_heads"] = kw["num_kv_heads"] = 8  # d_inner 128 / head_dim 16
     if cfg.moe is not None:
         kw["num_layers"] = 3
         kw["moe"] = dataclasses.replace(
@@ -62,4 +94,6 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
         kw["mla"] = MLAConfig(q_lora_rank=32, kv_lora_rank=16, rope_head_dim=8,
                               nope_head_dim=16, v_head_dim=16)
         kw["head_dim"] = 24
+    if cfg.encdec is not None:
+        kw["encdec"] = EncDecConfig(encoder_layers=2, encoder_frames=16)
     return cfg.replace(**kw)

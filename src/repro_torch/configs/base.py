@@ -1,15 +1,13 @@
 """Architecture configuration (port of ``repro/configs/base.py``).
 
-Same field names as the reference ``ArchConfig``; ``torch_dtype`` takes the
-place of ``jnp_dtype``.  The port serves the dense and MoE families and
-MLA, so ``MoEConfig`` and ``MLAConfig`` are the reference's dataclasses;
-the sub-configs of the other families (RG-LRU, SSD, enc-dec) are carried as
-opaque optional values.
+Same field names and sub-config dataclasses as the reference
+``ArchConfig`` (MoE, MLA, RG-LRU, SSD, encoder-decoder); ``torch_dtype``
+takes the place of ``jnp_dtype``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Optional
 
 import torch
 
@@ -39,6 +37,29 @@ class MLAConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RGLRUConfig:
+    lru_width: int
+    conv_width: int = 4
+    attn_period: int = 3        # 1 attention layer per `period` (griffin 1:2)
+    window: int = 2048          # local-attention window
+
+
+@dataclasses.dataclass(frozen=True)
+class SSDConfig:
+    state_dim: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    conv_width: int = 4
+    chunk_size: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class EncDecConfig:
+    encoder_layers: int
+    encoder_frames: int = 1500   # whisper: fixed 30 s of 2x-downsampled frames
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
     family: str                   # dense | moe | ssm | hybrid | encdec | vlm
@@ -57,10 +78,10 @@ class ArchConfig:
     norm: str = "rms"             # rms | layer
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
-    rglru: Optional[Any] = None
-    ssd: Optional[Any] = None
-    encdec: Optional[Any] = None
-    vlm_stub: bool = False
+    rglru: Optional[RGLRUConfig] = None
+    ssd: Optional[SSDConfig] = None
+    encdec: Optional[EncDecConfig] = None
+    vlm_stub: bool = False        # inputs include precomputed patch embeddings
     mtp: bool = False
     mtp_weight: float = 0.3
     use_stem: bool = True

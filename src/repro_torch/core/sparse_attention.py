@@ -18,7 +18,8 @@ Executors (``policy.register_executor``):
 
 The dense arm (``dense_attention_auto``) sends causal self-attention without
 a mask to the flash kernel on a CUDA tensor; ``dense_attention`` and
-``dense_attention_chunked`` are its plain versions on the CPU.
+``dense_attention_chunked`` are its plain versions on the CPU, and the
+path of non-causal and masked attention on every device.
 """
 from __future__ import annotations
 
@@ -107,18 +108,17 @@ def dense_attention_chunked(q, k, v, *, causal: bool = True, scale=None,
 
 def dense_attention_auto(q, k, v, *, causal: bool = True, scale=None,
                          mask=None, threshold: int = 2048):
-    """Dense attention dispatch.  On a CUDA tensor, causal self-attention
-    without a mask (sq == sk; v's head dim may differ from q/k's, as MLA's
-    does) runs the flash kernel; no other form runs on the card yet.  On
-    the CPU: the chunked plain path for long sequences without a mask, the
-    direct masked softmax otherwise."""
-    if q.device.type == "cuda":
-        if mask is None and causal and q.shape[2] == k.shape[2]:
-            return flash_kernels.flash_attention(
-                q.contiguous(), k.contiguous(), v.contiguous(), scale=scale)
-        raise NotImplementedError(
-            "dense attention on the card runs causal self-attention without a "
-            "mask only (the flash kernel)")
+    """Dense attention dispatch, by the form of the call.  On a CUDA
+    tensor, causal self-attention without a mask (sq == sk; v's head dim
+    may differ from q/k's, as MLA's does) runs the flash kernel.  Every
+    other form (non-causal: an encoder, cross-attention; or masked) runs
+    the plain path on any device, as the reference computes these forms
+    outside its kernels: the chunked online softmax for long sequences
+    without a mask, the direct masked softmax otherwise."""
+    if q.device.type == "cuda" and mask is None and causal \
+            and q.shape[2] == k.shape[2]:
+        return flash_kernels.flash_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(), scale=scale)
     if mask is None and q.shape[2] >= threshold and k.shape[2] >= threshold:
         return dense_attention_chunked(q, k, v, causal=causal, scale=scale)
     return dense_attention(q, k, v, causal=causal, scale=scale, mask=mask)

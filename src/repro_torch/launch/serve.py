@@ -39,7 +39,11 @@ MLA + MoE ``deepseek-v3-671b``.  MLA has no page layout, so as in the
 reference ``deepseek-v3-671b`` serves through ``--fixed-batch`` only (and
 there decodes densely: with a policy its decode raises, as the
 reference's does), and the engine modes refuse it with the reference's
-``NotImplementedError``.
+``NotImplementedError``.  As in the reference, ``mamba2-370m`` and
+``recurrentgemma-2b`` are refused by both (no page layout; ragged padding
+would enter their recurrent and ring states), and ``whisper-medium`` and
+``pixtral-12b`` before the model is built (their inputs are not token
+prompts).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
@@ -237,7 +241,8 @@ def run_fixed_batch(args, cfg, bundle, params, stem_cfg, budget_frac=1.0):
 
     # Right-padded ragged prompts are sound only for global-attention
     # mixers: per-row masking hides the padding K/V, and decode overwrites
-    # it (the reference's check; recurrent and ring states are not ported).
+    # it.  Recurrent / SSM states absorb padding tokens irreversibly, and
+    # ring caches treat padding slots as valid in-window keys.
     kinds = {k for _, ks in transformer.layer_program(cfg) for k in ks}
     unsafe = kinds - {"dense", "moe", "mla_dense", "mla_moe"}
     if unsafe:
@@ -383,6 +388,10 @@ def main(argv=None) -> dict:
     cfg = configs.get_config(args.arch)
     if args.reduced:
         cfg = configs.reduced(cfg).replace(dtype="float32")
+    if cfg.family == "encdec" or cfg.vlm_stub:
+        raise NotImplementedError(
+            f"serve drives token-only decoder prompts; {cfg.name} needs "
+            "encoder frames / patch embeddings (use launch/eval paths)")
     bundle = registry.build(cfg)
     params = bundle.init_params(
         torch.Generator(device=args.device).manual_seed(args.seed),

@@ -1,14 +1,14 @@
 """Grouped-query attention with a pluggable sparsity policy (port of
-``repro/models/attention.py``: ``init``, ``_project``, the global-attention
-branches of ``apply_full``, ``prefill_into_cache`` and ``apply_decode`` with
-``KVCache`` / ``init_cache``, and the paged ``apply_decode_paged`` /
-``apply_chunk_paged``).
+``repro/models/attention.py``): ``apply_full``, ``prefill_into_cache`` and
+``apply_decode`` over global or windowed (ring) caches, the paged
+``apply_decode_paged`` / ``apply_chunk_paged``, and the encoder-decoder
+cross attention (``init_cross``, ``cross_kv``, ``apply_cross``).
 
 Full-sequence attention runs the policy-sparse path
 (``core/sparse_attention.sparse_attention``) when a policy is given and the
 sequence holds at least two whole blocks, and the dense arm
-(``dense_attention_auto``) otherwise.  Windowed (local) attention is not
-ported yet and raises.
+(``dense_attention_auto``) otherwise.  Windowed (local) attention runs as a
+chunked band (``local_attention``), so its cost scales with N * window.
 """
 from __future__ import annotations
 
@@ -22,7 +22,8 @@ from repro_torch.core import chunked as chunked_lib
 from repro_torch.core import decode as decode_lib
 from repro_torch.core import policy as policy_lib
 from repro_torch.core.decode import DEFAULT_BUDGET_FRAC
-from repro_torch.core.sparse_attention import (dense_attention_auto,
+from repro_torch.core.sparse_attention import (dense_attention,
+                                               dense_attention_auto,
                                                sparse_attention)
 from repro_torch.models import common
 from repro_torch.runtime import paged as paged_lib
@@ -75,9 +76,57 @@ def _out_proj(o, x, params):
     return torch.einsum("bhsk,hkd->bsd", o.to(x.dtype), params["wo"])
 
 
-def _no_window(window) -> None:
-    if window is not None:
-        raise NotImplementedError("windowed (local) attention is not ported yet")
+def local_attention(q, k, v, window: int):
+    """Banded sliding-window attention, chunked so the cost is O(N * 2w).
+
+    q, k, v: (b, h, n, d), k / v already repeated to q's heads.  Each query
+    chunk of length w attends to its own and the previous chunk under the
+    exact mask j <= i, i - j < w; a length that is not a window multiple is
+    padded (padded keys lie in the future of every real query, padded
+    queries are dropped)."""
+    b, h, n, d = q.shape
+    w = window
+    if n <= w:
+        return _masked_window_dense(q, k, v, w)
+    n_orig = n
+    if n % w:
+        pad = w - n % w
+        q, k, v = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
+        n = n + pad
+    nc = n // w
+    qc = q.reshape(b, h, nc, w, d)
+    kc = k.reshape(b, h, nc, w, d)
+    vc = v.reshape(b, h, nc, w, d)
+    k_prev = torch.cat([torch.zeros_like(kc[:, :, :1]), kc[:, :, :-1]], dim=2)
+    v_prev = torch.cat([torch.zeros_like(vc[:, :, :1]), vc[:, :, :-1]], dim=2)
+    kk = torch.cat([k_prev, kc], dim=3)                 # (b, h, nc, 2w, d)
+    vv = torch.cat([v_prev, vc], dim=3)
+    s = torch.einsum("bhcqd,bhckd->bhcqk", qc.float(), kk.float()) * (d ** -0.5)
+    dev = q.device
+    qi = torch.arange(w, device=dev)[:, None] + w       # position in the 2w band
+    kj = torch.arange(2 * w, device=dev)[None, :]
+    mask = (kj <= qi) & (kj > qi - w)
+    first_chunk = torch.arange(nc, device=dev)[:, None, None] == 0
+    valid = torch.where(first_chunk, mask & (kj >= w), mask)
+    s = torch.where(valid[None, None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhcqk,bhckd->bhcqd", p, vv.float())
+    return o.reshape(b, h, n, d)[:, :, :n_orig].to(q.dtype)
+
+
+def _masked_window_dense(q, k, v, window: int):
+    n = q.shape[2]
+    qi = torch.arange(n, device=q.device)[:, None]
+    kj = torch.arange(n, device=q.device)[None, :]
+    mask = (kj <= qi) & (kj > qi - window)
+    b, hq = q.shape[0], q.shape[1]
+    return dense_attention(q, k, v, causal=True, mask=mask.expand(b, hq, n, n))
+
+
+def _local(q, k, v, window: int):
+    group = q.shape[1] // k.shape[1]
+    return local_attention(q, k.repeat_interleave(group, dim=1),
+                           v.repeat_interleave(group, dim=1), window)
 
 
 def sparse_or_dense(q, k, v, pol, n: int, causal: bool, return_stats: bool):
@@ -96,11 +145,15 @@ def apply_full(params, x, cfg: ArchConfig, *, positions, stem_cfg=None,
                causal: bool = True, return_stats: bool = False):
     """Training / prefill attention over the full sequence.  ``stem_cfg``:
     any policy spelling or None (dense).  ``return_stats`` also returns the
-    sparse path's ``StemStats`` (None when the dense arm ran)."""
-    _no_window(window)
+    sparse path's ``StemStats`` (None when the dense arm or the windowed
+    path ran).  ``window`` runs local attention (no policy)."""
     pol = policy_lib.as_policy_opt(stem_cfg)
     q, k, v = _project(params, x, cfg, positions, use_rope=use_rope)
-    o, stats = sparse_or_dense(q, k, v, pol, x.shape[1], causal, return_stats)
+    if window is not None:
+        o, stats = _local(q, k, v, window), None
+    else:
+        o, stats = sparse_or_dense(q, k, v, pol, x.shape[1], causal,
+                                   return_stats)
     out = _out_proj(o, x, params)
     return (out, stats) if return_stats else out
 
@@ -108,8 +161,10 @@ def apply_full(params, x, cfg: ArchConfig, *, positions, stem_cfg=None,
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                window: Optional[int] = None, dtype=torch.bfloat16,
                device="cuda") -> KVCache:
-    _no_window(window)
-    shape = (batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    """Zeroed cache of ``max_len`` slots, or ``min(max_len, window)`` ring
+    slots when windowed."""
+    L = min(max_len, window) if window else max_len
+    shape = (batch, cfg.num_kv_heads, L, cfg.head_dim)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device),
                    pos=torch.zeros((), dtype=torch.int32, device=device))
@@ -118,16 +173,27 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 def prefill_into_cache(params, x, cfg: ArchConfig, *, positions, max_len: int,
                        stem_cfg=None, window: Optional[int] = None,
                        use_rope: bool = True):
-    """Prefill attention and the populated cache for decode.
-    x: (b, n, d).  Returns (out, KVCache with k/v padded to max_len)."""
-    _no_window(window)
+    """Prefill attention and the populated cache for decode.  x: (b, n,
+    d).  Returns (out, KVCache with k/v padded to max_len).
+
+    Windowed: local attention, and the trailing ``L = min(max_len,
+    window)`` keys rolled onto their ring slots (position p at slot p % L).
+    As in the reference, a prompt shorter than L leaves a cache of n slots,
+    and decode then rings over those n (its window shrinks to n)."""
     pol = policy_lib.as_policy_opt(stem_cfg)
     q, k, v = _project(params, x, cfg, positions, use_rope=use_rope)
-    o, _ = sparse_or_dense(q, k, v, pol, x.shape[1], True, False)
-    pad = max_len - k.shape[2]
-    cache = KVCache(k=F.pad(k, (0, 0, 0, pad)), v=F.pad(v, (0, 0, 0, pad)),
-                    pos=torch.tensor(x.shape[1], dtype=torch.int32,
-                                     device=x.device))
+    n = x.shape[1]
+    if window is not None:
+        o = _local(q, k, v, window)
+        L = min(max_len, window)
+        ck = torch.roll(k[:, :, -L:], shifts=n % L, dims=2)
+        cv = torch.roll(v[:, :, -L:], shifts=n % L, dims=2)
+    else:
+        o, _ = sparse_or_dense(q, k, v, pol, n, True, False)
+        pad = max_len - k.shape[2]
+        ck, cv = F.pad(k, (0, 0, 0, pad)), F.pad(v, (0, 0, 0, pad))
+    cache = KVCache(k=ck, v=cv, pos=torch.tensor(n, dtype=torch.int32,
+                                                 device=x.device))
     return _out_proj(o, x, params), cache
 
 
@@ -145,12 +211,15 @@ def apply_decode(params, x, cfg: ArchConfig, cache: KVCache, *,
     spelling) the step is policy-sparse: the whole cache is re-summarized
     (O(L) a step: the fixed-batch reference arm of the paged engine, not a
     serving path), then the policy's metric and budget rule select blocks
-    and the step attends over them only."""
-    _no_window(window)
+    and the step attends over them only.  ``window`` treats the cache as a
+    ring of ``cache.k.shape[2]`` slots (no policy)."""
     pos = cache.pos
     b = x.shape[0]
     if stem_cfg is not None:
         # Validate before any projection: the summaries need whole blocks.
+        if window is not None:
+            raise NotImplementedError(
+                "policy-sparse decode needs global attention, not windowed")
         pol = policy_lib.as_policy(stem_cfg)
         L0 = cache.k.shape[2]
         if L0 % pol.block_size != 0:
@@ -166,7 +235,14 @@ def apply_decode(params, x, cfg: ArchConfig, cache: KVCache, *,
     q, k_new, v_new = _project(params, x, cfg, rope_pos, use_rope=use_rope)
     L = cache.k.shape[2]
     posv = pos.expand(b)                                         # (b,)
-    ck, cv = common.update_cache(cache.k, cache.v, pos, k_new, v_new)
+    ar = torch.arange(L, device=x.device)[None, :]
+    if window is None:
+        ck, cv = common.update_cache(cache.k, cache.v, pos, k_new, v_new)
+        valid = ar <= posv[:, None]                              # (b, L)
+    else:
+        ck, cv = common.update_ring_cache(cache.k, cache.v, pos, k_new, v_new, L)
+        slot_age = posv[:, None] - ((posv[:, None] - ar) % L)
+        valid = (slot_age >= 0) & (slot_age > posv[:, None] - L)
     new_cache = KVCache(k=ck, v=cv, pos=pos + 1)
     if stem_cfg is not None:
         summary = decode_lib.summarize_cache(ck, cv, pol)
@@ -176,7 +252,6 @@ def apply_decode(params, x, cfg: ArchConfig, cache: KVCache, *,
     h = q.shape[1]
     hk = ck.shape[1]
     group = h // hk
-    valid = torch.arange(L, device=x.device)[None, :] <= posv[:, None]   # (b, L)
     s = torch.einsum("bhgd,bhkd->bhgk",
                      q[:, :, 0].reshape(b, hk, group, -1).float(),
                      ck.float()) * (cfg.head_dim ** -0.5)
@@ -221,3 +296,32 @@ def apply_chunk_paged(params, x, cfg: ArchConfig, pool, page_table,
                                               chunk_start, budgets, stem_cfg,
                                               k_max)
     return _out_proj(o, x, params), pool
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+def init_cross(ini: common.Initializer, cfg: ArchConfig) -> dict:
+    d, h, dh = cfg.d_model, cfg.num_heads, cfg.head_dim
+    return {
+        "wq": ini.normal((d, h, dh)),
+        "wk": ini.normal((d, h, dh)),
+        "wv": ini.normal((d, h, dh)),
+        "wo": ini.normal((h, dh, d)),
+    }
+
+
+def cross_kv(params, enc_out):
+    """Cross-attention K/V of the encoder output (b, F, d): (b, h, F, dh)."""
+    k = torch.einsum("bsd,dhk->bhsk", enc_out, params["wk"])
+    v = torch.einsum("bsd,dhk->bhsk", enc_out, params["wv"])
+    return k, v
+
+
+def apply_cross(params, x, ck, cv, head_dim: int):
+    """Bidirectional cross attention: the decoder's x attends the encoder's
+    K/V (the plain non-causal path of ``dense_attention_auto``)."""
+    q = torch.einsum("bsd,dhk->bhsk", x, params["wq"])
+    o = dense_attention_auto(q, ck, cv, causal=False, scale=head_dim ** -0.5)
+    return torch.einsum("bhsk,hkd->bsd", o, params["wo"])

@@ -1,7 +1,7 @@
 """Shared model building blocks (port of ``repro/models/common.py``: the
-initializer, norm, rope, embedding and tied head, cross entropy and the
-contiguous KV-cache write; the ring cache of windowed attention is not
-ported yet).
+initializer, the RMS and layer norms, rope and sinusoidal positions, the
+embedding and tied head, cross entropy, and the contiguous and ring
+KV-cache writes).
 
 Parameters are nested dicts of tensors with the reference's tree layout.
 ``Initializer`` draws them from an explicit ``torch.Generator`` with the
@@ -94,6 +94,13 @@ class Initializer:
     def zeros(self, shape: Sequence[int], dtype=None) -> torch.Tensor:
         return self._leaf(shape, dtype or self.dtype, lambda dst: dst.zero_())
 
+    def ones(self, shape: Sequence[int], dtype=None) -> torch.Tensor:
+        return self._leaf(shape, dtype or self.dtype, lambda dst: dst.fill_(1))
+
+    def value(self, v: torch.Tensor) -> torch.Tensor:
+        """A leaf holding ``v`` (its shape and dtype; every layer alike)."""
+        return self._leaf(v.shape, v.dtype, lambda dst: dst.copy_(v))
+
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm in float32 with scale ``1 + w`` (``w`` initialised to zero)."""
@@ -102,6 +109,28 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * (1.0 + weight.float())).to(dtype)
+
+
+def layer_norm_simple(x: torch.Tensor, weight: torch.Tensor,
+                      eps: float = 1e-5) -> torch.Tensor:
+    """Bias-free LayerNorm in float32 with scale ``1 + w`` (whisper's
+    layers)."""
+    dtype = x.dtype
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * (1.0 + weight.float())).to(dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    dtype = x.dtype
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(dtype)
 
 
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
@@ -125,6 +154,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     y2 = x2 * cos + x1 * sin
     out = torch.stack([y1, y2], dim=-1).reshape(x.shape)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(length: int, dim: int, device="cuda") -> torch.Tensor:
+    """(length, dim) fp32: sines of the first dim / 2 frequencies, then
+    their cosines."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    inv = torch.exp(-torch.arange(0, dim, 2, dtype=torch.float32, device=device)
+                    * (math.log(10000.0) / dim))
+    ang = pos * inv[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def embed_init(ini: Initializer, vocab: int, d_model: int) -> torch.Tensor:
@@ -169,3 +208,12 @@ def update_cache(cache_k: torch.Tensor, cache_v: torch.Tensor,
     cache_k[bidx, :, pos.long()] = new_k[:, :, 0].to(cache_k.dtype)
     cache_v[bidx, :, pos.long()] = new_v[:, :, 0].to(cache_v.dtype)
     return cache_k, cache_v
+
+
+def update_ring_cache(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                      pos: torch.Tensor, new_k: torch.Tensor,
+                      new_v: torch.Tensor, window: int):
+    """Ring-buffer write of windowed attention, in place: position ``pos``
+    lands in slot ``pos % window`` (O(window) memory at any length).
+    ``pos`` scalar or (b,), as in ``update_cache``."""
+    return update_cache(cache_k, cache_v, pos % window, new_k, new_v)

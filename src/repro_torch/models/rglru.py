@@ -1,0 +1,169 @@
+"""RG-LRU recurrent block (RecurrentGemma / Griffin, arXiv:2402.19427; port
+of ``repro/models/rglru.py``).
+
+Hawk-style temporal-mixing block:
+  x -> {branch1: linear -> conv1d(w=4) -> RG-LRU, branch2: linear -> GeLU}
+  out = proj(branch1 * branch2)
+
+RG-LRU recurrence (per channel):
+  r_t = sigmoid(W_a x_t + b_a)                         (recurrence gate)
+  i_t = sigmoid(W_x x_t + b_x)                         (input gate)
+  log a_t = -c * softplus(Lambda) * r_t                (c = 8)
+  h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
+
+Prefill and the evaluation passes solve the linear recurrence h = a h + b
+in fp32 with a chunked scan (``linear_scan``): within a chunk the pairwise
+decays exp(sum of log a between s and t) (masked before exp), across
+chunks a sequential carry.  The reference's ``associative_scan`` sums in
+another order, so the two agree to rounding, not bitwise.  Decode is the
+O(1) recurrence; it writes the new state into the state's tensors in
+place, as attention decode writes its cache.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig, RGLRUConfig
+from repro_torch.models import common
+
+_C = 8.0
+SCAN_CHUNK = 64
+
+
+class RGLRUState(NamedTuple):
+    h: torch.Tensor           # (b, width) fp32 recurrent state
+    conv: torch.Tensor        # (b, conv_width - 1, width) conv tail
+    pos: torch.Tensor
+
+
+def init(ini: common.Initializer, cfg: ArchConfig) -> dict:
+    """The reference's leaves; ``lam`` is fp32 under any config dtype."""
+    r: RGLRUConfig = cfg.rglru
+    d, w = cfg.d_model, r.lru_width
+    return {
+        "w_in": ini.normal((d, w)),
+        "w_gate_branch": ini.normal((d, w)),
+        "conv_w": ini.normal((r.conv_width, w), scale=0.1),
+        "conv_b": ini.zeros((w,)),
+        "w_a": ini.normal((w, w)),
+        "b_a": ini.zeros((w,)),
+        "w_x": ini.normal((w, w)),
+        "b_x": ini.zeros((w,)),
+        # Lambda parameterized so a ~ U(0.9, 0.999) at init (paper appendix).
+        "lam": ini.value(torch.linspace(2.0, 6.0, w, dtype=torch.float32)),
+        "w_out": ini.normal((w, d)),
+    }
+
+
+def _conv1d(x, w, b):
+    """Causal depthwise conv along time: x (b, s, w); w (cw, w)."""
+    cw = w.shape[0]
+    pads = F.pad(x, (0, 0, cw - 1, 0))
+    n = x.shape[1]
+    return sum(pads[:, i:i + n, :] * w[i] for i in range(cw)) + b
+
+
+def _gates(params, xc):
+    """(log a, b) of the linear recurrence h = a h + b, both fp32."""
+    r = torch.sigmoid(torch.einsum("bsw,wu->bsu", xc, params["w_a"]) + params["b_a"])
+    i = torch.sigmoid(torch.einsum("bsw,wu->bsu", xc, params["w_x"]) + params["b_x"])
+    log_a = -_C * F.softplus(params["lam"].float()) * r.float()
+    mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+    return log_a, mult * (i.float() * xc.float())
+
+
+def linear_scan(log_a, b, chunk: int = SCAN_CHUNK):
+    """h_t = exp(log_a_t) h_{t-1} + b_t from h_{-1} = 0, along axis 1, in
+    fp32: log_a, b (batch, n, width) -> h (batch, n, width).
+
+    Within a chunk of ``chunk`` steps, h_t = sum_{s <= t} exp(D_ts) b_s +
+    exp(cum_t) h_in, where D_ts = sum_{s < u <= t} log_a_u is summed term by
+    term (a running sum over t of the log decays past s), not taken as a
+    difference of two running sums, which would cancel to a large sum's
+    rounding under fast decay; the pairwise exponent is -inf above the
+    diagonal before exp, and no running product of a is ever divided by.
+    The carry h_in passes from chunk to chunk sequentially."""
+    bsz, n, w = b.shape
+    q = min(chunk, n)
+    pad = (-n) % q
+    if pad:   # log_a = 0, b = 0: the padding carries h unchanged
+        log_a, b = F.pad(log_a, (0, 0, 0, pad)), F.pad(b, (0, 0, 0, pad))
+    nc = (n + pad) // q
+    la = log_a.float().reshape(bsz, nc, q, w)
+    bc = b.float().reshape(bsz, nc, q, w)
+    cum = torch.cumsum(la, dim=2)                                # (bsz, nc, q, w)
+    after = torch.tril(torch.ones((q, q), dtype=torch.bool, device=b.device), -1)
+    upper = ~torch.tril(torch.ones((q, q), dtype=torch.bool, device=b.device))
+    hs = []
+    h = torch.zeros((bsz, w), dtype=torch.float32, device=b.device)
+    for c in range(nc):
+        # D[t, s] = sum over u in (s, t] of log_a_u
+        terms = torch.where(after[None, :, :, None], la[:, c, :, None, :], 0.0)
+        D = torch.cumsum(terms, dim=1)                           # (bsz, t, s, w)
+        wts = torch.exp(D.masked_fill_(upper[None, :, :, None], -torch.inf))
+        hc = (wts * bc[:, c, None, :, :]).sum(dim=2) + torch.exp(cum[:, c]) * h[:, None]
+        hs.append(hc)
+        h = hc[:, -1]
+    return torch.cat(hs, dim=1)[:, :n]
+
+
+def _branches(params, x):
+    """(conv input xb, gate branch, conv output xc) of x (b, s, d)."""
+    xb = torch.einsum("bsd,dw->bsw", x, params["w_in"])
+    gate = F.gelu(torch.einsum("bsd,dw->bsw", x, params["w_gate_branch"]),
+                  approximate="tanh")
+    return xb, gate, _conv1d(xb, params["conv_w"], params["conv_b"])
+
+
+def _forward(params, x):
+    """Returns (out, h (b, s, w) fp32, xb)."""
+    xb, gate, xc = _branches(params, x)
+    h = linear_scan(*_gates(params, xc))
+    out = torch.einsum("bsw,wd->bsd", h.to(x.dtype) * gate, params["w_out"])
+    return out, h, xb
+
+
+def apply_full(params, x, cfg: ArchConfig):
+    """Training / prefill over the full sequence: x (b, n, d)."""
+    return _forward(params, x)[0]
+
+
+def init_state(cfg: ArchConfig, batch: int, dtype=torch.float32,
+               device="cuda") -> RGLRUState:
+    r = cfg.rglru
+    return RGLRUState(
+        h=torch.zeros((batch, r.lru_width), dtype=torch.float32, device=device),
+        conv=torch.zeros((batch, r.conv_width - 1, r.lru_width), dtype=dtype,
+                         device=device),
+        pos=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def prefill_into_state(params, x, cfg: ArchConfig):
+    """Full-sequence output and the final recurrent state for decode."""
+    out, h, xb = _forward(params, x)
+    cw = cfg.rglru.conv_width
+    state = RGLRUState(h=h[:, -1].contiguous(),
+                       conv=xb[:, -(cw - 1):].to(x.dtype).contiguous(),
+                       pos=torch.tensor(x.shape[1], dtype=torch.int32, device=x.device))
+    return out, state
+
+
+def apply_decode(params, x, cfg: ArchConfig, state: RGLRUState):
+    """One step: x (b, 1, d).  Writes the new ``h`` and conv tail into
+    ``state``'s tensors in place; returns (out, state with ``pos``
+    advanced)."""
+    xb = torch.einsum("bsd,dw->bsw", x, params["w_in"])[:, 0]          # (b, w)
+    gate = F.gelu(torch.einsum("bsd,dw->bsw", x, params["w_gate_branch"]),
+                  approximate="tanh")[:, 0]
+    hist = torch.cat([state.conv, xb[:, None]], dim=1)                 # (b, cw, w)
+    xc = (hist * params["conv_w"][None]).sum(dim=1) + params["conv_b"]
+    log_a, b = _gates(params, xc[:, None])
+    h_new = torch.exp(log_a[:, 0]) * state.h + b[:, 0]
+    y = (h_new.to(x.dtype) * gate)[:, None]
+    out = torch.einsum("bsw,wd->bsd", y, params["w_out"])
+    state.h.copy_(h_new)
+    state.conv.copy_(hist[:, 1:])
+    return out, state._replace(pos=state.pos + 1)

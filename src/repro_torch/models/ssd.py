@@ -1,0 +1,194 @@
+"""Mamba-2 SSD block (state-space duality, arXiv:2405.21060; port of
+``repro/models/ssd.py``).
+
+Selective state space with a scalar-identity A per head:
+  h_t = exp(A dt_t) h_{t-1} + dt_t B_t x_t^T     (state: headdim x N)
+  y_t = C_t . h_t + D x_t
+
+Prefill and the evaluation passes run the chunked SSD algorithm: quadratic
+attention-like einsums within chunks of ``chunk_size`` tokens and a
+sequential pass over chunks for the carried state (O(N Q d) work, N / Q
+sequential steps).  Decode is the O(1) recurrence; it writes the new state
+into the state's tensors in place, as attention decode writes its cache.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig, SSDConfig
+from repro_torch.models import common
+
+
+class SSDState(NamedTuple):
+    h: torch.Tensor        # (b, heads, headdim, state) fp32
+    conv: torch.Tensor     # (b, conv_width - 1, conv_dim) raw conv inputs
+    pos: torch.Tensor
+
+
+def _dims(cfg: ArchConfig):
+    s: SSDConfig = cfg.ssd
+    d_inner = s.expand * cfg.d_model
+    heads = d_inner // s.head_dim
+    conv_dim = d_inner + 2 * s.state_dim     # x, B, C go through the conv
+    return s, d_inner, heads, conv_dim
+
+
+def init(ini: common.Initializer, cfg: ArchConfig) -> dict:
+    """The reference's leaves; ``a_log``, ``dt_bias`` and ``d_skip`` are
+    fp32 under any config dtype, as the reference makes them."""
+    s, d_inner, heads, conv_dim = _dims(cfg)
+    d = cfg.d_model
+    return {
+        "w_in": ini.normal((d, 2 * d_inner + 2 * s.state_dim + heads)),
+        "conv_w": ini.normal((s.conv_width, conv_dim), scale=0.1),
+        "conv_b": ini.zeros((conv_dim,)),
+        "a_log": ini.value(torch.log(torch.linspace(1.0, 16.0, heads))),
+        "dt_bias": ini.value(torch.log(torch.expm1(torch.full((heads,), 0.01)))),
+        "d_skip": ini.ones((heads,), dtype=torch.float32),
+        "norm": ini.zeros((d_inner,)),
+        "w_out": ini.normal((d_inner, d)),
+    }
+
+
+def _split_proj(params, x, cfg: ArchConfig):
+    s, d_inner, heads, conv_dim = _dims(cfg)
+    zxbcdt = torch.einsum("bsd,de->bse", x, params["w_in"])
+    return torch.split(zxbcdt, [d_inner, conv_dim, heads], dim=-1)
+
+
+def _conv_silu(xbc, params):
+    """Causal depthwise conv along time, then SiLU: xbc (b, s, conv_dim)."""
+    cw = params["conv_w"].shape[0]
+    pads = F.pad(xbc, (0, 0, cw - 1, 0))
+    n = xbc.shape[1]
+    out = sum(pads[:, i:i + n, :] * params["conv_w"][i] for i in range(cw))
+    return F.silu(out + params["conv_b"])
+
+
+def _ssm_inputs(xbc, dt, params, cfg: ArchConfig):
+    s, d_inner, heads, _ = _dims(cfg)
+    xi, B, C = torch.split(xbc, [d_inner, s.state_dim, s.state_dim], dim=-1)
+    b, n = xi.shape[0], xi.shape[1]
+    xh = xi.reshape(b, n, heads, s.head_dim)
+    dt = F.softplus(dt.float() + params["dt_bias"])                    # (b, n, h)
+    a = -torch.exp(params["a_log"].float())                            # (h,)
+    log_decay = dt * a                                                 # <= 0
+    return xh, B, C, dt, log_decay
+
+
+def _chunked_ssd(xh, B, C, dt, log_decay, chunk: int, d_skip):
+    """Chunked SSD scan.  xh: (b, n, h, p); B, C: (b, n, N); dt, log_decay:
+    (b, n, h).  Returns (y (b, n, h, p) fp32, final state (b, h, p, N))."""
+    b, n, h, p = xh.shape
+    N = B.shape[-1]
+    q = min(chunk, n)
+    n_orig = n
+    if n % q:
+        # pad to a chunk multiple: dt = 0 at the padding gives a = 1, b = 0,
+        # so the carried state is unaffected; padded outputs are dropped.
+        pad = q - n % q
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        B, C = F.pad(B, (0, 0, 0, pad)), F.pad(C, (0, 0, 0, pad))
+        dt, log_decay = F.pad(dt, (0, 0, 0, pad)), F.pad(log_decay, (0, 0, 0, pad))
+        n = n + pad
+    nc = n // q
+    xc = xh.reshape(b, nc, q, h, p).float()
+    Bc = B.reshape(b, nc, q, N).float()
+    Cc = C.reshape(b, nc, q, N).float()
+    dtc = dt.reshape(b, nc, q, h)
+    cum = torch.cumsum(log_decay.reshape(b, nc, q, h), dim=2)   # (b, nc, q, h)
+
+    # Intra-chunk: L[i, j] = exp(cum_i - cum_j) for j <= i.  Mask before
+    # exp: above the diagonal cum_i - cum_j > 0 would overflow.
+    li = cum[:, :, :, None, :] - cum[:, :, None, :, :]         # (b, nc, i, j, h)
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=xh.device))
+    L = torch.exp(torch.where(mask[None, None, :, :, None], li, -torch.inf))
+    cb = torch.einsum("bciN,bcjN->bcij", Cc, Bc)
+    w = cb[..., None] * L * dtc[:, :, None, :, :]              # (b, nc, i, j, h)
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", w, xc)
+    del li, L, w
+
+    # Chunk-final states: S_c = sum_j exp(cum_last - cum_j) dt_j B_j x_j^T.
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)          # (b, nc, q, h)
+    sB = Bc[..., None, :] * (dtc * decay_to_end)[..., None]    # (b, nc, q, h, N)
+    S_chunk = torch.einsum("bcqhN,bcqhp->bchpN", sB, xc)       # (b, nc, h, p, N)
+    chunk_decay = torch.exp(cum[:, :, -1, :])                  # (b, nc, h)
+
+    # Sequential pass over chunks: the state entering each chunk.
+    S = torch.zeros((b, h, p, N), dtype=torch.float32, device=xh.device)
+    S_prevs = []
+    for c in range(nc):
+        S_prevs.append(S)
+        S = S * chunk_decay[:, c, :, None, None] + S_chunk[:, c]
+    S_prev = torch.stack(S_prevs, dim=1)                       # (b, nc, h, p, N)
+
+    # Inter-chunk: y_inter[i] = exp(cum_i) * C_i . S_prev.
+    y_inter = torch.einsum("bciN,bchpN->bcihp", Cc, S_prev) * torch.exp(cum)[..., None]
+    y = (y_intra + y_inter).reshape(b, n, h, p)
+    y = y + d_skip[None, None, :, None] * xh.float()
+    return y[:, :n_orig], S
+
+
+def _forward(params, x, cfg: ArchConfig):
+    """Returns (out, final state, the raw conv inputs)."""
+    s, d_inner, heads, _ = _dims(cfg)
+    z, xbc_raw, dt = _split_proj(params, x, cfg)
+    xh, B, C, dtv, ld = _ssm_inputs(_conv_silu(xbc_raw, params), dt, params, cfg)
+    y, S_final = _chunked_ssd(xh, B, C, dtv, ld, s.chunk_size, params["d_skip"])
+    b, n = x.shape[0], x.shape[1]
+    y = y.reshape(b, n, d_inner).to(x.dtype) * F.silu(z)
+    y = common.rms_norm(y, params["norm"])
+    return torch.einsum("bse,ed->bsd", y, params["w_out"]), S_final, xbc_raw
+
+
+def apply_full(params, x, cfg: ArchConfig):
+    """Training / prefill over the full sequence: x (b, n, d)."""
+    return _forward(params, x, cfg)[0]
+
+
+def init_state(cfg: ArchConfig, batch: int, dtype=torch.bfloat16,
+               device="cuda") -> SSDState:
+    s, d_inner, heads, conv_dim = _dims(cfg)
+    return SSDState(
+        h=torch.zeros((batch, heads, s.head_dim, s.state_dim),
+                      dtype=torch.float32, device=device),
+        conv=torch.zeros((batch, s.conv_width - 1, conv_dim), dtype=dtype,
+                         device=device),
+        pos=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def prefill_into_state(params, x, cfg: ArchConfig):
+    """Full-sequence output and the state for decode: the final SSD state
+    and the last conv_width - 1 raw conv inputs."""
+    out, S_final, xbc_raw = _forward(params, x, cfg)
+    cw = cfg.ssd.conv_width
+    state = SSDState(h=S_final, conv=xbc_raw[:, -(cw - 1):].to(x.dtype).contiguous(),
+                     pos=torch.tensor(x.shape[1], dtype=torch.int32, device=x.device))
+    return out, state
+
+
+def apply_decode(params, x, cfg: ArchConfig, state: SSDState):
+    """One step of the recurrence: x (b, 1, d).  Writes the new ``h`` and
+    conv tail into ``state``'s tensors in place; returns (out, state with
+    ``pos`` advanced)."""
+    s, d_inner, heads, conv_dim = _dims(cfg)
+    z, xbc, dt = _split_proj(params, x, cfg)
+    hist = torch.cat([state.conv, xbc], dim=1)                 # (b, cw, conv_dim)
+    xbc_c = F.silu((hist * params["conv_w"][None]).sum(1) + params["conv_b"])
+    xh, B, C, dtv, ld = _ssm_inputs(xbc_c[:, None], dt, params, cfg)
+    a = torch.exp(ld[:, 0])                                    # (b, h)
+    dbx = torch.einsum("bh,bN,bhp->bhpN", dtv[:, 0], B[:, 0].float(),
+                       xh[:, 0].float())
+    h_new = state.h * a[..., None, None] + dbx
+    y = torch.einsum("bN,bhpN->bhp", C[:, 0].float(), h_new)
+    y = y + params["d_skip"][None, :, None] * xh[:, 0].float()
+    b = x.shape[0]
+    y = y.reshape(b, 1, d_inner).to(x.dtype) * F.silu(z)
+    y = common.rms_norm(y, params["norm"])
+    out = torch.einsum("bse,ed->bsd", y, params["w_out"])
+    state.h.copy_(h_new)
+    state.conv.copy_(hist[:, 1:])
+    return out, state._replace(pos=state.pos + 1)

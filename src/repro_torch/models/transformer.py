@@ -1,4 +1,4 @@
-"""Decoder-only LM, dense and MoE families with MLA (port of
+"""Decoder-only LM of every decoder family (port of
 ``repro/models/transformer.py``): the evaluation passes (``loss_fn`` with
 the multi-token-prediction head, ``forward_hiddens``,
 ``forward_with_stats``), one-shot prefill, contiguous-cache decode
@@ -8,16 +8,20 @@ the multi-token-prediction head, ``forward_hiddens``,
 Parameters keep the reference's tree: ``embed``, ``final_norm`` and
 ``segment{si}`` whose leaves are stacked along a leading layer axis.  The
 reference's ``lax.scan`` over a segment becomes a Python loop over that
-axis; caches and page pools are stacked the same way, and each layer works
-on views of the pools, so its in-place writes land in the stacked tensors.
+axis; caches, recurrent states and page pools are stacked the same way,
+and each layer works on views of them, so its in-place writes land in the
+stacked tensors.
 
 Sub-layer kinds: ``dense`` (attention + MLP), ``moe`` (attention + the
-MoE FFN of ``models/moe.py``), and ``mla_dense`` / ``mla_moe`` (MLA of
-``models/mla.py`` + MLP / MoE FFN).  An MoE FFN runs per lane: a batch
-row's capacity counts that row's own tokens (1 for a decode row, C for a
-chunk, Lp for a one-shot prompt).  MLA has no page layout: its kinds serve
-through ``loss_fn``, ``prefill`` and ``decode_step`` only, and the paged
-paths refuse them (``assert_paged_servable``), as the reference's do.
+MoE FFN of ``models/moe.py``), ``mla_dense`` / ``mla_moe`` (MLA of
+``models/mla.py`` + MLP / MoE FFN), ``dense_local`` (windowed attention
+over a ring cache + MLP), ``rec`` (the RG-LRU block of ``models/rglru.py``
++ MLP) and ``ssd`` (the Mamba-2 block of ``models/ssd.py``, no FFN).  An
+MoE FFN runs per lane: a batch row's capacity counts that row's own tokens
+(1 for a decode row, C for a chunk, Lp for a one-shot prompt).  Only
+``dense`` and ``moe`` have a page layout: the other kinds serve through
+``loss_fn``, ``prefill`` and ``decode_step`` only, and the paged paths
+refuse them (``assert_paged_servable``), as the reference's do.
 """
 from __future__ import annotations
 
@@ -28,18 +32,32 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import chunked as chunked_lib
 from repro_torch.core import policy as policy_lib
-from repro_torch.models import attention, common, mla, mlp, moe
+from repro_torch.models import attention, common, mla, mlp, moe, rglru, ssd
 from repro_torch.runtime import paged as paged_lib
 
 PAGED_KINDS = ("dense", "moe")   # attention sub-layers the paged engine serves
 MLA_KINDS = ("mla_dense", "mla_moe")
 MOE_KINDS = ("moe", "mla_moe")
+KINDS = PAGED_KINDS + MLA_KINDS + ("dense_local", "rec", "ssd")
 
 
 def layer_program(cfg: ArchConfig) -> list[tuple[int, tuple[str, ...]]]:
-    """Segments ``(num_groups, kinds)``: one ``("dense",)`` segment for the
-    dense / vlm backbones; for MoE an optional ``first_k_dense`` dense
-    segment, then the MoE layers (``mla_dense`` / ``mla_moe`` with MLA)."""
+    """Segments ``(num_groups, kinds)``: ``ssd`` layers for the SSM family;
+    for the hybrid, groups of ``attn_period - 1`` ``rec`` layers and one
+    ``dense_local``, then a group of the leftover ``rec`` layers; for MoE an
+    optional ``first_k_dense`` dense segment, then the MoE layers
+    (``mla_dense`` / ``mla_moe`` with MLA); one ``("dense",)`` segment for
+    the dense / vlm backbones."""
+    if cfg.family == "ssm":
+        return [(cfg.num_layers, ("ssd",))]
+    if cfg.family == "hybrid":
+        period = cfg.rglru.attn_period
+        full = cfg.num_layers // period
+        rem = cfg.num_layers - full * period
+        prog = [(full, ("rec",) * (period - 1) + ("dense_local",))]
+        if rem:
+            prog.append((1, ("rec",) * rem))
+        return prog
     if cfg.family == "moe":
         first = cfg.moe.first_k_dense
         dense, kind = ("mla_dense", "mla_moe") if cfg.mla else ("dense", "moe")
@@ -47,8 +65,8 @@ def layer_program(cfg: ArchConfig) -> list[tuple[int, tuple[str, ...]]]:
             (cfg.num_layers - first, (kind,))]
     if cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(
-            f"the port serves the dense and MoE families only, got "
-            f"{cfg.family!r}")
+            f"the decoder-only families are dense, vlm, moe, ssm and hybrid; "
+            f"got {cfg.family!r} (registry.build routes encdec)")
     return [(cfg.num_layers, ("dense",))]
 
 
@@ -62,10 +80,18 @@ def assert_paged_servable(cfg: ArchConfig) -> None:
 
 
 def _init_sublayer(ini: common.Initializer, cfg: ArchConfig, kind: str) -> dict:
-    _check_kind(kind)
-    p = {"norm1": ini.zeros((cfg.d_model,)),
-         "attn": (mla.init if kind in MLA_KINDS else attention.init)(ini, cfg),
-         "norm2": ini.zeros((cfg.d_model,))}
+    if kind not in KINDS:
+        raise ValueError(f"unknown sub-layer kind {kind!r}")
+    p = {"norm1": ini.zeros((cfg.d_model,))}
+    if kind == "rec":
+        p["mixer"] = rglru.init(ini, cfg)
+    elif kind == "ssd":
+        p["mixer"] = ssd.init(ini, cfg)
+    else:
+        p["attn"] = (mla.init if kind in MLA_KINDS else attention.init)(ini, cfg)
+    if kind == "ssd":          # mamba blocks have no separate FFN
+        return p
+    p["norm2"] = ini.zeros((cfg.d_model,))
     if kind in MOE_KINDS:
         p["ffn"] = moe.init(ini, cfg.d_model, cfg.moe, cfg.activation)
     else:
@@ -82,6 +108,14 @@ def _ffn(params, h, cfg: ArchConfig, kind: str):
         return moe.apply(params, h, cfg.moe, cfg.activation)
     return (mlp.apply(params, h, cfg.activation),
             torch.zeros((), dtype=torch.float32, device=h.device))
+
+
+def _with_ffn(params, x, cfg: ArchConfig, kind: str):
+    """x plus the sub-layer's FFN (none for ``ssd``): (x, aux)."""
+    if kind == "ssd":
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    y, aux = _ffn(params["ffn"], common.rms_norm(x, params["norm2"]), cfg, kind)
+    return x + y, aux
 
 
 def _stack(trees: list) -> Any:
@@ -178,28 +212,29 @@ def _embed_inputs(params, batch: dict, cfg: ArchConfig):
     return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
 
 
-def _check_kind(kind: str) -> None:
-    if kind not in PAGED_KINDS + MLA_KINDS:
-        raise NotImplementedError(f"sub-layer kind {kind!r} is not ported")
-
-
 def _sublayer_full(params, x, cfg: ArchConfig, kind: str, *, positions,
                    stem_cfg, return_stats: bool = False):
     """Returns (x, aux_loss) — or (x, aux_loss, StemStats | None) when
     ``return_stats`` (stats exist only when the sparse attention path ran)."""
-    _check_kind(kind)
     h = common.rms_norm(x, params["norm1"])
     stats = None
-    mixer = mla if kind in MLA_KINDS else attention
-    if return_stats:
-        mix, stats = mixer.apply_full(params["attn"], h, cfg, positions=positions,
-                                      stem_cfg=stem_cfg, return_stats=True)
+    if kind == "rec":
+        mix = rglru.apply_full(params["mixer"], h, cfg)
+    elif kind == "ssd":
+        mix = ssd.apply_full(params["mixer"], h, cfg)
+    elif kind == "dense_local":
+        mix = attention.apply_full(params["attn"], h, cfg, positions=positions,
+                                   window=cfg.rglru.window)
     else:
-        mix = mixer.apply_full(params["attn"], h, cfg, positions=positions,
-                               stem_cfg=stem_cfg)
-    x = x + mix
-    y, aux = _ffn(params["ffn"], common.rms_norm(x, params["norm2"]), cfg, kind)
-    x = x + y
+        mixer = mla if kind in MLA_KINDS else attention
+        if return_stats:
+            mix, stats = mixer.apply_full(params["attn"], h, cfg,
+                                          positions=positions,
+                                          stem_cfg=stem_cfg, return_stats=True)
+        else:
+            mix = mixer.apply_full(params["attn"], h, cfg, positions=positions,
+                                   stem_cfg=stem_cfg)
+    x, aux = _with_ffn(params, x + mix, cfg, kind)
     return (x, aux, stats) if return_stats else (x, aux)
 
 
@@ -327,7 +362,13 @@ def forward_with_stats(params, batch: dict, cfg: ArchConfig, *,
 
 def _sublayer_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
                     dtype, device):
-    _check_kind(kind)
+    if kind == "rec":        # the reference's fp32 conv tail
+        return rglru.init_state(cfg, batch, device=device)
+    if kind == "ssd":
+        return ssd.init_state(cfg, batch, dtype, device=device)
+    if kind == "dense_local":
+        return attention.init_cache(cfg, batch, max_len, window=cfg.rglru.window,
+                                    dtype=dtype, device=device)
     mixer = mla if kind in MLA_KINDS else attention
     return mixer.init_cache(cfg, batch, max_len, dtype=dtype, device=device)
 
@@ -335,15 +376,22 @@ def _sublayer_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
 def _sublayer_prefill(params, x, cfg: ArchConfig, kind: str, *, positions,
                       stem_cfg, max_len: int):
     """Returns (x, aux, cache)."""
-    _check_kind(kind)
     h = common.rms_norm(x, params["norm1"])
-    mixer = mla if kind in MLA_KINDS else attention
-    mix, cache = mixer.prefill_into_cache(
-        params["attn"], h, cfg, positions=positions, max_len=max_len,
-        stem_cfg=stem_cfg)
-    x = x + mix
-    y, aux = _ffn(params["ffn"], common.rms_norm(x, params["norm2"]), cfg, kind)
-    return x + y, aux, cache
+    if kind == "rec":
+        mix, cache = rglru.prefill_into_state(params["mixer"], h, cfg)
+    elif kind == "ssd":
+        mix, cache = ssd.prefill_into_state(params["mixer"], h, cfg)
+    elif kind == "dense_local":
+        mix, cache = attention.prefill_into_cache(
+            params["attn"], h, cfg, positions=positions, max_len=max_len,
+            window=cfg.rglru.window)
+    else:
+        mixer = mla if kind in MLA_KINDS else attention
+        mix, cache = mixer.prefill_into_cache(
+            params["attn"], h, cfg, positions=positions, max_len=max_len,
+            stem_cfg=stem_cfg)
+    x, aux = _with_ffn(params, x + mix, cfg, kind)
+    return x, aux, cache
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int, device="cuda"):
@@ -571,17 +619,21 @@ def paged_decode_step(params, tokens, pools, page_table, cache_lens,
 
 def _sublayer_decode(params, x, cfg: ArchConfig, kind: str, cache, *,
                      stem_cfg=None, budget_frac: float = 1.0):
-    _check_kind(kind)
     h = common.rms_norm(x, params["norm1"])
-    if kind in MLA_KINDS:      # dense over the latent cache, as the reference
+    if kind == "rec":
+        mix, cache = rglru.apply_decode(params["mixer"], h, cfg, cache)
+    elif kind == "ssd":
+        mix, cache = ssd.apply_decode(params["mixer"], h, cfg, cache)
+    elif kind == "dense_local":
+        mix, cache = attention.apply_decode(params["attn"], h, cfg, cache,
+                                            window=cfg.rglru.window)
+    elif kind in MLA_KINDS:    # dense over the latent cache, as the reference
         mix, cache = mla.apply_decode(params["attn"], h, cfg, cache)
     else:
         mix, cache = attention.apply_decode(params["attn"], h, cfg, cache,
                                             stem_cfg=stem_cfg,
                                             budget_frac=budget_frac)
-    x = x + mix
-    y, _ = _ffn(params["ffn"], common.rms_norm(x, params["norm2"]), cfg, kind)
-    return x + y, cache
+    return _with_ffn(params, x + mix, cfg, kind)[0], cache
 
 
 def decode_step(params, tokens, caches, cfg: ArchConfig, *, stem_cfg=None,
@@ -594,8 +646,8 @@ def decode_step(params, tokens, caches, cfg: ArchConfig, *, stem_cfg=None,
     With ``stem_cfg`` the attention sub-layers decode policy-sparse over
     the contiguous cache (summarize + select every step) — the fixed-batch
     reference for the paged engine's sparse decode.  Only the paged kinds
-    decode sparse, so with ``stem_cfg`` any other config (MLA) raises, as
-    in the reference."""
+    decode sparse, so with ``stem_cfg`` any other config (MLA, windowed,
+    recurrent) raises, as in the reference."""
     if stem_cfg is not None:
         assert_paged_servable(cfg)
     x = common.embed_lookup(params["embed"], tokens, cfg.torch_dtype)
@@ -609,7 +661,7 @@ def decode_step(params, tokens, caches, cfg: ArchConfig, *, stem_cfg=None,
         for layer in range(n):
             layer_params = _index(seg, layer)
             for i, k in enumerate(kinds):
-                c = seg_cache[f"sub{i}"]       # KVCache or MLACache
+                c = seg_cache[f"sub{i}"]       # a cache or recurrent state
                 view = type(c)(*(leaf[layer] for leaf in c))
                 x, view = _sublayer_decode(layer_params[f"sub{i}"], x, cfg, k,
                                            view, stem_cfg=stem_cfg,

@@ -2,14 +2,16 @@
 
 ``from_jax_params`` takes the JAX ``init_params`` values tree with every
 leaf already converted to numpy (the caller does the conversion, so this
-module needs no JAX) and returns the port's tree: the same nesting, the
-stacked ``segment{si}`` layer axis kept as the leading dimension (an MoE
-program's ``first_k_dense`` segment beside its MoE segment, the MoE FFN's
-``shared`` / ``residual`` subtrees and the MLA sub-layers' ``attn``
-subtrees as they come, and with ``cfg.mtp`` the MTP head's ``mtp_proj``,
-``mtp_norm`` and one-layer stacked ``mtp_layer``), the embedding table, the
-untied LM head and every MoE ``router`` kept fp32, every other leaf in
-``cfg``'s dtype.
+module needs no JAX) and returns the port's tree: the same nesting, every
+stacked layer axis kept as the leading dimension (the decoder-only
+families' ``segment{si}`` with their ``attn`` / ``mixer`` / ``ffn``
+subtrees, MoE ``shared`` / ``residual`` subtrees and with ``cfg.mtp`` the
+MTP head's ``mtp_proj``, ``mtp_norm`` and one-layer ``mtp_layer``; the
+encoder-decoder's ``embed``, ``dec_pos``, ``enc_layers``, ``enc_norm``,
+``dec_layers`` and ``final_norm``).  Each leaf keeps the dtype the
+reference gives it: fp32 for the embedding table, the untied LM head,
+every MoE ``router``, the SSD block's ``a_log`` / ``dt_bias`` / ``d_skip``
+and the RG-LRU's ``lam``; ``cfg``'s dtype for every other leaf.
 """
 from __future__ import annotations
 
@@ -18,6 +20,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer
+
+# Leaves the reference keeps in fp32 under any config dtype.
+FP32_LEAVES = ("router", "a_log", "dt_bias", "d_skip", "lam")
 
 
 def _to_tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -34,12 +39,16 @@ def from_jax_params(tree, cfg: ArchConfig, device="cuda") -> dict:
     def convert(node, path):
         if isinstance(node, dict):
             return {k: convert(v, path + (k,)) for k, v in node.items()}
-        fp32 = path in (("embed",), ("head",)) or path[-1] == "router"
+        fp32 = path in (("embed",), ("head",)) or path[-1] in FP32_LEAVES
         return _to_tensor(node, torch.float32 if fp32 else cfg.torch_dtype,
                           device)
 
-    expected = {"embed", "final_norm"} | {
-        f"segment{si}" for si, _ in enumerate(transformer.layer_program(cfg))}
+    if cfg.family == "encdec":
+        expected = {"embed", "dec_pos", "enc_layers", "enc_norm", "dec_layers",
+                    "final_norm"}
+    else:
+        expected = {"embed", "final_norm"} | {
+            f"segment{si}" for si, _ in enumerate(transformer.layer_program(cfg))}
     if not cfg.tie_embeddings:
         expected.add("head")
     if cfg.mtp:

@@ -279,17 +279,32 @@ def test_apply_decode_matches(qwen, policy, ragged):
 
 
 def test_apply_decode_validation(qwen):
-    _, _, _, tcfg, _, tparams = qwen
+    """A cache that is not a block multiple refuses policy-sparse decode, a
+    windowed (ring) cache refuses a policy, as the reference does; without
+    a policy the windowed step equals the reference's."""
+    jcfg, _, jparams, tcfg, _, tparams = qwen
     ta = {k: t[0] for k, t in tparams["segment0"]["sub0"]["attn"].items()}
+    ja = jax.tree.map(lambda t: t[0], jparams["segment0"]["sub0"]["attn"])
     cache = t_attention.init_cache(tcfg, 1, 40, dtype=torch.float32, device="cpu")
     x = torch.zeros((1, 1, 64))
     _, tp = _policies("stem")
     with pytest.raises(ValueError, match="multiple of the policy block size"):
         t_attention.apply_decode(ta, x, tcfg, cache, stem_cfg=tp)
-    with pytest.raises(NotImplementedError):
-        t_attention.apply_decode(ta, x, tcfg, cache, window=16)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="not windowed"):
         t_attention.apply_decode(ta, x, tcfg, cache, window=16, stem_cfg=tp)
+    rng = np.random.RandomState(9)
+    ck, cv = (rng.randn(1, 2, 16, 16).astype(np.float32) for _ in range(2))
+    xw = rng.randn(1, 1, 64).astype(np.float32)
+    jout, jc = j_attention.apply_decode(
+        ja, jnp.asarray(xw), jcfg,
+        j_attention.KVCache(jnp.asarray(ck), jnp.asarray(cv), jnp.asarray(21, jnp.int32)),
+        window=16)
+    tout, tc = t_attention.apply_decode(
+        ta, T(xw), tcfg,
+        t_attention.KVCache(T(ck.copy()), T(cv.copy()), torch.tensor(21, dtype=torch.int32)),
+        window=16)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), atol=TOL, rtol=0)
+    np.testing.assert_allclose(tc.k.numpy(), np.asarray(jc.k), atol=TOL, rtol=0)
 
 
 def _prompts(seed, lens, width):

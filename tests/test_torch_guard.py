@@ -38,7 +38,10 @@ def test_import_leaves_jax_out():
             "repro_torch.core.sparse_attention, repro_torch.launch.steps, "
             "repro_torch.models.mla, repro_torch.configs.deepseek_v3_671b, "
             "repro_torch.launch.serve, repro_torch.models.registry, "
-            "repro_torch.weights; "
+            "repro_torch.weights, repro_torch.models.ssd, repro_torch.models.rglru, "
+            "repro_torch.models.encdec, repro_torch.core.baselines, "
+            "repro_torch.configs.mamba2_370m, repro_torch.configs.recurrentgemma_2b, "
+            "repro_torch.configs.whisper_medium, repro_torch.configs.pixtral_12b; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

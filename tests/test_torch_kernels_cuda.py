@@ -1248,3 +1248,116 @@ def test_reduced_deepseek_fused_on_card(cuda, dtype):
             for key in metrics:
                 assert abs(m[key] - metrics[key]) <= 1e-4, (executor, device, key)
             assert s == stream, (executor, device)
+
+
+# ---------------------------------------------------------------------------
+# The SSM, hybrid, encoder-decoder and VLM-stub families
+# ---------------------------------------------------------------------------
+
+# The serving CLI's stem geometry at a 128-token block (whisper's decoder).
+CLI_STEM = dict(block_size=128, stride=4, sink_blocks=1, local_blocks=1,
+                min_budget_blocks=2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_whisper_shaped_kernels_on_card(cuda, dtype):
+    """whisper-medium's decoder self-attention (MHA 16 / 16, head_dim 64,
+    a 2048-token prompt) under stem at the CLI's geometry (block 128,
+    stride 4): block-sparse attention over the policy's own selection, flash
+    attention, the pool on q and k and vmag on v, each against its plain
+    version (head_dim 64 runs on the CUDA-core tile: the 1e-3 row rule)."""
+    from repro_torch.core import policy as t_policy
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(64)
+    n, h, d, bs = 2048, 16, 64, 128
+    q, k, v = (torch.randn((1, h, n, d), generator=gen, device=cuda).to(dt)
+               for _ in range(3))
+    pol = t_policy.get_policy("stem").with_updates(**CLI_STEM)
+    sel, _ = pol.prefill_select(q, k, v, with_block_mask=False)
+    idx, cnt = sel.indices, sel.live_counts
+    assert int(cnt.sum()) < h * (n // bs) * (n // bs + 1) // 2     # sparse
+    _assert_close(t_bsa.block_sparse_attention(q, k, v, idx, live_counts=cnt,
+                                               block_size=bs),
+                  t_bsa.block_sparse_attention_plain(q, k, v, idx, cnt, block_size=bs))
+    _assert_close(t_fa.flash_attention(q, k, v), t_fa.flash_attention_plain(q, k, v))
+    for x in (q, k):
+        _assert_close(t_sm.antidiag_pool(x, block_size=bs, stride=4),
+                      t_sm.antidiag_pool_plain(x, block_size=bs, stride=4))
+    torch.testing.assert_close(t_sm.value_magnitude(v, block_size=bs),
+                               t_sm.value_magnitude_plain(v, block_size=bs),
+                               atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_attention_auto_routes_by_form_on_card(cuda, dtype):
+    """On the card, causal maskless self-attention launches the flash
+    kernel; non-causal attention (whisper's encoder: 1500 frames;
+    cross-attention: 300 queries over 1500 frames) and masked attention
+    (local windows) run the plain path, launching nothing, and equal the
+    CPU run."""
+    from repro_torch.core import sparse_attention as t_sa
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(65)
+    enc = [torch.randn((1, 4, 1500, 64), generator=gen, device=cuda).to(dt)
+           for _ in range(3)]
+    xq = torch.randn((1, 4, 300, 64), generator=gen, device=cuda).to(dt)
+    n = 256
+    i = torch.arange(n, device=cuda)
+    mask = ((i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - 32)).expand(1, 4, n, n)
+    local = [x[:, :, :n].contiguous() for x in enc]
+    t_fa.reset_launches()
+    calls = [((*enc,), dict(causal=False)),
+             ((xq, enc[1], enc[2]), dict(causal=False, scale=0.125)),
+             ((*local,), dict(causal=True, mask=mask))]
+    for args, kw in calls:
+        got = t_sa.dense_attention_auto(*args, **kw)
+        cpu_kw = {k: (v.cpu() if isinstance(v, torch.Tensor) else v) for k, v in kw.items()}
+        want = t_sa.dense_attention_auto(*(a.cpu() for a in args), **cpu_kw)
+        torch.testing.assert_close(got.float().cpu(), want.float(),
+                                   atol=1e-4 if dtype == "float32" else 2e-2, rtol=0)
+    assert t_fa.LAUNCHES["flash_attention"] == 0
+    t_sa.dense_attention_auto(*local)
+    assert t_fa.LAUNCHES["flash_attention"] == 1
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-2b",
+                                  "whisper-medium", "pixtral-12b"])
+def test_reduced_families_on_card(cuda, arch):
+    """Each new family's reduced config in fp32 on the card equals its CPU
+    run: the prefill's logits (under the CLI's stem at block 8 where the
+    config uses Stem, with its kernels launched and every recorded call
+    within its plain version's limit) and 6 greedy decode steps, logits
+    within 1e-4 and streams equal."""
+    from repro_torch import configs as t_configs
+    from repro_torch.core import policy as t_policy
+    from repro_torch.models import registry as t_registry
+    cfg = t_configs.reduced(t_configs.get_config(arch)).replace(dtype="float32")
+    bundle = t_registry.build(cfg)
+    params = bundle.init_params(torch.Generator().manual_seed(0), device="cpu")
+    pol = t_policy.get_policy("stem").with_updates(**TINY_STEM) if cfg.use_stem else None
+    rng = np.random.RandomState(11)
+    batch = {"tokens": torch.as_tensor(rng.randint(0, cfg.vocab_size, size=(2, 48)))}
+    if arch == "whisper-medium":
+        batch["frames"] = torch.as_tensor(rng.randn(2, 16, 64).astype(np.float32))
+    if arch == "pixtral-12b":
+        batch["patch_embeds"] = torch.as_tensor(rng.randn(2, 16, 64).astype(np.float32))
+    runs = {}
+    for device in (cuda, torch.device("cpu")):
+        dparams, dbatch = _to_device(params, device), _to_device(batch, device)
+        for mod in (t_bsa, t_fa, t_sm):
+            mod.reset_launches()
+        with replay.Recorder() as rec:
+            logits, caches = bundle.prefill(dparams, dbatch, max_len=80, stem_cfg=pol)
+            rows = [logits.cpu()]
+            for _ in range(6):
+                tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+                logits, caches = bundle.decode_step(dparams, tok, caches)
+                rows.append(logits.cpu())
+        runs[device.type] = torch.stack(rows)
+        if device.type == "cuda" and pol is not None:
+            assert t_bsa.LAUNCHES["block_sparse_attention"] > 0
+            assert t_sm.LAUNCHES["antidiag_pool"] > 0
+            assert t_sm.LAUNCHES["value_magnitude"] > 0
+            rec.check()
+    torch.testing.assert_close(runs["cuda"], runs["cpu"], atol=1e-4, rtol=0)
+    assert torch.equal(runs["cuda"].argmax(-1), runs["cpu"].argmax(-1))

@@ -159,9 +159,11 @@ def test_apply_full_matches_jax(models, name):
     if js is not None:
         np.testing.assert_allclose(float(ts.density), float(js.density), rtol=1e-6)
         assert float(ts.density) < 1.0
-    with pytest.raises(NotImplementedError, match="windowed"):
-        t_attention.apply_full(tp, torch.from_numpy(x), tcfg,
-                               positions=torch.arange(40), window=8)
+    # windowed (local) attention: the reference's banded path, no policy
+    _close(t_attention.apply_full(tp, torch.from_numpy(x), tcfg,
+                                  positions=torch.arange(40), window=8),
+           j_attention.apply_full(jp, jnp.asarray(x), jcfg,
+                                  positions=jnp.arange(40), window=8))
 
 
 # ---------------------------------------------------------------------------
