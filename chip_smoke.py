@@ -266,6 +266,35 @@ Phases:
                 device's busy share), 16 decode steps; fp32 at 4 layers:
                 "fused" == "gather" (512 patches + 1536 tokens).
 
+ 15. train    — the training path (python -m repro_torch.launch.train).
+                (a) The backward kernels of flash and block-sparse
+                attention at the training shapes of full-width qwen3-0.6b
+                (b 2, 16 q / 8 KV heads, d 128, n 4096; block-sparse under
+                the CLI's --stem geometry: block 128, stride 4, sink 1,
+                local 1, min budget 2) against their plain backward in fp32
+                (1e-4 abs) and bf16 (2 ulps + 1e-3 * the row's max|plain|:
+                P stays fp32), two calls bitwise equal (no atomics), the
+                bf16 rule rejecting a (query block, key block) pair dropped
+                from the transposed selection, bf16 timed beside the bound
+                (2 * (3 d + 2 dv) flops a causal pair), SDPA's backward
+                (flash) and a compiled flex_attention's (block-sparse);
+                MLA's (192, 128) and whisper's d 64 checked once each.
+                (b) The CLI's main() on full-width qwen3-0.6b, bf16, 28
+                layers, --seq 4096 --batch 2 --steps 12, dense and --stem:
+                the loss finite and the mean of the last 3 steps below the
+                first 3; counters zeroed before and read after (dense:
+                flash forward and backward; stem: block-sparse forward and
+                backward, pool, vmag); no plain attention version called;
+                ms a step, tokens/s, peak memory, the backward kernels'
+                share of the step (CUDA events around each call).  (c) fp32
+                at full width with the depth cut to 4 layers: one step's
+                loss, grad_norm and every gradient leaf under "fused" ==
+                "gather" (within 1e-4 of each leaf's max|g|); 10 steps ==
+                8 steps, a checkpoint, --restore and 2 more, bitwise;
+                run_with_restarts around --fail-at 6 resumes from the
+                step-4 checkpoint and its losses equal the uninterrupted
+                run's, bitwise.
+
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}.  Any failed phase raises (non-zero exit).
 """
@@ -3613,6 +3642,395 @@ def _to_device(tree, device):
     return tree.to(device) if isinstance(tree, torch.Tensor) else tree
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 15: the training path
+# ---------------------------------------------------------------------------
+
+P15 = dict(b=2, hq=16, hk=8, d=128, n=4096, mla_n=2048, whisper_n=1024,
+           seq=4096, batch=2, steps=12, check_layers=4, restart_steps=10,
+           restart_at=8, fail_at=6)
+TRAIN_SOURCES = {"flash_attention_bwd": (flash_kern, "flash_attention.cu",
+                                         "src/repro/kernels/flash_attention.py:34",
+                                         "src/repro/core/sparse_attention.py:157"),
+                 "block_sparse_attention_bwd": (bsa_kern, "block_sparse_attn.cu",
+                                                "src/repro/kernels/block_sparse_attn.py:52",
+                                                "src/repro/core/sparse_attention.py:166")}
+PLAIN_FNS = ((flash_kern, "flash_attention_plain"), (flash_kern, "flash_attention_bwd_plain"),
+             (bsa_kern, "block_sparse_attention_plain"),
+             (bsa_kern, "block_sparse_attention_bwd_plain"))
+
+
+def cli_stem_policy(seq: int):
+    """The training CLI's --stem geometry at ``seq`` tokens."""
+    from repro_torch.core.config import StemConfig
+    return StemConfig(block_size=min(128, max(16, seq // 8)), min_budget_blocks=2,
+                      sink_blocks=1, local_blocks=1, stride=4).policy()
+
+
+def grad_limit(want: torch.Tensor, dtype) -> torch.Tensor:
+    """The limit of |kernel - plain| per element of an attention gradient:
+    phase 3's rule (fp32 1e-4 abs; bf16 2 ulps + 1e-3 * the row's
+    max|plain|: the backward keeps P in fp32) plus, in bf16, 1e-4 * the
+    tensor's max|plain|.  That floor covers rows whose gradient cancels: a
+    query row that sees one key has dS = dP - delta = 0 up to the fp32 sums'
+    rounding, which the kernel and the plain version take in other orders,
+    so such a row is ~1e-7 of the tensor's scale in one and ~0 in the
+    other."""
+    if dtype == torch.float32:
+        return tolerance(want, dtype)
+    return tolerance(want, dtype) + 1e-4 * want.abs().max()
+
+
+def check_grads(name: str, got: tuple, want: tuple) -> float:
+    """Each of (dq, dk, dv) against the plain backward under ``grad_limit``;
+    returns the max |kernel - plain|."""
+    worst = 0.0
+    for part, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = g.float(), w.float()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{name}/{part}: kernel output not finite")
+        diff = (g - w).abs()
+        over = float((diff / grad_limit(w, got[0].dtype)).max())
+        if not over <= 1:
+            raise AssertionError(f"{name}/{part}: max |kernel - plain| = "
+                                 f"{float(diff.max())}, {over:.2f}x its limit")
+        worst = max(worst, float(diff.max()))
+    return worst
+
+
+def check_library_bwd(name: str, lib: tuple, want: tuple) -> None:
+    """A library's attention backward (timed beside the kernel, never called
+    by the port) against the plain backward, each gradient within 5e-2 *
+    its max|lib| in bf16: the library's kernels round P and dS to bf16
+    before the products, and dk / dv sum those over every query row."""
+    for part, g, w in zip(("dq", "dk", "dv"), lib, want):
+        err = float((g.float() - w.float()).abs().max())
+        limit = float(5e-2 * g.float().abs().max())
+        log(f"[train] {name} {part}: max_abs_err={err:.3e} (limit {limit:.3e})")
+        if not err <= limit:
+            raise AssertionError(f"{name} {part}: library call disagrees")
+
+
+def bwd_bytes_flops(q, k, v, pairs: float, extra_bytes: float = 0.0):
+    """Bytes (q, k, v, o, do read once; dq, dk, dv written once) and flops
+    (S and dP recomputed, dV, dK, dQ: 2 * (3 d + 2 dv) a causal pair) of
+    one attention backward."""
+    es, d, dv = q.element_size(), q.shape[-1], v.shape[-1]
+    nbytes = 2 * (q.numel() + k.numel() + v.numel()) * es \
+        + 2 * q.numel() * dv // d * es + extra_bytes
+    return nbytes, 2.0 * (3 * d + 2 * dv) * pairs
+
+
+def rejects_dropped_transposed_block(q, k, v, o, do, idx, cnt, bs, want) -> None:
+    """The bf16 rule must see a missing pair: the block-sparse backward with
+    one (query block, key block) pair dropped from the transposed selection
+    (batch 0, KV head 0's first query head, the key block with the longest
+    list, its last query block) must put most of that key block's dk / dv
+    rows over the limit."""
+    tidx, tcnt = bsa_kern.transpose_selection(idx, cnt, idx.shape[2])
+    j = int(tcnt[0, 0].argmax())
+    if int(tcnt[0, 0, j]) < 2:
+        raise AssertionError("no key block is selected by two query blocks")
+    faulted = tcnt.clone()
+    faulted[0, 0, j] -= 1
+    got = bsa_kern.block_sparse_attention_bwd(q, k, v, o, do, idx, cnt, block_size=bs,
+                                              transposed=(tidx, faulted))
+    rows = slice(j * bs, (j + 1) * bs)
+    bad = []
+    for g, w in zip(got[1:], want[1:]):
+        g, w = g[0, 0, rows].float(), w[0, 0, rows].float()
+        bad.append(int(((g - w).abs() / grad_limit(w, torch.bfloat16)).gt(1).any(-1).sum()))
+    log(f"[train] block_sparse_attention_bwd with query block "
+        f"{int(tidx[0, 0, j, int(tcnt[0, 0, j]) - 1])} dropped from key block {j}'s "
+        f"list: {bad[0]} dk rows and {bad[1]} dv rows of {bs} over the limit")
+    if not 2 * min(bad) > bs:
+        raise AssertionError("block_sparse_attention_bwd: the bf16 rule passes a "
+                             "dropped key block")
+
+
+def train_kernel_phase(records: dict, sizes: dict = P15, dev=torch.device("cuda")) -> None:
+    """(a) Both backward kernels at the training shapes of full-width
+    qwen3-0.6b under the CLI's --stem geometry: against their plain
+    backward in fp32 and bf16, twice bitwise (no atomics), bf16 timed beside
+    the bound and the backward of SDPA (flash) / a compiled flex_attention
+    (block-sparse); then MLA's (192, 128) and whisper's d 64 once each."""
+    b, hq, hk, d, n = (sizes[x] for x in ("b", "hq", "hk", "d", "n"))
+    pol = cli_stem_policy(n)
+    bs = pol.block_size
+    gen = torch.Generator(device=dev).manual_seed(15)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    torch._dynamo.reset()
+    from torch.nn.attention.flex_attention import flex_attention
+    flex = torch.compile(flex_attention, dynamic=False)
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[-1]
+        q, k, v, do = (torch.randn(s, generator=gen, device=dev).to(dtype) for s in
+                       ((b, hq, n, d), (b, hk, n, d), (b, hk, n, d), (b, hq, n, d)))
+        # -- flash ---------------------------------------------------------
+        o = flash_kern.flash_attention(q, k, v)
+        run_k = lambda: flash_kern.flash_attention_bwd(q, k, v, o, do)
+        run_p = lambda: flash_kern.flash_attention_bwd_plain(q, k, v, o, do)
+        got, again, want = run_k(), run_k(), run_p()
+        torch.cuda.synchronize()
+        err = check_grads(f"flash_attention_bwd/{tag}", got, want)
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError("flash_attention_bwd: two calls differ")
+        lib = None
+        if dtype == torch.bfloat16:
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            out = sdpa(*leaves, is_causal=True, enable_gqa=True)
+            check_library_bwd("flash_attention_bwd vs SDPA's backward",
+                              torch.autograd.grad(out, leaves, do, retain_graph=True), want)
+            lib = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+        pairs = b * hq * n * (n + 1) / 2
+        rec_kernel(records, "flash_attention_bwd", "train", tag, err, run_k, run_p,
+                   bwd_bytes_flops(q, k, v, pairs), dtype, run_lib=lib, iters=5,
+                   plain_iters=1)
+        del got, again, want, o
+        # -- block-sparse under the CLI's stem selection ---------------------
+        sel, _ = pol.prefill_select(q, k, v, with_block_mask=False)
+        idx, cnt = sel.indices.contiguous(), sel.live_counts.contiguous()
+        o = bsa_kern.block_sparse_attention(q, k, v, idx, live_counts=cnt, block_size=bs)
+        run_k = lambda: bsa_kern.block_sparse_attention_bwd(q, k, v, o, do, idx, cnt,
+                                                            block_size=bs)
+        run_p = lambda: bsa_kern.block_sparse_attention_bwd_plain(q, k, v, o, do, idx, cnt,
+                                                                  block_size=bs)
+        got, again, want = run_k(), run_k(), run_p()
+        torch.cuda.synchronize()
+        err = check_grads(f"block_sparse_attention_bwd/{tag}", got, want)
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError("block_sparse_attention_bwd: two calls differ")
+        lib = None
+        if dtype == torch.bfloat16:
+            rejects_dropped_transposed_block(q, k, v, o, do, idx, cnt, bs, want)
+            mask = flex_block_mask(idx, cnt, bs)
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            out = flex(*leaves, block_mask=mask, enable_gqa=True)
+            check_library_bwd("block_sparse_attention_bwd vs flex_attention's backward",
+                              torch.autograd.grad(out, leaves, do, retain_graph=True), want)
+            lib = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+            log(f"[train] stem selection at n={n}: k_max {idx.shape[-1]}, realized "
+                f"density {float(selection_density(sel, n // bs)):.4f}")
+        nq = n // bs
+        sel_bytes = (idx.numel() + cnt.numel() + b * hq * nq * (nq + 1)) * 4
+        rec_kernel(records, "block_sparse_attention_bwd", "train", tag, err, run_k, run_p,
+                   bwd_bytes_flops(q, k, v, causal_pairs(idx, cnt, bs), sel_bytes),
+                   dtype, run_lib=lib, iters=5, plain_iters=1)
+        del q, k, v, do, o, got, again, want
+        torch.cuda.empty_cache()
+    # MLA's (192, 128) (no GQA) and whisper's d 64, bf16, once each
+    for tag, (h, dd, dv, nn) in (("mla", (16, 192, 128, sizes["mla_n"])),
+                                 ("whisper", (16, 64, 64, sizes["whisper_n"]))):
+        q, k, do = (torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
+                    for s in ((1, h, nn, dd), (1, h, nn, dd), (1, h, nn, dv)))
+        v = torch.randn((1, h, nn, dv), generator=gen, device=dev).to(torch.bfloat16)
+        o = flash_kern.flash_attention(q, k, v)
+        check_grads(f"flash_attention_bwd/{tag}", flash_kern.flash_attention_bwd(q, k, v, o, do),
+                    flash_kern.flash_attention_bwd_plain(q, k, v, o, do))
+        p = cli_stem_policy(nn)
+        sel, _ = p.prefill_select(q, k, v, with_block_mask=False)
+        idx, cnt = sel.indices.contiguous(), sel.live_counts.contiguous()
+        o = bsa_kern.block_sparse_attention(q, k, v, idx, live_counts=cnt,
+                                            block_size=p.block_size)
+        check_grads(f"block_sparse_attention_bwd/{tag}",
+                    bsa_kern.block_sparse_attention_bwd(q, k, v, o, do, idx, cnt,
+                                                        block_size=p.block_size),
+                    bsa_kern.block_sparse_attention_bwd_plain(q, k, v, o, do, idx, cnt,
+                                                              block_size=p.block_size))
+        log(f"[train] backward kernels at {tag}'s (d, dv) = ({dd}, {dv}): within the rule")
+
+
+@contextlib.contextmanager
+def train_taps():
+    """During a training run: every call of a plain attention version
+    counted (the card's path must make none), and each backward kernel
+    call timed with CUDA events (its device ms, summed after the run)."""
+    plain_calls = {f"{mod.__name__.split('.')[-1]}.{fn}": 0 for mod, fn in PLAIN_FNS}
+    events = []
+    saved = []
+
+    def counting(mod, fn):
+        orig = getattr(mod, fn)
+        key = f"{mod.__name__.split('.')[-1]}.{fn}"
+
+        def wrapped(*a, **kw):
+            plain_calls[key] += 1
+            return orig(*a, **kw)
+        return orig, wrapped
+
+    def timed(orig):
+        def wrapped(*a, **kw):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = orig(*a, **kw)
+            e1.record()
+            events.append((e0, e1))
+            return out
+        return wrapped
+
+    for mod, fn in PLAIN_FNS:
+        orig, wrapped = counting(mod, fn)
+        saved.append((mod, fn, orig))
+        setattr(mod, fn, wrapped)
+    for name, (mod, *_) in TRAIN_SOURCES.items():
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, timed(getattr(mod, name)))
+    tap = {"plain_calls": plain_calls, "events": events}
+    try:
+        yield tap
+    finally:
+        for mod, fn, orig in saved:
+            setattr(mod, fn, orig)
+
+
+@contextlib.contextmanager
+def train_config(cfg):
+    """The training CLI builds ``cfg`` for its --arch (a depth cut of a
+    published config) while the block runs."""
+    from repro_torch import configs as configs_lib
+    orig = configs_lib.get_config
+    configs_lib.get_config = lambda name: cfg
+    try:
+        yield
+    finally:
+        configs_lib.get_config = orig
+
+
+def train_cli(argv: list, device: str = "cuda") -> dict:
+    from repro_torch.launch import train as train_lib
+    return train_lib.main(["--arch", "qwen3-0.6b", "--device", device] + argv)
+
+
+def train_cli_arms(sizes: dict = P15, device: str = "cuda") -> dict:
+    """(b) The CLI on full-width qwen3-0.6b, bf16, 28 layers, with --stem
+    and without: the loss finite and falling, every forward and backward
+    kernel of the path launched (counters zeroed before, read after), no
+    plain attention version called; ms a step, tokens/s, peak memory, the
+    backward kernels' share of the step."""
+    out = {}
+    for arm, extra, need in (("dense", [], ("flash_attention", "flash_attention_bwd")),
+                             ("stem", ["--stem"], STEM_KERNELS + ("block_sparse_attention_bwd",))):
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        with train_taps() as tap:
+            res = train_cli(["--seq", str(sizes["seq"]), "--batch", str(sizes["batch"]),
+                             "--steps", str(sizes["steps"])] + extra, device)
+            torch.cuda.synchronize()
+        launches = read_all_launches()
+        losses = res["losses"]
+        if not all(np.isfinite(losses)) or not np.mean(losses[-3:]) < np.mean(losses[:3]):
+            raise AssertionError(f"train {arm}: the loss did not fall: {losses}")
+        missing = [key for key in need if launches[key] == 0]
+        if missing:
+            raise AssertionError(f"train {arm}: kernels never launched: {missing}")
+        if any(tap["plain_calls"].values()):
+            raise AssertionError(f"train {arm}: plain versions called: {tap['plain_calls']}")
+        # the backward kernels' share of steps 1.. (each step makes the same
+        # number of backward calls)
+        steady = res["step_ms"][1:]
+        per_step = len(tap["events"]) // len(res["step_ms"])
+        bwd_ms = sum(e0.elapsed_time(e1) for e0, e1 in tap["events"][per_step:])
+        bwd_share = bwd_ms / sum(steady)
+        step_ms = float(np.median(steady))
+        out[arm] = dict(
+            losses=losses, step_ms=step_ms, step_ms_all=res["step_ms"],
+            tokens_s=sizes["batch"] * sizes["seq"] / step_ms * 1e3,
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            bwd_kernel_share=bwd_share, launches=launches,
+            stragglers=len(res["stragglers"]))
+        log(f"[train] CLI {arm}: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+            f"{step_ms:.1f} ms a step (median of steps 1-{len(losses) - 1}), "
+            f"{out[arm]['tokens_s']:.0f} tokens/s, peak {out[arm]['peak_gib']:.2f} GiB, "
+            f"backward kernels {100 * bwd_share:.1f} % of the step, launches "
+            f"{ {k: launches[k] for k in need} }")
+    return out
+
+
+def train_fp32_checks(sizes: dict = P15, device: str = "cuda") -> dict:
+    """(c) fp32, full width, depth cut to ``check_layers``: one train step's
+    loss, grad_norm and every gradient leaf under "fused" == "gather"
+    (within 1e-4 of each leaf's max|g|); the CLI's restart bitwise; the
+    restart harness resumes from the step-4 checkpoint."""
+    from repro_torch import optim as optim_lib
+    from repro_torch.data import SyntheticLMData, make_global_batch
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime.fault_tolerance import run_with_restarts
+    _free()
+    cfg = dataclasses.replace(QWEN3_0_6B, dtype="float32", num_layers=sizes["check_layers"])
+    seq, batch = sizes["seq"], sizes["batch"]
+    bundle = registry.build(cfg)
+    params = bundle.init_params(torch.Generator(device=device).manual_seed(0), device=device)
+    master = optim_lib.init_state(params, optim_lib.AdamWConfig()).master
+    del params
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch)
+    gbatch = make_global_batch(data.batch_at(0), device)
+    fused = cli_stem_policy(seq)
+    runs = {}
+    for name, pol in (("fused", fused), ("gather", fused.with_updates(executor="gather"))):
+        loss, metrics, grads = steps_lib.loss_and_grads(bundle, master, gbatch, stem_cfg=pol)
+        gnorm = float(optim_lib.adamw.global_norm(grads))
+        runs[name] = (float(loss), gnorm, tree_leaves(grads))
+    (lf, nf, gf), (lg, ng, gg) = runs["fused"], runs["gather"]
+    worst = max(float((a - c).abs().max() / c.abs().max().clamp(min=1e-30))
+                for a, c in zip(gf, gg))
+    log(f"[train] fp32 {cfg.num_layers} layers, one step: loss fused {lf:.7f} gather "
+        f"{lg:.7f}, grad_norm {nf:.6f} / {ng:.6f}, worst leaf |fused - gather| / "
+        f"max|g| {worst:.2e}")
+    if not (abs(lf - lg) <= 1e-5 * abs(lg) and abs(nf - ng) <= 1e-5 * ng and worst <= 1e-4):
+        raise AssertionError("train: fused and gather gradients disagree in fp32")
+    del master, runs, gf, gg
+    _free()
+
+    ckpt = ROOT / "build" / "phase15"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    common_args = ["--seq", str(seq), "--batch", str(batch), "--stem"]
+    n_all, at, fail = sizes["restart_steps"], sizes["restart_at"], sizes["fail_at"]
+    with train_config(cfg):
+        ref = train_cli(common_args + ["--steps", str(n_all), "--checkpoint-dir",
+                                       str(ckpt / "a"), "--checkpoint-every", "100"], device)
+        train_cli(common_args + ["--steps", str(at), "--checkpoint-dir", str(ckpt / "b"),
+                                 "--checkpoint-every", str(at)], device)
+        second = train_cli(common_args + ["--steps", str(n_all), "--checkpoint-dir",
+                                          str(ckpt / "b"), "--restore",
+                                          "--checkpoint-every", "100"], device)
+        if ref["losses"][at:] != second["losses"]:
+            raise AssertionError(f"train: the restart is not bitwise: {ref['losses'][at:]} "
+                                 f"vs {second['losses']}")
+        log(f"[train] restart at step {at}: losses {second['losses']} == the "
+            "uninterrupted run's, bitwise")
+        for sub in ("a", "b"):
+            shutil.rmtree(ckpt / sub)
+        calls = []
+
+        def attempt():
+            calls.append(1)
+            return train_cli(common_args + [
+                "--steps", str(n_all), "--checkpoint-dir", str(ckpt / "c"),
+                "--checkpoint-every", "4", "--fail-at", str(fail) if len(calls) == 1 else "-1"]
+                + (["--restore"] if len(calls) > 1 else []), device)
+
+        resumed = run_with_restarts(attempt, max_restarts=2)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if len(calls) != 2 or resumed["losses"] != ref["losses"][4:]:
+        raise AssertionError(f"train: the harness did not resume from step 4: {len(calls)} "
+                             f"attempts, losses {resumed['losses']}")
+    log(f"[train] run_with_restarts around --fail-at {fail}: resumed at step 4, losses == "
+        "the uninterrupted run's, bitwise")
+    return dict(loss=lf, grad_norm=nf, worst_leaf=worst, restart_losses=second["losses"])
+
+
+def train_phase(records: dict, sizes: dict = P15) -> dict:
+    """Phase 15: the training path."""
+    t0 = time.perf_counter()
+    train_kernel_phase(records, sizes)
+    out = {"cli": train_cli_arms(sizes), "fp32": train_fp32_checks(sizes)}
+    out["s"] = time.perf_counter() - t0
+    log(f"[phase15] done in {out['s']:.1f} s")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3690,6 +4108,11 @@ def main() -> None:
     p14 = families_phase(records, profile=args.profile_prefill)
     p14_launches = lambda key: {arm: n[key] for arm, n in p14["launches"].items()}
 
+    # Phase 15: the training path (the backward kernels, the CLI at full
+    # width, the fp32 checks).
+    p15 = train_phase(records)
+    p15_launches = lambda key: {arm: r["launches"][key] for arm, r in p15["cli"].items()}
+
     kernels = []
     for key in ("score/decode", "score/chunk", "attend/decode", "attend/chunk"):
         kernel, lane = key.split("/")
@@ -3703,6 +4126,7 @@ def main() -> None:
             phase11_launches=p11_launches(key),
             phase12_launches=p12_launches(key),
             phase14_launches=p14_launches(key),
+            phase15_launches=p15_launches(key),
             max_abs_err=max(r["max_abs_err"] for r in records[key].values()),
             ms=rec["ms"], host_ms=rec["host_ms"], plain_ms=rec["plain_ms"],
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
@@ -3720,12 +4144,33 @@ def main() -> None:
             phase12_launches=p12_launches(counter),
             phase13_launches=p13_launches(counter),
             phase14_launches=p14_launches(counter),
+            phase15_launches=p15_launches(counter),
             max_abs_err=max(r["max_abs_err"]
                             for r in records[f"{key}/prefill"].values()),
             ms=rec["ms"], host_ms=rec["host_ms"], plain_ms=rec["plain_ms"],
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
             library_ms=rec["library_ms"],
             fp32=records[f"{key}/prefill"]["float32"]))
+    # the backward kernels (phase 15): launches of the training CLI's arm
+    # that runs them (12 steps), timed at its shapes
+    for key, arm in (("flash_attention_bwd", "dense"), ("block_sparse_attention_bwd", "stem")):
+        _, source, fwd, autodiff = TRAIN_SOURCES[key]
+        rec = records[f"{key}/train"]["bfloat16"]
+        kernels.append(dict(
+            name=key, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",
+            replaces=fwd, gradient_of=f"XLA's autodiff of {autodiff} (the reference "
+            "trains through it; its TPU kernel has no backward)",
+            launches=p15["cli"][arm]["launches"][key],
+            phase15_launches=p15_launches(key),
+            launches_per_step=p15["cli"][arm]["launches"][key] / P15["steps"],
+            max_abs_err=max(r["max_abs_err"] for r in records[f"{key}/train"].values()),
+            ms=rec["ms"], host_ms=rec["host_ms"], plain_ms=rec["plain_ms"],
+            bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+            library_ms=rec["library_ms"], fp32=records[f"{key}/train"]["float32"],
+            step_share=p15["cli"][arm]["bwd_kernel_share"]))
+    log("[phase15] " + json.dumps({arm: {k: r[k] for k in (
+        "step_ms", "tokens_s", "peak_gib", "bwd_kernel_share")}
+        for arm, r in p15["cli"].items()}))
     # the pool and vmag at the chunk lane's shapes, beside their 16k rows;
     # flash and block-sparse at head_dim 64 and 256
     by_name = {k["name"]: k for k in kernels}

@@ -10,16 +10,19 @@ Pipeline per (batch, head), for any ``SparsityPolicy`` (core/policy.py):
 
 Executors (``policy.register_executor``):
   * "fused"  — the block-sparse CUDA kernel (kernels/block_sparse_attn.py),
-               the counterpart of the reference's "pallas";
+               the counterpart of the reference's "pallas", with its
+               hand-written backward;
   * "gather" — the plain PyTorch flash-style gather executor (padded or
                budget-sorted ragged schedule, GQA dedup), the counterpart of
                "xla";
   * "dense"  — the O(N^2) masked oracle.
 
 The dense arm (``dense_attention_auto``) sends causal self-attention without
-a mask to the flash kernel on a CUDA tensor; ``dense_attention`` and
-``dense_attention_chunked`` are its plain versions on the CPU, and the
-path of non-causal and masked attention on every device.
+a mask to the flash kernel on a CUDA tensor (forward and its hand-written
+backward); ``dense_attention`` and ``dense_attention_chunked`` are its plain
+versions on the CPU, and the path of non-causal and masked attention on
+every device.  "gather" and "dense" differentiate by autograd: they are the
+CPU oracle and the card's fp32 cross-check of the training path.
 """
 from __future__ import annotations
 
@@ -117,7 +120,7 @@ def dense_attention_auto(q, k, v, *, causal: bool = True, scale=None,
     without a mask, the direct masked softmax otherwise."""
     if q.device.type == "cuda" and mask is None and causal \
             and q.shape[2] == k.shape[2]:
-        return flash_kernels.flash_attention(
+        return flash_kernels.attention(
             q.contiguous(), k.contiguous(), v.contiguous(), scale=scale)
     if mask is None and q.shape[2] >= threshold and k.shape[2] >= threshold:
         return dense_attention_chunked(q, k, v, causal=causal, scale=scale)
@@ -251,10 +254,10 @@ def _gather_exec(q, k, v, sel, *, policy, scale, indices, slot_mask, dedup,
 
 def _fused_executor(q, k, v, sel, *, policy, scale, indices, slot_mask,
                     live_counts, dedup, **_):
-    return bsa_kernels.block_sparse_attention(
+    return bsa_kernels.attention(
         q.contiguous(), k.contiguous(), v.contiguous(), indices.contiguous(),
-        slot_mask, block_size=policy.block_size, scale=scale,
-        group_dedup=dedup, live_counts=live_counts.contiguous())
+        live_counts.contiguous(), block_size=policy.block_size, scale=scale,
+        group_dedup=dedup)
 
 
 policy_lib.register_executor("dense", _dense_oracle_executor,

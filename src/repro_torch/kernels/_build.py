@@ -3,12 +3,14 @@
 Every ``*.cu`` under ``kernels/csrc/`` is compiled on first use with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o <lib> <source>
+         -Xcompiler -fPIC --split-compile=0 -o <lib> <source>
 
-(one nvcc per source, all started together; the shared ``*.cuh`` headers
-are included by the sources) into ``build/kernels/`` at the repository
-root, named by a hash of the source, the headers and the flags, and loaded with
-``ctypes``.  A library whose hash already exists is loaded without a build.
+(one nvcc per source, all started together, each compiling its kernels'
+device code on every core: ``--split-compile=0``, since the sources with
+the attention backward hold ~80 template instances each; the shared
+``*.cuh`` headers are included by the sources) into ``build/kernels/`` at
+the repository root, named by a hash of the source, the headers and the
+flags, and loaded with ``ctypes``.  A library whose hash already exists is loaded without a build.
 Nothing is built when the module is imported.
 """
 from __future__ import annotations
@@ -24,7 +26,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "--split-compile=0")
 
 _LIBS: dict = {}
 

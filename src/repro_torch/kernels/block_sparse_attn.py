@@ -20,6 +20,19 @@ Beside the kernel sits its plain PyTorch version
 (``block_sparse_attention_plain``) and a plain-int launch counter in
 ``LAUNCHES``.  The wrapper takes the plain version only for tensors on the
 CPU; for a CUDA tensor it launches the kernel or raises.
+
+The gradient (``block_sparse_attention_bwd``, the training path's under
+Stem): the TPU kernel has none, as the reference trains through XLA's
+autodiff of its gather executor, so the port's counterpart is a
+hand-written backward (``stem_block_sparse_attention_bwd``,
+``csrc/attn_bwd.cuh``: dq over each row's live prefix, then dk and dv over
+the transposed selection, on the fp32 CUDA cores, no atomics) beside its
+plain version (``block_sparse_attention_bwd_plain``, the analytic backward
+``dS = P * (dP - delta)``) and its own counter.  ``transpose_selection``
+builds the transposed selection on the device with torch ops over a static
+width (no host sync).  ``attention`` is the differentiable call
+(``torch.autograd.Function``): forward and backward both kernels on a CUDA
+tensor, both plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -31,11 +44,12 @@ from repro_torch.kernels import check_head_dim_pair
 
 NEG_INF = -1e30
 
-LAUNCHES = {"block_sparse_attention": 0}
+LAUNCHES = {"block_sparse_attention": 0, "block_sparse_attention_bwd": 0}
 
 
 def reset_launches() -> None:
-    LAUNCHES["block_sparse_attention"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def _lib():
@@ -47,6 +61,8 @@ def _lib():
         lib.stem_block_sparse_attention.argtypes = [
             p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, f, p]
         lib.stem_block_sparse_attention.restype = i
+        lib.stem_block_sparse_attention_bwd.argtypes = [p] * 14 + [i] * 10 + [f, p]
+        lib.stem_block_sparse_attention_bwd.restype = i
         lib._stem_typed = True
     return lib
 
@@ -166,3 +182,185 @@ def block_sparse_attention(q, k, v, indices, slot_mask=None, *,
             f"stem_block_sparse_attention launch failed: cudaError {err}")
     LAUNCHES["block_sparse_attention"] += 1
     return out
+
+
+def _live_mask(idx: torch.Tensor, live_counts: torch.Tensor, nq: int) -> torch.Tensor:
+    """The live prefix of each selection row (``idx`` int64), ids outside
+    [0, nq) dead."""
+    return ((torch.arange(idx.shape[-1], device=idx.device) < live_counts.long()[..., None])
+            & (idx >= 0) & (idx < nq))
+
+
+def block_sparse_attention_bwd_plain(q, k, v, o, do, indices, live_counts, *,
+                                     block_size: int, scale=None,
+                                     group_dedup: bool = False) -> tuple:
+    """Plain version of the backward: per query-block row, the row's live
+    selected K/V blocks gathered and, in fp32, P as the forward normalizes
+    it (``max(l, 1e-20)``), delta = rowsum(do * o), dP = do.v^T, dS = P *
+    (dP - delta); dq = scale * dS.k, and dk = scale * dS^T.q and dv =
+    P^T.do added back into the selected blocks.  Only the live prefix of
+    each row counts; cnt == 0 rows get zero gradient.  Returns (dq, dk, dv)
+    in the inputs' dtype."""
+    b, hq, n, d = q.shape
+    hk, dv_dim = k.shape[1], v.shape[-1]
+    group = hq // hk
+    bs = block_size
+    nq, nk = n // bs, k.shape[2] // bs
+    k_max = indices.shape[-1]
+    scale = d ** -0.5 if scale is None else scale
+    dev = q.device
+    if group_dedup:
+        indices = torch.repeat_interleave(indices, group, dim=1)
+        live_counts = torch.repeat_interleave(live_counts, group, dim=1)
+    live = _live_mask(indices.long(), live_counts, nk)
+    idx = torch.where(live, indices.long(), 0)
+    kb = k.reshape(b, hk, nk, bs, d).float()
+    vb = v.reshape(b, hk, nk, bs, dv_dim).float()
+    dkb = torch.zeros_like(kb)
+    dvb = torch.zeros_like(vb)
+    bi = torch.arange(b, device=dev)[:, None, None, None]
+    hi = (torch.arange(hq, device=dev) // group)[None, :, None, None]
+    dq = torch.empty_like(q)
+    step = max(1, (1 << 24) // max(b * hq * k_max * bs * max(bs, d), 1))
+    for i0 in range(0, nq, step):
+        i1 = min(nq, i0 + step)
+        r = i1 - i0
+        rows = slice(i0 * bs, i1 * bs)
+        qr = q[:, :, rows].float().reshape(b, hq, r, bs, d)
+        orr = o[:, :, rows].float().reshape(b, hq, r, bs, dv_dim)
+        dor = do[:, :, rows].float().reshape(b, hq, r, bs, dv_dim)
+        sel = idx[:, :, i0:i1]
+        gk = kb[bi, hi, sel]                                 # (b, hq, r, kmax, bs, d)
+        gv = vb[bi, hi, sel]
+        s = torch.einsum("bhrqd,bhrkjd->bhrqkj", qr, gk) * scale
+        k_pos = sel[..., None] * bs + torch.arange(bs, device=dev)
+        q_pos = (torch.arange(i0, i1, device=dev)[:, None] * bs
+                 + torch.arange(bs, device=dev)[None, :])
+        keep = k_pos[:, :, :, None] <= q_pos[None, None, :, :, None, None]
+        keep = keep & live[:, :, i0:i1, None, :, None]
+        s = torch.where(keep, s, NEG_INF)
+        m = s.amax(dim=(-1, -2), keepdim=True)
+        p = torch.where(keep, torch.exp(s - m), 0.0)
+        p = p / torch.clamp(p.sum(dim=(-1, -2), keepdim=True), min=1e-20)
+        delta = (dor * orr).sum(dim=-1)[..., None, None]      # (b, hq, r, bs, 1, 1)
+        dp = torch.einsum("bhrqd,bhrkjd->bhrqkj", dor, gv)
+        ds = p * (dp - delta)
+        dq[:, :, rows] = (torch.einsum("bhrqkj,bhrkjd->bhrqd", ds, gk) * scale).reshape(
+            b, hq, r * bs, d).to(q.dtype)
+        gdk = torch.einsum("bhrqkj,bhrqd->bhrkjd", ds, qr) * scale
+        gdv = torch.einsum("bhrqkj,bhrqd->bhrkjd", p, dor)
+        ix = (bi.expand_as(sel), hi.expand_as(sel), sel)
+        dkb.index_put_(ix, gdk, accumulate=True)
+        dvb.index_put_(ix, gdv, accumulate=True)
+    return (dq, dkb.reshape(k.shape).to(k.dtype), dvb.reshape(v.shape).to(v.dtype))
+
+
+def transpose_selection(indices: torch.Tensor, live_counts: torch.Tensor,
+                        nq: int) -> tuple:
+    """The transposed selection of ``indices`` (b, h, nq, k_max) with live
+    prefixes ``live_counts`` (b, h, nq): (tidx (b, h, nq, nq), tcnt (b, h,
+    nq)) int32, where the first ``tcnt[.., j]`` entries of ``tidx[.., j, :]``
+    are the query blocks whose live prefix holds key block j, in increasing
+    order.  Dead slots (a revisit-filled selection repeats live blocks
+    there) and ids outside [0, nq) are not counted.  Torch ops over the
+    static width nq: no host sync."""
+    idx = indices.long()
+    live = _live_mask(idx, live_counts, nq)
+    hit = torch.zeros(indices.shape[:-1] + (nq + 1,), dtype=torch.bool,
+                      device=indices.device)
+    hit.scatter_(-1, torch.where(live, idx, nq), torch.ones_like(live))
+    hit_t = hit[..., :nq].transpose(-1, -2)            # (b, h, key block, query block)
+    tcnt = hit_t.sum(dim=-1, dtype=torch.int32)
+    tidx = torch.argsort((~hit_t).to(torch.uint8), dim=-1, stable=True)
+    return tidx.to(torch.int32).contiguous(), tcnt.contiguous()
+
+
+def block_sparse_attention_bwd(q, k, v, o, do, indices, live_counts, *,
+                               block_size: int, scale=None,
+                               group_dedup: bool = False, transposed=None) -> tuple:
+    """The gradient of ``block_sparse_attention``: (dq, dk, dv) for its
+    inputs q, k, v and selection (indices, live_counts), its output o and
+    o's gradient do.  ``transposed`` optionally gives the transposed
+    selection (``transpose_selection``'s pair; built here when None).  CPU
+    tensors take the plain version; CUDA tensors launch the kernels (two
+    launches, one count)."""
+    if q.device.type == "cpu":
+        return block_sparse_attention_bwd_plain(
+            q, k, v, o, do, indices, live_counts, block_size=block_size,
+            scale=scale, group_dedup=group_dedup)
+    name = "block_sparse_attention_bwd"
+    _check(q.device.type == "cuda", f"{name}: unsupported device {q.device}")
+    b, hq, n, d = q.shape
+    hk, dv_dim = k.shape[1], v.shape[-1]
+    hsel = hk if group_dedup else hq
+    bs = block_size
+    _check(bs > 0 and n % bs == 0, f"{name}: block size must divide the sequence")
+    nq = n // bs
+    tidx, tcnt = (transpose_selection(indices, live_counts, nq) if transposed is None
+                  else transposed)
+    _check(all(t.device == q.device for t in (k, v, o, do, indices, live_counts, tidx, tcnt)),
+           f"{name}: all tensors must be on one device")
+    _check(q.dtype in (torch.float32, torch.bfloat16)
+           and all(t.dtype == q.dtype for t in (k, v, o, do)),
+           f"{name}: q/k/v/o/do must share a float32 or bfloat16 dtype")
+    _check(all(t.dtype == torch.int32 for t in (indices, live_counts, tidx, tcnt)),
+           f"{name}: the selection and its transpose must be int32")
+    _check(all(t.is_contiguous()
+               for t in (q, k, v, o, do, indices, live_counts, tidx, tcnt)),
+           f"{name}: inputs must be contiguous")
+    _check(tuple(k.shape) == (b, hk, n, d) and tuple(v.shape) == (b, hk, n, dv_dim)
+           and tuple(o.shape) == (b, hq, n, dv_dim) and do.shape == o.shape,
+           f"{name}: needs seq_q == seq_k, equal q/k head dims, v of shape (b, hk, n, "
+           "dv) and o, do of shape (b, hq, n, dv)")
+    check_head_dim_pair(name, d, dv_dim)
+    _check(hk > 0 and hq % hk == 0, f"{name}: kv heads must divide q heads")
+    _check(all(t.data_ptr() % 16 == 0 for t in (q, k, v, o, do)),
+           f"{name}: inputs must be 16-byte aligned (16-byte loads)")
+    _check(indices.dim() == 4 and tuple(indices.shape[:3]) == (b, hsel, nq)
+           and tuple(live_counts.shape) == (b, hsel, nq)
+           and tuple(tidx.shape) == (b, hsel, nq, nq) and tuple(tcnt.shape) == (b, hsel, nq),
+           f"{name}: selection shapes disagree with q")
+    scale = d ** -0.5 if scale is None else scale
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lse = torch.empty((b, hq, n), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    err = _lib().stem_block_sparse_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        indices.data_ptr(), live_counts.data_ptr(), tidx.data_ptr(), tcnt.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        b, hq, hk, int(group_dedup), n, d, dv_dim, bs, indices.shape[-1],
+        int(q.dtype == torch.bfloat16), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"stem_block_sparse_attention_bwd launch failed: cudaError {err}")
+    LAUNCHES["block_sparse_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, indices, live_counts, block_size, scale, group_dedup):
+        out = block_sparse_attention(q, k, v, indices, block_size=block_size,
+                                     scale=scale, group_dedup=group_dedup,
+                                     live_counts=live_counts)
+        ctx.save_for_backward(q, k, v, out, indices, live_counts)
+        ctx.args = (block_size, scale, group_dedup)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, indices, live_counts = ctx.saved_tensors
+        block_size, scale, group_dedup = ctx.args
+        dq, dk, dv = block_sparse_attention_bwd(
+            q, k, v, out, do.contiguous(), indices, live_counts,
+            block_size=block_size, scale=scale, group_dedup=group_dedup)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def attention(q, k, v, indices, live_counts, *, block_size: int, scale=None,
+              group_dedup: bool = False) -> torch.Tensor:
+    """Differentiable block-sparse causal attention:
+    ``block_sparse_attention`` forward, ``block_sparse_attention_bwd``
+    backward (kernels on a CUDA tensor, the plain versions on the CPU)."""
+    return _Attention.apply(q, k, v, indices, live_counts, block_size, scale,
+                            group_dedup)

@@ -41,6 +41,20 @@
 // query rows of a block, or the whole block where it is under 64 rows (the
 // engine's small configurations run block 8), and a block that is no
 // multiple of 64 stages its last sub-tile short, the missing keys masked.
+//
+// stem_block_sparse_attention_bwd is the gradient of the same function (the
+// TPU kernel has none: the reference trains through XLA's autodiff of its
+// gather executor), run by attn_bwd.cuh's two kernels on the fp32 CUDA
+// cores at every (q/k, v) head_dim pair and block size.
+// block_sparse_bwd_dq_kernel: one CTA per 64 query rows of a block (or the
+// block, under 64 rows) walks the row's live selected blocks as the forward
+// does.  block_sparse_bwd_dkdv_kernel: one CTA per 64 keys of a key block
+// of a KV head walks the transposed selection (tidx, tcnt: for each (batch,
+// selection row, key block) the query blocks whose live prefix holds it, in
+// increasing order, built by the wrapper), for each query head of the group
+// that reads that selection row, so a key block's gradient is summed in one
+// CTA in a fixed order.
+#include "attn_bwd.cuh"
 #include "attn_tile.cuh"
 #include "attn_wgmma.cuh"
 #include "head_dims.cuh"
@@ -182,6 +196,132 @@ int launch_wgmma(const void* q, const void* k, const void* v, const int* idx, co
   return (int)cudaGetLastError();
 }
 
+
+// Backward: the key tiles (<= 64 keys of one block) of the row's live
+// selected blocks that hold a key at or below the tile's last query row.
+struct SparseKeyTiles {
+  const int* ids;
+  int live, nq, bs, qlast, s, t;
+  __device__ __forceinline__ bool next(int& k0, int& krows) {
+    while (s < live) {
+      const int j = ids[s];
+      if (j >= 0 && j < nq && t < bs && j * bs + t <= qlast) {
+        k0 = j * bs + t;
+        krows = min(stem_bwd::kT, bs - t);
+        t += stem_bwd::kT;
+        return true;
+      }
+      ++s;
+      t = 0;
+    }
+    return false;
+  }
+};
+
+// grid (nq * tiles, hq, b), tiles = ceil(bs / 64)
+template <typename T, int D, int DV>
+__global__ void __launch_bounds__(stem_bwd::kThreads)
+block_sparse_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const T* __restrict__ o,
+                           const T* __restrict__ dout, const int* __restrict__ idx,
+                           const int* __restrict__ cnt, T* __restrict__ dq,
+                           float* __restrict__ lse, float* __restrict__ delta, int hq, int hk,
+                           int dedup, int n, int bs, int kmax, float scale) {
+  extern __shared__ float4 smem_raw[];
+  stem_bwd::Smem& sm = *reinterpret_cast<stem_bwd::Smem*>(smem_raw);
+  const int tiles = (bs + stem_bwd::kT - 1) / stem_bwd::kT;
+  const int i = blockIdx.x / tiles, sub = blockIdx.x - i * tiles;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (hq / hk);
+  const int nq = n / bs;
+  const long long row = ((long long)b * (dedup ? hk : hq) + (dedup ? kvh : h)) * nq + i;
+  const int q0 = i * bs + sub * stem_bwd::kT;
+  const int qrows = min(stem_bwd::kT, bs - sub * stem_bwd::kT);
+  const long long qrow0 = ((long long)b * hq + h) * n + q0;
+  const long long krow0 = ((long long)b * hk + kvh) * n;
+  const SparseKeyTiles tl{idx + row * kmax, min(cnt[row], kmax), nq, bs, q0 + qrows - 1, 0, 0};
+  stem_bwd::dq_tile<T, D, DV>(sm, q + qrow0 * D, o + qrow0 * DV, dout + qrow0 * DV,
+                              k + krow0 * D, v + krow0 * DV, dq + qrow0 * D, lse + qrow0,
+                              delta + qrow0, q0, qrows, tl, scale);
+}
+
+// grid (nq * tiles, hk, b); tidx (b, h_sel, nq, nq) and tcnt (b, h_sel, nq).
+template <typename T, int D, int DV>
+__global__ void __launch_bounds__(stem_bwd::kThreads, 1)
+block_sparse_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v, const T* __restrict__ dout,
+                             const int* __restrict__ tidx, const int* __restrict__ tcnt,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             T* __restrict__ dk, T* __restrict__ dv, int hq, int hk, int dedup,
+                             int n, int bs, float scale) {
+  extern __shared__ float4 smem_raw[];
+  stem_bwd::Smem& sm = *reinterpret_cast<stem_bwd::Smem*>(smem_raw);
+  const int tiles = (bs + stem_bwd::kT - 1) / stem_bwd::kT;
+  const int j = blockIdx.x / tiles, sub = blockIdx.x - j * tiles;
+  const int kvh = blockIdx.y, b = blockIdx.z, g = hq / hk;
+  const int nq = n / bs;
+  const int k0 = j * bs + sub * stem_bwd::kT;
+  const int krows = min(stem_bwd::kT, bs - sub * stem_bwd::kT);
+  const long long krow0 = ((long long)b * hk + kvh) * n + k0;
+  stem_bwd::KVAcc<D, DV> acc;
+  stem_bwd::init_acc(acc);
+  for (int hh = 0; hh < g; ++hh) {
+    const int h = kvh * g + hh;
+    const long long trow = ((long long)b * (dedup ? hk : hq) + (dedup ? kvh : h)) * nq + j;
+    const int* list = tidx + trow * nq;
+    const int count = min(tcnt[trow], nq);
+    const long long hrow = ((long long)b * hq + h) * n;
+    for (int u = 0; u < count; ++u) {
+      const int i = list[u];
+      if (i < 0 || i >= nq) continue;
+      for (int t = 0; t < bs; t += stem_bwd::kT) {
+        const int q0 = i * bs + t;
+        const int qrows = min(stem_bwd::kT, bs - t);
+        if (q0 + qrows - 1 < k0) continue;            // every row above these keys
+        stem_bwd::dkdv_step<T, D, DV>(sm, acc, k + krow0 * D, v + krow0 * DV, k0, krows,
+                                      q + (hrow + q0) * D, dout + (hrow + q0) * DV,
+                                      lse + hrow + q0, delta + hrow + q0, q0, qrows, scale);
+      }
+    }
+  }
+  stem_bwd::store_acc<D>(dk + krow0 * D, acc.dk, krows, scale);
+  stem_bwd::store_acc<DV>(dv + krow0 * DV, acc.dv, krows, 1.f);
+}
+
+template <typename T, int D, int DV>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
+               const int* idx, const int* cnt, const int* tidx, const int* tcnt, void* dq,
+               void* dk, void* dv, float* lse, float* delta, int b, int hq, int hk, int dedup,
+               int n, int bs, int kmax, float scale, cudaStream_t stream) {
+  cudaError_t err = stem_bwd::prepare(block_sparse_bwd_dq_kernel<T, D, DV>);
+  if (err == cudaSuccess) err = stem_bwd::prepare(block_sparse_bwd_dkdv_kernel<T, D, DV>);
+  if (err != cudaSuccess) return (int)err;
+  const int x = n / bs * ((bs + stem_bwd::kT - 1) / stem_bwd::kT);
+  block_sparse_bwd_dq_kernel<T, D, DV><<<dim3(x, hq, b), stem_bwd::kThreads,
+                                         sizeof(stem_bwd::Smem), stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout, idx, cnt, (T*)dq,
+      lse, delta, hq, hk, dedup, n, bs, kmax, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  block_sparse_bwd_dkdv_kernel<T, D, DV><<<dim3(x, hk, b), stem_bwd::kThreads,
+                                           sizeof(stem_bwd::Smem), stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, tidx, tcnt, lse, delta, (T*)dk,
+      (T*)dv, hq, hk, dedup, n, bs, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd_pair(const void* q, const void* k, const void* v, const void* o,
+                    const void* dout, const int* idx, const int* cnt, const int* tidx,
+                    const int* tcnt, void* dq, void* dk, void* dv, float* lse, float* delta,
+                    int b, int hq, int hk, int dedup, int n, int d, int dv_dim, int bs,
+                    int kmax, float scale, cudaStream_t stream) {
+  STEM_HEAD_DIM_PAIR_SWITCH(d, dv_dim, launch_bwd<T, D, DV>(q, k, v, o, dout, idx, cnt, tidx,
+                                                            tcnt, dq, dk, dv, lse, delta, b,
+                                                            hq, hk, dedup, n, bs, kmax, scale,
+                                                            stream))
+}
+
 }  // namespace
 
 extern "C" {
@@ -207,6 +347,31 @@ int stem_block_sparse_attention(const void* q, const void* k, const void* v,
                                       bs, kmax, scale, st);
   return launch_tile<float>(q, k, v, idx, cnt, out, b, hq, hk, dedup, n, d, dv, bs, kmax,
                             scale, st);
+}
+
+// The gradient of stem_block_sparse_attention: q, k, v, idx, cnt, bs,
+// kmax as there, o its output and dout o's gradient; tidx (b, h_sel, n/bs,
+// n/bs) and tcnt (b, h_sel, n/bs) int32 the transposed selection (the
+// first tcnt entries of a row are the query blocks whose live prefix holds
+// that key block, increasing); dq / dk / dv shaped as q / k / v in the same
+// dtype; lse and delta (b, hq, n) fp32 scratch; all contiguous.  Two
+// launches on the stream (dq and the row statistics, then dk and dv).
+int stem_block_sparse_attention_bwd(const void* q, const void* k, const void* v,
+                                    const void* o, const void* dout, const int* idx,
+                                    const int* cnt, const int* tidx, const int* tcnt,
+                                    void* dq, void* dk, void* dv, void* lse, void* delta,
+                                    int b, int hq, int hk, int dedup, int n, int d,
+                                    int dv_dim, int bs, int kmax, int is_bf16, float scale,
+                                    void* stream) {
+  if (hk <= 0 || hq % hk != 0 || bs <= 0 || n % bs != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (is_bf16)
+    return launch_bwd_pair<__nv_bfloat16>(q, k, v, o, dout, idx, cnt, tidx, tcnt, dq, dk, dv,
+                                          (float*)lse, (float*)delta, b, hq, hk, dedup, n, d,
+                                          dv_dim, bs, kmax, scale, st);
+  return launch_bwd_pair<float>(q, k, v, o, dout, idx, cnt, tidx, tcnt, dq, dk, dv,
+                                (float*)lse, (float*)delta, b, hq, hk, dedup, n, d, dv_dim,
+                                bs, kmax, scale, st);
 }
 
 }  // extern "C"

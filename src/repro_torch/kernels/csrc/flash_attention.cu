@@ -31,6 +31,15 @@
 // CUDA-core tile of attn_tile.cuh (64-row CTAs, fp32 products and probabilities:
 // within 1e-4 of the plain version in fp32, bf16 loads and stores around
 // the same fp32 math).
+//
+// stem_flash_attention_bwd is the gradient of the same function (the TPU
+// kernel has none: the reference trains through XLA's autodiff of its jnp
+// attention), run by attn_bwd.cuh's two kernels on the fp32 CUDA cores at
+// every (q/k, v) head_dim pair: flash_bwd_dq_kernel per 64 query rows over
+// the key tiles 0..its diagonal, flash_bwd_dkdv_kernel per 64 keys of a KV
+// head over the g query heads of its group and the query tiles from its
+// diagonal to the end.
+#include "attn_bwd.cuh"
 #include "attn_tile.cuh"
 #include "attn_wgmma.cuh"
 #include "head_dims.cuh"
@@ -169,6 +178,100 @@ wgmma_tile_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
     o_out[(row0 + 8 * ((i >> 1) & 1)) * wg::kD + 8 * (i >> 2) + 2 * t + (i & 1)] = acc[i];
 }
 
+
+// Backward: the key tiles 0..the diagonal of a query tile whose last row is
+// at position qlast.
+struct FlashKeyTiles {
+  int k0, qlast, n;
+  __device__ __forceinline__ bool next(int& k, int& krows) {
+    if (k0 >= n || k0 > qlast) return false;
+    k = k0;
+    krows = min(stem_bwd::kT, n - k0);
+    k0 += stem_bwd::kT;
+    return true;
+  }
+};
+
+// grid (ceil(n / 64), hq, b)
+template <typename T, int D, int DV>
+__global__ void __launch_bounds__(stem_bwd::kThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ o,
+                    const T* __restrict__ dout, T* __restrict__ dq, float* __restrict__ lse,
+                    float* __restrict__ delta, int hq, int hk, int n, float scale) {
+  extern __shared__ float4 smem_raw[];
+  stem_bwd::Smem& sm = *reinterpret_cast<stem_bwd::Smem*>(smem_raw);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (hq / hk);
+  const int q0 = blockIdx.x * stem_bwd::kT;
+  const int qrows = min(stem_bwd::kT, n - q0);
+  const long long qrow0 = ((long long)b * hq + h) * n + q0;
+  const long long krow0 = ((long long)b * hk + kvh) * n;
+  stem_bwd::dq_tile<T, D, DV>(sm, q + qrow0 * D, o + qrow0 * DV, dout + qrow0 * DV,
+                              k + krow0 * D, v + krow0 * DV, dq + qrow0 * D, lse + qrow0,
+                              delta + qrow0, q0, qrows, FlashKeyTiles{0, q0 + qrows - 1, n},
+                              scale);
+}
+
+// grid (ceil(n / 64), hk, b)
+template <typename T, int D, int DV>
+__global__ void __launch_bounds__(stem_bwd::kThreads, 1)
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      T* __restrict__ dk, T* __restrict__ dv, int hq, int hk, int n,
+                      float scale) {
+  extern __shared__ float4 smem_raw[];
+  stem_bwd::Smem& sm = *reinterpret_cast<stem_bwd::Smem*>(smem_raw);
+  const int kvh = blockIdx.y, b = blockIdx.z, g = hq / hk;
+  const int k0 = blockIdx.x * stem_bwd::kT;
+  const int krows = min(stem_bwd::kT, n - k0);
+  const long long krow0 = ((long long)b * hk + kvh) * n + k0;
+  stem_bwd::KVAcc<D, DV> acc;
+  stem_bwd::init_acc(acc);
+  for (int hh = 0; hh < g; ++hh) {
+    const long long hrow = ((long long)b * hq + kvh * g + hh) * n;
+    for (int q0 = k0; q0 < n; q0 += stem_bwd::kT)
+      stem_bwd::dkdv_step<T, D, DV>(sm, acc, k + krow0 * D, v + krow0 * DV, k0, krows,
+                                    q + (hrow + q0) * D, dout + (hrow + q0) * DV,
+                                    lse + hrow + q0, delta + hrow + q0, q0,
+                                    min(stem_bwd::kT, n - q0), scale);
+  }
+  stem_bwd::store_acc<D>(dk + krow0 * D, acc.dk, krows, scale);
+  stem_bwd::store_acc<DV>(dv + krow0 * DV, acc.dv, krows, 1.f);
+}
+
+template <typename T, int D, int DV>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
+               void* dq, void* dk, void* dv, float* lse, float* delta, int b, int hq, int hk,
+               int n, float scale, cudaStream_t stream) {
+  cudaError_t err = stem_bwd::prepare(flash_bwd_dq_kernel<T, D, DV>);
+  if (err == cudaSuccess) err = stem_bwd::prepare(flash_bwd_dkdv_kernel<T, D, DV>);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (n + stem_bwd::kT - 1) / stem_bwd::kT;
+  flash_bwd_dq_kernel<T, D, DV><<<dim3(tiles, hq, b), stem_bwd::kThreads,
+                                  sizeof(stem_bwd::Smem), stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout, (T*)dq, lse, delta,
+      hq, hk, n, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dkdv_kernel<T, D, DV><<<dim3(tiles, hk, b), stem_bwd::kThreads,
+                                    sizeof(stem_bwd::Smem), stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dk, (T*)dv, hq,
+      hk, n, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd_pair(const void* q, const void* k, const void* v, const void* o,
+                    const void* dout, void* dq, void* dk, void* dv, float* lse, float* delta,
+                    int b, int hq, int hk, int n, int d, int dv_dim, float scale,
+                    cudaStream_t stream) {
+  STEM_HEAD_DIM_PAIR_SWITCH(d, dv_dim, launch_bwd<T, D, DV>(q, k, v, o, dout, dq, dk, dv, lse,
+                                                            delta, b, hq, hk, n, scale,
+                                                            stream))
+}
+
 }  // namespace
 
 extern "C" {
@@ -203,6 +306,23 @@ int stem_wgmma_tile_products(const void* a, const void* b, const void* p, const 
   wgmma_tile_kernel<<<1, 256, stem_wg::kSmemBytes, (cudaStream_t)stream>>>(
       ta, tb, tv, (const __nv_bfloat16*)p, (float*)s, (float*)o);
   return (int)cudaGetLastError();
+}
+
+// The gradient of stem_flash_attention: q, k, v, o (its output), dout
+// (o's gradient) as there, dq / dk / dv shaped as q / k / v in the same
+// dtype, lse and delta (b, hq, n) fp32 scratch; all contiguous.  Two
+// launches on the stream (dq and the row statistics, then dk and dv).
+int stem_flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
+                             const void* dout, void* dq, void* dk, void* dv, void* lse,
+                             void* delta, int b, int hq, int hk, int n, int d, int dv_dim,
+                             int is_bf16, float scale, void* stream) {
+  if (hk <= 0 || hq % hk != 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (is_bf16)
+    return launch_bwd_pair<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, (float*)lse,
+                                          (float*)delta, b, hq, hk, n, d, dv_dim, scale, st);
+  return launch_bwd_pair<float>(q, k, v, o, dout, dq, dk, dv, (float*)lse, (float*)delta, b,
+                                hq, hk, n, d, dv_dim, scale, st);
 }
 
 }  // extern "C"

@@ -16,6 +16,16 @@ Beside the kernel sits its plain PyTorch version (``flash_attention_plain``)
 and a plain-int launch counter in ``LAUNCHES``.  The wrapper takes the plain
 version only for tensors on the CPU; for a CUDA tensor it launches the
 kernel or raises.
+
+The gradient (``flash_attention_bwd``, the training path's): the TPU kernel
+has none, as the reference trains through XLA's autodiff of its jnp dense
+attention, so the port's counterpart is a hand-written backward
+(``stem_flash_attention_bwd``, ``csrc/attn_bwd.cuh``: dq, then dk and dv,
+on the fp32 CUDA cores, no atomics) beside its plain version, the analytic
+backward ``dS = P * (dP - delta)`` (``flash_attention_bwd_plain``), and its
+own counter.  ``attention`` is the differentiable call
+(``torch.autograd.Function``): forward and backward both kernels on a CUDA
+tensor, both plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -27,11 +37,12 @@ from repro_torch.kernels import check_head_dim_pair
 
 NEG_INF = -1e30
 
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 
 def reset_launches() -> None:
-    LAUNCHES["flash_attention"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def _lib():
@@ -42,6 +53,8 @@ def _lib():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.stem_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, i, f, p]
         lib.stem_flash_attention.restype = i
+        lib.stem_flash_attention_bwd.argtypes = [p] * 10 + [i] * 7 + [f, p]
+        lib.stem_flash_attention_bwd.restype = i
         lib.stem_wgmma_tile_products.argtypes = [p] * 7
         lib.stem_wgmma_tile_products.restype = i
         lib._stem_typed = True
@@ -112,6 +125,102 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"stem_flash_attention launch failed: cudaError {err}")
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+def flash_attention_bwd_plain(q, k, v, o, do, *, scale=None) -> tuple:
+    """Plain version of the backward: with S = scale * q.k^T (causal), P =
+    softmax(S), delta = rowsum(do * o), dP = do.v^T and dS = P * (dP -
+    delta): dq = scale * dS.k, dk = scale * dS^T.q, dv = P^T.do, summed over
+    each KV head's query heads, in fp32, streamed over query-row chunks.
+    Returns (dq, dk, dv) in the inputs' dtype."""
+    b, hq, n, d = q.shape
+    hk, dv_dim = k.shape[1], v.shape[-1]
+    group = hq // hk
+    scale = d ** -0.5 if scale is None else scale
+    kf, vf = k.float(), v.float()
+    dq = torch.empty_like(q)
+    dk = torch.zeros((b, hk, n, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros((b, hk, n, dv_dim), dtype=torch.float32, device=q.device)
+    step = max(1, (1 << 26) // (b * hq * n))
+    for r0 in range(0, n, step):
+        r1 = min(n, r0 + step)
+        qg = q[:, :, r0:r1].float().reshape(b, hk, group, r1 - r0, d)
+        og = o[:, :, r0:r1].float().reshape(b, hk, group, r1 - r0, dv_dim)
+        dog = do[:, :, r0:r1].float().reshape(b, hk, group, r1 - r0, dv_dim)
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kf[:, :, :r1]) * scale
+        keep = (torch.arange(r1, device=q.device)[None, :]
+                <= torch.arange(r0, r1, device=q.device)[:, None])
+        p = torch.softmax(torch.where(keep, s, NEG_INF), dim=-1)
+        delta = (dog * og).sum(dim=-1, keepdim=True)
+        dp = torch.einsum("bhgqd,bhkd->bhgqk", dog, vf[:, :, :r1])
+        ds = p * (dp - delta)
+        dq[:, :, r0:r1] = (torch.einsum("bhgqk,bhkd->bhgqd", ds, kf[:, :, :r1])
+                           * scale).reshape(b, hq, r1 - r0, d).to(q.dtype)
+        dk[:, :, :r1] += torch.einsum("bhgqk,bhgqd->bhkd", ds, qg) * scale
+        dv[:, :, :r1] += torch.einsum("bhgqk,bhgqd->bhkd", p, dog)
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd(q, k, v, o, do, *, scale=None) -> tuple:
+    """The gradient of ``flash_attention``: (dq, dk, dv) for its inputs
+    q, k, v, its output o and o's gradient do.  CPU tensors take the plain
+    version; CUDA tensors launch the kernels (two launches, one count)."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, do, scale=scale)
+    _check(q.device.type == "cuda", f"flash_attention_bwd: unsupported device {q.device}")
+    b, hq, n, d = q.shape
+    hk, dv_dim = k.shape[1], v.shape[-1]
+    _check(all(t.device == q.device for t in (k, v, o, do)),
+           "flash_attention_bwd: all tensors must be on one device")
+    _check(q.dtype in (torch.float32, torch.bfloat16)
+           and all(t.dtype == q.dtype for t in (k, v, o, do)),
+           "flash_attention_bwd: q/k/v/o/do must share a float32 or bfloat16 dtype")
+    _check(all(t.is_contiguous() for t in (q, k, v, o, do)),
+           "flash_attention_bwd: inputs must be contiguous")
+    _check(tuple(k.shape) == (b, hk, n, d) and tuple(v.shape) == (b, hk, n, dv_dim)
+           and tuple(o.shape) == (b, hq, n, dv_dim) and do.shape == o.shape,
+           "flash_attention_bwd: needs seq_q == seq_k, equal q/k head dims, v of "
+           "shape (b, hk, n, dv) and o, do of shape (b, hq, n, dv)")
+    check_head_dim_pair("flash_attention_bwd", d, dv_dim)
+    _check(hk > 0 and hq % hk == 0, "flash_attention_bwd: kv heads must divide q heads")
+    _check(all(t.data_ptr() % 16 == 0 for t in (q, k, v, o, do)),
+           "flash_attention_bwd: inputs must be 16-byte aligned (16-byte loads)")
+    scale = d ** -0.5 if scale is None else scale
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lse = torch.empty((b, hq, n), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    err = _lib().stem_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        b, hq, hk, n, d, dv_dim, int(q.dtype == torch.bfloat16), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"stem_flash_attention_bwd launch failed: cudaError {err}")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out = flash_attention(q, k, v, scale=scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do.contiguous(), scale=ctx.scale)
+        return dq, dk, dv, None
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              scale=None) -> torch.Tensor:
+    """Differentiable causal flash attention: ``flash_attention`` forward,
+    ``flash_attention_bwd`` backward (kernels on a CUDA tensor, the plain
+    versions on the CPU)."""
+    return _Attention.apply(q, k, v, scale)
 
 
 def wgmma_tile_products(a: torch.Tensor, b: torch.Tensor, p: torch.Tensor,

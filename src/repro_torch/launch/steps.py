@@ -1,6 +1,6 @@
-"""Step functions (port of ``make_unified_step``, ``make_monolithic_prefill``,
-``make_prefill_step``, ``set_cache_positions`` and ``make_serve_step`` from
-``repro/launch/steps.py``, single device).  PyTorch runs eagerly, so each
+"""Step functions (port of ``make_train_step``, ``make_unified_step``,
+``make_monolithic_prefill``, ``make_prefill_step``, ``set_cache_positions``
+and ``make_serve_step`` from ``repro/launch/steps.py``, single device).  PyTorch runs eagerly, so each
 step is a plain closure; the reference's trace counting and mesh wrapping
 have no counterpart here, and the page extract / restore / copy steps are
 the engine's direct calls of ``runtime/offload.py`` and
@@ -9,8 +9,74 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import optim
 from repro_torch.core import policy as policy_lib
 from repro_torch.models import attention, mla, transformer
+from repro_torch.optim.adamw import tree_leaves, tree_map
+
+
+def loss_and_grads(bundle, master, batch: dict, *, stem_cfg=None, policies=None,
+                   remat: bool = True):
+    """(loss, metrics, gradient tree) of ``bundle.loss_fn`` at the fp32
+    ``master``: the forward reads every leaf cast to the config's dtype
+    (the fp32 embedding and router too, as the reference casts the whole
+    tree) and the gradient is taken with respect to the fp32 master,
+    through the cast.  A leaf the loss does not reach gets zeros, as under
+    JAX's autodiff."""
+    cfg = bundle.cfg
+    kw = {"policies": policies} if policies else {}
+    leaves = [m.detach().requires_grad_() for m in tree_leaves(master)]
+    it = iter(leaves)
+    params = tree_map(lambda _: next(it).to(cfg.torch_dtype), master)
+    loss, metrics = bundle.loss_fn(params, batch, stem_cfg=stem_cfg, remat=remat, **kw)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    git = iter(torch.zeros_like(m) if g is None else g for m, g in zip(leaves, grads))
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            tree_map(lambda _: next(git), master))
+
+
+def make_train_step(bundle, opt_cfg: optim.AdamWConfig, *, stem_cfg=None,
+                    policies=None, remat: bool = True, microbatches: int = 1,
+                    grad_shardings=None):
+    """(opt_state, batch) -> (opt_state, metrics).
+
+    The gradient of each (micro)batch is ``loss_and_grads``'s.  With
+    ``microbatches > 1`` the batch splits along its first axis, gradients
+    accumulate in fp32 and are divided, and the metrics are the last
+    microbatch's.  Then the gradient-compression cast and AdamW on the
+    master.  Metrics: the loss function's (``loss``, ``ce``, ``aux``,
+    ``mtp_ce``) and ``lr``, ``grad_norm``.  ``grad_shardings`` has no
+    one-device meaning: any value but None raises."""
+    if grad_shardings is not None:
+        raise ValueError("make_train_step: grad_shardings pins gradients to a "
+                         "mesh's optimizer shards; the port runs on one device "
+                         "(pass None)")
+
+    def grad_of(master, mb):
+        return loss_and_grads(bundle, master, mb, stem_cfg=stem_cfg,
+                              policies=policies, remat=remat)
+
+    def train_step(opt_state: optim.OptState, batch: dict):
+        if microbatches == 1:
+            loss, metrics, grads = grad_of(opt_state.master, batch)
+        else:
+            mbs = [{k: v.reshape((microbatches, v.shape[0] // microbatches)
+                                 + tuple(v.shape[1:]))[i] for k, v in batch.items()}
+                   for i in range(microbatches)]
+            grads = tree_map(torch.zeros_like, opt_state.master)
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=tree_leaves(grads)[0].device)
+            for mb in mbs:
+                l, metrics, g = grad_of(opt_state.master, mb)
+                grads = tree_map(torch.add, grads, g)
+                loss = loss + l
+            grads = tree_map(lambda g: g / microbatches, grads)
+            loss = loss / microbatches
+        grads = optim.adamw.compress_grads(grads, opt_cfg)
+        new_state, opt_metrics = optim.update(grads, opt_state, opt_cfg)
+        return new_state, {**metrics, **opt_metrics, "loss": loss}
+
+    return train_step
 
 
 def make_unified_step(bundle, *, stem_cfg, budget_frac: float = 1.0,

@@ -26,7 +26,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention, common, mlp
-from repro_torch.models.transformer import _index, _stack
+from repro_torch.models.transformer import _index, _remat, _stack
 
 MAX_DEC_POS = 65536   # rows of the learned decoder position table
 
@@ -77,20 +77,24 @@ def _layers(stacked: dict, n: int):
     return (_index(stacked, i) for i in range(n))
 
 
-@torch.no_grad()
-def encode(params, frames, cfg: ArchConfig):
+def encode(params, frames, cfg: ArchConfig, *, remat: bool = True):
     """frames: (b, F, d) stub embeddings -> (b, F, d) encoder states."""
     dtype = cfg.torch_dtype
     n = frames.shape[1]
     pos = common.sinusoidal_positions(n, cfg.d_model, device=frames.device)
     x = frames.to(dtype) + pos.to(dtype)
     positions = torch.arange(n, device=frames.device)
-    for layer in _layers(params["enc_layers"], cfg.encdec.encoder_layers):
+
+    def body(layer, x):
         h = common.layer_norm_simple(x, layer["norm1"])
         x = x + attention.apply_full(layer["attn"], h, cfg, positions=positions,
                                      use_rope=False, causal=False)
         h = common.layer_norm_simple(x, layer["norm2"])
-        x = x + mlp.apply(layer["ffn"], h, "gelu_mlp")
+        return x + mlp.apply(layer["ffn"], h, "gelu_mlp")
+
+    body = _remat(body, remat)
+    for layer in _layers(params["enc_layers"], cfg.encdec.encoder_layers):
+        x = body(layer, x)
     return common.layer_norm_simple(x, params["enc_norm"])
 
 
@@ -112,21 +116,25 @@ def _cross_ffn(layer, x, ck, cv, cfg: ArchConfig):
     return x + mlp.apply(layer["ffn"], h, "gelu_mlp")
 
 
-@torch.no_grad()
 def loss_fn(params, batch: dict, cfg: ArchConfig, *, stem_cfg=None,
             remat: bool = True):
     """batch: frames (b, F, d), tokens (b, s), labels (b, s), optional
-    loss_mask.  A forward-only evaluation pass (``remat`` is accepted for
-    the reference's signature).  Returns (ce, {"ce", "loss"})."""
-    enc = encode(params, batch["frames"], cfg)
+    loss_mask.  Differentiable; ``remat`` recomputes each encoder and
+    decoder layer in the backward pass.  Returns (ce, {"ce", "loss"})."""
+    enc = encode(params, batch["frames"], cfg, remat=remat)
     x = _dec_embed(params, batch["tokens"], cfg)
     positions = torch.arange(batch["tokens"].shape[1], device=x.device)
-    for layer in _layers(params["dec_layers"], cfg.num_layers):
+
+    def body(layer, x, enc):
         h = common.layer_norm_simple(x, layer["norm1"])
         x = x + attention.apply_full(layer["self_attn"], h, cfg,
                                      positions=positions, stem_cfg=stem_cfg,
                                      use_rope=False)
-        x = _cross_ffn(layer, x, *attention.cross_kv(layer["cross_attn"], enc), cfg)
+        return _cross_ffn(layer, x, *attention.cross_kv(layer["cross_attn"], enc), cfg)
+
+    body = _remat(body, remat)
+    for layer in _layers(params["dec_layers"], cfg.num_layers):
+        x = body(layer, x, enc)
     x = common.layer_norm_simple(x, params["final_norm"])
     logits = common.lm_logits(x, params["embed"])
     ce = common.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))

@@ -25,9 +25,11 @@ refuse them (``assert_paged_servable``), as the reference's do.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import chunked as chunked_lib
@@ -239,6 +241,7 @@ def _sublayer_full(params, x, cfg: ArchConfig, kind: str, *, positions,
 
 
 def _group_full(params, x, cfg, kinds, *, positions, stem_cfg):
+    """The layer group's sub-layers in order: (x, summed aux loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, k in enumerate(kinds):
         x, a = _sublayer_full(params[f"sub{i}"], x, cfg, k,
@@ -247,34 +250,46 @@ def _group_full(params, x, cfg, kinds, *, positions, stem_cfg):
     return x, aux
 
 
+def _remat(body, remat: bool):
+    """``body`` recomputed in the backward pass when ``remat`` and gradients
+    are on (``torch.utils.checkpoint``, as the reference wraps each scan
+    body in ``jax.checkpoint``: only the body's inputs stay alive)."""
+    if not (remat and torch.is_grad_enabled()):
+        return body
+    return lambda *args: torch.utils.checkpoint.checkpoint(body, *args,
+                                                           use_reentrant=False)
+
+
 def _run_segments(params, x, cfg: ArchConfig, *, positions, stem_cfg,
-                  policies=None):
+                  policies=None, remat: bool = False):
     """Every layer over the full sequence, each under its effective policy
-    (``policies`` overrides ``stem_cfg`` per layer group).  Returns
-    (x, summed aux loss)."""
+    (``policies`` overrides ``stem_cfg`` per layer group), each layer group
+    under ``_remat``.  Returns (x, summed aux loss)."""
     eff = _layer_policies(cfg, stem_cfg, policies)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     off = 0
     for si, (n, kinds) in enumerate(layer_program(cfg)):
         seg = params[f"segment{si}"]
         for layer in range(n):
-            x, a = _group_full(_index(seg, layer), x, cfg, kinds,
-                               positions=positions, stem_cfg=eff[off + layer])
+            body = _remat(functools.partial(
+                _group_full, cfg=cfg, kinds=kinds, positions=positions,
+                stem_cfg=eff[off + layer]), remat)
+            x, a = body(_index(seg, layer), x)
             aux_total = aux_total + a
         off += n
     return x, aux_total
 
 
-@torch.no_grad()
 def loss_fn(params, batch: dict, cfg: ArchConfig, *, stem_cfg=None,
             remat: bool = True, policies=None):
     """Next-token CE.  batch: tokens (b, s), labels (b, s), optional
     loss_mask (b, s).  Returns (loss, {"ce", "aux", "loss"}).
 
-    A forward-only evaluation pass: the kernels have no backward, so it
-    runs under ``torch.no_grad``.  ``remat`` is accepted for the
-    reference's signature and has no effect (there are no activations kept
-    for a backward pass).  ``stem_cfg`` is any policy spelling;
+    Differentiable (the training step's forward): the attention kernels'
+    backward is hand-written (``kernels.flash_attention.attention``,
+    ``kernels.block_sparse_attn.attention``).  ``remat`` recomputes each
+    layer group in the backward pass (``_run_segments``); it changes no
+    value.  ``stem_cfg`` is any policy spelling;
     ``policies`` optionally overrides it per layer group ({index: policy}).
     With ``cfg.mtp`` the multi-token-prediction head adds ``mtp_weight *
     mtp_ce``: the final hidden state at t (normed) and the embedding of
@@ -283,7 +298,7 @@ def loss_fn(params, batch: dict, cfg: ArchConfig, *, stem_cfg=None,
     x = _embed_inputs(params, batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     x, aux = _run_segments(params, x, cfg, positions=positions,
-                           stem_cfg=stem_cfg, policies=policies)
+                           stem_cfg=stem_cfg, policies=policies, remat=remat)
     txt_len = batch["tokens"].shape[1]
     x_txt = x[:, -txt_len:]
     logits = _logits(params, x_txt, cfg)

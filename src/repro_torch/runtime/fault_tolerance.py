@@ -1,7 +1,12 @@
-"""Failure injection (port of ``InjectedFailure`` and ``FailureInjector``
-from ``repro/runtime/fault_tolerance.py``).  The training path's restart
-harness, ``run_with_restarts``, arrives with the training port."""
+"""Failure injection and restart-from-checkpoint orchestration (port of
+``repro/runtime/fault_tolerance.py``): ``FailureInjector`` raises at
+configured steps; ``run_with_restarts`` wraps a training function that
+restores from its latest checkpoint on entry and may die at any step, and
+restarts it, with the checkpoint manager and the seekable data pipeline
+making the continuation bit-identical."""
 from __future__ import annotations
+
+from typing import Callable, Optional
 
 
 class InjectedFailure(RuntimeError):
@@ -31,3 +36,23 @@ class FailureInjector:
     def maybe_fail(self, step: int) -> None:
         if self.should_fail(step):
             raise InjectedFailure(f"injected node failure at step {step}")
+
+
+def run_with_restarts(train_fn: Callable[[], object], max_restarts: int = 3,
+                      on_restart: Optional[Callable[[int, Exception], None]] = None):
+    """Run ``train_fn`` to completion, restarting it after an
+    ``InjectedFailure``, at most ``max_restarts`` times (the single-process
+    analogue of a cluster controller rescheduling a failed job).
+
+    ``train_fn`` must be restart-safe: it restores state from its checkpoint
+    manager at entry.  Returns train_fn's result."""
+    attempt = 0
+    while True:
+        try:
+            return train_fn()
+        except InjectedFailure as e:   # noqa: PERF203
+            attempt += 1
+            if attempt > max_restarts:
+                raise
+            if on_restart:
+                on_restart(attempt, e)

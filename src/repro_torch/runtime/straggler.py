@@ -1,18 +1,21 @@
 """Straggler detection: per-step wall-time EMA with outlier flagging (port
 of ``repro/runtime/straggler.py``).  The engine times every working step
-and counts the flagged ones."""
+and counts the flagged ones; the training CLI reports them through
+``on_straggler``."""
 from __future__ import annotations
 
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 
 class StragglerMonitor:
     def __init__(self, threshold: float = 2.5, ema_decay: float = 0.9,
-                 warmup_steps: int = 3):
+                 warmup_steps: int = 3,
+                 on_straggler: Optional[Callable[[int, float, float], None]] = None):
         self.threshold = threshold
         self.ema_decay = ema_decay
         self.warmup_steps = warmup_steps
+        self.on_straggler = on_straggler
         self.ema: Optional[float] = None
         self.count = 0
         self.flagged: list = []          # (step, dt, ema at the time)
@@ -42,6 +45,8 @@ class StragglerMonitor:
             if dt > self.threshold * self.ema:
                 is_straggler = True
                 self.flagged.append((step, dt, self.ema))
+                if self.on_straggler:
+                    self.on_straggler(step, dt, self.ema)
         # Outliers don't poison the baseline.
         if self.ema is None:
             self.ema = dt

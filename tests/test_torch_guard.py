@@ -1,6 +1,7 @@
 """The port stands alone: no file of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports JAX or the reference package ``repro``, and
-importing ``repro_torch`` pulls no JAX into the process."""
+``chip_smoke.py`` imports JAX, the reference package ``repro`` or
+``ml_dtypes`` (the card's machine has none), and importing ``repro_torch``
+pulls none of them into the process."""
 import ast
 import os
 import pathlib
@@ -15,7 +16,7 @@ FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smo
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -41,9 +42,14 @@ def test_import_leaves_jax_out():
             "repro_torch.weights, repro_torch.models.ssd, repro_torch.models.rglru, "
             "repro_torch.models.encdec, repro_torch.core.baselines, "
             "repro_torch.configs.mamba2_370m, repro_torch.configs.recurrentgemma_2b, "
-            "repro_torch.configs.whisper_medium, repro_torch.configs.pixtral_12b; "
+            "repro_torch.configs.whisper_medium, repro_torch.configs.pixtral_12b, "
+            "repro_torch.optim, repro_torch.optim.adamw, repro_torch.data, "
+            "repro_torch.data.pipeline, repro_torch.checkpoint, "
+            "repro_torch.checkpoint.manager, repro_torch.runtime.fault_tolerance, "
+            "repro_torch.runtime.straggler, repro_torch.launch.train; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
+            "('jax', 'jaxlib', 'repro', 'ml_dtypes')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import HEAD_DIM_PAIRS
 from repro_torch.kernels import block_sparse_attn as t_bsa
 from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels import paged_attn as t_kern
@@ -1361,3 +1362,157 @@ def test_reduced_families_on_card(cuda, arch):
             rec.check()
     torch.testing.assert_close(runs["cuda"], runs["cpu"], atol=1e-4, rtol=0)
     assert torch.equal(runs["cuda"].argmax(-1), runs["cpu"].argmax(-1))
+
+
+# ---------------------------------------------------------------------------
+# the training path: the attention backward kernels and loss_fn gradients
+# ---------------------------------------------------------------------------
+
+def _grad_rule(got, want):
+    """Each of (dq, dk, dv) within the forward's rule (fp32 1e-4 abs; bf16 2
+    ulps + 1e-3 * the row's max|plain|: the backward keeps P in fp32) plus,
+    in bf16, 1e-4 * the tensor's max|plain|: a row whose gradient cancels
+    (a query row that sees one key has dS = dP - delta = 0 up to the fp32
+    sums' rounding, taken in other orders by the kernel and the plain
+    version) is ~1e-7 of the tensor's scale in one and ~0 in the other."""
+    for g, w in zip(got, want):
+        if g.dtype == torch.float32:
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
+            continue
+        g, w = g.float(), w.float()
+        limit = tolerance(w, torch.bfloat16) + 1e-4 * w.abs().max()
+        diff = (g - w).abs()
+        assert bool((diff <= limit).all()), f"max |kernel - plain| = {float(diff.max())}"
+
+
+def _causal_selection(gen, b, hs, nq, kmax, device):
+    """Random causal selections: a live prefix of 0..min(kmax, i + 1)
+    distinct blocks (row 1 of every head at cnt 0), the dead slots
+    revisit-filled with the first live block."""
+    idx = torch.zeros((b, hs, nq, kmax), dtype=torch.int32)
+    cnt = torch.zeros((b, hs, nq), dtype=torch.int32)
+    for bb in range(b):
+        for h in range(hs):
+            for i in range(nq):
+                c = 0 if i == 1 else int(torch.randint(1, min(kmax, i + 1) + 1, (),
+                                                       generator=gen))
+                live = torch.randperm(i + 1, generator=gen)[:c]
+                idx[bb, h, i, :c] = live.to(torch.int32)
+                idx[bb, h, i, c:] = int(live[0]) if c else 0
+                cnt[bb, h, i] = c
+    return idx.to(device), cnt.to(device)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pair", HEAD_DIM_PAIRS, ids=lambda p: f"{p[0]}-{p[1]}")
+def test_backward_kernels_match_plain_on_card(cuda, pair, dtype):
+    """Both backward kernels at every (q/k, v) head_dim pair of
+    HEAD_DIM_PAIRS against their plain versions: flash at a length that is
+    no multiple of the 64-row tile (GQA group 2), block-sparse at blocks 16
+    and 128 with and without group_dedup (revisit-filled dead slots, cnt ==
+    0 rows); two calls bitwise equal (no atomics); the plain backward
+    rejects a planted dropped key block on the transposed selection."""
+    d, dv = pair
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(d * 7 + dv)
+    b, hq, hk = 2, 4, 2
+    for n in (200, 256):
+        q, k, v, do = (torch.randn(s, generator=gen).to(cuda, dt) for s in
+                       ((b, hq, n, d), (b, hk, n, d), (b, hk, n, dv), (b, hq, n, dv)))
+        o = t_fa.flash_attention(q, k, v)
+        got = t_fa.flash_attention_bwd(q, k, v, o, do)
+        again = t_fa.flash_attention_bwd(q, k, v, o, do)
+        _grad_rule(got, t_fa.flash_attention_bwd_plain(q, k, v, o, do))
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+    for bs, dedup in ((16, True), (128, False), (64, False)):
+        nq = n // bs
+        idx, cnt = _causal_selection(gen, b, hk if dedup else hq, nq, 4, cuda)
+        kw = dict(block_size=bs, group_dedup=dedup)
+        o = t_bsa.block_sparse_attention(q, k, v, idx, live_counts=cnt, **kw)
+        got = t_bsa.block_sparse_attention_bwd(q, k, v, o, do, idx, cnt, **kw)
+        again = t_bsa.block_sparse_attention_bwd(q, k, v, o, do, idx, cnt, **kw)
+        want = t_bsa.block_sparse_attention_bwd_plain(q, k, v, o, do, idx, cnt, **kw)
+        _grad_rule(got, want)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+        # dropping one (query block, key block) pair from the transposed
+        # selection must show in that key block's dk / dv
+        tidx, tcnt = t_bsa.transpose_selection(idx, cnt, nq)
+        j = int(tcnt[0, 0].argmax())
+        if int(tcnt[0, 0, j]) >= 1:
+            faulted = tcnt.clone()
+            faulted[0, 0, j] -= 1
+            bad = t_bsa.block_sparse_attention_bwd(q, k, v, o, do, idx, cnt,
+                                                   transposed=(tidx, faulted), **kw)
+            with pytest.raises(AssertionError):
+                _grad_rule(bad[1:2], want[1:2])
+            with pytest.raises(AssertionError):
+                _grad_rule(bad[2:], want[2:])
+
+
+def test_backward_kernels_raise_outside_pairs_on_card(cuda):
+    """A (q/k, v) pair outside HEAD_DIM_PAIRS raises ValueError in both
+    backward wrappers: no fallback to the plain version."""
+    idx = torch.zeros((1, 2, 2, 1), dtype=torch.int32, device=cuda)
+    cnt = torch.ones((1, 2, 2), dtype=torch.int32, device=cuda)
+    for d, dv in ((192, 64), (48, 48)):
+        qk = torch.zeros((1, 2, 256, d), device=cuda)
+        v = torch.zeros((1, 2, 256, dv), device=cuda)
+        with pytest.raises(ValueError, match="head_dim"):
+            t_fa.flash_attention_bwd(qk, qk, v, v, v)
+        with pytest.raises(ValueError, match="head_dim"):
+            t_bsa.block_sparse_attention_bwd(qk, qk, v, v, v, idx, cnt, block_size=128)
+
+
+@pytest.mark.parametrize("arch,stem", [
+    ("qwen3-0.6b", False), ("qwen3-0.6b", True), ("arctic-480b", True),
+    ("deepseek-v3-671b", True), ("mamba2-370m", False), ("recurrentgemma-2b", False),
+    ("whisper-medium", True), ("pixtral-12b", True)])
+def test_reduced_loss_fn_gradients_on_card(cuda, monkeypatch, arch, stem):
+    """Each family's reduced config in fp32: the train step's loss and
+    gradient (``steps.loss_and_grads``) on the card, through the attention
+    kernels in both directions, equal the CPU's (the plain versions) within
+    1e-4 of each leaf's max|g|; the backward kernels launched wherever the
+    family's attention runs them, and no plain backward called on the
+    card."""
+    from repro_torch import configs as t_configs
+    from repro_torch.core.config import StemConfig
+    from repro_torch.launch import steps as t_steps
+    from repro_torch.models import registry as t_registry
+    from repro_torch.optim.adamw import tree_leaves
+    cfg = t_configs.reduced(t_configs.get_config(arch)).replace(dtype="float32")
+    bundle = t_registry.build(cfg)
+    master = bundle.init_params(torch.Generator().manual_seed(0), device="cpu")
+    pol = StemConfig(block_size=16, min_budget_blocks=2, sink_blocks=1, local_blocks=1,
+                     stride=4) if stem else None
+    rng = np.random.RandomState(5)
+    batch = {"tokens": torch.as_tensor(rng.randint(0, cfg.vocab_size, size=(2, 64))),
+             "labels": torch.as_tensor(rng.randint(0, cfg.vocab_size, size=(2, 64)))}
+    if arch == "whisper-medium":
+        batch["frames"] = torch.as_tensor(rng.randn(2, 16, 64).astype(np.float32))
+    if arch == "pixtral-12b":
+        batch = {k: v[:, :48] for k, v in batch.items()}
+        batch["patch_embeds"] = torch.as_tensor(rng.randn(2, 16, 64).astype(np.float32))
+    plain = []
+    for mod, fn in ((t_fa, "flash_attention_bwd_plain"),
+                    (t_bsa, "block_sparse_attention_bwd_plain")):
+        orig = getattr(mod, fn)
+        monkeypatch.setattr(mod, fn, lambda *a, orig=orig, **kw: plain.append(1)
+                            or orig(*a, **kw))
+    runs = {}
+    for device in (cuda, torch.device("cpu")):
+        for mod in (t_bsa, t_fa, t_sm):
+            mod.reset_launches()
+        loss, _, grads = t_steps.loss_and_grads(
+            bundle, _to_device(master, device), _to_device(batch, device), stem_cfg=pol)
+        runs[device.type] = (float(loss), [g.cpu() for g in tree_leaves(grads)])
+        if device.type == "cuda":
+            assert not plain
+            attn = cfg.family not in ("ssm", "hybrid")
+            if attn and stem:
+                assert t_bsa.LAUNCHES["block_sparse_attention_bwd"] > 0
+            if attn and (not stem or cfg.mtp):
+                assert t_fa.LAUNCHES["flash_attention_bwd"] > 0
+    (lc, gc), (lp, gp) = runs["cuda"], runs["cpu"]
+    assert abs(lc - lp) <= 1e-5 * abs(lp)
+    for a, w in zip(gc, gp):
+        assert float((a - w).abs().max()) <= 1e-4 * max(float(w.abs().max()), 1e-30)
