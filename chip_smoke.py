@@ -271,20 +271,28 @@ Phases:
                 attention at the training shapes of full-width qwen3-0.6b
                 (b 2, 16 q / 8 KV heads, d 128, n 4096; block-sparse under
                 the CLI's --stem geometry: block 128, stride 4, sink 1,
-                local 1, min budget 2) against their plain backward in fp32
-                (1e-4 abs) and bf16 (2 ulps + 1e-3 * the row's max|plain|:
-                P stays fp32), two calls bitwise equal (no atomics), the
-                bf16 rule rejecting a (query block, key block) pair dropped
-                from the transposed selection, bf16 timed beside the bound
-                (2 * (3 d + 2 dv) flops a causal pair), SDPA's backward
-                (flash) and a compiled flex_attention's (block-sparse);
-                MLA's (192, 128) and whisper's d 64 checked once each.
-                (b) The CLI's main() on full-width qwen3-0.6b, bf16, 28
-                layers, --seq 4096 --batch 2 --steps 12, dense and --stem:
-                the loss finite and the mean of the last 3 steps below the
-                first 3; counters zeroed before and read after (dense:
-                flash forward and backward; stem: block-sparse forward and
-                backward, pool, vmag); no plain attention version called;
+                local 1, min budget 2), fed the forward's saved
+                log-sum-exp (held against the plain forward's): fp32 on
+                the CUDA-core route against the plain backward (1e-4 abs),
+                bf16 on the tensor-core route (wgmma; P and dS rounded to
+                bf16) under the p_bf16 gradient rule (2 ulps + 1e-2 * the
+                row's max|plain| + 1e-4 * the tensor's max), two calls
+                bitwise equal (no atomics), the rule rejecting a (query
+                block, key block) pair dropped from the transposed
+                selection (dk / dv) and a selected block dropped from a
+                row (dq); both routes timed beside the bound (2 * (3 d + 2
+                dv) flops a causal pair), bf16 beside SDPA's backward
+                (flash) and a compiled flex_attention's (block-sparse), and
+                each wgmma kernel's own device time (torch.profiler);
+                MLA's (192, 128) and whisper's d 64 checked once each on
+                the CUDA-core route.  (b) The CLI's main() on full-width
+                qwen3-0.6b, bf16, 28 layers, --seq 4096 --batch 2 --steps
+                12, dense and --stem: the loss finite and the mean of the
+                last 3 steps below the first 3; counters zeroed before and
+                read after (dense: flash forward and backward, the wgmma
+                route's counter too; stem: block-sparse forward and
+                backward and its wgmma counter, pool, vmag); no plain
+                attention version called;
                 ms a step, tokens/s, peak memory, the backward kernels'
                 share of the step (CUDA events around each call).  (c) fp32
                 at full width with the depth cut to 4 layers: one step's
@@ -334,7 +342,7 @@ from repro_torch.kernels import flash_attention as flash_kern  # noqa: E402
 from repro_torch.kernels import paged_attn as kern  # noqa: E402
 from repro_torch.kernels import replay  # noqa: E402
 from repro_torch.kernels import stem_metric as metric_kern  # noqa: E402
-from repro_torch.kernels.replay import tolerance  # noqa: E402
+from repro_torch.kernels.replay import grad_tolerance, tolerance  # noqa: E402
 from repro_torch.launch import serve as serve_lib  # noqa: E402
 from repro_torch.launch import steps as steps_lib  # noqa: E402
 from repro_torch.models import attention as attention_lib  # noqa: E402
@@ -3656,6 +3664,13 @@ TRAIN_SOURCES = {"flash_attention_bwd": (flash_kern, "flash_attention.cu",
                  "block_sparse_attention_bwd": (bsa_kern, "block_sparse_attn.cu",
                                                 "src/repro/kernels/block_sparse_attn.py:52",
                                                 "src/repro/core/sparse_attention.py:166")}
+# The tensor-core backward kernels: (kernel name, the wrapper that launches
+# it and keys its counters, its part of the backward: "dq" = S, dP, dQ and
+# delta; "dkdv" = S, dP, dV, dK).
+BWD_WGMMA = (("flash_bwd_dq_wgmma_kernel", "flash_attention_bwd", "dq"),
+             ("flash_bwd_dkdv_wgmma_kernel", "flash_attention_bwd", "dkdv"),
+             ("block_sparse_bwd_dq_wgmma_kernel", "block_sparse_attention_bwd", "dq"),
+             ("block_sparse_bwd_dkdv_wgmma_kernel", "block_sparse_attention_bwd", "dkdv"))
 PLAIN_FNS = ((flash_kern, "flash_attention_plain"), (flash_kern, "flash_attention_bwd_plain"),
              (bsa_kern, "block_sparse_attention_plain"),
              (bsa_kern, "block_sparse_attention_bwd_plain"))
@@ -3668,35 +3683,39 @@ def cli_stem_policy(seq: int):
                       sink_blocks=1, local_blocks=1, stride=4).policy()
 
 
-def grad_limit(want: torch.Tensor, dtype) -> torch.Tensor:
-    """The limit of |kernel - plain| per element of an attention gradient:
-    phase 3's rule (fp32 1e-4 abs; bf16 2 ulps + 1e-3 * the row's
-    max|plain|: the backward keeps P in fp32) plus, in bf16, 1e-4 * the
-    tensor's max|plain|.  That floor covers rows whose gradient cancels: a
-    query row that sees one key has dS = dP - delta = 0 up to the fp32 sums'
-    rounding, which the kernel and the plain version take in other orders,
-    so such a row is ~1e-7 of the tensor's scale in one and ~0 in the
-    other."""
-    if dtype == torch.float32:
-        return tolerance(want, dtype)
-    return tolerance(want, dtype) + 1e-4 * want.abs().max()
-
-
-def check_grads(name: str, got: tuple, want: tuple) -> float:
-    """Each of (dq, dk, dv) against the plain backward under ``grad_limit``;
-    returns the max |kernel - plain|."""
+def check_grads(name: str, got: tuple, want: tuple, p_bf16: bool = False) -> float:
+    """Each of (dq, dk, dv) against the plain backward under
+    ``replay.grad_tolerance`` (p_bf16: the tensor-core route, which rounds
+    P and dS to bf16); returns the max |kernel - plain|."""
     worst = 0.0
     for part, g, w in zip(("dq", "dk", "dv"), got, want):
         g, w = g.float(), w.float()
         if not torch.isfinite(g).all():
             raise AssertionError(f"{name}/{part}: kernel output not finite")
         diff = (g - w).abs()
-        over = float((diff / grad_limit(w, got[0].dtype)).max())
+        over = float((diff / grad_tolerance(w, got[0].dtype, p_bf16)).max())
+        if p_bf16:
+            log(f"[train] {name}/{part}: max |kernel - plain| / limit {over:.3f}")
         if not over <= 1:
             raise AssertionError(f"{name}/{part}: max |kernel - plain| = "
                                  f"{float(diff.max())}, {over:.2f}x its limit")
         worst = max(worst, float(diff.max()))
     return worst
+
+
+def check_lse(name: str, got: torch.Tensor, want: torch.Tensor) -> None:
+    """The forward kernel's saved log-sum-exp against the plain forward's:
+    +inf in the same rows (no key seen), elsewhere within 1e-5 of its
+    scale (the same fp32 row sums taken in another order)."""
+    inf = torch.isinf(want)
+    if not torch.equal(torch.isinf(got), inf) or not bool((got[inf] > 0).all()):
+        raise AssertionError(f"{name}: the saved lse's +inf rows differ")
+    err = float((got - want)[~inf].abs().max())
+    limit = 1e-5 * float(want[~inf].abs().max())
+    log(f"[train] {name} lse: max |kernel - plain| {err:.3e} (limit {limit:.3e}); "
+        f"{int(inf.sum())} rows saw no key")
+    if not err <= limit:
+        raise AssertionError(f"{name}: the saved lse disagrees with the plain forward's")
 
 
 def check_library_bwd(name: str, lib: tuple, want: tuple) -> None:
@@ -3712,17 +3731,52 @@ def check_library_bwd(name: str, lib: tuple, want: tuple) -> None:
             raise AssertionError(f"{name} {part}: library call disagrees")
 
 
-def bwd_bytes_flops(q, k, v, pairs: float, extra_bytes: float = 0.0):
-    """Bytes (q, k, v, o, do read once; dq, dk, dv written once) and flops
-    (S and dP recomputed, dV, dK, dQ: 2 * (3 d + 2 dv) a causal pair) of
-    one attention backward."""
+def bwd_bytes_flops(q, k, v, pairs: float, extra_bytes: float = 0.0, part: str = "both"):
+    """Bytes and flops of one attention backward, or of one of its two
+    kernels.  Both: q, k, v, o, do and the lse read once, dq, dk, dv
+    written once; S, dP, dV, dK, dQ, 2 * (3 d + 2 dv) flops a causal pair.
+    "dq": q, k, v, o, do, lse read, dq and delta written; S, dP, dQ (2 *
+    (2 d + dv)).  "dkdv": q, k, v, do, lse, delta read, dk and dv written;
+    S, dP, dV, dK (2 * (2 d + 2 dv))."""
     es, d, dv = q.element_size(), q.shape[-1], v.shape[-1]
-    nbytes = 2 * (q.numel() + k.numel() + v.numel()) * es \
-        + 2 * q.numel() * dv // d * es + extra_bytes
-    return nbytes, 2.0 * (3 * d + 2 * dv) * pairs
+    rows = q.numel() // d * 4                      # one fp32 a query row
+    qo = q.numel() * dv // d * es                  # o or do
+    kv = (k.numel() + v.numel()) * es
+    if part == "dq":
+        return 2 * q.numel() * es + kv + 2 * qo + 2 * rows + extra_bytes, \
+            2.0 * (2 * d + dv) * pairs
+    if part == "dkdv":
+        return q.numel() * es + 2 * kv + qo + 2 * rows + extra_bytes, \
+            2.0 * (2 * d + 2 * dv) * pairs
+    return 2 * (q.numel() * es + kv + qo) + rows + extra_bytes, 2.0 * (3 * d + 2 * dv) * pairs
 
 
-def rejects_dropped_transposed_block(q, k, v, o, do, idx, cnt, bs, want) -> None:
+def kernel_device_ms(fn, names, iters: int = 5) -> dict:
+    """Each named kernel's device ms per launch over `iters` calls of fn,
+    from torch.profiler's CUDA rows (the wgmma backward's two kernels run
+    back to back in one wrapper call, so CUDA events would see only their
+    sum).  Raises if a name has no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None)
+        t = ev.cuda_time_total if t is None else t
+        for name in names:
+            if re.search(rf"\b{name}\b", ev.key) and ev.count and t > 0:
+                out[name] = t / ev.count / 1e3
+    missing = [n for n in names if n not in out]
+    if missing:
+        raise AssertionError(f"no device time in the profile for {missing}")
+    return out
+
+
+def rejects_dropped_transposed_block(q, k, v, o, do, idx, cnt, bs, want, lse) -> None:
     """The bf16 rule must see a missing pair: the block-sparse backward with
     one (query block, key block) pair dropped from the transposed selection
     (batch 0, KV head 0's first query head, the key block with the longest
@@ -3735,12 +3789,13 @@ def rejects_dropped_transposed_block(q, k, v, o, do, idx, cnt, bs, want) -> None
     faulted = tcnt.clone()
     faulted[0, 0, j] -= 1
     got = bsa_kern.block_sparse_attention_bwd(q, k, v, o, do, idx, cnt, block_size=bs,
-                                              transposed=(tidx, faulted))
+                                              transposed=(tidx, faulted), lse=lse)
     rows = slice(j * bs, (j + 1) * bs)
     bad = []
     for g, w in zip(got[1:], want[1:]):
         g, w = g[0, 0, rows].float(), w[0, 0, rows].float()
-        bad.append(int(((g - w).abs() / grad_limit(w, torch.bfloat16)).gt(1).any(-1).sum()))
+        limit = grad_tolerance(w, torch.bfloat16, p_bf16=True)
+        bad.append(int(((g - w).abs() / limit).gt(1).any(-1).sum()))
     log(f"[train] block_sparse_attention_bwd with query block "
         f"{int(tidx[0, 0, j, int(tcnt[0, 0, j]) - 1])} dropped from key block {j}'s "
         f"list: {bad[0]} dk rows and {bad[1]} dv rows of {bs} over the limit")
@@ -3749,12 +3804,56 @@ def rejects_dropped_transposed_block(q, k, v, o, do, idx, cnt, bs, want) -> None
                              "dropped key block")
 
 
+def rejects_dropped_selected_block(q, k, v, o, do, idx, cnt, bs, want, lse) -> None:
+    """The dq side of the same: the backward with the last live block
+    dropped from every selection row with two or more (the forward's o and
+    lse unchanged) must put most of those query blocks' dq rows over the
+    p_bf16 rule."""
+    faulted = cnt >= 2
+    got = bsa_kern.block_sparse_attention_bwd(
+        q, k, v, o, do, idx, torch.where(faulted, cnt - 1, cnt).to(torch.int32),
+        block_size=bs, lse=lse)[0].float()
+    w = want[0].float()
+    over = ((got - w).abs() / grad_tolerance(w, torch.bfloat16, p_bf16=True)).gt(1).any(-1)
+    over = over.reshape(over.shape[0], over.shape[1], -1, bs)         # (b, h, nq, bs)
+    bad = int(over[faulted].sum())
+    rows = int(faulted.sum()) * bs
+    log(f"[train] block_sparse_attention_bwd with the last live block dropped from each "
+        f"row with two or more: {bad} of {rows} such dq rows over the limit")
+    if not 2 * bad > rows:
+        raise AssertionError("block_sparse_attention_bwd: the bf16 rule passes a "
+                             "dropped selected block (dq)")
+
+
+def rec_bwd_kernels(records, run_k, key, q, k, v, pairs, extra_bytes, plain_ms, err):
+    """Each tensor-core backward kernel of `key`'s wrapper timed alone (its
+    profiled device ms) beside its bound: the dq kernel's work (S, dP, dQ)
+    and the dk / dv kernel's (S, dP, dV, dK) of this call."""
+    names = [name for name, wrapper, _ in BWD_WGMMA if wrapper == key]
+    ms = kernel_device_ms(run_k, names)
+    for name, wrapper, part in BWD_WGMMA:
+        if wrapper != key:
+            continue
+        bound_ms, bound_by = bound(*bwd_bytes_flops(q, k, v, pairs, extra_bytes, part),
+                                   torch.bfloat16)
+        log(f"[kernels] {name}/train bfloat16: {ms[name]:.4f} ms (profiled), bound "
+            f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms[name]:.3f} of bound")
+        records.setdefault(f"{name}/train", {})["bfloat16"] = dict(
+            max_abs_err=err, ms=ms[name], host_ms=None, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            tflops=bwd_bytes_flops(q, k, v, pairs, 0.0, part)[1] / ms[name] * 1e-9)
+
+
 def train_kernel_phase(records: dict, sizes: dict = P15, dev=torch.device("cuda")) -> None:
     """(a) Both backward kernels at the training shapes of full-width
-    qwen3-0.6b under the CLI's --stem geometry: against their plain
-    backward in fp32 and bf16, twice bitwise (no atomics), bf16 timed beside
-    the bound and the backward of SDPA (flash) / a compiled flex_attention
-    (block-sparse); then MLA's (192, 128) and whisper's d 64 once each."""
+    qwen3-0.6b under the CLI's --stem geometry, fed the forward's saved
+    lse (held against the plain forward's): fp32 on the CUDA-core route,
+    bf16 on the tensor-core route (the wgmma counters must move, and only
+    there), each against the plain backward, twice bitwise (no atomics);
+    both routes timed beside the bound, bf16 beside the backward of SDPA
+    (flash) / a compiled flex_attention (block-sparse) and each wgmma
+    kernel alone; then MLA's (192, 128) and whisper's d 64 once each on the
+    CUDA-core route."""
     b, hq, hk, d, n = (sizes[x] for x in ("b", "hq", "hk", "d", "n"))
     pol = cli_stem_policy(n)
     bs = pol.block_size
@@ -3763,21 +3862,36 @@ def train_kernel_phase(records: dict, sizes: dict = P15, dev=torch.device("cuda"
     torch._dynamo.reset()
     from torch.nn.attention.flex_attention import flex_attention
     flex = torch.compile(flex_attention, dynamic=False)
+
+    def routed(name, mod, key, run, wgmma):
+        mod.reset_launches()
+        out = run()
+        torch.cuda.synchronize()
+        moved = mod.LAUNCHES[f"{key}_wgmma"] == 1
+        if mod.LAUNCHES[key] != 1 or moved != wgmma:
+            raise AssertionError(f"{name}: launches {mod.LAUNCHES}, wgmma route expected "
+                                 f"{wgmma}")
+        return out
+
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).split(".")[-1]
+        wg = dtype == torch.bfloat16
         q, k, v, do = (torch.randn(s, generator=gen, device=dev).to(dtype) for s in
                        ((b, hq, n, d), (b, hk, n, d), (b, hk, n, d), (b, hq, n, d)))
         # -- flash ---------------------------------------------------------
-        o = flash_kern.flash_attention(q, k, v)
-        run_k = lambda: flash_kern.flash_attention_bwd(q, k, v, o, do)
+        o, lse = flash_kern.flash_attention(q, k, v, return_lse=True)
+        check_lse(f"flash_attention/{tag}", lse,
+                  flash_kern.flash_attention_plain(q, k, v, return_lse=True)[1])
+        run_k = lambda: flash_kern.flash_attention_bwd(q, k, v, o, do, lse=lse)
         run_p = lambda: flash_kern.flash_attention_bwd_plain(q, k, v, o, do)
-        got, again, want = run_k(), run_k(), run_p()
+        got = routed(f"flash_attention_bwd/{tag}", flash_kern, "flash_attention_bwd", run_k, wg)
+        again, want = run_k(), run_p()
         torch.cuda.synchronize()
-        err = check_grads(f"flash_attention_bwd/{tag}", got, want)
+        err = check_grads(f"flash_attention_bwd/{tag}", got, want, p_bf16=wg)
         if not all(torch.equal(x, y) for x, y in zip(got, again)):
             raise AssertionError("flash_attention_bwd: two calls differ")
         lib = None
-        if dtype == torch.bfloat16:
+        if wg:
             leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
             out = sdpa(*leaves, is_causal=True, enable_gqa=True)
             check_library_bwd("flash_attention_bwd vs SDPA's backward",
@@ -3787,23 +3901,32 @@ def train_kernel_phase(records: dict, sizes: dict = P15, dev=torch.device("cuda"
         rec_kernel(records, "flash_attention_bwd", "train", tag, err, run_k, run_p,
                    bwd_bytes_flops(q, k, v, pairs), dtype, run_lib=lib, iters=5,
                    plain_iters=1)
-        del got, again, want, o
+        if wg:
+            rec_bwd_kernels(records, run_k, "flash_attention_bwd", q, k, v, pairs, 0.0,
+                            records["flash_attention_bwd/train"][tag]["plain_ms"], err)
+        del got, again, want, o, lse, lib
         # -- block-sparse under the CLI's stem selection ---------------------
         sel, _ = pol.prefill_select(q, k, v, with_block_mask=False)
         idx, cnt = sel.indices.contiguous(), sel.live_counts.contiguous()
-        o = bsa_kern.block_sparse_attention(q, k, v, idx, live_counts=cnt, block_size=bs)
+        o, lse = bsa_kern.block_sparse_attention(q, k, v, idx, live_counts=cnt, block_size=bs,
+                                                 return_lse=True)
+        check_lse(f"block_sparse_attention/{tag}", lse, bsa_kern.block_sparse_attention_plain(
+            q, k, v, idx, cnt, block_size=bs, return_lse=True)[1])
         run_k = lambda: bsa_kern.block_sparse_attention_bwd(q, k, v, o, do, idx, cnt,
-                                                            block_size=bs)
+                                                            block_size=bs, lse=lse)
         run_p = lambda: bsa_kern.block_sparse_attention_bwd_plain(q, k, v, o, do, idx, cnt,
                                                                   block_size=bs)
-        got, again, want = run_k(), run_k(), run_p()
+        got = routed(f"block_sparse_attention_bwd/{tag}", bsa_kern,
+                     "block_sparse_attention_bwd", run_k, wg)
+        again, want = run_k(), run_p()
         torch.cuda.synchronize()
-        err = check_grads(f"block_sparse_attention_bwd/{tag}", got, want)
+        err = check_grads(f"block_sparse_attention_bwd/{tag}", got, want, p_bf16=wg)
         if not all(torch.equal(x, y) for x, y in zip(got, again)):
             raise AssertionError("block_sparse_attention_bwd: two calls differ")
         lib = None
-        if dtype == torch.bfloat16:
-            rejects_dropped_transposed_block(q, k, v, o, do, idx, cnt, bs, want)
+        if wg:
+            rejects_dropped_transposed_block(q, k, v, o, do, idx, cnt, bs, want, lse)
+            rejects_dropped_selected_block(q, k, v, o, do, idx, cnt, bs, want, lse)
             mask = flex_block_mask(idx, cnt, bs)
             leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
             out = flex(*leaves, block_mask=mask, enable_gqa=True)
@@ -3814,31 +3937,42 @@ def train_kernel_phase(records: dict, sizes: dict = P15, dev=torch.device("cuda"
                 f"density {float(selection_density(sel, n // bs)):.4f}")
         nq = n // bs
         sel_bytes = (idx.numel() + cnt.numel() + b * hq * nq * (nq + 1)) * 4
+        pairs = causal_pairs(idx, cnt, bs)
         rec_kernel(records, "block_sparse_attention_bwd", "train", tag, err, run_k, run_p,
-                   bwd_bytes_flops(q, k, v, causal_pairs(idx, cnt, bs), sel_bytes),
-                   dtype, run_lib=lib, iters=5, plain_iters=1)
-        del q, k, v, do, o, got, again, want
+                   bwd_bytes_flops(q, k, v, pairs, sel_bytes), dtype, run_lib=lib, iters=5,
+                   plain_iters=1)
+        if wg:
+            rec_bwd_kernels(records, run_k, "block_sparse_attention_bwd", q, k, v, pairs,
+                            sel_bytes, records["block_sparse_attention_bwd/train"][tag][
+                                "plain_ms"], err)
+        del q, k, v, do, o, lse, got, again, want, lib
         torch.cuda.empty_cache()
-    # MLA's (192, 128) (no GQA) and whisper's d 64, bf16, once each
+    # MLA's (192, 128) (no GQA) and whisper's d 64, bf16, once each, on the
+    # CUDA-core route
     for tag, (h, dd, dv, nn) in (("mla", (16, 192, 128, sizes["mla_n"])),
                                  ("whisper", (16, 64, 64, sizes["whisper_n"]))):
         q, k, do = (torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
                     for s in ((1, h, nn, dd), (1, h, nn, dd), (1, h, nn, dv)))
         v = torch.randn((1, h, nn, dv), generator=gen, device=dev).to(torch.bfloat16)
-        o = flash_kern.flash_attention(q, k, v)
-        check_grads(f"flash_attention_bwd/{tag}", flash_kern.flash_attention_bwd(q, k, v, o, do),
-                    flash_kern.flash_attention_bwd_plain(q, k, v, o, do))
+        o, lse = flash_kern.flash_attention(q, k, v, return_lse=True)
+        check_grads(f"flash_attention_bwd/{tag}", routed(
+            f"flash_attention_bwd/{tag}", flash_kern, "flash_attention_bwd",
+            lambda: flash_kern.flash_attention_bwd(q, k, v, o, do, lse=lse), False),
+            flash_kern.flash_attention_bwd_plain(q, k, v, o, do))
         p = cli_stem_policy(nn)
         sel, _ = p.prefill_select(q, k, v, with_block_mask=False)
         idx, cnt = sel.indices.contiguous(), sel.live_counts.contiguous()
-        o = bsa_kern.block_sparse_attention(q, k, v, idx, live_counts=cnt,
-                                            block_size=p.block_size)
-        check_grads(f"block_sparse_attention_bwd/{tag}",
-                    bsa_kern.block_sparse_attention_bwd(q, k, v, o, do, idx, cnt,
-                                                        block_size=p.block_size),
-                    bsa_kern.block_sparse_attention_bwd_plain(q, k, v, o, do, idx, cnt,
-                                                              block_size=p.block_size))
-        log(f"[train] backward kernels at {tag}'s (d, dv) = ({dd}, {dv}): within the rule")
+        o, lse = bsa_kern.block_sparse_attention(q, k, v, idx, live_counts=cnt,
+                                                 block_size=p.block_size, return_lse=True)
+        check_grads(f"block_sparse_attention_bwd/{tag}", routed(
+            f"block_sparse_attention_bwd/{tag}", bsa_kern, "block_sparse_attention_bwd",
+            lambda: bsa_kern.block_sparse_attention_bwd(q, k, v, o, do, idx, cnt,
+                                                        block_size=p.block_size, lse=lse),
+            False),
+            bsa_kern.block_sparse_attention_bwd_plain(q, k, v, o, do, idx, cnt,
+                                                      block_size=p.block_size))
+        log(f"[train] backward kernels at {tag}'s (d, dv) = ({dd}, {dv}): within the rule "
+            "on the CUDA-core route")
 
 
 @contextlib.contextmanager
@@ -3905,12 +4039,16 @@ def train_cli(argv: list, device: str = "cuda") -> dict:
 def train_cli_arms(sizes: dict = P15, device: str = "cuda") -> dict:
     """(b) The CLI on full-width qwen3-0.6b, bf16, 28 layers, with --stem
     and without: the loss finite and falling, every forward and backward
-    kernel of the path launched (counters zeroed before, read after), no
-    plain attention version called; ms a step, tokens/s, peak memory, the
-    backward kernels' share of the step."""
+    kernel of the path launched, the backward on the tensor-core route
+    (counters zeroed before, read after), no plain attention version
+    called; ms a step, tokens/s, peak memory, the backward kernels' share
+    of the step."""
     out = {}
-    for arm, extra, need in (("dense", [], ("flash_attention", "flash_attention_bwd")),
-                             ("stem", ["--stem"], STEM_KERNELS + ("block_sparse_attention_bwd",))):
+    for arm, extra, need in (("dense", [], ("flash_attention", "flash_attention_bwd",
+                                            "flash_attention_bwd_wgmma")),
+                             ("stem", ["--stem"], STEM_KERNELS + (
+                                 "block_sparse_attention_bwd",
+                                 "block_sparse_attention_bwd_wgmma"))):
         _free()
         torch.cuda.reset_peak_memory_stats()
         reset_all_launches()
@@ -4167,7 +4305,22 @@ def main() -> None:
             ms=rec["ms"], host_ms=rec["host_ms"], plain_ms=rec["plain_ms"],
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
             library_ms=rec["library_ms"], fp32=records[f"{key}/train"]["float32"],
-            step_share=p15["cli"][arm]["bwd_kernel_share"]))
+            step_share=p15["cli"][arm]["bwd_kernel_share"],
+            wgmma_launches=p15["cli"][arm]["launches"][f"{key}_wgmma"]))
+    # the tensor-core backward's two kernels each: launched once per
+    # wgmma-route call of their wrapper, timed alone by the profiler; the
+    # plain version and the library call are the whole backward's (above)
+    for name, key, part in BWD_WGMMA:
+        arm = "dense" if key.startswith("flash") else "stem"
+        _, source, fwd, _ = TRAIN_SOURCES[key]
+        rec = records[f"{name}/train"]["bfloat16"]
+        kernels.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",
+            header="src/repro_torch/kernels/csrc/attn_bwd_wgmma.cuh", replaces=fwd,
+            part_of=key, launches=p15["cli"][arm]["launches"][f"{key}_wgmma"],
+            phase15_launches=p15_launches(f"{key}_wgmma"),
+            max_abs_err=rec["max_abs_err"], ms=rec["ms"], plain_ms=rec["plain_ms"],
+            bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=None))
     log("[phase15] " + json.dumps({arm: {k: r[k] for k in (
         "step_ms", "tokens_s", "peak_gib", "bwd_kernel_share")}
         for arm, r in p15["cli"].items()}))

@@ -1,4 +1,5 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch versions."""
+import torch
 
 # The head_dims the paged kernels (the scorer, page attention) are built for,
 # each a template instance listed again in csrc/head_dims.cuh; the wrappers
@@ -20,3 +21,14 @@ def check_head_dim_pair(name: str, d: int, dv: int) -> None:
     if (d, dv) not in HEAD_DIM_PAIRS:
         raise ValueError(f"{name}: (q/k head_dim, v head_dim) = ({d}, {dv}) must be "
                          f"one of {HEAD_DIM_PAIRS}")
+
+
+def backward_route(dtype, d: int, dv: int, block_size=None) -> str:
+    """The route of the attention backward kernels, the forward's condition
+    for its tensor-core tile: "wgmma" (TMA + wgmma, P and dS rounded to
+    bf16) for bf16 at q/k = v head_dim 128 and, for block-sparse attention,
+    a block that is a multiple of 128; "cuda_core" (attn_bwd.cuh's fp32
+    tiles) for every other dtype, head_dim pair and block."""
+    wgmma = (dtype == torch.bfloat16 and d == dv == 128
+             and (block_size is None or block_size % 128 == 0))
+    return "wgmma" if wgmma else "cuda_core"

@@ -21,14 +21,22 @@ Beside the kernel sits its plain PyTorch version
 ``LAUNCHES``.  The wrapper takes the plain version only for tensors on the
 CPU; for a CUDA tensor it launches the kernel or raises.
 
+With ``return_lse`` the forward also returns each row's natural-log
+log-sum-exp (b, hq, n) fp32, +inf for a row that saw no key (serving asks
+for none and pays nothing).
+
 The gradient (``block_sparse_attention_bwd``, the training path's under
 Stem): the TPU kernel has none, as the reference trains through XLA's
 autodiff of its gather executor, so the port's counterpart is a
-hand-written backward (``stem_block_sparse_attention_bwd``,
-``csrc/attn_bwd.cuh``: dq over each row's live prefix, then dk and dv over
-the transposed selection, on the fp32 CUDA cores, no atomics) beside its
+hand-written backward (``stem_block_sparse_attention_bwd``: dq over each
+row's live prefix, then dk and dv over the transposed selection, no
+atomics) that reads the forward's lse.  ``backward_route`` picks its
+kernels: bf16 at head_dim 128 and a block that is a multiple of 128 on the
+tensor cores (``csrc/attn_bwd_wgmma.cuh``, P and dS rounded to bf16), the
+rest on the fp32 CUDA cores (``csrc/attn_bwd.cuh``).  Beside them sit the
 plain version (``block_sparse_attention_bwd_plain``, the analytic backward
-``dS = P * (dP - delta)``) and its own counter.  ``transpose_selection``
+``dS = P * (dP - delta)``, P in fp32) and counters of all backward launches
+and of the tensor-core route's.  ``transpose_selection``
 builds the transposed selection on the device with torch ops over a static
 width (no host sync).  ``attention`` is the differentiable call
 (``torch.autograd.Function``): forward and backward both kernels on a CUDA
@@ -40,11 +48,12 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import check_head_dim_pair
+from repro_torch.kernels import backward_route, check_head_dim_pair
 
 NEG_INF = -1e30
 
-LAUNCHES = {"block_sparse_attention": 0, "block_sparse_attention_bwd": 0}
+LAUNCHES = {"block_sparse_attention": 0, "block_sparse_attention_bwd": 0,
+            "block_sparse_attention_bwd_wgmma": 0}
 
 
 def reset_launches() -> None:
@@ -58,10 +67,9 @@ def _lib():
     lib = _build.load("block_sparse_attn")
     if not getattr(lib, "_stem_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.stem_block_sparse_attention.argtypes = [
-            p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, f, p]
+        lib.stem_block_sparse_attention.argtypes = [p] * 7 + [i] * 10 + [f, p]
         lib.stem_block_sparse_attention.restype = i
-        lib.stem_block_sparse_attention_bwd.argtypes = [p] * 14 + [i] * 10 + [f, p]
+        lib.stem_block_sparse_attention_bwd.argtypes = [p] * 14 + [i] * 11 + [f, p]
         lib.stem_block_sparse_attention_bwd.restype = i
         lib._stem_typed = True
     return lib
@@ -74,14 +82,15 @@ def _check(cond: bool, msg: str) -> None:
 
 def block_sparse_attention_plain(q, k, v, indices, live_counts, *,
                                  block_size: int, scale=None,
-                                 group_dedup: bool = False) -> torch.Tensor:
+                                 group_dedup: bool = False, return_lse: bool = False):
     """Plain version: per query-block row, gather the row's live selected
     K/V blocks and take the causal masked softmax in fp32, with the kernel's
     ``max(l, 1e-20)`` normalizer floor (cnt == 0 rows give exact zeros).
     Streams over chunks of query-block rows to bound memory.
     q: (b, hq, n, d); k: (b, hk, n, d); v: (b, hk, n, dv); indices (b,
     h_sel, nq, k_max); live_counts (b, h_sel, nq).  Returns (b, hq, n, dv)
-    in q's dtype."""
+    in q's dtype; with ``return_lse`` also each row's log-sum-exp m + ln l
+    (b, hq, n) fp32, +inf where the row saw no key."""
     b, hq, n, d = q.shape
     hk = k.shape[1]
     dv = v.shape[-1]
@@ -101,6 +110,7 @@ def block_sparse_attention_plain(q, k, v, indices, live_counts, *,
     bi = torch.arange(b, device=dev)[:, None, None, None]
     hi = (torch.arange(hq, device=dev) // group)[None, :, None, None]
     out = torch.empty((b, hq, n, dv), dtype=q.dtype, device=dev)
+    lse = torch.empty((b, hq, n), dtype=torch.float32, device=dev)
     step = max(1, (1 << 26) // max(b * hq * k_max * bs * max(bs, d), 1))
     for i0 in range(0, nq, step):
         i1 = min(nq, i0 + step)
@@ -118,16 +128,21 @@ def block_sparse_attention_plain(q, k, v, indices, live_counts, *,
         s = torch.where(keep, s, NEG_INF).reshape(b, hq, r, bs, k_max * bs)
         m = s.amax(dim=-1, keepdim=True)
         p = torch.where(keep.reshape(s.shape), torch.exp(s - m), 0.0)
-        l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-20)
+        total = p.sum(dim=-1, keepdim=True)
+        l = torch.clamp(total, min=1e-20)
         o = torch.einsum("bhrqn,bhrnd->bhrqd", p,
                          gv.reshape(b, hq, r, k_max * bs, dv)) / l
         out[:, :, i0 * bs:i1 * bs] = o.reshape(b, hq, r * bs, dv).to(q.dtype)
-    return out
+        if return_lse:
+            rl = torch.where(total > 0, m + torch.log(l), torch.inf)
+            lse[:, :, i0 * bs:i1 * bs] = rl.reshape(b, hq, r * bs)
+    return (out, lse) if return_lse else out
 
 
 def block_sparse_attention(q, k, v, indices, slot_mask=None, *,
                            block_size: int = 128, scale=None,
-                           group_dedup: bool = False, live_counts=None):
+                           group_dedup: bool = False, live_counts=None,
+                           return_lse: bool = False):
     """Sparse causal attention over selected key blocks.
 
     q: (b, hq, n, d); k: (b, hk, n, d); v: (b, hk, n, dv); indices: (b,
@@ -135,13 +150,15 @@ def block_sparse_attention(q, k, v, indices, slot_mask=None, *,
     ``group_dedup``; live slots form a prefix of each row, counted by
     ``live_counts`` (derived from ``slot_mask`` when omitted).  CPU tensors
     take the plain version; CUDA tensors launch the kernel.  Returns (b,
-    hq, n, dv)."""
+    hq, n, dv); with ``return_lse`` the pair (out, lse), lse (b, hq, n)
+    fp32 each row's natural-log log-sum-exp, +inf for a row that saw no
+    key (the backward's input)."""
     cnt = (slot_mask.sum(dim=-1, dtype=torch.int32) if live_counts is None
            else live_counts)
     if q.device.type == "cpu":
         return block_sparse_attention_plain(
             q, k, v, indices, cnt, block_size=block_size, scale=scale,
-            group_dedup=group_dedup)
+            group_dedup=group_dedup, return_lse=return_lse)
     _check(q.device.type == "cuda",
            f"block_sparse_attention: unsupported device {q.device}")
     b, hq, n, d = q.shape
@@ -172,16 +189,19 @@ def block_sparse_attention(q, k, v, indices, slot_mask=None, *,
            "block_sparse_attention: selection shapes disagree with q")
     scale = d ** -0.5 if scale is None else scale
     out = torch.empty((b, hq, n, dv), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, hq, n), dtype=torch.float32, device=q.device) if return_lse
+           else None)
     err = _lib().stem_block_sparse_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), indices.data_ptr(),
-        cnt.data_ptr(), out.data_ptr(), b, hq, hk, int(group_dedup), n, d, dv, bs,
-        indices.shape[-1], int(q.dtype == torch.bfloat16), float(scale),
+        cnt.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
+        b, hq, hk, int(group_dedup), n, d, dv, bs, indices.shape[-1],
+        int(q.dtype == torch.bfloat16), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"stem_block_sparse_attention launch failed: cudaError {err}")
     LAUNCHES["block_sparse_attention"] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def _live_mask(idx: torch.Tensor, live_counts: torch.Tensor, nq: int) -> torch.Tensor:
@@ -199,8 +219,8 @@ def block_sparse_attention_bwd_plain(q, k, v, o, do, indices, live_counts, *,
     it (``max(l, 1e-20)``), delta = rowsum(do * o), dP = do.v^T, dS = P *
     (dP - delta); dq = scale * dS.k, and dk = scale * dS^T.q and dv =
     P^T.do added back into the selected blocks.  Only the live prefix of
-    each row counts; cnt == 0 rows get zero gradient.  Returns (dq, dk, dv)
-    in the inputs' dtype."""
+    each row counts; cnt == 0 rows get zero gradient.  P is recomputed, so
+    it takes no lse.  Returns (dq, dk, dv) in the inputs' dtype."""
     b, hq, n, d = q.shape
     hk, dv_dim = k.shape[1], v.shape[-1]
     group = hq // hk
@@ -277,13 +297,16 @@ def transpose_selection(indices: torch.Tensor, live_counts: torch.Tensor,
 
 def block_sparse_attention_bwd(q, k, v, o, do, indices, live_counts, *,
                                block_size: int, scale=None,
-                               group_dedup: bool = False, transposed=None) -> tuple:
+                               group_dedup: bool = False, transposed=None,
+                               lse=None) -> tuple:
     """The gradient of ``block_sparse_attention``: (dq, dk, dv) for its
-    inputs q, k, v and selection (indices, live_counts), its output o and
-    o's gradient do.  ``transposed`` optionally gives the transposed
-    selection (``transpose_selection``'s pair; built here when None).  CPU
-    tensors take the plain version; CUDA tensors launch the kernels (two
-    launches, one count)."""
+    inputs q, k, v and selection (indices, live_counts), its output o, o's
+    gradient do and the forward's ``lse`` (``return_lse``; required on a
+    CUDA tensor).  ``transposed`` optionally gives the transposed selection
+    (``transpose_selection``'s pair; built here when None).  CPU tensors
+    take the plain version; CUDA tensors launch the kernels of
+    ``backward_route`` (two launches, one count, and one more on the wgmma
+    route's)."""
     if q.device.type == "cpu":
         return block_sparse_attention_bwd_plain(
             q, k, v, o, do, indices, live_counts, block_size=block_size,
@@ -298,7 +321,11 @@ def block_sparse_attention_bwd(q, k, v, o, do, indices, live_counts, *,
     nq = n // bs
     tidx, tcnt = (transpose_selection(indices, live_counts, nq) if transposed is None
                   else transposed)
-    _check(all(t.device == q.device for t in (k, v, o, do, indices, live_counts, tidx, tcnt)),
+    _check(lse is not None and lse.dtype == torch.float32
+           and tuple(lse.shape) == (b, hq, n) and lse.is_contiguous(),
+           f"{name}: needs the forward's lse, (b, hq, n) contiguous fp32")
+    _check(all(t.device == q.device
+               for t in (k, v, o, do, lse, indices, live_counts, tidx, tcnt)),
            f"{name}: all tensors must be on one device")
     _check(q.dtype in (torch.float32, torch.bfloat16)
            and all(t.dtype == q.dtype for t in (k, v, o, do)),
@@ -315,45 +342,56 @@ def block_sparse_attention_bwd(q, k, v, o, do, indices, live_counts, *,
     check_head_dim_pair(name, d, dv_dim)
     _check(hk > 0 and hq % hk == 0, f"{name}: kv heads must divide q heads")
     _check(all(t.data_ptr() % 16 == 0 for t in (q, k, v, o, do)),
-           f"{name}: inputs must be 16-byte aligned (16-byte loads)")
+           f"{name}: inputs must be 16-byte aligned (TMA, 16-byte loads)")
     _check(indices.dim() == 4 and tuple(indices.shape[:3]) == (b, hsel, nq)
            and tuple(live_counts.shape) == (b, hsel, nq)
            and tuple(tidx.shape) == (b, hsel, nq, nq) and tuple(tcnt.shape) == (b, hsel, nq),
            f"{name}: selection shapes disagree with q")
     scale = d ** -0.5 if scale is None else scale
+    route = backward_route(q.dtype, d, dv_dim, bs)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lse = torch.empty((b, hq, n), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
     err = _lib().stem_block_sparse_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        indices.data_ptr(), live_counts.data_ptr(), tidx.data_ptr(), tcnt.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        lse.data_ptr(), indices.data_ptr(), live_counts.data_ptr(), tidx.data_ptr(),
+        tcnt.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
         b, hq, hk, int(group_dedup), n, d, dv_dim, bs, indices.shape[-1],
-        int(q.dtype == torch.bfloat16), float(scale),
+        int(q.dtype == torch.bfloat16), int(route == "wgmma"), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"stem_block_sparse_attention_bwd launch failed: cudaError {err}")
+        raise RuntimeError(f"stem_block_sparse_attention_bwd launch failed ({route}): "
+                           f"cudaError {err}")
     LAUNCHES["block_sparse_attention_bwd"] += 1
+    if route == "wgmma":
+        LAUNCHES["block_sparse_attention_bwd_wgmma"] += 1
     return dq, dk, dv
 
 
 class _Attention(torch.autograd.Function):
+    """Block-sparse causal attention with its hand-written gradient.  The
+    forward runs ``block_sparse_attention`` with ``return_lse`` and saves
+    q, k, v, the output, the row log-sum-exp and the selection; the
+    backward hands them with do to ``block_sparse_attention_bwd``, which on
+    the card routes bf16 at head_dim 128 and blocks of a multiple of 128 to
+    the wgmma kernels and every other shape to the CUDA-core ones (neither
+    recomputes the lse).  On the CPU both are plain versions."""
+
     @staticmethod
     def forward(ctx, q, k, v, indices, live_counts, block_size, scale, group_dedup):
-        out = block_sparse_attention(q, k, v, indices, block_size=block_size,
-                                     scale=scale, group_dedup=group_dedup,
-                                     live_counts=live_counts)
-        ctx.save_for_backward(q, k, v, out, indices, live_counts)
+        out, lse = block_sparse_attention(q, k, v, indices, block_size=block_size,
+                                          scale=scale, group_dedup=group_dedup,
+                                          live_counts=live_counts, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, indices, live_counts)
         ctx.args = (block_size, scale, group_dedup)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, indices, live_counts = ctx.saved_tensors
+        q, k, v, out, lse, indices, live_counts = ctx.saved_tensors
         block_size, scale, group_dedup = ctx.args
         dq, dk, dv = block_sparse_attention_bwd(
             q, k, v, out, do.contiguous(), indices, live_counts,
-            block_size=block_size, scale=scale, group_dedup=group_dedup)
+            block_size=block_size, scale=scale, group_dedup=group_dedup, lse=lse)
         return dq, dk, dv, None, None, None, None, None
 
 
@@ -361,6 +399,11 @@ def attention(q, k, v, indices, live_counts, *, block_size: int, scale=None,
               group_dedup: bool = False) -> torch.Tensor:
     """Differentiable block-sparse causal attention:
     ``block_sparse_attention`` forward, ``block_sparse_attention_bwd``
-    backward (kernels on a CUDA tensor, the plain versions on the CPU)."""
+    backward (kernels on a CUDA tensor, the plain versions on the CPU).  A
+    call that needs no gradient (serving, or under ``torch.no_grad``) is
+    the plain forward call: no lse is stored."""
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
+        return block_sparse_attention(q, k, v, indices, block_size=block_size, scale=scale,
+                                      group_dedup=group_dedup, live_counts=live_counts)
     return _Attention.apply(q, k, v, indices, live_counts, block_size, scale,
                             group_dedup)

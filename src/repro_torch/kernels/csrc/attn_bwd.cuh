@@ -1,29 +1,35 @@
-// Shared device code of the attention backward kernels (flash_attention.cu,
-// block_sparse_attn.cu): the gradient of causal softmax attention on the
-// fp32 CUDA cores, at every (q/k, v) head_dim pair of head_dims.cuh, bf16
-// loaded and stored around the same fp32 math.
+// Shared device code of the attention backward kernels on the fp32 CUDA
+// cores (flash_attention.cu, block_sparse_attn.cu): the route the wrappers'
+// backward_route names "cuda_core", taken by fp32 at every (q/k, v)
+// head_dim pair of head_dims.cuh and by bf16 off the tensor-core route's
+// shape (head_dims other than q/k = v = 128, MLA's (192, 128) among them,
+// and block-sparse blocks that are no multiple of 128); bf16 is loaded and
+// stored around the same fp32 math.  bf16 at (128, 128) runs
+// attn_bwd_wgmma.cuh.
 //
-// With S = scale * Q.K^T, P = exp(S - lse) (lse the row's log-sum-exp over
-// its keys), O = P.V and dO the output's gradient:
+// With S = scale * Q.K^T, P = exp(S - lse), O = P.V and dO the output's
+// gradient:
 //   delta = rowsum(dO * O),  dP = dO.V^T,  dS = P * (dP - delta),
 //   dQ = scale * dS.K,  dK = scale * dS^T.Q,  dV = P^T.dO.
-// Two kernels per backward, no atomics (deterministic run to run):
-//   dq_tile   one CTA per 64 query rows: delta from O and dO, a first pass
-//             over the row's key tiles for lse (m, l as the forward's online
-//             softmax), a second for dS and dQ; writes lse and delta to
+// lse, each row's log-sum-exp over its keys (+inf for a row that saw no
+// key: P = 0), is the forward's: both forward routes save it.  Two kernels
+// per backward, no atomics (a fixed summation order, bitwise run to run):
+//   dq_tile   one CTA per 64 query rows: delta from O and dO, then one pass
+//             over the row's key tiles for dS and dQ; writes delta to
 //             global scratch for the second kernel.
 //   dkdv_step one CTA per 64 keys of one KV head accumulates dK and dV over
 //             every (query head of the GQA group, query tile) that sees the
 //             keys, in a fixed order, and stores them once.
-// A backward does about 8 products of 2 * d flops per (query, key) pair
-// (S twice, dP twice, dQ, dK, dV) against one read of q, k, v, o, dO:
-// compute-bound.  Every operand moves as 64 x 64 fp32 chunks (a 64-column
-// slice of the head_dim) through shared memory: the products are the
-// forward tile's register-tiled outer products (attn_tile.cuh), a 16 x 16
-// thread grid with a 4 x 4 block a thread, so shared memory (80 KiB) does
-// not grow with the head_dim; the price is that Q, dO, K and V are staged
-// again for each product, from L2.  Accumulators (dQ, or dK and dV) live in
-// registers: head_dim / 4 floats a thread each.
+// Bound: 2 * (3 d + 2 dv) flops a causal pair (S, dP, dV, dK, dQ) against
+// one read of q, k, v, o, dO and lse: compute-bound.  The split without
+// atomics recomputes S and dP in the dk / dv kernel: 7 products a pair.
+// Every operand moves as 64 x 64 fp32 chunks (a 64-column slice of the
+// head_dim) through shared memory: the products are the forward tile's
+// register-tiled outer products (attn_tile.cuh), a 16 x 16 thread grid
+// with a 4 x 4 block a thread, so shared memory (80 KiB) does not grow with
+// the head_dim; the price is that Q, dO, K and V are staged again for each
+// product, from L2.  P and dS stay fp32.  Accumulators (dQ, or dK and dV)
+// live in registers: head_dim / 4 floats a thread each.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -166,16 +172,17 @@ __device__ __forceinline__ void store_acc(T* dst, const float (&acc)[chunks<D>()
 
 // dQ of one tile of `qrows` query rows starting at position q0.  q, o, dout,
 // dq, lse, delta point at the tile's first row (row strides D, DV, DV, D,
-// 1, 1); k, v at the KV head's first key.  Tiles::next(k0, krows) walks the
-// key tiles the rows see (each of <= 64 keys, all at positions <= the last
-// row's); the walk runs twice.
+// 1, 1); k, v at the KV head's first key.  lse is the forward's (+inf for
+// a row that saw no key: P = 0); delta is written for the dk / dv kernel.
+// Tiles::next(k0, krows) walks the key tiles the rows see (each of <= 64
+// keys, all at positions <= the last row's).
 template <typename T, int D, int DV, typename Tiles>
 __device__ __forceinline__ void dq_tile(Smem& sm, const T* q, const T* o, const T* dout,
-                                        const T* k, const T* v, T* dq, float* lse_out,
+                                        const T* k, const T* v, T* dq, const float* lse_in,
                                         float* delta_out, int q0, int qrows, Tiles tiles,
                                         float scale) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float delta[4], m[4], l[4], lse[4];
+  float delta[4], lse[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
@@ -189,48 +196,12 @@ __device__ __forceinline__ void dq_tile(Smem& sm, const T* q, const T* o, const 
 #pragma unroll
     for (int off = 8; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
     delta[i] = acc;
-    m[i] = kNegInf;
-    l[i] = 0.f;
+    lse[i] = r < qrows ? lse_in[r] : INFINITY;
+    if (tx == 0 && r < qrows) delta_out[r] = acc;
   }
 
-  // Pass 1: each row's log-sum-exp over the keys it sees.
+  // dS and dQ.
   int k0, krows;
-  Tiles walk = tiles;
-  while (walk.next(k0, krows)) {
-    float s[4][4];
-    scores<D>(sm, s, q, qrows, scale, k + (long long)k0 * D, krows);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty * 4 + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (tx * 4 + j < krows && k0 + tx * 4 + j <= qp) mx = fmaxf(mx, s[i][j]);
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (tx * 4 + j < krows && k0 + tx * 4 + j <= qp) ps += expf(s[i][j] - m_new);
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      l[i] = l[i] * expf(m[i] - m_new) + ps;
-      m[i] = m_new;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    lse[i] = l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;   // no key: P = 0
-    const int r = ty * 4 + i;
-    if (tx == 0 && r < qrows) {
-      lse_out[r] = lse[i];
-      delta_out[r] = delta[i];
-    }
-  }
-
-  // Pass 2: dS and dQ.
   float acc[chunks<D>()][4][4];
 #pragma unroll
   for (int g = 0; g < chunks<D>(); ++g)
@@ -238,8 +209,7 @@ __device__ __forceinline__ void dq_tile(Smem& sm, const T* q, const T* o, const 
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[g][i][e] = 0.f;
-  walk = tiles;
-  while (walk.next(k0, krows)) {
+  while (tiles.next(k0, krows)) {
     const T* kt = k + (long long)k0 * D;
     float s[4][4], dp[4][4];
     scores<D>(sm, s, q, qrows, scale, kt, krows);

@@ -238,15 +238,18 @@ __device__ __forceinline__ void stage_and_step(Smem<D, DV>& sm, RowState<DV>& st
 }
 
 // out rows ty*4 + i that are < valid_rows (row stride DV), columns < DV:
-// acc / max(l, 1e-20) in T.
+// acc / max(l, 1e-20) in T.  lse (optional, at the tile's first row): each
+// row's log-sum-exp m + ln l, +inf for a row that saw no key (l = 0).
 template <int DV, typename T>
-__device__ __forceinline__ void store_rows(const RowState<DV>& st, T* out, int valid_rows) {
+__device__ __forceinline__ void store_rows(const RowState<DV>& st, T* out, int valid_rows,
+                                           float* lse) {
   constexpr int OC = RowState<DV>::OC;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
     if (r >= valid_rows) continue;
+    if (lse != nullptr && tx == 0) lse[r] = st.l[i] > 0.f ? st.m[i] + logf(st.l[i]) : INFINITY;
     const float l = fmaxf(st.l[i], 1e-20f);
     T* dst = out + (long long)r * DV;
 #pragma unroll

@@ -23,6 +23,9 @@
 //     operand of O += P.V (8 more wgmma, V read MN-major through the
 //     transpose bit).  The accumulator layout of S is the register layout
 //     of wgmma's A operand, so P never touches shared memory.
+//     On request the epilogue stores each row's log-sum-exp (m ln 2 +
+//     ln l, natural log; +inf where the row saw no key) for the backward
+//     (attn_bwd_wgmma.cuh, which shares these wrappers and layouts).
 //
 // Layout: a 128 x 128 bf16 tile is two TMA boxes of 128 rows x 64 columns
 // (128 bytes a row) with CU_TENSOR_MAP_SWIZZLE_128B; the wgmma descriptors
@@ -72,10 +75,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// The Smem of a CTA inside its dynamic shared memory, 1024-byte aligned.
-__device__ __forceinline__ Smem& aligned_smem(uint8_t* smem_raw) {
+// The S (Smem, or a backward kernel's layout) of a CTA inside its dynamic
+// shared memory, 1024-byte aligned.
+template <class S = Smem>
+__device__ __forceinline__ S& aligned_smem(uint8_t* smem_raw) {
   const uint32_t raw = smem_u32(smem_raw);
-  return *reinterpret_cast<Smem*>(smem_raw + (((raw + 1023) & ~1023u) - raw));
+  return *reinterpret_cast<S*>(smem_raw + (((raw + 1023) & ~1023u) - raw));
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -126,11 +131,12 @@ __device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, uint6
       : "memory");
 }
 
-// The 128 x 128 tile whose first row is `row`: two 64-column boxes.
+// The 128-column tile whose first row is `row`: two 64-column boxes of
+// box_bytes each (the map's box rows x 128 bytes).
 __device__ __forceinline__ void tma_tile(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int row) {
+                                         int row, int box_bytes = kBoxBytes) {
   tma_box(dst, map, bar, 0, row);
-  tma_box(dst + kBoxBytes, map, bar, 64, row);
+  tma_box(dst + box_bytes, map, bar, 64, row);
 }
 
 // wgmma shared-memory descriptor, 128-byte swizzle.  lbo / sbo in bytes.
@@ -144,15 +150,19 @@ __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.alig
 __device__ __forceinline__ void wg_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
 }
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+// Waits until at most N committed wgmma groups are still in flight.
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
+__device__ __forceinline__ void wg_wait_all() { wg_wait<0>(); }
 
 // Pins the accumulator registers in program order around the asynchronous
 // wgmma (the compiler sees no dependence between wgmma.wait and them).
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 #define STEM_ACC64                                                                    \
@@ -188,6 +198,24 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+#define STEM_ACC32                                                                    \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define STEM_D32 STEM_D8(0), STEM_D8(8), STEM_D8(16), STEM_D8(24)
+
+// d (+)= A.B for a 64 x 64 x 16 step, A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da, uint64_t db,
+                                           int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " STEM_ACC32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : STEM_D32
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+#undef STEM_D32
+#undef STEM_ACC32
 #undef STEM_D64
 #undef STEM_D8
 #undef STEM_ACC64
@@ -243,12 +271,14 @@ __device__ __forceinline__ void value_tile(float (&o)[64], const uint32_t (&p)[8
 // starts anywhere).  Producer and consumers walk their own copies of the
 // same sequence.  q_row / kv_row: the first global row of the Q tile and of
 // the KV head in the tensor maps; out: the tile's first output row;
-// valid_rows: rows of the tile to write.
+// valid_rows: rows of the tile to write; lse (optional): the tile's first
+// row of the (natural-log) log-sum-exp output, written for the backward.
 template <class Tiles>
 __device__ __forceinline__ void attend_tile(uint8_t* smem_raw, const CUtensorMap* tq,
                                             const CUtensorMap* tk, const CUtensorMap* tv,
                                             long long q_row, long long kv_row, Tiles tiles,
-                                            __nv_bfloat16* out, int valid_rows, float scale) {
+                                            __nv_bfloat16* out, int valid_rows, float scale,
+                                            float* lse = nullptr) {
   Smem& sm = aligned_smem(smem_raw);
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -352,7 +382,8 @@ __device__ __forceinline__ void attend_tile(uint8_t* smem_raw, const CUtensorMap
       ++it;
     }
 
-    // finalize: acc / max(l, 1e-20), so a row that attended nothing is 0
+    // finalize: acc / max(l, 1e-20), so a row that attended nothing is 0;
+    // its log-sum-exp m ln 2 + ln l (m in log2 units), +inf where l = 0
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float lt = l[h];
@@ -361,6 +392,8 @@ __device__ __forceinline__ void attend_tile(uint8_t* smem_raw, const CUtensorMap
       const float den = fmaxf(lt, 1e-20f);
       const int r = row0 + 8 * h;
       if (r >= valid_rows) continue;
+      if (lse != nullptr && t == 0)
+        lse[r] = lt > 0.f ? (m[h] + log2f(lt)) * 0.6931471805599453f : INFINITY;
       __nv_bfloat16* dst = out + static_cast<long long>(r) * kD + 2 * t;
 #pragma unroll
       for (int j = 0; j < 16; ++j)
@@ -399,14 +432,14 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A (rows, 128) bf16 row-major matrix as a tensor map of 128-row x 64-column
-// boxes with the 128-byte swizzle.  base must be 16-byte aligned.
-inline bool make_map(CUtensorMap* map, const void* base, long long rows) {
+// A (rows, 128) bf16 row-major matrix as a tensor map of box_rows x
+// 64-column boxes with the 128-byte swizzle.  base must be 16-byte aligned.
+inline bool make_map(CUtensorMap* map, const void* base, long long rows, int box_rows = 128) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr || rows <= 0 || rows >= (1ll << 31)) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(kD), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {kD * sizeof(__nv_bfloat16)};
-  const cuuint32_t box[2] = {64, 128};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -421,9 +454,9 @@ inline bool make_maps(CUtensorMap* tq, CUtensorMap* tk, CUtensorMap* tv, const v
 }
 
 template <typename Kernel>
-inline cudaError_t prepare(Kernel kernel) {
+inline cudaError_t prepare(Kernel kernel, size_t smem_bytes = kSmemBytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(kSmemBytes));
+                              static_cast<int>(smem_bytes));
 }
 
 }  // namespace stem_wg

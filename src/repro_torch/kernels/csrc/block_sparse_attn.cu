@@ -42,19 +42,30 @@
 // engine's small configurations run block 8), and a block that is no
 // multiple of 64 stages its last sub-tile short, the missing keys masked.
 //
+// Both routes save each row's natural-log log-sum-exp (+inf for a row that
+// saw no key) when the caller passes an lse buffer (the training path's
+// autograd Function); serving passes none.
+//
 // stem_block_sparse_attention_bwd is the gradient of the same function (the
 // TPU kernel has none: the reference trains through XLA's autodiff of its
-// gather executor), run by attn_bwd.cuh's two kernels on the fp32 CUDA
-// cores at every (q/k, v) head_dim pair and block size.
-// block_sparse_bwd_dq_kernel: one CTA per 64 query rows of a block (or the
-// block, under 64 rows) walks the row's live selected blocks as the forward
-// does.  block_sparse_bwd_dkdv_kernel: one CTA per 64 keys of a key block
-// of a KV head walks the transposed selection (tidx, tcnt: for each (batch,
-// selection row, key block) the query blocks whose live prefix holds it, in
-// increasing order, built by the wrapper), for each query head of the group
-// that reads that selection row, so a key block's gradient is summed in one
-// CTA in a fixed order.
+// gather executor), two kernels that read the forward's lse and sum
+// without atomics.  The dq kernel walks the row's live selected blocks as
+// the forward does; the dk / dv kernel the transposed selection (tidx,
+// tcnt: for each (batch, selection row, key block) the query blocks whose
+// live prefix holds it, in increasing order, built by the wrapper), for
+// each query head of the group that reads that selection row, so a key
+// block's gradient is summed in one CTA in a fixed order.  The wrapper's
+// backward_route picks the route, the forward's condition: bf16 at d = dv
+// = 128 and a block that is a multiple of 128 runs attn_bwd_wgmma.cuh on
+// the tensor cores (block_sparse_bwd_dq_wgmma_kernel per 128 query rows,
+// block_sparse_bwd_dkdv_wgmma_kernel per 128 keys over 64-query tiles; P
+// and dS rounded to bf16); every other dtype, pair and block runs
+// attn_bwd.cuh's fp32 CUDA-core tiles (block_sparse_bwd_dq_kernel per 64
+// query rows of a block, or the block under 64 rows;
+// block_sparse_bwd_dkdv_kernel per 64 keys).  Bound: 2 * (3 d + 2 dv) flops
+// a causal pair of the selected blocks; 7 products a pair done.
 #include "attn_bwd.cuh"
+#include "attn_bwd_wgmma.cuh"
 #include "attn_tile.cuh"
 #include "attn_wgmma.cuh"
 #include "head_dims.cuh"
@@ -70,8 +81,9 @@ template <typename T, int D, int DV, bool KMASK>
 __global__ void __launch_bounds__(kThreads, tile_min_ctas<D, DV>())
 block_sparse_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ idx,
-                    const int* __restrict__ cnt, T* __restrict__ out, int hq, int hk,
-                    int dedup, int n, int bs, int kmax, float scale) {
+                    const int* __restrict__ cnt, T* __restrict__ out,
+                    float* __restrict__ lse, int hq, int hk, int dedup, int n, int bs, int kmax,
+                    float scale) {
   extern __shared__ float4 smem_raw[];
   Smem<D, DV>& sm = *reinterpret_cast<Smem<D, DV>*>(smem_raw);
   const int tiles = KMASK ? (bs + kBQ - 1) / kBQ : bs / kBQ;
@@ -100,38 +112,38 @@ block_sparse_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                    KMASK ? min(kBK, bs - t) : kBK, q0, k0);
     }
   }
-  store_rows<DV>(st, out + qrow0 * DV, qrows);
+  store_rows<DV>(st, out + qrow0 * DV, qrows, lse ? lse + qrow0 : nullptr);
 }
 
 template <typename T, int D, int DV, bool KMASK>
 int launch(const void* q, const void* k, const void* v, const int* idx,
-           const int* cnt, void* out, int b, int hq, int hk, int dedup, int n, int bs,
-           int kmax, float scale, cudaStream_t stream) {
+           const int* cnt, void* out, float* lse, int b, int hq, int hk, int dedup, int n,
+           int bs, int kmax, float scale, cudaStream_t stream) {
   cudaError_t err = prepare<D, DV>(block_sparse_kernel<T, D, DV, KMASK>);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(n / bs * ((bs + kBQ - 1) / kBQ), hq, b);
   block_sparse_kernel<T, D, DV, KMASK><<<grid, kThreads, sizeof(Smem<D, DV>), stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, idx, cnt, (T*)out, hq, hk, dedup, n, bs,
+      (const T*)q, (const T*)k, (const T*)v, idx, cnt, (T*)out, lse, hq, hk, dedup, n, bs,
       kmax, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D, int DV>
 int launch_d(const void* q, const void* k, const void* v, const int* idx,
-             const int* cnt, void* out, int b, int hq, int hk, int dedup, int n, int bs,
-             int kmax, float scale, cudaStream_t stream) {
+             const int* cnt, void* out, float* lse, int b, int hq, int hk, int dedup, int n,
+             int bs, int kmax, float scale, cudaStream_t stream) {
   if (bs % kBQ == 0)
-    return launch<T, D, DV, false>(q, k, v, idx, cnt, out, b, hq, hk, dedup, n, bs, kmax,
-                                   scale, stream);
-  return launch<T, D, DV, true>(q, k, v, idx, cnt, out, b, hq, hk, dedup, n, bs, kmax,
+    return launch<T, D, DV, false>(q, k, v, idx, cnt, out, lse, b, hq, hk, dedup, n, bs,
+                                   kmax, scale, stream);
+  return launch<T, D, DV, true>(q, k, v, idx, cnt, out, lse, b, hq, hk, dedup, n, bs, kmax,
                                 scale, stream);
 }
 
 template <typename T>
 int launch_tile(const void* q, const void* k, const void* v, const int* idx,
-                const int* cnt, void* out, int b, int hq, int hk, int dedup, int n, int d,
-                int dv, int bs, int kmax, float scale, cudaStream_t stream) {
-  STEM_HEAD_DIM_PAIR_SWITCH(d, dv, launch_d<T, D, DV>(q, k, v, idx, cnt, out, b, hq, hk,
+                const int* cnt, void* out, float* lse, int b, int hq, int hk, int dedup, int n,
+                int d, int dv, int bs, int kmax, float scale, cudaStream_t stream) {
+  STEM_HEAD_DIM_PAIR_SWITCH(d, dv, launch_d<T, D, DV>(q, k, v, idx, cnt, out, lse, b, hq, hk,
                                                       dedup, n, bs, kmax, scale, stream))
 }
 
@@ -157,13 +169,16 @@ struct SparseTiles {
   }
 };
 
+// kLse: store each row's log-sum-exp (the training forward); serving runs
+// the instance without.
+template <bool kLse>
 __global__ void __launch_bounds__(stem_wg::kThreads, 1)
 block_sparse_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           const int* __restrict__ idx, const int* __restrict__ cnt,
-                          __nv_bfloat16* __restrict__ out, int hq, int hk, int dedup, int n,
-                          int bs, int kmax, float scale) {
+                          __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int hq,
+                          int hk, int dedup, int n, int bs, int kmax, float scale) {
   extern __shared__ uint8_t smem_wg[];
   const int tiles = bs / stem_wg::kBM;
   const int x = gridDim.y - 1 - blockIdx.y;          // heaviest query blocks first
@@ -178,22 +193,32 @@ block_sparse_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const long long kv_row = ((long long)b * hk + kvh) * n;
   const SparseTiles sel{idx + row * kmax, min(cnt[row], kmax), nq, bs, q0, 0, 0};
   stem_wg::attend_tile(smem_wg, &tq, &tk, &tv, q_row, kv_row, sel, out + q_row * stem_wg::kD,
-                       stem_wg::kBM, scale);
+                       stem_wg::kBM, scale, kLse ? lse + q_row : nullptr);
+}
+
+template <bool kLse>
+int launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                 const int* idx, const int* cnt, void* out, float* lse, int b, int hq, int hk,
+                 int dedup, int n, int bs, int kmax, float scale, cudaStream_t stream) {
+  cudaError_t err = stem_wg::prepare(block_sparse_wgmma_kernel<kLse>);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(hq, n / stem_wg::kBM, b);
+  block_sparse_wgmma_kernel<kLse><<<grid, stem_wg::kThreads, stem_wg::kSmemBytes, stream>>>(
+      tq, tk, tv, idx, cnt, (__nv_bfloat16*)out, lse, hq, hk, dedup, n, bs, kmax, scale);
+  return (int)cudaGetLastError();
 }
 
 int launch_wgmma(const void* q, const void* k, const void* v, const int* idx, const int* cnt,
-                 void* out, int b, int hq, int hk, int dedup, int n, int bs, int kmax,
-                 float scale, cudaStream_t stream) {
+                 void* out, float* lse, int b, int hq, int hk, int dedup, int n, int bs,
+                 int kmax, float scale, cudaStream_t stream) {
   if (bs % stem_wg::kBM != 0) return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
   if (!stem_wg::make_maps(&tq, &tk, &tv, q, k, v, b, hq, hk, n))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = stem_wg::prepare(block_sparse_wgmma_kernel);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(hq, n / stem_wg::kBM, b);
-  block_sparse_wgmma_kernel<<<grid, stem_wg::kThreads, stem_wg::kSmemBytes, stream>>>(
-      tq, tk, tv, idx, cnt, (__nv_bfloat16*)out, hq, hk, dedup, n, bs, kmax, scale);
-  return (int)cudaGetLastError();
+  return lse ? launch_wgmma<true>(tq, tk, tv, idx, cnt, out, lse, b, hq, hk, dedup, n, bs,
+                                  kmax, scale, stream)
+             : launch_wgmma<false>(tq, tk, tv, idx, cnt, out, lse, b, hq, hk, dedup, n, bs,
+                                   kmax, scale, stream);
 }
 
 
@@ -225,8 +250,8 @@ block_sparse_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, const T* __restrict__ o,
                            const T* __restrict__ dout, const int* __restrict__ idx,
                            const int* __restrict__ cnt, T* __restrict__ dq,
-                           float* __restrict__ lse, float* __restrict__ delta, int hq, int hk,
-                           int dedup, int n, int bs, int kmax, float scale) {
+                           const float* __restrict__ lse, float* __restrict__ delta, int hq,
+                           int hk, int dedup, int n, int bs, int kmax, float scale) {
   extern __shared__ float4 smem_raw[];
   stem_bwd::Smem& sm = *reinterpret_cast<stem_bwd::Smem*>(smem_raw);
   const int tiles = (bs + stem_bwd::kT - 1) / stem_bwd::kT;
@@ -291,8 +316,8 @@ block_sparse_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D, int DV>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
                const int* idx, const int* cnt, const int* tidx, const int* tcnt, void* dq,
-               void* dk, void* dv, float* lse, float* delta, int b, int hq, int hk, int dedup,
-               int n, int bs, int kmax, float scale, cudaStream_t stream) {
+               void* dk, void* dv, const float* lse, float* delta, int b, int hq, int hk,
+               int dedup, int n, int bs, int kmax, float scale, cudaStream_t stream) {
   cudaError_t err = stem_bwd::prepare(block_sparse_bwd_dq_kernel<T, D, DV>);
   if (err == cudaSuccess) err = stem_bwd::prepare(block_sparse_bwd_dkdv_kernel<T, D, DV>);
   if (err != cudaSuccess) return (int)err;
@@ -313,13 +338,138 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
 template <typename T>
 int launch_bwd_pair(const void* q, const void* k, const void* v, const void* o,
                     const void* dout, const int* idx, const int* cnt, const int* tidx,
-                    const int* tcnt, void* dq, void* dk, void* dv, float* lse, float* delta,
-                    int b, int hq, int hk, int dedup, int n, int d, int dv_dim, int bs,
-                    int kmax, float scale, cudaStream_t stream) {
+                    const int* tcnt, void* dq, void* dk, void* dv, const float* lse,
+                    float* delta, int b, int hq, int hk, int dedup, int n, int d, int dv_dim,
+                    int bs, int kmax, float scale, cudaStream_t stream) {
   STEM_HEAD_DIM_PAIR_SWITCH(d, dv_dim, launch_bwd<T, D, DV>(q, k, v, o, dout, idx, cnt, tidx,
                                                             tcnt, dq, dk, dv, lse, delta, b,
                                                             hq, hk, dedup, n, bs, kmax, scale,
                                                             stream))
+}
+
+// Backward on the tensor cores (bf16, d = dv = 128, bs % 128 == 0): the dq
+// kernel walks the forward's key tiles (SparseTiles); the dk / dv kernel,
+// for each query head of its KV head in turn, the 64-query tiles of the
+// query blocks on its key block's transposed list (increasing), skipping
+// tiles wholly above its keys.
+struct SparseQueryTiles {
+  const int* tidx;
+  const int* tcnt;
+  long long head_row;              // (b * hq + kvh * g) * n: the group's first head
+  long long trow0;                 // the transposed row of head 0 (b, h_sel, key block)
+  int g, dedup, n, nq, bs, k0;
+  int hh, u, count, t;             // head, list slot, its count, row offset in the block
+  __device__ __forceinline__ bool next(long long& row, int& q0) {
+    while (hh < g) {
+      const long long trow = trow0 + (dedup ? 0 : (long long)hh * nq);
+      if (count < 0) count = min(tcnt[trow], nq);
+      while (u < count) {
+        const int i = tidx[trow * nq + u];
+        while (i >= 0 && i < nq && t < bs) {
+          const int q = i * bs + t;
+          t += stem_bwg::kQT;
+          if (q + stem_bwg::kQT - 1 >= k0) {
+            row = head_row + (long long)hh * n + q;
+            q0 = q;
+            return true;
+          }
+        }
+        ++u;
+        t = 0;
+      }
+      ++hh;
+      u = 0;
+      count = -1;
+    }
+    return false;
+  }
+};
+
+// grid (hq, n / 128, b), heaviest query blocks first
+__global__ void __launch_bounds__(stem_wg::kThreads, 1)
+block_sparse_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                 const __grid_constant__ CUtensorMap tdo,
+                                 const __grid_constant__ CUtensorMap tk,
+                                 const __grid_constant__ CUtensorMap tv,
+                                 const __nv_bfloat16* __restrict__ o,
+                                 const __nv_bfloat16* __restrict__ dout,
+                                 const int* __restrict__ idx, const int* __restrict__ cnt,
+                                 const float* __restrict__ lse, float* __restrict__ delta,
+                                 __nv_bfloat16* __restrict__ dq, int hq, int hk, int dedup,
+                                 int n, int bs, int kmax, float scale) {
+  extern __shared__ uint8_t smem_wg[];
+  const int tiles = bs / stem_wg::kBM;
+  const int x = gridDim.y - 1 - blockIdx.y;
+  const int i = x / tiles, sub = x - i * tiles;
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int kvh = h / (hq / hk);
+  const int nq = n / bs;
+  const long long row = ((long long)b * (dedup ? hk : hq) + (dedup ? kvh : h)) * nq + i;
+  const int q0 = i * bs + sub * stem_wg::kBM;
+  const long long q_row = ((long long)b * hq + h) * n + q0;
+  const long long kv_row = ((long long)b * hk + kvh) * n;
+  const SparseTiles sel{idx + row * kmax, min(cnt[row], kmax), nq, bs, q0, 0, 0};
+  stem_bwg::dq_tile(smem_wg, &tq, &tdo, &tk, &tv, q_row, kv_row, sel, o + q_row * stem_wg::kD,
+                    dout + q_row * stem_wg::kD, lse + q_row, delta + q_row,
+                    dq + q_row * stem_wg::kD, stem_wg::kBM, scale);
+}
+
+// grid (hk, n / 128, b): 128 keys of key block y / (bs / 128) a CTA
+__global__ void __launch_bounds__(stem_wg::kThreads, 1)
+block_sparse_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
+                                   const __grid_constant__ CUtensorMap tv,
+                                   const __grid_constant__ CUtensorMap tq,
+                                   const __grid_constant__ CUtensorMap tdo,
+                                   const int* __restrict__ tidx, const int* __restrict__ tcnt,
+                                   const float* __restrict__ lse,
+                                   const float* __restrict__ delta,
+                                   __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                                   int hq, int hk, int dedup, int n, int bs, float scale) {
+  extern __shared__ uint8_t smem_wg[];
+  const int kvh = blockIdx.x, b = blockIdx.z, g = hq / hk;
+  const int nq = n / bs;
+  const int j = blockIdx.y / (bs / stem_wg::kBN);
+  const int k0 = blockIdx.y * stem_wg::kBN;
+  const long long kv_row = ((long long)b * hk + kvh) * n + k0;
+  const long long trow0 =
+      ((long long)b * (dedup ? hk : hq) + (dedup ? kvh : (long long)kvh * g)) * nq + j;
+  const SparseQueryTiles tiles{tidx, tcnt, ((long long)b * hq + (long long)kvh * g) * n, trow0,
+                               g, dedup, n, nq, bs, k0, 0, 0, -1, 0};
+  stem_bwg::dkdv_tile(smem_wg, &tk, &tv, &tq, &tdo, kv_row, k0, tiles, lse, delta,
+                      dk + kv_row * stem_wg::kD, dv + kv_row * stem_wg::kD, n, stem_wg::kBN,
+                      scale);
+}
+
+int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
+                     const void* dout, const int* idx, const int* cnt, const int* tidx,
+                     const int* tcnt, void* dq, void* dk, void* dv, const float* lse,
+                     float* delta, int b, int hq, int hk, int dedup, int n, int bs, int kmax,
+                     float scale, cudaStream_t stream) {
+  if (bs % stem_wg::kBM != 0) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tdo, tk, tv, tq64, tdo64;
+  const long long qrows = (long long)b * hq * n, krows = (long long)b * hk * n;
+  if (!stem_wg::make_map(&tq, q, qrows) || !stem_wg::make_map(&tdo, dout, qrows) ||
+      !stem_wg::make_map(&tk, k, krows) || !stem_wg::make_map(&tv, v, krows) ||
+      !stem_wg::make_map(&tq64, q, qrows, stem_bwg::kQT) ||
+      !stem_wg::make_map(&tdo64, dout, qrows, stem_bwg::kQT))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = stem_wg::prepare(block_sparse_bwd_dq_wgmma_kernel, stem_bwg::kDqSmemBytes);
+  if (err == cudaSuccess)
+    err = stem_wg::prepare(block_sparse_bwd_dkdv_wgmma_kernel, stem_bwg::kDkdvSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid_q(hq, n / stem_wg::kBM, b), grid_k(hk, n / stem_wg::kBN, b);
+  block_sparse_bwd_dq_wgmma_kernel<<<grid_q, stem_wg::kThreads, stem_bwg::kDqSmemBytes,
+                                     stream>>>(tq, tdo, tk, tv, (const __nv_bfloat16*)o,
+                                               (const __nv_bfloat16*)dout, idx, cnt, lse, delta,
+                                               (__nv_bfloat16*)dq, hq, hk, dedup, n, bs, kmax,
+                                               scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  block_sparse_bwd_dkdv_wgmma_kernel<<<grid_k, stem_wg::kThreads, stem_bwg::kDkdvSmemBytes,
+                                       stream>>>(tk, tv, tq64, tdo64, tidx, tcnt, lse, delta,
+                                                 (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, hq, hk,
+                                                 dedup, n, bs, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -332,20 +482,22 @@ extern "C" {
 // and bs dividing n (the wrapper checks).  is_bf16: 0 = float32 (the
 // CUDA-core tile), 1 = bfloat16 for q/k/v/out: the tensor-core tile at d =
 // dv = 128 and bs a multiple of 128 (q, k, v 16-byte aligned for TMA),
-// else the CUDA-core tile.
+// else the CUDA-core tile.  lse: null, or (b, hq, n) fp32 for each row's
+// natural-log log-sum-exp.
 int stem_block_sparse_attention(const void* q, const void* k, const void* v,
-                                const int* idx, const int* cnt, void* out, int b,
+                                const int* idx, const int* cnt, void* out, void* lse, int b,
                                 int hq, int hk, int dedup, int n, int d, int dv, int bs,
                                 int kmax, int is_bf16, float scale, void* stream) {
   if (hk <= 0 || hq % hk != 0 || bs <= 0 || n % bs != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  float* l = (float*)lse;
   if (is_bf16 && d == stem_wg::kD && dv == stem_wg::kD && bs % stem_wg::kBM == 0)
-    return launch_wgmma(q, k, v, idx, cnt, out, b, hq, hk, dedup, n, bs, kmax, scale, st);
+    return launch_wgmma(q, k, v, idx, cnt, out, l, b, hq, hk, dedup, n, bs, kmax, scale, st);
   if (is_bf16)
-    return launch_tile<__nv_bfloat16>(q, k, v, idx, cnt, out, b, hq, hk, dedup, n, d, dv,
+    return launch_tile<__nv_bfloat16>(q, k, v, idx, cnt, out, l, b, hq, hk, dedup, n, d, dv,
                                       bs, kmax, scale, st);
-  return launch_tile<float>(q, k, v, idx, cnt, out, b, hq, hk, dedup, n, d, dv, bs, kmax,
+  return launch_tile<float>(q, k, v, idx, cnt, out, l, b, hq, hk, dedup, n, d, dv, bs, kmax,
                             scale, st);
 }
 
@@ -353,25 +505,33 @@ int stem_block_sparse_attention(const void* q, const void* k, const void* v,
 // kmax as there, o its output and dout o's gradient; tidx (b, h_sel, n/bs,
 // n/bs) and tcnt (b, h_sel, n/bs) int32 the transposed selection (the
 // first tcnt entries of a row are the query blocks whose live prefix holds
-// that key block, increasing); dq / dk / dv shaped as q / k / v in the same
-// dtype; lse and delta (b, hq, n) fp32 scratch; all contiguous.  Two
-// launches on the stream (dq and the row statistics, then dk and dv).
+// that key block, increasing); lse (b, hq, n) fp32 the forward's; dq / dk
+// / dv shaped as q / k / v in the same dtype; delta (b, hq, n) fp32
+// scratch; all contiguous.  wgmma: 1 = the tensor-core kernels (bf16, d =
+// dv = 128, bs a multiple of 128 only), 0 = the CUDA-core ones.  Two
+// launches on the stream (dq and delta, then dk and dv).
 int stem_block_sparse_attention_bwd(const void* q, const void* k, const void* v,
-                                    const void* o, const void* dout, const int* idx,
-                                    const int* cnt, const int* tidx, const int* tcnt,
-                                    void* dq, void* dk, void* dv, void* lse, void* delta,
+                                    const void* o, const void* dout, const void* lse,
+                                    const int* idx, const int* cnt, const int* tidx,
+                                    const int* tcnt, void* dq, void* dk, void* dv, void* delta,
                                     int b, int hq, int hk, int dedup, int n, int d,
-                                    int dv_dim, int bs, int kmax, int is_bf16, float scale,
-                                    void* stream) {
+                                    int dv_dim, int bs, int kmax, int is_bf16, int wgmma,
+                                    float scale, void* stream) {
   if (hk <= 0 || hq % hk != 0 || bs <= 0 || n % bs != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const float* l = (const float*)lse;
+  if (wgmma) {
+    if (!is_bf16 || d != stem_wg::kD || dv_dim != stem_wg::kD) return (int)cudaErrorInvalidValue;
+    return launch_bwd_wgmma(q, k, v, o, dout, idx, cnt, tidx, tcnt, dq, dk, dv, l,
+                            (float*)delta, b, hq, hk, dedup, n, bs, kmax, scale, st);
+  }
   if (is_bf16)
     return launch_bwd_pair<__nv_bfloat16>(q, k, v, o, dout, idx, cnt, tidx, tcnt, dq, dk, dv,
-                                          (float*)lse, (float*)delta, b, hq, hk, dedup, n, d,
-                                          dv_dim, bs, kmax, scale, st);
-  return launch_bwd_pair<float>(q, k, v, o, dout, idx, cnt, tidx, tcnt, dq, dk, dv,
-                                (float*)lse, (float*)delta, b, hq, hk, dedup, n, d, dv_dim,
-                                bs, kmax, scale, st);
+                                          l, (float*)delta, b, hq, hk, dedup, n, d, dv_dim, bs,
+                                          kmax, scale, st);
+  return launch_bwd_pair<float>(q, k, v, o, dout, idx, cnt, tidx, tcnt, dq, dk, dv, l,
+                                (float*)delta, b, hq, hk, dedup, n, d, dv_dim, bs, kmax, scale,
+                                st);
 }
 
 }  // extern "C"

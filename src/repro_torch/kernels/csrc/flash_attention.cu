@@ -32,14 +32,27 @@
 // within 1e-4 of the plain version in fp32, bf16 loads and stores around
 // the same fp32 math).
 //
+// Both routes save each row's natural-log log-sum-exp when the caller
+// passes an lse buffer (the training path's autograd Function); serving
+// passes none, and only the epilogue's store differs.
+//
 // stem_flash_attention_bwd is the gradient of the same function (the TPU
 // kernel has none: the reference trains through XLA's autodiff of its jnp
-// attention), run by attn_bwd.cuh's two kernels on the fp32 CUDA cores at
-// every (q/k, v) head_dim pair: flash_bwd_dq_kernel per 64 query rows over
-// the key tiles 0..its diagonal, flash_bwd_dkdv_kernel per 64 keys of a KV
-// head over the g query heads of its group and the query tiles from its
-// diagonal to the end.
+// attention), two kernels that read the forward's lse and sum without
+// atomics.  The wrapper's backward_route picks the route, the forward's
+// condition: bf16 at d = dv = 128 runs attn_bwd_wgmma.cuh on the tensor
+// cores (flash_bwd_dq_wgmma_kernel per 128 query rows over the key tiles
+// 0..its diagonal, Q and dO resident, K / V through a TMA ring;
+// flash_bwd_dkdv_wgmma_kernel per 128 keys of a KV head over the g query
+// heads of its group and the 64-query tiles from its diagonal to the end,
+// K and V resident, Q / dO / lse / delta through a TMA ring; P and dS
+// rounded to bf16 for the wgmma products).  Every other dtype and pair runs
+// attn_bwd.cuh's fp32 CUDA-core tiles (flash_bwd_dq_kernel per 64 query
+// rows, flash_bwd_dkdv_kernel per 64 keys, in the same orders).  Bound: 2 *
+// (3 d + 2 dv) flops a causal pair (S, dP, dV, dK, dQ); the two kernels do
+// 7 products a pair (S and dP in both).
 #include "attn_bwd.cuh"
+#include "attn_bwd_wgmma.cuh"
 #include "attn_tile.cuh"
 #include "attn_wgmma.cuh"
 #include "head_dims.cuh"
@@ -52,8 +65,8 @@ using namespace stem_attn;
 template <typename T, int D, int DV>
 __global__ void __launch_bounds__(kThreads, tile_min_ctas<D, DV>())
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int hq, int hk, int n,
-             float scale) {
+             const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse, int hq,
+             int hk, int n, float scale) {
   extern __shared__ float4 smem_raw[];
   Smem<D, DV>& sm = *reinterpret_cast<Smem<D, DV>*>(smem_raw);
   const int h = blockIdx.y, b = blockIdx.z;
@@ -68,24 +81,24 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int k0 = 0; k0 < n && k0 <= q0 + kBQ - 1; k0 += kBK)
     stage_and_step<D, DV, false>(sm, st, k + (krow0 + k0) * D, v + (krow0 + k0) * DV,
                                  min(kBK, n - k0), q0, k0);
-  store_rows<DV>(st, out + qrow0 * DV, min(kBQ, n - q0));
+  store_rows<DV>(st, out + qrow0 * DV, min(kBQ, n - q0), lse ? lse + qrow0 : nullptr);
 }
 
 template <typename T, int D, int DV>
-int launch(const void* q, const void* k, const void* v, void* out, int b, int hq,
-           int hk, int n, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int b,
+           int hq, int hk, int n, float scale, cudaStream_t stream) {
   cudaError_t err = prepare<D, DV>(flash_kernel<T, D, DV>);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((n + kBQ - 1) / kBQ, hq, b);
   flash_kernel<T, D, DV><<<grid, kThreads, sizeof(Smem<D, DV>), stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, hq, hk, n, scale);
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, hq, hk, n, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_tile(const void* q, const void* k, const void* v, void* out, int b, int hq,
-                int hk, int n, int d, int dv, float scale, cudaStream_t stream) {
-  STEM_HEAD_DIM_PAIR_SWITCH(d, dv, launch<T, D, DV>(q, k, v, out, b, hq, hk, n, scale,
+int launch_tile(const void* q, const void* k, const void* v, void* out, float* lse, int b,
+                int hq, int hk, int n, int d, int dv, float scale, cudaStream_t stream) {
+  STEM_HEAD_DIM_PAIR_SWITCH(d, dv, launch<T, D, DV>(q, k, v, out, lse, b, hq, hk, n, scale,
                                                     stream))
 }
 
@@ -102,11 +115,15 @@ struct FlashTiles {
   }
 };
 
+// kLse: store each row's log-sum-exp (the training forward); serving runs
+// the instance without, so its tile is compiled as if the store did not
+// exist.
+template <bool kLse>
 __global__ void __launch_bounds__(stem_wg::kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
-                   int hq, int hk, int n, float scale) {
+                   float* __restrict__ lse, int hq, int hk, int n, float scale) {
   extern __shared__ uint8_t smem_wg[];
   const int h = blockIdx.x, b = blockIdx.z;
   const int i = gridDim.y - 1 - blockIdx.y;          // heaviest query tiles first
@@ -115,20 +132,28 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const long long q_row = ((long long)b * hq + h) * n + q0;
   const long long kv_row = ((long long)b * hk + kvh) * n;
   stem_wg::attend_tile(smem_wg, &tq, &tk, &tv, q_row, kv_row, FlashTiles{0, i},
-                       out + q_row * stem_wg::kD, min(stem_wg::kBM, n - q0), scale);
+                       out + q_row * stem_wg::kD, min(stem_wg::kBM, n - q0), scale,
+                       kLse ? lse + q_row : nullptr);
 }
 
-int launch_wgmma(const void* q, const void* k, const void* v, void* out, int b, int hq,
-                 int hk, int n, float scale, cudaStream_t stream) {
+template <bool kLse>
+int launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, void* out,
+                 float* lse, int b, int hq, int hk, int n, float scale, cudaStream_t stream) {
+  cudaError_t err = stem_wg::prepare(flash_wgmma_kernel<kLse>);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(hq, (n + stem_wg::kBM - 1) / stem_wg::kBM, b);
+  flash_wgmma_kernel<kLse><<<grid, stem_wg::kThreads, stem_wg::kSmemBytes, stream>>>(
+      tq, tk, tv, (__nv_bfloat16*)out, lse, hq, hk, n, scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse, int b,
+                 int hq, int hk, int n, float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (!stem_wg::make_maps(&tq, &tk, &tv, q, k, v, b, hq, hk, n))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = stem_wg::prepare(flash_wgmma_kernel);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(hq, (n + stem_wg::kBM - 1) / stem_wg::kBM, b);
-  flash_wgmma_kernel<<<grid, stem_wg::kThreads, stem_wg::kSmemBytes, stream>>>(
-      tq, tk, tv, (__nv_bfloat16*)out, hq, hk, n, scale);
-  return (int)cudaGetLastError();
+  return lse ? launch_wgmma<true>(tq, tk, tv, out, lse, b, hq, hk, n, scale, stream)
+             : launch_wgmma<false>(tq, tk, tv, out, lse, b, hq, hk, n, scale, stream);
 }
 
 // The tile's two products on one 128 x 128 tile, a test of its shared-memory
@@ -197,8 +222,9 @@ template <typename T, int D, int DV>
 __global__ void __launch_bounds__(stem_bwd::kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ o,
-                    const T* __restrict__ dout, T* __restrict__ dq, float* __restrict__ lse,
-                    float* __restrict__ delta, int hq, int hk, int n, float scale) {
+                    const T* __restrict__ dout, T* __restrict__ dq,
+                    const float* __restrict__ lse, float* __restrict__ delta, int hq, int hk,
+                    int n, float scale) {
   extern __shared__ float4 smem_raw[];
   stem_bwd::Smem& sm = *reinterpret_cast<stem_bwd::Smem*>(smem_raw);
   const int h = blockIdx.y, b = blockIdx.z;
@@ -243,8 +269,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D, int DV>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
-               void* dq, void* dk, void* dv, float* lse, float* delta, int b, int hq, int hk,
-               int n, float scale, cudaStream_t stream) {
+               void* dq, void* dk, void* dv, const float* lse, float* delta, int b, int hq,
+               int hk, int n, float scale, cudaStream_t stream) {
   cudaError_t err = stem_bwd::prepare(flash_bwd_dq_kernel<T, D, DV>);
   if (err == cudaSuccess) err = stem_bwd::prepare(flash_bwd_dkdv_kernel<T, D, DV>);
   if (err != cudaSuccess) return (int)err;
@@ -264,12 +290,100 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
 
 template <typename T>
 int launch_bwd_pair(const void* q, const void* k, const void* v, const void* o,
-                    const void* dout, void* dq, void* dk, void* dv, float* lse, float* delta,
-                    int b, int hq, int hk, int n, int d, int dv_dim, float scale,
+                    const void* dout, void* dq, void* dk, void* dv, const float* lse,
+                    float* delta, int b, int hq, int hk, int n, int d, int dv_dim, float scale,
                     cudaStream_t stream) {
   STEM_HEAD_DIM_PAIR_SWITCH(d, dv_dim, launch_bwd<T, D, DV>(q, k, v, o, dout, dq, dk, dv, lse,
                                                             delta, b, hq, hk, n, scale,
                                                             stream))
+}
+
+// Backward on the tensor cores (bf16, d = dv = 128): the dq kernel walks
+// the forward's key tiles (FlashTiles); the dk / dv kernel the 64-query
+// tiles of each query head of its KV head, from its diagonal to the end.
+struct FlashQueryTiles {
+  long long head_row;              // (b * hq + kvh * g) * n: the group's first head
+  int g, n, first, hh, q;
+  __device__ __forceinline__ bool next(long long& row, int& q0) {
+    if (q >= n) {
+      if (++hh >= g) return false;
+      q = first;
+    }
+    row = head_row + (long long)hh * n + q;
+    q0 = q;
+    q += stem_bwg::kQT;
+    return true;
+  }
+};
+
+// grid (hq, ceil(n / 128), b), heaviest query tiles first
+__global__ void __launch_bounds__(stem_wg::kThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __nv_bfloat16* __restrict__ o,
+                          const __nv_bfloat16* __restrict__ dout,
+                          const float* __restrict__ lse, float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dq, int hq, int hk, int n, float scale) {
+  extern __shared__ uint8_t smem_wg[];
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int i = gridDim.y - 1 - blockIdx.y;
+  const int kvh = h / (hq / hk);
+  const int q0 = i * stem_wg::kBM;
+  const long long q_row = ((long long)b * hq + h) * n + q0;
+  const long long kv_row = ((long long)b * hk + kvh) * n;
+  stem_bwg::dq_tile(smem_wg, &tq, &tdo, &tk, &tv, q_row, kv_row, FlashTiles{0, i},
+                    o + q_row * stem_wg::kD, dout + q_row * stem_wg::kD, lse + q_row,
+                    delta + q_row, dq + q_row * stem_wg::kD, min(stem_wg::kBM, n - q0), scale);
+}
+
+// grid (hk, ceil(n / 128), b): key tile 0 (the most query tiles) first
+__global__ void __launch_bounds__(stem_wg::kThreads, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                            int hq, int hk, int n, float scale) {
+  extern __shared__ uint8_t smem_wg[];
+  const int kvh = blockIdx.x, b = blockIdx.z, g = hq / hk;
+  const int k0 = blockIdx.y * stem_wg::kBN;
+  const long long kv_row = ((long long)b * hk + kvh) * n + k0;
+  const FlashQueryTiles tiles{((long long)b * hq + (long long)kvh * g) * n, g, n, k0, 0, k0};
+  stem_bwg::dkdv_tile(smem_wg, &tk, &tv, &tq, &tdo, kv_row, k0, tiles, lse, delta,
+                      dk + kv_row * stem_wg::kD, dv + kv_row * stem_wg::kD, n,
+                      min(stem_wg::kBN, n - k0), scale);
+}
+
+int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
+                     const void* dout, void* dq, void* dk, void* dv, const float* lse,
+                     float* delta, int b, int hq, int hk, int n, float scale,
+                     cudaStream_t stream) {
+  CUtensorMap tq, tdo, tk, tv, tq64, tdo64;
+  const long long qrows = (long long)b * hq * n, krows = (long long)b * hk * n;
+  if (!stem_wg::make_map(&tq, q, qrows) || !stem_wg::make_map(&tdo, dout, qrows) ||
+      !stem_wg::make_map(&tk, k, krows) || !stem_wg::make_map(&tv, v, krows) ||
+      !stem_wg::make_map(&tq64, q, qrows, stem_bwg::kQT) ||
+      !stem_wg::make_map(&tdo64, dout, qrows, stem_bwg::kQT))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = stem_wg::prepare(flash_bwd_dq_wgmma_kernel, stem_bwg::kDqSmemBytes);
+  if (err == cudaSuccess)
+    err = stem_wg::prepare(flash_bwd_dkdv_wgmma_kernel, stem_bwg::kDkdvSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (n + stem_wg::kBM - 1) / stem_wg::kBM;
+  flash_bwd_dq_wgmma_kernel<<<dim3(hq, tiles, b), stem_wg::kThreads, stem_bwg::kDqSmemBytes,
+                              stream>>>(tq, tdo, tk, tv, (const __nv_bfloat16*)o,
+                                        (const __nv_bfloat16*)dout, lse, delta,
+                                        (__nv_bfloat16*)dq, hq, hk, n, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dkdv_wgmma_kernel<<<dim3(hk, tiles, b), stem_wg::kThreads,
+                                stem_bwg::kDkdvSmemBytes, stream>>>(
+      tk, tv, tq64, tdo64, lse, delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, hq, hk, n,
+      scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -281,16 +395,18 @@ extern "C" {
 // wrapper checks both).  is_bf16: 0 = float32 (the CUDA-core tile), 1 =
 // bfloat16 for all four tensors (the tensor-core tile at d = dv = 128, q,
 // k, v 16-byte aligned for TMA; the CUDA-core tile at the other pairs).
+// lse: null, or (b, hq, n) fp32 for each row's natural-log log-sum-exp.
 int stem_flash_attention(const void* q, const void* k, const void* v, void* out,
-                         int b, int hq, int hk, int n, int d, int dv, int is_bf16,
+                         void* lse, int b, int hq, int hk, int n, int d, int dv, int is_bf16,
                          float scale, void* stream) {
   if (hk <= 0 || hq % hk != 0 || n <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  float* l = (float*)lse;
   if (is_bf16 && d == stem_wg::kD && dv == stem_wg::kD)
-    return launch_wgmma(q, k, v, out, b, hq, hk, n, scale, st);
+    return launch_wgmma(q, k, v, out, l, b, hq, hk, n, scale, st);
   if (is_bf16)
-    return launch_tile<__nv_bfloat16>(q, k, v, out, b, hq, hk, n, d, dv, scale, st);
-  return launch_tile<float>(q, k, v, out, b, hq, hk, n, d, dv, scale, st);
+    return launch_tile<__nv_bfloat16>(q, k, v, out, l, b, hq, hk, n, d, dv, scale, st);
+  return launch_tile<float>(q, k, v, out, l, b, hq, hk, n, d, dv, scale, st);
 }
 
 // a, b, p, v: (128, 128) bf16, contiguous and 16-byte aligned; s, o:
@@ -309,20 +425,28 @@ int stem_wgmma_tile_products(const void* a, const void* b, const void* p, const 
 }
 
 // The gradient of stem_flash_attention: q, k, v, o (its output), dout
-// (o's gradient) as there, dq / dk / dv shaped as q / k / v in the same
-// dtype, lse and delta (b, hq, n) fp32 scratch; all contiguous.  Two
-// launches on the stream (dq and the row statistics, then dk and dv).
+// (o's gradient) as there, lse (b, hq, n) fp32 the forward's, dq / dk / dv
+// shaped as q / k / v in the same dtype, delta (b, hq, n) fp32 scratch; all
+// contiguous.  wgmma: 1 = the tensor-core kernels (bf16, d = dv = 128 only;
+// anything else is refused), 0 = the CUDA-core ones.  Two launches on the
+// stream (dq and delta, then dk and dv).
 int stem_flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
-                             const void* dout, void* dq, void* dk, void* dv, void* lse,
+                             const void* dout, const void* lse, void* dq, void* dk, void* dv,
                              void* delta, int b, int hq, int hk, int n, int d, int dv_dim,
-                             int is_bf16, float scale, void* stream) {
+                             int is_bf16, int wgmma, float scale, void* stream) {
   if (hk <= 0 || hq % hk != 0 || n <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const float* l = (const float*)lse;
+  if (wgmma) {
+    if (!is_bf16 || d != stem_wg::kD || dv_dim != stem_wg::kD) return (int)cudaErrorInvalidValue;
+    return launch_bwd_wgmma(q, k, v, o, dout, dq, dk, dv, l, (float*)delta, b, hq, hk, n, scale,
+                            st);
+  }
   if (is_bf16)
-    return launch_bwd_pair<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, (float*)lse,
-                                          (float*)delta, b, hq, hk, n, d, dv_dim, scale, st);
-  return launch_bwd_pair<float>(q, k, v, o, dout, dq, dk, dv, (float*)lse, (float*)delta, b,
-                                hq, hk, n, d, dv_dim, scale, st);
+    return launch_bwd_pair<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, l, (float*)delta, b,
+                                          hq, hk, n, d, dv_dim, scale, st);
+  return launch_bwd_pair<float>(q, k, v, o, dout, dq, dk, dv, l, (float*)delta, b, hq, hk, n,
+                                d, dv_dim, scale, st);
 }
 
 }  // extern "C"

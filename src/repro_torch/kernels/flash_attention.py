@@ -17,13 +17,21 @@ and a plain-int launch counter in ``LAUNCHES``.  The wrapper takes the plain
 version only for tensors on the CPU; for a CUDA tensor it launches the
 kernel or raises.
 
+With ``return_lse`` the forward also returns each row's natural-log
+log-sum-exp (b, hq, n) fp32, written by the kernel's epilogue (serving asks
+for none and pays nothing).
+
 The gradient (``flash_attention_bwd``, the training path's): the TPU kernel
 has none, as the reference trains through XLA's autodiff of its jnp dense
 attention, so the port's counterpart is a hand-written backward
-(``stem_flash_attention_bwd``, ``csrc/attn_bwd.cuh``: dq, then dk and dv,
-on the fp32 CUDA cores, no atomics) beside its plain version, the analytic
-backward ``dS = P * (dP - delta)`` (``flash_attention_bwd_plain``), and its
-own counter.  ``attention`` is the differentiable call
+(``stem_flash_attention_bwd``: dq, then dk and dv, no atomics) that reads
+the forward's lse.  ``backward_route`` picks its kernels: bf16 at head_dim
+128 on the tensor cores (``csrc/attn_bwd_wgmma.cuh``: TMA + wgmma, P and dS
+rounded to bf16 as SDPA's backward does), every other shape on the fp32
+CUDA cores (``csrc/attn_bwd.cuh``).  Beside them sit the plain version, the
+analytic backward ``dS = P * (dP - delta)`` (``flash_attention_bwd_plain``,
+P in fp32), and counters of all backward launches and of the tensor-core
+route's.  ``attention`` is the differentiable call
 (``torch.autograd.Function``): forward and backward both kernels on a CUDA
 tensor, both plain versions on the CPU.
 """
@@ -33,11 +41,11 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import check_head_dim_pair
+from repro_torch.kernels import backward_route, check_head_dim_pair
 
 NEG_INF = -1e30
 
-LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0}
 
 
 def reset_launches() -> None:
@@ -51,9 +59,9 @@ def _lib():
     lib = _build.load("flash_attention")
     if not getattr(lib, "_stem_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.stem_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, i, f, p]
+        lib.stem_flash_attention.argtypes = [p] * 5 + [i] * 7 + [f, p]
         lib.stem_flash_attention.restype = i
-        lib.stem_flash_attention_bwd.argtypes = [p] * 10 + [i] * 7 + [f, p]
+        lib.stem_flash_attention_bwd.argtypes = [p] * 10 + [i] * 8 + [f, p]
         lib.stem_flash_attention_bwd.restype = i
         lib.stem_wgmma_tile_products.argtypes = [p] * 7
         lib.stem_wgmma_tile_products.restype = i
@@ -67,16 +75,18 @@ def _check(cond: bool, msg: str) -> None:
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                          scale=None) -> torch.Tensor:
+                          scale=None, return_lse: bool = False):
     """Plain version: causal masked softmax in fp32, GQA, streamed over
     query-row chunks (each sees keys up to its last row).
     q: (b, hq, n, d); k: (b, hk, n, d); v: (b, hk, n, dv) -> (b, hq, n, dv)
-    in q's dtype."""
+    in q's dtype; with ``return_lse`` also each row's log-sum-exp of its
+    scaled scores (b, hq, n) fp32."""
     b, hq, n, d = q.shape
     hk = k.shape[1]
     group = hq // hk
     scale = d ** -0.5 if scale is None else scale
     out = torch.empty((b, hq, n, v.shape[-1]), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, hq, n), dtype=torch.float32, device=q.device)
     kf, vf = k.float(), v.float()
     step = max(1, (1 << 28) // (b * hq * n))     # ~2^28 scores per step
     for r0 in range(0, n, step):
@@ -85,19 +95,24 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kf[:, :, :r1]) * scale
         keep = (torch.arange(r1, device=q.device)[None, :]
                 <= torch.arange(r0, r1, device=q.device)[:, None])
-        p = torch.softmax(torch.where(keep, s, NEG_INF), dim=-1)
+        s = torch.where(keep, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
         o = torch.einsum("bhgqk,bhkd->bhgqd", p, vf[:, :, :r1])
         out[:, :, r0:r1] = o.reshape(b, hq, r1 - r0, -1).to(q.dtype)
-    return out
+        if return_lse:
+            lse[:, :, r0:r1] = torch.logsumexp(s, dim=-1).reshape(b, hq, r1 - r0)
+    return (out, lse) if return_lse else out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    scale=None) -> torch.Tensor:
+                    scale=None, return_lse: bool = False):
     """Causal flash attention.  q: (b, hq, n, d); k: (b, hk, n, d); v:
-    (b, hk, n, dv) -> (b, hq, n, dv).  CPU tensors take the plain version;
-    CUDA tensors launch the kernel."""
+    (b, hk, n, dv) -> (b, hq, n, dv); with ``return_lse`` the pair (out,
+    lse), lse (b, hq, n) fp32 each row's natural-log log-sum-exp (the
+    backward's input).  CPU tensors take the plain version; CUDA tensors
+    launch the kernel."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, scale=scale)
+        return flash_attention_plain(q, k, v, scale=scale, return_lse=return_lse)
     _check(q.device.type == "cuda", f"flash_attention: unsupported device {q.device}")
     b, hq, n, d = q.shape
     hk, dv = k.shape[1], v.shape[-1]
@@ -117,14 +132,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            "flash_attention: inputs must be 16-byte aligned (TMA, 16-byte loads)")
     scale = d ** -0.5 if scale is None else scale
     out = torch.empty((b, hq, n, dv), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, hq, n), dtype=torch.float32, device=q.device) if return_lse
+           else None)
     err = _lib().stem_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hk, n,
-        d, dv, int(q.dtype == torch.bfloat16), float(scale),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, hq, hk, n, d, dv,
+        int(q.dtype == torch.bfloat16), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"stem_flash_attention launch failed: cudaError {err}")
     LAUNCHES["flash_attention"] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def flash_attention_bwd_plain(q, k, v, o, do, *, scale=None) -> tuple:
@@ -132,7 +150,8 @@ def flash_attention_bwd_plain(q, k, v, o, do, *, scale=None) -> tuple:
     softmax(S), delta = rowsum(do * o), dP = do.v^T and dS = P * (dP -
     delta): dq = scale * dS.k, dk = scale * dS^T.q, dv = P^T.do, summed over
     each KV head's query heads, in fp32, streamed over query-row chunks.
-    Returns (dq, dk, dv) in the inputs' dtype."""
+    P is recomputed, so it takes no lse.  Returns (dq, dk, dv) in the
+    inputs' dtype."""
     b, hq, n, d = q.shape
     hk, dv_dim = k.shape[1], v.shape[-1]
     group = hq // hk
@@ -161,16 +180,21 @@ def flash_attention_bwd_plain(q, k, v, o, do, *, scale=None) -> tuple:
     return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_attention_bwd(q, k, v, o, do, *, scale=None) -> tuple:
+def flash_attention_bwd(q, k, v, o, do, *, scale=None, lse=None) -> tuple:
     """The gradient of ``flash_attention``: (dq, dk, dv) for its inputs
-    q, k, v, its output o and o's gradient do.  CPU tensors take the plain
-    version; CUDA tensors launch the kernels (two launches, one count)."""
+    q, k, v, its output o, o's gradient do and the forward's ``lse``
+    (``return_lse``; required on a CUDA tensor).  CPU tensors take the
+    plain version; CUDA tensors launch the kernels of ``backward_route``
+    (two launches, one count, and one more on the wgmma route's)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, do, scale=scale)
     _check(q.device.type == "cuda", f"flash_attention_bwd: unsupported device {q.device}")
     b, hq, n, d = q.shape
     hk, dv_dim = k.shape[1], v.shape[-1]
-    _check(all(t.device == q.device for t in (k, v, o, do)),
+    _check(lse is not None and lse.dtype == torch.float32
+           and tuple(lse.shape) == (b, hq, n) and lse.is_contiguous(),
+           "flash_attention_bwd: needs the forward's lse, (b, hq, n) contiguous fp32")
+    _check(all(t.device == q.device for t in (k, v, o, do, lse)),
            "flash_attention_bwd: all tensors must be on one device")
     _check(q.dtype in (torch.float32, torch.bfloat16)
            and all(t.dtype == q.dtype for t in (k, v, o, do)),
@@ -184,34 +208,45 @@ def flash_attention_bwd(q, k, v, o, do, *, scale=None) -> tuple:
     check_head_dim_pair("flash_attention_bwd", d, dv_dim)
     _check(hk > 0 and hq % hk == 0, "flash_attention_bwd: kv heads must divide q heads")
     _check(all(t.data_ptr() % 16 == 0 for t in (q, k, v, o, do)),
-           "flash_attention_bwd: inputs must be 16-byte aligned (16-byte loads)")
+           "flash_attention_bwd: inputs must be 16-byte aligned (TMA, 16-byte loads)")
     scale = d ** -0.5 if scale is None else scale
+    route = backward_route(q.dtype, d, dv_dim)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lse = torch.empty((b, hq, n), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
     err = _lib().stem_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        b, hq, hk, n, d, dv_dim, int(q.dtype == torch.bfloat16), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+        b, hq, hk, n, d, dv_dim, int(q.dtype == torch.bfloat16), int(route == "wgmma"),
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"stem_flash_attention_bwd launch failed: cudaError {err}")
+        raise RuntimeError(f"stem_flash_attention_bwd launch failed ({route}): "
+                           f"cudaError {err}")
     LAUNCHES["flash_attention_bwd"] += 1
+    if route == "wgmma":
+        LAUNCHES["flash_attention_bwd_wgmma"] += 1
     return dq, dk, dv
 
 
 class _Attention(torch.autograd.Function):
+    """Causal flash attention with its hand-written gradient.  The forward
+    runs ``flash_attention`` with ``return_lse`` and saves q, k, v, the
+    output and the row log-sum-exp; the backward hands them with do to
+    ``flash_attention_bwd``, which on the card routes bf16 at head_dim 128
+    to the wgmma kernels and every other shape to the CUDA-core ones
+    (neither recomputes the lse).  On the CPU both are plain versions."""
+
     @staticmethod
     def forward(ctx, q, k, v, scale):
-        out = flash_attention(q, k, v, scale=scale)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = flash_attention(q, k, v, scale=scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.scale = scale
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, do.contiguous(), scale=ctx.scale)
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do.contiguous(), scale=ctx.scale,
+                                         lse=lse)
         return dq, dk, dv, None
 
 
@@ -219,7 +254,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               scale=None) -> torch.Tensor:
     """Differentiable causal flash attention: ``flash_attention`` forward,
     ``flash_attention_bwd`` backward (kernels on a CUDA tensor, the plain
-    versions on the CPU)."""
+    versions on the CPU).  A call that needs no gradient (serving, or
+    under ``torch.no_grad``) is the plain forward call: no lse is stored."""
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
+        return flash_attention(q, k, v, scale=scale)
     return _Attention.apply(q, k, v, scale)
 
 

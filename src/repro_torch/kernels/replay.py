@@ -49,6 +49,22 @@ def tolerance(want: torch.Tensor, dtype, p_bf16: bool = False):
     return 2 * ulp + floor
 
 
+def grad_tolerance(want: torch.Tensor, dtype, p_bf16: bool = False):
+    """The limit of |kernel - plain| per element of an attention gradient
+    (dq, dk or dv; want in fp32): ``tolerance`` plus, in bf16, 1e-4 * the
+    tensor's max|plain|.  That floor covers rows whose gradient cancels: a
+    query row that sees one key has dS = dP - delta = 0 up to the fp32 sums'
+    rounding, taken in other orders by the kernel and the plain version, so
+    such a row is ~1e-7 of the tensor's scale in one and ~0 in the other.
+    p_bf16: the tensor-core backward (``backward_route`` "wgmma") rounds P
+    and dS to bf16 before its products, as SDPA's backward does, while the
+    plain version keeps them in fp32; the CUDA-core backward keeps them in
+    fp32 and is held at the 1e-3 row floor."""
+    if dtype == torch.float32:
+        return tolerance(want, dtype)
+    return tolerance(want, dtype, p_bf16) + 1e-4 * want.abs().max()
+
+
 def _live_counts(a):
     if a["live_counts"] is not None:
         return a["live_counts"]

@@ -26,13 +26,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import HEAD_DIM_PAIRS
+from repro_torch.kernels import HEAD_DIM_PAIRS, backward_route
 from repro_torch.kernels import block_sparse_attn as t_bsa
 from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels import paged_attn as t_kern
 from repro_torch.kernels import stem_metric as t_sm
 from repro_torch.kernels import replay
-from repro_torch.kernels.replay import tolerance
+from repro_torch.kernels.replay import grad_tolerance, tolerance
 
 
 def _assert_close(got, want, *, p_bf16=False):
@@ -1368,11 +1368,13 @@ def test_reduced_families_on_card(cuda, arch):
 # the training path: the attention backward kernels and loss_fn gradients
 # ---------------------------------------------------------------------------
 
-def _grad_rule(got, want):
-    """Each of (dq, dk, dv) within the forward's rule (fp32 1e-4 abs; bf16 2
-    ulps + 1e-3 * the row's max|plain|: the backward keeps P in fp32) plus,
-    in bf16, 1e-4 * the tensor's max|plain|: a row whose gradient cancels
-    (a query row that sees one key has dS = dP - delta = 0 up to the fp32
+def _grad_rule(got, want, p_bf16=False):
+    """Each of (dq, dk, dv) within ``replay.grad_tolerance``: the forward's
+    rule (fp32 1e-4 abs; bf16 2 ulps + 1e-3 * the row's max|plain| on the
+    CUDA-core route, which keeps P and dS in fp32, or 1e-2 with p_bf16: the
+    tensor-core route rounds them to bf16 before its products) plus, in
+    bf16, 1e-4 * the tensor's max|plain|: a row whose gradient cancels (a
+    query row that sees one key has dS = dP - delta = 0 up to the fp32
     sums' rounding, taken in other orders by the kernel and the plain
     version) is ~1e-7 of the tensor's scale in one and ~0 in the other."""
     for g, w in zip(got, want):
@@ -1380,9 +1382,19 @@ def _grad_rule(got, want):
             torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
             continue
         g, w = g.float(), w.float()
-        limit = tolerance(w, torch.bfloat16) + 1e-4 * w.abs().max()
+        limit = grad_tolerance(w, torch.bfloat16, p_bf16)
         diff = (g - w).abs()
         assert bool((diff <= limit).all()), f"max |kernel - plain| = {float(diff.max())}"
+
+
+def _assert_lse(got, want):
+    """A forward kernel's saved log-sum-exp against the plain forward's
+    (what the CUDA-core dq kernel recomputed before the forwards saved it):
+    +inf in the same rows (no key seen), elsewhere within 1e-5 of scale."""
+    inf = torch.isinf(want)
+    assert torch.equal(torch.isinf(got), inf) and bool((got[inf] > 0).all())
+    torch.testing.assert_close(got[~inf], want[~inf], rtol=0,
+                               atol=1e-5 * float(want[~inf].abs().max()))
 
 
 def _causal_selection(gen, b, hs, nq, kmax, device):
@@ -1407,11 +1419,17 @@ def _causal_selection(gen, b, hs, nq, kmax, device):
 @pytest.mark.parametrize("pair", HEAD_DIM_PAIRS, ids=lambda p: f"{p[0]}-{p[1]}")
 def test_backward_kernels_match_plain_on_card(cuda, pair, dtype):
     """Both backward kernels at every (q/k, v) head_dim pair of
-    HEAD_DIM_PAIRS against their plain versions: flash at a length that is
-    no multiple of the 64-row tile (GQA group 2), block-sparse at blocks 16
-    and 128 with and without group_dedup (revisit-filled dead slots, cnt ==
-    0 rows); two calls bitwise equal (no atomics); the plain backward
-    rejects a planted dropped key block on the transposed selection."""
+    HEAD_DIM_PAIRS against their plain versions, fed the forwards' saved
+    log-sum-exp (held against the plain forwards'): flash at n = 200 (no
+    multiple of a tile) and 256 (GQA group 2), block-sparse at n = 256 and
+    blocks 16 / 64 / 128 / 256 with and without group_dedup
+    (revisit-filled dead slots, cnt == 0 rows).  bf16 at (128, 128) (and a
+    block that is a multiple of 128) takes the tensor-core route, whose
+    counter must move, under the p_bf16 rule; every other case the
+    CUDA-core route under the 1e-3 rule.  Two calls bitwise equal (no
+    atomics); the rule rejects a (query block, key block) pair dropped from
+    the transposed selection (dk / dv) and a selected block dropped from
+    the rows of one selection row (dq)."""
     d, dv = pair
     dt = getattr(torch, dtype)
     gen = torch.Generator().manual_seed(d * 7 + dv)
@@ -1419,20 +1437,33 @@ def test_backward_kernels_match_plain_on_card(cuda, pair, dtype):
     for n in (200, 256):
         q, k, v, do = (torch.randn(s, generator=gen).to(cuda, dt) for s in
                        ((b, hq, n, d), (b, hk, n, d), (b, hk, n, dv), (b, hq, n, dv)))
-        o = t_fa.flash_attention(q, k, v)
-        got = t_fa.flash_attention_bwd(q, k, v, o, do)
-        again = t_fa.flash_attention_bwd(q, k, v, o, do)
-        _grad_rule(got, t_fa.flash_attention_bwd_plain(q, k, v, o, do))
+        o, lse = t_fa.flash_attention(q, k, v, return_lse=True)
+        assert torch.equal(o, t_fa.flash_attention(q, k, v))
+        _assert_lse(lse, t_fa.flash_attention_plain(q, k, v, return_lse=True)[1])
+        wgmma = backward_route(dt, d, dv) == "wgmma"
+        t_fa.reset_launches()
+        got = t_fa.flash_attention_bwd(q, k, v, o, do, lse=lse)
+        assert t_fa.LAUNCHES["flash_attention_bwd_wgmma"] == int(wgmma)
+        again = t_fa.flash_attention_bwd(q, k, v, o, do, lse=lse)
+        _grad_rule(got, t_fa.flash_attention_bwd_plain(q, k, v, o, do), p_bf16=wgmma)
         assert all(torch.equal(x, y) for x, y in zip(got, again))
-    for bs, dedup in ((16, True), (128, False), (64, False)):
+    for bs, dedup in ((16, True), (64, False), (128, False), (128, True), (256, False),
+                      (256, True)):
         nq = n // bs
         idx, cnt = _causal_selection(gen, b, hk if dedup else hq, nq, 4, cuda)
         kw = dict(block_size=bs, group_dedup=dedup)
-        o = t_bsa.block_sparse_attention(q, k, v, idx, live_counts=cnt, **kw)
-        got = t_bsa.block_sparse_attention_bwd(q, k, v, o, do, idx, cnt, **kw)
-        again = t_bsa.block_sparse_attention_bwd(q, k, v, o, do, idx, cnt, **kw)
+        o, lse = t_bsa.block_sparse_attention(q, k, v, idx, live_counts=cnt, return_lse=True,
+                                              **kw)
+        assert torch.equal(o, t_bsa.block_sparse_attention(q, k, v, idx, live_counts=cnt, **kw))
+        _assert_lse(lse, t_bsa.block_sparse_attention_plain(q, k, v, idx, cnt,
+                                                            return_lse=True, **kw)[1])
+        wgmma = backward_route(dt, d, dv, bs) == "wgmma"
+        t_bsa.reset_launches()
+        got = t_bsa.block_sparse_attention_bwd(q, k, v, o, do, idx, cnt, lse=lse, **kw)
+        assert t_bsa.LAUNCHES["block_sparse_attention_bwd_wgmma"] == int(wgmma)
+        again = t_bsa.block_sparse_attention_bwd(q, k, v, o, do, idx, cnt, lse=lse, **kw)
         want = t_bsa.block_sparse_attention_bwd_plain(q, k, v, o, do, idx, cnt, **kw)
-        _grad_rule(got, want)
+        _grad_rule(got, want, p_bf16=wgmma)
         assert all(torch.equal(x, y) for x, y in zip(got, again))
         # dropping one (query block, key block) pair from the transposed
         # selection must show in that key block's dk / dv
@@ -1441,26 +1472,43 @@ def test_backward_kernels_match_plain_on_card(cuda, pair, dtype):
         if int(tcnt[0, 0, j]) >= 1:
             faulted = tcnt.clone()
             faulted[0, 0, j] -= 1
-            bad = t_bsa.block_sparse_attention_bwd(q, k, v, o, do, idx, cnt,
+            bad = t_bsa.block_sparse_attention_bwd(q, k, v, o, do, idx, cnt, lse=lse,
                                                    transposed=(tidx, faulted), **kw)
             with pytest.raises(AssertionError):
-                _grad_rule(bad[1:2], want[1:2])
+                _grad_rule(bad[1:2], want[1:2], p_bf16=wgmma)
             with pytest.raises(AssertionError):
-                _grad_rule(bad[2:], want[2:])
+                _grad_rule(bad[2:], want[2:], p_bf16=wgmma)
+        # dropping the last live block of the last selection row with two or
+        # more (of batch 0, selection head 0) must show in its rows' dq
+        rows = [i for i in range(nq) if int(cnt[0, 0, i]) >= 2]
+        if rows:
+            fewer = cnt.clone()
+            fewer[0, 0, rows[-1]] -= 1
+            bad = t_bsa.block_sparse_attention_bwd(q, k, v, o, do, idx, fewer, lse=lse, **kw)
+            with pytest.raises(AssertionError):
+                _grad_rule(bad[:1], want[:1], p_bf16=wgmma)
 
 
 def test_backward_kernels_raise_outside_pairs_on_card(cuda):
     """A (q/k, v) pair outside HEAD_DIM_PAIRS raises ValueError in both
-    backward wrappers: no fallback to the plain version."""
+    backward wrappers: no fallback to the plain version.  So does a call
+    without the forward's lse: the kernels no longer recompute it."""
     idx = torch.zeros((1, 2, 2, 1), dtype=torch.int32, device=cuda)
     cnt = torch.ones((1, 2, 2), dtype=torch.int32, device=cuda)
+    lse = torch.zeros((1, 2, 256), device=cuda)
     for d, dv in ((192, 64), (48, 48)):
         qk = torch.zeros((1, 2, 256, d), device=cuda)
         v = torch.zeros((1, 2, 256, dv), device=cuda)
         with pytest.raises(ValueError, match="head_dim"):
-            t_fa.flash_attention_bwd(qk, qk, v, v, v)
+            t_fa.flash_attention_bwd(qk, qk, v, v, v, lse=lse)
         with pytest.raises(ValueError, match="head_dim"):
-            t_bsa.block_sparse_attention_bwd(qk, qk, v, v, v, idx, cnt, block_size=128)
+            t_bsa.block_sparse_attention_bwd(qk, qk, v, v, v, idx, cnt, block_size=128,
+                                             lse=lse)
+    qk = torch.zeros((1, 2, 256, 128), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="lse"):
+        t_fa.flash_attention_bwd(qk, qk, qk, qk, qk)
+    with pytest.raises(ValueError, match="lse"):
+        t_bsa.block_sparse_attention_bwd(qk, qk, qk, qk, qk, idx, cnt, block_size=128)
 
 
 @pytest.mark.parametrize("arch,stem", [
