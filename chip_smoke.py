@@ -6,6 +6,10 @@
     python3 chip_smoke.py --profile-prefill  # also trace phase 5's,
                                              # phase 13's and phase 14's
                                              # prefills
+    python3 chip_smoke.py --parent DIR       # phase 3c against a tree of
+                                             # the parent commit (default:
+                                             # git archive HEAD^ in a git
+                                             # checkout; else skipped)
 
 Phases:
   1. device   — require CUDA; print the card's name and power limit.
@@ -14,8 +18,14 @@ Phases:
                 build/kernels/, one nvcc per source started together, timed;
                 print each kernel's registers, stack and local memory
                 (cuobjdump -res-usage: spills would show as stack / local
-                bytes) and require HGMMA (wgmma) in the flash,
-                block-sparse and paged-attention libraries.
+                bytes) and, for every template instance of the tensor-core
+                attention kernels (flash and block-sparse at each pair of
+                WGMMA_PAIRS, with and without the lse store; the paged
+                chunk lane; the backward's four), its HGMMA count in the
+                SASS: each must hold some, the flash and block-sparse
+                instances must be exactly WGMMA_PAIRS, and the forward
+                ones must use no stack or local memory (but block-sparse
+                at (256, 256), a known spill: logged).
   3. kernels  — each kernel against its plain PyTorch version, in fp32 and
                 bf16: the paged kernels at the serving shapes of qwen3-0.6b
                 (hq 16, hk 8, d 128, block 128, stride 16, 126 pages per
@@ -29,17 +39,21 @@ Phases:
                 1024, 128) and k (1, 8, 1024, 128), bf16 -> bf16)
                 and vmag at a chunk's (v (1, 8, 1024, 128) bf16); flash and
                 block-sparse also at head_dim 64 and 256 (a 4096-token
-                prompt, bf16 on the CUDA-core tile; flash beside SDPA,
+                prompt, bf16 on the tensor-core tile's instances of those
+                pairs, whose counters must move; flash beside SDPA,
                 block-sparse beside flex_attention).
                 fp32 outputs within 1e-4 abs; bf16 outputs within 2 bf16
                 ulps of the plain output plus 1e-3 * the max|plain| of the
                 element's row (last axis), except the bf16 attention on the
                 tensor-core tile (flash, block-sparse, the paged chunk
                 lane), which rounds P to bf16 before P.V: its row floor is
-                1e-2 * max|plain|.  The same rule must reject the
-                block-sparse kernel's output with one key tile dropped from
-                each row past 4k (the selection of each bf16 attention
-                check: stem's, and every causal block for flash), and the
+                1e-2 * max|plain| (kernels.forward_route: bf16 flash and
+                block-sparse at (64, 64), (128, 128), (192, 128), (192,
+                192), (256, 256), blocks of a multiple of 128).  The same
+                rule must reject the block-sparse kernel's output with one
+                key tile dropped from each row past 4k (2k at 4096 tokens;
+                the selection of each bf16 attention check: stem's, and
+                every causal block for flash), and the
                 chunk lane's output with the last live page dropped from
                 each row that has two or more.  Both page-attention lanes
                 also write exact zeros for cnt == 0 rows.
@@ -54,6 +68,14 @@ Phases:
                 and checked against the plain output, never called by the
                 port.  The page scorer has none (no single call gathers
                 the page table's summaries and contracts them).
+  3c. parent  — with a tree of the parent commit (--parent DIR, or git
+                archive HEAD^ in a git checkout): the (128, 128) flash and
+                block-sparse instances and the paged chunk lane built from
+                both trees, each run in its own process on phase 3's bf16
+                inputs (16 / 8 heads, 16k tokens, stem's selection; the
+                chunk lane's 1024-token chunk): outputs bitwise equal to
+                the parent's, and each one's device time, timed parent,
+                change, change, parent, at most 1.05x the parent's.
   4. engine   — StemEngine at the full width of qwen3-0.6b (bf16, random
                 weights from a seeded generator, policy "stem" with paper
                 defaults, budget_frac 0.5, chunk 1024, 2 slots) serves four
@@ -213,9 +235,11 @@ Phases:
  13. deepseek — MLA and deepseek-v3-671b, the paper's DSA + Stem backbone.
                 (d) flash and block-sparse attention at MLA's head dims
                 (q/k 192 with v 128, and the MTP layer's 192 / 192), 128
-                heads, a 16384-token prompt under stem's selection, on the
-                CUDA-core tile: fp32 and bf16 against the plain versions
-                (the 1e-3 row rule, which must reject a dropped key tile),
+                heads, a 16384-token prompt under stem's selection: fp32 on
+                the CUDA-core tile, bf16 on the tensor-core tile's
+                instances (their counters must move), against the plain
+                versions (the p_bf16 rule, which must reject a dropped key
+                tile),
                 bf16 timed beside the bound, SDPA and flex_attention where
                 they take the shape; the reduced config's (24, 16) checked.
                 Then the model at its published widths (d_model 7168, 128
@@ -231,7 +255,8 @@ Phases:
                 modes and the policy-sparse fixed batch refused with the
                 reference's NotImplementedError; (b) one 16384-token
                 one-shot prefill, stem against dense (ms, realized density,
-                launches; device time by kernel with --profile-prefill);
+                launches, the (192, 128) tensor-core instances among them;
+                device time by kernel with --profile-prefill);
                 (c) fp32 2 layers (first_k_dense cut to 1): "fused" ==
                 "gather" prefill logits and greedy streams, loss_fn's ce /
                 mtp_ce / aux equal under fused, gather, the dense oracle
@@ -252,7 +277,8 @@ Phases:
                 a 4096-token decoder prompt prefilled under stem at the
                 CLI's geometry (block 128, stride 4, sink 1, local 1, min
                 budget 2) and dense: realized density, kernels 3, 5, 6
-                launched under stem and 4 dense, all at head_dim 64, every
+                launched under stem and 4 dense, all at head_dim 64 (3 and 4
+                on their (64, 64) tensor-core instances), every
                 call recorded and held against its plain version, layer
                 0's calls timed beside their bound, SDPA / flex_attention
                 / a mean; loss_fn at 4096 under both; 16 greedy decode
@@ -264,7 +290,12 @@ Phases:
                 launched, the attention calls on the wgmma tile, every call
                 held against its plain version; with --profile-prefill the
                 device's busy share), 16 decode steps; fp32 at 4 layers:
-                "fused" == "gather" (512 patches + 1536 tokens).
+                "fused" == "gather" (512 patches + 1536 tokens).  (e)
+                gemma-2b (18 layers, 8 query heads over one KV head,
+                head_dim 256) bf16: an 8192-token prompt prefilled under
+                stem at the paper's defaults and dense, kernels 3 and 4 on
+                their (256, 256) tensor-core instances, every call held
+                against its plain version.
 
  15. train    — the training path (python -m repro_torch.launch.train).
                 (a) The backward kernels of flash and block-sparse
@@ -327,8 +358,8 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.configs import (ARCTIC_480B, DEEPSEEK_V3_671B, GLM4_9B,  # noqa: E402
-                                 MAMBA2_370M, PIXTRAL_12B, QWEN3_0_6B,
+from repro_torch.configs import (ARCTIC_480B, DEEPSEEK_V3_671B, GEMMA_2B,  # noqa: E402
+                                 GLM4_9B, MAMBA2_370M, PIXTRAL_12B, QWEN3_0_6B,
                                  RECURRENTGEMMA_2B, WHISPER_MEDIUM, reduced)
 from repro_torch.configs.base import ArchConfig  # noqa: E402
 from repro_torch.core import chunked as chunked_lib  # noqa: E402
@@ -336,6 +367,7 @@ from repro_torch.core import decode as decode_lib  # noqa: E402
 from repro_torch.core import metric as metric_lib  # noqa: E402
 from repro_torch.core import policy as policy_lib  # noqa: E402
 from repro_torch.core.selection import selection_density  # noqa: E402
+from repro_torch.kernels import WGMMA_PAIRS, forward_route, wgmma_counter  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import block_sparse_attn as bsa_kern  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_kern  # noqa: E402
@@ -452,22 +484,23 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor, *,
 
 
 def check_rejects_dropped_tile(name, q, k, v, idx, cnt, want, bs,
-                               p_bf16: bool = True) -> None:
+                               p_bf16: bool = True, past_token: int = 4096) -> None:
     """The bf16 attention rule (the tensor-core tile's p_bf16 rule, or the
     CUDA-core tile's 1e-3 one) must see the long rows: the block-sparse
     kernel over the selection (idx, cnt) passes it, and fails it once the
-    last live block of each row past 4k (with two or more) is dropped."""
+    last live block of each row past ``past_token`` (with two or more) is
+    dropped."""
     check_close(f"{name}/block-sparse kernel, same selection",
                 bsa_kern.block_sparse_attention(q, k, v, idx, live_counts=cnt,
                                                 block_size=bs), want, p_bf16=p_bf16)
-    past = (torch.arange(idx.shape[2], device=idx.device) * bs >= 4096) & (cnt >= 2)
+    past = (torch.arange(idx.shape[2], device=idx.device) * bs >= past_token) & (cnt >= 2)
     got = bsa_kern.block_sparse_attention(
         q, k, v, idx, live_counts=torch.where(past, cnt - 1, cnt).to(torch.int32),
         block_size=bs).float()
     want = want.float()
     over = (got - want).abs() / tolerance(want, torch.bfloat16, p_bf16=p_bf16)
     rows = int((over > 1).any(-1).sum())
-    log(f"[kernels] {name} with one key tile dropped from each row past 4k: "
+    log(f"[kernels] {name} with one key tile dropped from each row past {past_token}: "
         f"{rows} of {int(past.sum()) * bs} such rows over the limit, max "
         f"{float(over.max()):.2f}x")
     if rows == 0:
@@ -521,31 +554,92 @@ def check_library(name: str, lib: torch.Tensor, want: torch.Tensor) -> float:
     return err
 
 
-def build_report(libs: dict) -> None:
+# The tensor-core attention kernels: each template instance of these must
+# hold HGMMA in its SASS, and the forward ones must build with no stack or
+# local memory (a spill of the tile's registers).
+WGMMA_KERNELS = ("flash_wgmma_kernel", "block_sparse_wgmma_kernel", "attend_chunk_wgmma_kernel",
+                 "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel",
+                 "block_sparse_bwd_dq_wgmma_kernel", "block_sparse_bwd_dkdv_wgmma_kernel")
+WGMMA_FORWARDS = WGMMA_KERNELS[:3]
+# Forward instances known to spill: block-sparse at (256, 256) needs ~210
+# registers a consumer thread (O's 128 accumulators, S's 32, P's 16 and the
+# selection walk), above what ptxas gives the consumer warpgroups, and
+# spills around each S product (PERF.md).  Logged, not failed; any other
+# spill fails.
+KNOWN_SPILLS = ("block_sparse_wgmma_kernel<256x256",)
+
+
+def _demangle(names: list) -> dict:
+    """{mangled: short name} with each template instance's shape and flag,
+    e.g. "flash_wgmma_kernel<256x256 bn64, lse>"."""
+    out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                         text=True).stdout.splitlines()
+    short = {}
+    for mangled, full in zip(names, out if len(out) == len(names) else names):
+        m = re.search(r"([a-z_]+_kernel)(<.*?>(?=\())?", full)
+        name = m.group(1) if m else mangled
+        shape = re.search(r"Shape<(\d+), (\d+), (\d+), \d+>, (true|false)", full)
+        if shape:
+            d, dv, bn, lse = shape.groups()
+            name += f"<{d}x{dv} bn{bn}{', lse' if lse == 'true' else ''}>"
+        elif m and m.group(2):
+            name += m.group(2).replace(" ", "")
+        short[mangled] = name
+    return short
+
+
+def build_report(libs: dict) -> dict:
     """Registers, stack and local memory of every kernel (spills would show
     as stack / local bytes), and the tensor-core instructions (HGMMA in the
-    SASS) of the bf16 attention tile."""
+    SASS) of every instance of the tensor-core attention kernels: each must
+    hold some, and the forward instances (flash and block-sparse at every
+    pair of WGMMA_PAIRS, with and without the lse store; the paged chunk
+    lane) must use no stack or local memory, but for KNOWN_SPILLS.
+    Returns {library: {instance: (registers, stack, local, HGMMA count)}}
+    for the tensor-core kernels."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     run = lambda *a: subprocess.run([cuobjdump, *a], check=True, capture_output=True,
                                     text=True).stdout
+    out = {}
     for stem in sorted(libs):
-        name = None
+        usage, name = {}, None
         for line in run("-res-usage", str(libs[stem])).splitlines():
             m = re.search(r"Function (\S+):", line)
             if m:
-                short = re.search(r"[a-z_]+_kernel", m.group(1))
-                name = short.group(0) if short else m.group(1)
+                name = m.group(1)
             m = re.search(r"REG:(\d+) STACK:(\d+).*LOCAL:(\d+)", line)
             if m and name is not None:
-                log(f"[build] {stem}: {name} {m.group(1)} registers, stack "
-                    f"{m.group(2)} B, local {m.group(3)} B")
+                usage[name] = tuple(int(x) for x in m.groups())
                 name = None
-    for stem in ("flash_attention", "block_sparse_attn", "paged_attn"):
-        sass = run("-sass", str(libs[stem]))
-        n = sass.count("HGMMA")
-        log(f"[build] {stem}: {n} HGMMA instructions in the SASS")
-        if n == 0:
-            raise AssertionError(f"{stem}: no wgmma in the built library")
+        short = _demangle(list(usage))
+        sass = {}
+        if any(k in v for v in short.values() for k in WGMMA_KERNELS):
+            for part in run("-sass", str(libs[stem])).split("Function : ")[1:]:
+                sass[part.split(None, 1)[0]] = part.count("HGMMA")
+        for mangled, (reg, stack, local) in usage.items():
+            name = short[mangled]
+            line = f"[build] {stem}: {name} {reg} registers, stack {stack} B, local {local} B"
+            if not any(name.startswith(k) for k in WGMMA_KERNELS):
+                log(line)
+                continue
+            hgmma = sass.get(mangled, 0)
+            log(f"{line}, {hgmma} HGMMA")
+            out.setdefault(stem, {})[name] = (reg, stack, local, hgmma)
+            if hgmma == 0:
+                raise AssertionError(f"{stem}: no wgmma in {name}")
+            if any(name.startswith(k) for k in WGMMA_FORWARDS) and stack + local:
+                if not name.startswith(KNOWN_SPILLS):
+                    raise AssertionError(f"{stem}: {name} spills ({stack} B stack, "
+                                         f"{local} B local)")
+                log(f"[build] {stem}: {name} spills ({stack} B stack): a known open item")
+    for stem, kernel in (("flash_attention", "flash_wgmma_kernel"),
+                         ("block_sparse_attn", "block_sparse_wgmma_kernel")):
+        shapes = {re.search(r"<(\d+)x(\d+)", n).groups() for n in out.get(stem, {})
+                  if n.startswith(kernel)}
+        if shapes != {(str(d), str(dv)) for d, dv in WGMMA_PAIRS}:
+            raise AssertionError(f"{stem}: {kernel} instances {sorted(shapes)} are not "
+                                 f"WGMMA_PAIRS")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -702,6 +796,7 @@ def kernel_phase(records: dict, dev=torch.device("cuda")) -> None:
                             p_bf16=dtype == torch.bfloat16)
         if dtype == torch.bfloat16:
             check_rejects_dropped_page("attend/chunk", args, at_p, bs)
+            AB_INPUTS["attend/chunk"] = args
         check_zero_rows(f"attend/chunk/cnt0/{tag}", args, bs=bs, causal=True,
                         lane="chunk")
         run_l = flex_page_attention(args, bs=bs, causal=True, flex=flex)
@@ -838,6 +933,18 @@ def pool_chunk_shapes(records, gen, hq, hk, d, bs, s, dev=torch.device("cuda")):
                     float(x.numel())), torch.bfloat16, run_lib=run_l)
 
 
+def identity_selection(b: int, h: int, nb: int, dev):
+    """Every causal block of each row, the diagonal first, then 0..i-1: the
+    block-sparse kernel over it is flash attention, and dropping the last
+    live block drops one key tile (block i - 1) from every row past the
+    first two."""
+    i = torch.arange(nb, device=dev)[:, None]
+    j = torch.arange(nb, device=dev)[None, :]
+    idx = torch.where(j == 0, i, j - 1).expand(b, h, nb, nb).to(torch.int32).contiguous()
+    cnt = (i[:, 0] + 1).expand(b, h, nb).to(torch.int32).contiguous()
+    return idx, cnt
+
+
 def prefill_kernel_phase(records: dict, dev=torch.device("cuda")) -> None:
     n, hq, hk, d, bs, s = 16384, 16, 8, 128, 128, 16
     group = hq // hk
@@ -936,14 +1043,8 @@ def prefill_kernel_phase(records: dict, dev=torch.device("cuda")) -> None:
         check_library(f"flash_attention {tag} vs scaled_dot_product_attention",
                       run_l(), got)
         if dtype == torch.bfloat16:
-            # every causal block, the diagonal first: the fault drops block i - 1
-            i = torch.arange(n // bs, device=dev)[:, None]
-            j = torch.arange(n // bs, device=dev)[None, :]
-            idx = torch.where(j == 0, i, j - 1).expand(1, hq, n // bs, n // bs)
-            cnt = (i[:, 0] + 1).expand(1, hq, n // bs)
             check_rejects_dropped_tile("flash_attention", q, k, v,
-                                       idx.to(torch.int32).contiguous(),
-                                       cnt.to(torch.int32).contiguous(), want, bs)
+                                       *identity_selection(1, hq, n // bs, dev), want, bs)
         pairs = hq * n * (n + 1) / 2
         rec_kernel(records, "flash_attention", "prefill", tag, err, run_k, run_p,
                    (2 * q.numel() * es + 2 * k.numel() * es, 4.0 * d * pairs),
@@ -954,9 +1055,11 @@ def prefill_kernel_phase(records: dict, dev=torch.device("cuda")) -> None:
 
 def prefill_head_dim_phase(records: dict, dev=torch.device("cuda")) -> None:
     """Flash and block-sparse attention at head_dim 64 and 256 (bf16 on the
-    CUDA-core tile: fp32 products and probabilities), a 4096-token prompt,
-    16 / 8 heads, block 128, stem's TPD selection: each against its plain
-    version (the 1e-3 bf16 rule: P stays fp32) and timed (flash beside
+    tensor-core tile, each pair its own instance: P rounded to bf16), a
+    4096-token prompt, 16 / 8 heads, block 128, stem's TPD selection: each
+    against its plain version under the p_bf16 rule, which must reject a
+    dropped key tile (flash: over the identity selection; block-sparse:
+    stem's), the instance's launch counter moved, and timed (flash beside
     SDPA, block-sparse beside a compiled flex_attention over the same
     BlockMask); the bound is bf16's, the least the card could take for the
     same work."""
@@ -970,12 +1073,19 @@ def prefill_head_dim_phase(records: dict, dev=torch.device("cuda")) -> None:
         q = torch.randn((1, hq, n, d), generator=gen, device=dev).to(torch.bfloat16)
         k = torch.randn((1, hk, n, d), generator=gen, device=dev).to(torch.bfloat16)
         v = torch.randn((1, hk, n, d), generator=gen, device=dev).to(torch.bfloat16)
+        wg = forward_route(torch.bfloat16, d, d) == "wgmma"
         run_k = lambda: flash_kern.flash_attention(q, k, v)
         run_p = lambda: flash_kern.flash_attention_plain(q, k, v)
         run_l = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)
+        reset_all_launches()
         got, want = run_k(), run_p()
         torch.cuda.synchronize()
-        err = check_close(f"flash_attention/d{d}/bfloat16", got, want)
+        _need(read_all_launches(), [wgmma_counter("flash_attention", d, d)] if wg else [],
+              f"flash_attention d{d}")
+        err = check_close(f"flash_attention/d{d}/bfloat16", got, want, p_bf16=wg)
+        check_rejects_dropped_tile(f"flash_attention d{d}", q, k, v,
+                                   *identity_selection(1, hq, n // bs, dev), want, bs,
+                                   p_bf16=wg, past_token=n // 2)
         check_library(f"flash_attention d{d} vs scaled_dot_product_attention",
                       run_l(), got)
         rec_kernel(records, "flash_attention", f"d{d}", "bfloat16", err, run_k, run_p,
@@ -987,9 +1097,15 @@ def prefill_head_dim_phase(records: dict, dev=torch.device("cuda")) -> None:
                                                         block_size=bs)
         run_p = lambda: bsa_kern.block_sparse_attention_plain(q, k, v, idx, cnt,
                                                               block_size=bs)
+        reset_all_launches()
         got, want = run_k(), run_p()
         torch.cuda.synchronize()
-        err = check_close(f"block_sparse_attention/d{d}/bfloat16", got, want)
+        wg = forward_route(torch.bfloat16, d, d, bs) == "wgmma"
+        _need(read_all_launches(), [wgmma_counter("block_sparse_attention", d, d)] if wg else [],
+              f"block_sparse_attention d{d}")
+        err = check_close(f"block_sparse_attention/d{d}/bfloat16", got, want, p_bf16=wg)
+        check_rejects_dropped_tile(f"block_sparse_attention d{d}", q, k, v, idx, cnt, want, bs,
+                                   p_bf16=wg, past_token=n // 2)
         mask = flex_block_mask(idx, cnt, bs)
         run_l = lambda: flex(q, k, v, block_mask=mask, enable_gqa=True)
         try:
@@ -1004,6 +1120,117 @@ def prefill_head_dim_phase(records: dict, dev=torch.device("cuda")) -> None:
                    torch.bfloat16, run_lib=run_l, iters=5, plain_iters=1)
         del q, k, v, got, want
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase 3c: the tensor-core tile at d = dv = 128 against the parent commit's
+# ---------------------------------------------------------------------------
+
+# Phase 3's bf16 inputs of the rows the parent is timed on (row 2b: the
+# paged chunk lane; 3 / 4: block-sparse and flash at 16k).
+AB_INPUTS: dict = {}
+
+# Run in a fresh process from one tree's src/: build that tree's kernels,
+# run rows 2b / 3 / 4 on the saved inputs, time each (device time, calls
+# queued behind a device-side sleep) and save the outputs and times.
+AB_SCRIPT = r"""
+import sys
+root, inputs, out = sys.argv[1:4]
+sys.path.insert(0, root + "/src")
+import torch
+from repro_torch.kernels import _build
+from repro_torch.kernels import block_sparse_attn as bsa, flash_attention as fa, paged_attn as pa
+_build.build_all()
+x = torch.load(inputs)
+q, k, v, idx, cnt = x["prefill"]
+runs = {
+    "attend/chunk": lambda: pa.attend_pages(*x["attend/chunk"], block_size=128, causal=True,
+                                            lane="chunk"),
+    "block_sparse_attention": lambda: bsa.block_sparse_attention(q, k, v, idx, live_counts=cnt,
+                                                                 block_size=128),
+    "flash_attention": lambda: fa.flash_attention(q, k, v),
+}
+outs, ms = {}, {}
+for name, fn in runs.items():
+    outs[name] = fn()
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e6 * 200))
+    t0.record()
+    for _ in range(10):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    ms[name] = t0.elapsed_time(t1) / 10
+torch.save({"outs": {n: o.cpu() for n, o in outs.items()}, "ms": ms}, out)
+"""
+
+
+def parent_tree(arg) -> pathlib.Path | None:
+    """The parent commit's tree: --parent DIR, else `git archive HEAD^`
+    unpacked under the temporary directory when this checkout is a git
+    repository; None otherwise."""
+    if arg:
+        return pathlib.Path(arg).resolve()
+    if not (ROOT / ".git").exists():
+        return None
+    import tempfile
+    dest = pathlib.Path(tempfile.mkdtemp(prefix="stem_parent_"))
+    arch = subprocess.run(["git", "-C", str(ROOT), "archive", "HEAD^"], capture_output=True)
+    if arch.returncode != 0:
+        return None
+    subprocess.run(["tar", "-x", "-C", str(dest)], input=arch.stdout, check=True)
+    return dest
+
+
+def parent_ab_phase(records: dict, parent) -> dict:
+    """Phase 3c: the (128, 128) flash and block-sparse instances and the
+    paged chunk lane, which this tile's shapes share, built from this tree
+    and from the parent commit's, each in its own process, on phase 3's
+    bf16 inputs (16 / 8 heads, 16k tokens, stem's selection; the chunk
+    lane's 1024-token chunk): outputs bitwise equal, and each row's device
+    time, timed parent, change, change, parent, within 5 % of the parent's.
+    Skipped (logged) without a parent tree."""
+    if parent is None:
+        log("[ab] no parent tree (--parent DIR, or a git checkout): A/B skipped")
+        return {}
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    n, hq, hk, d, bs = 16384, 16, 8, 128, 128
+    q, k, v = (torch.randn((1, h, n, d), generator=gen, device=dev).to(torch.bfloat16)
+               for h in (hq, hk, hk))
+    sel, _ = policy_lib.get_policy("stem").prefill_select(q, k, v, with_block_mask=False)
+    inputs = ROOT / "build" / "ab_inputs.pt"
+    inputs.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"prefill": (q, k, v, sel.indices, sel.live_counts),
+                "attend/chunk": AB_INPUTS["attend/chunk"]}, inputs)
+    del q, k, v, sel
+    runs = []
+    for tag, tree in (("parent", parent), ("change", ROOT), ("change", ROOT),
+                      ("parent", parent)):
+        out = ROOT / "build" / f"ab_{len(runs)}.pt"
+        subprocess.run([sys.executable, "-c", AB_SCRIPT, str(tree), str(inputs), str(out)],
+                       check=True, cwd=str(tree))
+        runs.append((tag, torch.load(out)))
+    base = runs[0][1]["outs"]
+    for tag, r in runs[1:]:
+        for name, o in r["outs"].items():
+            if not torch.equal(o, base[name]):
+                raise AssertionError(f"[ab] {name}: the {tag} output differs from the parent's")
+    report = {}
+    for name in base:
+        ms = {tag: [r["ms"][name] for t, r in runs if t == tag] for tag in ("parent", "change")}
+        mean = {tag: sum(v) / len(v) for tag, v in ms.items()}
+        report[name] = dict(ms=ms, ratio=mean["change"] / mean["parent"])
+        log(f"[ab] {name} (128, 128) bf16: outputs bitwise equal to the parent's; device ms "
+            f"parent {ms['parent']}, change {ms['change']}, change / parent "
+            f"{report[name]['ratio']:.4f}")
+        if report[name]["ratio"] > 1.05:
+            raise AssertionError(f"[ab] {name}: {report[name]['ratio']:.3f}x the parent's time")
+    records["ab"] = report
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -2799,13 +3026,14 @@ MLA_REFUSAL = ("paged serving supports ('dense', 'moe') sub-layers, got "
 def mla_kernel_phase(records: dict, dev=torch.device("cuda")) -> None:
     """Phase 13 (d): flash and block-sparse attention at MLA's pairs and
     deepseek-v3-671b's 128 query / 128 KV heads, one 16384-token prompt,
-    block 128, stem's TPD selection, on the CUDA-core tile (fp32 products
-    and probabilities): each against its plain version in fp32 (1e-4) and
-    bf16 (the 1e-3 row rule; the rule must reject a dropped key tile), the
-    bf16 calls timed beside their bound, SDPA (flash) and a compiled
-    flex_attention over the same BlockMask (block-sparse), where those take
-    the shape.  Then the reduced config's (24, 16), checked only (4 heads,
-    4096 tokens, block 8)."""
+    block 128, stem's TPD selection: each against its plain version in fp32
+    (the CUDA-core tile, 1e-4) and bf16 (the tensor-core tile at each pair
+    its own instance, whose counter must move: the p_bf16 rule, which must
+    reject a dropped key tile), the bf16 calls timed beside their bound,
+    SDPA (flash) and a compiled flex_attention over the same BlockMask
+    (block-sparse), where those take the shape.  Then the reduced config's
+    (24, 16), checked only (4 heads, 4096 tokens, block 8, the CUDA-core
+    tile)."""
     n, h, bs = 16384, 128, 128
     policy = policy_lib.get_policy("stem")
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2828,20 +3056,18 @@ def mla_kernel_phase(records: dict, dev=torch.device("cuda")) -> None:
             # -- kernel 4: flash ------------------------------------------
             run_k = lambda: flash_kern.flash_attention(q, k, v)
             run_p = lambda: flash_kern.flash_attention_plain(q, k, v)
+            wg = forward_route(dtype, d, dv) == "wgmma"
+            reset_all_launches()
             got, want = run_k(), run_p()
             torch.cuda.synchronize()
-            err = check_close(f"flash_attention/{tag}/{dname}", got, want)
+            _need(read_all_launches(), [wgmma_counter("flash_attention", d, dv)] if wg else [],
+                  f"phase 13 flash_attention {tag} {dname}")
+            err = check_close(f"flash_attention/{tag}/{dname}", got, want, p_bf16=wg)
             log(f"[phase13] flash_attention {tag} {dname}: max_abs_err={err:.3e}")
             if bf16:
-                nb = n // bs
-                i = torch.arange(nb, device=dev)[:, None]
-                j = torch.arange(nb, device=dev)[None, :]
-                idx = torch.where(j == 0, i, j - 1).expand(1, h, nb, nb)
-                cnt = (i[:, 0] + 1).expand(1, h, nb)
                 check_rejects_dropped_tile(f"flash_attention {tag}", q, k, v,
-                                           idx.to(torch.int32).contiguous(),
-                                           cnt.to(torch.int32).contiguous(), want, bs,
-                                           p_bf16=False)
+                                           *identity_selection(1, h, n // bs, dev), want, bs,
+                                           p_bf16=wg)
                 run_l = lambda: sdpa(q, k, v, is_causal=True)
                 try:
                     check_library(f"flash_attention {tag} vs "
@@ -2864,15 +3090,20 @@ def mla_kernel_phase(records: dict, dev=torch.device("cuda")) -> None:
                                                             block_size=bs)
             run_p = lambda: bsa_kern.block_sparse_attention_plain(q, k, v, idx, cnt,
                                                                   block_size=bs)
+            wg = forward_route(dtype, d, dv, bs) == "wgmma"
+            reset_all_launches()
             got, want = run_k(), run_p()
             torch.cuda.synchronize()
-            err = check_close(f"block_sparse_attention/{tag}/{dname}", got, want)
+            _need(read_all_launches(),
+                  [wgmma_counter("block_sparse_attention", d, dv)] if wg else [],
+                  f"phase 13 block_sparse_attention {tag} {dname}")
+            err = check_close(f"block_sparse_attention/{tag}/{dname}", got, want, p_bf16=wg)
             log(f"[phase13] block_sparse_attention {tag} {dname}: max_abs_err="
                 f"{err:.3e}, k_max {idx.shape[-1]}, realized density "
                 f"{float(selection_density(sel, n // bs)):.4f}")
             if bf16:
                 check_rejects_dropped_tile(f"block_sparse_attention {tag}", q, k, v,
-                                           idx, cnt, want, bs, p_bf16=False)
+                                           idx, cnt, want, bs, p_bf16=wg)
                 mask = flex_block_mask(idx, cnt, bs)
                 run_l = lambda: flex(q, k, v, block_mask=mask)
                 try:
@@ -2943,10 +3174,11 @@ def _stem_vs_dense_prefill(cfg, params, n: int, profile: bool) -> dict:
     rng = np.random.RandomState(23)
     tokens = torch.as_tensor(rng.randint(0, cfg.vocab_size, size=(1, n)), device="cuda")
     out = {}
+    pair = (cfg.mla.nope_head_dim + cfg.mla.rope_head_dim, cfg.mla.v_head_dim)
     for arm, stem_cfg, need in (
-            ("stem", policy, ("block_sparse_attention", "antidiag_pool",
-                              "value_magnitude")),
-            ("dense", None, ("flash_attention",))):
+            ("stem", policy, ("block_sparse_attention", "antidiag_pool", "value_magnitude",
+                              wgmma_counter("block_sparse_attention", *pair))),
+            ("dense", None, ("flash_attention", wgmma_counter("flash_attention", *pair)))):
         step = steps_lib.make_prefill_step(bundle, max_len=n, stem_cfg=stem_cfg)
         step(params, {"tokens": tokens[:, :1024]})        # warm-up
         torch.cuda.synchronize()
@@ -3198,7 +3430,7 @@ def deepseek_phase(profile: bool = False) -> dict:
 P14 = dict(mamba_n=16384, rg_n=8192, whisper_n=4096, pixtral_patches=4096,
            pixtral_text=12288, decode=32, decode_short=16, check_layers=4,
            mamba_check_n=1000, rg_check_n=2100, whisper_check_n=2048,
-           pixtral_check_patches=512, pixtral_check_text=1536, warm=1024)
+           pixtral_check_patches=512, pixtral_check_text=1536, warm=1024, gemma_n=8192)
 STEM_KERNELS = ("block_sparse_attention", "antidiag_pool", "value_magnitude")
 
 
@@ -3543,6 +3775,11 @@ def whisper_arm(records: dict, sizes: dict, flex, profile: bool) -> tuple:
         if any(a[arg].shape[-1] != cfg.head_dim for a, _ in recs[arm].calls[key]):
             raise AssertionError(f"phase 14 (c): {key} not at head_dim {cfg.head_dim}")
     launches = {f"whisper/{arm}": r["launches"] for arm, r in out["prefill"].items()}
+    d = cfg.head_dim
+    _need(launches["whisper/stem"], [wgmma_counter("block_sparse_attention", d, d)],
+          "phase 14 (c) whisper stem prefill")
+    _need(launches["whisper/dense"], [wgmma_counter("flash_attention", d, d)],
+          "phase 14 (c) whisper dense prefill")
     _time_recorded(records, "whisper", recs, flex)
     del recs
     _free()
@@ -3616,9 +3853,36 @@ def pixtral_arm(sizes: dict, profile: bool) -> tuple:
     return out, launches
 
 
+def gemma_arm(sizes: dict, profile: bool) -> tuple:
+    """(e) gemma-2b at full width and depth (18 layers, 8 query heads over
+    one KV head at head_dim 256), bf16: one prompt prefilled one-shot under
+    stem at the paper's defaults and dense (kernels 3, 5, 6 under stem and
+    4 dense, flash and block-sparse on their (256, 256) tensor-core
+    instance, every call held against its plain version).  Returns
+    (report, launches)."""
+    cfg = GEMMA_2B
+    bundle, params, info = _draw(cfg, 0, "gemma-2b bf16")
+    n = sizes["gemma_n"]
+    batch = _family_batch(cfg, n, 51)
+    out = dict(init=info, n=n)
+    out["prefill"], _ = _prefill_arms("(e) gemma-2b", cfg, bundle, params, batch,
+                                      _head(batch, sizes["warm"]), n,
+                                      policy_lib.get_policy("stem"), profile)
+    launches = {f"gemma/{arm}": r["launches"] for arm, r in out["prefill"].items()}
+    d = cfg.head_dim
+    _need(launches["gemma/stem"], [wgmma_counter("block_sparse_attention", d, d)],
+          "phase 14 (e) gemma-2b stem prefill")
+    _need(launches["gemma/dense"], [wgmma_counter("flash_attention", d, d)],
+          "phase 14 (e) gemma-2b dense prefill")
+    del params
+    _free()
+    return out, launches
+
+
 def families_phase(records: dict, profile: bool = False, sizes: dict = P14) -> dict:
     """Phase 14: the four remaining families at their published widths and
-    full depth, one after the other (each frees its weights first)."""
+    full depth, one after the other (each frees its weights first), then
+    gemma-2b's prefill (head_dim 256)."""
     t0 = time.perf_counter()
     torch._dynamo.reset()
     from torch.nn.attention.flex_attention import flex_attention
@@ -3627,6 +3891,8 @@ def families_phase(records: dict, profile: bool = False, sizes: dict = P14) -> d
            "b/recurrentgemma-2b": recurrentgemma_arm(sizes)}
     out["c/whisper-medium"], launches = whisper_arm(records, sizes, flex, profile)
     out["d/pixtral-12b"], more = pixtral_arm(sizes, profile)
+    launches.update(more)
+    out["e/gemma-2b"], more = gemma_arm(sizes, profile)
     launches.update(more)
     out["launches"] = launches
     out["s"] = time.perf_counter() - t0
@@ -3947,8 +4213,9 @@ def train_kernel_phase(records: dict, sizes: dict = P15, dev=torch.device("cuda"
                                 "plain_ms"], err)
         del q, k, v, do, o, lse, got, again, want, lib
         torch.cuda.empty_cache()
-    # MLA's (192, 128) (no GQA) and whisper's d 64, bf16, once each, on the
-    # CUDA-core route
+    # MLA's (192, 128) (no GQA) and whisper's d 64, bf16, once each: the
+    # forward on its tensor-core instance, the backward on the CUDA-core
+    # route fed that forward's lse
     for tag, (h, dd, dv, nn) in (("mla", (16, 192, 128, sizes["mla_n"])),
                                  ("whisper", (16, 64, 64, sizes["whisper_n"]))):
         q, k, do = (torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
@@ -4177,6 +4444,10 @@ def main() -> None:
     ap.add_argument("--profile-prefill", action="store_true",
                     help="trace the one-shot prefill phase with "
                          "torch.profiler and print device time by kernel")
+    ap.add_argument("--parent", default=None,
+                    help="a tree of the parent commit (git archive HEAD^) to hold the "
+                         "d = dv = 128 attention kernels against (phase 3c); by default "
+                         "git archive HEAD^ when this is a git checkout")
     args = ap.parse_args()
 
     # Phase 1: device.
@@ -4199,13 +4470,15 @@ def main() -> None:
     t0 = time.perf_counter()
     libs = _build.build_all()
     log(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
-    build_report(libs)
+    build = build_report(libs)
 
     # Phase 3: kernels against their plain versions.
     records: dict = {}
     kernel_phase(records)
     prefill_kernel_phase(records)
     prefill_head_dim_phase(records)
+    parent_ab_phase(records, parent_tree(args.parent))
+    AB_INPUTS.clear()
 
     # Phase 4: the chunked engine at full width; phase 5: the one-shot
     # prefill; phase 6: the monolithic engine (this slice's main path);
@@ -4332,10 +4605,38 @@ def main() -> None:
         for lane in ("chunk_q", "chunk_k")}
     by_name["value_magnitude"]["chunk_shapes"] = {
         "chunk_v": records["value_magnitude/chunk"]["bfloat16"]}
-    for key in ("flash_attention", "block_sparse_attention"):
-        by_name[key]["head_dims"] = {
-            tag: records[f"{key}/{tag}"]["bfloat16"]
-            for tag in ("d64", "d256", *MLA_PAIRS)}
+    # the tensor-core instances at the head dims besides 128: each pair's
+    # rows (phase 3 at d 64 / 256, phase 13 (d) at MLA's), its build, and
+    # its launches on the model path that runs it (phase 14: whisper-medium
+    # at d 64, gemma-2b at d 256; phase 13 (b): deepseek-v3-671b at (192,
+    # 128)).  No model path runs (192, 192) (deepseek's MTP layer is not
+    # served): it is held and timed in phase 13 (d) alone.
+    paths = {(64, 64): ("d64", p14["launches"], "whisper"),
+             (256, 256): ("d256", p14["launches"], "gemma"),
+             (192, 128): ("d192v128", p13["launches"], "b"),
+             (192, 192): ("d192", None, None)}
+    for key, stem, arm, source in (
+            ("flash_attention", "flash_attention", "dense", PREFILL_KERNELS[1][3]),
+            ("block_sparse_attention", "block_sparse_attn", "stem", PREFILL_KERNELS[0][3])):
+        kernel = "flash_wgmma_kernel" if stem == "flash_attention" else "block_sparse_wgmma_kernel"
+        by_name[key]["head_dims"] = {}
+        for (d, dv), (tag, runs, model) in paths.items():
+            rec = records[f"{key}/{tag}"]["bfloat16"]
+            counter = wgmma_counter(key, d, dv)
+            launches_ = runs[f"{model}/{arm}"].get(counter, 0) if runs else None
+            inst = {n: b for n, b in build[stem].items() if n.startswith(f"{kernel}<{d}x{dv} ")}
+            by_name[key]["head_dims"][tag] = dict(rec, route="wgmma", counter=counter,
+                                                  launches=launches_, build=inst)
+            if runs is None:
+                continue
+            kernels.append(dict(
+                name=f"{key}[wgmma {d}x{dv}]", route="cuda", source=source,
+                header="src/repro_torch/kernels/csrc/attn_wgmma.cuh",
+                replaces=by_name[key]["replaces"], launches=launches_,
+                launches_from=f"{model} prefill ({arm})", max_abs_err=rec["max_abs_err"],
+                ms=rec["ms"], host_ms=rec["host_ms"], plain_ms=rec["plain_ms"],
+                bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+                library_ms=rec["library_ms"], shape=tag, build=inst))
     # phase 14: each kernel at whisper-medium's decoder shapes
     for key, lanes in (("flash_attention", ("whisper",)),
                        ("block_sparse_attention", ("whisper",)),

@@ -23,12 +23,38 @@ def check_head_dim_pair(name: str, d: int, dv: int) -> None:
                          f"one of {HEAD_DIM_PAIRS}")
 
 
+# The (q/k, v) pairs whose bf16 forward runs on the tensor-core tile
+# (csrc/attn_wgmma.cuh, TMA + wgmma, P rounded to bf16 before P.V; listed
+# again in csrc/head_dims.cuh STEM_WGMMA_PAIR_SWITCH): q/k widths that are
+# multiples of wgmma's k16 and of the tile's 64-column boxes, v at most 256.
+# The narrow pairs (8-32, MLA's reduced (24, 16) / (24, 24)) stay on the
+# fp32 CUDA-core tile.
+WGMMA_PAIRS = ((64, 64), (128, 128), (192, 128), (192, 192), (256, 256))
+
+
+def forward_route(dtype, d: int, dv: int, block_size=None) -> str:
+    """The route of a flash (block_size None) or block-sparse attention
+    forward call: "wgmma" (the tensor-core tile, P rounded to bf16) for bf16
+    at a pair of ``WGMMA_PAIRS`` and, for block-sparse attention, a block
+    that is a multiple of 128 (a CTA owns 128 query rows); "cuda_core"
+    (attn_tile.cuh's fp32 products and probabilities) for fp32 and every
+    other pair and block.  The .cu dispatch mirrors it."""
+    wgmma = (dtype == torch.bfloat16 and (d, dv) in WGMMA_PAIRS
+             and (block_size is None or block_size % 128 == 0))
+    return "wgmma" if wgmma else "cuda_core"
+
+
+def wgmma_counter(kernel: str, d: int, dv: int) -> str:
+    """The launch counter of ``kernel``'s tensor-core instance at (d, dv)."""
+    return f"{kernel}_wgmma_{d}x{dv}"
+
+
 def backward_route(dtype, d: int, dv: int, block_size=None) -> str:
-    """The route of the attention backward kernels, the forward's condition
-    for its tensor-core tile: "wgmma" (TMA + wgmma, P and dS rounded to
-    bf16) for bf16 at q/k = v head_dim 128 and, for block-sparse attention,
-    a block that is a multiple of 128; "cuda_core" (attn_bwd.cuh's fp32
-    tiles) for every other dtype, head_dim pair and block."""
+    """The route of the attention backward kernels: "wgmma" (TMA + wgmma,
+    P and dS rounded to bf16) for bf16 at q/k = v head_dim 128 and, for
+    block-sparse attention, a block that is a multiple of 128; "cuda_core"
+    (attn_bwd.cuh's fp32 tiles, fed the lse of whichever forward ran) for
+    every other dtype, head_dim pair and block."""
     wgmma = (dtype == torch.bfloat16 and d == dv == 128
              and (block_size is None or block_size % 128 == 0))
     return "wgmma" if wgmma else "cuda_core"

@@ -8,17 +8,20 @@ causal flash attention of each (batch, selection head, query block) over
 that row's ``live_counts`` selected key blocks, fp32 accumulation, output
 in q's dtype, exact zeros for ``cnt == 0`` rows.  With ``group_dedup`` the
 selection has one row per KV head, shared by the query heads of the group;
-without it the KV head is query head // group.  Compute-bound on the H100:
-bf16 at q/k = v head_dim 128 and a block that is a multiple of 128 runs on
-the tensor cores (TMA + wgmma, 128-row tiles, P rounded to bf16 before
-P.V); fp32, and bf16 at the other shapes (the (q/k, v) head_dim pairs of
-``HEAD_DIM_PAIRS``, MLA's v narrower than q/k among them, any block), on
-the fp32 CUDA cores (64-row tiles, or one block's rows under 64).  The kernel reads only the
+without it the KV head is query head // group.  Compute-bound on the H100.
+``forward_route`` picks the tile: bf16 at a (q/k, v) pair of
+``WGMMA_PAIRS`` ((64, 64), (128, 128), MLA's (192, 128) and (192, 192),
+(256, 256)) and a block that is a multiple of 128 runs on the tensor cores
+(TMA + wgmma, 128-row tiles of 64- or 128-key tiles, P rounded to bf16
+before P.V); fp32, and bf16 at the other shapes (the narrow pairs of
+``HEAD_DIM_PAIRS``, any block under or off 128), on the fp32 CUDA cores
+(64-row tiles, or one block's rows under 64).  The kernel reads only the
 live prefix of each index row, so it needs no revisit filling.
 
 Beside the kernel sits its plain PyTorch version
-(``block_sparse_attention_plain``) and a plain-int launch counter in
-``LAUNCHES``.  The wrapper takes the plain version only for tensors on the
+(``block_sparse_attention_plain``) and plain-int launch counters in
+``LAUNCHES``: every forward launch, and one per tensor-core instance
+(``wgmma_counter``).  The wrapper takes the plain version only for tensors on the
 CPU; for a CUDA tensor it launches the kernel or raises.
 
 With ``return_lse`` the forward also returns each row's natural-log
@@ -48,12 +51,14 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import backward_route, check_head_dim_pair
+from repro_torch.kernels import (WGMMA_PAIRS, backward_route, check_head_dim_pair,
+                                 forward_route, wgmma_counter)
 
 NEG_INF = -1e30
 
 LAUNCHES = {"block_sparse_attention": 0, "block_sparse_attention_bwd": 0,
-            "block_sparse_attention_bwd_wgmma": 0}
+            "block_sparse_attention_bwd_wgmma": 0,
+            **{wgmma_counter("block_sparse_attention", d, dv): 0 for d, dv in WGMMA_PAIRS}}
 
 
 def reset_launches() -> None:
@@ -201,6 +206,8 @@ def block_sparse_attention(q, k, v, indices, slot_mask=None, *,
         raise RuntimeError(
             f"stem_block_sparse_attention launch failed: cudaError {err}")
     LAUNCHES["block_sparse_attention"] += 1
+    if forward_route(q.dtype, d, dv, bs) == "wgmma":
+        LAUNCHES[wgmma_counter("block_sparse_attention", d, dv)] += 1
     return (out, lse) if return_lse else out
 
 

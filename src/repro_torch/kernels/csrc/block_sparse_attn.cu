@@ -27,15 +27,19 @@
 // index row (the reference's fused (g * B, d) query tile, whose row r is
 // query position i*B + r mod B); without it the KV head is head / group.
 //
-// bf16 (the serving dtype) at head_dim 128 and a block that is a multiple
-// of 128 runs on the tensor cores (attn_wgmma.cuh): one CTA per 128 query
-// rows (a query block at bs = 128), the selected blocks streamed as 128-key
-// tiles through a TMA ring into wgmma products.  The grid puts the query
-// heads fastest, so the g heads of a KV head run side by side and the
-// second read of each selected K/V block comes from L2, and walks the query
-// blocks from the last (the most selected blocks, min(k_max, i + 1)) to the
-// first.  fp32 at every (q/k, v) head_dim pair of head_dims.cuh and every
-// block, and bf16 off that shape (MLA's q/k 192 with v 128 among them), run the
+// bf16 (the serving dtype) at the pairs of head_dims.cuh
+// STEM_WGMMA_PAIR_SWITCH ((64, 64), (128, 128), MLA's (192, 128) and (192,
+// 192), (256, 256)) and a block that is a multiple of 128 runs on the
+// tensor cores (attn_wgmma.cuh, one instance per pair at its TileOf shape):
+// one CTA per 128 query rows (a query block at bs = 128), the selected
+// blocks streamed as 128- or 64-key tiles through a TMA ring into wgmma
+// products.  The grid walks the query blocks from the last (the most
+// selected blocks, min(k_max, i + 1)) to the first, with the query heads
+// fastest (the g heads of a KV head side by side, the second read of each
+// selected K/V block from L2) while the K / V of all heads fit twice in
+// L2, else the query blocks of one head fastest (stem_wg::tiles_fastest).
+// fp32 at every (q/k, v) head_dim pair of head_dims.cuh and every block,
+// and bf16 off those shapes (the narrow pairs, blocks off 128), run the
 // CUDA-core tile of attn_tile.cuh (64-key sub-tiles, fp32 products and
 // probabilities: within 1e-4 of the plain version in fp32): a CTA owns 64
 // query rows of a block, or the whole block where it is under 64 rows (the
@@ -55,15 +59,16 @@
 // live prefix holds it, in increasing order, built by the wrapper), for
 // each query head of the group that reads that selection row, so a key
 // block's gradient is summed in one CTA in a fixed order.  The wrapper's
-// backward_route picks the route, the forward's condition: bf16 at d = dv
-// = 128 and a block that is a multiple of 128 runs attn_bwd_wgmma.cuh on
-// the tensor cores (block_sparse_bwd_dq_wgmma_kernel per 128 query rows,
+// backward_route picks the route: bf16 at d = dv = 128 and a block that is
+// a multiple of 128 runs attn_bwd_wgmma.cuh on the tensor cores
+// (block_sparse_bwd_dq_wgmma_kernel per 128 query rows,
 // block_sparse_bwd_dkdv_wgmma_kernel per 128 keys over 64-query tiles; P
 // and dS rounded to bf16); every other dtype, pair and block runs
-// attn_bwd.cuh's fp32 CUDA-core tiles (block_sparse_bwd_dq_kernel per 64
-// query rows of a block, or the block under 64 rows;
-// block_sparse_bwd_dkdv_kernel per 64 keys).  Bound: 2 * (3 d + 2 dv) flops
-// a causal pair of the selected blocks; 7 products a pair done.
+// attn_bwd.cuh's fp32 CUDA-core tiles, fed the lse of either forward route
+// (block_sparse_bwd_dq_kernel per 64 query rows of a block, or the block
+// under 64 rows; block_sparse_bwd_dkdv_kernel per 64 keys).  Bound: 2 * (3
+// d + 2 dv) flops a causal pair of the selected blocks; 7 products a pair
+// done.
 #include "attn_bwd.cuh"
 #include "attn_bwd_wgmma.cuh"
 #include "attn_tile.cuh"
@@ -147,19 +152,22 @@ int launch_tile(const void* q, const void* k, const void* v, const int* idx,
                                                       dedup, n, bs, kmax, scale, stream))
 }
 
-// bf16 on the tensor cores: the 128-key tiles of the row's live selected
-// blocks that hold a key at or below the tile's first query row q0; only
-// the diagonal one (off 0) is masked.
+// bf16 on the tensor cores: the BN-key tiles of the row's live selected
+// blocks that hold a key at or below the tile's last query row q0 + 127
+// (blocks, q0 and the tiles are multiples of BN: k0 <= q0 + 128 - BN); only
+// those that reach row q0's diagonal (off 0, and off 64 past it at BN 64)
+// are masked.
+template <int BN>
 struct SparseTiles {
   const int* ids;
   int live, nq, bs, q0, s, k;     // k: next key offset inside block ids[s]
   __device__ __forceinline__ bool next(int& k0, int& off) {
     while (s < live) {
       const int j = ids[s];
-      if (j >= 0 && j < nq && k < bs && j * bs + k <= q0) {
+      if (j >= 0 && j < nq && k < bs && j * bs + k <= q0 + (stem_wg::kBM - BN)) {
         k0 = j * bs + k;
         off = k0 - q0;
-        k += stem_wg::kBN;
+        k += BN;
         return true;
       }
       ++s;
@@ -169,21 +177,24 @@ struct SparseTiles {
   }
 };
 
+// One instance per shape C of TileOf (head_dims.cuh STEM_WGMMA_PAIR_SWITCH).
 // kLse: store each row's log-sum-exp (the training forward); serving runs
 // the instance without.
-template <bool kLse>
+template <class C, bool kLse>
 __global__ void __launch_bounds__(stem_wg::kThreads, 1)
 block_sparse_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           const int* __restrict__ idx, const int* __restrict__ cnt,
                           __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int hq,
-                          int hk, int dedup, int n, int bs, int kmax, float scale) {
+                          int hk, int dedup, int n, int bs, int kmax, float scale,
+                          int tiles_fastest) {
   extern __shared__ uint8_t smem_wg[];
   const int tiles = bs / stem_wg::kBM;
-  const int x = gridDim.y - 1 - blockIdx.y;          // heaviest query blocks first
+  const int x = tiles_fastest ? gridDim.x - 1 - blockIdx.x   // heaviest query blocks first
+                              : gridDim.y - 1 - blockIdx.y;
   const int i = x / tiles, sub = x - i * tiles;
-  const int h = blockIdx.x, b = blockIdx.z;
+  const int h = tiles_fastest ? blockIdx.y : blockIdx.x, b = blockIdx.z;
   const int kvh = h / (hq / hk);
   const int hsel = dedup ? hk : hq;
   const int nq = n / bs;
@@ -191,34 +202,37 @@ block_sparse_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int q0 = i * bs + sub * stem_wg::kBM;
   const long long q_row = ((long long)b * hq + h) * n + q0;
   const long long kv_row = ((long long)b * hk + kvh) * n;
-  const SparseTiles sel{idx + row * kmax, min(cnt[row], kmax), nq, bs, q0, 0, 0};
-  stem_wg::attend_tile(smem_wg, &tq, &tk, &tv, q_row, kv_row, sel, out + q_row * stem_wg::kD,
-                       stem_wg::kBM, scale, kLse ? lse + q_row : nullptr);
+  const SparseTiles<C::BN> sel{idx + row * kmax, min(cnt[row], kmax), nq, bs, q0, 0, 0};
+  stem_wg::attend_tile<C>(smem_wg, &tq, &tk, &tv, q_row, kv_row, sel, out + q_row * C::DV,
+                          stem_wg::kBM, scale, kLse ? lse + q_row : nullptr);
 }
 
-template <bool kLse>
+template <class C, bool kLse>
 int launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                  const int* idx, const int* cnt, void* out, float* lse, int b, int hq, int hk,
                  int dedup, int n, int bs, int kmax, float scale, cudaStream_t stream) {
-  cudaError_t err = stem_wg::prepare(block_sparse_wgmma_kernel<kLse>);
+  cudaError_t err = stem_wg::prepare(block_sparse_wgmma_kernel<C, kLse>, C::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(hq, n / stem_wg::kBM, b);
-  block_sparse_wgmma_kernel<kLse><<<grid, stem_wg::kThreads, stem_wg::kSmemBytes, stream>>>(
-      tq, tk, tv, idx, cnt, (__nv_bfloat16*)out, lse, hq, hk, dedup, n, bs, kmax, scale);
+  const int tiles = n / stem_wg::kBM;
+  const int tf = stem_wg::tiles_fastest(2ll * b * hk * n * (C::D + C::DV));
+  const dim3 grid = tf ? dim3(tiles, hq, b) : dim3(hq, tiles, b);
+  block_sparse_wgmma_kernel<C, kLse><<<grid, stem_wg::kThreads, C::kSmemBytes, stream>>>(
+      tq, tk, tv, idx, cnt, (__nv_bfloat16*)out, lse, hq, hk, dedup, n, bs, kmax, scale, tf);
   return (int)cudaGetLastError();
 }
 
+template <class C>
 int launch_wgmma(const void* q, const void* k, const void* v, const int* idx, const int* cnt,
                  void* out, float* lse, int b, int hq, int hk, int dedup, int n, int bs,
                  int kmax, float scale, cudaStream_t stream) {
   if (bs % stem_wg::kBM != 0) return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
-  if (!stem_wg::make_maps(&tq, &tk, &tv, q, k, v, b, hq, hk, n))
+  if (!stem_wg::make_maps<C>(&tq, &tk, &tv, q, k, v, b, hq, hk, n))
     return (int)cudaErrorInvalidValue;
-  return lse ? launch_wgmma<true>(tq, tk, tv, idx, cnt, out, lse, b, hq, hk, dedup, n, bs,
-                                  kmax, scale, stream)
-             : launch_wgmma<false>(tq, tk, tv, idx, cnt, out, lse, b, hq, hk, dedup, n, bs,
-                                   kmax, scale, stream);
+  return lse ? launch_wgmma<C, true>(tq, tk, tv, idx, cnt, out, lse, b, hq, hk, dedup, n, bs,
+                                     kmax, scale, stream)
+             : launch_wgmma<C, false>(tq, tk, tv, idx, cnt, out, lse, b, hq, hk, dedup, n, bs,
+                                      kmax, scale, stream);
 }
 
 
@@ -408,7 +422,8 @@ block_sparse_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int q0 = i * bs + sub * stem_wg::kBM;
   const long long q_row = ((long long)b * hq + h) * n + q0;
   const long long kv_row = ((long long)b * hk + kvh) * n;
-  const SparseTiles sel{idx + row * kmax, min(cnt[row], kmax), nq, bs, q0, 0, 0};
+  const SparseTiles<stem_wg::kBN> sel{idx + row * kmax, min(cnt[row], kmax), nq, bs, q0, 0,
+                                      0};
   stem_bwg::dq_tile(smem_wg, &tq, &tdo, &tk, &tv, q_row, kv_row, sel, o + q_row * stem_wg::kD,
                     dout + q_row * stem_wg::kD, lse + q_row, delta + q_row,
                     dq + q_row * stem_wg::kD, stem_wg::kBM, scale);
@@ -480,9 +495,9 @@ extern "C" {
 // idx (b, h_sel, n/bs, kmax) and cnt (b, h_sel, n/bs) int32 with h_sel =
 // hk when dedup else hq; all contiguous.  (d, dv) a pair of head_dims.cuh
 // and bs dividing n (the wrapper checks).  is_bf16: 0 = float32 (the
-// CUDA-core tile), 1 = bfloat16 for q/k/v/out: the tensor-core tile at d =
-// dv = 128 and bs a multiple of 128 (q, k, v 16-byte aligned for TMA),
-// else the CUDA-core tile.  lse: null, or (b, hq, n) fp32 for each row's
+// CUDA-core tile), 1 = bfloat16 for q/k/v/out: the tensor-core tile at the
+// pairs of STEM_WGMMA_PAIR_SWITCH and bs a multiple of 128 (q, k, v 16-byte
+// aligned for TMA), else the CUDA-core tile.  lse: null, or (b, hq, n) fp32 for each row's
 // natural-log log-sum-exp.
 int stem_block_sparse_attention(const void* q, const void* k, const void* v,
                                 const int* idx, const int* cnt, void* out, void* lse, int b,
@@ -492,11 +507,15 @@ int stem_block_sparse_attention(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   float* l = (float*)lse;
-  if (is_bf16 && d == stem_wg::kD && dv == stem_wg::kD && bs % stem_wg::kBM == 0)
-    return launch_wgmma(q, k, v, idx, cnt, out, l, b, hq, hk, dedup, n, bs, kmax, scale, st);
-  if (is_bf16)
+  if (is_bf16) {
+    if (bs % stem_wg::kBM == 0) {
+      STEM_WGMMA_PAIR_SWITCH(d, dv, launch_wgmma<stem_wg::TileOf<D, DV>>(
+                                        q, k, v, idx, cnt, out, l, b, hq, hk, dedup, n, bs,
+                                        kmax, scale, st))
+    }
     return launch_tile<__nv_bfloat16>(q, k, v, idx, cnt, out, l, b, hq, hk, dedup, n, d, dv,
                                       bs, kmax, scale, st);
+  }
   return launch_tile<float>(q, k, v, idx, cnt, out, l, b, hq, hk, dedup, n, d, dv, bs, kmax,
                             scale, st);
 }

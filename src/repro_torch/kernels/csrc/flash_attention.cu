@@ -17,20 +17,24 @@
 // axis becomes a loop inside the CTA, with the GQA head mapping kv_head =
 // head / group.
 //
-// bf16 (the serving dtype) at head_dim 128 runs on the tensor cores
-// (attn_wgmma.cuh): one CTA per (128 query rows, query head, batch row) walks
-// the key tiles 0..its diagonal through a TMA ring, wgmma products and the
-// online softmax in registers; the diagonal tile is masked exactly, which
-// also masks every key past n for the rows < n that are written, so any n
-// runs.  The grid puts the query heads fastest, so the g heads of a KV head
-// run side by side and the second read of each K/V tile comes from L2, and
-// walks the query tiles from the last (the heaviest) to the first, so the
-// causal tail wave holds the light tiles.  fp32 at every (q/k, v) head_dim
-// pair of head_dims.cuh, and bf16 at every pair but (128, 128) (8-64 and
-// 256, and MLA's q/k 24 or 192 with v 16, 24, 128 or 192), run the
-// CUDA-core tile of attn_tile.cuh (64-row CTAs, fp32 products and probabilities:
-// within 1e-4 of the plain version in fp32, bf16 loads and stores around
-// the same fp32 math).
+// bf16 (the serving dtype) at the pairs of head_dims.cuh
+// STEM_WGMMA_PAIR_SWITCH ((64, 64), (128, 128), MLA's (192, 128) and (192,
+// 192), (256, 256)) runs on the tensor cores (attn_wgmma.cuh, one instance
+// per pair at its TileOf shape): one CTA per (128 query rows, query head,
+// batch row) walks the key tiles (128 or 64 keys) 0..its diagonal through
+// a TMA ring, wgmma products and the online softmax in registers; the
+// tiles that reach the diagonal are masked exactly, which also masks every
+// key past n for the rows < n that are written, so any n runs.  The grid
+// walks the query tiles from the last (the heaviest) to the first, with
+// the query heads fastest (the g heads of a KV head side by side, the
+// causal tail wave holding the light tiles) while the K / V of all heads
+// fit twice in L2, else the query tiles of one head fastest (a wave reads
+// each key tile once for all of them: deepseek-v3-671b's 128 heads);
+// stem_wg::tiles_fastest.  fp32 at every (q/k, v) head_dim pair of
+// head_dims.cuh, and bf16 at the narrow pairs (8-32, MLA's reduced (24, 16)
+// and (24, 24)), run the CUDA-core tile of attn_tile.cuh (64-row CTAs,
+// fp32 products and probabilities: within 1e-4 of the plain version in
+// fp32, bf16 loads and stores around the same fp32 math).
 //
 // Both routes save each row's natural-log log-sum-exp when the caller
 // passes an lse buffer (the training path's autograd Function); serving
@@ -39,16 +43,17 @@
 // stem_flash_attention_bwd is the gradient of the same function (the TPU
 // kernel has none: the reference trains through XLA's autodiff of its jnp
 // attention), two kernels that read the forward's lse and sum without
-// atomics.  The wrapper's backward_route picks the route, the forward's
-// condition: bf16 at d = dv = 128 runs attn_bwd_wgmma.cuh on the tensor
+// atomics.  The wrapper's backward_route picks the route: bf16 at d = dv =
+// 128 runs attn_bwd_wgmma.cuh on the tensor
 // cores (flash_bwd_dq_wgmma_kernel per 128 query rows over the key tiles
 // 0..its diagonal, Q and dO resident, K / V through a TMA ring;
 // flash_bwd_dkdv_wgmma_kernel per 128 keys of a KV head over the g query
 // heads of its group and the 64-query tiles from its diagonal to the end,
 // K and V resident, Q / dO / lse / delta through a TMA ring; P and dS
 // rounded to bf16 for the wgmma products).  Every other dtype and pair runs
-// attn_bwd.cuh's fp32 CUDA-core tiles (flash_bwd_dq_kernel per 64 query
-// rows, flash_bwd_dkdv_kernel per 64 keys, in the same orders).  Bound: 2 *
+// attn_bwd.cuh's fp32 CUDA-core tiles, fed the lse of either forward route
+// (flash_bwd_dq_kernel per 64 query rows, flash_bwd_dkdv_kernel per 64
+// keys, in the same orders).  Bound: 2 *
 // (3 d + 2 dv) flops a causal pair (S, dP, dV, dK, dQ); the two kernels do
 // 7 products a pair (S and dP in both).
 #include "attn_bwd.cuh"
@@ -102,58 +107,70 @@ int launch_tile(const void* q, const void* k, const void* v, void* out, float* l
                                                     stream))
 }
 
-// bf16 on the tensor cores: the key tiles 0..last of one query tile; only
-// the diagonal one (off 0) is masked.
+// bf16 on the tensor cores: the BN-key tiles 0..last of one query tile
+// starting at q0, last the tile of its last valid row; key tile k0 has
+// offset k0 - q0, so only the tiles that reach row q0's diagonal (off 0,
+// and off 64 past it at BN 64) are masked.
+template <int BN>
 struct FlashTiles {
-  int t, last;
+  int t, last, q0;
+  __device__ __forceinline__ static FlashTiles of(int q0, int n) {
+    return FlashTiles{0, (min(q0 + stem_wg::kBM, n) - 1) / BN, q0};
+  }
   __device__ __forceinline__ bool next(int& k0, int& off) {
     if (t > last) return false;
-    k0 = t * stem_wg::kBN;
-    off = (t - last) * stem_wg::kBN;
+    k0 = t * BN;
+    off = k0 - q0;
     ++t;
     return true;
   }
 };
 
+// One instance per shape C of TileOf (head_dims.cuh STEM_WGMMA_PAIR_SWITCH).
 // kLse: store each row's log-sum-exp (the training forward); serving runs
 // the instance without, so its tile is compiled as if the store did not
 // exist.
-template <bool kLse>
+template <class C, bool kLse>
 __global__ void __launch_bounds__(stem_wg::kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
-                   float* __restrict__ lse, int hq, int hk, int n, float scale) {
+                   float* __restrict__ lse, int hq, int hk, int n, float scale,
+                   int tiles_fastest) {
   extern __shared__ uint8_t smem_wg[];
-  const int h = blockIdx.x, b = blockIdx.z;
-  const int i = gridDim.y - 1 - blockIdx.y;          // heaviest query tiles first
+  const int h = tiles_fastest ? blockIdx.y : blockIdx.x, b = blockIdx.z;
+  const int i = tiles_fastest ? gridDim.x - 1 - blockIdx.x     // heaviest query tiles first
+                              : gridDim.y - 1 - blockIdx.y;
   const int kvh = h / (hq / hk);
   const int q0 = i * stem_wg::kBM;
   const long long q_row = ((long long)b * hq + h) * n + q0;
   const long long kv_row = ((long long)b * hk + kvh) * n;
-  stem_wg::attend_tile(smem_wg, &tq, &tk, &tv, q_row, kv_row, FlashTiles{0, i},
-                       out + q_row * stem_wg::kD, min(stem_wg::kBM, n - q0), scale,
-                       kLse ? lse + q_row : nullptr);
+  stem_wg::attend_tile<C>(smem_wg, &tq, &tk, &tv, q_row, kv_row, FlashTiles<C::BN>::of(q0, n),
+                          out + q_row * C::DV, min(stem_wg::kBM, n - q0), scale,
+                          kLse ? lse + q_row : nullptr);
 }
 
-template <bool kLse>
+template <class C, bool kLse>
 int launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, void* out,
                  float* lse, int b, int hq, int hk, int n, float scale, cudaStream_t stream) {
-  cudaError_t err = stem_wg::prepare(flash_wgmma_kernel<kLse>);
+  cudaError_t err = stem_wg::prepare(flash_wgmma_kernel<C, kLse>, C::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(hq, (n + stem_wg::kBM - 1) / stem_wg::kBM, b);
-  flash_wgmma_kernel<kLse><<<grid, stem_wg::kThreads, stem_wg::kSmemBytes, stream>>>(
-      tq, tk, tv, (__nv_bfloat16*)out, lse, hq, hk, n, scale);
+  const int tiles = (n + stem_wg::kBM - 1) / stem_wg::kBM;
+  const int tf = stem_wg::tiles_fastest(2ll * b * hk * n * (C::D + C::DV));
+  const dim3 grid = tf ? dim3(tiles, hq, b) : dim3(hq, tiles, b);
+  flash_wgmma_kernel<C, kLse><<<grid, stem_wg::kThreads, C::kSmemBytes, stream>>>(
+      tq, tk, tv, (__nv_bfloat16*)out, lse, hq, hk, n, scale, tf);
   return (int)cudaGetLastError();
 }
 
+template <class C>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse, int b,
                  int hq, int hk, int n, float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  if (!stem_wg::make_maps(&tq, &tk, &tv, q, k, v, b, hq, hk, n))
+  if (!stem_wg::make_maps<C>(&tq, &tk, &tv, q, k, v, b, hq, hk, n))
     return (int)cudaErrorInvalidValue;
-  return lse ? launch_wgmma<true>(tq, tk, tv, out, lse, b, hq, hk, n, scale, stream)
-             : launch_wgmma<false>(tq, tk, tv, out, lse, b, hq, hk, n, scale, stream);
+  return lse ? launch_wgmma<C, true>(tq, tk, tv, out, lse, b, hq, hk, n, scale, stream)
+             : launch_wgmma<C, false>(tq, tk, tv, out, lse, b, hq, hk, n, scale, stream);
 }
 
 // The tile's two products on one 128 x 128 tile, a test of its shared-memory
@@ -333,7 +350,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int q0 = i * stem_wg::kBM;
   const long long q_row = ((long long)b * hq + h) * n + q0;
   const long long kv_row = ((long long)b * hk + kvh) * n;
-  stem_bwg::dq_tile(smem_wg, &tq, &tdo, &tk, &tv, q_row, kv_row, FlashTiles{0, i},
+  stem_bwg::dq_tile(smem_wg, &tq, &tdo, &tk, &tv, q_row, kv_row,
+                    FlashTiles<stem_wg::kBN>::of(q0, n),
                     o + q_row * stem_wg::kD, dout + q_row * stem_wg::kD, lse + q_row,
                     delta + q_row, dq + q_row * stem_wg::kD, min(stem_wg::kBM, n - q0), scale);
 }
@@ -393,8 +411,9 @@ extern "C" {
 // q (b, hq, n, d), k (b, hk, n, d), v (b, hk, n, dv), out (b, hq, n, dv),
 // contiguous; (d, dv) a pair of head_dims.cuh and hk dividing hq (the
 // wrapper checks both).  is_bf16: 0 = float32 (the CUDA-core tile), 1 =
-// bfloat16 for all four tensors (the tensor-core tile at d = dv = 128, q,
-// k, v 16-byte aligned for TMA; the CUDA-core tile at the other pairs).
+// bfloat16 for all four tensors (the tensor-core tile at the pairs of
+// STEM_WGMMA_PAIR_SWITCH, q, k, v 16-byte aligned for TMA; the CUDA-core
+// tile at the other pairs).
 // lse: null, or (b, hq, n) fp32 for each row's natural-log log-sum-exp.
 int stem_flash_attention(const void* q, const void* k, const void* v, void* out,
                          void* lse, int b, int hq, int hk, int n, int d, int dv, int is_bf16,
@@ -402,10 +421,11 @@ int stem_flash_attention(const void* q, const void* k, const void* v, void* out,
   if (hk <= 0 || hq % hk != 0 || n <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   float* l = (float*)lse;
-  if (is_bf16 && d == stem_wg::kD && dv == stem_wg::kD)
-    return launch_wgmma(q, k, v, out, l, b, hq, hk, n, scale, st);
-  if (is_bf16)
+  if (is_bf16) {
+    STEM_WGMMA_PAIR_SWITCH(d, dv, launch_wgmma<stem_wg::TileOf<D, DV>>(q, k, v, out, l, b, hq,
+                                                                      hk, n, scale, st))
     return launch_tile<__nv_bfloat16>(q, k, v, out, l, b, hq, hk, n, d, dv, scale, st);
+  }
   return launch_tile<float>(q, k, v, out, l, b, hq, hk, n, d, dv, scale, st);
 }
 

@@ -53,3 +53,24 @@
     default:                                                                  \
       return (int)cudaErrorInvalidValue;                                      \
   }
+
+// STEM_WGMMA_PAIR_SWITCH(d, dv, expr) returns expr with D = d and DV = dv
+// for the pairs whose bf16 forward (flash, and block-sparse at a block that
+// is a multiple of 128) runs on the tensor-core tile of attn_wgmma.cuh at
+// TileOf<D, DV> (kernels.forward_route's table: every q/k width a multiple
+// of wgmma's k16 and the tile's 64-column boxes, v at most 256), and falls
+// through for any other pair, which runs the CUDA-core tile.
+#define STEM_WGMMA_PAIR_CASE(N, NV, ...) STEM_HEAD_DIM_PAIR_CASE(N, NV, __VA_ARGS__)
+
+#define STEM_WGMMA_PAIR_SWITCH(d, dv, ...)                                    \
+  if ((d) > 0 && (d) < 1024 && (dv) > 0 && (dv) < 1024) {                    \
+    switch ((d) * 1024 + (dv)) {                                              \
+      STEM_WGMMA_PAIR_CASE(64, 64, __VA_ARGS__)                               \
+      STEM_WGMMA_PAIR_CASE(128, 128, __VA_ARGS__)                             \
+      STEM_WGMMA_PAIR_CASE(192, 128, __VA_ARGS__)                             \
+      STEM_WGMMA_PAIR_CASE(192, 192, __VA_ARGS__)                             \
+      STEM_WGMMA_PAIR_CASE(256, 256, __VA_ARGS__)                             \
+      default:                                                                \
+        break;                                                                \
+    }                                                                         \
+  }

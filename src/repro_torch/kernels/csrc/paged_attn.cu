@@ -748,8 +748,9 @@ attend_chunk_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const long long kv_row = (long long)kvh * num_pages * stem_wg::kBN;
   const PagedTiles sel{gp + row * kmax, idx + row * kmax, min(cnt[row], kmax), num_pages,
                        pos[b] + ci * stem_wg::kBM, 0};
-  stem_wg::attend_tile(smem_wg, &tq, &tk, &tv, q_row, kv_row, sel, out + q_row * stem_wg::kD,
-                       stem_wg::kBM, scale);
+  stem_wg::attend_tile<stem_wg::Tile128>(smem_wg, &tq, &tk, &tv, q_row, kv_row, sel,
+                                          out + q_row * stem_wg::Tile128::DV, stem_wg::kBM,
+                                          scale);
 }
 
 // ---------------------------------------------------------------------------

@@ -6,14 +6,17 @@ prefill (port of ``repro/kernels/flash_attention.py``).
 ``_flash_kernel`` (``src/repro/kernels/flash_attention.py:34``): key blocks
 above the diagonal skipped, the diagonal masked exactly, KV head = query
 head // group, fp32 accumulation, output in q's dtype.  Compute-bound on the
-H100 (2 * (d + dv) flops per causal pair): bf16 at q/k = v head_dim 128
-runs on the tensor cores (TMA + wgmma, P rounded to bf16 before P.V as
-SDPA's kernels do); fp32, and bf16 at the other (q/k, v) head_dim pairs of
-``HEAD_DIM_PAIRS`` (8-256, and MLA's v narrower than q/k), on the fp32 CUDA
-cores (bf16 loaded and stored, the math in fp32).
+H100 (2 * (d + dv) flops per causal pair).  ``forward_route`` picks the
+tile: bf16 at a (q/k, v) pair of ``WGMMA_PAIRS`` ((64, 64), (128, 128),
+MLA's (192, 128) and (192, 192), (256, 256)) runs on the tensor cores (TMA
++ wgmma, P rounded to bf16 before P.V as SDPA's kernels do); fp32, and
+bf16 at the narrow pairs of ``HEAD_DIM_PAIRS`` (8-32, MLA's reduced (24,
+16) / (24, 24)), on the fp32 CUDA cores (bf16 loaded and stored, the math
+in fp32).
 
 Beside the kernel sits its plain PyTorch version (``flash_attention_plain``)
-and a plain-int launch counter in ``LAUNCHES``.  The wrapper takes the plain
+and plain-int launch counters in ``LAUNCHES``: every forward launch, and
+one per tensor-core instance (``wgmma_counter``).  The wrapper takes the plain
 version only for tensors on the CPU; for a CUDA tensor it launches the
 kernel or raises.
 
@@ -41,11 +44,13 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import backward_route, check_head_dim_pair
+from repro_torch.kernels import (WGMMA_PAIRS, backward_route, check_head_dim_pair,
+                                 forward_route, wgmma_counter)
 
 NEG_INF = -1e30
 
-LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0,
+            **{wgmma_counter("flash_attention", d, dv): 0 for d, dv in WGMMA_PAIRS}}
 
 
 def reset_launches() -> None:
@@ -142,6 +147,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if err != 0:
         raise RuntimeError(f"stem_flash_attention launch failed: cudaError {err}")
     LAUNCHES["flash_attention"] += 1
+    if forward_route(q.dtype, d, dv) == "wgmma":
+        LAUNCHES[wgmma_counter("flash_attention", d, dv)] += 1
     return (out, lse) if return_lse else out
 
 

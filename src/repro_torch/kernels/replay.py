@@ -24,6 +24,7 @@ import inspect
 
 import torch
 
+from repro_torch.kernels import forward_route
 from repro_torch.kernels import block_sparse_attn as bsa_kern
 from repro_torch.kernels import flash_attention as flash_kern
 from repro_torch.kernels import paged_attn as paged_kern
@@ -37,8 +38,8 @@ def tolerance(want: torch.Tensor, dtype, p_bf16: bool = False):
     near 0.  The floor is per row because an attention row over m keys has
     outputs of about sqrt(e / m): a floor over the whole tensor would be as
     large as a long row's values.  p_bf16: the bf16 attention kernels on
-    the tensor-core tile (flash, block-sparse, the paged chunk lane at
-    head_dim and page size 128) round the probabilities P to bf16 before
+    the tensor-core tile (flash and block-sparse where ``forward_route``
+    says "wgmma", the paged chunk lane at head_dim and page size 128) round the probabilities P to bf16 before
     P.V (as SDPA's and flex_attention's kernels do) while the plain version
     keeps P in fp32, so their row floor is 1e-2 * max|plain| in place of
     1e-3."""
@@ -93,14 +94,14 @@ KERNELS = {
             a["q"], a["k"], a["v"], a["indices"], _live_counts(a),
             block_size=a["block_size"], scale=a["scale"],
             group_dedup=a["group_dedup"]),
-        lambda a: (a["q"].dtype == torch.bfloat16 and a["q"].shape[-1] == 128
-                   and a["v"].shape[-1] == 128 and a["block_size"] % 128 == 0)),
+        lambda a: forward_route(a["q"].dtype, a["q"].shape[-1], a["v"].shape[-1],
+                                a["block_size"]) == "wgmma"),
     "flash_attention": (
         flash_kern,
         lambda a: flash_kern.flash_attention_plain(a["q"], a["k"], a["v"],
                                                    scale=a["scale"]),
-        lambda a: (a["q"].dtype == torch.bfloat16 and a["q"].shape[-1] == 128
-                   and a["v"].shape[-1] == 128)),
+        lambda a: forward_route(a["q"].dtype, a["q"].shape[-1],
+                                a["v"].shape[-1]) == "wgmma"),
     "antidiag_pool": (
         metric_kern,
         lambda a: metric_kern.antidiag_pool_plain(

@@ -8,10 +8,13 @@ bf16 gradient rule of its tensor-core route, on the CPU.
   ``exp(S - lse) . V`` against the reference's ``ref.py`` oracles
   (``flash_attention_ref``, ``block_sparse_attention_ref``) within 1e-5:
   the lse normalises each row as the forward did.
-* ``backward_route`` over (dtype, d, dv, block_size): "wgmma" exactly
-  where the forward's kernels run their tensor-core tile (the predicate
-  ``replay.KERNELS`` holds each recorded call to), at every pair of
-  ``HEAD_DIM_PAIRS``.
+* The routes over (dtype, d, dv, block_size) at every pair of
+  ``HEAD_DIM_PAIRS``: ``forward_route`` "wgmma" exactly for bf16 at a pair
+  of ``WGMMA_PAIRS`` (block-sparse: blocks a multiple of 128), which is
+  where ``replay.KERNELS`` holds a recorded forward call to the p_bf16 rule;
+  ``backward_route`` "wgmma" only for bf16 at (128, 128), where the forward
+  takes its tensor-core tile too (elsewhere the CUDA-core backward reads the
+  lse of whichever forward ran).
 * A test-local backward that rounds P and dS to bf16 before its products,
   as the tensor-core kernels do, within ``replay.grad_tolerance(...,
   p_bf16=True)`` of the fp32 plain backwards on bf16-valued inputs; the same
@@ -31,7 +34,8 @@ import jax.numpy as jnp
 
 from repro.kernels import ref as j_ref
 
-from repro_torch.kernels import HEAD_DIM_PAIRS, backward_route, replay
+from repro_torch.kernels import (HEAD_DIM_PAIRS, WGMMA_PAIRS, backward_route, forward_route,
+                                 replay)
 from repro_torch.kernels import block_sparse_attn as t_bsa
 from repro_torch.kernels import flash_attention as t_fa
 
@@ -148,18 +152,25 @@ def _on_tensor_cores(kernel, dtype, d, dv, bs=None):
 
 @pytest.mark.parametrize("pair", HEAD_DIM_PAIRS, ids=lambda p: f"{p[0]}-{p[1]}")
 def test_backward_route_mirrors_forward(pair):
+    """Both routes and the replay predicates against their stated tables:
+    the forward's tensor-core tile for bf16 at WGMMA_PAIRS (and blocks of a
+    multiple of 128), its backward's only at (128, 128); a backward on the
+    tensor cores always follows a forward on them."""
     d, dv = pair
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        route = backward_route(dtype, d, dv)
-        assert route in ("wgmma", "cuda_core")
-        assert (route == "wgmma") == _on_tensor_cores("flash_attention", dtype, d, dv)
-        assert (route == "wgmma") == (dtype == torch.bfloat16 and d == dv == 128)
+        tile = dtype == torch.bfloat16 and pair in WGMMA_PAIRS
+        fwd, bwd = forward_route(dtype, d, dv), backward_route(dtype, d, dv)
+        assert fwd in ("wgmma", "cuda_core") and bwd in ("wgmma", "cuda_core")
+        assert (fwd == "wgmma") == tile == _on_tensor_cores("flash_attention", dtype, d, dv)
+        assert (bwd == "wgmma") == (dtype == torch.bfloat16 and d == dv == 128)
+        assert bwd == "cuda_core" or fwd == "wgmma"
         for bs in (8, 16, 64, 128, 192, 256, 512):
-            route = backward_route(dtype, d, dv, bs)
-            assert (route == "wgmma") == _on_tensor_cores(
+            fwd, bwd = forward_route(dtype, d, dv, bs), backward_route(dtype, d, dv, bs)
+            assert (fwd == "wgmma") == (tile and bs % 128 == 0) == _on_tensor_cores(
                 "block_sparse_attention", dtype, d, dv, bs)
-            assert (route == "wgmma") == (dtype == torch.bfloat16 and d == dv == 128
-                                          and bs % 128 == 0)
+            assert (bwd == "wgmma") == (dtype == torch.bfloat16 and d == dv == 128
+                                        and bs % 128 == 0)
+            assert bwd == "cuda_core" or fwd == "wgmma"
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,10 @@ machine:
 fp32 within 1e-4 abs; bf16 within 2 bf16 ulps of the plain output plus a
 floor of 1e-3 * max|plain| over the element's row (its last axis), except
 the attention kernels that run bf16 on the tensor-core tile (the one-shot
-prefill's flash and block-sparse attention, and the paged chunk lane at
-page size 128): the tile rounds the probabilities P to bf16 before P.V (as
+prefill's flash and block-sparse attention where ``kernels.forward_route``
+says "wgmma": bf16 at (64, 64), (128, 128), (192, 128), (192, 192) and
+(256, 256), blocks of a multiple of 128; the paged chunk lane at page size
+128): the tile rounds the probabilities P to bf16 before P.V (as
 SDPA's and flex_attention's kernels do), which the plain version keeps in
 fp32, so their floor is 1e-2 * the row's max|plain| (the ``p_bf16`` rule).
 The floor is per row because a row that attends to m keys has outputs of
@@ -26,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import HEAD_DIM_PAIRS, backward_route
+from repro_torch.kernels import HEAD_DIM_PAIRS, backward_route, forward_route, wgmma_counter
 from repro_torch.kernels import block_sparse_attn as t_bsa
 from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels import paged_attn as t_kern
@@ -581,10 +583,30 @@ SHAPE_DIMS = [8, 16, 64, 128, 256]
 SHAPE_BLOCKS = [8, 16, 64, 128]
 
 
-def _on_wgmma(dtype, d, bs):
-    """Whether a bf16 attention call takes the tensor-core tile (the only
-    path that rounds P to bf16, held to the p_bf16 rule)."""
-    return dtype == torch.bfloat16 and d == 128 and bs % 128 == 0
+def _on_wgmma(dtype, d, bs, dv=None):
+    """Whether a block-sparse call (bs the block; None: flash) takes the
+    tensor-core tile, the path that rounds P to bf16, held to the p_bf16
+    rule: ``kernels.forward_route``."""
+    return forward_route(dtype, d, d if dv is None else dv, bs) == "wgmma"
+
+
+def _rejects_dropped_block(q, k, v, want, bs, p_bf16):
+    """The rule must see a dropped key tile at these shapes: the
+    block-sparse kernel with every causal block of size bs selected (the
+    diagonal first, then 0..i-1) passes it against the plain flash output
+    ``want``, and fails it once the last block below the diagonal is
+    dropped from each row."""
+    b, hq, m = q.shape[:3]
+    i = torch.arange(m // bs, device=q.device)[:, None]
+    j = torch.arange(m // bs, device=q.device)[None, :]
+    idx = torch.where(j == 0, i, j - 1).expand(b, hq, m // bs, m // bs)
+    idx = idx.to(torch.int32).contiguous()
+    cnt = (i[:, 0] + 1).expand(b, hq, m // bs).to(torch.int32).contiguous()
+    run = lambda c: t_bsa.block_sparse_attention(q, k, v, idx, live_counts=c, block_size=bs)
+    _assert_close(run(cnt), want, p_bf16=p_bf16)
+    with pytest.raises(AssertionError):
+        _assert_close(run(torch.where(cnt >= 2, cnt - 1, cnt).contiguous()), want,
+                      p_bf16=p_bf16)
 
 
 @pytest.mark.parametrize("s", [2, 4, 8, 16, 32, 64])
@@ -673,7 +695,7 @@ def test_attend_head_dims_and_pages_on_card(cuda, d, bs, dtype, lane):
                                         causal=causal, lane=lane)
     want = t_kern.attend_pages_plain(q, k, v, gp, idx, cnt, posd, block_size=bs,
                                      causal=causal)
-    p_bf16 = causal and _on_wgmma(dt, d, bs)
+    p_bf16 = causal and dt == torch.bfloat16 and d == bs == 128    # the chunk lane's tile
     got = run(cnt)
     _assert_close(got, want, p_bf16=p_bf16)
     assert bool((cnt == 0).any()) and torch.all(got[cnt == 0] == 0)
@@ -726,32 +748,31 @@ def test_block_sparse_head_dims_and_blocks_on_card(cuda, d, bs, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("d", [8, 16, 64, 256])
 def test_flash_head_dims_on_card(cuda, d, dtype, n):
-    """Flash attention at the head_dims off the tensor-core tile (the
-    CUDA-core tile, bf16 loaded and stored around fp32 math), at lengths
-    that are no multiple of the 64-row tile.  The rule must reject a
-    dropped key tile at these shapes: over the first n - n % 8 rows, the
-    block-sparse kernel with every causal 8-key block selected passes it
-    against the plain flash output, and fails it once the last block below
-    the diagonal is dropped from each row."""
+    """Flash attention at the head_dims beside 128, at lengths that are no
+    multiple of a tile: fp32 and the narrow head_dims on the CUDA-core tile
+    (bf16 loaded and stored around fp32 math, the 1e-3 row rule), bf16 at
+    64 and 256 on the tensor-core tile (its own instance, whose counter
+    must move; the p_bf16 rule).  The rule must reject a dropped key tile
+    at these shapes: over the first rows that fill whole blocks, the
+    block-sparse kernel with every causal block selected (8-key blocks; at
+    n 1000 on the tensor-core route 128-key blocks, so that it runs the
+    same tile) passes it against the plain flash output, and fails it once
+    the last block below the diagonal is dropped from each row."""
     dt = getattr(torch, dtype)
     gen = torch.Generator(device=cuda).manual_seed(500 + d + n)
     q = torch.randn((2, 4, n, d), generator=gen, device=cuda).to(dt)
     k = torch.randn((2, 2, n, d), generator=gen, device=cuda).to(dt)
     v = torch.randn((2, 2, n, d), generator=gen, device=cuda).to(dt)
-    _assert_close(t_fa.flash_attention(q, k, v), t_fa.flash_attention_plain(q, k, v))
-    m, bs = n - n % 8, 8
+    wg = _on_wgmma(dt, d, None)
+    t_fa.reset_launches()
+    _assert_close(t_fa.flash_attention(q, k, v), t_fa.flash_attention_plain(q, k, v),
+                  p_bf16=wg)
+    assert t_fa.LAUNCHES.get(wgmma_counter("flash_attention", d, d), 0) == int(wg)
+    bs = 128 if wg and n >= 256 else 8
+    m = n - n % bs
     qm, km, vm = (x[:, :, :m].contiguous() for x in (q, k, v))
-    want = t_fa.flash_attention_plain(qm, km, vm)
-    i = torch.arange(m // bs, device=cuda)[:, None]
-    j = torch.arange(m // bs, device=cuda)[None, :]
-    idx = torch.where(j == 0, i, j - 1).expand(2, 4, m // bs, m // bs)
-    idx = idx.to(torch.int32).contiguous()
-    cnt = (i[:, 0] + 1).expand(2, 4, m // bs).to(torch.int32).contiguous()
-    run = lambda c: t_bsa.block_sparse_attention(qm, km, vm, idx, live_counts=c,
-                                                 block_size=bs)
-    _assert_close(run(cnt), want)
-    with pytest.raises(AssertionError):
-        _assert_close(run(torch.where(cnt >= 2, cnt - 1, cnt).contiguous()), want)
+    _rejects_dropped_block(qm, km, vm, t_fa.flash_attention_plain(qm, km, vm), bs,
+                           p_bf16=_on_wgmma(dt, d, bs))
 
 
 # MLA's (q/k, v) head_dim pairs: deepseek-v3-671b's attention and its MTP
@@ -762,19 +783,28 @@ MLA_PAIRS = [(192, 128), (192, 192), (24, 16), (24, 24)]
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("d,dv", MLA_PAIRS, ids=lambda p: str(p))
 def test_flash_separate_v_head_dim_on_card(cuda, d, dv, dtype):
-    """Flash attention at MLA's pairs (the CUDA-core tile: V, the output
-    and its store at dv, the scores at d), 128 query / KV heads as
-    deepseek-v3-671b has them at a short length and GQA group 2 at a length
-    that is no multiple of the 64-row tile; the output is (b, hq, n, dv)."""
+    """Flash attention at MLA's pairs (V, the output and its store at dv,
+    the scores at d), 128 query / KV heads as deepseek-v3-671b has them at
+    a short length and GQA group 2 at a length that is no multiple of a
+    tile; the output is (b, hq, n, dv).  bf16 at (192, 128) and (192, 192)
+    runs the tensor-core tile (its instance's counter moves; the p_bf16
+    rule, which must reject a dropped 128-key block at n 256), the rest the
+    CUDA-core tile (the 1e-3 row rule)."""
     dt = getattr(torch, dtype)
     gen = torch.Generator(device=cuda).manual_seed(900 + d + dv)
+    wg = _on_wgmma(dt, d, None, dv)
     for b, hq, hk, n in ((1, 128, 128, 256), (2, 4, 2, 300)):
         q = torch.randn((b, hq, n, d), generator=gen, device=cuda).to(dt)
         k = torch.randn((b, hk, n, d), generator=gen, device=cuda).to(dt)
         v = torch.randn((b, hk, n, dv), generator=gen, device=cuda).to(dt)
+        t_fa.reset_launches()
         got = t_fa.flash_attention(q, k, v)
         assert tuple(got.shape) == (b, hq, n, dv) and got.dtype == dt
-        _assert_close(got, t_fa.flash_attention_plain(q, k, v))
+        assert t_fa.LAUNCHES.get(wgmma_counter("flash_attention", d, dv), 0) == int(wg)
+        want = t_fa.flash_attention_plain(q, k, v)
+        _assert_close(got, want, p_bf16=wg)
+        if wg and n % 128 == 0:
+            _rejects_dropped_block(q, k, v, want, 128, p_bf16=True)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -785,10 +815,12 @@ def test_block_sparse_separate_v_head_dim_on_card(cuda, d, dv, bs, dtype):
     dedup, block 8 (the reduced config's) and 128 (the published): every
     causal block selected, some rows empty (exact zeros), and the rule
     must reject the output with the last live block dropped from each row
-    with two or more."""
+    with two or more.  bf16 at (192, 128) / (192, 192) and block 128 runs
+    the tensor-core tile (its counter moves; the p_bf16 rule)."""
     dt = getattr(torch, dtype)
     gen = torch.Generator(device=cuda).manual_seed(950 + d + dv + bs)
     b, hq, hk, nq = 1, 4, 2, 6
+    wg = _on_wgmma(dt, d, bs, dv)
     n = nq * bs
     q = torch.randn((b, hq, n, d), generator=gen, device=cuda).to(dt)
     k = torch.randn((b, hk, n, d), generator=gen, device=cuda).to(dt)
@@ -806,13 +838,16 @@ def test_block_sparse_separate_v_head_dim_on_card(cuda, d, dv, bs, dtype):
             q, k, v, idx, live_counts=c, block_size=bs, group_dedup=dedup)
         want = t_bsa.block_sparse_attention_plain(q, k, v, idx, cnt, block_size=bs,
                                                   group_dedup=dedup)
+        t_bsa.reset_launches()
         got = run(cnt)
+        assert t_bsa.LAUNCHES.get(wgmma_counter("block_sparse_attention", d, dv), 0) == int(wg)
         assert tuple(got.shape) == (b, hq, n, dv)
-        _assert_close(got, want)
+        _assert_close(got, want, p_bf16=wg)
         full = torch.repeat_interleave(cnt, hq // hsel, dim=1)
         assert torch.all(got.reshape(b, hq, nq, bs, dv)[full == 0] == 0)
         with pytest.raises(AssertionError):
-            _assert_close(run(torch.where(cnt >= 2, cnt - 1, cnt).contiguous()), want)
+            _assert_close(run(torch.where(cnt >= 2, cnt - 1, cnt).contiguous()), want,
+                          p_bf16=wg)
 
 
 def test_unlisted_head_dim_pairs_raise_on_card(cuda):
@@ -1266,7 +1301,8 @@ def test_whisper_shaped_kernels_on_card(cuda, dtype):
     a 2048-token prompt) under stem at the CLI's geometry (block 128,
     stride 4): block-sparse attention over the policy's own selection, flash
     attention, the pool on q and k and vmag on v, each against its plain
-    version (head_dim 64 runs on the CUDA-core tile: the 1e-3 row rule)."""
+    version (bf16 at head_dim 64 runs the tensor-core tile: flash and
+    block-sparse at block 128 under the p_bf16 rule)."""
     from repro_torch.core import policy as t_policy
     dt = getattr(torch, dtype)
     gen = torch.Generator(device=cuda).manual_seed(64)
@@ -1277,10 +1313,13 @@ def test_whisper_shaped_kernels_on_card(cuda, dtype):
     sel, _ = pol.prefill_select(q, k, v, with_block_mask=False)
     idx, cnt = sel.indices, sel.live_counts
     assert int(cnt.sum()) < h * (n // bs) * (n // bs + 1) // 2     # sparse
+    wg = _on_wgmma(dt, d, None)
     _assert_close(t_bsa.block_sparse_attention(q, k, v, idx, live_counts=cnt,
                                                block_size=bs),
-                  t_bsa.block_sparse_attention_plain(q, k, v, idx, cnt, block_size=bs))
-    _assert_close(t_fa.flash_attention(q, k, v), t_fa.flash_attention_plain(q, k, v))
+                  t_bsa.block_sparse_attention_plain(q, k, v, idx, cnt, block_size=bs),
+                  p_bf16=wg)
+    _assert_close(t_fa.flash_attention(q, k, v), t_fa.flash_attention_plain(q, k, v),
+                  p_bf16=wg)
     for x in (q, k):
         _assert_close(t_sm.antidiag_pool(x, block_size=bs, stride=4),
                       t_sm.antidiag_pool_plain(x, block_size=bs, stride=4))
@@ -1509,6 +1548,37 @@ def test_backward_kernels_raise_outside_pairs_on_card(cuda):
         t_fa.flash_attention_bwd(qk, qk, qk, qk, qk)
     with pytest.raises(ValueError, match="lse"):
         t_bsa.block_sparse_attention_bwd(qk, qk, qk, qk, qk, idx, cnt, block_size=128)
+
+
+@pytest.mark.parametrize("pair", [(64, 64), (192, 128)], ids=lambda p: f"{p[0]}-{p[1]}")
+def test_attention_grads_over_tensor_core_forwards_on_card(cuda, pair):
+    """The differentiable ``attention`` of both kernels in bf16 at whisper's
+    (64, 64) and deepseek-v3-671b's (192, 128): the forward runs that
+    pair's tensor-core instance (its counter moves) and saves its lse, the
+    backward the CUDA-core route fed that lse (the wgmma backward's counter
+    stays 0); q, k, v's gradients within the 1e-3 gradient rule of the
+    plain backward on the forward's own output."""
+    d, dv = pair
+    gen = torch.Generator().manual_seed(d + dv)
+    b, hq, hk, n, bs = 1, 4, 2, 512, 128
+    q, k, v, do = (torch.randn(s, generator=gen).to(cuda, torch.bfloat16) for s in
+                   ((b, hq, n, d), (b, hk, n, d), (b, hk, n, dv), (b, hq, n, dv)))
+    idx, cnt = _causal_selection(gen, b, hq, n // bs, 3, cuda)
+    cases = (
+        (t_fa, "flash_attention", lambda x, y, z: t_fa.attention(x, y, z),
+         lambda o: t_fa.flash_attention_bwd_plain(q, k, v, o, do)),
+        (t_bsa, "block_sparse_attention",
+         lambda x, y, z: t_bsa.attention(x, y, z, idx, cnt, block_size=bs),
+         lambda o: t_bsa.block_sparse_attention_bwd_plain(q, k, v, o, do, idx, cnt,
+                                                          block_size=bs)))
+    for mod, key, run, plain in cases:
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        mod.reset_launches()
+        out = run(*leaves)
+        out.backward(do)
+        assert mod.LAUNCHES[wgmma_counter(key, d, dv)] == 1
+        assert mod.LAUNCHES[f"{key}_bwd"] == 1 and mod.LAUNCHES[f"{key}_bwd_wgmma"] == 0
+        _grad_rule([x.grad for x in leaves], plain(out.detach()))
 
 
 @pytest.mark.parametrize("arch,stem", [

@@ -210,7 +210,9 @@ def test_sparse_attention_separate_v_head_dim_matches_jax(executors):
 def test_head_dim_pairs_match_the_cuda_switch():
     """kernels.HEAD_DIM_PAIRS lists exactly the (q/k, v) pairs that
     csrc/head_dims.cuh instantiates, every head_dim of HEAD_DIMS at v = q/k
-    among them; the wrappers' check raises ValueError on any other pair."""
+    among them; the wrappers' check raises ValueError on any other pair; and
+    kernels.WGMMA_PAIRS, forward_route's bf16 tensor-core pairs, are the
+    pairs of its STEM_WGMMA_PAIR_SWITCH."""
     src = (pathlib.Path(t_kernels.__file__).parent / "csrc" / "head_dims.cuh").read_text()
     switch = src[src.index("#define STEM_HEAD_DIM_PAIR_SWITCH"):]
     pairs = {(int(a), int(b)) for a, b in
@@ -220,6 +222,18 @@ def test_head_dim_pairs_match_the_cuda_switch():
     assert {(24, 16), (24, 24), (192, 128), (192, 192)} < pairs
     for d, dv in t_kernels.HEAD_DIM_PAIRS:
         t_kernels.check_head_dim_pair("flash_attention", d, dv)
+    # the bf16 forwards' tensor-core pairs: forward_route is defined at
+    # every pair, and its "wgmma" pairs are exactly the ones the .cu
+    # dispatch's STEM_WGMMA_PAIR_SWITCH routes to the tile
+    routed = {(int(a), int(b)) for a, b in
+              re.findall(r"STEM_WGMMA_PAIR_CASE\((\d+), (\d+),", src)}
+    bf16 = torch.bfloat16
+    assert routed == set(t_kernels.WGMMA_PAIRS) == {
+        p for p in t_kernels.HEAD_DIM_PAIRS if t_kernels.forward_route(bf16, *p) == "wgmma"}
+    assert {(64, 64), (128, 128), (192, 128), (192, 192), (256, 256)} == routed
+    for d, dv in t_kernels.HEAD_DIM_PAIRS:
+        for dtype, bs in ((torch.float32, None), (bf16, None), (bf16, 128), (bf16, 64)):
+            assert t_kernels.forward_route(dtype, d, dv, bs) in ("wgmma", "cuda_core")
     for d, dv in ((24, 8), (192, 64), (128, 192), (96, 96), (16, 24)):
         with pytest.raises(ValueError, match="head_dim"):
             t_kernels.check_head_dim_pair("block_sparse_attention", d, dv)
