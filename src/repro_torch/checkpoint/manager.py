@@ -60,12 +60,14 @@ def _unflatten(tree, leaves):
 
 
 def _to_numpy(t: torch.Tensor):
-    """(array, dtype name for the map or None)."""
+    """(array, dtype name for the map or None): a host copy on every device
+    (``.cpu()`` of a CPU tensor would share its memory, which the next
+    in-place optimizer step overwrites while an async save writes it)."""
     t = t.detach()
     if t.dtype in _VIEWS:
         name, view, np_view = _VIEWS[t.dtype]
-        return t.view(view).cpu().numpy().view(np_view), name
-    return t.cpu().numpy(), None
+        return t.view(view).to("cpu", copy=True).numpy().view(np_view), name
+    return t.to("cpu", copy=True).numpy(), None
 
 
 def _from_numpy(arr: np.ndarray, saved: Optional[str]) -> torch.Tensor:

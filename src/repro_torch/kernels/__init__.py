@@ -50,11 +50,24 @@ def wgmma_counter(kernel: str, d: int, dv: int) -> str:
 
 
 def backward_route(dtype, d: int, dv: int, block_size=None) -> str:
-    """The route of the attention backward kernels: "wgmma" (TMA + wgmma,
-    P and dS rounded to bf16) for bf16 at q/k = v head_dim 128 and, for
-    block-sparse attention, a block that is a multiple of 128; "cuda_core"
-    (attn_bwd.cuh's fp32 tiles, fed the lse of whichever forward ran) for
-    every other dtype, head_dim pair and block."""
-    wgmma = (dtype == torch.bfloat16 and d == dv == 128
-             and (block_size is None or block_size % 128 == 0))
-    return "wgmma" if wgmma else "cuda_core"
+    """The route of the attention backward kernels, the forward's table:
+    "wgmma" (TMA + wgmma, P and dS rounded to bf16; one instance of each
+    kernel per pair of ``WGMMA_PAIRS``, csrc/attn_bwd_wgmma.cuh ``BwdOf``)
+    for bf16 at a pair of ``WGMMA_PAIRS`` and, for block-sparse attention, a
+    block that is a multiple of 128; "cuda_core" (attn_bwd.cuh's fp32 tiles,
+    fed the lse of whichever forward ran) for fp32 and every other pair and
+    block."""
+    return forward_route(dtype, d, dv, block_size)
+
+
+def split_scratch(split_fn, route, q, k, v):
+    """The fp32 scratch of the tensor-core dk / dv kernel's head split
+    (``split_fn``: the library's answer for this shape; split * b * hk * n *
+    (d + dv) floats), or None where it makes no split."""
+    if route != "wgmma":
+        return None
+    (b, hq, n, d), hk, dv = q.shape, k.shape[1], v.shape[-1]
+    split = split_fn(b, hq, hk, n, d, dv)
+    if split == 1:
+        return None
+    return torch.empty(split * b * hk * n * (d + dv), dtype=torch.float32, device=q.device)

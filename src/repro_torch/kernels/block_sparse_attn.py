@@ -34,12 +34,13 @@ autodiff of its gather executor, so the port's counterpart is a
 hand-written backward (``stem_block_sparse_attention_bwd``: dq over each
 row's live prefix, then dk and dv over the transposed selection, no
 atomics) that reads the forward's lse.  ``backward_route`` picks its
-kernels: bf16 at head_dim 128 and a block that is a multiple of 128 on the
-tensor cores (``csrc/attn_bwd_wgmma.cuh``, P and dS rounded to bf16), the
-rest on the fp32 CUDA cores (``csrc/attn_bwd.cuh``).  Beside them sit the
-plain version (``block_sparse_attention_bwd_plain``, the analytic backward
-``dS = P * (dP - delta)``, P in fp32) and counters of all backward launches
-and of the tensor-core route's.  ``transpose_selection``
+kernels, the forward's table: bf16 at ``WGMMA_PAIRS`` and a block that is a
+multiple of 128 on the tensor cores (``csrc/attn_bwd_wgmma.cuh``, P and dS
+rounded to bf16, one instance per pair), the rest on the fp32 CUDA cores
+(``csrc/attn_bwd.cuh``).  Beside them sit the plain version
+(``block_sparse_attention_bwd_plain``, the analytic backward ``dS = P * (dP
+- delta)``, P in fp32) and counters of all backward launches, of the
+tensor-core route's and of each of its instances.  ``transpose_selection``
 builds the transposed selection on the device with torch ops over a static
 width (no host sync).  ``attention`` is the differentiable call
 (``torch.autograd.Function``): forward and backward both kernels on a CUDA
@@ -52,13 +53,15 @@ import ctypes
 import torch
 
 from repro_torch.kernels import (WGMMA_PAIRS, backward_route, check_head_dim_pair,
-                                 forward_route, wgmma_counter)
+                                 forward_route, split_scratch, wgmma_counter)
 
 NEG_INF = -1e30
 
 LAUNCHES = {"block_sparse_attention": 0, "block_sparse_attention_bwd": 0,
             "block_sparse_attention_bwd_wgmma": 0,
-            **{wgmma_counter("block_sparse_attention", d, dv): 0 for d, dv in WGMMA_PAIRS}}
+            **{wgmma_counter(k, d, dv): 0
+               for k in ("block_sparse_attention", "block_sparse_attention_bwd")
+               for d, dv in WGMMA_PAIRS}}
 
 
 def reset_launches() -> None:
@@ -74,8 +77,10 @@ def _lib():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.stem_block_sparse_attention.argtypes = [p] * 7 + [i] * 10 + [f, p]
         lib.stem_block_sparse_attention.restype = i
-        lib.stem_block_sparse_attention_bwd.argtypes = [p] * 14 + [i] * 11 + [f, p]
+        lib.stem_block_sparse_attention_bwd.argtypes = [p] * 15 + [i] * 11 + [f, p, i]
         lib.stem_block_sparse_attention_bwd.restype = i
+        lib.stem_block_sparse_attention_bwd_split.argtypes = [i] * 6
+        lib.stem_block_sparse_attention_bwd_split.restype = i
         lib._stem_typed = True
     return lib
 
@@ -312,12 +317,22 @@ def block_sparse_attention_bwd(q, k, v, o, do, indices, live_counts, *,
     CUDA tensor).  ``transposed`` optionally gives the transposed selection
     (``transpose_selection``'s pair; built here when None).  CPU tensors
     take the plain version; CUDA tensors launch the kernels of
-    ``backward_route`` (two launches, one count, and one more on the wgmma
-    route's)."""
+    ``backward_route`` (two launches, one count, and on the wgmma route one
+    more and one of its instance's)."""
     if q.device.type == "cpu":
         return block_sparse_attention_bwd_plain(
             q, k, v, o, do, indices, live_counts, block_size=block_size,
             scale=scale, group_dedup=group_dedup)
+    return _bwd_launch(q, k, v, o, do, indices, live_counts, block_size, scale,
+                       group_dedup, transposed, lse, None)
+
+
+def _bwd_launch(q, k, v, o, do, indices, live_counts, block_size, scale, group_dedup,
+                transposed, lse, route) -> tuple:
+    """``block_sparse_attention_bwd`` on the card, on ``route``: None for
+    ``backward_route``'s, or "cuda_core" for the CUDA-core kernels at any
+    shape (the route the tensor-core kernels replaced; chip_smoke.py times
+    and checks it beside them)."""
     name = "block_sparse_attention_bwd"
     _check(q.device.type == "cuda", f"{name}: unsupported device {q.device}")
     b, hq, n, d = q.shape
@@ -355,22 +370,26 @@ def block_sparse_attention_bwd(q, k, v, o, do, indices, live_counts, *,
            and tuple(tidx.shape) == (b, hsel, nq, nq) and tuple(tcnt.shape) == (b, hsel, nq),
            f"{name}: selection shapes disagree with q")
     scale = d ** -0.5 if scale is None else scale
-    route = backward_route(q.dtype, d, dv_dim, bs)
+    _check(route in (None, "cuda_core"), f"{name}: unknown route {route!r}")
+    route = route or backward_route(q.dtype, d, dv_dim, bs)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
+    part = split_scratch(_lib().stem_block_sparse_attention_bwd_split, route, q, k, v)
     err = _lib().stem_block_sparse_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), indices.data_ptr(), live_counts.data_ptr(), tidx.data_ptr(),
         tcnt.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-        b, hq, hk, int(group_dedup), n, d, dv_dim, bs, indices.shape[-1],
+        part.data_ptr() if part is not None else None, b, hq, hk, int(group_dedup), n, d,
+        dv_dim, bs, indices.shape[-1],
         int(q.dtype == torch.bfloat16), int(route == "wgmma"), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        torch.cuda.current_stream(q.device).cuda_stream, q.device.index)
     if err != 0:
         raise RuntimeError(f"stem_block_sparse_attention_bwd launch failed ({route}): "
                            f"cudaError {err}")
     LAUNCHES["block_sparse_attention_bwd"] += 1
     if route == "wgmma":
         LAUNCHES["block_sparse_attention_bwd_wgmma"] += 1
+        LAUNCHES[wgmma_counter("block_sparse_attention_bwd", d, dv_dim)] += 1
     return dq, dk, dv
 
 
@@ -379,8 +398,8 @@ class _Attention(torch.autograd.Function):
     forward runs ``block_sparse_attention`` with ``return_lse`` and saves
     q, k, v, the output, the row log-sum-exp and the selection; the
     backward hands them with do to ``block_sparse_attention_bwd``, which on
-    the card routes bf16 at head_dim 128 and blocks of a multiple of 128 to
-    the wgmma kernels and every other shape to the CUDA-core ones (neither
+    the card routes bf16 at ``WGMMA_PAIRS`` and blocks of a multiple of 128
+    to the wgmma kernels and every other shape to the CUDA-core ones (neither
     recomputes the lse).  On the CPU both are plain versions."""
 
     @staticmethod

@@ -181,11 +181,11 @@ __device__ __forceinline__ void tma_boxes(uint8_t* dst, const CUtensorMap* map, 
   for (int i = 0; i < NB; ++i) tma_box(dst + i * box_bytes, map, bar, 64 * i, row);
 }
 
-// The 128-column tile whose first row is `row`: two 64-column boxes of
-// box_bytes each (the map's box rows x 128 bytes).
+// The 128-row x 128-column tile whose first row is `row`: two 64-column
+// boxes.
 __device__ __forceinline__ void tma_tile(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int row, int box_bytes = kBoxBytes) {
-  tma_boxes<2>(dst, map, bar, row, box_bytes);
+                                         int row) {
+  tma_boxes<2>(dst, map, bar, row, kBoxBytes);
 }
 
 // wgmma shared-memory descriptor, 128-byte swizzle.  lbo / sbo in bytes.
@@ -275,6 +275,21 @@ __device__ __forceinline__ void wgmma_rs64(float (&d)[32], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+#define STEM_ACC16 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define STEM_D16 STEM_D8(0), STEM_D8(8)
+
+// d (+)= A.B for a 64 x 32 x 16 step, A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss32(float (&d)[16], uint64_t da, uint64_t db,
+                                           int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " STEM_ACC16
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : STEM_D16
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 #define STEM_ACC96 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, " \
   "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
@@ -325,20 +340,25 @@ __device__ __forceinline__ void wgmma_rs256(float (&d)[128], const uint32_t (&a)
 #undef STEM_ACC96
 #undef STEM_D32
 #undef STEM_ACC32
+#undef STEM_D16
+#undef STEM_ACC16
 #undef STEM_D64
 #undef STEM_D8
 #undef STEM_ACC64
 
 // The products at a width N: S's m64nNk16 (A, B K-major in shared memory;
-// N = BN) and O's (A in registers, B MN-major; N = DV).
+// N = BN: 32 only in the backward's dq kernel) and O's (A in registers, B
+// MN-major; N = DV).
 template <int N>
 __device__ __forceinline__ void wgmma_ss_n(float (&d)[N / 2], uint64_t da, uint64_t db,
                                            int accumulate) {
-  static_assert(N == 64 || N == 128, "S is 64 or 128 keys wide");
+  static_assert(N == 32 || N == 64 || N == 128, "S is 32, 64 or 128 keys wide");
   if constexpr (N == 128)
     wgmma_ss(d, da, db, accumulate);
-  else
+  else if constexpr (N == 64)
     wgmma_ss64(d, da, db, accumulate);
+  else
+    wgmma_ss32(d, da, db, accumulate);
 }
 
 template <int N>
@@ -575,7 +595,9 @@ inline EncodeTiled encode_tiled() {
 
 // A (rows, width) bf16 row-major matrix (width a multiple of 64) as a
 // tensor map of box_rows x 64-column boxes with the 128-byte swizzle.  base
-// must be 16-byte aligned.
+// must be 16-byte aligned.  The encoding is a driver call: the calling
+// thread needs a current context (stem_bwg::on_device binds one for the
+// backward, whose thread may be autograd's worker).
 inline bool make_map(CUtensorMap* map, const void* base, long long rows, int box_rows = 128,
                      int width = kD) {
   const EncodeTiled fn = encode_tiled();

@@ -59,11 +59,13 @@
 // live prefix holds it, in increasing order, built by the wrapper), for
 // each query head of the group that reads that selection row, so a key
 // block's gradient is summed in one CTA in a fixed order.  The wrapper's
-// backward_route picks the route: bf16 at d = dv = 128 and a block that is
-// a multiple of 128 runs attn_bwd_wgmma.cuh on the tensor cores
-// (block_sparse_bwd_dq_wgmma_kernel per 128 query rows,
-// block_sparse_bwd_dkdv_wgmma_kernel per 128 keys over 64-query tiles; P
-// and dS rounded to bf16); every other dtype, pair and block runs
+// backward_route picks the route, the forward's table: bf16 at the pairs of
+// STEM_WGMMA_PAIR_SWITCH and a block that is a multiple of 128 runs
+// attn_bwd_wgmma.cuh on the tensor cores, one instance per pair at its
+// stem_bwg::BwdOf shape (block_sparse_bwd_dq_wgmma_kernel per 128 query
+// rows, block_sparse_bwd_dkdv_wgmma_kernel per 128 keys (64 at d + dv >
+// 256) over 64-query tiles; P and dS rounded to bf16); every other dtype,
+// pair and block runs
 // attn_bwd.cuh's fp32 CUDA-core tiles, fed the lse of either forward route
 // (block_sparse_bwd_dq_kernel per 64 query rows of a block, or the block
 // under 64 rows; block_sparse_bwd_dkdv_kernel per 64 keys).  Bound: 2 * (3
@@ -361,11 +363,12 @@ int launch_bwd_pair(const void* q, const void* k, const void* v, const void* o,
                                                             stream))
 }
 
-// Backward on the tensor cores (bf16, d = dv = 128, bs % 128 == 0): the dq
-// kernel walks the forward's key tiles (SparseTiles); the dk / dv kernel,
-// for each query head of its KV head in turn, the 64-query tiles of the
-// query blocks on its key block's transposed list (increasing), skipping
-// tiles wholly above its keys.
+// Backward on the tensor cores (bf16 at the pairs of STEM_WGMMA_PAIR_SWITCH,
+// bs % 128 == 0; shapes stem_bwg::BwdOf<D, DV>): the dq kernel walks the
+// forward's key tiles (SparseTiles); the dk / dv kernel, for each query
+// head of its KV head (or of its share of them under a head split) in
+// turn, the 64-query tiles of the query blocks on its key block's
+// transposed list (increasing), skipping tiles wholly above its keys.
 struct SparseQueryTiles {
   const int* tidx;
   const int* tcnt;
@@ -399,7 +402,9 @@ struct SparseQueryTiles {
   }
 };
 
-// grid (hq, n / 128, b), heaviest query blocks first
+// grid (hq, n / 128, b), or (n / 128, hq, b) with tiles_fastest; heaviest
+// query blocks first
+template <class C>
 __global__ void __launch_bounds__(stem_wg::kThreads, 1)
 block_sparse_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                  const __grid_constant__ CUtensorMap tdo,
@@ -410,26 +415,29 @@ block_sparse_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                  const int* __restrict__ idx, const int* __restrict__ cnt,
                                  const float* __restrict__ lse, float* __restrict__ delta,
                                  __nv_bfloat16* __restrict__ dq, int hq, int hk, int dedup,
-                                 int n, int bs, int kmax, float scale) {
+                                 int n, int bs, int kmax, float scale, int tiles_fastest) {
   extern __shared__ uint8_t smem_wg[];
   const int tiles = bs / stem_wg::kBM;
-  const int x = gridDim.y - 1 - blockIdx.y;
+  const int x = tiles_fastest ? gridDim.x - 1 - blockIdx.x : gridDim.y - 1 - blockIdx.y;
   const int i = x / tiles, sub = x - i * tiles;
-  const int h = blockIdx.x, b = blockIdx.z;
+  const int h = tiles_fastest ? blockIdx.y : blockIdx.x, b = blockIdx.z;
   const int kvh = h / (hq / hk);
   const int nq = n / bs;
   const long long row = ((long long)b * (dedup ? hk : hq) + (dedup ? kvh : h)) * nq + i;
   const int q0 = i * bs + sub * stem_wg::kBM;
   const long long q_row = ((long long)b * hq + h) * n + q0;
   const long long kv_row = ((long long)b * hk + kvh) * n;
-  const SparseTiles<stem_wg::kBN> sel{idx + row * kmax, min(cnt[row], kmax), nq, bs, q0, 0,
-                                      0};
-  stem_bwg::dq_tile(smem_wg, &tq, &tdo, &tk, &tv, q_row, kv_row, sel, o + q_row * stem_wg::kD,
-                    dout + q_row * stem_wg::kD, lse + q_row, delta + q_row,
-                    dq + q_row * stem_wg::kD, stem_wg::kBM, scale);
+  const SparseTiles<C::BN> sel{idx + row * kmax, min(cnt[row], kmax), nq, bs, q0, 0, 0};
+  stem_bwg::dq_tile<C>(smem_wg, &tq, &tdo, &tk, &tv, q_row, kv_row, sel, o + q_row * C::DV,
+                       dout + q_row * C::DV, lse + q_row, delta + q_row, dq + q_row * C::D,
+                       stem_wg::kBM, scale);
 }
 
-// grid (hk, n / 128, b): 128 keys of key block y / (bs / 128) a CTA
+// grid (hk * hsplit, n / BK, b), or (n / BK, hk * hsplit, b) with
+// tiles_fastest: BK keys of key block y / (bs / BK) a CTA; CTA (kvh, hs) of
+// a head split (hsplit > 1, part: its fp32 partials) walks query heads hs *
+// g / hsplit .. (hs + 1) * g / hsplit - 1 of the group
+template <class C>
 __global__ void __launch_bounds__(stem_wg::kThreads, 1)
 block_sparse_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
                                    const __grid_constant__ CUtensorMap tv,
@@ -439,52 +447,72 @@ block_sparse_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
                                    const float* __restrict__ lse,
                                    const float* __restrict__ delta,
                                    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                                   int hq, int hk, int dedup, int n, int bs, float scale) {
+                                   float* __restrict__ part, int hq, int hk, int dedup, int n,
+                                   int bs, float scale, int tiles_fastest, int hsplit) {
   extern __shared__ uint8_t smem_wg[];
-  const int kvh = blockIdx.x, b = blockIdx.z, g = hq / hk;
+  const int kh = tiles_fastest ? blockIdx.y : blockIdx.x, b = blockIdx.z, g = hq / hk;
+  const int kvh = kh / hsplit, hs = kh - kvh * hsplit, gs = g / hsplit;
+  const int y = tiles_fastest ? blockIdx.x : blockIdx.y;
   const int nq = n / bs;
-  const int j = blockIdx.y / (bs / stem_wg::kBN);
-  const int k0 = blockIdx.y * stem_wg::kBN;
+  const int j = y / (bs / C::BK);
+  const int k0 = y * C::BK;
   const long long kv_row = ((long long)b * hk + kvh) * n + k0;
+  const long long krows = (long long)gridDim.z * hk * n;
+  float* pk = part ? part + ((long long)hs * krows + kv_row) * C::D : nullptr;
+  float* pv = part ? part + hsplit * krows * C::D + ((long long)hs * krows + kv_row) * C::DV
+                   : nullptr;
   const long long trow0 =
       ((long long)b * (dedup ? hk : hq) + (dedup ? kvh : (long long)kvh * g)) * nq + j;
   const SparseQueryTiles tiles{tidx, tcnt, ((long long)b * hq + (long long)kvh * g) * n, trow0,
-                               g, dedup, n, nq, bs, k0, 0, 0, -1, 0};
-  stem_bwg::dkdv_tile(smem_wg, &tk, &tv, &tq, &tdo, kv_row, k0, tiles, lse, delta,
-                      dk + kv_row * stem_wg::kD, dv + kv_row * stem_wg::kD, n, stem_wg::kBN,
-                      scale);
+                               (hs + 1) * gs, dedup, n, nq, bs, k0, hs * gs, 0, -1, 0};
+  stem_bwg::dkdv_tile<C>(smem_wg, &tk, &tv, &tq, &tdo, kv_row, k0, tiles, lse, delta,
+                         dk + kv_row * C::D, dv + kv_row * C::DV, pk, pv, n, C::BK, scale);
 }
 
+template <int D, int DV>
 int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
                      const void* dout, const int* idx, const int* cnt, const int* tidx,
                      const int* tcnt, void* dq, void* dk, void* dv, const float* lse,
-                     float* delta, int b, int hq, int hk, int dedup, int n, int bs, int kmax,
-                     float scale, cudaStream_t stream) {
+                     float* delta, float* part, int b, int hq, int hk, int dedup, int n,
+                     int bs, int kmax, float scale, cudaStream_t stream) {
+  using Q = typename stem_bwg::BwdOf<D, DV>::Dq;
+  using K = typename stem_bwg::BwdOf<D, DV>::Dkdv;
   if (bs % stem_wg::kBM != 0) return (int)cudaErrorInvalidValue;
-  CUtensorMap tq, tdo, tk, tv, tq64, tdo64;
+  CUtensorMap tq, tdo, tk, tv, tk2, tv2, tq64, tdo64;
   const long long qrows = (long long)b * hq * n, krows = (long long)b * hk * n;
-  if (!stem_wg::make_map(&tq, q, qrows) || !stem_wg::make_map(&tdo, dout, qrows) ||
-      !stem_wg::make_map(&tk, k, krows) || !stem_wg::make_map(&tv, v, krows) ||
-      !stem_wg::make_map(&tq64, q, qrows, stem_bwg::kQT) ||
-      !stem_wg::make_map(&tdo64, dout, qrows, stem_bwg::kQT))
+  if (!stem_wg::make_map(&tq, q, qrows, stem_wg::kBM, D) ||
+      !stem_wg::make_map(&tdo, dout, qrows, stem_wg::kBM, DV) ||
+      !stem_wg::make_map(&tk, k, krows, Q::BN, D) || !stem_wg::make_map(&tv, v, krows, Q::BN, DV) ||
+      !stem_wg::make_map(&tk2, k, krows, K::BK, D) ||
+      !stem_wg::make_map(&tv2, v, krows, K::BK, DV) ||
+      !stem_wg::make_map(&tq64, q, qrows, stem_bwg::kQT, D) ||
+      !stem_wg::make_map(&tdo64, dout, qrows, stem_bwg::kQT, DV))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = stem_wg::prepare(block_sparse_bwd_dq_wgmma_kernel, stem_bwg::kDqSmemBytes);
+  cudaError_t err = stem_wg::prepare(block_sparse_bwd_dq_wgmma_kernel<Q>, Q::kSmemBytes);
   if (err == cudaSuccess)
-    err = stem_wg::prepare(block_sparse_bwd_dkdv_wgmma_kernel, stem_bwg::kDkdvSmemBytes);
+    err = stem_wg::prepare(block_sparse_bwd_dkdv_wgmma_kernel<K>, K::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid_q(hq, n / stem_wg::kBM, b), grid_k(hk, n / stem_wg::kBN, b);
-  block_sparse_bwd_dq_wgmma_kernel<<<grid_q, stem_wg::kThreads, stem_bwg::kDqSmemBytes,
-                                     stream>>>(tq, tdo, tk, tv, (const __nv_bfloat16*)o,
-                                               (const __nv_bfloat16*)dout, idx, cnt, lse, delta,
-                                               (__nv_bfloat16*)dq, hq, hk, dedup, n, bs, kmax,
-                                               scale);
+  const int split = stem_bwg::head_split(b, hq, hk, n, K::BK);
+  if (split > 1 && part == nullptr) return (int)cudaErrorInvalidValue;
+  // the dq kernel streams every head's selected K / V, the dk / dv kernel
+  // its group's Q / dO
+  const int tf_q = stem_wg::tiles_fastest(2ll * b * hk * n * (D + DV));
+  const int tf_k = stem_wg::tiles_fastest(2ll * b * hq * n * (D + DV));
+  const int qt = n / stem_wg::kBM, kt = n / K::BK;
+  block_sparse_bwd_dq_wgmma_kernel<Q><<<tf_q ? dim3(qt, hq, b) : dim3(hq, qt, b),
+                                        stem_wg::kThreads, Q::kSmemBytes, stream>>>(
+      tq, tdo, tk, tv, (const __nv_bfloat16*)o, (const __nv_bfloat16*)dout, idx, cnt, lse,
+      delta, (__nv_bfloat16*)dq, hq, hk, dedup, n, bs, kmax, scale, tf_q);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  block_sparse_bwd_dkdv_wgmma_kernel<<<grid_k, stem_wg::kThreads, stem_bwg::kDkdvSmemBytes,
-                                       stream>>>(tk, tv, tq64, tdo64, tidx, tcnt, lse, delta,
-                                                 (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, hq, hk,
-                                                 dedup, n, bs, scale);
-  return (int)cudaGetLastError();
+  block_sparse_bwd_dkdv_wgmma_kernel<K><<<tf_k ? dim3(kt, hk * split, b)
+                                               : dim3(hk * split, kt, b),
+                                          stem_wg::kThreads, K::kSmemBytes, stream>>>(
+      tk2, tv2, tq64, tdo64, tidx, tcnt, lse, delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
+      split > 1 ? part : nullptr, hq, hk, dedup, n, bs, scale, tf_k, split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || split == 1) return (int)err;
+  return (int)stem_bwg::launch_reduce(part, split, krows, D, DV, dk, dv, scale, stream);
 }
 
 }  // namespace
@@ -520,37 +548,56 @@ int stem_block_sparse_attention(const void* q, const void* k, const void* v,
                             scale, st);
 }
 
+// The head split of the tensor-core backward at this shape (1: none; else
+// stem_block_sparse_attention_bwd needs part, split * b * hk * n * (d + dv)
+// fp32): 1 off the pairs of STEM_WGMMA_PAIR_SWITCH.
+int stem_block_sparse_attention_bwd_split(int b, int hq, int hk, int n, int d, int dv) {
+  if (hk <= 0 || hq % hk != 0 || n <= 0) return 1;
+  STEM_WGMMA_PAIR_SWITCH(d, dv, stem_bwg::head_split(b, hq, hk, n,
+                                                     stem_bwg::BwdOf<D, DV>::Dkdv::BK))
+  return 1;
+}
+
 // The gradient of stem_block_sparse_attention: q, k, v, idx, cnt, bs,
 // kmax as there, o its output and dout o's gradient; tidx (b, h_sel, n/bs,
 // n/bs) and tcnt (b, h_sel, n/bs) int32 the transposed selection (the
 // first tcnt entries of a row are the query blocks whose live prefix holds
 // that key block, increasing); lse (b, hq, n) fp32 the forward's; dq / dk
 // / dv shaped as q / k / v in the same dtype; delta (b, hq, n) fp32
-// scratch; all contiguous.  wgmma: 1 = the tensor-core kernels (bf16, d =
-// dv = 128, bs a multiple of 128 only), 0 = the CUDA-core ones.  Two
-// launches on the stream (dq and delta, then dk and dv).
+// scratch; part: null, or the head split's fp32 scratch (its size above);
+// all contiguous.  wgmma: 1 = the tensor-core kernels (bf16 at
+// the pairs of STEM_WGMMA_PAIR_SWITCH, bs a multiple of 128 only), 0 = the
+// CUDA-core ones.  Two
+// launches on the stream (dq and delta, then dk and dv), on `device`
+// (stem_bwg::on_device).
 int stem_block_sparse_attention_bwd(const void* q, const void* k, const void* v,
                                     const void* o, const void* dout, const void* lse,
                                     const int* idx, const int* cnt, const int* tidx,
                                     const int* tcnt, void* dq, void* dk, void* dv, void* delta,
-                                    int b, int hq, int hk, int dedup, int n, int d,
+                                    void* part, int b, int hq, int hk, int dedup, int n, int d,
                                     int dv_dim, int bs, int kmax, int is_bf16, int wgmma,
-                                    float scale, void* stream) {
+                                    float scale, void* stream, int device) {
   if (hk <= 0 || hq % hk != 0 || bs <= 0 || n % bs != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const float* l = (const float*)lse;
-  if (wgmma) {
-    if (!is_bf16 || d != stem_wg::kD || dv_dim != stem_wg::kD) return (int)cudaErrorInvalidValue;
-    return launch_bwd_wgmma(q, k, v, o, dout, idx, cnt, tidx, tcnt, dq, dk, dv, l,
-                            (float*)delta, b, hq, hk, dedup, n, bs, kmax, scale, st);
-  }
-  if (is_bf16)
-    return launch_bwd_pair<__nv_bfloat16>(q, k, v, o, dout, idx, cnt, tidx, tcnt, dq, dk, dv,
-                                          l, (float*)delta, b, hq, hk, dedup, n, d, dv_dim, bs,
-                                          kmax, scale, st);
-  return launch_bwd_pair<float>(q, k, v, o, dout, idx, cnt, tidx, tcnt, dq, dk, dv, l,
-                                (float*)delta, b, hq, hk, dedup, n, d, dv_dim, bs, kmax, scale,
-                                st);
+  return stem_bwg::on_device(device, [&]() -> int {
+    if (wgmma) {
+      if (!is_bf16) return (int)cudaErrorInvalidValue;
+      STEM_WGMMA_PAIR_SWITCH(d, dv_dim, launch_bwd_wgmma<D, DV>(q, k, v, o, dout, idx, cnt,
+                                                                tidx, tcnt, dq, dk, dv, l,
+                                                                (float*)delta, (float*)part, b,
+                                                                hq, hk, dedup, n, bs, kmax,
+                                                                scale, st))
+      return (int)cudaErrorInvalidValue;
+    }
+    if (is_bf16)
+      return launch_bwd_pair<__nv_bfloat16>(q, k, v, o, dout, idx, cnt, tidx, tcnt, dq, dk,
+                                            dv, l, (float*)delta, b, hq, hk, dedup, n, d,
+                                            dv_dim, bs, kmax, scale, st);
+    return launch_bwd_pair<float>(q, k, v, o, dout, idx, cnt, tidx, tcnt, dq, dk, dv, l,
+                                  (float*)delta, b, hq, hk, dedup, n, d, dv_dim, bs, kmax,
+                                  scale, st);
+  });
 }
 
 }  // extern "C"

@@ -43,14 +43,16 @@
 // stem_flash_attention_bwd is the gradient of the same function (the TPU
 // kernel has none: the reference trains through XLA's autodiff of its jnp
 // attention), two kernels that read the forward's lse and sum without
-// atomics.  The wrapper's backward_route picks the route: bf16 at d = dv =
-// 128 runs attn_bwd_wgmma.cuh on the tensor
-// cores (flash_bwd_dq_wgmma_kernel per 128 query rows over the key tiles
-// 0..its diagonal, Q and dO resident, K / V through a TMA ring;
-// flash_bwd_dkdv_wgmma_kernel per 128 keys of a KV head over the g query
-// heads of its group and the 64-query tiles from its diagonal to the end,
-// K and V resident, Q / dO / lse / delta through a TMA ring; P and dS
-// rounded to bf16 for the wgmma products).  Every other dtype and pair runs
+// atomics.  The wrapper's backward_route picks the route, the forward's
+// table: bf16 at the pairs of STEM_WGMMA_PAIR_SWITCH runs attn_bwd_wgmma.cuh
+// on the tensor cores, one instance of each kernel per pair at its
+// stem_bwg::BwdOf shape (flash_bwd_dq_wgmma_kernel per 128 query rows over
+// the key tiles 0..its diagonal, Q and dO resident, K / V through a TMA
+// ring; flash_bwd_dkdv_wgmma_kernel per 128 keys (64 at d + dv > 256) of a
+// KV head over the g query heads of its group and the 64-query tiles from
+// its diagonal to the end, K and V resident, Q / dO / lse / delta through a
+// TMA ring; P and dS rounded to bf16 for the wgmma products).  Every other
+// dtype and pair runs
 // attn_bwd.cuh's fp32 CUDA-core tiles, fed the lse of either forward route
 // (flash_bwd_dq_kernel per 64 query rows, flash_bwd_dkdv_kernel per 64
 // keys, in the same orders).  Bound: 2 *
@@ -315,9 +317,11 @@ int launch_bwd_pair(const void* q, const void* k, const void* v, const void* o,
                                                             stream))
 }
 
-// Backward on the tensor cores (bf16, d = dv = 128): the dq kernel walks
-// the forward's key tiles (FlashTiles); the dk / dv kernel the 64-query
-// tiles of each query head of its KV head, from its diagonal to the end.
+// Backward on the tensor cores (bf16 at the pairs of STEM_WGMMA_PAIR_SWITCH,
+// shapes stem_bwg::BwdOf<D, DV>): the dq kernel walks the forward's key
+// tiles (FlashTiles); the dk / dv kernel the 64-query tiles of each query
+// head of its KV head (or of its share of them under a head split), from
+// its diagonal to the end.
 struct FlashQueryTiles {
   long long head_row;              // (b * hq + kvh * g) * n: the group's first head
   int g, n, first, hh, q;
@@ -333,7 +337,9 @@ struct FlashQueryTiles {
   }
 };
 
-// grid (hq, ceil(n / 128), b), heaviest query tiles first
+// grid (hq, ceil(n / 128), b), or (ceil(n / 128), hq, b) with
+// tiles_fastest; heaviest query tiles first
+template <class C>
 __global__ void __launch_bounds__(stem_wg::kThreads, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tdo,
@@ -342,21 +348,26 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __nv_bfloat16* __restrict__ o,
                           const __nv_bfloat16* __restrict__ dout,
                           const float* __restrict__ lse, float* __restrict__ delta,
-                          __nv_bfloat16* __restrict__ dq, int hq, int hk, int n, float scale) {
+                          __nv_bfloat16* __restrict__ dq, int hq, int hk, int n, float scale,
+                          int tiles_fastest) {
   extern __shared__ uint8_t smem_wg[];
-  const int h = blockIdx.x, b = blockIdx.z;
-  const int i = gridDim.y - 1 - blockIdx.y;
+  const int h = tiles_fastest ? blockIdx.y : blockIdx.x, b = blockIdx.z;
+  const int i = tiles_fastest ? gridDim.x - 1 - blockIdx.x : gridDim.y - 1 - blockIdx.y;
   const int kvh = h / (hq / hk);
   const int q0 = i * stem_wg::kBM;
   const long long q_row = ((long long)b * hq + h) * n + q0;
   const long long kv_row = ((long long)b * hk + kvh) * n;
-  stem_bwg::dq_tile(smem_wg, &tq, &tdo, &tk, &tv, q_row, kv_row,
-                    FlashTiles<stem_wg::kBN>::of(q0, n),
-                    o + q_row * stem_wg::kD, dout + q_row * stem_wg::kD, lse + q_row,
-                    delta + q_row, dq + q_row * stem_wg::kD, min(stem_wg::kBM, n - q0), scale);
+  stem_bwg::dq_tile<C>(smem_wg, &tq, &tdo, &tk, &tv, q_row, kv_row,
+                       FlashTiles<C::BN>::of(q0, n), o + q_row * C::DV, dout + q_row * C::DV,
+                       lse + q_row, delta + q_row, dq + q_row * C::D,
+                       min(stem_wg::kBM, n - q0), scale);
 }
 
-// grid (hk, ceil(n / 128), b): key tile 0 (the most query tiles) first
+// grid (hk * hsplit, ceil(n / BK), b), or (ceil(n / BK), hk * hsplit, b)
+// with tiles_fastest: key tile 0 (the most query tiles) first; CTA (kvh,
+// hs) of a head split (hsplit > 1, part: its fp32 partials) walks query
+// heads hs * g / hsplit .. (hs + 1) * g / hsplit - 1 of the group
+template <class C>
 __global__ void __launch_bounds__(stem_wg::kThreads, 1)
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
                             const __grid_constant__ CUtensorMap tv,
@@ -364,44 +375,66 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
                             const __grid_constant__ CUtensorMap tdo,
                             const float* __restrict__ lse, const float* __restrict__ delta,
                             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                            int hq, int hk, int n, float scale) {
+                            float* __restrict__ part, int hq, int hk, int n, float scale,
+                            int tiles_fastest, int hsplit) {
   extern __shared__ uint8_t smem_wg[];
-  const int kvh = blockIdx.x, b = blockIdx.z, g = hq / hk;
-  const int k0 = blockIdx.y * stem_wg::kBN;
+  const int kh = tiles_fastest ? blockIdx.y : blockIdx.x, b = blockIdx.z, g = hq / hk;
+  const int kvh = kh / hsplit, hs = kh - kvh * hsplit, gs = g / hsplit;
+  const int k0 = (tiles_fastest ? blockIdx.x : blockIdx.y) * C::BK;
   const long long kv_row = ((long long)b * hk + kvh) * n + k0;
-  const FlashQueryTiles tiles{((long long)b * hq + (long long)kvh * g) * n, g, n, k0, 0, k0};
-  stem_bwg::dkdv_tile(smem_wg, &tk, &tv, &tq, &tdo, kv_row, k0, tiles, lse, delta,
-                      dk + kv_row * stem_wg::kD, dv + kv_row * stem_wg::kD, n,
-                      min(stem_wg::kBN, n - k0), scale);
+  const long long krows = (long long)gridDim.z * hk * n;
+  float* pk = part ? part + ((long long)hs * krows + kv_row) * C::D : nullptr;
+  float* pv = part ? part + hsplit * krows * C::D + ((long long)hs * krows + kv_row) * C::DV
+                   : nullptr;
+  const FlashQueryTiles tiles{((long long)b * hq + (long long)kvh * g) * n, (hs + 1) * gs, n, k0,
+                              hs * gs, k0};
+  stem_bwg::dkdv_tile<C>(smem_wg, &tk, &tv, &tq, &tdo, kv_row, k0, tiles, lse, delta,
+                         dk + kv_row * C::D, dv + kv_row * C::DV, pk, pv, n,
+                         min(C::BK, n - k0), scale);
 }
 
+template <int D, int DV>
 int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
                      const void* dout, void* dq, void* dk, void* dv, const float* lse,
-                     float* delta, int b, int hq, int hk, int n, float scale,
+                     float* delta, float* part, int b, int hq, int hk, int n, float scale,
                      cudaStream_t stream) {
-  CUtensorMap tq, tdo, tk, tv, tq64, tdo64;
+  using Q = typename stem_bwg::BwdOf<D, DV>::Dq;
+  using K = typename stem_bwg::BwdOf<D, DV>::Dkdv;
+  CUtensorMap tq, tdo, tk, tv, tk2, tv2, tq64, tdo64;
   const long long qrows = (long long)b * hq * n, krows = (long long)b * hk * n;
-  if (!stem_wg::make_map(&tq, q, qrows) || !stem_wg::make_map(&tdo, dout, qrows) ||
-      !stem_wg::make_map(&tk, k, krows) || !stem_wg::make_map(&tv, v, krows) ||
-      !stem_wg::make_map(&tq64, q, qrows, stem_bwg::kQT) ||
-      !stem_wg::make_map(&tdo64, dout, qrows, stem_bwg::kQT))
+  if (!stem_wg::make_map(&tq, q, qrows, stem_wg::kBM, D) ||
+      !stem_wg::make_map(&tdo, dout, qrows, stem_wg::kBM, DV) ||
+      !stem_wg::make_map(&tk, k, krows, Q::BN, D) || !stem_wg::make_map(&tv, v, krows, Q::BN, DV) ||
+      !stem_wg::make_map(&tk2, k, krows, K::BK, D) ||
+      !stem_wg::make_map(&tv2, v, krows, K::BK, DV) ||
+      !stem_wg::make_map(&tq64, q, qrows, stem_bwg::kQT, D) ||
+      !stem_wg::make_map(&tdo64, dout, qrows, stem_bwg::kQT, DV))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = stem_wg::prepare(flash_bwd_dq_wgmma_kernel, stem_bwg::kDqSmemBytes);
-  if (err == cudaSuccess)
-    err = stem_wg::prepare(flash_bwd_dkdv_wgmma_kernel, stem_bwg::kDkdvSmemBytes);
+  cudaError_t err = stem_wg::prepare(flash_bwd_dq_wgmma_kernel<Q>, Q::kSmemBytes);
+  if (err == cudaSuccess) err = stem_wg::prepare(flash_bwd_dkdv_wgmma_kernel<K>, K::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
+  const int split = stem_bwg::head_split(b, hq, hk, n, K::BK);
+  if (split > 1 && part == nullptr) return (int)cudaErrorInvalidValue;
+  // the dq kernel streams every head's K / V, the dk / dv kernel its
+  // group's Q / dO
+  const int tf_q = stem_wg::tiles_fastest(2ll * b * hk * n * (D + DV));
+  const int tf_k = stem_wg::tiles_fastest(2ll * b * hq * n * (D + DV));
   const int tiles = (n + stem_wg::kBM - 1) / stem_wg::kBM;
-  flash_bwd_dq_wgmma_kernel<<<dim3(hq, tiles, b), stem_wg::kThreads, stem_bwg::kDqSmemBytes,
-                              stream>>>(tq, tdo, tk, tv, (const __nv_bfloat16*)o,
-                                        (const __nv_bfloat16*)dout, lse, delta,
-                                        (__nv_bfloat16*)dq, hq, hk, n, scale);
+  const int ktiles = (n + K::BK - 1) / K::BK;
+  flash_bwd_dq_wgmma_kernel<Q><<<tf_q ? dim3(tiles, hq, b) : dim3(hq, tiles, b),
+                                 stem_wg::kThreads, Q::kSmemBytes, stream>>>(
+      tq, tdo, tk, tv, (const __nv_bfloat16*)o, (const __nv_bfloat16*)dout, lse, delta,
+      (__nv_bfloat16*)dq, hq, hk, n, scale, tf_q);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkdv_wgmma_kernel<<<dim3(hk, tiles, b), stem_wg::kThreads,
-                                stem_bwg::kDkdvSmemBytes, stream>>>(
-      tk, tv, tq64, tdo64, lse, delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, hq, hk, n,
-      scale);
-  return (int)cudaGetLastError();
+  flash_bwd_dkdv_wgmma_kernel<K><<<tf_k ? dim3(ktiles, hk * split, b)
+                                        : dim3(hk * split, ktiles, b),
+                                   stem_wg::kThreads, K::kSmemBytes, stream>>>(
+      tk2, tv2, tq64, tdo64, lse, delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
+      split > 1 ? part : nullptr, hq, hk, n, scale, tf_k, split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || split == 1) return (int)err;
+  return (int)stem_bwg::launch_reduce(part, split, krows, D, DV, dk, dv, scale, stream);
 }
 
 }  // namespace
@@ -444,29 +477,46 @@ int stem_wgmma_tile_products(const void* a, const void* b, const void* p, const 
   return (int)cudaGetLastError();
 }
 
+// The head split of the tensor-core backward at this shape (1: none; else
+// stem_flash_attention_bwd needs part, split * b * hk * n * (d + dv) fp32):
+// 1 off the pairs of STEM_WGMMA_PAIR_SWITCH.
+int stem_flash_attention_bwd_split(int b, int hq, int hk, int n, int d, int dv) {
+  if (hk <= 0 || hq % hk != 0 || n <= 0) return 1;
+  STEM_WGMMA_PAIR_SWITCH(d, dv, stem_bwg::head_split(b, hq, hk, n,
+                                                     stem_bwg::BwdOf<D, DV>::Dkdv::BK))
+  return 1;
+}
+
 // The gradient of stem_flash_attention: q, k, v, o (its output), dout
 // (o's gradient) as there, lse (b, hq, n) fp32 the forward's, dq / dk / dv
-// shaped as q / k / v in the same dtype, delta (b, hq, n) fp32 scratch; all
-// contiguous.  wgmma: 1 = the tensor-core kernels (bf16, d = dv = 128 only;
-// anything else is refused), 0 = the CUDA-core ones.  Two launches on the
-// stream (dq and delta, then dk and dv).
+// shaped as q / k / v in the same dtype, delta (b, hq, n) fp32 scratch;
+// part: null, or the head split's fp32 scratch (its size above); all
+// contiguous.  wgmma: 1 = the tensor-core kernels (bf16 at the pairs of
+// STEM_WGMMA_PAIR_SWITCH only; anything else is refused), 0 = the CUDA-core
+// ones.  Two launches on the
+// stream (dq and delta, then dk and dv), on `device` (stem_bwg::on_device).
 int stem_flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                              const void* dout, const void* lse, void* dq, void* dk, void* dv,
-                             void* delta, int b, int hq, int hk, int n, int d, int dv_dim,
-                             int is_bf16, int wgmma, float scale, void* stream) {
+                             void* delta, void* part, int b, int hq, int hk, int n, int d,
+                             int dv_dim, int is_bf16, int wgmma, float scale, void* stream,
+                             int device) {
   if (hk <= 0 || hq % hk != 0 || n <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const float* l = (const float*)lse;
-  if (wgmma) {
-    if (!is_bf16 || d != stem_wg::kD || dv_dim != stem_wg::kD) return (int)cudaErrorInvalidValue;
-    return launch_bwd_wgmma(q, k, v, o, dout, dq, dk, dv, l, (float*)delta, b, hq, hk, n, scale,
-                            st);
-  }
-  if (is_bf16)
-    return launch_bwd_pair<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, l, (float*)delta, b,
-                                          hq, hk, n, d, dv_dim, scale, st);
-  return launch_bwd_pair<float>(q, k, v, o, dout, dq, dk, dv, l, (float*)delta, b, hq, hk, n,
-                                d, dv_dim, scale, st);
+  return stem_bwg::on_device(device, [&]() -> int {
+    if (wgmma) {
+      if (!is_bf16) return (int)cudaErrorInvalidValue;
+      STEM_WGMMA_PAIR_SWITCH(d, dv_dim, launch_bwd_wgmma<D, DV>(q, k, v, o, dout, dq, dk, dv, l,
+                                                                (float*)delta, (float*)part, b,
+                                                                hq, hk, n, scale, st))
+      return (int)cudaErrorInvalidValue;
+    }
+    if (is_bf16)
+      return launch_bwd_pair<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, l, (float*)delta, b,
+                                            hq, hk, n, d, dv_dim, scale, st);
+    return launch_bwd_pair<float>(q, k, v, o, dout, dq, dk, dv, l, (float*)delta, b, hq, hk,
+                                  n, d, dv_dim, scale, st);
+  });
 }
 
 }  // extern "C"

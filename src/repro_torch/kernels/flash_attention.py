@@ -28,13 +28,16 @@ The gradient (``flash_attention_bwd``, the training path's): the TPU kernel
 has none, as the reference trains through XLA's autodiff of its jnp dense
 attention, so the port's counterpart is a hand-written backward
 (``stem_flash_attention_bwd``: dq, then dk and dv, no atomics) that reads
-the forward's lse.  ``backward_route`` picks its kernels: bf16 at head_dim
-128 on the tensor cores (``csrc/attn_bwd_wgmma.cuh``: TMA + wgmma, P and dS
-rounded to bf16 as SDPA's backward does), every other shape on the fp32
-CUDA cores (``csrc/attn_bwd.cuh``).  Beside them sit the plain version, the
-analytic backward ``dS = P * (dP - delta)`` (``flash_attention_bwd_plain``,
-P in fp32), and counters of all backward launches and of the tensor-core
-route's.  ``attention`` is the differentiable call
+the forward's lse.  ``backward_route`` picks its kernels, the forward's
+table: bf16 at ``WGMMA_PAIRS`` on the tensor cores
+(``csrc/attn_bwd_wgmma.cuh``: TMA + wgmma, P and dS rounded to bf16 as
+SDPA's backward does, one instance per pair), every other shape on the
+fp32 CUDA cores (``csrc/attn_bwd.cuh``).  Beside them sit the plain
+version, the analytic backward ``dS = P * (dP - delta)``
+(``flash_attention_bwd_plain``, P in fp32), and counters of all backward
+launches, of the tensor-core route's and of each of its instances
+(``wgmma_counter("flash_attention_bwd", d, dv)``).  ``attention`` is the
+differentiable call
 (``torch.autograd.Function``): forward and backward both kernels on a CUDA
 tensor, both plain versions on the CPU.
 """
@@ -45,12 +48,13 @@ import ctypes
 import torch
 
 from repro_torch.kernels import (WGMMA_PAIRS, backward_route, check_head_dim_pair,
-                                 forward_route, wgmma_counter)
+                                 forward_route, split_scratch, wgmma_counter)
 
 NEG_INF = -1e30
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0,
-            **{wgmma_counter("flash_attention", d, dv): 0 for d, dv in WGMMA_PAIRS}}
+            **{wgmma_counter(k, d, dv): 0 for k in ("flash_attention", "flash_attention_bwd")
+               for d, dv in WGMMA_PAIRS}}
 
 
 def reset_launches() -> None:
@@ -66,8 +70,10 @@ def _lib():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.stem_flash_attention.argtypes = [p] * 5 + [i] * 7 + [f, p]
         lib.stem_flash_attention.restype = i
-        lib.stem_flash_attention_bwd.argtypes = [p] * 10 + [i] * 8 + [f, p]
+        lib.stem_flash_attention_bwd.argtypes = [p] * 11 + [i] * 8 + [f, p, i]
         lib.stem_flash_attention_bwd.restype = i
+        lib.stem_flash_attention_bwd_split.argtypes = [i] * 6
+        lib.stem_flash_attention_bwd_split.restype = i
         lib.stem_wgmma_tile_products.argtypes = [p] * 7
         lib.stem_wgmma_tile_products.restype = i
         lib._stem_typed = True
@@ -192,9 +198,18 @@ def flash_attention_bwd(q, k, v, o, do, *, scale=None, lse=None) -> tuple:
     q, k, v, its output o, o's gradient do and the forward's ``lse``
     (``return_lse``; required on a CUDA tensor).  CPU tensors take the
     plain version; CUDA tensors launch the kernels of ``backward_route``
-    (two launches, one count, and one more on the wgmma route's)."""
+    (two launches, one count, and on the wgmma route one more and one of
+    its instance's)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, do, scale=scale)
+    return _bwd_launch(q, k, v, o, do, scale, lse, None)
+
+
+def _bwd_launch(q, k, v, o, do, scale, lse, route) -> tuple:
+    """``flash_attention_bwd`` on the card, on ``route``: None for
+    ``backward_route``'s, or "cuda_core" for the CUDA-core kernels at any
+    shape (the route the tensor-core kernels replaced; chip_smoke.py times
+    and checks it beside them)."""
     _check(q.device.type == "cuda", f"flash_attention_bwd: unsupported device {q.device}")
     b, hq, n, d = q.shape
     hk, dv_dim = k.shape[1], v.shape[-1]
@@ -217,20 +232,24 @@ def flash_attention_bwd(q, k, v, o, do, *, scale=None, lse=None) -> tuple:
     _check(all(t.data_ptr() % 16 == 0 for t in (q, k, v, o, do)),
            "flash_attention_bwd: inputs must be 16-byte aligned (TMA, 16-byte loads)")
     scale = d ** -0.5 if scale is None else scale
-    route = backward_route(q.dtype, d, dv_dim)
+    _check(route in (None, "cuda_core"), f"flash_attention_bwd: unknown route {route!r}")
+    route = route or backward_route(q.dtype, d, dv_dim)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
+    part = split_scratch(_lib().stem_flash_attention_bwd_split, route, q, k, v)
     err = _lib().stem_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-        b, hq, hk, n, d, dv_dim, int(q.dtype == torch.bfloat16), int(route == "wgmma"),
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+        part.data_ptr() if part is not None else None, b, hq, hk, n, d, dv_dim,
+        int(q.dtype == torch.bfloat16), int(route == "wgmma"),
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream, q.device.index)
     if err != 0:
         raise RuntimeError(f"stem_flash_attention_bwd launch failed ({route}): "
                            f"cudaError {err}")
     LAUNCHES["flash_attention_bwd"] += 1
     if route == "wgmma":
         LAUNCHES["flash_attention_bwd_wgmma"] += 1
+        LAUNCHES[wgmma_counter("flash_attention_bwd", d, dv_dim)] += 1
     return dq, dk, dv
 
 
@@ -238,8 +257,8 @@ class _Attention(torch.autograd.Function):
     """Causal flash attention with its hand-written gradient.  The forward
     runs ``flash_attention`` with ``return_lse`` and saves q, k, v, the
     output and the row log-sum-exp; the backward hands them with do to
-    ``flash_attention_bwd``, which on the card routes bf16 at head_dim 128
-    to the wgmma kernels and every other shape to the CUDA-core ones
+    ``flash_attention_bwd``, which on the card routes bf16 at
+    ``WGMMA_PAIRS`` to the wgmma kernels and every other shape to the CUDA-core ones
     (neither recomputes the lse).  On the CPU both are plain versions."""
 
     @staticmethod

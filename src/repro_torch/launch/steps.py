@@ -44,8 +44,10 @@ def make_train_step(bundle, opt_cfg: optim.AdamWConfig, *, stem_cfg=None,
     ``microbatches > 1`` the batch splits along its first axis, gradients
     accumulate in fp32 and are divided, and the metrics are the last
     microbatch's.  Then the gradient-compression cast and AdamW on the
-    master.  Metrics: the loss function's (``loss``, ``ce``, ``aux``,
-    ``mtp_ce``) and ``lr``, ``grad_norm``.  ``grad_shardings`` has no
+    master, in place: the step consumes the state it is given (the returned
+    state holds its master, mu and nu tensors, updated).  Metrics: the loss
+    function's (``loss``, ``ce``, ``aux``, ``mtp_ce``) and ``lr``,
+    ``grad_norm``.  ``grad_shardings`` has no
     one-device meaning: any value but None raises."""
     if grad_shardings is not None:
         raise ValueError("make_train_step: grad_shardings pins gradients to a "

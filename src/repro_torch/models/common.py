@@ -38,20 +38,24 @@ class Initializer:
         self.dtype = dtype
         self.device = torch.device(device)
         self._layers = 0            # n inside stacked(), else 0
+        self._empty = False         # stacked(0): leaves of no layer
         self._layer = 0
         self._leaves: list = []
         self._slot = 0
 
     def stacked(self, n: int, build):
         """``build()``'s tree with every leaf stacked ``(n, ...)``, drawn
-        layer by layer."""
-        self._layers, self._leaves = n, []
+        layer by layer.  At n = 0 (a MoE config cut to its first_k_dense
+        layers) every leaf is an empty ``(0, ...)`` stack, as the
+        reference's."""
+        self._layers, self._leaves = max(n, 1), []
+        self._empty = n == 0
         try:
-            for layer in range(n):
+            for layer in range(max(n, 1)):
                 self._layer, self._slot = layer, 0
                 tree = build()
         finally:
-            self._layers, self._leaves = 0, []
+            self._layers, self._leaves, self._empty = 0, [], False
         return tree
 
     def _leaf(self, shape, dtype, fill) -> torch.Tensor:
@@ -61,11 +65,12 @@ class Initializer:
             fill(out)
             return out
         if self._layer == 0:
-            self._leaves.append(torch.empty((self._layers, *shape), dtype=dtype,
-                                            device=self.device))
+            self._leaves.append(torch.empty((0 if self._empty else self._layers, *shape),
+                                            dtype=dtype, device=self.device))
         out = self._leaves[self._slot]
         self._slot += 1
-        fill(out[self._layer])
+        if not self._empty:
+            fill(out[self._layer])
         return out
 
     def _fill_normal(self, dst: torch.Tensor, scale: float) -> None:

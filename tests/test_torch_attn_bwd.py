@@ -12,16 +12,16 @@ bf16 gradient rule of its tensor-core route, on the CPU.
   ``HEAD_DIM_PAIRS``: ``forward_route`` "wgmma" exactly for bf16 at a pair
   of ``WGMMA_PAIRS`` (block-sparse: blocks a multiple of 128), which is
   where ``replay.KERNELS`` holds a recorded forward call to the p_bf16 rule;
-  ``backward_route`` "wgmma" only for bf16 at (128, 128), where the forward
-  takes its tensor-core tile too (elsewhere the CUDA-core backward reads the
-  lse of whichever forward ran).
+  ``backward_route`` is the same table (elsewhere the CUDA-core backward
+  reads the lse of the CUDA-core forward).
 * A test-local backward that rounds P and dS to bf16 before its products,
   as the tensor-core kernels do, within ``replay.grad_tolerance(...,
-  p_bf16=True)`` of the fp32 plain backwards on bf16-valued inputs; the same
-  backward with one (query block, key block) pair dropped from dk / dv, or
-  one selected key block dropped from a row's dq, over that rule in most of
-  the rows the fault touches.  This pins on the CPU that the rule the card
-  tests apply admits the rounding and rejects the faults.
+  p_bf16=True)`` of the fp32 plain backwards on bf16-valued inputs, at d 64
+  and at MLA's (192, 128); the same backward with one (query block, key
+  block) pair dropped from dk / dv, or one selected key block dropped from
+  a row's dq, over that rule in most of the rows the fault touches.  This
+  pins on the CPU that the rule the card tests apply admits the rounding
+  and rejects the faults.
 * ``attention`` without a gradient to take (serving) is the forward
   wrapper's own call: no lse, no autograd node, a plain recorded output.
 """
@@ -152,25 +152,22 @@ def _on_tensor_cores(kernel, dtype, d, dv, bs=None):
 
 @pytest.mark.parametrize("pair", HEAD_DIM_PAIRS, ids=lambda p: f"{p[0]}-{p[1]}")
 def test_backward_route_mirrors_forward(pair):
-    """Both routes and the replay predicates against their stated tables:
-    the forward's tensor-core tile for bf16 at WGMMA_PAIRS (and blocks of a
-    multiple of 128), its backward's only at (128, 128); a backward on the
-    tensor cores always follows a forward on them."""
+    """Both routes and the replay predicates against their stated table:
+    the tensor-core tile for bf16 at WGMMA_PAIRS (and blocks of a multiple
+    of 128), forward and backward alike, so a backward runs on the tensor
+    cores exactly where its forward did."""
     d, dv = pair
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         tile = dtype == torch.bfloat16 and pair in WGMMA_PAIRS
         fwd, bwd = forward_route(dtype, d, dv), backward_route(dtype, d, dv)
         assert fwd in ("wgmma", "cuda_core") and bwd in ("wgmma", "cuda_core")
         assert (fwd == "wgmma") == tile == _on_tensor_cores("flash_attention", dtype, d, dv)
-        assert (bwd == "wgmma") == (dtype == torch.bfloat16 and d == dv == 128)
-        assert bwd == "cuda_core" or fwd == "wgmma"
+        assert bwd == fwd
         for bs in (8, 16, 64, 128, 192, 256, 512):
             fwd, bwd = forward_route(dtype, d, dv, bs), backward_route(dtype, d, dv, bs)
             assert (fwd == "wgmma") == (tile and bs % 128 == 0) == _on_tensor_cores(
                 "block_sparse_attention", dtype, d, dv, bs)
-            assert (bwd == "wgmma") == (dtype == torch.bfloat16 and d == dv == 128
-                                        and bs % 128 == 0)
-            assert bwd == "cuda_core" or fwd == "wgmma"
+            assert bwd == fwd
 
 
 # ---------------------------------------------------------------------------
@@ -227,8 +224,19 @@ def test_bf16_rule_admits_rounding_and_rejects_dropped_pairs(dedup):
     plain backwards (flash, and block-sparse at block 64); a (query block,
     key block) pair dropped from dk / dv, and one selected key block dropped
     from a query block's dq, put most of the touched rows over it."""
-    b, hq, hk, n, d, bs = 1, 4, 2, 512, 64, 64
-    q, k, v, do = (_bf16(torch.from_numpy(x)) for x in _inputs(7 + dedup, b, hq, hk, n, d, d))
+    _bf16_rule_case(dedup, 64, 64, 7 + dedup)
+
+
+def test_bf16_rule_at_mla_pair():
+    """The same at MLA's (192, 128), the pair whose dk / dv kernel splits
+    S / P / dK and dP / dS / dV over its two warpgroups (the rounding it
+    does is the same: P and dS to bf16 before their products)."""
+    _bf16_rule_case(False, 192, 128, 26)
+
+
+def _bf16_rule_case(dedup, d, dv, seed):
+    b, hq, hk, n, bs = 1, 4, 2, 512, 64
+    q, k, v, do = (_bf16(torch.from_numpy(x)) for x in _inputs(seed, b, hq, hk, n, d, dv))
     scale = d ** -0.5
     nq = n // bs
     rng = np.random.default_rng(11 + dedup)

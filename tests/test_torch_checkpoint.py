@@ -4,7 +4,8 @@ CPU.
 * ``CheckpointManager``: round trip with keep-K garbage collection, async
   save and atomicity (a stale ``.tmp`` directory is no checkpoint), shape
   mismatch on restore, restore into a template built on the ``meta``
-  device — the reference substrate tests' checks, on the port;
+  device — the reference substrate tests' checks, on the port; an async
+  save restores the step it names while the in-place train step goes on;
 * checkpoints cross the two packages both ways: an AdamW state of the
   reduced qwen3-0.6b (moments in bf16, stored as uint16 views) saved by the
   reference's ``CheckpointManager`` restores bitwise in the port, and the
@@ -20,6 +21,7 @@ CPU.
   train step refuses ``grad_shardings``.
 """
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -69,6 +71,41 @@ def test_checkpoint_async_and_atomic(tmp_path):
     assert mgr.latest_step() == 1
     os.makedirs(tmp_path / "step_9.tmp", exist_ok=True)
     assert mgr.latest_step() == 1
+
+
+def test_async_save_holds_its_step_while_training_goes_on(tmp_path, monkeypatch):
+    """An async save of step 1's state, whose write is held back until the
+    in-place train step 2 has run, restores step 1's master, mu and nu
+    bitwise: the save's host copy is a copy on the CPU too."""
+    from repro_torch.data import SyntheticLMData, make_global_batch
+    cfg = t_configs.reduced(t_configs.get_config("qwen3-0.6b"))
+    bundle = t_registry.build(cfg)
+    opt_cfg = t_optim.AdamWConfig(peak_lr=1e-2, warmup_steps=1, decay_steps=10)
+    step = t_steps.make_train_step(bundle, opt_cfg)
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=16, global_batch=2, seed=3)
+    state = t_optim.init_state(
+        bundle.init_params(torch.Generator().manual_seed(3), device="cpu"), opt_cfg)
+    state, _ = step(state, make_global_batch(data.batch_at(0), "cpu"))
+    want = t_optim.OptState(*(tree_map(torch.clone, f) for f in state))
+
+    released = threading.Event()
+    savez = np.savez
+    monkeypatch.setattr(np, "savez", lambda *a, **kw: released.wait(60) and savez(*a, **kw))
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, state, blocking=False)
+    state, _ = step(state, make_global_batch(data.batch_at(1), "cpu"))
+    released.set()
+    mgr.wait()
+    assert mgr.latest_step() == 1
+    template = t_optim.OptState(*(tree_map(
+        lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), f) for f in want))
+    got, _ = mgr.restore(template, device="cpu")
+    for name in ("master", "mu", "nu"):
+        for a, b in zip(t_optim.adamw.tree_leaves(getattr(got, name)),
+                        t_optim.adamw.tree_leaves(getattr(want, name))):
+            assert torch.equal(a, b), name
+    assert not torch.equal(t_optim.adamw.tree_leaves(state.master)[0],
+                           t_optim.adamw.tree_leaves(want.master)[0])
 
 
 def test_checkpoint_shape_mismatch_raises(tmp_path):

@@ -1462,13 +1462,16 @@ def test_backward_kernels_match_plain_on_card(cuda, pair, dtype):
     log-sum-exp (held against the plain forwards'): flash at n = 200 (no
     multiple of a tile) and 256 (GQA group 2), block-sparse at n = 256 and
     blocks 16 / 64 / 128 / 256 with and without group_dedup
-    (revisit-filled dead slots, cnt == 0 rows).  bf16 at (128, 128) (and a
-    block that is a multiple of 128) takes the tensor-core route, whose
-    counter must move, under the p_bf16 rule; every other case the
-    CUDA-core route under the 1e-3 rule.  Two calls bitwise equal (no
-    atomics); the rule rejects a (query block, key block) pair dropped from
-    the transposed selection (dk / dv) and a selected block dropped from
-    the rows of one selection row (dq)."""
+    (revisit-filled dead slots, cnt == 0 rows).  bf16 at a pair of
+    WGMMA_PAIRS (and a block that is a multiple of 128) takes the
+    tensor-core route, whose counter and the pair's instance counter must
+    move, under the p_bf16 rule (at these shapes the dk / dv kernel splits
+    each KV head's query heads over CTAs: the head split and its reduction
+    pass run too); every other case the CUDA-core route under the 1e-3
+    rule.  Two calls bitwise equal (no atomics); the rule rejects a (query
+    block, key block) pair dropped from the transposed selection (dk / dv)
+    and a selected block dropped from the rows of one selection row
+    (dq)."""
     d, dv = pair
     dt = getattr(torch, dtype)
     gen = torch.Generator().manual_seed(d * 7 + dv)
@@ -1483,6 +1486,7 @@ def test_backward_kernels_match_plain_on_card(cuda, pair, dtype):
         t_fa.reset_launches()
         got = t_fa.flash_attention_bwd(q, k, v, o, do, lse=lse)
         assert t_fa.LAUNCHES["flash_attention_bwd_wgmma"] == int(wgmma)
+        assert t_fa.LAUNCHES.get(wgmma_counter("flash_attention_bwd", d, dv), 0) == int(wgmma)
         again = t_fa.flash_attention_bwd(q, k, v, o, do, lse=lse)
         _grad_rule(got, t_fa.flash_attention_bwd_plain(q, k, v, o, do), p_bf16=wgmma)
         assert all(torch.equal(x, y) for x, y in zip(got, again))
@@ -1500,6 +1504,8 @@ def test_backward_kernels_match_plain_on_card(cuda, pair, dtype):
         t_bsa.reset_launches()
         got = t_bsa.block_sparse_attention_bwd(q, k, v, o, do, idx, cnt, lse=lse, **kw)
         assert t_bsa.LAUNCHES["block_sparse_attention_bwd_wgmma"] == int(wgmma)
+        assert t_bsa.LAUNCHES.get(wgmma_counter("block_sparse_attention_bwd", d, dv),
+                                  0) == int(wgmma)
         again = t_bsa.block_sparse_attention_bwd(q, k, v, o, do, idx, cnt, lse=lse, **kw)
         want = t_bsa.block_sparse_attention_bwd_plain(q, k, v, o, do, idx, cnt, **kw)
         _grad_rule(got, want, p_bf16=wgmma)
@@ -1555,9 +1561,10 @@ def test_attention_grads_over_tensor_core_forwards_on_card(cuda, pair):
     """The differentiable ``attention`` of both kernels in bf16 at whisper's
     (64, 64) and deepseek-v3-671b's (192, 128): the forward runs that
     pair's tensor-core instance (its counter moves) and saves its lse, the
-    backward the CUDA-core route fed that lse (the wgmma backward's counter
-    stays 0); q, k, v's gradients within the 1e-3 gradient rule of the
-    plain backward on the forward's own output."""
+    backward that pair's tensor-core instance fed that lse (its counters
+    move; the CUDA-core backward launches nothing); q, k, v's gradients
+    within the p_bf16 gradient rule of the plain backward on the forward's
+    own output."""
     d, dv = pair
     gen = torch.Generator().manual_seed(d + dv)
     b, hq, hk, n, bs = 1, 4, 2, 512, 128
@@ -1577,8 +1584,30 @@ def test_attention_grads_over_tensor_core_forwards_on_card(cuda, pair):
         out = run(*leaves)
         out.backward(do)
         assert mod.LAUNCHES[wgmma_counter(key, d, dv)] == 1
-        assert mod.LAUNCHES[f"{key}_bwd"] == 1 and mod.LAUNCHES[f"{key}_bwd_wgmma"] == 0
-        _grad_rule([x.grad for x in leaves], plain(out.detach()))
+        assert mod.LAUNCHES[f"{key}_bwd"] == 1 and mod.LAUNCHES[f"{key}_bwd_wgmma"] == 1
+        assert mod.LAUNCHES[wgmma_counter(f"{key}_bwd", d, dv)] == 1
+        _grad_rule([x.grad for x in leaves], plain(out.detach()), p_bf16=True)
+
+
+def test_whisper_trains_on_tensor_core_backward_on_card(cuda, monkeypatch):
+    """The training CLI on whisper-medium at full width cut to 2 encoder and
+    2 decoder layers, bf16, 2 steps under --stem at 1024 tokens (block 128):
+    the losses finite, and every backward of the decoder's self-attention
+    on the block-sparse backward's (64, 64) tensor-core instance (2 layers
+    x 2 steps; none on the CUDA-core route)."""
+    import dataclasses
+    from repro_torch import configs as t_configs
+    from repro_torch.launch import train as t_train
+    cfg = t_configs.get_config("whisper-medium")
+    cfg = cfg.replace(num_layers=2, encdec=dataclasses.replace(cfg.encdec, encoder_layers=2))
+    monkeypatch.setattr(t_configs, "get_config", lambda name: cfg)
+    t_bsa.reset_launches()
+    res = t_train.main(["--arch", "whisper-medium", "--steps", "2", "--batch", "1",
+                        "--seq", "1024", "--stem"])
+    assert len(res["losses"]) == 2 and np.isfinite(res["losses"]).all()
+    n = t_bsa.LAUNCHES
+    assert n[wgmma_counter("block_sparse_attention_bwd", 64, 64)] == 4
+    assert n["block_sparse_attention_bwd"] == n["block_sparse_attention_bwd_wgmma"] == 4
 
 
 @pytest.mark.parametrize("arch,stem", [

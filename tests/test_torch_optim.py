@@ -142,9 +142,10 @@ def test_adamw_clipping_and_schedule():
     assert abs(float(t_optim.lr_at(torch.tensor(10), cfg)) - 1.0) < 1e-6
     assert float(t_optim.lr_at(torch.tensor(100), cfg)) <= cfg.min_lr_ratio + 1e-6
     state = t_optim.init_state({"w": torch.ones(4)}, cfg)
+    before = state.master["w"].clone()          # the update is in place
     state2, metrics = t_optim.update({"w": torch.full((4,), 100.0)}, state, cfg)
     assert float(metrics["grad_norm"]) == pytest.approx(200.0, rel=1e-3)
-    assert float((state2.master["w"] - state.master["w"]).abs().max()) < 1.0
+    assert 0.0 < float((state2.master["w"] - before).abs().max()) < 1.0
 
 
 def test_bf16_moments_still_converge():
@@ -174,3 +175,33 @@ def test_data_bitwise_reference(kind):
     dev = make_global_batch(td.batch_at(0), "cpu")
     for k, v in td.batch_at(0).items():
         np.testing.assert_array_equal(dev[k].numpy(), v)
+
+
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
+def test_in_place_update_is_the_pure_update(monkeypatch, moment_dtype):
+    """The update, in place and in slices (here of 64 elements), gives the
+    bits of the same update in one slice (the pure arithmetic over whole
+    leaves) for master, mu and nu over three steps, leaves them in the
+    tensors of the state it was given, and raises on a leaf that is not
+    contiguous rather than updating a copy of it."""
+    import repro_torch.optim.adamw as t_adamw
+    cfg = t_optim.AdamWConfig(peak_lr=1e-2, warmup_steps=1, decay_steps=10,
+                              moment_dtype=moment_dtype)
+    gen = torch.Generator().manual_seed(4)
+    params = {"a": torch.randn(1000, generator=gen), "b": torch.randn(37, 11, generator=gen)}
+    whole, sliced = t_optim.init_state(params, cfg), t_optim.init_state(params, cfg)
+    for _ in range(3):
+        grads = {k: torch.randn(v.shape, generator=gen).bfloat16() for k, v in params.items()}
+        whole, _ = t_optim.update(grads, whole, cfg)
+        given = sliced
+        monkeypatch.setattr(t_adamw, "_CHUNK", 64)
+        sliced, _ = t_optim.update(grads, sliced, cfg)
+        monkeypatch.undo()
+        for name in ("master", "mu", "nu"):
+            for k in params:
+                assert torch.equal(getattr(sliced, name)[k], getattr(whole, name)[k])
+                assert getattr(sliced, name)[k] is getattr(given, name)[k]
+    strided = t_optim.init_state({"w": torch.ones(6, 4)}, cfg)
+    strided = strided._replace(master={"w": strided.master["w"].t()})
+    with pytest.raises(RuntimeError, match="view"):
+        t_optim.update({"w": torch.ones(4, 6)}, strided, cfg)

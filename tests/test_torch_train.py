@@ -67,6 +67,9 @@ GEO = dict(block_size=16, min_budget_blocks=2, sink_blocks=1, local_blocks=1, st
 
 def _rel(got, want) -> float:
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.size == 0:                   # an empty layer stack: only its shape to hold
+        assert got.shape == want.shape
+        return 0.0
     return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
 
 
@@ -93,7 +96,11 @@ def _selection(rng, b, hs, nq, kmax, dead_rows=((0, 0, 2),)):
 
 ATTN_CASES = [  # (hq, hk, d, dv, group_dedup)
     (2, 2, 16, 16, False), (4, 2, 16, 16, False), (4, 2, 16, 16, True),
-    (4, 2, 24, 16, False), (4, 2, 24, 16, True)]
+    (4, 2, 24, 16, False), (4, 2, 24, 16, True),
+    # the tensor-core backward's other pairs: whisper-medium's d 64, MLA's
+    # (192, 128) and (192, 192), gemma-2b's 8 / 1 heads at d 256
+    (4, 4, 64, 64, False), (2, 2, 192, 128, False), (2, 2, 192, 192, False),
+    (8, 1, 256, 256, False), (8, 1, 256, 256, True)]
 
 
 @pytest.mark.parametrize("hq,hk,d,dv,dedup", ATTN_CASES)
@@ -185,9 +192,13 @@ def _get(tree, path):
     return tree
 
 
-def _setup(arch):
+def _setup(arch, cut=None):
+    """Both packages' reduced fp32 ``arch`` (``cut``, if given, applied to
+    each config), the reference's weights carried to the port, the data."""
     jcfg = j_configs.reduced(j_configs.get_config(arch)).replace(dtype="float32")
     tcfg = t_configs.reduced(t_configs.get_config(arch)).replace(dtype="float32")
+    if cut is not None:
+        jcfg, tcfg = cut(jcfg), cut(tcfg)
     jb, tb = j_registry.build(jcfg), t_registry.build(tcfg)
     jp = jax.jit(jb.init_params)(jax.random.PRNGKey(0))
     tp = from_jax_params(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
@@ -212,10 +223,10 @@ def test_train_step_matches_reference(arch, stem, mb, remat, gd, steps):
     check_train_step(arch, stem, mb, remat, gd, steps)
 
 
-def check_train_step(arch, stem, mb, remat, gd, steps):
+def check_train_step(arch, stem, mb, remat, gd, steps, cut=None):
     """``steps`` train steps of the port against the reference's on the
     same weights and batches (the rules of the module docstring)."""
-    jb, tb, jp, tp, data = _setup(arch)
+    jb, tb, jp, tp, data = _setup(arch, cut)
     kw = dict(peak_lr=1e-3, warmup_steps=2, decay_steps=10, grad_dtype=gd)
     jo, to = j_optim.AdamWConfig(**kw), t_optim.AdamWConfig(**kw)
     jstep = jax.jit(j_steps.make_train_step(
@@ -241,7 +252,8 @@ def check_train_step(arch, stem, mb, remat, gd, steps):
                     assert _rel(got.numpy(), want) <= mtol, f"step {s} {name}{path}"
     for path, got in _lwp(ts.master):
         want = np.asarray(_get(js.master, path))
-        assert float(np.abs(got.numpy() - want).max()) <= 0.05 * lr_sum, path
+        assert got.shape == want.shape, path
+        assert float(np.abs(got.numpy() - want).max(initial=0.0)) <= 0.05 * lr_sum, path
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "whisper-medium"])
