@@ -333,6 +333,34 @@ Phases:
                 run_with_restarts around --fail-at 6 resumes from the
                 step-4 checkpoint and its losses equal the uninterrupted
                 run's, bitwise.
+ 16. mesh     — mesh serving (EngineConfig(mesh=(dp, tp)),
+                sharding/serving.py): every shard of a mesh on cuda:0 (the
+                one card: the shards share it, so no mesh can be faster
+                here; on a machine with enough cards each shard on its
+                own).  (a) fp32, full-width qwen3-0.6b with the depth cut
+                to 4 layers: phase 4's chunked trace ("stem", budget 0.5,
+                chunk 1024, 2 slots a group) on one device (sync), then on
+                meshes (1, 2), (2, 1) and (2, 2) through the sync and the
+                async loop: greedy streams exactly the one-device run's;
+                counters zeroed before each arm and read after (every
+                kernel of the engine path); every kernel call recorded and
+                held against its plain version (1e-4) and recorded at the
+                shard's heads (tp 2: hk 4 / hq 8); every group's pages
+                back; sync: one host fetch per active lane kind a step (at
+                dp 1 the one-device count); async: every _dispatch under
+                set_sync_debug_mode("error"), host_syncs <= 2 * finished,
+                nothing in flight.  (b) bf16, 28 layers: the same trace on
+                one device and on (2, 2): streams equal, or parted at a
+                near tie (check_partings, reported); TTFT, TPOT, wall and
+                peak memory of both (a baseline, not a gain).  (c) bf16, 28
+                layers, mesh (1, 2): phase 10 (a)'s 6000-token request
+                preempted after 2 chunks: the snapshot keyed by (0, 0) and
+                (0, 1), the restored pages re-extracted equal to it shard
+                for shard, bitwise, the stream equal to the uninterrupted
+                mesh and one-device runs'; snapshot bytes, restore ms.  (d)
+                The CLI with --mesh 1,1 ("mesh": [1, 1], no failed
+                request); --mesh 1,2 exits with the too-few-devices message
+                on one card.
 
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}.  Any failed phase raises (non-zero exit).
@@ -1270,7 +1298,8 @@ class FiniteGreedy(sampling_lib.GreedySampler):
 
     def __call__(self, logits):
         ok = torch.isfinite(logits).all()
-        self.finite = ok if self.finite is None else self.finite & ok
+        # a mesh's slot groups sample on their own lead devices
+        self.finite = ok if self.finite is None else self.finite & ok.to(self.finite.device)
         return super().__call__(logits)
 
 
@@ -1745,19 +1774,28 @@ class LogitTap:
 
                 def tapped(params, pools, tokens, table, lens, chunk=None):
                     dec, ch, pools = step(params, pools, tokens, table, lens, chunk)
-                    for s in torch.nonzero(lens > 0).flatten().tolist():
-                        rows.setdefault(self.slots[s].req.uid, []).append(
-                            dec[s].float().cpu())
-                    if chunk is not None:
-                        tables = chunk["page_table"].cpu().numpy()
-                        for lane in torch.nonzero(chunk["true_len"] > 0).flatten().tolist():
-                            s = next(i for i, st in enumerate(self.slots)
-                                     if st is not None and st.phase == "prefill"
+                    # the mesh step takes group-first inputs and returns
+                    # one logits tensor a slot group
+                    mesh = isinstance(dec, list)
+                    decs, chs = (dec, ch) if mesh else ([dec], [ch])
+                    for g, d in enumerate(decs):
+                        live = (lens[g] if mesh else lens) > 0
+                        for s in torch.nonzero(live).flatten().tolist():
+                            st = self.slots[g * self.slots_per_group + s]
+                            rows.setdefault(st.req.uid, []).append(d[s].float().cpu())
+                    for g, c in enumerate(chs if chunk is not None else ()):
+                        pick = (lambda x: x[g]) if mesh else (lambda x: x)
+                        tables = pick(chunk["page_table"]).cpu().numpy()
+                        true_len = pick(chunk["true_len"])
+                        for lane in torch.nonzero(true_len > 0).flatten().tolist():
+                            s = next(i for i in self._group_slots(g)
+                                     if self.slots[i] is not None
+                                     and self.slots[i].phase == "prefill"
                                      and (self.page_table[i] == tables[lane]).all())
                             st = self.slots[s]
                             if st.prefill_pos + self.chunk_size >= len(st.padded):
                                 rows.setdefault(st.req.uid, []).append(
-                                    ch[lane].float().cpu())
+                                    c[lane].float().cpu())
                     return dec, ch, pools
                 self._unified = tapped
 
@@ -4813,6 +4851,285 @@ def bwd_pair_entries(kernels: list, by_name: dict, records: dict, p15: dict,
                 was_ms=rec["was_ms"], shape=tag, kernels=parts, build=inst))
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: mesh serving
+# ---------------------------------------------------------------------------
+
+MESHES = ((1, 2), (2, 1), (2, 2))
+
+
+def mesh_devices(mesh) -> list:
+    """Every shard of a mesh on its own card when the machine has enough,
+    else every shard on cuda:0 (the one card the smoke run needs: the
+    shards share it, and a mesh's launches queue on one stream)."""
+    n = mesh[0] * mesh[1]
+    if torch.cuda.device_count() >= n:
+        return [f"cuda:{i}" for i in range(n)]
+    return ["cuda:0"] * n
+
+
+def _count_lane_fetches(eng) -> dict:
+    """Wrap a sync engine's step: counts the steps whose decode lane and
+    whose chunk lane ran (a granted decode slot has a cache length > 0),
+    i.e. the host fetches one fetch per active lane kind makes."""
+    counts = {"fetches": 0}
+    step = eng._unified
+
+    def counted(params, pools, tokens, table, lens, chunk=None):
+        counts["fetches"] += int(bool((lens > 0).any())) + (chunk is not None)
+        return step(params, pools, tokens, table, lens, chunk)
+    eng._unified = counted
+    return counts
+
+
+def _mesh_serve(bundle, params, arm: str, mesh=None, async_depth: int = 0,
+                record: bool = False) -> tuple:
+    """Phase 4's chunked trace ("stem" at paper defaults, budget 0.5, chunk
+    1024, 2 slots a group) on one device or on ``mesh`` (every shard on
+    cuda:0).  Counters zeroed before the run and read after; every kernel
+    of the engine path must launch, every logit be finite, every request
+    finish and every group's pages come back; sync: one host fetch per
+    active lane kind a step; async: every _dispatch sync-free,
+    ``host_syncs <= 2 * finished``, nothing in flight.  Returns (streams,
+    summary, recorder or None)."""
+    policy = policy_lib.get_policy("stem")
+    ecfg = engine_lib.EngineConfig.for_trace(
+        max_slots=2, max_prompt=max(PROMPTS), max_new_tokens=NEW_TOKENS,
+        page_size=policy.block_size, sampler="greedy-finite", budget_frac=0.5,
+        chunk_size=1024, mesh=mesh, async_depth=async_depth)
+    eng = engine_lib.StemEngine(bundle, params, policy, ecfg,
+                                mesh_devices=mesh and mesh_devices(mesh))
+    fetches = None if async_depth else _count_lane_fetches(eng)
+    rng = np.random.RandomState(0)
+    reqs = [engine_lib.Request(
+        uid=i, prompt=rng.randint(0, bundle.cfg.vocab_size, size=(n,)).astype(np.int32),
+        max_new_tokens=NEW_TOKENS, arrival_step=a)
+        for i, (n, a) in enumerate(zip(PROMPTS, ARRIVALS))]
+    guard = SyncFreeDispatch() if async_depth else contextlib.nullcontext()
+    rec = replay.Recorder() if record else None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    with rec or contextlib.nullcontext(), guard:
+        t0 = time.perf_counter()
+        fin = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = _engine_launches(arm, "phase 16")
+    if not bool(eng.sampler.finite):
+        raise AssertionError(f"phase 16 {arm}: non-finite logits")
+    if [len(f.tokens) for f in fin] != [NEW_TOKENS] * len(PROMPTS):
+        raise AssertionError(f"phase 16 {arm}: not every request finished")
+    for alloc in eng.allocators:
+        alloc.check_conservation([])
+        if alloc.available != ecfg.num_pages - 1:
+            raise AssertionError(f"phase 16 {arm}: pages leaked")
+    s = eng.stats
+    if async_depth:
+        if (s["host_syncs"] > 2 * len(fin) or eng._inflight
+                or guard.calls != s["step_calls"]):
+            raise AssertionError(f"phase 16 {arm}: async {s}, {guard.calls} "
+                                 "checked dispatches")
+    elif s["host_syncs"] != fetches["fetches"]:
+        raise AssertionError(f"phase 16 {arm}: {s['host_syncs']} host syncs for "
+                             f"{fetches['fetches']} active lanes")
+    out = dict(serving_summary(fin, wall), groups=eng.groups,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               steps=eng.step_count, step_calls=s["step_calls"],
+               host_syncs=s["host_syncs"], chunks=s["chunks"],
+               launches={k: launches[k] for k in ENGINE_KERNELS})
+    return {f.uid: f.tokens for f in fin}, out, rec
+
+
+def _local_head_calls(rec, hk: int, hq: int, arm: str) -> dict:
+    """Every recorded paged-kernel call ran at the shard's local heads: the
+    scorer and page attention on ``hk`` KV heads and ``hq`` query heads,
+    vmag on ``hk``, the pool on ``hq`` (chunk queries) and ``hk`` (page
+    summaries).  Returns the head counts seen by kernel."""
+    seen: dict = {}
+    for key, calls in rec.calls.items():
+        name = key.split("/")[0]
+        for a, _ in calls:
+            heads = {"score_pages": lambda: (a["kg_pool"].shape[0], a["qp"].shape[1]),
+                     "attend_pages": lambda: (a["k_pool"].shape[0], a["q"].shape[1]),
+                     "value_magnitude": lambda: (a["v"].shape[-3],),
+                     "antidiag_pool": lambda: (a["x"].shape[-3],)}[name]()
+            seen.setdefault(key, set()).add(heads)
+    want = {"score_pages": {(hk, hq)}, "attend_pages": {(hk, hq)},
+            "value_magnitude": {(hk,)}, "antidiag_pool": {(hk,), (hq,)}}
+    for key, heads in seen.items():
+        if heads != want[key.split("/")[0]]:
+            raise AssertionError(f"phase 16 {arm}: {key} recorded at heads "
+                                 f"{sorted(heads)}, not the shard's {hk} / {hq}")
+    return {k: sorted(v) for k, v in seen.items()}
+
+
+def mesh_fp32_arms() -> dict:
+    """(a) fp32, full width, 4 layers: the single-device sync run, then each
+    mesh through the sync and the async loop, its streams exactly the
+    single-device run's, every kernel call recorded and held against its
+    plain version (1e-4) at the shard's heads."""
+    cfg = QWEN3_0_6B.replace(num_layers=4, dtype="float32")
+    bundle = registry.build(cfg)
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                device="cuda")
+    want, single, _ = _mesh_serve(bundle, params, "a/single")
+    out, launches = {"single": single}, {"a/single": single["launches"]}
+    log("[phase16] (a) fp32 4 layers a/single: " + json.dumps(single))
+    for mesh in MESHES:
+        for loop, depth in (("sync", 0), ("async", 1)):
+            arm = f"a/{mesh[0]}x{mesh[1]}/{loop}"
+            got, run, rec = _mesh_serve(bundle, params, arm, mesh, depth, record=True)
+            if got != want:
+                raise AssertionError(f"phase 16 {arm}: fp32 streams differ from "
+                                     "the single-device run's")
+            if loop == "sync" and mesh[0] == 1 and run["host_syncs"] != single["host_syncs"]:
+                raise AssertionError(f"phase 16 {arm}: {run['host_syncs']} host syncs, "
+                                     f"one device {single['host_syncs']}")
+            run["kernel_calls"] = {k: {f: r[f] for f in ("checked", "of", "share_of_limit")}
+                                   for k, r in rec.check().items()}
+            run["heads"] = _local_head_calls(rec, cfg.num_kv_heads // mesh[1],
+                                             cfg.num_heads // mesh[1], arm)
+            out[arm], launches[arm] = run, run["launches"]
+            log(f"[phase16] (a) fp32 4 layers {arm}: " + json.dumps(run))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def mesh_preempt_arm(bundle, params) -> dict:
+    """(c) tp = 2 preempt and restore, bf16, 28 layers: phase 10 (a)'s
+    6000-token request (32 new) in a 1-slot engine on mesh (1, 2),
+    preempted after 2 chunks: the snapshot keyed by (0, 0) and (0, 1), the
+    restored pages re-extracted equal to it shard for shard, bitwise, the
+    stream equal to the uninterrupted mesh run's and the single-device
+    run's; snapshot bytes, preempt and restore ms."""
+    policy = policy_lib.get_policy("stem")
+    prompt = np.random.RandomState(10).randint(
+        0, bundle.cfg.vocab_size, size=(6000,)).astype(np.int32)
+    req = lambda: engine_lib.Request(uid=0, prompt=prompt, max_new_tokens=32)
+    ecfg = _overload_ecfg(1, 6000, 32)
+    mesh_ecfg = dataclasses.replace(ecfg, mesh=(1, 2))
+    devs = mesh_devices((1, 2))
+    single = engine_lib.StemEngine(bundle, params, policy, ecfg).run([req()])[0]
+    whole = engine_lib.StemEngine(bundle, params, policy, mesh_ecfg,
+                                  mesh_devices=devs).run([req()])[0]
+    torch.cuda.synchronize()
+    reset_all_launches()
+    eng = engine_lib.StemEngine(bundle, params, policy, mesh_ecfg, mesh_devices=devs)
+    eng.submit(req())
+    while eng.stats["chunks"] < 2:
+        eng.step()
+    if eng.slots[0].phase != "prefill":
+        raise AssertionError(f"phase 16 (c): slot in {eng.slots[0].phase}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.preempt(0)
+    preempt_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = eng.host_store.nbytes
+    snap = offload_lib.leaves(eng.host_store.get(0))
+    coords = {tuple(sorted(leaf.shards)) for leaf in snap}
+    if coords != {((0, 0), (0, 1))}:
+        raise AssertionError(f"phase 16 (c): snapshot keyed by {coords}")
+    snap = [{c: t.clone() for c, t in leaf.shards.items()} for leaf in snap]
+    eng.allocators[0].check_conservation([])
+    t0 = time.perf_counter()
+    eng._admit()
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    back = offload_lib.leaves(eng._extract(eng.slot_pages[0], 0))
+    for got, want in zip(back, snap):
+        if sorted(got.shards) != sorted(want) or not all(
+                torch.equal(got.shards[c], want[c]) for c in want):
+            raise AssertionError("phase 16 (c): restored pages differ from the "
+                                 "snapshot")
+    pages = len(eng.slot_pages[0])
+    fin = eng.run()[0]
+    torch.cuda.synchronize()
+    launches = _engine_launches("c/preempt", "phase 16")
+    if not fin.tokens == whole.tokens == single.tokens:
+        raise AssertionError("phase 16 (c): the preempted stream differs from the "
+                             "uninterrupted runs'")
+    if (fin.preemptions, eng.stats["restores"]) != (1, 1):
+        raise AssertionError("phase 16 (c): not one swap")
+    eng.allocators[0].check_conservation([])
+    out = dict(snapshot_bytes=nbytes, shards=[list(c) for c in sorted(snap[0])],
+               pages=pages, preempt_ms=preempt_ms,
+               restore_ms=restore_ms, restore_gb_s=_gbs(nbytes, restore_ms),
+               tokens_equal=True)
+    log("[phase16] (c) tp=2 preempt / restore, bf16 28 layers: " + json.dumps(
+        dict(out, launches={k: launches[k] for k in ENGINE_KERNELS})))
+    out["launches"] = launches
+    return out
+
+
+def mesh_phase() -> dict:
+    """Phase 16: mesh serving (on one card every shard of a mesh sits on
+    cuda:0; ``mesh_devices``).  (a) fp32 4 layers, meshes (1, 2), (2, 1),
+    (2, 2), sync and async; (b) bf16 28 layers, mesh (2, 2) beside one
+    device; (c) tp = 2 preempt and restore; (d) the CLI's --mesh."""
+    t_start = time.perf_counter()
+    cards = torch.cuda.device_count()
+    log(f"[phase16] {cards} card(s): " + (
+        f"each shard of a mesh of up to {cards} shards on its own card, a "
+        "larger mesh's on cuda:0" if cards > 1 else
+        "every shard of a mesh on cuda:0, so the shards share one card and a "
+        "mesh cannot be faster"))
+    out, launches = {}, {}
+    out["a"], launches_a = mesh_fp32_arms()
+    launches.update(launches_a)
+
+    bundle = registry.build(QWEN3_0_6B)
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                device="cuda")
+    want, single, _ = _mesh_serve(bundle, params, "b/single")
+    got, mesh, _ = _mesh_serve(bundle, params, "b/2x2", (2, 2))
+    partings = None
+    if got != want:
+        # rerun both arms with every sampled logits row tapped
+        with LogitTap() as tap_a:
+            _mesh_serve(bundle, params, "b/single/tapped")
+        with LogitTap() as tap_b:
+            got2, _, _ = _mesh_serve(bundle, params, "b/2x2/tapped", (2, 2))
+        partings = check_partings("bf16/28 one device vs (2, 2)", want, tap_a.rows,
+                                  got2, tap_b.rows, "bfloat16", strict=False,
+                                  phase="phase16")
+    out["b"] = dict(single=single, mesh_2x2=mesh, streams_equal=got == want,
+                    partings=partings)
+    launches["b/single"], launches["b/2x2"] = single["launches"], mesh["launches"]
+    log("[phase16] (b) bf16 28 layers, one device vs mesh (2, 2) (a baseline, "
+        "not a gain): " + json.dumps(out["b"]))
+    out["c"] = mesh_preempt_arm(bundle, params)
+    launches["c/preempt"] = out["c"]["launches"]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    reset_all_launches()
+    res = serve_lib.main(cli_args("qwen3-0.6b", 2000, 6000, 16, "--mesh", "1,1"))
+    launches["d/cli"] = _engine_launches("d/cli --mesh 1,1", "phase 16")
+    if res["failed"] or res["mesh"] != [1, 1]:
+        raise AssertionError(f"phase 16 (d): mesh {res['mesh']}, failed {res['failed']}")
+    out["d"] = {k: res[k] for k in ("mesh", "ttft_ms_mean", "tpot_ms_mean", "wall_s",
+                                    "total_tokens")}
+    if torch.cuda.device_count() < 2:
+        try:
+            serve_lib.main(cli_args("qwen3-0.6b", 2000, 6000, 16, "--mesh", "1,2"))
+        except SystemExit as e:
+            if "needs 2 devices" not in str(e):
+                raise AssertionError(f"phase 16 (d): --mesh 1,2 exited with {e}") from e
+            out["d"]["mesh_1x2"] = str(e)
+        else:
+            raise AssertionError("phase 16 (d): --mesh 1,2 ran on one card")
+    log("[phase16] (d) cli: " + json.dumps(out["d"]))
+    out["launches"] = launches
+    out["s"] = time.perf_counter() - t_start
+    log(f"[phase16] done in {out['s']:.1f} s")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -4901,6 +5218,10 @@ def main() -> None:
     p15 = train_phase(records)
     p15_launches = lambda key: {arm: r["launches"][key] for arm, r in p15["cli"].items()}
 
+    # Phase 16: mesh serving (every shard of a mesh on this one card).
+    p16 = mesh_phase()
+    p16_launches = lambda key: {arm: n.get(key, 0) for arm, n in p16["launches"].items()}
+
     kernels = []
     for key in ("score/decode", "score/chunk", "attend/decode", "attend/chunk"):
         kernel, lane = key.split("/")
@@ -4915,6 +5236,7 @@ def main() -> None:
             phase12_launches=p12_launches(key),
             phase14_launches=p14_launches(key),
             phase15_launches=p15_launches(key),
+            phase16_launches=p16_launches(key),
             max_abs_err=max(r["max_abs_err"] for r in records[key].values()),
             ms=rec["ms"], host_ms=rec["host_ms"], plain_ms=rec["plain_ms"],
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
@@ -4933,6 +5255,7 @@ def main() -> None:
             phase13_launches=p13_launches(counter),
             phase14_launches=p14_launches(counter),
             phase15_launches=p15_launches(counter),
+            phase16_launches=p16_launches(counter),
             max_abs_err=max(r["max_abs_err"]
                             for r in records[f"{key}/prefill"].values()),
             ms=rec["ms"], host_ms=rec["host_ms"], plain_ms=rec["plain_ms"],

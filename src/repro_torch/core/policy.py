@@ -1,7 +1,7 @@
 """Composable sparsity policies: metric x schedule x selector (+ executor).
 
-Port of ``repro/core/policy.py`` without its mesh-sharding contract: the
-OAM / routing-only (SAM, XAttention) / streaming metrics, the four budget
+Port of ``repro/core/policy.py``, the paged executors' mesh-sharding
+contract included: the OAM / routing-only (SAM, XAttention) / streaming metrics, the four budget
 schedules, the top-k selector with forced sink/local floors and the
 cumulative-mass (XAttention) selector, the frozen ``SparsityPolicy``, the
 metric/schedule/selector/policy registries (``as_policy``,
@@ -664,20 +664,33 @@ class PagedExecutorSpec:
     ``decode_fn(q, pool, page_table, cache_lens, policy, budget_frac)`` and
     ``chunk_fn(q, pool, page_table, chunk_start, budgets, policy, k_max)``
     return the attention output and must be selection-identical to the
-    "gather" oracle."""
+    "gather" oracle.
+
+    ``sharding`` declares the backend's tensor-parallel contract for mesh
+    serving (``sharding/serving.py``; ref ``src/repro/core/policy.py:
+    799-834``): "kv-head" means both lanes are independent per KV head —
+    they read the head count from the pool and never reduce across heads —
+    so a shard's pool slice with its sliced q / k / v gives the full run
+    restricted to those heads.  "replicated" marks a backend that must see
+    every head; tp > 1 refuses it when the engine is built."""
 
     decode_fn: Callable
     chunk_fn: Callable
+    sharding: str = "kv-head"
 
 
 _PAGED_EXECUTORS: dict = {}
 
 
 def register_paged_executor(name: str, *, decode_fn: Callable,
-                            chunk_fn: Callable,
+                            chunk_fn: Callable, sharding: str = "kv-head",
                             overwrite: bool = False) -> PagedExecutorSpec:
+    if sharding not in ("kv-head", "replicated"):
+        raise ValueError(f"sharding must be 'kv-head' or 'replicated', "
+                         f"got {sharding!r}")
     return _register(_PAGED_EXECUTORS, "paged executor", name,
-                     PagedExecutorSpec(decode_fn=decode_fn, chunk_fn=chunk_fn),
+                     PagedExecutorSpec(decode_fn=decode_fn, chunk_fn=chunk_fn,
+                                       sharding=sharding),
                      overwrite)
 
 

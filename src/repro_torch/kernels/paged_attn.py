@@ -49,6 +49,8 @@ Port of ``repro/kernels/paged_attn.py``.  Two hand-written CUDA kernels for
 
 Beside each kernel sits its plain PyTorch version (``score_pages_plain``,
 ``attend_pages_plain``) and a plain-int launch counter in ``LAUNCHES``.  A
+kernel launches with its tensors' card as the current device (a mesh
+shard's tensors may sit on another card than the caller's current one).  A
 wrapper takes the plain version only for tensors on the CPU; for a CUDA
 tensor it launches the kernel or raises — there is no fallback.
 
@@ -186,10 +188,11 @@ def score_pages(qp, kg_pool, page_table, *, group: int, scale: float,
     _check(hq == hk * group and page_table.shape[0] == b,
            "score_pages: head/batch shapes disagree")
     out = torch.empty((b, hq, nc, maxp), dtype=torch.float32, device=qp.device)
-    err = _lib().stem_paged_score(
-        qp.data_ptr(), sb, sh, sc, ss, int(pair), kg_pool.data_ptr(),
-        page_table.data_ptr(), out.data_ptr(), b, hq, hk, nc, s, d, maxp,
-        num_pages, float(scale), _stream_ptr(qp.device))
+    with torch.cuda.device(qp.device):
+        err = _lib().stem_paged_score(
+            qp.data_ptr(), sb, sh, sc, ss, int(pair), kg_pool.data_ptr(),
+            page_table.data_ptr(), out.data_ptr(), b, hq, hk, nc, s, d, maxp,
+            num_pages, float(scale), _stream_ptr(qp.device))
     if err != 0:
         raise RuntimeError(f"stem_paged_score launch failed: cudaError {err}")
     LAUNCHES["score/" + lane] += 1
@@ -319,13 +322,14 @@ def attend_pages(q, k_pool, v_pool, gp, idx, cnt, pos, *, block_size: int,
         _check(lib.stem_paged_attend_tile_smem(d, rows, bs) <= MAX_SMEM_BYTES,
                "attend_pages: query tile exceeds shared memory")
     out = torch.empty((b, hq, nc, rows, d), dtype=q.dtype, device=q.device)
-    err = lib.stem_paged_attend(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), gp.data_ptr(),
-        idx.data_ptr(), cnt.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(),
-        b, hq, hk, nc, rows, d, bs, k_max, num_pages, splits, PAGES_PER_SPLIT,
-        int(q.dtype == torch.bfloat16), float(d) ** -0.5,
-        _stream_ptr(q.device))
+    with torch.cuda.device(q.device):
+        err = lib.stem_paged_attend(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), gp.data_ptr(),
+            idx.data_ptr(), cnt.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(),
+            b, hq, hk, nc, rows, d, bs, k_max, num_pages, splits, PAGES_PER_SPLIT,
+            int(q.dtype == torch.bfloat16), float(d) ** -0.5,
+            _stream_ptr(q.device))
     if err != 0:
         raise RuntimeError(f"stem_paged_attend launch failed: cudaError {err}")
     LAUNCHES["attend/" + lane] += 1
@@ -424,4 +428,5 @@ def fused_paged_chunk(q, pool, page_table, chunk_start, budgets, cfg,
 
 
 policy_lib.register_paged_executor(
-    "fused", decode_fn=fused_paged_decode, chunk_fn=fused_paged_chunk)
+    "fused", decode_fn=fused_paged_decode, chunk_fn=fused_paged_chunk,
+    sharding="kv-head")

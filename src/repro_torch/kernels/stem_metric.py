@@ -124,10 +124,11 @@ def antidiag_pool(x: torch.Tensor, *, block_size: int = 128, stride: int = 16,
     *lead, n, d = x.shape
     out = torch.empty((*lead, n // block_size, stride, d), dtype=out_dtype,
                       device=x.device)
-    err = _lib().stem_antidiag_pool(
-        x.data_ptr(), out.data_ptr(), bh, n, d, block_size, stride,
-        int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-        pool_vector_width(x, out), torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):    # the current device is the tensors'
+        err = _lib().stem_antidiag_pool(
+            x.data_ptr(), out.data_ptr(), bh, n, d, block_size, stride,
+            int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+            pool_vector_width(x, out), torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"stem_antidiag_pool launch failed: cudaError {err}")
     LAUNCHES["antidiag_pool"] += 1
@@ -150,10 +151,11 @@ def value_magnitude(v: torch.Tensor, *, block_size: int = 128) -> torch.Tensor:
     bh = _check_input("value_magnitude", v, block_size)
     *lead, n, d = v.shape
     out = torch.empty((*lead, n // block_size), dtype=torch.float32, device=v.device)
-    err = _lib().stem_value_magnitude(
-        v.data_ptr(), out.data_ptr(), bh, n, d, block_size,
-        int(v.dtype == torch.bfloat16), vmag_vector_width(v),
-        torch.cuda.current_stream(v.device).cuda_stream)
+    with torch.cuda.device(v.device):
+        err = _lib().stem_value_magnitude(
+            v.data_ptr(), out.data_ptr(), bh, n, d, block_size,
+            int(v.dtype == torch.bfloat16), vmag_vector_width(v),
+            torch.cuda.current_stream(v.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"stem_value_magnitude launch failed: cudaError {err}")
     LAUNCHES["value_magnitude"] += 1

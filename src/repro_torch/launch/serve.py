@@ -30,8 +30,10 @@ sampling, one-step lookahead dispatch).
 ``--policy <name>`` resolves a registered ``SparsityPolicy`` and rescales it
 to the serving geometry; without it, ``--stem`` picks the flag-built stem
 policy's sparse arm.  The port runs on ``--device`` (default ``cuda``).
-``--mesh``, whose feature the port does not have yet, raises ``SystemExit``
-naming the ``ROADMAP.md`` item that will lift it.
+``--mesh dp,tp`` serves the engine on a device mesh (``sharding/serving.py``:
+dp slot groups, the page pools split over KV heads tp ways): on the card it
+takes the first ``dp * tp`` cards (too few exits with the engine's message),
+with ``--device cpu`` any mesh of CPU shards.
 
 ``--arch`` takes a dense configuration, the MoE ``arctic-480b`` (the MoE
 FFN runs per lane: a row's expert capacity counts its own tokens) or the
@@ -64,18 +66,7 @@ import time
 import numpy as np
 import torch
 
-# Flags of the reference whose feature the port lacks: (is it set, message).
-_UNPORTED = (
-    (lambda a: bool(a.mesh),
-     "--mesh: mesh serving is ROADMAP.md queue 1 item 6"),
-)
-
-
-def _reject_unported(args) -> None:
-    for is_set, msg in _UNPORTED:
-        if is_set(args):
-            raise SystemExit(f"serve: not ported yet: {msg}")
-
+from repro_torch.sharding.serving import make_serving_mesh
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
@@ -129,9 +120,22 @@ def _latency_stats(finished):
     return out
 
 
+def parse_mesh(spec: str):
+    """``--mesh``'s ``"dp,tp"`` -> ``(dp, tp)``; empty -> None (ref
+    ``src/repro/launch/serve.py:93-99``)."""
+    if not spec:
+        return None
+    try:
+        dp, tp = (int(x) for x in spec.split(","))
+    except ValueError:
+        raise SystemExit(f"--mesh wants 'dp,tp' (got {spec!r})") from None
+    return dp, tp
+
+
 def run_engine(args, cfg, bundle, params, stem_cfg, budget_frac):
     from repro_torch.runtime.engine import EngineConfig, StemEngine
 
+    mesh = parse_mesh(args.mesh)
     ecfg = EngineConfig.for_trace(
         max_slots=args.max_slots, max_prompt=args.max_prompt,
         max_new_tokens=args.decode_tokens, page_size=stem_cfg.block_size,
@@ -144,6 +148,7 @@ def run_engine(args, cfg, bundle, params, stem_cfg, budget_frac):
         scheduler=args.scheduler,
         max_waiting=args.max_waiting or None,
         executor=args.executor or None,
+        mesh=mesh,
         admission_control=args.admission_control,
         async_depth=args.async_depth,
         sampler=args.sampler)
@@ -151,7 +156,12 @@ def run_engine(args, cfg, bundle, params, stem_cfg, budget_frac):
     if args.chaos:
         from repro_torch.runtime.chaos import CLI_PLAN, ChaosInjector
         chaos = ChaosInjector(CLI_PLAN)
-    engine = StemEngine(bundle, params, stem_cfg, ecfg, chaos=chaos)
+    devices = None
+    if mesh:
+        devices = make_serving_mesh(*mesh,
+                                    platform=params["embed"].device.type).devices
+    engine = StemEngine(bundle, params, stem_cfg, ecfg, chaos=chaos,
+                        mesh_devices=devices)
     rng = np.random.RandomState(args.seed + 1)
     trace = build_trace(rng, args.requests, args.min_prompt, args.max_prompt,
                         args.decode_tokens, cfg.vocab_size, args.arrival_every,
@@ -175,7 +185,7 @@ def run_engine(args, cfg, bundle, params, stem_cfg, budget_frac):
         "prefill": "monolithic" if args.monolithic else "chunked",
         "loop": "async" if ecfg.async_depth else "sync",
         "scheduler": ecfg.scheduler,
-        "mesh": None,
+        "mesh": list(mesh) if mesh else None,
         "chunk_size": engine.chunk_size,
         "step_token_budget": engine.token_budget,
         "requests": len(finished),
@@ -193,7 +203,8 @@ def run_engine(args, cfg, bundle, params, stem_cfg, budget_frac):
         "tokens": {f.uid: f.tokens for f in finished},
         **stats,
     }
-    print(f"engine ({out['prefill']}, {out['loop']}, {ecfg.scheduler}): "
+    print(f"engine ({out['prefill']}, {out['loop']}, {ecfg.scheduler}"
+          f"{f', mesh {mesh}' if mesh else ''}): "
           f"{len(finished)} reqs ({len(failed)} failed), {total_tokens} "
           f"tokens in {wall*1e3:.0f} ms -> {out['throughput_tok_s']:.1f} "
           f"tok/s; TTFT {out['ttft_ms_mean']:.1f} ms; TPOT "
@@ -216,9 +227,9 @@ def run_engine(args, cfg, bundle, params, stem_cfg, budget_frac):
     if args.prefix_cache:
         print(f"  prefix cache: hits {s['prefix_hits']}, pages shared "
               f"{s['prefix_pages_shared']}, cows {s['prefix_cows']}; "
-              f"allocator shares {engine.allocator.shares}, cached pages "
-              f"{engine.allocator.cached_pages}, total alloced "
-              f"{engine.allocator.total_alloced}", flush=True)
+              f"allocator shares {metrics['prefix_shares']}, cached pages "
+              f"{metrics['prefix_cached_pages']}, total alloced "
+              f"{metrics['allocator_total_alloced']}", flush=True)
     if metrics["straggler_steps"]:
         worst = max(metrics["straggler_steps"], key=lambda f: f[1])
         print(f"  stragglers: {len(metrics['straggler_steps'])} flagged "
@@ -350,7 +361,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--hp-tpot-slo-ms", type=float, default=50.0,
                     help="TPOT SLO of the high-priority class")
     ap.add_argument("--mesh", default="",
-                    help="not ported yet (ROADMAP.md queue 1 item 6)")
+                    help="'dp,tp' device mesh: dp-way data-parallel slot "
+                         "groups x tp-way KV-head sharding of the page pools "
+                         "(on the card the first dp*tp cards; with --device "
+                         "cpu CPU shards; empty = one device)")
     ap.add_argument("--executor", choices=("", "fused", "gather"), default="",
                     help="executor to force on the paged lanes and every "
                          "prefill ('fused' CUDA kernels | 'gather' PyTorch "
@@ -378,7 +392,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    _reject_unported(args)
+    mesh = parse_mesh(args.mesh)
+    if mesh and not args.fixed_batch:
+        # A mesh the devices cannot hold exits before the weights are drawn.
+        try:
+            make_serving_mesh(*mesh, platform=torch.device(args.device).type)
+        except ValueError as e:
+            raise SystemExit(f"serve: {e}") from None
 
     from repro_torch import configs
     from repro_torch.core import policy as policy_lib

@@ -1,10 +1,12 @@
 """Step functions (port of ``make_train_step``, ``make_unified_step``,
 ``make_monolithic_prefill``, ``make_prefill_step``, ``set_cache_positions``
-and ``make_serve_step`` from ``repro/launch/steps.py``, single device).  PyTorch runs eagerly, so each
-step is a plain closure; the reference's trace counting and mesh wrapping
-have no counterpart here, and the page extract / restore / copy steps are
-the engine's direct calls of ``runtime/offload.py`` and
-``paged.copy_pages_stacked``."""
+and ``make_serve_step`` from ``repro/launch/steps.py``).  PyTorch runs
+eagerly, so each step is a plain closure; the reference's trace counting
+has no counterpart here, its ``shard_map`` + ``vmap`` over the serving
+mesh becomes a loop over the slot groups (``make_unified_step(smesh=)``),
+and the page extract / restore / copy steps are the engine's direct calls
+of ``runtime/offload.py`` and ``runtime/paged.py``.  Training runs on one
+device."""
 from __future__ import annotations
 
 import torch
@@ -82,7 +84,7 @@ def make_train_step(bundle, opt_cfg: optim.AdamWConfig, *, stem_cfg=None,
 
 
 def make_unified_step(bundle, *, stem_cfg, budget_frac: float = 1.0,
-                      chunk_k_max: int = 0, sampler=None):
+                      chunk_k_max: int = 0, sampler=None, smesh=None):
     """(params, pools, tokens (S, 1), page_table (S, P), cache_lens (S,),
     chunk) -> (decode logits (S, vocab), chunk logits (L, vocab) | None,
     pools), one mixed batch per call (``transformer.paged_mixed_step``).
@@ -94,11 +96,32 @@ def make_unified_step(bundle, *, stem_cfg, budget_frac: float = 1.0,
     carries ``slot`` and ``emit``.
 
     Every layer reads the paged backend from ``policy.executor`` ("fused" |
-    "gather")."""
+    "gather").
+
+    With ``smesh`` (a ``sharding.serving.ServingMesh``; ref
+    ``src/repro/launch/steps.py:144-325``) the step drives every slot group
+    of the mesh in one call, group after group, where the reference maps
+    ``shard_map`` + ``vmap`` over them.  ``params`` is
+    ``serving.replicate_params``' ``{device: tree}``, ``pools`` the
+    engine's list of one ``serving.HeadShards`` a group, and every batch
+    argument gains the reference's leading ``(dp, ...)`` axis: a tensor or
+    a sequence indexed by group first (tokens (dp, S, 1), page_table (dp,
+    S, P), cache_lens (dp, S), chunk leaves (dp, L, ...); sampled:
+    token_buf a sequence of the groups' ``(S + 1,)`` buffers, dec_mask
+    (dp, S), ``chunk["slot"]`` group-local).  Group ``g``'s slice moves to
+    its lead device ``(g, 0)`` (no copy when it is there already), which
+    runs the projections, the MLP and the logits; each attention layer
+    runs the group's tp shards on their own devices.  Outputs are
+    per-group lists in group order: decode logits (S, vocab) and chunk
+    logits (L, vocab) | None, or sampled (S,) / (L,) ids and the groups'
+    token buffers."""
     cfg = bundle.cfg
     transformer.assert_paged_servable(cfg)
     policy = policy_lib.as_policy(stem_cfg)
     policy_lib.get_paged_executor(policy.executor)   # unknown names raise now
+    if smesh is not None:
+        return _mesh_unified_step(cfg, smesh, policy, budget_frac,
+                                  chunk_k_max, sampler)
 
     if sampler is None:
         def unified_step(params, pools, tokens, page_table, cache_lens,
@@ -115,6 +138,47 @@ def make_unified_step(bundle, *, stem_cfg, budget_frac: float = 1.0,
             params, token_buf, pools, page_table, cache_lens, dec_mask, cfg,
             stem_cfg=policy, sampler=sampler, budget_frac=budget_frac,
             chunk=chunk, chunk_k_max=chunk_k_max)
+    return unified_sampled
+
+
+def _mesh_unified_step(cfg, smesh, policy, budget_frac: float,
+                       chunk_k_max: int, sampler):
+    """``make_unified_step``'s mesh form: one call advances every slot
+    group."""
+    def group_args(g, chunk):
+        dev = smesh.device(g, 0)
+        return dev, (None if chunk is None
+                     else {k: v[g].to(dev) for k, v in chunk.items()})
+
+    if sampler is None:
+        def unified_step(params, pools, tokens, page_table, cache_lens,
+                         chunk=None):
+            dec, chunks = [], []
+            for g in range(smesh.dp):
+                dev, ch = group_args(g, chunk)
+                d, c, _ = transformer.paged_mixed_step(
+                    params[dev], tokens[g].to(dev), pools[g],
+                    page_table[g].to(dev), cache_lens[g].to(dev), cfg,
+                    stem_cfg=policy, budget_frac=budget_frac, chunk=ch,
+                    chunk_k_max=chunk_k_max)
+                dec.append(d)
+                chunks.append(c)
+            return dec, None if chunk is None else chunks, pools
+        return unified_step
+
+    def unified_sampled(params, pools, token_buf, dec_mask, page_table,
+                        cache_lens, chunk=None):
+        dec, chunks = [], []
+        for g in range(smesh.dp):
+            dev, ch = group_args(g, chunk)
+            d, c, _, _ = transformer.paged_sampled_step(
+                params[dev], token_buf[g], pools[g], page_table[g].to(dev),
+                cache_lens[g].to(dev), dec_mask[g].to(dev), cfg,
+                stem_cfg=policy, sampler=sampler, budget_frac=budget_frac,
+                chunk=ch, chunk_k_max=chunk_k_max)
+            dec.append(d)
+            chunks.append(c)
+        return dec, None if chunk is None else chunks, token_buf, pools
     return unified_sampled
 
 

@@ -1,7 +1,8 @@
 """Grouped-query attention with a pluggable sparsity policy (port of
 ``repro/models/attention.py``): ``apply_full``, ``prefill_into_cache`` and
 ``apply_decode`` over global or windowed (ring) caches, the paged
-``apply_decode_paged`` / ``apply_chunk_paged``, and the encoder-decoder
+``apply_decode_paged`` / ``apply_chunk_paged`` (on one device or over a
+slot group's tp shards), and the encoder-decoder
 cross attention (``init_cross``, ``cross_kv``, ``apply_cross``).
 
 Full-sequence attention runs the policy-sparse path
@@ -27,6 +28,7 @@ from repro_torch.core.sparse_attention import (dense_attention,
                                                sparse_attention)
 from repro_torch.models import common
 from repro_torch.runtime import paged as paged_lib
+from repro_torch.sharding import serving as serving_lib
 
 
 class KVCache(NamedTuple):
@@ -269,10 +271,28 @@ def apply_decode_paged(params, x, cfg: ArchConfig, pool, page_table,
     """One decode step against the paged cache: append the new token's K/V
     (+ summary increments, in place), then policy page selection + exact
     attention over the selected pages.  x: (slots, 1, d).
-    Returns (out, pool)."""
+    Returns (out, pool).
+
+    Under the serving mesh ``pool`` is a ``serving.HeadShards`` of the tp
+    ranks' layer pools (ref ``src/repro/models/attention.py:255-283``): the
+    projections are computed once, each rank appends and attends its head
+    block on its own device, and the outputs are gathered in rank order
+    before ``wo``."""
     stem_cfg = policy_lib.as_policy(stem_cfg)
     lens = cache_lens.to(torch.int32)
     q, k_new, v_new = _project(params, x, cfg, lens[:, None], use_rope=use_rope)
+    if isinstance(pool, serving_lib.HeadShards):
+        tp, outs = len(pool), []
+        for t, pl in enumerate(pool):
+            dev = pl.k.device
+            pt, ln = page_table.to(dev), lens.to(dev)
+            paged_lib.append_token(
+                pl, pt, ln, serving_lib.local_heads(k_new, t, tp).to(dev),
+                serving_lib.local_heads(v_new, t, tp).to(dev), stem_cfg)
+            outs.append(paged_lib.paged_sparse_decode(
+                serving_lib.local_heads(q, t, tp).to(dev), pl, pt, ln + 1,
+                stem_cfg, budget_frac=budget_frac))
+        return _out_proj(serving_lib.gather_heads(outs, x.device), x, params), pool
     pool = paged_lib.append_token(pool, page_table, lens, k_new, v_new, stem_cfg)
     o = paged_lib.paged_sparse_decode(q, pool, page_table, lens + 1, stem_cfg,
                                       budget_frac=budget_frac)
@@ -285,11 +305,26 @@ def apply_chunk_paged(params, x, cfg: ArchConfig, pool, page_table,
     """One chunked-prefill step against the paged cache: write the chunk's
     K/V pages + summaries first (in place), then chunked selection + exact
     attention over history and in-chunk pages at absolute positions.
-    x: (lanes, C, d).  Returns (out, pool)."""
+    x: (lanes, C, d).  Returns (out, pool).  Under the serving mesh
+    ``pool`` is a ``serving.HeadShards``, as in ``apply_decode_paged`` (ref
+    ``src/repro/models/attention.py:286-327``)."""
     stem_cfg = policy_lib.as_policy(stem_cfg)
     c = x.shape[1]
     positions = chunk_start[:, None] + torch.arange(c, device=x.device)[None, :]
     q, k_new, v_new = _project(params, x, cfg, positions, use_rope=use_rope)
+    if isinstance(pool, serving_lib.HeadShards):
+        tp, outs = len(pool), []
+        for t, pl in enumerate(pool):
+            dev = pl.k.device
+            pt, start = page_table.to(dev), chunk_start.to(dev)
+            paged_lib.write_chunk_pages(
+                pl, pt, start, serving_lib.local_heads(k_new, t, tp).to(dev),
+                serving_lib.local_heads(v_new, t, tp).to(dev),
+                true_len.to(dev), stem_cfg)
+            outs.append(chunked_lib.chunked_prefill_attention(
+                serving_lib.local_heads(q, t, tp).to(dev), pl, pt, start,
+                budgets.to(dev), stem_cfg, k_max))
+        return _out_proj(serving_lib.gather_heads(outs, x.device), x, params), pool
     pool = paged_lib.write_chunk_pages(pool, page_table, chunk_start, k_new,
                                        v_new, true_len, stem_cfg)
     o = chunked_lib.chunked_prefill_attention(q, pool, page_table,

@@ -1,6 +1,8 @@
 """Mixture-of-Experts FFN (port of ``repro/models/moe.py``, the local path:
-one device holds every expert; the expert-parallel ``shard_map`` branch
-waits for mesh serving).
+one device holds every expert).  The reference's expert-parallel
+``shard_map`` branch runs only inside ``sharding.context.use``, which only
+its XLA dry run enters; under the serving mesh its MoE FFN runs
+replicated, as this one does on each slot group's lead device.
 
 Routing: fp32 router logits, softmax gates, top-k with the lower expert
 first on ties (``jax.lax.top_k``'s order), weights renormalized.  Capacity

@@ -36,6 +36,7 @@ from repro_torch.core import chunked as chunked_lib
 from repro_torch.core import policy as policy_lib
 from repro_torch.models import attention, common, mla, mlp, moe, rglru, ssd
 from repro_torch.runtime import paged as paged_lib
+from repro_torch.sharding import serving as serving_lib
 
 PAGED_KINDS = ("dense", "moe")   # attention sub-layers the paged engine serves
 MLA_KINDS = ("mla_dense", "mla_moe")
@@ -158,11 +159,21 @@ def init_params(generator: torch.Generator, cfg: ArchConfig, device="cuda") -> d
     return p
 
 
-def init_page_pools(cfg: ArchConfig, num_pages: int, stem_cfg, device="cuda"):
+def init_page_pools(cfg: ArchConfig, num_pages: int, stem_cfg, device="cuda",
+                    smesh=None):
     """Per-layer page pools stacked like the parameters:
-    ``[{"sub0": PagePool with (n_layers, hk, P, ...) leaves}]``."""
+    ``[{"sub0": PagePool with (n_layers, hk, P, ...) leaves}]``.
+
+    With ``smesh`` (a ``sharding.serving.ServingMesh``; ref
+    ``src/repro/models/transformer.py:563-587``) the pristine pools are
+    placed on the mesh: one ``serving.HeadShards`` a slot group, its rank
+    ``t`` holding KV heads ``[t * hk / tp, (t + 1) * hk / tp)`` on device
+    ``(g, t)`` (``device`` is then unused)."""
     stem_cfg = policy_lib.as_policy(stem_cfg)
     assert_paged_servable(cfg)
+    if smesh is not None:
+        return serving_lib.shard_pools(init_page_pools(
+            cfg, num_pages, stem_cfg, device=smesh.device(0, 0)), smesh)
     return [{f"sub{i}": paged_lib.init_pool(
                 num_pages, cfg.num_kv_heads, stem_cfg.block_size,
                 cfg.head_dim, stem_cfg.stride, cfg.torch_dtype, device,
@@ -532,6 +543,15 @@ def _logits(params, x, cfg: ArchConfig):
     return torch.einsum("bsd,dv->bsv", x.float(), params["head"].float())
 
 
+def _layer_pool(pools, si: int, sub: str, layer: int):
+    """One layer's pool: a view into the stacked leaves, or under the mesh
+    the ``HeadShards`` of every rank's view."""
+    if isinstance(pools, serving_lib.HeadShards):
+        return serving_lib.HeadShards(
+            paged_lib.layer_view(tree[si][sub], layer) for tree in pools)
+    return paged_lib.layer_view(pools[si][sub], layer)
+
+
 def paged_mixed_step(params, tokens, pools, page_table, cache_lens,
                      cfg: ArchConfig, *, stem_cfg, budget_frac: float = 1.0,
                      chunk=None, chunk_k_max: int = 0):
@@ -542,7 +562,12 @@ def paged_mixed_step(params, tokens, pools, page_table, cache_lens,
     tensors for L chunk lanes: tokens (L, C), page_table (L, max_pages),
     start (L,), true_len (L,), budgets (L, C // block), last (L,).
     Pools are updated in place.  Returns (decode logits (slots, vocab),
-    chunk logits (L, vocab) | None, pools)."""
+    chunk logits (L, vocab) | None, pools).
+
+    Under the serving mesh ``pools`` is one slot group's
+    ``serving.HeadShards`` (its tp ranks' pool trees) and every other
+    argument lives on the group's lead device ``(g, 0)``: each attention
+    sub-layer runs its heads shard by shard (``attention.apply_*_paged``)."""
     dtype = cfg.torch_dtype
     x = common.embed_lookup(params["embed"], tokens, dtype)
     xc = None
@@ -557,7 +582,7 @@ def paged_mixed_step(params, tokens, pools, page_table, cache_lens,
             layer_params = _index(seg, layer)
             for i, kind in enumerate(kinds):
                 p = layer_params[f"sub{i}"]
-                pl = paged_lib.layer_view(pools[si][f"sub{i}"], layer)
+                pl = _layer_pool(pools, si, f"sub{i}", layer)
                 if chunk is not None:
                     hc = common.rms_norm(xc, p["norm1"])
                     mix_c, pl = attention.apply_chunk_paged(
@@ -605,7 +630,9 @@ def paged_sampled_step(params, token_buf, pools, page_table, cache_lens,
         shape and a host sync).
 
     Returns (dec_ids (slots,) int32, chunk_ids (L,) int32 | None, token_buf,
-    pools)."""
+    pools).  Under the serving mesh ``pools`` is one slot group's
+    ``serving.HeadShards``, and ``token_buf`` that group's buffer (``chunk
+    ["slot"]`` group-local), as in ``paged_mixed_step``."""
     slots = dec_mask.shape[0]
     dec_logits, chunk_logits, pools = paged_mixed_step(
         params, token_buf[:slots, None], pools, page_table, cache_lens, cfg,

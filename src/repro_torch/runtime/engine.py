@@ -1,6 +1,5 @@
 """Continuous-batching serving engine over the paged Stem KV cache (port of
-``repro/runtime/engine.py``: one device, the synchronous loop, no prefix
-cache).
+``repro/runtime/engine.py``).
 
 Requests arrive over time, are admitted into a fixed set of slots with an
 all-or-nothing page reservation for their whole lifetime (the reserved
@@ -77,8 +76,19 @@ so the streams equal the synchronous loop's bitwise.
 
 The pools are updated in place (the reference's are functional), which is
 why every failure injection sits ahead of the pool writes it guards.
+With ``EngineConfig(mesh=(dp, tp))`` one engine drives a serving mesh
+(``sharding/serving.py``): tp splits every page pool over its KV heads
+(each shard scores, selects and attends its heads on its own device, the
+outputs gathered before ``wo``: the single-device step, bitwise), and dp
+adds slot groups, each with ``max_slots`` slots, ``num_pages`` pages and
+its own ``PageAllocator``.  The scheduler partitions its grants by group,
+each group with the full token budget and its own chunk lanes; a new
+request goes to the group with a free slot and the most free pages, a
+restore to its own group.  A step costs one host fetch per active lane
+kind, mesh or not.
+
 PyTorch runs eagerly, so the engine has no trace counter (the reference's
-``traces`` / ``prefill_traces``).  Not ported yet: mesh serving.
+``traces`` / ``prefill_traces``).
 """
 from __future__ import annotations
 
@@ -99,6 +109,7 @@ from repro_torch.runtime import paged as paged_lib
 from repro_torch.runtime import sampling as sampling_lib
 from repro_torch.runtime.fault_tolerance import InjectedFailure
 from repro_torch.runtime.straggler import StragglerMonitor
+from repro_torch.sharding import serving as serving_lib
 
 
 class EngineStalledError(RuntimeError):
@@ -189,7 +200,12 @@ class EngineConfig:
     the allocator's prefix index (chunked prefill only); ``prefix_evict``
     is the cached pages' reclaim order, "lru" or "hit-rate".
     ``async_depth`` 0 is the synchronous loop, 1 the one-step-lookahead
-    async loop (chunked prefill only)."""
+    async loop (chunked prefill only).
+
+    ``mesh`` ``(dp, tp)`` serves on a device mesh (ref
+    ``src/repro/runtime/engine.py:219-227``): tp splits the pools' KV-head
+    axis, dp adds slot groups of ``max_slots`` slots and ``num_pages``
+    pages each; None is one device.  Chunked prefill only."""
     max_slots: int = 4
     num_pages: int = 64
     max_pages_per_slot: int = 16
@@ -211,6 +227,7 @@ class EngineConfig:
     admission_control: bool = False
     async_depth: int = 0
     sampler: str = "greedy"
+    mesh: Optional[tuple] = None
 
     def __post_init__(self):
         if self.scheduler not in ("slo", "fcfs"):
@@ -225,6 +242,14 @@ class EngineConfig:
                 f"prefix_evict must be one of "
                 f"{paged_lib.PageAllocator.EVICT_POLICIES}, "
                 f"got {self.prefix_evict!r}")
+        if self.mesh is not None:
+            if len(self.mesh) != 2 or any(int(a) < 1 for a in self.mesh):
+                raise ValueError(f"mesh must be (dp >= 1, tp >= 1), "
+                                 f"got {self.mesh!r}")
+            if self.monolithic_prefill:
+                raise ValueError(
+                    "mesh serving runs through the unified chunked step; "
+                    "disable monolithic_prefill")
         if self.async_depth not in (0, 1):
             raise ValueError(
                 f"async_depth must be 0 (synchronous) or 1 (one-step "
@@ -290,19 +315,22 @@ class _Preempted:
     preempt_step: int
     restore_attempts: int = 0
     shared_pages: list = dataclasses.field(default_factory=list)
+    group: int = 0                # slot group: its snapshot's bytes belong
+                                  # to that group's pool shards, so the
+                                  # restore goes back there
 
 
 @dataclasses.dataclass
 class _InFlight:
     """One dispatched, unreconciled async step.  Its sampled ids land in
-    the host buffer ``buf`` of the staging ring once ``event`` completes
-    (None on the CPU).  The slot states pin the requests the ids belong
-    to: a slot may be recycled before the reconcile, its state cannot, and
-    a finished state marks its entries for discard."""
+    the host buffer ``buf`` of the staging ring once ``events`` complete
+    (one a device; none on the CPU).  The slot states pin the requests the
+    ids belong to: a slot may be recycled before the reconcile, its state
+    cannot, and a finished state marks its entries for discard."""
     buf: int
-    event: Optional[object]
+    events: list
     dec: list                     # [(slot, _SlotState), ...]
-    chunks: list                  # [(lane, slot, _SlotState, completes)]
+    chunks: list                  # [(group, lane, slot, _SlotState, completes)]
     step: int                     # engine step at dispatch
     dispatch_t: float
 
@@ -321,54 +349,72 @@ class _PrefixMatch:
 
 class _StagingRing:
     """Host staging of the async step: ``depth + 1`` sets, each one int32
-    input buffer (the step's whole host-built input, packed) and one int32
-    output buffer (its sampled ids).  On a card the buffers are pinned: the
-    input goes up with one ``non_blocking`` copy into a device buffer
-    (stream order keeps a later copy behind the step that reads it), the
-    ids come back with ``non_blocking`` copies and an event, and a set is
-    written again only after the event behind its last use has completed.
-    On the CPU the step reads the input buffer itself."""
+    input buffer (the step's whole host-built input, packed: one block of
+    ``n_in`` entries a slot group) and one int32 output buffer (its sampled
+    ids).  On a card the buffers are pinned: each group's block goes up
+    with one ``non_blocking`` copy into that group's device buffer on its
+    lead device (stream order keeps a later copy behind the step that
+    reads it), the ids come back with ``non_blocking`` copies and one event
+    a device, and a set is written again only after the events behind its
+    last use have completed.  On the CPU the step reads the input buffer
+    itself."""
 
-    def __init__(self, n_in: int, n_out: int, depth: int,
-                 device: torch.device):
-        self.cuda = device.type == "cuda"
+    def __init__(self, n_in: int, n_out: int, depth: int, devices: list):
+        self.cuda = devices[0].type == "cuda"
+        self.n_in = n_in
         mk = lambda n: torch.zeros((n,), dtype=torch.int32,
                                    pin_memory=self.cuda)
-        self.inp = [mk(n_in) for _ in range(depth + 1)]
+        self.inp = [mk(len(devices) * n_in) for _ in range(depth + 1)]
         self.out = [mk(n_out) for _ in range(depth + 1)]
         self.done: list = [None] * (depth + 1)
-        self.dev = (torch.zeros((n_in,), dtype=torch.int32, device=device)
-                    if self.cuda else None)
+        self.dev = ([torch.zeros((n_in,), dtype=torch.int32, device=d)
+                     for d in devices] if self.cuda else None)
+        self.groups = len(devices)
         self._next = 0
 
     def acquire(self) -> int:
-        """The next set, once the event behind its last use completed."""
+        """The next set, once the events behind its last use completed."""
         k = self._next
         self._next = (k + 1) % len(self.inp)
-        if self.done[k] is not None:
-            self.done[k].synchronize()
-            self.done[k] = None
+        for ev in self.done[k] or ():
+            ev.synchronize()
+        self.done[k] = None
         return k
 
-    def upload(self, k: int, n: int) -> torch.Tensor:
-        """The first ``n`` entries of input set ``k`` on the device."""
-        if not self.cuda:
-            return self.inp[k][:n]
-        dev = self.dev[:n]
-        dev.copy_(self.inp[k][:n], non_blocking=True)
-        return dev
+    def block(self, k: int, g: int, n: int):
+        """The first ``n`` entries of group ``g``'s block of input set ``k``."""
+        return self.inp[k][g * self.n_in:g * self.n_in + n]
 
-    def fetch(self, k: int, parts) -> Optional[object]:
+    def upload(self, k: int, n: int) -> list:
+        """The first ``n`` entries of every group's block of input set
+        ``k``, each on its group's device."""
+        blocks = [self.block(k, g, n) for g in range(self.groups)]
+        if not self.cuda:
+            return blocks
+        out = []
+        for blk, dev in zip(blocks, self.dev):
+            dev[:n].copy_(blk, non_blocking=True)
+            out.append(dev[:n])
+        return out
+
+    def fetch(self, k: int, parts) -> list:
         """Copy each ``(offset, ids)`` into output set ``k``; returns the
-        event that completes with the copies (None on the CPU)."""
+        events that complete with the copies, one a device (none on the
+        CPU)."""
+        devices = []
         for off, ids in parts:
             self.out[k][off:off + ids.shape[0]].copy_(ids, non_blocking=True)
+            if ids.device not in devices:
+                devices.append(ids.device)
         if not self.cuda:
-            return None
-        ev = torch.cuda.Event()
-        ev.record()
-        self.done[k] = ev
-        return ev
+            return []
+        events = []
+        for dev in devices:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(dev))
+            events.append(ev)
+        self.done[k] = events
+        return events
 
 
 def _sync(device: torch.device) -> None:
@@ -394,10 +440,17 @@ class StemEngine:
     (``cuda`` for the port's entry points unless the caller built the
     parameters on the CPU).  ``chaos`` (a ``runtime.chaos.ChaosInjector``)
     optionally injects allocator denials, step failures and restore
-    failures at configured engine steps."""
+    failures at configured engine steps.
+
+    With ``ecfg.mesh`` the mesh takes the first ``dp * tp`` devices of
+    ``mesh_devices`` (the cards, or CPU shards when ``params`` are on the
+    CPU, by default; a list may repeat a device), and the parameters are
+    replicated once a distinct device.  Flat slot ids ``[g * max_slots,
+    (g + 1) * max_slots)`` belong to group ``g``."""
 
     def __init__(self, bundle, params, stem_cfg,
-                 ecfg: EngineConfig = EngineConfig(), chaos=None):
+                 ecfg: EngineConfig = EngineConfig(), chaos=None,
+                 mesh_devices=None):
         transformer.assert_paged_servable(bundle.cfg)
         self.bundle = bundle
         self.cfg = bundle.cfg
@@ -422,15 +475,35 @@ class StemEngine:
             chunked_lib.validate_chunked_policy(self.policy)
 
         S, P = ecfg.max_slots, ecfg.max_pages_per_slot
+        # Serving mesh (ref ``src/repro/runtime/engine.py:447-470``): dp
+        # slot groups, each with its own allocator and pages, and tp KV-head
+        # shards of every pool.  smesh None is the one-device path, one group.
+        self.smesh = None
+        if ecfg.mesh is not None:
+            dp, tp = (int(a) for a in ecfg.mesh)
+            self.smesh = serving_lib.make_serving_mesh(
+                dp, tp, mesh_devices, platform=self.device.type)
+            serving_lib.validate_serving(bundle.cfg, self.policy.executor,
+                                         self.smesh)
+            self._replicas = serving_lib.replicate_params(params, self.smesh)
+        elif mesh_devices is not None:
+            raise ValueError("mesh_devices needs EngineConfig.mesh")
+        self.groups = self.smesh.dp if self.smesh else 1
+        self.slots_per_group = S
+        self.total_slots = T = self.groups * S
         self.pools = transformer.init_page_pools(
-            bundle.cfg, ecfg.num_pages, self.policy, device=self.device)
-        self.allocator = paged_lib.PageAllocator(
-            ecfg.num_pages, evict_policy=ecfg.prefix_evict)
-        self.page_table = np.zeros((S, P), np.int32)
-        self.cache_lens = np.zeros((S,), np.int32)
-        self.slot_pages: list = [None] * S
-        self.slot_nshared = [0] * S            # leading prefix-shared pages
-        self.slots: list = [None] * S
+            bundle.cfg, ecfg.num_pages, self.policy, device=self.device,
+            smesh=self.smesh)
+        self.allocators = [
+            paged_lib.PageAllocator(ecfg.num_pages,
+                                    evict_policy=ecfg.prefix_evict)
+            for _ in range(self.groups)]
+        self.allocator = self.allocators[0]    # the one-group alias
+        self.page_table = np.zeros((T, P), np.int32)
+        self.cache_lens = np.zeros((T,), np.int32)
+        self.slot_pages: list = [None] * T
+        self.slot_nshared = [0] * T            # leading prefix-shared pages
+        self.slots: list = [None] * T
         self.waiting: collections.deque = collections.deque()
         self.preempted: list = []              # _Preempted records
         self.finished: list = []
@@ -449,11 +522,11 @@ class StemEngine:
                       "id_fetches": 0, "lookahead_discards": 0,
                       "restore_bytes": 0, "dispatch_s": 0.0,
                       "sync_wait_s": 0.0}
-        self._slot_ever_used = [False] * S
+        self._slot_ever_used = [False] * T
         self._seq: dict = {}                   # uid -> submission order
         self._arrival_t: dict = {}             # uid -> first-schedulable wall
         self._next_seq = 0
-        self._last_chunk_step = 0
+        self._last_chunk_step = [0] * self.groups   # per slot group
         self.monitor = StragglerMonitor(threshold=ecfg.straggler_threshold)
         self.sampler = sampling_lib.get_sampler(ecfg.sampler)
         # The static chunk-selection width: the largest block budget any
@@ -463,22 +536,25 @@ class StemEngine:
         self._async = ecfg.async_depth > 0
         self._unified = steps_lib.make_unified_step(
             bundle, stem_cfg=self.policy, budget_frac=ecfg.budget_frac,
-            chunk_k_max=k_bound, sampler=self.sampler if self._async else None)
+            chunk_k_max=k_bound, sampler=self.sampler if self._async else None,
+            smesh=self.smesh)
         self._prefill = None
         if ecfg.monolithic_prefill:
             self._prefill = steps_lib.make_monolithic_prefill(
                 bundle, stem_cfg=self.policy, sampler=self.sampler)
         # Async pipeline state: the device-resident fed-back token buffer
-        # (one entry per slot plus a trash entry for idle chunk lanes), the
-        # host staging ring and the dispatched, unreconciled steps.
+        # (one entry per slot plus a trash entry for idle chunk lanes; under
+        # the mesh one buffer a group, on its lead device), the host staging
+        # ring and the dispatched, unreconciled steps.
         self._inflight: collections.deque = collections.deque()
         self.token_buf = None
         self._ring = None
         if self._async:
             L, C = self.chunk_lanes, self.chunk_size
             nc = C // self.page_size
-            self.token_buf = torch.zeros((S + 1,), dtype=torch.int32,
-                                         device=self.device)
+            bufs = [torch.zeros((S + 1,), dtype=torch.int32, device=dev)
+                    for dev in self._lead_devices()]
+            self.token_buf = bufs if self.smesh else bufs[0]
             # The packed input of a step: (name, offset, rows, width), the
             # decode lane's fields first (a decode-only step sends those).
             fields = (("mask", S, 1), ("lens", S, 1), ("table", S, P),
@@ -490,14 +566,17 @@ class StemEngine:
                 self._layout.append((name, off, rows, width))
                 off += rows * width
             self._dec_n = S * (P + 2)
-            self._ring = _StagingRing(off, S + L, ecfg.async_depth,
-                                      self.device)
+            self._ring = _StagingRing(off, T + self.groups * L,
+                                      ecfg.async_depth, self._lead_devices())
         # Restore-cost model: preemption victims are priced by the bytes
         # their restore moves host -> device over a measured-bandwidth EMA
         # (seeded pessimistically until the first timed restore).
+        trees = ([tree for shards in self.pools for tree in shards]
+                 if self.smesh else [self.pools])
         self._page_nbytes = (sum(t.numel() * t.element_size()
-                                 for t in offload_lib.leaves(self.pools))
-                             // ecfg.num_pages)
+                                 for tree in trees
+                                 for t in offload_lib.leaves(tree))
+                             // (self.groups * ecfg.num_pages))
         self._h2d_bw_ema: Optional[float] = None
 
     # -- scheduling ---------------------------------------------------------
@@ -522,7 +601,7 @@ class StemEngine:
         stays warm; only its flag history resets."""
         self.finished.clear()
         self.stats.update({k: type(v)() for k, v in self.stats.items()})
-        self._slot_ever_used = [False] * self.ecfg.max_slots
+        self._slot_ever_used = [False] * self.total_slots
         self.monitor.flagged.clear()
 
     @property
@@ -537,25 +616,76 @@ class StemEngine:
             "offloaded_requests": len(self.preempted),
             "offload_resident_bytes": self.host_store.nbytes,
             "offload_peak_bytes": self.host_store.peak_nbytes,
-            "allocator_evictions": self.allocator.evictions,
-            "allocator_restores": self.allocator.restores,
-            "allocator_total_alloced": self.allocator.total_alloced,
-            "prefix_shares": self.allocator.shares,
-            "prefix_cached_pages": self.allocator.cached_pages,
+            "allocator_evictions": sum(a.evictions for a in self.allocators),
+            "allocator_restores": sum(a.restores for a in self.allocators),
+            "allocator_total_alloced": sum(a.total_alloced
+                                           for a in self.allocators),
+            "prefix_shares": sum(a.shares for a in self.allocators),
+            "prefix_cached_pages": sum(a.cached_pages
+                                       for a in self.allocators),
             "chaos": self.chaos.counts if self.chaos else None,
         }
 
-    def _free_slot(self) -> Optional[int]:
-        return next((s for s, st in enumerate(self.slots) if st is None), None)
+    # -- slot groups (ref ``src/repro/runtime/engine.py:699-722``) ----------
+
+    def _group_of(self, slot: int) -> int:
+        return slot // self.slots_per_group
+
+    def _group_slots(self, g: int) -> range:
+        S = self.slots_per_group
+        return range(g * S, (g + 1) * S)
+
+    def _free_slot_in(self, g: int) -> Optional[int]:
+        return next((s for s in self._group_slots(g) if self.slots[s] is None),
+                    None)
+
+    def _lead_devices(self) -> list:
+        """Each group's lead device ``(g, 0)``: its inputs, projections, MLP,
+        logits and token buffer live there."""
+        if self.smesh is None:
+            return [self.device]
+        return [self.smesh.device(g, 0) for g in range(self.groups)]
+
+    def _sync_group(self, g: int) -> None:
+        devices = ([self.device] if self.smesh is None else
+                   {self.smesh.device(g, t) for t in range(self.smesh.tp)})
+        for dev in devices:
+            _sync(dev)
+
+    def _candidate_groups(self) -> list:
+        """Placement order for a new request: groups with a free slot first,
+        then the most available pages, then the lowest group id (ref
+        ``:1111-1120``).  A restore has no choice: its snapshot belongs to
+        its own group's shards."""
+        return sorted(range(self.groups), key=lambda g: (
+            self._free_slot_in(g) is None, -self.allocators[g].available, g))
+
+    def _fetch_ids(self, parts, n: int) -> np.ndarray:
+        """Every group's sampled ids ``(offset, ids)`` staged into one host
+        buffer without blocking, then one wait: a lane kind costs one host
+        sync, whatever the mesh."""
+        cuda = self.device.type == "cuda"
+        out = torch.empty((n,), dtype=torch.int32, pin_memory=cuda)
+        devices = set()
+        for off, ids in parts:
+            out[off:off + ids.shape[0]].copy_(ids, non_blocking=cuda)
+            devices.add(ids.device)
+        if cuda:
+            for dev in devices:
+                _sync(dev)
+        return out.numpy()
 
     def _check_pages(self) -> None:
-        """Refcount conservation after any path that moves pages: one
-        reference per slot-held page plus one per shared page an offloaded
-        request pins must equal the allocator's refcounts (a multiset: a
-        page shared by k slots appears k times)."""
-        held = [p for pages in self.slot_pages if pages for p in pages]
-        held += [p for rec in self.preempted for p in rec.shared_pages]
-        self.allocator.check_conservation(held)
+        """Refcount conservation after any path that moves pages, group by
+        group: one reference per slot-held page plus one per shared page an
+        offloaded request pins must equal the group's allocator refcounts (a
+        multiset: a page shared by k slots appears k times)."""
+        for g, alloc in enumerate(self.allocators):
+            held = [p for s in self._group_slots(g) if self.slot_pages[s]
+                    for p in self.slot_pages[s]]
+            held += [p for rec in self.preempted if rec.group == g
+                     for p in rec.shared_pages]
+            alloc.check_conservation(held)
 
     # -- preemption + host offload ------------------------------------------
 
@@ -573,18 +703,18 @@ class StemEngine:
         st = self.slots[slot]
         if st is None:
             raise ValueError(f"slot {slot} is not active")
+        g = self._group_of(slot)
         pages = self.slot_pages[slot]
         nshared = self.slot_nshared[slot]
         shared, private = pages[:nshared], pages[nshared:]
-        snap = offload_lib.gather_pages(
-            self.pools, torch.as_tensor(private, device=self.device))
-        self.host_store.put(st.req.uid, snap, pinned=shared)
+        self.host_store.put(st.req.uid, self._extract(private, g),
+                            pinned=shared)
         st.preemptions += 1
         self.preempted.append(_Preempted(
             st=st, npages=len(private), cache_len=int(self.cache_lens[slot]),
             seq=self._seq[st.req.uid], preempt_step=self.step_count,
-            shared_pages=list(shared)))
-        self.allocator.evict(private)
+            shared_pages=list(shared), group=g))
+        self.allocators[g].evict(private)
         self.page_table[slot] = 0
         self.cache_lens[slot] = 0
         self.slot_pages[slot] = None
@@ -593,6 +723,32 @@ class StemEngine:
         self.stats["preemptions"] += 1
         self._check_pages()
 
+    def _extract(self, pages: list, g: int):
+        """Group ``g``'s ``pages`` out of the pools: a device snapshot, or
+        under the mesh each tp shard's pages on the host, keyed by ``(g,
+        t)`` (``offload.HostShards``; ref ``:745-760``)."""
+        if self.smesh is None:
+            return offload_lib.gather_pages(
+                self.pools, torch.as_tensor(pages, device=self.device))
+        return offload_lib.shard_snapshot_to_host({
+            (g, t): offload_lib.gather_pages(
+                tree, torch.as_tensor(pages, device=self.smesh.device(g, t)))
+            for t, tree in enumerate(self.pools[g])}, g)
+
+    def _restore(self, pages: list, g: int, snap) -> None:
+        """Scatter a snapshot into group ``g``'s fresh ``pages``; under the
+        mesh each shard's bytes go back to the device of their own ``(g,
+        t)`` (ref ``:812-822``)."""
+        if self.smesh is None:
+            offload_lib.scatter_pages(
+                self.pools, torch.as_tensor(pages, device=self.device), snap)
+            return
+        parts = offload_lib.assemble_sharded_snapshot(snap, self.smesh, g)
+        for (_, t), part in parts.items():
+            offload_lib.scatter_pages(
+                self.pools[g][t],
+                torch.as_tensor(pages, device=self.smesh.device(g, t)), part)
+
     def _admit_restore(self, rec: _Preempted, slot: int, pages: list) -> bool:
         """Swap a preempted request back in: scatter its private snapshot
         into the fresh pages; its pinned shared pages re-enter the page
@@ -600,20 +756,20 @@ class StemEngine:
         fresh pages, keep the snapshot and the pins, retry on a later step
         — or abort the request with an explicit error once
         ``max_restore_retries`` is exhausted (releasing the pins)."""
-        uid = rec.st.req.uid
+        uid, g = rec.st.req.uid, rec.group
         # Injection point: ahead of the scatter, which writes the pools in
         # place — a failed restore must leave no page written.
         try:
             if self.chaos:
                 self.chaos.maybe_fail_restore(self.step_count)
         except InjectedFailure as e:
-            self.allocator.free(pages)
+            self.allocators[g].free(pages)
             rec.restore_attempts += 1
             self.stats["restore_failures"] += 1
             if rec.restore_attempts > self.ecfg.max_restore_retries:
                 self.host_store.drop(uid)
                 if rec.shared_pages:
-                    self.allocator.free(rec.shared_pages)
+                    self.allocators[g].free(rec.shared_pages)
                 self.stats["aborts"] += 1
                 self._finish_with_error(
                     rec.st, slot=-1,
@@ -628,13 +784,12 @@ class StemEngine:
             # link and not the in-flight steps.
             self._drain()
         snap = self.host_store.pop(uid)
-        ids = torch.as_tensor(pages, device=self.device)
         # Time the host -> device scatter (synchronized on both sides) for
         # the restore-cost model's bandwidth EMA.
-        _sync(self.device)
+        self._sync_group(g)
         t0 = time.perf_counter()
-        offload_lib.scatter_pages(self.pools, ids, snap)
-        _sync(self.device)
+        self._restore(pages, g, snap)
+        self._sync_group(g)
         nbytes = rec.npages * self._page_nbytes
         self.stats["restore_bytes"] += nbytes
         if nbytes:
@@ -644,7 +799,11 @@ class StemEngine:
         if self._async and rec.st.tokens:
             # Re-seed the fed-back token buffer: the restored request's next
             # decode step feeds its last emitted token.
-            self.token_buf[slot:slot + 1].fill_(rec.st.tokens[-1])
+            if self.smesh is None:
+                self.token_buf[slot:slot + 1].fill_(rec.st.tokens[-1])
+            else:
+                g, local = divmod(slot, self.slots_per_group)
+                self.token_buf[g][local:local + 1].fill_(rec.st.tokens[-1])
         all_pages = list(rec.shared_pages) + list(pages)
         row = np.zeros((self.ecfg.max_pages_per_slot,), np.int32)
         row[:len(all_pages)] = all_pages
@@ -660,15 +819,17 @@ class StemEngine:
         self._check_pages()
         return True
 
-    def _try_preempt_for(self, priority: int, need_pages: int) -> bool:
-        """Preempt one strictly lower-priority running request to make room
-        (a slot and / or pages) for an admission at ``priority``.  Refuses
-        when evicting every eligible victim still could not free enough
-        pages — no pointless offloads."""
+    def _try_preempt_for(self, priority: int, need_pages: int,
+                         group: int) -> bool:
+        """Preempt one strictly lower-priority running request of slot group
+        ``group`` to make room (a slot and / or pages) for an admission at
+        ``priority``.  Refuses when evicting every eligible victim still
+        could not free enough pages — no pointless offloads."""
         if self.ecfg.scheduler != "slo" or not self.ecfg.preemption:
             return False
-        victims = [s for s, st in enumerate(self.slots)
-                   if st is not None and st.req.priority < priority]
+        victims = [s for s in self._group_slots(group)
+                   if self.slots[s] is not None
+                   and self.slots[s].req.priority < priority]
         if not victims:
             return False
         if self._async and self._inflight:
@@ -678,8 +839,8 @@ class StemEngine:
             # blocked on slots drains the pipeline every step; with no
             # victim there is nothing to evict and no reason to wait.)
             self._drain()
-            if (self._free_slot() is not None
-                    and self.allocator.available >= need_pages):
+            if (self._free_slot_in(group) is not None
+                    and self.allocators[group].available >= need_pages):
                 return True
             victims = [s for s in victims if self.slots[s] is not None]
             if not victims:
@@ -688,7 +849,7 @@ class StemEngine:
         # pinned by its preemption record).
         reclaimable = sum(len(self.slot_pages[s]) - self.slot_nshared[s]
                           for s in victims)
-        if self.allocator.available + reclaimable < need_pages:
+        if self.allocators[group].available + reclaimable < need_pages:
             return False
         # The victim class is the LOWEST priority present; within it, evict
         # the request whose restore is cheapest in seconds
@@ -732,7 +893,7 @@ class StemEngine:
         # Shared references drop by one (co-tenants keep the pages); a
         # registered page at refcount 0 parks in the cached set, contents
         # intact, so the next tenant with this prefix still hits.
-        self.allocator.free(self.slot_pages[slot])
+        self.allocators[self._group_of(slot)].free(self.slot_pages[slot])
         self.page_table[slot] = 0
         self.cache_lens[slot] = 0
         self.slot_pages[slot] = None
@@ -778,7 +939,7 @@ class StemEngine:
         """SLO-aware admission control (off by default): reject an arrived
         request up front when its TTFT SLO is already infeasible at the
         current step-time EMA.  Prefill throughput is bounded by
-        ``chunk_lanes * chunk_size`` tokens a step, so a request behind
+        ``groups * chunk_lanes * chunk_size`` tokens a step, so a request behind
         ``ahead`` backlogged prompt tokens needs at least
         ``ceil((ahead + own) / cap)`` more steps; queueing time already
         spent counts too.  Requests without a TTFT SLO are never rejected;
@@ -789,7 +950,7 @@ class StemEngine:
         if not ema:
             return
         now = time.perf_counter()
-        cap = self.chunk_lanes * self.chunk_size
+        cap = self.groups * self.chunk_lanes * self.chunk_size
         backlog = sum(len(st.padded) - st.prefill_pos for st in self.slots
                       if st is not None and st.phase == "prefill")
         arrived = [r for r in self.waiting if r.arrival_step <= self.step_count]
@@ -820,16 +981,16 @@ class StemEngine:
         return min(active, key=lambda s: (self.slots[s].req.priority,
                                           -self.slots[s].admitted_step, -s))
 
-    def _try_alloc(self, n: int, restore: bool = False):
-        """(pages | None, chaos_denied).  An injected denial models
-        transient allocator exhaustion: the admission blocks this step and
-        retries on the next — it never triggers preemption."""
+    def _try_alloc(self, n: int, group: int, restore: bool = False):
+        """(pages | None, chaos_denied) from ``group``'s allocator.  An
+        injected denial models transient allocator exhaustion: the admission
+        blocks this step and retries on the next — it never triggers
+        preemption."""
         if self.chaos and self.chaos.deny_alloc(self.step_count):
             self.stats["alloc_denials"] += 1
             return None, True
-        pages = (self.allocator.restore(n) if restore
-                 else self.allocator.alloc(n))
-        return pages, False
+        alloc = self.allocators[group]
+        return (alloc.restore(n) if restore else alloc.alloc(n)), False
 
     # -- admission ----------------------------------------------------------
 
@@ -861,12 +1022,14 @@ class StemEngine:
         self._admit_loop()
         self._shed()
 
-    def _probe_prefix(self, req: Request) -> _PrefixMatch:
-        """Probe the prefix index for the request's whole prompt pages and
-        take a reference on every hit before any allocation (an alloc
-        drawing on the cached set could otherwise reclaim a probed page);
-        the caller releases them if admission blocks.  The longest matched
-        chain wins: a miss at page j ends the scan."""
+    def _probe_prefix(self, req: Request, group: int) -> _PrefixMatch:
+        """Probe ``group``'s prefix index for the request's whole prompt
+        pages and take a reference on every hit before any allocation (an
+        alloc drawing on the cached set could otherwise reclaim a probed
+        page); the caller releases them if admission blocks.  The longest
+        matched chain wins: a miss at page j ends the scan.  Each slot group
+        has its own index: its pages exist only in its own pools."""
+        alloc = self.allocators[group]
         plen = len(req.prompt)
         bs = self.page_size
         budgets = self.policy.prefill_budgets(-(-plen // bs) * bs)
@@ -877,16 +1040,17 @@ class StemEngine:
         last_page = (plen - 1) // bs
         shared, cow = [], []
         for j, key in enumerate(keys):
-            p = self.allocator.probe(key)
+            p = alloc.probe(key)
             if p is None:
                 break
-            self.allocator.share(p)
+            alloc.share(p)
             (shared if j < last_page else cow).append(p)
         return _PrefixMatch(keys=keys, shared=shared, cow=cow)
 
-    def _release_prefix(self, prefix: Optional[_PrefixMatch]) -> None:
+    def _release_prefix(self, prefix: Optional[_PrefixMatch],
+                        group: int) -> None:
         if prefix is not None and (prefix.shared or prefix.cow):
-            self.allocator.free(prefix.shared + prefix.cow)
+            self.allocators[group].free(prefix.shared + prefix.cow)
 
     def _admit_loop(self) -> None:
         while True:
@@ -894,35 +1058,48 @@ class StemEngine:
             if cand is None:
                 return
             kind, idx = cand
-            prefix = None
             if kind == "new":
                 req = self.waiting[idx]
                 prio = req.priority
-                npages = pages_needed(len(req.prompt), req.max_new_tokens,
-                                      self.page_size)
-                if self.ecfg.prefix_cache:
-                    prefix = self._probe_prefix(req)
-                    npages -= len(prefix.shared)
+                npages_full = pages_needed(len(req.prompt), req.max_new_tokens,
+                                           self.page_size)
+                groups = self._candidate_groups()
             else:
                 rec = self.preempted[idx]
                 prio = rec.st.req.priority
-                npages = rec.npages
-            slot = self._free_slot()
-            if slot is None:
-                if not self._try_preempt_for(prio, npages):
-                    self._release_prefix(prefix)
-                    return                  # slot-blocked: the head waits
-                slot = self._free_slot()
-            pages, denied = self._try_alloc(npages, restore=(kind == "pre"))
-            while pages is None and not denied:
-                if not self._try_preempt_for(prio, npages):
-                    break
-                pages, denied = self._try_alloc(npages,
+                groups = [rec.group]
+            # Each eligible group in order; the head of the line waits only
+            # when every group is blocked (ref ``:1122-1190``).
+            placed = False
+            for g in groups:
+                prefix = None
+                npages = rec.npages if kind == "pre" else npages_full
+                if kind == "new" and self.ecfg.prefix_cache:
+                    prefix = self._probe_prefix(req, g)
+                    npages -= len(prefix.shared)
+                slot = self._free_slot_in(g)
+                if slot is None:
+                    if not self._try_preempt_for(prio, npages, g):
+                        self._release_prefix(prefix, g)
+                        continue            # slot-blocked in this group
+                    slot = self._free_slot_in(g)
+                pages, denied = self._try_alloc(npages, g,
                                                 restore=(kind == "pre"))
-            if pages is None:
-                # memory-blocked, or a transient denial: the head waits
-                self._release_prefix(prefix)
-                return
+                while pages is None and not denied:
+                    if not self._try_preempt_for(prio, npages, g):
+                        break
+                    pages, denied = self._try_alloc(npages, g,
+                                                    restore=(kind == "pre"))
+                if denied:
+                    self._release_prefix(prefix, g)
+                    return                  # a transient denial: retry later
+                if pages is None:
+                    self._release_prefix(prefix, g)
+                    continue                # memory-blocked in this group
+                placed = True
+                break
+            if not placed:
+                return                      # the head waits in every group
             if kind == "pre":
                 del self.preempted[idx]
                 if not self._admit_restore(rec, slot, pages):
@@ -979,19 +1156,32 @@ class StemEngine:
 
         # Recycled pages are dirty; chunk writes + decode increments assume
         # pristine pages.  Only the private reservation is reset: shared
-        # prefix pages hold live contents.  The row is trash-padded.
-        fresh = np.zeros((self.ecfg.max_pages_per_slot,), np.int32)
-        fresh[:len(pages)] = pages
-        paged_lib.reset_pools_stacked(self.pools, _upload(fresh, self.device))
+        # prefix pages hold live contents.  The row is trash-padded; under
+        # the mesh the other groups' rows name only trash page 0.
+        g = self._group_of(slot)
+        fresh = np.zeros((self.groups, self.ecfg.max_pages_per_slot), np.int32)
+        fresh[g, :len(pages)] = pages
+        if self.smesh is None:
+            paged_lib.reset_pools_stacked(self.pools,
+                                          _upload(fresh[0], self.device))
+        else:
+            paged_lib.reset_pools_grouped(self.pools, [
+                _upload(row, dev) for row, dev in zip(fresh, self._lead_devices())])
         if prefix and prefix.cow:
             # Copy on write: the matched last-token page of a fully matched
             # page-multiple prompt is replayed, and its chunk rewrites it —
             # so its contents go to the private page at table index n_share
             # and the probe's reference on the original is dropped.
             src = prefix.cow[0]
-            paged_lib.copy_pages_stacked(self.pools, src, pages[0])
-            self.allocator.free([src])
-            self.allocator.cows += 1      # the private page came from the
+            if self.smesh is None:
+                paged_lib.copy_pages_stacked(self.pools, src, pages[0])
+            else:
+                srcv = np.zeros((self.groups,), np.int32)
+                dstv = np.zeros((self.groups,), np.int32)
+                srcv[g], dstv[g] = src, pages[0]
+                paged_lib.copy_pages_grouped(self.pools, srcv, dstv)
+            self.allocators[g].free([src])
+            self.allocators[g].cows += 1  # the private page came from the
                                           # bulk alloc, not allocator.cow()
             self.stats["prefix_cows"] += 1
         if prefix and (prefix.shared or prefix.cow):
@@ -1032,8 +1222,9 @@ class StemEngine:
         """A completed prompt's full pages are final: content-address them
         for later tenants (idempotent for the pages it shared itself; the
         partial tail page has no key and stays private)."""
+        alloc = self.allocators[self._group_of(s)]
         for j, key in enumerate(st.prefix_keys):
-            self.allocator.register(self.slot_pages[s][j], key)
+            alloc.register(self.slot_pages[s][j], key)
 
     def _decode_key(self, s: int, now: float):
         """Decode-token grant order.  SLO: priority first, then remaining
@@ -1072,50 +1263,59 @@ class StemEngine:
 
     def _schedule(self, dec_all: list, pre_all: list, sched_now: float) -> tuple:
         """The token-budget grant pass, shared by both loops and pure host
-        bookkeeping: (granted decode slots, granted chunk slots)."""
+        bookkeeping, group by group (ref ``src/repro/runtime/engine.py:
+        1355-1420``: each slot group gets the full token budget and its own
+        chunk lanes): (granted decode slots of every group, granted chunk
+        slots of each group)."""
         self.stats["max_concurrency"] = max(self.stats["max_concurrency"],
                                             len(dec_all) + len(pre_all))
-        C = self.chunk_size
+        C, Sg = self.chunk_size, self.slots_per_group
         cap = max(1, self.token_budget)
-        dec_sorted = sorted(dec_all, key=lambda s: self._decode_key(s, sched_now))
-        dec = dec_sorted[:cap]
-        deferred = dec_sorted[cap:]
-        self.stats["decode_deferrals"] += len(deferred)
-        pre = sorted(pre_all, key=lambda s: self._chunk_key(s, sched_now))
-        # Adaptive chunk sizing: under decode-lane TPOT pressure (a decode
-        # was deferred, or a TPOT SLO is violated now) cap the chunk grant
-        # at one lane.
-        pressure = False
-        if self.ecfg.scheduler == "slo":
-            violating = any(
-                self.slots[s].req.tpot_slo_s is not None
-                and sched_now - self.slots[s].last_token_t
-                    > self.slots[s].req.tpot_slo_s
-                for s in dec_sorted)
-            pressure = bool(deferred) or violating
-        lanes_cap = 1 if pressure else self.chunk_lanes
-        if pressure and pre and lanes_cap < self.chunk_lanes:
-            self.stats["chunk_caps"] += 1
-        remaining = self.token_budget - len(dec)
-        grant = []
-        for s in pre:
-            if len(grant) >= lanes_cap:
-                break
-            if remaining >= C or (not grant and not dec):
-                grant.append(s)
-                remaining -= C
-        if (not grant and pre and self.step_count - self._last_chunk_step
-                >= self.ecfg.chunk_starve_steps):
-            grant = [pre[0]]
-            self.stats["starvation_grants"] += 1
-        if grant or not pre:
-            self._last_chunk_step = self.step_count
-        return dec, grant
+        dec, grants = [], []
+        for g in range(self.groups):
+            dec_sorted = sorted((s for s in dec_all if s // Sg == g),
+                                key=lambda s: self._decode_key(s, sched_now))
+            dec_g = dec_sorted[:cap]
+            deferred = dec_sorted[cap:]
+            self.stats["decode_deferrals"] += len(deferred)
+            pre = sorted((s for s in pre_all if s // Sg == g),
+                         key=lambda s: self._chunk_key(s, sched_now))
+            # Adaptive chunk sizing: under the group's decode-lane TPOT
+            # pressure (a decode was deferred, or a TPOT SLO is violated
+            # now) cap the chunk grant at one lane.
+            pressure = False
+            if self.ecfg.scheduler == "slo":
+                violating = any(
+                    self.slots[s].req.tpot_slo_s is not None
+                    and sched_now - self.slots[s].last_token_t
+                        > self.slots[s].req.tpot_slo_s
+                    for s in dec_sorted)
+                pressure = bool(deferred) or violating
+            lanes_cap = 1 if pressure else self.chunk_lanes
+            if pressure and pre and lanes_cap < self.chunk_lanes:
+                self.stats["chunk_caps"] += 1
+            remaining = self.token_budget - len(dec_g)
+            grant = []
+            for s in pre:
+                if len(grant) >= lanes_cap:
+                    break
+                if remaining >= C or (not grant and not dec_g):
+                    grant.append(s)
+                    remaining -= C
+            if (not grant and pre and self.step_count - self._last_chunk_step[g]
+                    >= self.ecfg.chunk_starve_steps):
+                grant = [pre[0]]
+                self.stats["starvation_grants"] += 1
+            if grant or not pre:
+                self._last_chunk_step[g] = self.step_count
+            dec += dec_g
+            grants.append(grant)
+        return dec, grants
 
     def _fill_chunk(self, grant: list, ctoks, ctable, cstart, ctrue, cbud,
                     clast) -> None:
-        """The chunk lanes' host inputs, lane i carrying ``grant[i]``'s next
-        chunk (rows of idle lanes stay zero)."""
+        """One group's chunk-lane host inputs, lane i carrying ``grant[i]``'s
+        next chunk (rows of idle lanes stay zero)."""
         C, nc = self.chunk_size, self.chunk_size // self.page_size
         for lane, s in enumerate(grant):
             st = self.slots[s]
@@ -1132,57 +1332,78 @@ class StemEngine:
     def _mixed_step(self) -> bool:
         """One synchronous mixed step (``async_depth=0``, the differential
         oracle): the scheduled decode tokens plus the granted prefill
-        chunks; the host blocks on the sampled ids."""
+        chunks of every slot group; the host blocks on the sampled ids, one
+        fetch per active lane kind (ref ``:1422-1575``)."""
         dec_all, pre_all = self._work()
         if not dec_all and not pre_all:
-            self._last_chunk_step = self.step_count
+            self._last_chunk_step = [self.step_count] * self.groups
             return False
         # Injection point: ahead of the grant bookkeeping and of every pool
         # write of the step (``_unified`` updates the pools in place), so a
         # retried step never applies a summary increment twice.
         if self.chaos:
             self.chaos.maybe_fail_step(self.step_count)
-        dec, grant = self._schedule(dec_all, pre_all, time.perf_counter())
+        dec, grants = self._schedule(dec_all, pre_all, time.perf_counter())
 
-        C = self.chunk_size
-        S, P = self.ecfg.max_slots, self.ecfg.max_pages_per_slot
+        G, Sg, C = self.groups, self.slots_per_group, self.chunk_size
+        T, P = self.total_slots, self.ecfg.max_pages_per_slot
+        L = self.chunk_lanes
         dev = self.device
-        tokens = np.zeros((S, 1), np.int32)
-        dec_table = np.zeros((S, P), np.int32)
-        dec_lens = np.zeros((S,), np.int32)
+        tokens = np.zeros((T, 1), np.int32)
+        dec_table = np.zeros((T, P), np.int32)
+        dec_lens = np.zeros((T,), np.int32)
         for s in dec:
             tokens[s, 0] = self.slots[s].tokens[-1]
             dec_table[s] = self.page_table[s]
             dec_lens[s] = self.cache_lens[s]
             self.slots[s].last_sched_step = self.step_count
 
-        chunk = None
-        if grant:
-            L, nc = self.chunk_lanes, C // self.page_size
-            host = dict(tokens=np.zeros((L, C), np.int32),
-                        page_table=np.zeros((L, P), np.int32),
-                        start=np.zeros((L,), np.int32),
-                        true_len=np.zeros((L,), np.int32),
-                        budgets=np.zeros((L, nc), np.int32),
-                        last=np.zeros((L,), np.int32))
-            self._fill_chunk(grant, host["tokens"], host["page_table"],
-                             host["start"], host["true_len"], host["budgets"],
-                             host["last"])
-            chunk = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+        any_grant = any(grants)
+        host = None
+        if any_grant:
+            nc = C // self.page_size
+            host = dict(tokens=np.zeros((G, L, C), np.int32),
+                        page_table=np.zeros((G, L, P), np.int32),
+                        start=np.zeros((G, L), np.int32),
+                        true_len=np.zeros((G, L), np.int32),
+                        budgets=np.zeros((G, L, nc), np.int32),
+                        last=np.zeros((G, L), np.int32))
+            for g, grant in enumerate(grants):
+                self._fill_chunk(grant, host["tokens"][g], host["page_table"][g],
+                                 host["start"][g], host["true_len"][g],
+                                 host["budgets"][g], host["last"][g])
 
         t0 = time.perf_counter()
-        dec_logits, chunk_logits, self.pools = self._unified(
-            self.params, self.pools, torch.as_tensor(tokens, device=dev),
-            torch.as_tensor(dec_table, device=dev),
-            torch.as_tensor(dec_lens, device=dev), chunk)
+        if self.smesh is None:
+            chunk = (None if host is None else
+                     {k: torch.as_tensor(v[0], device=dev) for k, v in host.items()})
+            dec_logits, chunk_logits, self.pools = self._unified(
+                self.params, self.pools, torch.as_tensor(tokens, device=dev),
+                torch.as_tensor(dec_table, device=dev),
+                torch.as_tensor(dec_lens, device=dev), chunk)
+            dec_logits = [dec_logits]
+            chunk_logits = None if chunk_logits is None else [chunk_logits]
+        else:
+            # The batch arguments with the reference's leading (dp, ...)
+            # axis; the step moves each group's slice to its lead device.
+            chunk = (None if host is None else
+                     {k: torch.from_numpy(v) for k, v in host.items()})
+            dec_logits, chunk_logits, self.pools = self._unified(
+                self._replicas, self.pools,
+                torch.from_numpy(tokens.reshape(G, Sg, 1)),
+                torch.from_numpy(dec_table.reshape(G, Sg, P)),
+                torch.from_numpy(dec_lens.reshape(G, Sg)), chunk)
         t1 = time.perf_counter()
         self.stats["dispatch_s"] += t1 - t0
         dec_ids = chunk_ids = None
         if dec:
-            dec_ids = self.sampler(dec_logits).cpu().numpy()
+            dec_ids = self._fetch_ids(
+                [(g * Sg, self.sampler(x)) for g, x in enumerate(dec_logits)], T)
             self.stats["host_syncs"] += 1
-        if grant:
-            chunk_ids = self.sampler(chunk_logits).cpu().numpy()
+        if any_grant:
+            chunk_ids = self._fetch_ids(
+                [(g * L, self.sampler(x)) for g, x in enumerate(chunk_logits)],
+                G * L).reshape(G, L)
             self.stats["host_syncs"] += 1
         now = time.perf_counter()
         self.stats["sync_wait_s"] += now - t1
@@ -1200,61 +1421,72 @@ class StemEngine:
             if self._is_finished(st):
                 self._recycle(s)
 
-        for lane, s in enumerate(grant):
-            st = self.slots[s]
-            st.prefill_pos += C
-            self.stats["chunks"] += 1
-            if st.prefill_pos >= len(st.padded):
-                # The chunk that completes the prompt: its logits at the true
-                # last token give the request's first generated token.
-                st.tokens = [int(chunk_ids[lane])]
-                st.phase = "decode"
-                self.cache_lens[s] = st.true_len
-                self._register_prefix(s, st)
-                st.first_token_t = st.last_token_t = now
-                st.ttft_s = now - st.arrival_t
-                self.stats["prefills"] += 1
-                self.stats["tokens_generated"] += 1
-                if self._is_finished(st):
-                    self._recycle(s)
+        for g, grant in enumerate(grants):
+            for lane, s in enumerate(grant):
+                st = self.slots[s]
+                st.prefill_pos += C
+                self.stats["chunks"] += 1
+                if st.prefill_pos >= len(st.padded):
+                    # The chunk that completes the prompt: its logits at the
+                    # true last token give the request's first generated
+                    # token.
+                    st.tokens = [int(chunk_ids[g, lane])]
+                    st.phase = "decode"
+                    self.cache_lens[s] = st.true_len
+                    self._register_prefix(s, st)
+                    st.first_token_t = st.last_token_t = now
+                    st.ttft_s = now - st.arrival_t
+                    self.stats["prefills"] += 1
+                    self.stats["tokens_generated"] += 1
+                    if self._is_finished(st):
+                        self._recycle(s)
         return True
 
     # -- async pipeline -----------------------------------------------------
 
     def _unpack(self, buf, n: int) -> dict:
-        """Named views of a staging buffer's first ``n`` entries (numpy on
-        the host, a tensor on the device): (rows,) or (rows, width)."""
+        """Named views of a group block's first ``n`` entries (numpy on the
+        host, a tensor on the device): (rows,) or (rows, width)."""
         return {name: buf[o:o + r * w].reshape((r,) if w == 1 else (r, w))
                 for name, o, r, w in self._layout if o < n}
 
-    def _dispatch(self, dec: list, grant: list) -> None:
+    def _dispatch(self, dec: list, grants: list) -> None:
         """Launch one sampled step and return without waiting for it.  The
-        inputs are packed into a pinned staging buffer and go up with one
-        ``non_blocking`` copy; the ids come back the same way behind an
-        event, so nothing here waits on the device.  Every value-independent
-        state change happens now, so the next ``_schedule`` sees it:
+        inputs are packed into a pinned staging buffer, one block a slot
+        group, and each block goes up with one ``non_blocking`` copy to its
+        group's lead device; the ids come back the same way behind events,
+        so nothing here waits on the device.  Every value-independent state
+        change happens now, so the next ``_schedule`` sees it:
         ``cache_lens`` (+1 per granted decode), ``prefill_pos`` and phase
         flips, prefix registration (the completing chunk's page writes run
         before any later-dispatched reader, in stream order) and the
         counters.  Token values, EOS and timestamps wait for
         ``_reconcile``."""
-        S, C = self.ecfg.max_slots, self.chunk_size
+        G, Sg, C = self.groups, self.slots_per_group, self.chunk_size
+        T, L = self.total_slots, self.chunk_lanes
         ring = self._ring
         k = ring.acquire()
-        n = self._dec_n if not grant else ring.inp[k].shape[0]
-        h = ring.inp[k].numpy()
-        h[:n] = 0
-        v = self._unpack(h, n)
+        any_grant = any(grants)
+        n = ring.n_in if any_grant else self._dec_n
+        views = []
+        for g in range(G):
+            h = ring.block(k, g, n).numpy()
+            h[:] = 0
+            views.append(self._unpack(h, n))
         dec_entries = []
         for s in dec:
             st = self.slots[s]
-            v["mask"][s] = 1
-            v["table"][s] = self.page_table[s]
-            v["lens"][s] = self.cache_lens[s]
+            g, local = divmod(s, Sg)
+            views[g]["mask"][local] = 1
+            views[g]["table"][local] = self.page_table[s]
+            views[g]["lens"][local] = self.cache_lens[s]
             st.last_sched_step = self.step_count
             dec_entries.append((s, st))
         chunk_entries = []
-        if grant:
+        for g, grant in enumerate(grants):
+            if not grant:
+                continue
+            v = views[g]
             self._fill_chunk(grant, v["tokens"], v["page_table"], v["start"],
                              v["true_len"], v["budgets"], v["last"])
             for lane, s in enumerate(grant):
@@ -1262,23 +1494,36 @@ class StemEngine:
                 completes = st.prefill_pos + C >= len(st.padded)
                 # A completing chunk's sampled id is the request's first
                 # token: "emit" steers it into the slot's token_buf entry.
-                v["slot"][lane] = s
+                v["slot"][lane] = s - g * Sg
                 v["emit"][lane] = completes
-                chunk_entries.append((lane, s, st, completes))
+                chunk_entries.append((g, lane, s, st, completes))
 
         t0 = time.perf_counter()
-        d = self._unpack(ring.upload(k, n), n)
-        chunk = None
-        if grant:
-            chunk = {name: d[name] for name in ("tokens", "page_table",
-                                                "budgets", "start", "true_len",
-                                                "last", "slot")}
-            chunk["emit"] = d["emit"] != 0
-        dec_ids, chunk_ids, self.token_buf, self.pools = self._unified(
-            self.params, self.pools, self.token_buf, d["mask"] != 0,
-            d["table"], d["lens"], chunk)
-        event = ring.fetch(k, [(0, dec_ids)]
-                           + ([(S, chunk_ids)] if grant else []))
+        d = [self._unpack(blk, n) for blk in ring.upload(k, n)]
+        chunks = None
+        if any_grant:
+            chunks = [{name: dg[name] for name in ("tokens", "page_table",
+                                                   "budgets", "start",
+                                                   "true_len", "last", "slot")}
+                      for dg in d]
+            for c, dg in zip(chunks, d):
+                c["emit"] = dg["emit"] != 0
+        if self.smesh is None:
+            dec_ids, chunk_ids, self.token_buf, self.pools = self._unified(
+                self.params, self.pools, self.token_buf, d[0]["mask"] != 0,
+                d[0]["table"], d[0]["lens"], None if chunks is None else chunks[0])
+            dec_ids = [dec_ids]
+            chunk_ids = None if chunk_ids is None else [chunk_ids]
+        else:
+            chunk = (None if chunks is None else
+                     {name: [c[name] for c in chunks] for name in chunks[0]})
+            dec_ids, chunk_ids, self.token_buf, self.pools = self._unified(
+                self._replicas, self.pools, self.token_buf,
+                [dg["mask"] != 0 for dg in d], [dg["table"] for dg in d],
+                [dg["lens"] for dg in d], chunk)
+        events = ring.fetch(k, [(g * Sg, ids) for g, ids in enumerate(dec_ids)]
+                            + [(T + g * L, ids)
+                               for g, ids in enumerate(chunk_ids or ())])
         t1 = time.perf_counter()
         self.stats["dispatch_s"] += t1 - t0
         self.stats["step_calls"] += 1
@@ -1288,7 +1533,7 @@ class StemEngine:
         for s in dec:
             self.cache_lens[s] += 1   # the fed-back token will be cached
             self.slots[s].inflight += 1
-        for lane, s, st, completes in chunk_entries:
+        for g, lane, s, st, completes in chunk_entries:
             st.prefill_pos += C
             self.stats["chunks"] += 1
             if completes:
@@ -1298,7 +1543,7 @@ class StemEngine:
                 self._register_prefix(s, st)
                 self.stats["prefills"] += 1
         self._inflight.append(_InFlight(
-            buf=k, event=event, dec=dec_entries, chunks=chunk_entries,
+            buf=k, events=events, dec=dec_entries, chunks=chunk_entries,
             step=self.step_count, dispatch_t=t1))
 
     def _reconcile(self, infl: _InFlight) -> None:
@@ -1311,8 +1556,8 @@ class StemEngine:
         behind (the ones that can leave the device idle)."""
         overlapped = bool(self._inflight)
         t0 = time.perf_counter()
-        if infl.event is not None:
-            infl.event.synchronize()
+        for ev in infl.events:
+            ev.synchronize()
         ids = self._ring.out[infl.buf].numpy()
         self.stats["id_fetches"] += bool(infl.dec) + bool(infl.chunks)
         now = time.perf_counter()
@@ -1322,7 +1567,7 @@ class StemEngine:
         self.monitor.observe(infl.step, now - infl.dispatch_t)
         self.stats["straggler_steps"] = len(self.monitor.flagged)
 
-        S = self.ecfg.max_slots
+        T, L = self.total_slots, self.chunk_lanes
         for s, st in infl.dec:
             st.inflight -= 1
             if st.finished:
@@ -1334,14 +1579,14 @@ class StemEngine:
             self.stats["tokens_generated"] += 1
             if self._is_finished(st):
                 self._recycle(s)
-        for lane, s, st, completes in infl.chunks:
+        for g, lane, s, st, completes in infl.chunks:
             if not completes:
                 continue
             st.inflight -= 1
             if st.finished:
                 self.stats["lookahead_discards"] += 1
                 continue
-            st.tokens = [int(ids[S + lane])]
+            st.tokens = [int(ids[T + g * L + lane])]
             st.first_token_t = st.last_token_t = now
             st.ttft_s = now - st.arrival_t
             self.stats["tokens_generated"] += 1
@@ -1369,7 +1614,7 @@ class StemEngine:
         launches step N+1 while the device runs step N."""
         dec_all, pre_all = self._work()
         if not dec_all and not pre_all:
-            self._last_chunk_step = self.step_count
+            self._last_chunk_step = [self.step_count] * self.groups
             self._drain()
             return False
         # The sync loop's injection point: before this step's dispatch, so
@@ -1377,13 +1622,13 @@ class StemEngine:
         # untouched by the failure.
         if self.chaos:
             self.chaos.maybe_fail_step(self.step_count)
-        dec, grant = self._schedule(dec_all, pre_all, time.perf_counter())
-        if not dec and not grant:
+        dec, grants = self._schedule(dec_all, pre_all, time.perf_counter())
+        if not dec and not any(grants):
             # Every grantable token is already in flight: reconcile to make
             # progress instead of dispatching an empty step.
             self._drain()
             return False
-        self._dispatch(dec, grant)
+        self._dispatch(dec, grants)
         while len(self._inflight) > self.ecfg.async_depth:
             self._reconcile(self._inflight.popleft())
         return True

@@ -1,6 +1,7 @@
 """Host page offload: swap a request's pages to host memory and back (port
-of ``gather_pages``, ``scatter_pages``, ``snapshot_nbytes`` and
-``HostPageStore`` from ``repro/runtime/offload.py``).
+of ``gather_pages``, ``scatter_pages``, ``snapshot_nbytes``,
+``HostShards``, ``shard_snapshot_to_host``, ``assemble_sharded_snapshot``
+and ``HostPageStore`` from ``repro/runtime/offload.py``).
 
 Preemption support for the serving engine (``runtime/engine.py``).  A
 preempted request's device pages — raw K/V *and* the per-page Stem
@@ -16,6 +17,13 @@ trash page (so that XLA traces once), the port moves only the request's
 real pages: eager PyTorch has no trace to save, a padded row would move up
 to a whole slot's worth of pages however small the request, and
 ``index_copy_`` with repeated (trash) indices is nondeterministic on CUDA.
+
+Under the serving mesh (``sharding/serving.py``) a preempted group's pages
+are gathered from each of its tp shards and kept on the host per shard,
+keyed by the ``(dp, tp)`` coordinate (``HostShards``); the restore puts
+each shard's bytes back on the same coordinate's device, with no gather and
+no reshard.  Only the preempted group's shards are moved: the reference's
+fixed-width extract also gathers the other groups' trash page and drops it.
 """
 from __future__ import annotations
 
@@ -67,31 +75,93 @@ def scatter_pages(pools, page_ids: torch.Tensor, snapshot):
     return pools
 
 
+class HostShards:
+    """One snapshot leaf of a mesh-sharded pool as per-shard host tensors
+    keyed by mesh coordinate ``(dp, tp)`` (ref
+    ``src/repro/runtime/offload.py:93-116``): under tp > 1 a leaf's KV-head
+    axis is split across the group's shards, and each shard's bytes go
+    back to the device of the same coordinate.  Only the preempted slot
+    group's shards are held."""
+
+    __slots__ = ("shards",)
+
+    def __init__(self, shards: dict):
+        self.shards = shards            # (dp, tp) coord -> host tensor
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.shards.values())
+
+
+def _nbytes(leaf) -> int:
+    if isinstance(leaf, HostShards):
+        return leaf.nbytes
+    return leaf.numel() * leaf.element_size()
+
+
 def snapshot_nbytes(snapshot) -> int:
-    return sum(t.numel() * t.element_size() for t in leaves(snapshot))
+    return sum(_nbytes(t) for t in leaves(snapshot))
 
 
-def _to_host(snapshot):
-    """The snapshot in host memory.  A CUDA leaf is copied into a pinned
-    buffer without blocking, then the stream is synchronized once, so the
-    returned snapshot is complete.  (The gather ran on the same stream, so
-    any later reset of the victim's freed pages is ordered after it.)  A
-    CPU leaf is already a fresh copy (``index_select``)."""
-    dev = None
-
+def _copy_to_host(snapshot, devices: set):
+    """Start the copy of every CUDA leaf into a pinned buffer without
+    blocking, adding its device to ``devices``; a CPU leaf is already a
+    fresh copy (``index_select``) and a ``HostShards`` already host memory."""
     def leaf_to_host(t):
-        nonlocal dev
-        if not t.is_cuda:
+        if isinstance(t, HostShards) or not t.is_cuda:
             return t
-        dev = t.device
+        devices.add(t.device)
         h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         h.copy_(t, non_blocking=True)
         return h
-    host = _map(lambda pool: paged_lib.PagePool(*map(leaf_to_host, pool)),
+    return _map(lambda pool: paged_lib.PagePool(*map(leaf_to_host, pool)),
                 snapshot)
-    if dev is not None:
+
+
+def _wait(devices: set) -> None:
+    for dev in devices:
         torch.cuda.current_stream(dev).synchronize()
+
+
+def _to_host(snapshot):
+    """The snapshot in host memory: the copies start without blocking, then
+    each device's stream is synchronized once, so the returned snapshot is
+    complete.  (The gather ran on the same stream, so any later reset of
+    the victim's freed pages is ordered after it.)"""
+    devices: set = set()
+    host = _copy_to_host(snapshot, devices)
+    _wait(devices)
     return host
+
+
+def shard_snapshot_to_host(snapshots: dict, group: int):
+    """``{(g, t): device snapshot}`` of a preempted group's shards (each
+    from ``gather_pages`` on that shard's pools) -> one snapshot tree whose
+    leaves are ``HostShards`` holding group ``group``'s shards (ref
+    ``:124-141``).  Every copy is started before the one wait per device."""
+    devices: set = set()
+    host = {c: _copy_to_host(snap, devices)
+            for c, snap in sorted(snapshots.items()) if c[0] == group}
+    _wait(devices)
+    first = next(iter(host.values()))
+    return [{name: paged_lib.PagePool(*(
+                HostShards({c: tree[si][name][j] for c, tree in host.items()})
+                for j in range(len(pool))))
+             for name, pool in seg.items()} for si, seg in enumerate(first)]
+
+
+def assemble_sharded_snapshot(host, smesh, group: int) -> dict:
+    """Inverse of ``shard_snapshot_to_host`` (ref ``:144-166``): ``{(group,
+    t): snapshot tree}`` with each shard's bytes on the device of its own
+    coordinate, copied without blocking; ``scatter_pages`` writes each into
+    that shard's pools."""
+    coords = sorted(leaves(host)[0].shards)
+    if any(c[0] != group for c in coords):
+        raise ValueError(f"snapshot shards {coords} are not all of group {group}")
+    return {c: _map(lambda pool, c=c: paged_lib.PagePool(*(
+                leaf.shards[c].to(smesh.device(*c), non_blocking=True)
+                for leaf in pool)), host)
+            for c in coords}
 
 
 class HostPageStore:

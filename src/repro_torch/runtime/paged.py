@@ -101,6 +101,34 @@ def copy_pages_stacked(pools, src: int, dst: int):
     return pools
 
 
+def _tree_device(tree) -> torch.device:
+    return next(iter(tree[0].values())).k.device
+
+
+def reset_pools_grouped(groups, rows):
+    """``reset_pools_stacked`` over every slot group of a serving mesh
+    (``groups``: one ``serving.HeadShards`` of pool trees a group; ref
+    ``src/repro/runtime/engine.py:1239-1246``): ``rows[g]``, a ``(W,)``
+    trash-padded page-id tensor, resets those pages on every tp shard of
+    group ``g``.  A group with nothing to reset gets a row of trash page 0,
+    as in the reference."""
+    for shards, row in zip(groups, rows):
+        for tree in shards:
+            reset_pools_stacked(tree, row.to(_tree_device(tree)))
+    return groups
+
+
+def copy_pages_grouped(groups, src, dst):
+    """``copy_pages_stacked`` over every slot group of a serving mesh (ref
+    ``:1254-1264``): page ``src[g]`` -> ``dst[g]`` on every tp shard of group
+    ``g`` (``(groups,)`` host ints).  A group with nothing to copy gets
+    trash page 0 onto itself, a no-op, as in the reference."""
+    for shards, s, d in zip(groups, src, dst):
+        for tree in shards:
+            copy_pages_stacked(tree, int(s), int(d))
+    return groups
+
+
 def prefix_page_keys(tokens, budgets, page_size: int) -> list:
     """Chained content keys (hex strings) for every full page of a prompt.
 
@@ -270,7 +298,7 @@ def _paged_decode_gather(q, pool: PagePool, page_table, cache_lens, cfg,
 
 policy_lib.register_paged_executor(
     "gather", decode_fn=_paged_decode_gather,
-    chunk_fn=chunked_lib._chunked_prefill_gather)
+    chunk_fn=chunked_lib._chunked_prefill_gather, sharding="kv-head")
 
 
 class PageAllocator:

@@ -991,13 +991,15 @@ def _to_device(tree, device):
     return tree.to(device) if isinstance(tree, torch.Tensor) else tree
 
 
-def serve_small(name, device, executor, monolithic, dtype="float32"):
+def serve_small(name, device, executor, monolithic, dtype="float32", **knobs):
     """Serve a small configuration's trace (2 slots, budget_frac 0.5) with
     seeded weights drawn on the CPU; returns the greedy streams and the
     launch counts of the run (zeroed just before it, read just after).  On
     the card every call the run makes to a kernel is recorded
     (kernels/replay.py) and held against its plain version on the recorded
-    arguments (fp32 1e-4; bf16 2 ulps + 1e-3 of the row's max|plain|)."""
+    arguments (fp32 1e-4; bf16 2 ulps + 1e-3 of the row's max|plain|).
+    ``knobs`` go to the ``EngineConfig``; with ``mesh`` every shard sits on
+    ``device``."""
     from repro_torch.models import registry as t_registry
     from repro_torch.runtime import engine as t_engine
     cfg, policy, trace = _small_config(name, dtype)
@@ -1007,8 +1009,11 @@ def serve_small(name, device, executor, monolithic, dtype="float32"):
     ecfg = t_engine.EngineConfig.for_trace(
         max_slots=2, max_prompt=max(p for p, _, _ in trace),
         max_new_tokens=max(m for _, m, _ in trace), page_size=policy.block_size,
-        budget_frac=0.5, executor=executor, monolithic_prefill=monolithic)
-    engine = t_engine.StemEngine(bundle, params, policy, ecfg)
+        budget_frac=0.5, executor=executor, monolithic_prefill=monolithic, **knobs)
+    mesh = knobs.get("mesh")
+    engine = t_engine.StemEngine(
+        bundle, params, policy, ecfg,
+        mesh_devices=mesh and [device] * (mesh[0] * mesh[1]))
     rng = np.random.RandomState(7)
     reqs = [t_engine.Request(uid=i, prompt=rng.randint(0, cfg.vocab_size, size=(p,))
                              .astype(np.int32), max_new_tokens=m, arrival_step=a)
@@ -1024,8 +1029,24 @@ def serve_small(name, device, executor, monolithic, dtype="float32"):
     if device.type == "cuda":
         rec.check()
     assert [f.uid for f in finished] == list(range(len(trace)))
-    assert engine.allocator.available == ecfg.num_pages - 1
+    for alloc in engine.allocators:
+        assert alloc.available == ecfg.num_pages - 1
     return [f.tokens for f in finished], launches
+
+
+@pytest.mark.parametrize("async_depth", [0, 1], ids=["sync", "async"])
+@pytest.mark.parametrize("name", ["tiny", "qwen3-0.6b-reduced"])
+def test_mesh_2x2_serves_fused_on_card(cuda, name, async_depth):
+    """TINY and the reduced qwen3-0.6b (fp32) under the mesh (2, 2), every
+    shard on the one card, "fused": every kernel of the chunked path
+    launches, each recorded kernel call (at the shard's KV heads) is within
+    1e-4 of its plain version, and the greedy streams equal the one-device
+    card run's."""
+    want, _ = serve_small(name, cuda, "fused", False)
+    got, launches = serve_small(name, cuda, "fused", False, mesh=(2, 2),
+                                async_depth=async_depth)
+    assert all(launches[k] > 0 for k in CHUNKED_KERNELS), launches
+    assert got == want
 
 
 @pytest.mark.parametrize("monolithic", [False, True], ids=["chunked", "monolithic"])

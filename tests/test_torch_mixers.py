@@ -11,6 +11,8 @@ both packages run in fp32.  Tolerance 1e-5 of the compared tensor's scale
 the reference's ``lax.scan`` / ``associative_scan``, so the two agree to
 fp32 rounding, not bitwise.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -332,5 +334,21 @@ def test_norms_and_positions_match_jax():
            j_common.layer_norm_simple(jnp.asarray(x), jnp.asarray(w)))
     _close(t_common.layer_norm(T(x), T(w), T(b)),
            j_common.layer_norm(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b)))
-    _close(t_common.sinusoidal_positions(1500, 64, device="cpu"),
-           j_common.sinusoidal_positions(1500, 64))
+    # Sinusoidal positions: sin / cos of angles up to 1499 rad, where one
+    # fp32 ulp of the angle is 1.2e-4.  Both packages round exp(-i log(1e4)
+    # / dim) to fp32 with their CPU's vector math (1-2 ulps apart), which the
+    # product with the position carries into the angle, so the reference
+    # itself moves by a few ulps of the angle between CPUs.  Held to 4 fp32
+    # ulps of each element's own angle, and the port's output to a float64
+    # evaluation of its own fp32 angles.
+    got = t_common.sinusoidal_positions(1500, 64, device="cpu")
+    want = np.asarray(j_common.sinusoidal_positions(1500, 64), np.float64)
+    pos = torch.arange(1500, dtype=torch.float32)[:, None]
+    inv = torch.exp(-torch.arange(0, 64, 2, dtype=torch.float32)
+                    * (math.log(10000.0) / 64))
+    ang = (pos * inv[None, :]).double().numpy()
+    limit = 4 * 2.0 ** -23 * np.maximum(1.0, np.abs(np.concatenate([ang, ang], -1)))
+    assert np.all(np.abs(got.double().numpy() - want) <= limit)
+    np.testing.assert_allclose(got.double().numpy(),
+                               np.concatenate([np.sin(ang), np.cos(ang)], -1),
+                               atol=1e-6, rtol=0)

@@ -19,9 +19,10 @@ differential oracle.
   gives the reference CLI's tokens; the engine modes, and ``--fixed-batch``
   under a policy (whose decode would be sparse), raise the reference's
   ``NotImplementedError`` with its message.
-* ``main`` end to end on the reduced qwen3-0.6b on the CPU; ``--mesh``,
-  whose feature the port lacks, raises ``SystemExit``, and a bad sampler
-  or async depth the reference's ``ValueError``."""
+* ``main`` end to end on the reduced qwen3-0.6b on the CPU; a malformed
+  ``--mesh`` raises ``SystemExit`` (a served mesh:
+  ``tests/test_torch_mesh_serving.py``), and a bad sampler or async depth
+  the reference's ``ValueError``."""
 import numpy as np
 import pytest
 import torch
@@ -339,12 +340,15 @@ def test_main_runs_deepseek_fixed_batch_on_cpu(capsys):
     assert "fixed-batch (ragged lens" in printed
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "1,1"], ["--executor", "pallas"]])
+@pytest.mark.parametrize("flags", [["--mesh", "2"], ["--executor", "pallas"]])
 def test_unported_flags_raise(flags):
+    """Flags the port does not take exit: a mesh that is not ``dp,tp``
+    (the reference's message) and the reference's executor names
+    (argparse's own choice check)."""
     with pytest.raises(SystemExit) as info:
         t_serve.main(["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu"] + flags)
-    if flags[0] != "--executor":            # argparse's own choice check
-        assert "ROADMAP.md" in str(info.value)
+    if flags[0] == "--mesh":
+        assert "--mesh wants 'dp,tp'" in str(info.value)
 
 
 @pytest.mark.parametrize("flags", [["--sampler", "temperature"],
