@@ -186,7 +186,8 @@ Phases:
                 arm's kernel calls recorded and held against their plain
                 versions), also under prefix_evict="hit-rate" with a pool
                 that forces reclaims of cached pages and through the async
-                loop; bf16 at 28 layers reported (check_partings); the late
+                loop; bf16 at 8 of the 28 layers reported
+                (check_partings); the late
                 tenants' TTFT.  (b) fp32, 4 layers: a sharer preempted by a
                 priority-1 request snapshots its private pages only, its
                 shared pages keep their references while it is out, and its
@@ -194,7 +195,7 @@ Phases:
                 10 (b)'s trace through the sync and the async loop, fp32 at
                 4 layers (also with a mid-stream EOS: a lookahead step
                 discarded; and under the CLI's chaos plan with its restore
-                failure at the async run's first restore) and bf16 at 28
+                failure at the async run's first restore) and bf16 at 8
                 layers: streams bitwise equal, host_syncs <= 2 * finished,
                 step_calls <= id_fetches <= 2 * step_calls, nothing in
                 flight at the end, every _dispatch run under
@@ -318,7 +319,9 @@ Phases:
                 MLA's (192, 128) and whisper's d 64 checked once each on
                 the CUDA-core route.  (b) The CLI's main() on full-width
                 qwen3-0.6b, bf16, 28 layers, --seq 4096 --batch 2 --steps
-                12, dense and --stem: the loss finite and the mean of the
+                12, dense and --stem, and whisper-medium (cut to 6 + 6
+                layers), gemma-2b (cut to 6) and deepseek-v3-671b (one
+                layer) at their head dims: the loss finite and the mean of the
                 last 3 steps below the first 3; counters zeroed before and
                 read after (dense: flash forward and backward, the wgmma
                 route's counter too; stem: block-sparse forward and
@@ -349,11 +352,11 @@ Phases:
                 back; sync: one host fetch per active lane kind a step (at
                 dp 1 the one-device count); async: every _dispatch under
                 set_sync_debug_mode("error"), host_syncs <= 2 * finished,
-                nothing in flight.  (b) bf16, 28 layers: the same trace on
-                one device and on (2, 2): streams equal, or parted at a
-                near tie (check_partings, reported); TTFT, TPOT, wall and
-                peak memory of both (a baseline, not a gain).  (c) bf16, 28
-                layers, mesh (1, 2): phase 10 (a)'s 6000-token request
+                nothing in flight.  (b) bf16, 8 of the 28 layers: the same
+                trace on one device and on (2, 2): streams equal, or parted
+                at a near tie (check_partings, reported); TTFT, TPOT, wall
+                and peak memory of both (a baseline, not a gain).  (c)
+                bf16, 8 layers, mesh (1, 2): phase 10 (a)'s 6000-token request
                 preempted after 2 chunks: the snapshot keyed by (0, 0) and
                 (0, 1), the restored pages re-extracted equal to it shard
                 for shard, bitwise, the stream equal to the uninterrupted
@@ -361,6 +364,30 @@ Phases:
                 The CLI with --mesh 1,1 ("mesh": [1, 1], no failed
                 request); --mesh 1,2 exits with the too-few-devices message
                 on one card.
+ 17. mesh training — launch/steps.mesh_train_step and the CLI over a
+                device grid (every shard on cuda:0 on one card).  (a) fp32
+                qwen3-0.6b at full width, 4 layers, b 4 x 1024, dense and
+                --stem, 3 steps on one device and on meshes (1, 1), (2, 1),
+                (4, 1), (2, 2): (1, 1) bitwise the one-device step, the
+                others' losses and grad norms within 1e-5 (relative) and
+                the union of the ZeRO-1 blocks within 5% of the steps'
+                summed learning rate of one device's master; each kernel's
+                launches (3 / 3b block-sparse forward / backward, 4 / 4b
+                flash, 5 pool, 6 vmag) the data shards times the (1, 1)
+                run's.  (b) bf16, 28 layers, --stem, b 2 x 4096, 6 steps:
+                the CLI with devices=[cuda:0] * 2 (mesh (2, 1)) beside the
+                one-device CLI: losses within 1e-2 at every step; ms a
+                step, tokens/s, peak memory.  (c) FSDP: qwen1.5-4b at
+                published widths, 4 layers, bf16, (2, 1): each coordinate's
+                parameter and ZeRO-1 bytes the rules' share, two steps'
+                losses within 1e-2 of one device's.  (d) Expert
+                parallelism: arctic-480b at published widths, one layer,
+                bf16, no optimizer: loss_and_grads inside
+                sharding.context.use at (1, 2) against one device (loss
+                1e-2, grad norms and two experts' gradients 2e-2), then loss_fn at
+                (2, 2) with the expert tables in FSDP blocks.  (e) The CLI
+                at (2, 1) saves a checkpoint that the CLI at (1, 1) resumes
+                (--restore) with the uninterrupted run's losses (1e-5).
 
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}.  Any failed phase raises (non-zero exit).
@@ -2789,20 +2816,27 @@ def profile_loops(profile: bool) -> dict:
     return out
 
 
+# Phase 11's bf16 arms: 8 of qwen3-0.6b's 28 layers (full depth until
+# phase 17 needed the time)
+P11_BF16_LAYERS = 8
+
+
 def prefix_async_phase(profile: bool = False) -> dict:
     """Phase 11: (a) the prefix cache off / on (fp32 4 layers, strict, the
-    "on" arm recorded; hit-rate and async arms; bf16 28 layers reported),
+    "on" arm recorded; hit-rate and async arms; bf16 ``P11_BF16_LAYERS``
+    layers reported),
     (b) preemption of a sharer, (c) the async loop against the sync loop
     on phase 10 (b)'s trace (fp32 4 layers with EOS and chaos arms; bf16
-    28 layers timed), (d) the CLI with --prefix-cache --async-depth 1 and
+    ``P11_BF16_LAYERS`` layers timed), (d) the CLI with --prefix-cache --async-depth 1 and
     with --prefix-cache --prefix-evict hit-rate."""
     out, launches = {}, {}
     out["prefix/fp32/4"] = prefix_arms("float32", 4, recorded=True)
-    out["prefix/bf16/28"] = prefix_arms("bfloat16", 28)
+    bf16 = f"bf16/{P11_BF16_LAYERS}"
+    out[f"prefix/{bf16}"] = prefix_arms("bfloat16", P11_BF16_LAYERS)
     out["shared_preempt"] = shared_preempt_arm()
     out["loops/fp32/4"] = async_arms("float32", 4)
-    out["loops/bf16/28"] = async_arms("bfloat16", 28)
-    for key in ("prefix/fp32/4", "prefix/bf16/28", "loops/fp32/4", "loops/bf16/28"):
+    out[f"loops/{bf16}"] = async_arms("bfloat16", P11_BF16_LAYERS)
+    for key in ("prefix/fp32/4", f"prefix/{bf16}", "loops/fp32/4", f"loops/{bf16}"):
         for arm, run in out[key].items():
             if isinstance(run, dict) and "launches" in run:
                 launches[f"{key}/{arm}"] = run["launches"]
@@ -3501,7 +3535,7 @@ def _free() -> None:
     torch.cuda.empty_cache()
 
 
-def _draw(cfg, seed: int, what: str):
+def _draw(cfg, seed: int, what: str, tag: str = "phase14"):
     """registry.build(cfg) and its parameters drawn on the card from a
     seeded generator.  Returns (bundle, params, info)."""
     bundle = registry.build(cfg)
@@ -3515,7 +3549,7 @@ def _draw(cfg, seed: int, what: str):
     info = dict(s=time.perf_counter() - t0, params=registry.param_counts(cfg)[0],
                 weights_gib=(torch.cuda.memory_allocated() - before) / 2 ** 30,
                 layers=cfg.num_layers, dtype=cfg.dtype)
-    log(f"[phase14] {what} drawn: " + json.dumps(info))
+    log(f"[{tag}] {what} drawn: " + json.dumps(info))
     return bundle, params, info
 
 
@@ -4610,9 +4644,10 @@ def train_config(cfg):
         configs_lib.get_config = orig
 
 
-def train_cli(argv: list, device: str = "cuda", arch: str = "qwen3-0.6b") -> dict:
+def train_cli(argv: list, device: str = "cuda", arch: str = "qwen3-0.6b",
+              devices=None) -> dict:
     from repro_torch.launch import train as train_lib
-    return train_lib.main(["--arch", arch, "--device", device] + argv)
+    return train_lib.main(["--arch", arch, "--device", device] + argv, devices=devices)
 
 
 def train_cli_arm(what: str, argv: list, need, device: str, arch: str = "qwen3-0.6b",
@@ -4681,16 +4716,19 @@ def train_cli_arms(sizes: dict = P15, device: str = "cuda") -> dict:
 
 
 # Phase 15 (b) at the other pairs: arch -> (the config the CLI builds for it:
-# published widths, deepseek-v3-671b's depth cut to one layer, a dense-FFN
+# published widths; whisper-medium cut to 6 + 6 layers and gemma-2b to 6
+# (full depth until phase 17 needed the time: the kernels run at the same
+# shapes, only fewer times a step); deepseek-v3-671b's depth cut to one layer, a dense-FFN
 # MLA layer at (192, 128) (first_k_dense 1, so its MoE segment holds no
 # layer), and its MTP head (dense attention at (192, 192)); batch, and the
 # (q/k, v) pairs of each arm's backward: flash for dense attention,
 # block-sparse under --stem)
 TRAIN_FAMILIES = {
-    "whisper-medium": (WHISPER_MEDIUM, 2, {"dense": {"flash": [(64, 64)]},
-                                           "stem": {"block_sparse": [(64, 64)]}}),
-    "gemma-2b": (GEMMA_2B, 1, {"dense": {"flash": [(256, 256)]},
-                               "stem": {"block_sparse": [(256, 256)]}}),
+    "whisper-medium": (WHISPER_MEDIUM.replace(num_layers=6, encdec=dataclasses.replace(
+        WHISPER_MEDIUM.encdec, encoder_layers=6)), 2,
+                       {"dense": {"flash": [(64, 64)]}, "stem": {"block_sparse": [(64, 64)]}}),
+    "gemma-2b": (GEMMA_2B.replace(num_layers=6), 1, {"dense": {"flash": [(256, 256)]},
+                                                     "stem": {"block_sparse": [(256, 256)]}}),
     "deepseek-v3-671b": (DEEPSEEK_V3_671B.replace(
         num_layers=1, moe=dataclasses.replace(DEEPSEEK_V3_671B.moe, first_k_dense=1)), 1,
                          {"dense": {"flash": [(192, 128), (192, 192)]},
@@ -4856,6 +4894,9 @@ def bwd_pair_entries(kernels: list, by_name: dict, records: dict, p15: dict,
 # ---------------------------------------------------------------------------
 
 MESHES = ((1, 2), (2, 1), (2, 2))
+# Phase 16 (b) / (c)'s bf16 model: qwen3-0.6b at full width, 8 of its 28
+# layers (full depth until phase 17 needed the time)
+P16_BF16 = dataclasses.replace(QWEN3_0_6B, num_layers=8)
 
 
 def mesh_devices(mesh) -> list:
@@ -4999,7 +5040,7 @@ def mesh_fp32_arms() -> dict:
 
 
 def mesh_preempt_arm(bundle, params) -> dict:
-    """(c) tp = 2 preempt and restore, bf16, 28 layers: phase 10 (a)'s
+    """(c) tp = 2 preempt and restore, bf16, ``P16_BF16``'s 8 layers: phase 10 (a)'s
     6000-token request (32 new) in a 1-slot engine on mesh (1, 2),
     preempted after 2 chunks: the snapshot keyed by (0, 0) and (0, 1), the
     restored pages re-extracted equal to it shard for shard, bitwise, the
@@ -5058,7 +5099,7 @@ def mesh_preempt_arm(bundle, params) -> dict:
                pages=pages, preempt_ms=preempt_ms,
                restore_ms=restore_ms, restore_gb_s=_gbs(nbytes, restore_ms),
                tokens_equal=True)
-    log("[phase16] (c) tp=2 preempt / restore, bf16 28 layers: " + json.dumps(
+    log(f"[phase16] (c) tp=2 preempt / restore, bf16 {bundle.cfg.num_layers} layers: " + json.dumps(
         dict(out, launches={k: launches[k] for k in ENGINE_KERNELS})))
     out["launches"] = launches
     return out
@@ -5067,7 +5108,7 @@ def mesh_preempt_arm(bundle, params) -> dict:
 def mesh_phase() -> dict:
     """Phase 16: mesh serving (on one card every shard of a mesh sits on
     cuda:0; ``mesh_devices``).  (a) fp32 4 layers, meshes (1, 2), (2, 1),
-    (2, 2), sync and async; (b) bf16 28 layers, mesh (2, 2) beside one
+    (2, 2), sync and async; (b) bf16 8 layers, mesh (2, 2) beside one
     device; (c) tp = 2 preempt and restore; (d) the CLI's --mesh."""
     t_start = time.perf_counter()
     cards = torch.cuda.device_count()
@@ -5080,7 +5121,7 @@ def mesh_phase() -> dict:
     out["a"], launches_a = mesh_fp32_arms()
     launches.update(launches_a)
 
-    bundle = registry.build(QWEN3_0_6B)
+    bundle = registry.build(P16_BF16)
     params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0),
                                 device="cuda")
     want, single, _ = _mesh_serve(bundle, params, "b/single")
@@ -5098,7 +5139,7 @@ def mesh_phase() -> dict:
     out["b"] = dict(single=single, mesh_2x2=mesh, streams_equal=got == want,
                     partings=partings)
     launches["b/single"], launches["b/2x2"] = single["launches"], mesh["launches"]
-    log("[phase16] (b) bf16 28 layers, one device vs mesh (2, 2) (a baseline, "
+    log("[phase16] (b) bf16 8 layers, one device vs mesh (2, 2) (a baseline, "
         "not a gain): " + json.dumps(out["b"]))
     out["c"] = mesh_preempt_arm(bundle, params)
     launches["c/preempt"] = out["c"]["launches"]
@@ -5130,6 +5171,387 @@ def mesh_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: mesh training
+# ---------------------------------------------------------------------------
+
+TRAIN_MESHES = ((1, 1), (2, 1), (4, 1), (2, 2))
+# The counters of the kernels a training step runs, forward and backward
+# (3 / 3b, 4 / 4b, 5, 6 in PERF.md's kernel table)
+P17_COUNTERS = ("block_sparse_attention", "block_sparse_attention_bwd", "flash_attention",
+                "flash_attention_bwd", "antidiag_pool", "value_magnitude")
+P17 = dict(fp32_layers=4, fp32_batch=4, fp32_seq=1024, fp32_steps=3, lr=3e-4,
+           cli_steps=6, cli_batch=2, cli_seq=4096, fsdp_layers=4, fsdp_batch=2,
+           fsdp_seq=1024, ep_seq=1024, ckpt_steps=4, ckpt_at=2, ckpt_seq=512)
+
+
+def _p17_counts() -> dict:
+    launches = read_all_launches()
+    return {key: launches[key] for key in P17_COUNTERS}
+
+
+def _p17_setup(cfg, shape, batch: int, seq: int):
+    """(bundle, mesh, state shardings, batch shardings, parameter
+    shardings, data) of ``cfg`` on a ``shape`` mesh whose shards sit on
+    ``mesh_devices``."""
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.sharding import rules as rules_lib
+    bundle = registry.build(cfg)
+    mesh = mesh_lib.make_mesh(shape, ("data", "model"), mesh_devices(shape))
+    av, ax = bundle.abstract_params()
+    psh = rules_lib.param_shardings(cfg, mesh, av, ax)
+    ssh = steps_lib.opt_state_shardings(cfg, mesh, psh, av)
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch)
+    bsh = rules_lib.batch_sharding(cfg, mesh, {
+        k: torch.empty(v.shape, device="meta") for k, v in data.batch_at(0).items()})
+    return bundle, mesh, ssh, bsh, psh, data
+
+
+def _p17_state(bundle, opt_cfg, ssh=None):
+    """Seed-0 parameters as a one-device state, or placed in ``ssh``."""
+    from repro_torch import optim as optim_lib
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    state = optim_lib.init_state(params, opt_cfg)
+    del params
+    return state if ssh is None else steps_lib.place_state(state, ssh)
+
+
+def train_mesh_fp32_arms(sizes: dict = P17) -> dict:
+    """(a) fp32, full width, depth cut, dense and --stem: ``fp32_steps``
+    steps of the one-device step and of the mesh step at each of
+    ``TRAIN_MESHES``; losses and grad norms within 1e-5 of one device's
+    (relative), the (1, 1) step bitwise one device's, the master (the union
+    of the ZeRO-1 blocks) within 5% of the steps' summed learning rate of
+    one device's (the one-device train tests' rule: AdamW moves an element
+    by about lr whatever the size of its gradient), and each kernel's
+    launches the (1, 1) run's times the data shards."""
+    from repro_torch import optim as optim_lib
+    from repro_torch.data import make_global_batch
+    from repro_torch.optim.adamw import tree_leaves
+    cfg = dataclasses.replace(QWEN3_0_6B, dtype="float32", num_layers=sizes["fp32_layers"])
+    opt_cfg = optim_lib.AdamWConfig(peak_lr=sizes["lr"], warmup_steps=2, decay_steps=10,
+                                    grad_dtype=None)
+    b, n, steps = sizes["fp32_batch"], sizes["fp32_seq"], sizes["fp32_steps"]
+    out = {}
+    for arm, policy in (("dense", None), ("stem", cli_stem_policy(n))):
+        _free()
+        bundle, _, _, _, _, data = _p17_setup(cfg, (1, 1), b, n)
+        step = steps_lib.make_train_step(bundle, opt_cfg, stem_cfg=policy)
+        state = _p17_state(bundle, opt_cfg)
+        one = {"loss": [], "grad_norm": []}
+        for i in range(steps):
+            state, m = step(state, make_global_batch(data.batch_at(i), "cuda"))
+            for k in one:
+                one[k].append(float(m[k]))
+        want_master = [t.cpu() for t in tree_leaves(state.master)]
+        lr_sum = sum(float(optim_lib.lr_at(torch.tensor(i + 1), opt_cfg)) for i in range(steps))
+        del state, step
+        runs = {}
+        for shape in TRAIN_MESHES:
+            _free()
+            bundle, mesh, ssh, bsh, _, data = _p17_setup(cfg, shape, b, n)
+            step = steps_lib.make_train_step(bundle, opt_cfg, stem_cfg=policy,
+                                             grad_shardings=ssh.master)
+            state = _p17_state(bundle, opt_cfg, ssh)
+            got = {"loss": [], "grad_norm": []}
+            torch.cuda.synchronize()
+            reset_all_launches()
+            t0 = time.perf_counter()
+            for i in range(steps):
+                state, m = step(state, make_global_batch(data.batch_at(i), mesh, bsh))
+                for k in got:
+                    got[k].append(float(m[k]))
+            wall = time.perf_counter() - t0
+            counts = _p17_counts()
+            master = [a.gather("cpu") for a in tree_leaves(state.master)]
+            blocks = {c: sum(a.blocks[c].numel() for a in tree_leaves(state.master))
+                      for c in mesh.coords()}
+            worst = max(float((a - w).abs().max()) for a, w in zip(master, want_master))
+            err = max(abs(g - w) / abs(w) for k in got for g, w in zip(got[k], one[k]))
+            tag = f"{arm} {shape[0]}x{shape[1]}"
+            if shape == (1, 1) and (got != one or worst != 0.0):
+                raise AssertionError(f"phase 17 (a) {tag}: not the one-device step's bits: "
+                                     f"{got} vs {one}, master {worst}")
+            if not (err <= 1e-5 and worst <= 0.05 * lr_sum):
+                raise AssertionError(f"phase 17 (a) {tag}: losses / grad norms {got} vs one "
+                                     f"device {one} (rel err {err:.2e}), master {worst:.3e} "
+                                     f"(limit {0.05 * lr_sum:.3e})")
+            runs[f"{shape[0]}x{shape[1]}"] = dict(
+                losses=got["loss"], grad_norms=got["grad_norm"], rel_err=err,
+                master_max_abs=worst, launches=counts, wall_s=wall,
+                ms_a_step=wall / steps * 1e3, zero1_elements=blocks)
+            del state, step, master
+        base = runs["1x1"]["launches"]
+        need = [k for k in P17_COUNTERS if ("flash" in k) == (arm == "dense")]
+        for tag, r in runs.items():
+            n_data = int(tag.split("x")[0])
+            if any(r["launches"][k] != n_data * base[k] for k in base) or \
+                    any(base[k] == 0 for k in need):
+                raise AssertionError(f"phase 17 (a) {arm} {tag}: launches {r['launches']} "
+                                     f"are not {n_data} x the (1, 1) run's {base}")
+        out[arm] = dict(one_device=one, meshes=runs, lr_sum=lr_sum)
+        log(f"[phase17] (a) fp32 {cfg.num_layers} layers {arm}, b {b} x {n}: " + json.dumps(
+            {t: {k: r[k] for k in ("losses", "rel_err", "master_max_abs", "launches",
+                                   "ms_a_step")} for t, r in runs.items()}))
+    return out
+
+
+def train_mesh_cli_arms(sizes: dict = P17) -> dict:
+    """(b) bf16 at full width and depth, --stem, b 2 x 4096: the CLI over
+    ``devices=[cuda:0] * 2`` (a (2, 1) mesh, one row a shard) beside the
+    one-device CLI on the same batches: losses within 1e-2 at every step;
+    ms a step, tokens/s, peak memory."""
+    argv = ["--seq", str(sizes["cli_seq"]), "--batch", str(sizes["cli_batch"]),
+            "--steps", str(sizes["cli_steps"]), "--stem"]
+    out = {}
+    for arm, devices in (("one_device", None), ("mesh_2x1", mesh_devices((2, 1)))):
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        res = train_cli(argv, devices=devices)
+        torch.cuda.synchronize()
+        step_ms = float(np.median(res["step_ms"][1:]))
+        out[arm] = dict(losses=res["losses"], mesh=res["mesh"], step_ms=step_ms,
+                        step_ms_all=res["step_ms"],
+                        tokens_s=sizes["cli_batch"] * sizes["cli_seq"] / step_ms * 1e3,
+                        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                        launches=_p17_counts())
+    a, b = out["one_device"], out["mesh_2x1"]
+    diff = max(abs(x - y) for x, y in zip(a["losses"], b["losses"]))
+    if b["mesh"] != [2, 1] or not diff <= 1e-2:
+        raise AssertionError(f"phase 17 (b): mesh {b['mesh']} losses {b['losses']} vs one "
+                             f"device {a['losses']} (max diff {diff:.3e})")
+    if any(b["launches"][k] != 2 * a["launches"][k] for k in b["launches"]):
+        raise AssertionError(f"phase 17 (b): launches {b['launches']} vs {a['launches']}")
+    out["max_loss_diff"] = diff
+    log("[phase17] (b) bf16 28 layers --stem b 2 x 4096, CLI one device vs (2, 1): " +
+        json.dumps({k: {f: v[f] for f in ("losses", "step_ms", "tokens_s", "peak_gib",
+                                          "launches")} for k, v in out.items()
+                    if isinstance(v, dict)}) + f", max |loss diff| {diff:.3e}")
+    return out
+
+
+def train_mesh_fsdp_arm(sizes: dict = P17) -> dict:
+    """(c) FSDP: qwen1.5-4b at published widths, depth cut, bf16, (2, 1):
+    each coordinate's parameter and ZeRO-1 bytes are the rules' share (a
+    leaf's bytes over the mesh sizes of its spec's axes), and two steps'
+    losses match one device's within 1e-2."""
+    from repro_torch import optim as optim_lib
+    from repro_torch.configs import QWEN1_5_4B
+    from repro_torch.data import make_global_batch
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.sharding import arrays as arrays_lib
+    cfg = dataclasses.replace(QWEN1_5_4B, num_layers=sizes["fsdp_layers"])
+    opt_cfg = optim_lib.AdamWConfig()
+    b, n = sizes["fsdp_batch"], sizes["fsdp_seq"]
+    _free()
+    bundle, mesh, ssh, bsh, psh, data = _p17_setup(cfg, (2, 1), b, n)
+    step = steps_lib.make_train_step(bundle, opt_cfg)
+    state = _p17_state(bundle, opt_cfg)
+    one = []
+    for i in range(2):
+        state, m = step(state, make_global_batch(data.batch_at(i), "cuda"))
+        one.append(float(m["loss"]))
+    del state, step
+    _free()
+    state = _p17_state(bundle, opt_cfg, ssh)
+
+    def share(arrs, shardings, dtype_bytes=None):
+        per = {c: 0 for c in mesh.coords()}
+        want = 0
+        for a, sh in zip(arrs, shardings):
+            split = 1
+            for e in sh.spec:
+                for name in (() if e is None else ((e,) if isinstance(e, str) else e)):
+                    split *= mesh.shape[name]
+            size = (dtype_bytes or a.blocks[(0, 0)].element_size())
+            want += a.shape.numel() * size // split
+            for c in per:
+                per[c] += a.blocks[c].numel() * size
+        return per, want
+
+    params = [arrays_lib.relayout(m, sh, cfg.torch_dtype)
+              for m, sh in zip(tree_leaves(state.master), tree_leaves(psh))]
+    p_bytes, p_want = share(params, tree_leaves(psh))
+    z_bytes, z_want = share(tree_leaves(state.master), tree_leaves(ssh.master))
+    full = sum(a.shape.numel() for a in params) * 2
+    del params
+    if set(p_bytes.values()) != {p_want} or set(z_bytes.values()) != {z_want}:
+        raise AssertionError(f"phase 17 (c): parameter bytes {p_bytes} (rules' share "
+                             f"{p_want}), ZeRO-1 bytes {z_bytes} (share {z_want})")
+    mstep = steps_lib.make_train_step(bundle, opt_cfg, grad_shardings=ssh.master)
+    torch.cuda.reset_peak_memory_stats()
+    got = []
+    for i in range(2):
+        state, m = mstep(state, make_global_batch(data.batch_at(i), mesh, bsh))
+        got.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, mstep
+    diff = max(abs(x - y) for x, y in zip(got, one))
+    if not diff <= 1e-2:
+        raise AssertionError(f"phase 17 (c): losses {got} vs one device {one}")
+    out = dict(param_bytes_per_shard=p_bytes[(0, 0)], param_bytes_full=full,
+               zero1_master_bytes_per_shard=z_bytes[(0, 0)], losses=got, one_device=one,
+               max_loss_diff=diff, peak_gib=peak)
+    log(f"[phase17] (c) FSDP qwen1.5-4b {cfg.num_layers} layers bf16 (2, 1): " +
+        json.dumps(out))
+    return out
+
+
+def train_mesh_expert_parallel_arm(sizes: dict = P17) -> dict:
+    """(d) Expert parallelism: arctic-480b at published widths, one layer,
+    bf16 parameters, no optimizer.  ``loss_and_grads`` on one device, then
+    inside ``sharding.context.use`` on (1, 2) (each model shard's 64
+    experts on its own device, here the same card) against it: loss within
+    1e-2, each gradient leaf's norm within 2e-2 and the w_gate gradients
+    of the two experts with the largest (one on each model shard) within
+    2e-2 of their max;
+    then ``loss_fn`` on (2, 2) with the parameters in the rules' FSDP
+    blocks (the expert tables split over model and data, gathered over
+    data at use) against the one-device loss."""
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.sharding import context as context_lib
+    from repro_torch.sharding import rules as rules_lib
+    from repro_torch.sharding import arrays as arrays_lib
+    cfg = dataclasses.replace(ARCTIC_480B, num_layers=1)
+    _free()
+    bundle, params, info = _draw(cfg, 0, "(d) arctic-480b 1 layer", "phase17")
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=sizes["ep_seq"], global_batch=2)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch_at(0).items()}
+    experts = lambda g: g["segment0"]["sub0"]["ffn"]["w_gate"][0]
+
+    def norm(g) -> float:
+        """||g|| in fp32, 2^26 elements at a time (an expert table's
+        gradient is 8.9 GB in bf16)."""
+        return sum(float(c.float().square().sum()) for c in g.reshape(-1).split(1 << 26)) ** 0.5
+
+    def summary(res, pick=None):
+        """(loss, each leaf's gradient norm, the w_gate gradients of
+        ``pick``: by default the largest on each model shard's half)."""
+        loss, _, grads = res
+        g = experts(grads)
+        if pick is None:
+            per = torch.stack([g[e].float().norm() for e in range(g.shape[0])]).cpu()
+            half = g.shape[0] // 2
+            pick = [int(per[:half].argmax()), half + int(per[half:].argmax())]
+        return (float(loss), [norm(t) for t in tree_leaves(grads)],
+                g[pick].float().cpu(), pick)
+
+    t0 = time.perf_counter()
+    one = summary(steps_lib.loss_and_grads(bundle, params, batch))
+    t_one = time.perf_counter() - t0
+    _free()
+    mesh = mesh_lib.make_mesh((1, 2), ("data", "model"), mesh_devices((1, 2)))
+    reset_all_launches()
+    calls = []
+    orig = moe_lib.expert_ffn
+    moe_lib.expert_ffn = lambda *a, **kw: calls.append(kw.get("e_offset")) or orig(*a, **kw)
+    try:
+        t0 = time.perf_counter()
+        with context_lib.use(cfg, mesh):
+            ep = summary(steps_lib.loss_and_grads(bundle, params, batch), one[3])
+        t_ep = time.perf_counter() - t0
+    finally:
+        moe_lib.expert_ffn = orig
+    _free()
+    if sorted(set(calls)) != [0, cfg.moe.num_experts // 2]:
+        raise AssertionError(f"phase 17 (d): expert shards called with offsets {calls}")
+    loss_diff = abs(ep[0] - one[0]) / abs(one[0])
+    norm_diff = max(abs(a - b) / max(b, 1e-30) for a, b in zip(ep[1], one[1]))
+    exp_diff = float((ep[2] - one[2]).abs().max() / one[2].abs().max())
+    if not (loss_diff <= 1e-2 and norm_diff <= 2e-2 and exp_diff <= 2e-2):
+        raise AssertionError(f"phase 17 (d) (1, 2): loss {ep[0]} vs {one[0]}, grad norms "
+                             f"{norm_diff:.3e}, experts {one[3]} {exp_diff:.3e}")
+    mesh4 = mesh_lib.make_mesh((2, 2), ("data", "model"), mesh_devices((2, 2)))
+    av, ax = bundle.abstract_params()
+    psh = rules_lib.param_shardings(cfg, mesh4, av, ax)
+    placed = rules_lib.tree_map(lambda t, sh: arrays_lib.place(t, sh, copy=False),
+                                params, psh)
+    del params
+    _free()
+    t0 = time.perf_counter()
+    with torch.no_grad(), context_lib.use(cfg, mesh4):
+        loss4, _ = bundle.loss_fn(steps_lib.shard_view(placed, mesh4.devices[0]), batch)
+    t_4 = time.perf_counter() - t0
+    loss4 = float(loss4)
+    del placed
+    _free()
+    if not abs(loss4 - one[0]) / abs(one[0]) <= 1e-2:
+        raise AssertionError(f"phase 17 (d) (2, 2): loss {loss4} vs one device {one[0]}")
+    out = dict(weights_gib=info["weights_gib"], loss_one_device=one[0], loss_1x2=ep[0],
+               loss_2x2_fsdp=loss4, rel_loss_diff_1x2=loss_diff, grad_norm_rel_diff=norm_diff,
+               experts=one[3], experts_rel_diff=exp_diff, s_one_device=t_one, s_1x2=t_ep,
+               s_2x2=t_4,
+               w_gate_spec_2x2=list(map(str, psh["segment0"]["sub0"]["ffn"]["w_gate"].spec)))
+    log("[phase17] (d) expert parallelism, arctic-480b 1 layer bf16: " + json.dumps(out))
+    return out
+
+
+def train_mesh_checkpoint_arm(sizes: dict = P17) -> dict:
+    """(e) fp32 qwen3-0.6b at the fp32 arms' depth: the CLI at (2, 1)
+    (``devices=[cuda:0] * 2``) saves at step ``ckpt_at``; the CLI at (1, 1)
+    resumes it with ``--restore``: its losses are the uninterrupted (2, 1)
+    run's within 1e-5 (the meshes' fp32 sums run in different orders)."""
+    cfg = dataclasses.replace(QWEN3_0_6B, dtype="float32", num_layers=sizes["fp32_layers"])
+    ckpt = ROOT / "build" / "phase17"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = ["--seq", str(sizes["ckpt_seq"]), "--batch", "2", "--stem"]
+    n_all, at = sizes["ckpt_steps"], sizes["ckpt_at"]
+    two = mesh_devices((2, 1))
+    with train_config(cfg):
+        whole = train_cli(argv + ["--steps", str(n_all)], devices=two)
+        train_cli(argv + ["--steps", str(at), "--checkpoint-dir", str(ckpt),
+                          "--checkpoint-every", str(at)], devices=two)
+        resumed = train_cli(argv + ["--steps", str(n_all), "--checkpoint-dir", str(ckpt),
+                                    "--restore", "--checkpoint-every", "100"])
+    shutil.rmtree(ckpt, ignore_errors=True)
+    tail = whole["losses"][at:]
+    diff = max(abs(a - b) / abs(b) for a, b in zip(resumed["losses"], tail))
+    if resumed["mesh"] != [1, 1] or len(resumed["losses"]) != n_all - at or not diff <= 1e-5:
+        raise AssertionError(f"phase 17 (e): resumed {resumed['losses']} at {resumed['mesh']}"
+                             f" vs the uninterrupted (2, 1) run's {tail}")
+    out = dict(uninterrupted=whole["losses"], resumed=resumed["losses"], rel_diff=diff)
+    log("[phase17] (e) checkpoint saved at (2, 1), resumed by the CLI at (1, 1): " +
+        json.dumps(out))
+    return out
+
+
+def mesh_training_phase() -> dict:
+    """Phase 17: mesh training, every shard of a mesh on cuda:0 on one card
+    (``mesh_devices``)."""
+    t_start = time.perf_counter()
+    out, arm_s = {}, {}
+    for key, arm in (("a", train_mesh_fp32_arms), ("b", train_mesh_cli_arms),
+                     ("c", train_mesh_fsdp_arm), ("d", train_mesh_expert_parallel_arm),
+                     ("e", train_mesh_checkpoint_arm)):
+        t0 = time.perf_counter()
+        out[key] = arm()
+        arm_s[key] = time.perf_counter() - t0
+    out["arm_s"] = arm_s
+    out["launches"] = {f"a/{arm}/{t}": r["launches"] for arm in ("dense", "stem")
+                       for t, r in out["a"][arm]["meshes"].items()}
+    out["launches"]["b/mesh_2x1"] = out["b"]["mesh_2x1"]["launches"]
+    out["s"] = time.perf_counter() - t_start
+    log(f"[phase17] done in {out['s']:.1f} s (arms: " +
+        ", ".join(f"{k} {v:.1f}" for k, v in arm_s.items()) + ")")
+    return out
+
+
+def phase_clock():
+    """A function that logs the seconds since its last call (or since this
+    call) under a phase's name: the proof's time by phase."""
+    last = [time.perf_counter()]
+
+    def stamp(what: str) -> None:
+        now = time.perf_counter()
+        log(f"[timing] {what}: {now - last[0]:.1f} s")
+        last[0] = now
+    return stamp
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -5145,6 +5567,7 @@ def main() -> None:
     args = ap.parse_args()
 
     # Phase 1: device.
+    stamp = phase_clock()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
                          "is false)")
@@ -5165,62 +5588,83 @@ def main() -> None:
     libs = _build.build_all()
     log(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     build = build_report(libs)
+    stamp("phase 2 (build)")
 
     # Phase 3: kernels against their plain versions.
     records: dict = {}
     kernel_phase(records)
     prefill_kernel_phase(records)
     prefill_head_dim_phase(records)
+    stamp("phase 3")
     parent_ab_phase(records, parent_tree(args.parent))
     AB_INPUTS.clear()
+    stamp("phase 3c")
 
     # Phase 4: the chunked engine at full width; phase 5: the one-shot
     # prefill; phase 6: the monolithic engine (this slice's main path);
     # phase 7: executor parity.
     launches = engine_phase(profile=args.profile)
+    stamp("phase 4")
     prefill_phase(profile=args.profile_prefill)
+    stamp("phase 5")
     mono_launches = monolithic_phase()
+    stamp("phase 6")
     parity_phase(monolithic=False)
     parity_phase(monolithic=True)
     prefill_parity_phase()
+    stamp("phase 7")
 
     # Phase 8: the small configurations under both executors.
     small_config_phase()
+    stamp("phase 8")
 
     # Phase 9: contiguous decode, the CLI and the evaluation passes.
     p9 = contiguous_phase()
+    stamp("phase 9")
 
     # Phase 10: overload (preemption with host offload, SLO, chaos).
     p10 = overload_phase()
+    stamp("phase 10")
     p10_launches = lambda key: {arm: n[key] for arm, n in p10["launches"].items()}
 
     # Phase 11: the prefix cache and the async loop.
     p11 = prefix_async_phase(profile=args.profile)
+    stamp("phase 11")
     p11_launches = lambda key: {arm: n[key] for arm, n in p11["launches"].items()}
 
     # Phase 12: the MoE family (arctic-480b at full width, depth cut).
     p12 = arctic_phase()
+    stamp("phase 12")
     p12_launches = lambda key: {arm: n[key] for arm, n in p12["launches"].items()}
 
     # Phase 13: MLA and deepseek-v3-671b (the kernels at MLA's head dims,
     # then the model at full width, depth cut).
     mla_kernel_phase(records)
     p13 = deepseek_phase(profile=args.profile_prefill)
+    stamp("phase 13")
     p13_launches = lambda key: {arm: n[key] for arm, n in p13["launches"].items()}
 
     # Phase 14: the SSM, hybrid, encoder-decoder and VLM-stub families at
     # full width and depth.
     p14 = families_phase(records, profile=args.profile_prefill)
+    stamp("phase 14")
     p14_launches = lambda key: {arm: n[key] for arm, n in p14["launches"].items()}
 
     # Phase 15: the training path (the backward kernels, the CLI at full
     # width, the fp32 checks).
     p15 = train_phase(records)
+    stamp("phase 15")
     p15_launches = lambda key: {arm: r["launches"][key] for arm, r in p15["cli"].items()}
 
     # Phase 16: mesh serving (every shard of a mesh on this one card).
     p16 = mesh_phase()
+    stamp("phase 16")
     p16_launches = lambda key: {arm: n.get(key, 0) for arm, n in p16["launches"].items()}
+
+    # Phase 17: mesh training (every shard of a mesh on this one card).
+    p17 = mesh_training_phase()
+    stamp("phase 17")
+    p17_launches = lambda key: {arm: n.get(key, 0) for arm, n in p17["launches"].items()}
 
     kernels = []
     for key in ("score/decode", "score/chunk", "attend/decode", "attend/chunk"):
@@ -5237,6 +5681,7 @@ def main() -> None:
             phase14_launches=p14_launches(key),
             phase15_launches=p15_launches(key),
             phase16_launches=p16_launches(key),
+            phase17_launches=p17_launches(key),
             max_abs_err=max(r["max_abs_err"] for r in records[key].values()),
             ms=rec["ms"], host_ms=rec["host_ms"], plain_ms=rec["plain_ms"],
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
@@ -5256,6 +5701,7 @@ def main() -> None:
             phase14_launches=p14_launches(counter),
             phase15_launches=p15_launches(counter),
             phase16_launches=p16_launches(counter),
+            phase17_launches=p17_launches(counter),
             max_abs_err=max(r["max_abs_err"]
                             for r in records[f"{key}/prefill"].values()),
             ms=rec["ms"], host_ms=rec["host_ms"], plain_ms=rec["plain_ms"],
@@ -5273,6 +5719,7 @@ def main() -> None:
             "trains through it; its TPU kernel has no backward)",
             launches=p15["cli"][arm]["launches"][key],
             phase15_launches=p15_launches(key),
+            phase17_launches=p17_launches(key),
             launches_per_step=p15["cli"][arm]["launches"][key] / P15["steps"],
             max_abs_err=max(r["max_abs_err"] for r in records[f"{key}/train"].values()),
             ms=rec["ms"], host_ms=rec["host_ms"], plain_ms=rec["plain_ms"],

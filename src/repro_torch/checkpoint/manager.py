@@ -1,5 +1,5 @@
 """Atomic, keep-K checkpointing with async saves (port of
-``repro/checkpoint/manager.py``, one device).
+``repro/checkpoint/manager.py``).
 
 The protocol is the reference's: a save writes ``step_<n>.tmp/`` and
 renames it into place after a ``DONE`` marker, so a crash mid-save never
@@ -15,6 +15,11 @@ stored as a same-width integer view (bf16 as uint16), so a checkpoint
 restores across the two packages in both directions.  The template is a
 tree of tensors, usually built on the ``meta`` device (shapes and dtypes,
 nothing allocated).
+
+A leaf held in blocks over a training mesh (``sharding.arrays.
+ShardedArray``) is saved as its logical, unsharded array, so the layout
+does not depend on the mesh; ``restore(..., shardings=)`` places every leaf
+in the blocks of any mesh (the reference's cross-mesh reshard).
 """
 from __future__ import annotations
 
@@ -27,6 +32,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.sharding import arrays
 
 _VIEWS = {torch.bfloat16: ("bfloat16", torch.int16, np.uint16)}
 
@@ -59,10 +66,13 @@ def _unflatten(tree, leaves):
     return next(leaves)
 
 
-def _to_numpy(t: torch.Tensor):
+def _to_numpy(t):
     """(array, dtype name for the map or None): a host copy on every device
     (``.cpu()`` of a CPU tensor would share its memory, which the next
-    in-place optimizer step overwrites while an async save writes it)."""
+    in-place optimizer step overwrites while an async save writes it); a
+    ShardedArray's blocks gathered first."""
+    if isinstance(t, arrays.ShardedArray):
+        t = t.gather("cpu")
     t = t.detach()
     if t.dtype in _VIEWS:
         name, view, np_view = _VIEWS[t.dtype]
@@ -140,11 +150,14 @@ class CheckpointManager:
 
     # -- restore ------------------------------------------------------------
     def restore(self, target_tree: Any, step: Optional[int] = None,
-                device=None) -> tuple:
+                device=None, shardings: Any = None) -> tuple:
         """Restore into the structure, shapes and dtypes of ``target_tree``
         (tensors, usually on the ``meta`` device).  Each leaf lands on
         ``device``, or on its template leaf's device when that is not
-        ``meta``, else on the card.  Returns (tree, meta)."""
+        ``meta``, else on the card; or, with ``shardings`` (a matching tree
+        of ``NamedSharding``), in that sharding's blocks (a 0-d leaf, the
+        replicated step counter, as one tensor on the mesh's first device).
+        Returns (tree, meta)."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -153,12 +166,19 @@ class CheckpointManager:
             meta = json.load(f)
         saved = meta.get("dtypes", {})
         leaves = []
+        placements = (iter(s for _, s in _flatten_with_paths(shardings))
+                      if shardings is not None else None)
         with np.load(os.path.join(d, "arrays.npz")) as payload:
             for key, ref in _flatten_with_paths(target_tree):
                 t = _from_numpy(payload[key], saved.get(key))
                 if tuple(t.shape) != tuple(ref.shape):
                     raise ValueError(
                         f"shape mismatch for {key}: {tuple(t.shape)} vs {tuple(ref.shape)}")
+                if placements is not None:
+                    sh = next(placements)
+                    leaves.append(arrays.place(t, sh, ref.dtype) if t.ndim else
+                                  t.to(device=sh.mesh.devices[0], dtype=ref.dtype))
+                    continue
                 dev = device if device is not None else (
                     "cuda" if ref.device.type == "meta" else ref.device)
                 leaves.append(t.to(device=dev, dtype=ref.dtype))

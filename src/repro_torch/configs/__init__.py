@@ -10,9 +10,11 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.configs.arctic_480b import CONFIG as ARCTIC_480B
-from repro_torch.configs.base import (ArchConfig, EncDecConfig,  # noqa: F401
-                                      MLAConfig, MoEConfig, RGLRUConfig,
-                                      SSDConfig)
+from repro_torch.configs.base import (ALL_SHAPES, DECODE_32K,  # noqa: F401
+                                      LONG_500K, PREFILL_32K, TRAIN_4K,
+                                      ArchConfig, EncDecConfig, MLAConfig,
+                                      MoEConfig, RGLRUConfig, RunShape,
+                                      SSDConfig, shapes_for)
 from repro_torch.configs.deepseek_v3_671b import CONFIG as DEEPSEEK_V3_671B
 from repro_torch.configs.gemma_2b import CONFIG as GEMMA_2B
 from repro_torch.configs.glm4_9b import CONFIG as GLM4_9B

@@ -108,3 +108,29 @@ class ArchConfig:
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class RunShape:
+    """One (input-shape) cell: a global batch of ``global_batch`` sequences
+    of ``seq_len`` tokens, trained, prefilled or decoded."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # train | prefill | decode
+
+
+TRAIN_4K = RunShape("train_4k", 4096, 256, "train")
+PREFILL_32K = RunShape("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = RunShape("decode_32k", 32768, 128, "decode")
+LONG_500K = RunShape("long_500k", 524288, 1, "decode")
+
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+
+
+def shapes_for(cfg: ArchConfig):
+    """The shape set of ``cfg``: long_500k only for the sub-quadratic
+    architectures."""
+    if cfg.sub_quadratic:
+        return ALL_SHAPES
+    return (TRAIN_4K, PREFILL_32K, DECODE_32K)

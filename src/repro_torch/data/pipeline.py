@@ -6,8 +6,9 @@ pure function of (seed, step) through a Philox generator seeked to the step
 (O(1) skip-ahead, so a restarted job resumes the exact token stream), with
 Zipf tokens, planted copied motifs and the ``vlm`` / ``encdec`` stub
 inputs, bitwise the reference's batches.  ``make_global_batch`` is the
-one-device counterpart of the reference's sharded feed: the host batch as
-tensors on ``device``.
+reference's sharded feed: the host batch as tensors on one device, or, over
+a training mesh, each array's blocks on their coordinates' devices (each
+data coordinate gets ``batch[index]``).
 """
 from __future__ import annotations
 
@@ -64,7 +65,14 @@ class SyntheticLMData:
         return batch
 
 
-def make_global_batch(batch: dict, device="cuda") -> dict:
-    """Host batch -> tensors on ``device`` (one device: no sharding)."""
-    return {name: torch.from_numpy(np.ascontiguousarray(arr)).to(device)
-            for name, arr in batch.items()}
+def make_global_batch(batch: dict, mesh="cuda", shardings=None) -> dict:
+    """Host batch -> tensors on the device ``mesh``; or, with
+    ``shardings`` (a ``NamedSharding`` a name, ``sharding.rules.
+    batch_sharding``), ``ShardedArray``s over the mesh."""
+    tensors = {name: torch.from_numpy(np.ascontiguousarray(arr))
+               for name, arr in batch.items()}
+    if shardings is None:
+        return {name: t.to(mesh) for name, t in tensors.items()}
+    from repro_torch.sharding import arrays
+    return {name: arrays.place(t, shardings[name], copy=False)
+            for name, t in tensors.items()}

@@ -1,20 +1,29 @@
 """Step functions (port of ``make_train_step``, ``make_unified_step``,
-``make_monolithic_prefill``, ``make_prefill_step``, ``set_cache_positions``
-and ``make_serve_step`` from ``repro/launch/steps.py``).  PyTorch runs
+``make_monolithic_prefill``, ``make_prefill_step``, ``set_cache_positions``,
+``make_serve_step``, ``opt_state_shardings``, ``train_arg_shardings`` and
+``abstract_opt_state`` from ``repro/launch/steps.py``).  PyTorch runs
 eagerly, so each step is a plain closure; the reference's trace counting
 has no counterpart here, its ``shard_map`` + ``vmap`` over the serving
 mesh becomes a loop over the slot groups (``make_unified_step(smesh=)``),
-and the page extract / restore / copy steps are the engine's direct calls
-of ``runtime/offload.py`` and ``runtime/paged.py``.  Training runs on one
-device."""
+its sharded train step a loop over the data shards
+(``make_train_step(grad_shardings=)``), and the page extract / restore /
+copy steps are the engine's direct calls of ``runtime/offload.py`` and
+``runtime/paged.py``."""
 from __future__ import annotations
+
+import contextlib
+from typing import Optional
 
 import torch
 
 from repro_torch import optim
 from repro_torch.core import policy as policy_lib
-from repro_torch.models import attention, mla, transformer
+from repro_torch.models import attention, mla, moe, transformer
 from repro_torch.optim.adamw import tree_leaves, tree_map
+from repro_torch.sharding import arrays
+from repro_torch.sharding import context as shctx
+from repro_torch.sharding import rules as rules_lib
+from repro_torch.sharding.arrays import ShardedArray
 
 
 def loss_and_grads(bundle, master, batch: dict, *, stem_cfg=None, policies=None,
@@ -49,12 +58,15 @@ def make_train_step(bundle, opt_cfg: optim.AdamWConfig, *, stem_cfg=None,
     master, in place: the step consumes the state it is given (the returned
     state holds its master, mu and nu tensors, updated).  Metrics: the loss
     function's (``loss``, ``ce``, ``aux``, ``mtp_ce``) and ``lr``,
-    ``grad_norm``.  ``grad_shardings`` has no
-    one-device meaning: any value but None raises."""
+    ``grad_norm``.
+
+    With ``grad_shardings`` (a tree of ``NamedSharding``, usually the ZeRO-1
+    master shardings of ``opt_state_shardings``) the step runs over their
+    mesh: ``mesh_train_step``."""
     if grad_shardings is not None:
-        raise ValueError("make_train_step: grad_shardings pins gradients to a "
-                         "mesh's optimizer shards; the port runs on one device "
-                         "(pass None)")
+        return mesh_train_step(bundle, opt_cfg, grad_shardings, stem_cfg=stem_cfg,
+                               policies=policies, remat=remat,
+                               microbatches=microbatches)
 
     def grad_of(master, mb):
         return loss_and_grads(bundle, master, mb, stem_cfg=stem_cfg,
@@ -81,6 +93,236 @@ def make_train_step(bundle, opt_cfg: optim.AdamWConfig, *, stem_cfg=None,
         return new_state, {**metrics, **opt_metrics, "loss": loss}
 
     return train_step
+
+
+def _rows(v, lo: int, hi: int, device) -> torch.Tensor:
+    """Rows [lo, hi) of a batch array on ``device``."""
+    if isinstance(v, ShardedArray):
+        return v.gather(device, region=((lo, hi),) + tuple((0, n) for n in v.shape[1:]))
+    return v[lo:hi].to(device)
+
+
+def shard_view(params: dict, device) -> dict:
+    """A parameter tree in blocks as one device's forward reads it: the
+    top-level leaves gathered onto ``device``, the stacked layer subtrees
+    left in blocks (each layer gathers its own at use)."""
+    return {k: v if isinstance(v, dict) else v.gather(device) for k, v in params.items()}
+
+
+def _add(a: ShardedArray, b: ShardedArray) -> ShardedArray:
+    """Blockwise a + b of two arrays of one layout."""
+    return ShardedArray(a.sharding, a.shape, a.dtype, {
+        c: t + b.blocks[c] for c, t in a.blocks.items()})
+
+
+def mesh_train_step(bundle, opt_cfg: optim.AdamWConfig, grad_shardings, *,
+                    stem_cfg=None, policies=None, remat: bool = True,
+                    microbatches: int = 1):
+    """The train step over a ``TrainMesh`` (ref ``make_train_step`` with
+    ``grad_shardings``, under ``jax.jit`` with the ZeRO-1 state shardings):
+    (opt_state, batch) -> (opt_state, metrics).
+
+    ``opt_state``'s master, mu and nu are ``ShardedArray`` trees in the
+    ``grad_shardings`` layout (``place_state``), its step a tensor on the
+    first data shard's device; ``batch`` maps names to ``ShardedArray``s of
+    ``rules.batch_sharding`` (``data.make_global_batch``) or to tensors.
+    One step:
+
+    1. the master's blocks are all-gathered into the parameters' layout
+       (``rules.param_shardings``: model-axis blocks, and for
+       ``fsdp_weights`` archs data-axis blocks of ``embed`` / ``expert_mlp``
+       dims), cast to the arch dtype: once a step;
+    2. each data shard, in rank order on its model-0 device, runs
+       ``bundle.loss_fn`` on its rows of the batch: the top-level leaves
+       gathered first, each layer group's blocks gathered inside the layer
+       body (``models/transformer._group_full``), freed after, and gathered
+       again by a rematerialized backward; with ``microbatches`` the global
+       batch splits into that many consecutive row blocks, each split over
+       the shards;
+    3. under ``sharding.context.data_parallel`` the CE is the global mean
+       and the MoE aux loss the global batch's (``moe.GlobalAux``: every
+       shard's forward runs before any backward);
+    4. each shard's gradient with respect to the parameter blocks, then the
+       reduce-scatter: each master block gets the sum over the shards, in
+       rank order, in fp32 on its device (``arrays.reduce_into``);
+       microbatches accumulate and divide, as the reference's scan does;
+    5. the gradient-compression cast, after the reduction;
+    6. AdamW on every block, clipped by the global norm (each block counted
+       once, in leaf then rank order), the schedule replicated.
+
+    At a (1, 1) mesh every gather is the block itself and every sum has one
+    term, so the step is the one-device step's bitwise.  Training does not
+    enter ``sharding.context.use`` (nor does the reference's): the MoE runs
+    its local path on each data shard."""
+    cfg = bundle.cfg
+    shardings = tree_leaves(grad_shardings)
+    if not shardings or not all(isinstance(s, rules_lib.NamedSharding) for s in shardings):
+        raise ValueError("make_train_step: grad_shardings must be a tree of "
+                         "sharding.rules.NamedSharding over one mesh (the master's "
+                         "ZeRO-1 shardings), got "
+                         f"{type(shardings[0]).__name__ if shardings else 'no leaf'}")
+    mesh = shardings[0].mesh
+    values, axes = bundle.abstract_params()
+    param_sh = rules_lib.param_shardings(cfg, mesh, values, axes)
+    del values
+    coords = rules_lib.data_coords(mesh)
+    devices = [mesh.device(c) for c in coords]
+    n_data = len(coords)
+    kw = {"policies": policies} if policies else {}
+
+    def train_step(opt_state: optim.OptState, batch: dict):
+        # (1) the forward's parameters, their blocks the autograd leaves
+        leaf_of: dict = {}     # id(block) -> (block, leaf): the block kept alive
+
+        def as_leaf(t):
+            if id(t) not in leaf_of:
+                leaf_of[id(t)] = (t, t.detach().requires_grad_())
+            return leaf_of[id(t)][1]
+
+        params = tree_map(lambda m, sh: arrays.relayout(m, sh, cfg.torch_dtype)
+                          .map_blocks(as_leaf), opt_state.master, param_sh)
+        leaves = [leaf for _, leaf in leaf_of.values()]
+        del leaf_of
+        B = next(iter(batch.values())).shape[0]
+        if B % (microbatches * n_data):
+            raise ValueError(f"a batch of {B} rows does not split into {microbatches} "
+                             f"microbatches over {n_data} data shards")
+        rows = B // (microbatches * n_data)
+        grads = loss = metrics = None
+        for mb in range(microbatches):
+            mbs = [{k: _rows(v, (mb * n_data + d) * rows, (mb * n_data + d + 1) * rows, dev)
+                    for k, v in batch.items()} for d, dev in enumerate(devices)]
+            l, metrics, red = _microbatch(params, leaves, mbs, opt_state.master)
+            if microbatches == 1:
+                grads, loss = red, l
+            else:
+                if grads is None:
+                    grads = tree_map(lambda m: m.map_blocks(
+                        lambda t: torch.zeros(t.shape, dtype=torch.float32,
+                                              device=t.device), torch.float32),
+                                     opt_state.master)
+                    loss = torch.zeros((), dtype=torch.float32, device=devices[0])
+                grads = tree_map(_add, grads, red)
+                loss = loss + l
+        if microbatches > 1:
+            grads = tree_map(lambda g: g.map_blocks(lambda t: t / microbatches), grads)
+            loss = loss / microbatches
+        # (5) compression after the reduction; (6) AdamW on the blocks
+        grads = optim.adamw.compress_grads(grads, opt_cfg)
+        g_leaves, m_leaves = tree_leaves(grads), tree_leaves(opt_state.master)
+        gnorm = optim.adamw.global_norm([t for g in g_leaves for _, t in g.unique_blocks()])
+        items = [(g.blocks[c], t, mu.blocks[c], nu.blocks[c])
+                 for g, m, mu, nu in zip(g_leaves, m_leaves, tree_leaves(opt_state.mu),
+                                         tree_leaves(opt_state.nu))
+                 for c, _, t in m.distinct()]
+        new, opt_metrics = optim.update(
+            [i[0] for i in items],
+            optim.OptState(opt_state.step, [i[1] for i in items], [i[2] for i in items],
+                           [i[3] for i in items]), opt_cfg, gnorm=gnorm)
+        state = optim.OptState(new.step, opt_state.master, opt_state.mu, opt_state.nu)
+        return state, {**metrics, **opt_metrics, "loss": loss}
+
+    def _microbatch(params, leaves, mbs, master):
+        """One microbatch over the data shards: (loss, metrics, the
+        reduce-scattered gradient tree in the master's layout)."""
+        mask_total = None
+        if "loss_mask" in mbs[0]:
+            mask_total = sum(mb["loss_mask"].float().sum().to(devices[0]) for mb in mbs)
+        aux = moe.GlobalAux(cfg.moe) if cfg.moe is not None and n_data > 1 else None
+        ctx = (shctx.data_parallel(n_data, mask_total, aux) if n_data > 1
+               else contextlib.nullcontext())
+        outs, pending, grads = [], [], []
+
+        def backward(loss_d):
+            g = torch.autograd.grad(loss_d, leaves, allow_unused=True)
+            return {id(t): gt for t, gt in zip(leaves, g)}
+
+        with ctx:
+            for d, dev in enumerate(devices):
+                if aux is not None:
+                    aux.begin_shard()
+                loss_d, met_d = bundle.loss_fn(shard_view(params, dev), mbs[d],
+                                               stem_cfg=stem_cfg, remat=remat, **kw)
+                outs.append((loss_d.detach(), {k: v.detach() for k, v in met_d.items()}))
+                pending.append(loss_d)
+                if aux is None:     # nothing couples the shards: free this graph now
+                    grads.append(backward(pending.pop()))
+                del loss_d, met_d
+            aux_total = aux.finish() if aux is not None else None
+            grads += [backward(loss_d) for loss_d in pending]
+            del pending
+        if n_data == 1:
+            loss, metrics = outs[0]
+        else:
+            lead = devices[0]
+            loss = sum(l.to(lead) for l, _ in outs)
+            metrics = {k: sum(m[k].to(lead) for _, m in outs) for k in outs[0][1]}
+            if aux_total is not None:
+                metrics["aux"] = aux_total
+                loss = loss + aux_total
+            metrics["loss"] = loss
+
+        def one(m, p):
+            # each shard's gradient blocks leave ``grads`` as they are
+            # reduced, so the arch-dtype gradients and their fp32 sums are
+            # not all alive at once
+            contrib = [p.map_blocks(lambda t, g=g: g.pop(id(t), None)
+                                    if g.get(id(t)) is not None else torch.zeros_like(t))
+                       for g in grads]
+            return arrays.reduce_into(m, contrib)
+        return loss, metrics, tree_map(one, master, params)
+
+    return train_step
+
+
+def place_state(state: optim.OptState, state_sh: optim.OptState) -> optim.OptState:
+    """A one-device ``OptState`` placed in ``state_sh``'s blocks; the step
+    on the first coordinate's device.  A block that is a contiguous part of
+    a leaf on its own device is a view of it: the state given is consumed
+    (its tensors are updated in place by the mesh steps)."""
+    lead = state_sh.step.mesh.devices[0]
+    put = lambda t, sh: arrays.place(t, sh, copy=False)
+    return optim.OptState(step=state.step.to(lead),
+                          master=tree_map(put, state.master, state_sh.master),
+                          mu=tree_map(put, state.mu, state_sh.mu),
+                          nu=tree_map(put, state.nu, state_sh.nu))
+
+
+def gather_state(state: optim.OptState, device="cpu") -> optim.OptState:
+    """A mesh ``OptState`` as one-device tensors on ``device``."""
+    get = lambda a: a.gather(device) if isinstance(a, ShardedArray) else a.to(device)
+    return optim.OptState(step=state.step.to(device), master=tree_map(get, state.master),
+                          mu=tree_map(get, state.mu), nu=tree_map(get, state.nu))
+
+
+def opt_state_shardings(cfg, mesh, param_sh, abstract_values=None) -> optim.OptState:
+    """The OptState's shardings: the parameters', plus ZeRO-1 over the data
+    (and pod) axes when ``abstract_values`` gives the shapes; the step
+    replicated."""
+    rep = rules_lib.NamedSharding(mesh, ())
+    opt_sh = param_sh
+    if abstract_values is not None:
+        opt_sh = rules_lib.zero1_shardings(cfg, mesh, abstract_values, param_sh)
+    return optim.OptState(step=rep, master=opt_sh, mu=opt_sh, nu=opt_sh)
+
+
+def train_arg_shardings(cfg, mesh, abstract_values, axes_tree, batch_specs):
+    param_sh = rules_lib.param_shardings(cfg, mesh, abstract_values, axes_tree)
+    state_sh = opt_state_shardings(cfg, mesh, param_sh)
+    batch_sh = rules_lib.batch_sharding(cfg, mesh, batch_specs)
+    return state_sh, batch_sh
+
+
+def abstract_opt_state(abstract_values, opt_cfg: Optional[optim.AdamWConfig] = None):
+    """The OptState's shapes and dtypes on the ``meta`` device."""
+    mdt = (torch.bfloat16 if (opt_cfg and opt_cfg.moment_dtype == "bfloat16")
+           else torch.float32)
+    like = lambda dt: (lambda v: torch.empty(v.shape, dtype=dt, device="meta"))
+    return optim.OptState(
+        step=torch.empty((), dtype=torch.int32, device="meta"),
+        master=tree_map(like(torch.float32), abstract_values),
+        mu=tree_map(like(mdt), abstract_values),
+        nu=tree_map(like(mdt), abstract_values))
 
 
 def make_unified_step(bundle, *, stem_cfg, budget_frac: float = 1.0,

@@ -41,18 +41,18 @@ class KVCache(NamedTuple):
 def init(ini: common.Initializer, cfg: ArchConfig) -> dict:
     d, h, hk, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     p = {
-        "wq": ini.normal((d, h, dh)),
-        "wk": ini.normal((d, hk, dh)),
-        "wv": ini.normal((d, hk, dh)),
-        "wo": ini.normal((h, dh, d)),
+        "wq": ini.normal((d, h, dh), ("embed", "heads", "head_dim")),
+        "wk": ini.normal((d, hk, dh), ("embed", "kv_heads", "head_dim")),
+        "wv": ini.normal((d, hk, dh), ("embed", "kv_heads", "head_dim")),
+        "wo": ini.normal((h, dh, d), ("heads", "head_dim", "embed")),
     }
     if cfg.qkv_bias:
-        p["bq"] = ini.zeros((h, dh))
-        p["bk"] = ini.zeros((hk, dh))
-        p["bv"] = ini.zeros((hk, dh))
+        p["bq"] = ini.zeros((h, dh), ("heads", "head_dim"))
+        p["bk"] = ini.zeros((hk, dh), ("kv_heads", "head_dim"))
+        p["bv"] = ini.zeros((hk, dh), ("kv_heads", "head_dim"))
     if cfg.qk_norm:
-        p["q_norm"] = ini.zeros((dh,))
-        p["k_norm"] = ini.zeros((dh,))
+        p["q_norm"] = ini.zeros((dh,), ("head_dim",))
+        p["k_norm"] = ini.zeros((dh,), ("head_dim",))
     return p
 
 
@@ -340,10 +340,10 @@ def apply_chunk_paged(params, x, cfg: ArchConfig, pool, page_table,
 def init_cross(ini: common.Initializer, cfg: ArchConfig) -> dict:
     d, h, dh = cfg.d_model, cfg.num_heads, cfg.head_dim
     return {
-        "wq": ini.normal((d, h, dh)),
-        "wk": ini.normal((d, h, dh)),
-        "wv": ini.normal((d, h, dh)),
-        "wo": ini.normal((h, dh, d)),
+        "wq": ini.normal((d, h, dh), ("embed", "heads", "head_dim")),
+        "wk": ini.normal((d, h, dh), ("embed", "heads", "head_dim")),
+        "wv": ini.normal((d, h, dh), ("embed", "heads", "head_dim")),
+        "wo": ini.normal((h, dh, d), ("heads", "head_dim", "embed")),
     }
 
 

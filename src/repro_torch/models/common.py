@@ -7,7 +7,11 @@ Parameters are nested dicts of tensors with the reference's tree layout.
 ``Initializer`` draws them from an explicit ``torch.Generator`` with the
 reference's shapes and scales (normal / sqrt(fan_in), fan_in = the product
 of all but the last dimension); JAX and PyTorch give different numbers from
-one seed, so tests carry the JAX weights across with ``weights.py``.
+one seed, so tests carry the JAX weights across with ``weights.py``.  Every
+leaf is drawn with the reference's tuple of *logical* axis names
+(``sharding/rules.py`` maps them to mesh axes); the initializer keeps each
+leaf's axes beside it, so ``axes_tree`` gives the reference's axes tree
+while the parameter tree itself stays plain tensors.
 """
 from __future__ import annotations
 
@@ -15,6 +19,8 @@ import math
 from typing import Sequence
 
 import torch
+
+from repro_torch.sharding import context as shctx
 
 
 # The largest fp32 temporary one draw allocates; a larger leaf is drawn in
@@ -42,6 +48,7 @@ class Initializer:
         self._layer = 0
         self._leaves: list = []
         self._slot = 0
+        self._axes: dict = {}       # id(leaf) -> its logical axes
 
     def stacked(self, n: int, build):
         """``build()``'s tree with every leaf stacked ``(n, ...)``, drawn
@@ -58,15 +65,27 @@ class Initializer:
             self._layers, self._leaves, self._empty = 0, [], False
         return tree
 
-    def _leaf(self, shape, dtype, fill) -> torch.Tensor:
+    def axes_tree(self, tree):
+        """The logical axes of every leaf of ``tree`` (drawn by this
+        initializer): a stacked leaf's start with ``"layers"``."""
+        if isinstance(tree, dict):
+            return {k: self.axes_tree(v) for k, v in tree.items()}
+        return self._axes[id(tree)]
+
+    def _leaf(self, shape, axes, dtype, fill) -> torch.Tensor:
         """The tensor of the next leaf and the part this call fills."""
+        axes = tuple(axes)
+        if len(axes) != len(shape):
+            raise ValueError(f"axes {axes} do not name the dims of {tuple(shape)}")
         if not self._layers:
             out = torch.empty(tuple(shape), dtype=dtype, device=self.device)
             fill(out)
+            self._axes[id(out)] = axes
             return out
         if self._layer == 0:
             self._leaves.append(torch.empty((0 if self._empty else self._layers, *shape),
                                             dtype=dtype, device=self.device))
+            self._axes[id(self._leaves[-1])] = ("layers",) + axes
         out = self._leaves[self._slot]
         self._slot += 1
         if not self._empty:
@@ -86,25 +105,25 @@ class Initializer:
                                    dtype=torch.float32,
                                    device=self.device).mul_(scale))
 
-    def normal(self, shape: Sequence[int], scale: float | None = None,
+    def normal(self, shape: Sequence[int], axes, scale: float | None = None,
                dtype=None) -> torch.Tensor:
         """normal / sqrt(fan_in), fan_in = the product of all but the last
         dimension of ``shape`` (the whole per-layer shape, whatever the
         slices a large leaf is drawn in)."""
         fan_in = max(int(math.prod(shape[:-1])) or shape[-1], 1)
         scale = (1.0 / math.sqrt(fan_in)) if scale is None else scale
-        return self._leaf(shape, dtype or self.dtype,
+        return self._leaf(shape, axes, dtype or self.dtype,
                           lambda dst: self._fill_normal(dst, scale))
 
-    def zeros(self, shape: Sequence[int], dtype=None) -> torch.Tensor:
-        return self._leaf(shape, dtype or self.dtype, lambda dst: dst.zero_())
+    def zeros(self, shape: Sequence[int], axes, dtype=None) -> torch.Tensor:
+        return self._leaf(shape, axes, dtype or self.dtype, lambda dst: dst.zero_())
 
-    def ones(self, shape: Sequence[int], dtype=None) -> torch.Tensor:
-        return self._leaf(shape, dtype or self.dtype, lambda dst: dst.fill_(1))
+    def ones(self, shape: Sequence[int], axes, dtype=None) -> torch.Tensor:
+        return self._leaf(shape, axes, dtype or self.dtype, lambda dst: dst.fill_(1))
 
-    def value(self, v: torch.Tensor) -> torch.Tensor:
+    def value(self, v: torch.Tensor, axes) -> torch.Tensor:
         """A leaf holding ``v`` (its shape and dtype; every layer alike)."""
-        return self._leaf(v.shape, v.dtype, lambda dst: dst.copy_(v))
+        return self._leaf(v.shape, axes, v.dtype, lambda dst: dst.copy_(v))
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -172,7 +191,8 @@ def sinusoidal_positions(length: int, dim: int, device="cuda") -> torch.Tensor:
 
 
 def embed_init(ini: Initializer, vocab: int, d_model: int) -> torch.Tensor:
-    return ini.normal((vocab, d_model), scale=0.02, dtype=torch.float32)
+    return ini.normal((vocab, d_model), ("vocab", "embed"), scale=0.02,
+                      dtype=torch.float32)
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
@@ -187,11 +207,19 @@ def lm_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Mean next-token CE over unmasked positions, fp32 logsumexp."""
+    """Mean next-token CE over unmasked positions, fp32 logsumexp.  Inside
+    ``sharding.context.data_parallel`` over several shards the mean is the
+    global batch's: this shard's sum over the global count."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     tgt = torch.take_along_dim(logits, labels.long()[..., None], dim=-1)[..., 0]
     nll = lse - tgt
+    dp = shctx.data_parallel_state()
+    if dp is not None and dp.n_shards > 1:
+        if mask is None:
+            return nll.sum() / (nll.numel() * dp.n_shards)
+        total = torch.as_tensor(dp.mask_total, dtype=torch.float32, device=nll.device)
+        return (nll * mask.float()).sum() / torch.clamp(total, min=1.0)
     if mask is None:
         return nll.mean()
     mask = mask.float()

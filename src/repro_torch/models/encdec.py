@@ -27,6 +27,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention, common, mlp
 from repro_torch.models.transformer import _index, _remat, _stack
+from repro_torch.sharding import arrays
 
 MAX_DEC_POS = 65536   # rows of the learned decoder position table
 
@@ -39,20 +40,20 @@ class DecLayerCache(NamedTuple):
 
 def _init_enc_layer(ini, cfg: ArchConfig) -> dict:
     return {
-        "norm1": ini.zeros((cfg.d_model,)),
+        "norm1": ini.zeros((cfg.d_model,), ("embed",)),
         "attn": attention.init(ini, cfg),
-        "norm2": ini.zeros((cfg.d_model,)),
+        "norm2": ini.zeros((cfg.d_model,), ("embed",)),
         "ffn": mlp.init(ini, cfg.d_model, cfg.d_ff, "gelu_mlp"),
     }
 
 
 def _init_dec_layer(ini, cfg: ArchConfig) -> dict:
     return {
-        "norm1": ini.zeros((cfg.d_model,)),
+        "norm1": ini.zeros((cfg.d_model,), ("embed",)),
         "self_attn": attention.init(ini, cfg),
-        "norm2": ini.zeros((cfg.d_model,)),
+        "norm2": ini.zeros((cfg.d_model,), ("embed",)),
         "cross_attn": attention.init_cross(ini, cfg),
-        "norm3": ini.zeros((cfg.d_model,)),
+        "norm3": ini.zeros((cfg.d_model,), ("embed",)),
         "ffn": mlp.init(ini, cfg.d_model, cfg.d_ff, "gelu_mlp"),
     }
 
@@ -60,16 +61,27 @@ def _init_dec_layer(ini, cfg: ArchConfig) -> dict:
 def init_params(generator: torch.Generator, cfg: ArchConfig, device="cuda") -> dict:
     """Random parameters with the reference's tree, shapes and scales,
     drawn from ``generator`` on ``device`` into the stacked tensors."""
+    return init_encdec(generator, cfg, device)[0]
+
+
+def abstract_params(cfg: ArchConfig):
+    """(values on the ``meta`` device, logical-axes tree)."""
+    return init_encdec(torch.Generator(), cfg, "meta")
+
+
+def init_encdec(generator: torch.Generator, cfg: ArchConfig, device):
+    """(parameter tree, its logical-axes tree)."""
     ini = common.Initializer(generator, cfg.torch_dtype, device)
-    return {
+    p = {
         "embed": common.embed_init(ini, cfg.padded_vocab, cfg.d_model),
-        "dec_pos": ini.normal((MAX_DEC_POS, cfg.d_model), scale=0.01),
+        "dec_pos": ini.normal((MAX_DEC_POS, cfg.d_model), (None, "embed"), scale=0.01),
         "enc_layers": ini.stacked(cfg.encdec.encoder_layers,
                                   lambda: _init_enc_layer(ini, cfg)),
-        "enc_norm": ini.zeros((cfg.d_model,)),
+        "enc_norm": ini.zeros((cfg.d_model,), ("embed",)),
         "dec_layers": ini.stacked(cfg.num_layers, lambda: _init_dec_layer(ini, cfg)),
-        "final_norm": ini.zeros((cfg.d_model,)),
+        "final_norm": ini.zeros((cfg.d_model,), ("embed",)),
     }
+    return p, ini.axes_tree(p)
 
 
 def _layers(stacked: dict, n: int):
@@ -86,6 +98,7 @@ def encode(params, frames, cfg: ArchConfig, *, remat: bool = True):
     positions = torch.arange(n, device=frames.device)
 
     def body(layer, x):
+        layer = arrays.materialize(layer, x.device)     # blocks gathered at use
         h = common.layer_norm_simple(x, layer["norm1"])
         x = x + attention.apply_full(layer["attn"], h, cfg, positions=positions,
                                      use_rope=False, causal=False)
@@ -126,6 +139,7 @@ def loss_fn(params, batch: dict, cfg: ArchConfig, *, stem_cfg=None,
     positions = torch.arange(batch["tokens"].shape[1], device=x.device)
 
     def body(layer, x, enc):
+        layer = arrays.materialize(layer, x.device)     # blocks gathered at use
         h = common.layer_norm_simple(x, layer["norm1"])
         x = x + attention.apply_full(layer["self_attn"], h, cfg,
                                      positions=positions, stem_cfg=stem_cfg,

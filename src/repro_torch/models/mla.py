@@ -36,15 +36,17 @@ def init(ini: common.Initializer, cfg: ArchConfig) -> dict:
     d, h = cfg.d_model, cfg.num_heads
     dh_q = m.nope_head_dim + m.rope_head_dim
     return {
-        "w_dq": ini.normal((d, m.q_lora_rank)),
-        "q_norm": ini.zeros((m.q_lora_rank,)),
-        "w_uq": ini.normal((m.q_lora_rank, h, dh_q)),
-        "w_dkv": ini.normal((d, m.kv_lora_rank)),
-        "kv_norm": ini.zeros((m.kv_lora_rank,)),
-        "w_uk": ini.normal((m.kv_lora_rank, h, m.nope_head_dim)),
-        "w_uv": ini.normal((m.kv_lora_rank, h, m.v_head_dim)),
-        "w_kr": ini.normal((d, m.rope_head_dim)),
-        "wo": ini.normal((h, m.v_head_dim, d)),
+        "w_dq": ini.normal((d, m.q_lora_rank), ("embed", "q_lora")),
+        "q_norm": ini.zeros((m.q_lora_rank,), ("q_lora",)),
+        "w_uq": ini.normal((m.q_lora_rank, h, dh_q), ("q_lora", "heads", "head_dim")),
+        "w_dkv": ini.normal((d, m.kv_lora_rank), ("embed", "kv_lora")),
+        "kv_norm": ini.zeros((m.kv_lora_rank,), ("kv_lora",)),
+        "w_uk": ini.normal((m.kv_lora_rank, h, m.nope_head_dim),
+                           ("kv_lora", "heads", "head_dim")),
+        "w_uv": ini.normal((m.kv_lora_rank, h, m.v_head_dim),
+                           ("kv_lora", "heads", "head_dim")),
+        "w_kr": ini.normal((d, m.rope_head_dim), ("embed", "head_dim")),
+        "wo": ini.normal((h, m.v_head_dim, d), ("heads", "head_dim", "embed")),
     }
 
 

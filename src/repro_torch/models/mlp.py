@@ -11,16 +11,16 @@ from repro_torch.models.common import Initializer
 def init(ini: Initializer, d_model: int, d_ff: int, activation: str) -> dict:
     if activation in ("silu", "gelu"):
         return {
-            "w_gate": ini.normal((d_model, d_ff)),
-            "w_up": ini.normal((d_model, d_ff)),
-            "w_down": ini.normal((d_ff, d_model)),
+            "w_gate": ini.normal((d_model, d_ff), ("embed", "mlp")),
+            "w_up": ini.normal((d_model, d_ff), ("embed", "mlp")),
+            "w_down": ini.normal((d_ff, d_model), ("mlp", "embed")),
         }
     if activation == "gelu_mlp":
         return {
-            "w_in": ini.normal((d_model, d_ff)),
-            "b_in": ini.zeros((d_ff,)),
-            "w_out": ini.normal((d_ff, d_model)),
-            "b_out": ini.zeros((d_model,)),
+            "w_in": ini.normal((d_model, d_ff), ("embed", "mlp")),
+            "b_in": ini.zeros((d_ff,), ("mlp",)),
+            "w_out": ini.normal((d_ff, d_model), ("mlp", "embed")),
+            "b_out": ini.zeros((d_model,), ("embed",)),
         }
     raise ValueError(f"unknown activation {activation!r}")
 

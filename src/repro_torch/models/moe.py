@@ -1,8 +1,5 @@
-"""Mixture-of-Experts FFN (port of ``repro/models/moe.py``, the local path:
-one device holds every expert).  The reference's expert-parallel
-``shard_map`` branch runs only inside ``sharding.context.use``, which only
-its XLA dry run enters; under the serving mesh its MoE FFN runs
-replicated, as this one does on each slot group's lead device.
+"""Mixture-of-Experts FFN (port of ``repro/models/moe.py``): the local
+path, where one device holds every expert, and the expert-parallel branch.
 
 Routing: fp32 router logits, softmax gates, top-k with the lower expert
 first on ties (``jax.lax.top_k``'s order), weights renormalized.  Capacity
@@ -14,9 +11,21 @@ drop.  The experts run over a static ``(b, E, capacity, d)`` buffer as
 three batched products, so every shape is fixed by ``(b, s)`` and nothing
 reads a count back to the host.
 
+Expert parallelism (ref ``src/repro/models/moe.py:127-166``): inside
+``sharding.context.use(cfg, mesh)`` with a model axis of ``n > 1`` that
+divides ``E``, every (data, model) coordinate takes its data shard's batch
+rows and runs ``E / n`` experts (``e_offset = shard * E / n``) on its own
+device with the expert weights it holds: the blocks of a ``ShardedArray``
+expert table (for ``fsdp_weights`` archs first gathered over the data axis,
+the reference's all-gather), or its slice of a plain table.  Tokens routed
+to another shard's experts add nothing there, and the shards' outputs are
+summed in rank order on the data shard's model-0 device: the reference's
+``psum``.  Routing and capacity are the local path's.
+
 Covers plain top-k routed experts, a shared expert (deepseek) and the
 parallel dense residual FFN (arctic), and the Switch load-balance aux
-loss.
+loss.  Inside ``sharding.context.data_parallel`` with a ``GlobalAux`` the
+aux loss is that of the global batch (``GlobalAux``).
 """
 from __future__ import annotations
 
@@ -27,15 +36,19 @@ from repro_torch.configs.base import MoEConfig
 from repro_torch.core.selection import stable_topk
 from repro_torch.models import mlp
 from repro_torch.models.common import Initializer
+from repro_torch.sharding import arrays
+from repro_torch.sharding import context as shctx
+from repro_torch.sharding import rules as rules_lib
 
 
 def init(ini: Initializer, d_model: int, moe: MoEConfig, activation: str) -> dict:
     e, f = moe.num_experts, moe.expert_d_ff
     p = {
-        "router": ini.normal((d_model, e), dtype=torch.float32),
-        "w_gate": ini.normal((e, d_model, f)),
-        "w_up": ini.normal((e, d_model, f)),
-        "w_down": ini.normal((e, f, d_model)),
+        "router": ini.normal((d_model, e), ("embed", "experts"),
+                             dtype=torch.float32),
+        "w_gate": ini.normal((e, d_model, f), ("experts", "embed", "expert_mlp")),
+        "w_up": ini.normal((e, d_model, f), ("experts", "embed", "expert_mlp")),
+        "w_down": ini.normal((e, f, d_model), ("experts", "expert_mlp", "embed")),
     }
     if moe.shared_experts:
         p["shared"] = mlp.init(ini, d_model, moe.shared_d_ff * moe.shared_experts,
@@ -82,16 +95,21 @@ def _activation(name: str):
 
 
 def expert_ffn(x, experts, pos, keep, weights, wg, wu, wd, *, capacity: int,
-               activation: str) -> torch.Tensor:
+               activation: str, e_offset=None) -> torch.Tensor:
     """Dispatch into the ``(b, E, capacity, d)`` buffer, the expert FFN over
     every expert, and the weighted combine in ``x.dtype``, k by k.
 
     A kept slot's (row, expert, position) is unique in the buffer; a
     dropped slot writes to one trash row past its end, which the products
-    never read."""
+    never read.  With ``e_offset`` the tables hold the experts ``[e_offset,
+    e_offset + E)`` only (one expert-parallel shard): a slot routed to any
+    other expert is dropped here."""
     b, s, d = x.shape
     E = wg.shape[0]
     K = experts.shape[-1]
+    if e_offset is not None:
+        keep = keep & (experts >= e_offset) & (experts < e_offset + E)
+        experts = experts - e_offset
     rows = torch.arange(b, device=x.device)[:, None] * (E * capacity)
     trash = b * E * capacity
     flat = [torch.where(keep[..., k], rows + experts[..., k] * capacity
@@ -115,14 +133,126 @@ def expert_ffn(x, experts, pos, keep, weights, wg, wu, wd, *, capacity: int,
     return y
 
 
+def _expert_parallel(params, x, experts, pos, keep, weights, cap: int,
+                     activation: str, mesh) -> torch.Tensor:
+    """The expert-parallel branch: every (data, model) coordinate's experts
+    on its own device, the model shards' outputs summed in rank order."""
+    E, n_model = params["w_gate"].shape[0], mesh.shape["model"]
+    e_local = E // n_model
+    coords = rules_lib.data_coords(mesh)
+    b = x.shape[0]
+    if b % len(coords):
+        raise ValueError(f"expert parallelism splits {b} rows over {len(coords)} "
+                         "data shards")
+    rows = b // len(coords)
+    model_dim = mesh.axis_names.index("model")
+    ys = []
+    for di, coord in enumerate(coords):
+        sl = slice(di * rows, (di + 1) * rows)
+        lead = mesh.device(coord)
+        y = None
+        for m in range(n_model):
+            dev = mesh.device(coord[:model_dim] + (m,) + coord[model_dim + 1:])
+            block = (m * e_local, (m + 1) * e_local)
+            wg, wu, wd = (_expert_block(params[k], block, dev)
+                          for k in ("w_gate", "w_up", "w_down"))
+            part = expert_ffn(x[sl].to(dev), experts[sl].to(dev), pos[sl].to(dev),
+                              keep[sl].to(dev), weights[sl].to(dev), wg, wu, wd,
+                              capacity=cap, activation=activation,
+                              e_offset=m * e_local).to(lead)
+            y = part if y is None else y + part
+        ys.append(y.to(x.device))
+    return torch.cat(ys) if len(ys) > 1 else ys[0]
+
+
+def _expert_block(table, block: tuple, device) -> torch.Tensor:
+    """Experts ``[block[0], block[1])`` of an expert table on ``device``:
+    the blocks of a ShardedArray that hold them, gathered over every other
+    axis (the FSDP all-gather over data), or a slice of a tensor."""
+    if isinstance(table, arrays.ShardedArray):
+        return table.gather(device, region=(block,) + tuple(
+            (0, n) for n in table.shape[1:]))
+    return table[block[0]:block[1]].to(device)
+
+
+class _DeferredAux(torch.autograd.Function):
+    """The load-balance term of one data shard: 0 in the forward (the
+    global value is the step's), ``coef`` (filled in once every shard's
+    forward has run) times the incoming gradient for the gate sums in the
+    backward."""
+
+    @staticmethod
+    def forward(ctx, gate_sums, holder):
+        ctx.holder = holder
+        return gate_sums.new_zeros(())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.holder["coef"], None
+
+
+class GlobalAux:
+    """The aux loss of the global batch under data parallelism.
+
+    The aux loss ``E * w * sum_e me_e * ce_e`` takes its gate means ``me``
+    and routed fractions ``ce`` over the global batch, so it is no sum of
+    per-shard terms.  Each data shard's forward records, layer by layer,
+    its gate sums and expert counts (``begin_shard``, then ``term``, which
+    the MoE layer calls); ``finish`` combines them over the shards in rank
+    order, returns the global aux (summed over layers, as the forward
+    sums it) and gives each shard's term its gradient,
+    ``d aux / d gate_sum_e = E * w * ce_e / tokens``.  A recomputed layer
+    (``remat``) in the backward records nothing."""
+
+    def __init__(self, moe: MoEConfig):
+        self.moe = moe
+        self.shards: list = []
+        self.recording = False
+
+    def begin_shard(self) -> None:
+        self.shards.append([])
+        self.recording = True
+
+    def term(self, gate_sums: torch.Tensor, counts: torch.Tensor, tokens: int):
+        holder: dict = {}
+        if self.recording:
+            self.shards[-1].append((gate_sums.detach(), counts, tokens, holder))
+        return _DeferredAux.apply(gate_sums, holder)
+
+    def finish(self) -> torch.Tensor:
+        self.recording = False
+        E, w = self.moe.num_experts, self.moe.router_aux_weight
+        dev = self.shards[0][0][1].device if self.shards[0] else None
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
+        for layer in zip(*self.shards):
+            tokens = sum(t for _, _, t, _ in layer)
+            gsum = counts = None
+            for g, c, _, _ in layer:
+                gsum = g.to(dev) if gsum is None else gsum + g.to(dev)
+                counts = c.to(dev) if counts is None else counts + c.to(dev)
+            ce = counts / tokens
+            aux = aux + ((gsum / tokens) * ce).sum() * E * w
+            coef = ce * (E * w / tokens)
+            for g, _, _, holder in layer:
+                holder["coef"] = coef.to(g.device)
+        return aux
+
+
 def apply(params: dict, x: torch.Tensor, moe: MoEConfig,
           activation: str) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (b, s, d).  Returns (output (b, s, d), aux loss fp32 scalar)."""
     E = moe.num_experts
+    params = arrays.materialize(params, x.device)
     gates, weights, experts, pos, keep, cap = route(params, x, moe)
-    y = expert_ffn(x, experts, pos, keep, weights, params["w_gate"],
-                   params["w_up"], params["w_down"], capacity=cap,
-                   activation=activation)
+    ctx = shctx.current()
+    if ctx is not None and ctx[1].shape.get("model", 1) > 1 \
+            and E % ctx[1].shape["model"] == 0:
+        y = _expert_parallel(params, x, experts, pos, keep, weights, cap,
+                             activation, ctx[1])
+    else:
+        y = expert_ffn(x, experts, pos, keep, weights,
+                       *(_full(params[k], x.device) for k in ("w_gate", "w_up", "w_down")),
+                       capacity=cap, activation=activation)
     if moe.shared_experts:
         y = y + mlp.apply(params["shared"], x, activation)
     if moe.residual_dense:
@@ -130,13 +260,20 @@ def apply(params: dict, x: torch.Tensor, moe: MoEConfig,
 
     # Switch-style load-balance aux loss: E * sum_e f_e * p_e, f_e counting
     # every top-k choice (dropped slots included) with a scatter-add.
-    me = gates.mean(dim=(0, 1))                                 # (E,)
     b, s = x.shape[0], x.shape[1]
     ce = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
         0, experts.reshape(-1),
         torch.ones(experts.numel(), dtype=torch.float32, device=x.device))
+    dp = shctx.data_parallel_state()
+    if dp is not None and dp.moe_aux is not None:
+        return y, dp.moe_aux.term(gates.sum(dim=(0, 1)), ce, b * s)
+    me = gates.mean(dim=(0, 1))                                 # (E,)
     aux = (me * (ce / (b * s))).sum() * E * moe.router_aux_weight
     return y, aux
+
+
+def _full(table, device) -> torch.Tensor:
+    return table.gather(device) if isinstance(table, arrays.ShardedArray) else table
 
 
 def expert_flops_per_token(d_model: int, moe: MoEConfig) -> float:

@@ -44,17 +44,17 @@ def init(ini: common.Initializer, cfg: ArchConfig) -> dict:
     r: RGLRUConfig = cfg.rglru
     d, w = cfg.d_model, r.lru_width
     return {
-        "w_in": ini.normal((d, w)),
-        "w_gate_branch": ini.normal((d, w)),
-        "conv_w": ini.normal((r.conv_width, w), scale=0.1),
-        "conv_b": ini.zeros((w,)),
-        "w_a": ini.normal((w, w)),
-        "b_a": ini.zeros((w,)),
-        "w_x": ini.normal((w, w)),
-        "b_x": ini.zeros((w,)),
+        "w_in": ini.normal((d, w), ("embed", "rnn")),
+        "w_gate_branch": ini.normal((d, w), ("embed", "rnn")),
+        "conv_w": ini.normal((r.conv_width, w), ("conv", "rnn"), scale=0.1),
+        "conv_b": ini.zeros((w,), ("rnn",)),
+        "w_a": ini.normal((w, w), ("rnn_in", "rnn")),
+        "b_a": ini.zeros((w,), ("rnn",)),
+        "w_x": ini.normal((w, w), ("rnn_in", "rnn")),
+        "b_x": ini.zeros((w,), ("rnn",)),
         # Lambda parameterized so a ~ U(0.9, 0.999) at init (paper appendix).
-        "lam": ini.value(torch.linspace(2.0, 6.0, w, dtype=torch.float32)),
-        "w_out": ini.normal((w, d)),
+        "lam": ini.value(torch.linspace(2.0, 6.0, w, dtype=torch.float32), ("rnn",)),
+        "w_out": ini.normal((w, d), ("rnn", "embed")),
     }
 
 

@@ -42,14 +42,16 @@ def init(ini: common.Initializer, cfg: ArchConfig) -> dict:
     s, d_inner, heads, conv_dim = _dims(cfg)
     d = cfg.d_model
     return {
-        "w_in": ini.normal((d, 2 * d_inner + 2 * s.state_dim + heads)),
-        "conv_w": ini.normal((s.conv_width, conv_dim), scale=0.1),
-        "conv_b": ini.zeros((conv_dim,)),
-        "a_log": ini.value(torch.log(torch.linspace(1.0, 16.0, heads))),
-        "dt_bias": ini.value(torch.log(torch.expm1(torch.full((heads,), 0.01)))),
-        "d_skip": ini.ones((heads,), dtype=torch.float32),
-        "norm": ini.zeros((d_inner,)),
-        "w_out": ini.normal((d_inner, d)),
+        "w_in": ini.normal((d, 2 * d_inner + 2 * s.state_dim + heads),
+                           ("embed", "rnn")),
+        "conv_w": ini.normal((s.conv_width, conv_dim), ("conv", "rnn"), scale=0.1),
+        "conv_b": ini.zeros((conv_dim,), ("rnn",)),
+        "a_log": ini.value(torch.log(torch.linspace(1.0, 16.0, heads)), ("heads",)),
+        "dt_bias": ini.value(torch.log(torch.expm1(torch.full((heads,), 0.01))),
+                             ("heads",)),
+        "d_skip": ini.ones((heads,), ("heads",), dtype=torch.float32),
+        "norm": ini.zeros((d_inner,), ("rnn",)),
+        "w_out": ini.normal((d_inner, d), ("rnn", "embed")),
     }
 
 

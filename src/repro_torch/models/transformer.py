@@ -36,7 +36,9 @@ from repro_torch.core import chunked as chunked_lib
 from repro_torch.core import policy as policy_lib
 from repro_torch.models import attention, common, mla, mlp, moe, rglru, ssd
 from repro_torch.runtime import paged as paged_lib
+from repro_torch.sharding import arrays
 from repro_torch.sharding import serving as serving_lib
+from repro_torch.sharding.context import constrain
 
 PAGED_KINDS = ("dense", "moe")   # attention sub-layers the paged engine serves
 MLA_KINDS = ("mla_dense", "mla_moe")
@@ -85,7 +87,7 @@ def assert_paged_servable(cfg: ArchConfig) -> None:
 def _init_sublayer(ini: common.Initializer, cfg: ArchConfig, kind: str) -> dict:
     if kind not in KINDS:
         raise ValueError(f"unknown sub-layer kind {kind!r}")
-    p = {"norm1": ini.zeros((cfg.d_model,))}
+    p = {"norm1": ini.zeros((cfg.d_model,), ("embed",))}
     if kind == "rec":
         p["mixer"] = rglru.init(ini, cfg)
     elif kind == "ssd":
@@ -94,7 +96,7 @@ def _init_sublayer(ini: common.Initializer, cfg: ArchConfig, kind: str) -> dict:
         p["attn"] = (mla.init if kind in MLA_KINDS else attention.init)(ini, cfg)
     if kind == "ssd":          # mamba blocks have no separate FFN
         return p
-    p["norm2"] = ini.zeros((cfg.d_model,))
+    p["norm2"] = ini.zeros((cfg.d_model,), ("embed",))
     if kind in MOE_KINDS:
         p["ffn"] = moe.init(ini, cfg.d_model, cfg.moe, cfg.activation)
     else:
@@ -140,23 +142,34 @@ def init_params(generator: torch.Generator, cfg: ArchConfig, device="cuda") -> d
     drawn from ``generator`` on ``device`` straight into the stacked
     tensors, layer by layer (the peak is the parameters plus one draw of
     at most ``common.DRAW_BYTES``)."""
+    return init_lm(generator, cfg, device)[0]
+
+
+def abstract_params(cfg: ArchConfig):
+    """(values on the ``meta`` device, logical-axes tree): the reference's
+    ``abstract_params``; nothing is allocated."""
+    return init_lm(torch.Generator(), cfg, "meta")
+
+
+def init_lm(generator: torch.Generator, cfg: ArchConfig, device):
+    """(parameter tree, its logical-axes tree)."""
     ini = common.Initializer(generator, cfg.torch_dtype, device)
     p: dict[str, Any] = {
         "embed": common.embed_init(ini, cfg.padded_vocab, cfg.d_model),
-        "final_norm": ini.zeros((cfg.d_model,)),
+        "final_norm": ini.zeros((cfg.d_model,), ("embed",)),
     }
     for si, (n, kinds) in enumerate(layer_program(cfg)):
         p[f"segment{si}"] = ini.stacked(n, lambda kinds=kinds: {
             f"sub{i}": _init_sublayer(ini, cfg, k) for i, k in enumerate(kinds)})
     if not cfg.tie_embeddings:
-        p["head"] = ini.normal((cfg.d_model, cfg.padded_vocab), scale=0.02,
-                               dtype=torch.float32)
+        p["head"] = ini.normal((cfg.d_model, cfg.padded_vocab), ("embed", "vocab"),
+                               scale=0.02, dtype=torch.float32)
     if cfg.mtp:
-        p["mtp_proj"] = ini.normal((2 * cfg.d_model, cfg.d_model))
-        p["mtp_norm"] = ini.zeros((cfg.d_model,))
+        p["mtp_proj"] = ini.normal((2 * cfg.d_model, cfg.d_model), (None, "embed"))
+        p["mtp_norm"] = ini.zeros((cfg.d_model,), ("embed",))
         p["mtp_layer"] = ini.stacked(1, lambda: {
             "sub0": _init_sublayer(ini, cfg, "dense")})
-    return p
+    return p, ini.axes_tree(p)
 
 
 def init_page_pools(cfg: ArchConfig, num_pages: int, stem_cfg, device="cuda",
@@ -247,12 +260,22 @@ def _sublayer_full(params, x, cfg: ArchConfig, kind: str, *, positions,
         else:
             mix = mixer.apply_full(params["attn"], h, cfg, positions=positions,
                                    stem_cfg=stem_cfg)
-    x, aux = _with_ffn(params, x + mix, cfg, kind)
+    x = constrain(x + mix, ("batch", None, None))
+    if kind == "ssd":
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    else:
+        x, aux = _with_ffn(params, x, cfg, kind)
+        x = constrain(x, ("batch", None, None))
     return (x, aux, stats) if return_stats else (x, aux)
 
 
 def _group_full(params, x, cfg, kinds, *, positions, stem_cfg):
-    """The layer group's sub-layers in order: (x, summed aux loss)."""
+    """The layer group's sub-layers in order: (x, summed aux loss).  A
+    parameter held in blocks (``sharding.arrays.ShardedArray``: the mesh
+    train step's FSDP and model-axis blocks) is gathered onto ``x``'s device
+    here, inside the (rematerialized) layer body, so it lives only while
+    the layer runs."""
+    params = arrays.materialize(params, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, k in enumerate(kinds):
         x, a = _sublayer_full(params[f"sub{i}"], x, cfg, k,

@@ -1,6 +1,6 @@
 """AdamW with warmup-cosine schedule, global-norm clipping, fp32 master
 weights and optional bf16 gradient compression (port of
-``repro/optim/adamw.py``, one device).
+``repro/optim/adamw.py``).
 
 Parameters and optimizer state are plain trees of tensors (nested dicts, as
 ``weights.py`` and ``init_params`` build them).  The schedule, the bias
@@ -10,6 +10,12 @@ fp32 tensors on the parameters' device, as the reference computes them
 with round-to-nearest-even before the update, as the reference does before
 its data-parallel all-reduce; ``moment_dtype = "bfloat16"`` stores mu and
 nu in bf16.  Weight decay applies to every leaf, as in the reference.
+
+On a mesh (``launch/steps.py``) the update runs on the ZeRO-1 blocks: the
+leaves are the blocks, on their own devices, the global norm is the sum of
+the blocks' squared norms in order (``global_norm``; the caller passes it
+in when replicated blocks must count once), and the schedule's scalars are
+copied to each block's device.
 """
 from __future__ import annotations
 
@@ -86,8 +92,12 @@ def lr_at(step: torch.Tensor, cfg: AdamWConfig) -> torch.Tensor:
 
 
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                          for g in tree_leaves(tree)))
+    """sqrt of the leaves' summed squares, added in leaf order on the first
+    leaf's device."""
+    leaves = tree_leaves(tree)
+    dev = leaves[0].device
+    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))).to(dev)
+                          for g in leaves))
 
 
 def compress_grads(grads, cfg: AdamWConfig):
@@ -102,7 +112,7 @@ _CHUNK = 1 << 26
 
 
 @torch.no_grad()
-def update(grads, state: OptState, cfg: AdamWConfig):
+def update(grads, state: OptState, cfg: AdamWConfig, gnorm=None):
     """One AdamW step on the fp32 master, in place: the master, mu and nu
     tensors of ``state`` take their new values and the returned state holds
     them (a caller that needs the state from before the step clones it).
@@ -111,8 +121,10 @@ def update(grads, state: OptState, cfg: AdamWConfig):
     2^26 elements, so its temporaries stay at a few of those: at gemma-2b's
     and deepseek-v3-671b's 2.5-3.1 B parameters, two fp32 copies of master,
     mu and nu, or eight fp32 temporaries of a 0.9 B-element embedding, do
-    not fit beside the gradient on an 80 GB card."""
-    gnorm = global_norm(grads)
+    not fit beside the gradient on an 80 GB card.  ``gnorm`` (default:
+    ``global_norm(grads)``) is the norm the gradients are clipped by."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state.step + 1
     lr = lr_at(step, cfg)
@@ -121,7 +133,16 @@ def update(grads, state: OptState, cfg: AdamWConfig):
     c1 = 1.0 - torch.pow(b1, stepf)
     c2 = 1.0 - torch.pow(b2, stepf)
 
+    scalars = {}
+
+    def on(dev):
+        """(scale, lr, c1, c2) on ``dev`` (copied once a device)."""
+        if dev not in scalars:
+            scalars[dev] = tuple(t.to(dev) for t in (scale, lr, c1, c2))
+        return scalars[dev]
+
     def step_of(g, m, v, p):
+        scale, lr, c1, c2 = on(p.device)
         g = g.to(torch.float32) * scale
         m_new = b1 * m.to(torch.float32) + (1.0 - b1) * g
         v_new = b2 * v.to(torch.float32) + (1.0 - b2) * g * g

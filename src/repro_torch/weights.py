@@ -12,6 +12,10 @@ encoder-decoder's ``embed``, ``dec_pos``, ``enc_layers``, ``enc_norm``,
 reference gives it: fp32 for the embedding table, the untied LM head,
 every MoE ``router``, the SSD block's ``a_log`` / ``dt_bias`` / ``d_skip``
 and the RG-LRU's ``lam``; ``cfg``'s dtype for every other leaf.
+
+``to_shards`` splits such a numpy tree into the blocks of a mesh's
+shardings (the reference's ZeRO-1 optimizer state, carried shard for
+shard).
 """
 from __future__ import annotations
 
@@ -20,6 +24,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer
+from repro_torch.sharding import arrays
+from repro_torch.sharding import rules as rules_lib
 
 # Leaves the reference keeps in fp32 under any config dtype.
 FP32_LEAVES = ("router", "a_log", "dt_bias", "d_skip", "lam")
@@ -59,3 +65,19 @@ def from_jax_params(tree, cfg: ArchConfig, device="cuda") -> dict:
             f"{'tied' if cfg.tie_embeddings else 'untied'}-head"
             f"{' MTP' if cfg.mtp else ''} set {sorted(expected)}")
     return convert(dict(tree), ())
+
+
+def to_shards(tree, shardings, dtype=None):
+    """A numpy tree (full arrays: the reference's values, its optimizer
+    state's master / mu / nu) split into the port's blocks: a tree of
+    ``sharding.arrays.ShardedArray`` in the matching ``NamedSharding``
+    tree's layout, on its mesh's devices.  Each leaf keeps its dtype (bf16
+    reinterpreted, as ``from_jax_params`` does) unless ``dtype`` is
+    given."""
+    def one(a, sh):
+        a = np.asarray(a)
+        dt = dtype or (torch.bfloat16 if a.dtype.name == "bfloat16"
+                       else torch.from_numpy(np.empty(0, a.dtype)).dtype)
+        return arrays.place(_to_tensor(a, dt, "cpu"), sh)
+    return rules_lib.tree_map(one, tree, shardings)
+
