@@ -368,13 +368,15 @@ Phases:
                 device grid (every shard on cuda:0 on one card).  (a) fp32
                 qwen3-0.6b at full width, 4 layers, b 4 x 1024, dense and
                 --stem, 3 steps on one device and on meshes (1, 1), (2, 1),
-                (4, 1), (2, 2): (1, 1) bitwise the one-device step, the
-                others' losses and grad norms within 1e-5 (relative) and
-                the union of the ZeRO-1 blocks within 5% of the steps'
-                summed learning rate of one device's master; each kernel's
-                launches (3 / 3b block-sparse forward / backward, 4 / 4b
-                flash, 5 pool, 6 vmag) the data shards times the (1, 1)
-                run's.  (b) bf16, 28 layers, --stem, b 2 x 4096, 6 steps:
+                (4, 1), (2, 2), (1, 2), (1, 4) (tensor-parallel where the
+                model axis is above 1): (1, 1) bitwise the one-device step,
+                the others' losses within 1e-6 and grad norms within 1e-5
+                (relative) and the union of the ZeRO-1 blocks within 5% of
+                the steps' summed learning rate of one device's master;
+                each kernel's launches (3 / 3b block-sparse forward /
+                backward, 4 / 4b flash, 5 pool, 6 vmag) data x model times
+                the (1, 1) run's, each call at 1 / model of the (1, 1)
+                call's heads.  (b) bf16, 28 layers, --stem, b 2 x 4096, 6 steps:
                 the CLI with devices=[cuda:0] * 2 (mesh (2, 1)) beside the
                 one-device CLI: losses within 1e-2 at every step; ms a
                 step, tokens/s, peak memory.  (c) FSDP: qwen1.5-4b at
@@ -388,6 +390,14 @@ Phases:
                 (2, 2) with the expert tables in FSDP blocks.  (e) The CLI
                 at (2, 1) saves a checkpoint that the CLI at (1, 1) resumes
                 (--restore) with the uninterrupted run's losses (1e-5).
+                (f) bf16, 28 layers, --stem, b 2 x 4096: the mesh step at
+                (1, 2), tensor-parallel, beside one device: losses within
+                1e-2, ms a step and peak memory of both, launches twice
+                one device's at half the heads.  (g) The dry run
+                (launch/dryrun.py) of (a)'s dense arm and meshes on meta
+                devices: each coordinate's argument bytes equal the bytes
+                (a) placed on the card for it, its flash calls (a)'s
+                launches over data x model x steps, at (a)'s heads.
 
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}.  Any failed phase raises (non-zero exit).
@@ -429,6 +439,9 @@ from repro_torch.kernels import flash_attention as flash_kern  # noqa: E402
 from repro_torch.kernels import paged_attn as kern  # noqa: E402
 from repro_torch.kernels import replay  # noqa: E402
 from repro_torch.kernels import stem_metric as metric_kern  # noqa: E402
+from repro_torch.kernels.cost import (bound, bsa_bytes_flops, bwd_bytes_flops,  # noqa: E402
+                                      causal_pairs, flash_bytes_flops, pool_bytes_flops,
+                                      vmag_bytes_flops)
 from repro_torch.kernels.replay import grad_tolerance, tolerance  # noqa: E402
 from repro_torch.launch import serve as serve_lib  # noqa: E402
 from repro_torch.launch import steps as steps_lib  # noqa: E402
@@ -444,8 +457,6 @@ from repro_torch.runtime import engine as engine_lib  # noqa: E402
 from repro_torch.runtime import offload as offload_lib  # noqa: E402
 from repro_torch.runtime import sampling as sampling_lib  # noqa: E402
 
-HBM_BYTES_S = 3.35e12        # H100 SXM data sheet
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 SOURCE = "src/repro_torch/kernels/csrc/paged_attn.cu"
 REPLACES = {"score": "src/repro/kernels/paged_attn.py:142",
             "attend": "src/repro/kernels/paged_attn.py:249"}
@@ -512,12 +523,6 @@ def time_ms(fn, iters: int, warmup: int = 2) -> tuple:
     # 1.5x the host-bound run + 1 ms, at ~2e6 cycles a ms (H100 at <= 2 GHz)
     torch.cuda._sleep(int(2e6 * (1.5 * host * iters + 1.0)))
     return run(), host
-
-
-def bound(nbytes: float, flops: float, dtype) -> tuple:
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor, *,
@@ -920,33 +925,6 @@ def rec_kernel(records, kernel, lane, tag, err, run_k, run_p, bf, dtype,
 # Phase 3b: the one-shot prefill kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def causal_pairs(idx, cnt, bs) -> float:
-    """(query, key) pairs the live selected blocks hold under the causal
-    mask: B*B below the diagonal, B*(B+1)/2 on it."""
-    live = torch.arange(idx.shape[-1], device=idx.device) < cnt[..., None].long()
-    rows = torch.arange(idx.shape[2], device=idx.device)[None, None, :, None]
-    diag = (idx.long() == rows) & live
-    below = (idx.long() < rows) & live
-    return float(below.sum()) * bs * bs + float(diag.sum()) * bs * (bs + 1) / 2
-
-
-def bsa_bytes_flops(q, k, idx, cnt, group, dedup, bs, dv=None):
-    """Bytes (q read, the output written at v's head dim dv, each selected
-    K / V block read once, the selection) and flops (2 * (d + dv) a causal
-    pair) of one block-sparse call; dv defaults to q's head dim."""
-    d, es = q.shape[-1], q.element_size()
-    dv = d if dv is None else dv
-    hsel = idx.shape[1]
-    live = torch.arange(idx.shape[-1], device=idx.device) < cnt[..., None].long()
-    kvh = (torch.arange(hsel, device=idx.device) // (1 if dedup else group))
-    key = (kvh[None, :, None, None].expand_as(idx).long() << 32) | idx.long()
-    blocks = int(torch.unique(key[live]).numel())
-    nbytes = (q.numel() * (d + dv) // d * es + blocks * bs * (d + dv) * es
-              + (idx.numel() + cnt.numel()) * 4)
-    heads = group if dedup else 1
-    return nbytes, 2.0 * (d + dv) * causal_pairs(idx, cnt, bs) * heads
-
-
 def flex_block_mask(idx, cnt, bs):
     """The selection (indices, live counts) as a flex_attention BlockMask:
     live blocks below the diagonal as full blocks, the diagonal block under
@@ -1016,7 +994,6 @@ def prefill_kernel_phase(records: dict, dev=torch.device("cuda")) -> None:
     flex = torch.compile(flex_attention, dynamic=False)
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).split(".")[-1]
-        es = torch.tensor([], dtype=dtype).element_size()
         q = torch.randn((1, hq, n, d), generator=gen, device=dev).to(dtype)
         k = torch.randn((1, hk, n, d), generator=gen, device=dev).to(dtype)
         v = torch.randn((1, hk, n, d), generator=gen, device=dev).to(dtype)
@@ -1031,7 +1008,7 @@ def prefill_kernel_phase(records: dict, dev=torch.device("cuda")) -> None:
         torch.cuda.synchronize()
         err = check_close(f"antidiag_pool/{tag}", got, want)
         rec_kernel(records, "antidiag_pool", "prefill", tag, err, run_k, run_p,
-                   (q.numel() * es + got.numel() * es, float(q.numel())), dtype,
+                   pool_bytes_flops(q, got), dtype,
                    run_lib=run_l)
 
         if dtype == torch.bfloat16:
@@ -1048,7 +1025,7 @@ def prefill_kernel_phase(records: dict, dev=torch.device("cuda")) -> None:
             torch.cuda.synchronize()
             err = check_close(f"value_magnitude/{lane}/{tag}", got, want)
             rec_kernel(records, "value_magnitude", lane, tag, err, run_k, run_p,
-                       (x.numel() * es + got.numel() * 4, 2.0 * x.numel()), dtype)
+                       vmag_bytes_flops(x, got), dtype)
 
         # -- kernel 3: block-sparse attention under stem's TPD selection ----
         for dedup in (False, True):
@@ -1106,10 +1083,8 @@ def prefill_kernel_phase(records: dict, dev=torch.device("cuda")) -> None:
         if dtype == torch.bfloat16:
             check_rejects_dropped_tile("flash_attention", q, k, v,
                                        *identity_selection(1, hq, n // bs, dev), want, bs)
-        pairs = hq * n * (n + 1) / 2
         rec_kernel(records, "flash_attention", "prefill", tag, err, run_k, run_p,
-                   (2 * q.numel() * es + 2 * k.numel() * es, 4.0 * d * pairs),
-                   dtype, run_lib=run_l, iters=5, plain_iters=1)
+                   flash_bytes_flops(q, k, v), dtype, run_lib=run_l, iters=5, plain_iters=1)
         del q, k, v, got, want, mask
         torch.cuda.empty_cache()
 
@@ -4103,26 +4078,6 @@ def check_library_bwd(name: str, lib: tuple, want: tuple) -> None:
             raise AssertionError(f"{name} {part}: library call disagrees")
 
 
-def bwd_bytes_flops(q, k, v, pairs: float, extra_bytes: float = 0.0, part: str = "both"):
-    """Bytes and flops of one attention backward, or of one of its two
-    kernels.  Both: q, k, v, o, do and the lse read once, dq, dk, dv
-    written once; S, dP, dV, dK, dQ, 2 * (3 d + 2 dv) flops a causal pair.
-    "dq": q, k, v, o, do, lse read, dq and delta written; S, dP, dQ (2 *
-    (2 d + dv)).  "dkdv": q, k, v, do, lse, delta read, dk and dv written;
-    S, dP, dV, dK (2 * (2 d + 2 dv))."""
-    es, d, dv = q.element_size(), q.shape[-1], v.shape[-1]
-    rows = q.numel() // d * 4                      # one fp32 a query row
-    qo = q.numel() * dv // d * es                  # o or do
-    kv = (k.numel() + v.numel()) * es
-    if part == "dq":
-        return 2 * q.numel() * es + kv + 2 * qo + 2 * rows + extra_bytes, \
-            2.0 * (2 * d + dv) * pairs
-    if part == "dkdv":
-        return q.numel() * es + 2 * kv + qo + 2 * rows + extra_bytes, \
-            2.0 * (2 * d + 2 * dv) * pairs
-    return 2 * (q.numel() * es + kv + qo) + rows + extra_bytes, 2.0 * (3 * d + 2 * dv) * pairs
-
-
 def kernel_device_ms(fn, names, iters: int = 5, optional=()) -> dict:
     """Each named kernel's device ms per launch over `iters` calls of fn,
     from torch.profiler's CUDA rows (the wgmma backward's two kernels run
@@ -5175,14 +5130,14 @@ def mesh_phase() -> dict:
 # Phase 17: mesh training
 # ---------------------------------------------------------------------------
 
-TRAIN_MESHES = ((1, 1), (2, 1), (4, 1), (2, 2))
+TRAIN_MESHES = ((1, 1), (2, 1), (4, 1), (2, 2), (1, 2), (1, 4))
 # The counters of the kernels a training step runs, forward and backward
 # (3 / 3b, 4 / 4b, 5, 6 in PERF.md's kernel table)
 P17_COUNTERS = ("block_sparse_attention", "block_sparse_attention_bwd", "flash_attention",
                 "flash_attention_bwd", "antidiag_pool", "value_magnitude")
 P17 = dict(fp32_layers=4, fp32_batch=4, fp32_seq=1024, fp32_steps=3, lr=3e-4,
            cli_steps=6, cli_batch=2, cli_seq=4096, fsdp_layers=4, fsdp_batch=2,
-           fsdp_seq=1024, ep_seq=1024, ckpt_steps=4, ckpt_at=2, ckpt_seq=512)
+           fsdp_seq=1024, ep_seq=1024, ckpt_steps=4, ckpt_at=2, ckpt_seq=512, tp_steps=4)
 
 
 def _p17_counts() -> dict:
@@ -5217,17 +5172,47 @@ def _p17_state(bundle, opt_cfg, ssh=None):
     return state if ssh is None else steps_lib.place_state(state, ssh)
 
 
+@contextlib.contextmanager
+def kernel_heads():
+    """Each call of the wrappers of kernels 3 / 3b / 4 / 4b / 5 / 6 while
+    the block runs, by counter: the heads of its first input (q's query
+    heads; the pool's q or k, vmag's v).  On the card every call is a
+    launch."""
+    calls = {k: [] for k in P17_COUNTERS}
+    mods = {"block_sparse_attention": bsa_kern, "block_sparse_attention_bwd": bsa_kern,
+            "flash_attention": flash_kern, "flash_attention_bwd": flash_kern,
+            "antidiag_pool": metric_kern, "value_magnitude": metric_kern}
+    saved = []
+    for name, mod in mods.items():
+        fn = getattr(mod, name)
+
+        def rec(*a, _fn=fn, _name=name, **kw):
+            calls[_name].append(int(a[0].shape[1]))
+            return _fn(*a, **kw)
+        setattr(mod, name, rec)
+        saved.append((mod, name, fn))
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
 def train_mesh_fp32_arms(sizes: dict = P17) -> dict:
     """(a) fp32, full width, depth cut, dense and --stem: ``fp32_steps``
     steps of the one-device step and of the mesh step at each of
-    ``TRAIN_MESHES``; losses and grad norms within 1e-5 of one device's
-    (relative), the (1, 1) step bitwise one device's, the master (the union
-    of the ZeRO-1 blocks) within 5% of the steps' summed learning rate of
-    one device's (the one-device train tests' rule: AdamW moves an element
-    by about lr whatever the size of its gradient), and each kernel's
-    launches the (1, 1) run's times the data shards."""
+    ``TRAIN_MESHES`` (a model axis above 1 computes tensor-parallel); losses
+    within 1e-6 and grad norms within 1e-5 of one device's (relative), the
+    (1, 1) step bitwise one device's, the master (the union of the ZeRO-1
+    blocks) within 5% of the steps' summed learning rate of one device's
+    (the one-device train tests' rule: AdamW moves an element by about lr
+    whatever the size of its gradient), each kernel launched data x model
+    times as often as at (1, 1), each call at 1 / model of the (1, 1) call's
+    heads; the bytes each coordinate holds (``dryrun.argument_bytes``, for
+    (g))."""
     from repro_torch import optim as optim_lib
     from repro_torch.data import make_global_batch
+    from repro_torch.launch import dryrun
     from repro_torch.optim.adamw import tree_leaves
     cfg = dataclasses.replace(QWEN3_0_6B, dtype="float32", num_layers=sizes["fp32_layers"])
     opt_cfg = optim_lib.AdamWConfig(peak_lr=sizes["lr"], warmup_steps=2, decay_steps=10,
@@ -5247,53 +5232,66 @@ def train_mesh_fp32_arms(sizes: dict = P17) -> dict:
         want_master = [t.cpu() for t in tree_leaves(state.master)]
         lr_sum = sum(float(optim_lib.lr_at(torch.tensor(i + 1), opt_cfg)) for i in range(steps))
         del state, step
-        runs = {}
+        runs, heads = {}, {}
         for shape in TRAIN_MESHES:
             _free()
             bundle, mesh, ssh, bsh, _, data = _p17_setup(cfg, shape, b, n)
             step = steps_lib.make_train_step(bundle, opt_cfg, stem_cfg=policy,
                                              grad_shardings=ssh.master)
             state = _p17_state(bundle, opt_cfg, ssh)
+            args = {"_".join(map(str, c)): n for c, n in dryrun.argument_bytes(
+                mesh, state, make_global_batch(data.batch_at(0), mesh, bsh)).items()}
             got = {"loss": [], "grad_norm": []}
             torch.cuda.synchronize()
             reset_all_launches()
             t0 = time.perf_counter()
-            for i in range(steps):
-                state, m = step(state, make_global_batch(data.batch_at(i), mesh, bsh))
-                for k in got:
-                    got[k].append(float(m[k]))
+            with kernel_heads() as calls:
+                for i in range(steps):
+                    state, m = step(state, make_global_batch(data.batch_at(i), mesh, bsh))
+                    for k in got:
+                        got[k].append(float(m[k]))
             wall = time.perf_counter() - t0
             counts = _p17_counts()
             master = [a.gather("cpu") for a in tree_leaves(state.master)]
             blocks = {c: sum(a.blocks[c].numel() for a in tree_leaves(state.master))
                       for c in mesh.coords()}
             worst = max(float((a - w).abs().max()) for a, w in zip(master, want_master))
-            err = max(abs(g - w) / abs(w) for k in got for g, w in zip(got[k], one[k]))
+            rel = {k: max(abs(g - w) / abs(w) for g, w in zip(got[k], one[k])) for k in got}
             tag = f"{arm} {shape[0]}x{shape[1]}"
             if shape == (1, 1) and (got != one or worst != 0.0):
                 raise AssertionError(f"phase 17 (a) {tag}: not the one-device step's bits: "
                                      f"{got} vs {one}, master {worst}")
-            if not (err <= 1e-5 and worst <= 0.05 * lr_sum):
+            if not (rel["loss"] <= 1e-6 and rel["grad_norm"] <= 1e-5
+                    and worst <= 0.05 * lr_sum):
                 raise AssertionError(f"phase 17 (a) {tag}: losses / grad norms {got} vs one "
-                                     f"device {one} (rel err {err:.2e}), master {worst:.3e} "
+                                     f"device {one} (rel err {rel}), master {worst:.3e} "
                                      f"(limit {0.05 * lr_sum:.3e})")
-            runs[f"{shape[0]}x{shape[1]}"] = dict(
-                losses=got["loss"], grad_norms=got["grad_norm"], rel_err=err,
+            key = f"{shape[0]}x{shape[1]}"
+            heads[key] = {k: sorted(v) for k, v in calls.items()}
+            runs[key] = dict(
+                losses=got["loss"], grad_norms=got["grad_norm"], rel_err=rel,
                 master_max_abs=worst, launches=counts, wall_s=wall,
-                ms_a_step=wall / steps * 1e3, zero1_elements=blocks)
+                ms_a_step=wall / steps * 1e3, zero1_elements=blocks, arg_bytes=args,
+                heads={k: sorted(set(v)) for k, v in calls.items()})
             del state, step, master
-        base = runs["1x1"]["launches"]
+        base, base_heads = runs["1x1"]["launches"], heads["1x1"]
         need = [k for k in P17_COUNTERS if ("flash" in k) == (arm == "dense")]
         for tag, r in runs.items():
-            n_data = int(tag.split("x")[0])
-            if any(r["launches"][k] != n_data * base[k] for k in base) or \
+            n_data, n_model = (int(x) for x in tag.split("x"))
+            if any(r["launches"][k] != n_data * n_model * base[k] for k in base) or \
                     any(base[k] == 0 for k in need):
                 raise AssertionError(f"phase 17 (a) {arm} {tag}: launches {r['launches']} "
-                                     f"are not {n_data} x the (1, 1) run's {base}")
+                                     f"are not {n_data} x {n_model} x the (1, 1) run's {base}")
+            for k, hs in heads[tag].items():
+                want = sorted([h // n_model for h in base_heads[k]] * (n_data * n_model))
+                if hs != want or (hs and base_heads[k][0] % n_model):
+                    raise AssertionError(f"phase 17 (a) {arm} {tag}: {k} got heads "
+                                         f"{sorted(set(hs))}, not 1 / {n_model} of "
+                                         f"{sorted(set(base_heads[k]))}")
         out[arm] = dict(one_device=one, meshes=runs, lr_sum=lr_sum)
         log(f"[phase17] (a) fp32 {cfg.num_layers} layers {arm}, b {b} x {n}: " + json.dumps(
             {t: {k: r[k] for k in ("losses", "rel_err", "master_max_abs", "launches",
-                                   "ms_a_step")} for t, r in runs.items()}))
+                                   "heads", "ms_a_step")} for t, r in runs.items()}))
     return out
 
 
@@ -5519,6 +5517,103 @@ def train_mesh_checkpoint_arm(sizes: dict = P17) -> dict:
     return out
 
 
+def train_mesh_tp_arm(sizes: dict = P17) -> dict:
+    """(f) bf16 at full width and depth, --stem, b 2 x 4096 (the CLI's (b)
+    config): the mesh step at (1, 2), tensor-parallel (the CLI picks a
+    model axis above 1 only from 256 devices), beside the one-device step
+    on the same batches and seed: losses within 1e-2 at every step; ms a
+    step (the median after the first) and peak GiB of both; the (1, 2)
+    arm's kernels launched twice as often, each call at half the heads."""
+    from repro_torch import optim as optim_lib
+    from repro_torch.data import make_global_batch
+    b, n, steps = sizes["cli_batch"], sizes["cli_seq"], sizes["tp_steps"]
+    opt_cfg = optim_lib.AdamWConfig(peak_lr=sizes["lr"], warmup_steps=2, decay_steps=10)
+    policy = cli_stem_policy(n)
+    out = {}
+    for arm, shape in (("one_device", (1, 1)), ("mesh_1x2", (1, 2))):
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        bundle, mesh, ssh, bsh, _, data = _p17_setup(QWEN3_0_6B, shape, b, n)
+        meshed = arm != "one_device"
+        step = steps_lib.make_train_step(bundle, opt_cfg, stem_cfg=policy,
+                                         grad_shardings=ssh.master if meshed else None)
+        state = _p17_state(bundle, opt_cfg, ssh if meshed else None)
+        losses, ms = [], []
+        reset_all_launches()
+        with kernel_heads() as calls:
+            for i in range(steps):
+                batch = make_global_batch(data.batch_at(i), mesh, bsh) if meshed else \
+                    make_global_batch(data.batch_at(i), "cuda")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+        out[arm] = dict(losses=losses, step_ms=float(np.median(ms[1:])), step_ms_all=ms,
+                        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                        launches=_p17_counts(),
+                        heads={k: sorted(set(v)) for k, v in calls.items()})
+        del state, step
+    a, m = out["one_device"], out["mesh_1x2"]
+    diff = max(abs(x - y) for x, y in zip(a["losses"], m["losses"]))
+    if not diff <= 1e-2:
+        raise AssertionError(f"phase 17 (f): (1, 2) losses {m['losses']} vs one device "
+                             f"{a['losses']} (max diff {diff:.3e})")
+    for k in P17_COUNTERS:
+        if m["launches"][k] != 2 * a["launches"][k] or \
+                m["heads"][k] != sorted({h // 2 for h in a["heads"][k]}):
+            raise AssertionError(f"phase 17 (f): {k} launches {m['launches'][k]} heads "
+                                 f"{m['heads'][k]} vs one device {a['launches'][k]} "
+                                 f"{a['heads'][k]}")
+    if not a["launches"]["block_sparse_attention"]:
+        raise AssertionError("phase 17 (f): the stem arm launched no block-sparse kernel")
+    out["max_loss_diff"] = diff
+    log("[phase17] (f) bf16 28 layers --stem b 2 x 4096, one device vs (1, 2) "
+        "tensor-parallel: " + json.dumps({k: {f: v[f] for f in (
+            "losses", "step_ms", "peak_gib", "launches", "heads")}
+            for k, v in out.items() if isinstance(v, dict)}) + f", max |loss diff| {diff:.3e}")
+    return out
+
+
+def train_mesh_dryrun_arm(a: dict, sizes: dict = P17) -> dict:
+    """(g) the dry run (``launch/dryrun.count_step``) of (a)'s dense config
+    and meshes on ``meta`` devices (no card): each coordinate's argument
+    bytes equal the bytes (a) placed on the card for it, and each model
+    shard of the first data shard calls the flash kernels forward and
+    backward (a)'s launches / (data x model x steps) times, at (a)'s
+    heads."""
+    from repro_torch.configs.base import RunShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    cfg = dataclasses.replace(QWEN3_0_6B, dtype="float32", num_layers=sizes["fp32_layers"],
+                              train_microbatches=1)
+    shape = RunShape("phase17_a", sizes["fp32_seq"], sizes["fp32_batch"], "train")
+    out = {}
+    for tag, r in a["dense"]["meshes"].items():
+        grid = tuple(int(x) for x in tag.split("x"))
+        mesh = mesh_lib.make_mesh(grid, ("data", "model"),
+                                  [torch.device("meta")] * (grid[0] * grid[1]))
+        costs, args, seconds = dryrun.count_step(cfg, mesh, shape)
+        got = {"_".join(map(str, c)): n for c, n in args.items()}
+        if got != r["arg_bytes"]:
+            raise AssertionError(f"phase 17 (g) {tag}: argument bytes {got} vs the card's "
+                                 f"{r['arg_bytes']}")
+        calls = {}
+        for k in ("flash_attention", "flash_attention_bwd"):
+            per = [costs[(0, t)].kernel_calls.get(k, 0) for t in range(grid[1])]
+            heads = sorted({h for t in range(grid[1]) for h in costs[(0, t)].kernel_heads[k]})
+            if len(set(per)) != 1 or per[0] * grid[0] * grid[1] * sizes["fp32_steps"] \
+                    != r["launches"][k] or heads != r["heads"][k]:
+                raise AssertionError(f"phase 17 (g) {tag}: {k} calls {per} heads {heads} vs "
+                                     f"the card's {r['launches'][k]} launches at "
+                                     f"{r['heads'][k]}")
+            calls[k] = per[0]
+        out[tag] = dict(calls_per_coordinate_a_step=calls, count_s=seconds,
+                        arg_bytes_lead=args[(0, 0)])
+    log("[phase17] (g) dry run of (a)'s dense arm on meta devices: " + json.dumps(out))
+    return out
+
+
 def mesh_training_phase() -> dict:
     """Phase 17: mesh training, every shard of a mesh on cuda:0 on one card
     (``mesh_devices``)."""
@@ -5526,14 +5621,17 @@ def mesh_training_phase() -> dict:
     out, arm_s = {}, {}
     for key, arm in (("a", train_mesh_fp32_arms), ("b", train_mesh_cli_arms),
                      ("c", train_mesh_fsdp_arm), ("d", train_mesh_expert_parallel_arm),
-                     ("e", train_mesh_checkpoint_arm)):
+                     ("e", train_mesh_checkpoint_arm), ("f", train_mesh_tp_arm),
+                     ("g", lambda: train_mesh_dryrun_arm(out["a"]))):
         t0 = time.perf_counter()
         out[key] = arm()
         arm_s[key] = time.perf_counter() - t0
+        log(f"[timing] phase 17 ({key}): {arm_s[key]:.1f} s")
     out["arm_s"] = arm_s
     out["launches"] = {f"a/{arm}/{t}": r["launches"] for arm in ("dense", "stem")
                        for t, r in out["a"][arm]["meshes"].items()}
     out["launches"]["b/mesh_2x1"] = out["b"]["mesh_2x1"]["launches"]
+    out["launches"]["f/mesh_1x2"] = out["f"]["mesh_1x2"]["launches"]
     out["s"] = time.perf_counter() - t_start
     log(f"[phase17] done in {out['s']:.1f} s (arms: " +
         ", ".join(f"{k} {v:.1f}" for k, v in arm_s.items()) + ")")

@@ -448,11 +448,13 @@ class SparsityPolicy:
         group = q.shape[1] // k.shape[1]
         return metric_lib.group_reduce_metric(m, group, self.group_reduce)
 
-    def prefill_select(self, q, k, v, *, with_block_mask: bool = True):
+    def prefill_select(self, q, k, v, *, with_block_mask: bool = True, scores=None):
         """Phase 1 of Algorithm 1: metric + schedule + selection.
+        ``scores`` (b, hq, nq, nk) replaces ``prefill_scores`` (a tensor-
+        parallel shard's share of its KV group's pooled metric).
         Returns (BlockSelection, k_max)."""
         sq, sk = q.shape[2], k.shape[2]
-        m = self.prefill_scores(q, k, v)
+        m = self.prefill_scores(q, k, v) if scores is None else scores
         budgets = self.prefill_budgets(sq, sk)
         nk = sk // self.block_size
         k_max = int(budgets.max()) if self.selector.budget_driven else int(nk)

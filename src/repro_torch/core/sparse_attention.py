@@ -113,12 +113,13 @@ def dense_attention_auto(q, k, v, *, causal: bool = True, scale=None,
                          mask=None, threshold: int = 2048):
     """Dense attention dispatch, by the form of the call.  On a CUDA
     tensor, causal self-attention without a mask (sq == sk; v's head dim
-    may differ from q/k's, as MLA's does) runs the flash kernel.  Every
+    may differ from q/k's, as MLA's does) runs the flash kernel (on
+    ``meta`` tensors, the dry run's, its shape-only path).  Every
     other form (non-causal: an encoder, cross-attention; or masked) runs
     the plain path on any device, as the reference computes these forms
     outside its kernels: the chunked online softmax for long sequences
     without a mask, the direct masked softmax otherwise."""
-    if q.device.type == "cuda" and mask is None and causal \
+    if q.device.type in ("cuda", "meta") and mask is None and causal \
             and q.shape[2] == k.shape[2]:
         return flash_kernels.attention(
             q.contiguous(), k.contiguous(), v.contiguous(), scale=scale)
@@ -267,20 +268,22 @@ policy_lib.register_executor("fused", _fused_executor)
 
 
 def sparse_attention(q, k, v, policy, executor: Optional[str] = None,
-                     return_stats: bool = False):
+                     return_stats: bool = False, scores=None):
     """Block-sparse causal attention under a ``SparsityPolicy``.
 
     q: (b, hq, seq, d); k: (b, hk, seq, d); v: (b, hk, seq, dv) (MLA's
     dv differs from d); policy: SparsityPolicy | registered name |
     StemConfig; executor: "fused" | "gather" | "dense" (None uses
-    ``policy.executor``).  Returns (b, hq, seq, dv) [, StemStats]."""
+    ``policy.executor``); ``scores`` optionally the (group-reduced) metric
+    to select by (``policy.prefill_select``).  Returns (b, hq, seq, dv)
+    [, StemStats]."""
     policy = policy_lib.as_policy(policy)
     spec = policy_lib.get_executor(executor or policy.executor)
     hq, d, sq = q.shape[1], q.shape[3], q.shape[2]
     sk = k.shape[2]
     scale = d ** -0.5
     sel, k_max = policy.prefill_select(
-        q, k, v, with_block_mask=spec.needs_block_mask)
+        q, k, v, with_block_mask=spec.needs_block_mask, scores=scores)
 
     # GQA block dedup: with group-shared selection every query head of a KV
     # group picks identical blocks, so the executors take one head per group.

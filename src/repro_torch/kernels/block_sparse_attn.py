@@ -54,6 +54,7 @@ import torch
 
 from repro_torch.kernels import (WGMMA_PAIRS, backward_route, check_head_dim_pair,
                                  forward_route, split_scratch, wgmma_counter)
+from repro_torch.kernels import cost
 
 NEG_INF = -1e30
 
@@ -165,6 +166,14 @@ def block_sparse_attention(q, k, v, indices, slot_mask=None, *,
     key (the backward's input)."""
     cnt = (slot_mask.sum(dim=-1, dtype=torch.int32) if live_counts is None
            else live_counts)
+    if q.device.type == "meta":
+        b, hq, n, _ = q.shape
+        out = torch.empty((b, hq, n, v.shape[-1]), dtype=q.dtype, device=q.device)
+        cost.note_kernel("block_sparse_attention",
+                         *_meta_bytes_flops(q, k, v, indices, block_size, group_dedup), like=q)
+        if not return_lse:
+            return out
+        return out, torch.empty((b, hq, n), dtype=torch.float32, device=q.device)
     if q.device.type == "cpu":
         return block_sparse_attention_plain(
             q, k, v, indices, cnt, block_size=block_size, scale=scale,
@@ -214,6 +223,18 @@ def block_sparse_attention(q, k, v, indices, slot_mask=None, *,
     if forward_route(q.dtype, d, dv, bs) == "wgmma":
         LAUNCHES[wgmma_counter("block_sparse_attention", d, dv)] += 1
     return (out, lse) if return_lse else out
+
+
+def _meta_bytes_flops(q, k, v, indices, bs: int, group_dedup: bool) -> tuple:
+    """``kernels.cost.bsa_bytes_flops`` from a selection's shape alone
+    (``meta`` tensors carry no data): every slot live, below the diagonal
+    and a block of its own (at most every key block of every KV head)."""
+    d, dv, es = q.shape[-1], v.shape[-1], q.element_size()
+    blocks = min(indices.numel(), k.shape[0] * k.shape[1] * (k.shape[2] // bs))
+    heads = q.shape[1] // k.shape[1] if group_dedup else 1
+    nbytes = (q.numel() * (d + dv) // d * es + blocks * bs * (d + dv) * es
+              + indices.numel() * 4 + indices.numel() // indices.shape[-1] * 4)
+    return nbytes, 2.0 * (d + dv) * cost.selected_pairs_bound(indices, bs) * heads
 
 
 def _live_mask(idx: torch.Tensor, live_counts: torch.Tensor, nq: int) -> torch.Tensor:
@@ -323,6 +344,11 @@ def block_sparse_attention_bwd(q, k, v, o, do, indices, live_counts, *,
         return block_sparse_attention_bwd_plain(
             q, k, v, o, do, indices, live_counts, block_size=block_size,
             scale=scale, group_dedup=group_dedup)
+    if q.device.type == "meta":
+        heads = q.shape[1] // k.shape[1] if group_dedup else 1
+        cost.note_kernel("block_sparse_attention_bwd", *cost.bwd_bytes_flops(
+            q, k, v, cost.selected_pairs_bound(indices, block_size) * heads), like=q)
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     return _bwd_launch(q, k, v, o, do, indices, live_counts, block_size, scale,
                        group_dedup, transposed, lse, None)
 

@@ -18,7 +18,10 @@ Beside the kernel sits its plain PyTorch version (``flash_attention_plain``)
 and plain-int launch counters in ``LAUNCHES``: every forward launch, and
 one per tensor-core instance (``wgmma_counter``).  The wrapper takes the plain
 version only for tensors on the CPU; for a CUDA tensor it launches the
-kernel or raises.
+kernel or raises; for ``meta`` tensors (the dry run) it returns outputs of
+the right shape and dtype and reports the call's work to
+``kernels.cost`` (the formulas ``PERF.md`` bounds the kernel with),
+building and loading nothing.
 
 With ``return_lse`` the forward also returns each row's natural-log
 log-sum-exp (b, hq, n) fp32, written by the kernel's epilogue (serving asks
@@ -49,6 +52,7 @@ import torch
 
 from repro_torch.kernels import (WGMMA_PAIRS, backward_route, check_head_dim_pair,
                                  forward_route, split_scratch, wgmma_counter)
+from repro_torch.kernels import cost
 
 NEG_INF = -1e30
 
@@ -124,6 +128,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     launch the kernel."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale=scale, return_lse=return_lse)
+    if q.device.type == "meta":
+        b, hq, n, _ = q.shape
+        out = torch.empty((b, hq, n, v.shape[-1]), dtype=q.dtype, device=q.device)
+        cost.note_kernel("flash_attention", *cost.flash_bytes_flops(q, k, v), like=q)
+        if not return_lse:
+            return out
+        return out, torch.empty((b, hq, n), dtype=torch.float32, device=q.device)
     _check(q.device.type == "cuda", f"flash_attention: unsupported device {q.device}")
     b, hq, n, d = q.shape
     hk, dv = k.shape[1], v.shape[-1]
@@ -202,6 +213,11 @@ def flash_attention_bwd(q, k, v, o, do, *, scale=None, lse=None) -> tuple:
     its instance's)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, do, scale=scale)
+    if q.device.type == "meta":
+        b, hq, n, _ = q.shape
+        cost.note_kernel("flash_attention_bwd", *cost.bwd_bytes_flops(
+            q, k, v, b * hq * n * (n + 1) / 2), like=q)
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     return _bwd_launch(q, k, v, o, do, scale, lse, None)
 
 

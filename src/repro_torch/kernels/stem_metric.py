@@ -28,7 +28,9 @@ dtype (sum in fp32, then rounded).
 
 Beside each kernel sits its plain PyTorch version and a plain-int launch
 counter in ``LAUNCHES``.  A wrapper takes the plain version only for
-tensors on the CPU; for a CUDA tensor it launches the kernel or raises.
+tensors on the CPU; for a CUDA tensor it launches the kernel or raises;
+for ``meta`` tensors (the dry run) it returns an output of the right shape
+and dtype and reports the call's work to ``kernels.cost``.
 """
 from __future__ import annotations
 
@@ -36,6 +38,8 @@ import ctypes
 import math
 
 import torch
+
+from repro_torch.kernels import cost
 
 # Kernel launches, counted where each wrapper launches its CUDA kernel and
 # nowhere else (the CPU plain path does not count).
@@ -118,6 +122,12 @@ def antidiag_pool(x: torch.Tensor, *, block_size: int = 128, stride: int = 16,
     if x.device.type == "cpu":
         return antidiag_pool_plain(x, block_size=block_size, stride=stride,
                                    out_dtype=out_dtype)
+    if x.device.type == "meta":
+        *lead, n, d = x.shape
+        out = torch.empty((*lead, n // block_size, stride, d), dtype=out_dtype,
+                          device=x.device)
+        cost.note_kernel("antidiag_pool", *cost.pool_bytes_flops(x, out), like=x)
+        return out
     bh = _check_input("antidiag_pool", x, block_size)
     _check(out_dtype in _DTYPES, "antidiag_pool: out_dtype must be float32 or bfloat16")
     _check(block_size % stride == 0, "antidiag_pool: stride must divide block_size")
@@ -148,6 +158,11 @@ def value_magnitude(v: torch.Tensor, *, block_size: int = 128) -> torch.Tensor:
     plain version; CUDA tensors launch the kernel."""
     if v.device.type == "cpu":
         return value_magnitude_plain(v, block_size=block_size)
+    if v.device.type == "meta":
+        *lead, n, _ = v.shape
+        out = torch.empty((*lead, n // block_size), dtype=torch.float32, device=v.device)
+        cost.note_kernel("value_magnitude", *cost.vmag_bytes_flops(v, out), like=v)
+        return out
     bh = _check_input("value_magnitude", v, block_size)
     *lead, n, d = v.shape
     out = torch.empty((*lead, n // block_size), dtype=torch.float32, device=v.device)

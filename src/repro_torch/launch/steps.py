@@ -104,20 +104,52 @@ def _rows(v, lo: int, hi: int, device) -> torch.Tensor:
 
 def shard_view(params: dict, device) -> dict:
     """A parameter tree in blocks as one device's forward reads it: the
-    top-level leaves gathered onto ``device``, the stacked layer subtrees
-    left in blocks (each layer gathers its own at use)."""
-    return {k: v if isinstance(v, dict) else v.gather(device) for k, v in params.items()}
+    top-level leaves gathered onto ``device`` (inside
+    ``sharding.context.model_parallel``, a leaf split over the model axis
+    as its ``ModelShards``), the stacked layer subtrees left in blocks (each
+    layer gathers its own at use)."""
+    return {k: v if isinstance(v, dict) else arrays.materialize(v, device)
+            for k, v in params.items()}
 
 
 def _add(a: ShardedArray, b: ShardedArray) -> ShardedArray:
-    """Blockwise a + b of two arrays of one layout."""
-    return ShardedArray(a.sharding, a.shape, a.dtype, {
-        c: t + b.blocks[c] for c, t in a.blocks.items()})
+    """Blockwise a + b of two arrays of one layout (each stored block once)."""
+    done, blocks = {}, {}
+    for c, t in a.blocks.items():
+        if id(t) not in done:
+            with shctx.at(c):
+                done[id(t)] = t + b.blocks[c]
+        blocks[c] = done[id(t)]
+    return ShardedArray(a.sharding, a.shape, a.dtype, blocks)
+
+
+def _contribution(p: ShardedArray, grads: dict) -> ShardedArray:
+    """One data shard's gradient of the parameter ``p`` (blocks as
+    autograd leaves) in ``p``'s layout: each block's gradient where the
+    shard's backward put it (popped from ``grads``, keyed by the leaf's
+    id), the copies of one block summed in rank order, zeros for a block
+    the shard did not read."""
+    got: dict = {}
+    for _, bounds, t in p.distinct():
+        g = grads.pop(id(t), None)
+        if g is not None:
+            got[bounds] = g if bounds not in got else got[bounds] + g.to(got[bounds].device)
+    made: dict = {}
+    blocks = {}
+    for c, t in p.blocks.items():
+        bounds = p.index(c)
+        if bounds in got:
+            blocks[c] = got[bounds]
+        else:
+            if id(t) not in made:
+                made[id(t)] = torch.zeros_like(t)
+            blocks[c] = made[id(t)]
+    return ShardedArray(p.sharding, p.shape, p.dtype, blocks)
 
 
 def mesh_train_step(bundle, opt_cfg: optim.AdamWConfig, grad_shardings, *,
                     stem_cfg=None, policies=None, remat: bool = True,
-                    microbatches: int = 1):
+                    microbatches: int = 1, data_shards: Optional[int] = None):
     """The train step over a ``TrainMesh`` (ref ``make_train_step`` with
     ``grad_shardings``, under ``jax.jit`` with the ZeRO-1 state shardings):
     (opt_state, batch) -> (opt_state, metrics).
@@ -132,17 +164,28 @@ def mesh_train_step(bundle, opt_cfg: optim.AdamWConfig, grad_shardings, *,
        (``rules.param_shardings``: model-axis blocks, and for
        ``fsdp_weights`` archs data-axis blocks of ``embed`` / ``expert_mlp``
        dims), cast to the arch dtype: once a step;
-    2. each data shard, in rank order on its model-0 device, runs
-       ``bundle.loss_fn`` on its rows of the batch: the top-level leaves
-       gathered first, each layer group's blocks gathered inside the layer
-       body (``models/transformer._group_full``), freed after, and gathered
-       again by a rematerialized backward; with ``microbatches`` the global
-       batch splits into that many consecutive row blocks, each split over
-       the shards;
+    2. each data shard, in rank order, runs ``bundle.loss_fn`` on its rows
+       of the batch over its model shards, inside
+       ``sharding.context.model_parallel`` (forward and backward): every dim
+       the rules split over ``model`` is computed by each model shard on its
+       own block on its own device (attention by heads, the MLPs by
+       ``mlp``, the embedding, logits and CE by ``vocab``, MoE experts by
+       ``experts``), every dim they leave whole once on the data shard's
+       model-0 device, which holds the residual stream, the norms and the
+       router, and copies its results to the shards that read them
+       (``arrays.to_model_shards`` / ``reduce_from_model_shards``).  The
+       top-level leaves are taken first, each layer group's blocks inside
+       the layer body (``models/transformer._group_full``; FSDP blocks
+       gathered over data there), freed after, and taken again by a
+       rematerialized backward.  The SSD and RG-LRU mixers and the
+       encoder-decoder's layers are gathered whole onto model 0.  With
+       ``microbatches`` the global batch splits into that many consecutive
+       row blocks, each split over the shards;
     3. under ``sharding.context.data_parallel`` the CE is the global mean
        and the MoE aux loss the global batch's (``moe.GlobalAux``: every
        shard's forward runs before any backward);
-    4. each shard's gradient with respect to the parameter blocks, then the
+    4. each shard's gradient with respect to the parameter blocks (a
+       block's gradient on its own coordinate's device), then the
        reduce-scatter: each master block gets the sum over the shards, in
        rank order, in fp32 on its device (``arrays.reduce_into``);
        microbatches accumulate and divide, as the reference's scan does;
@@ -150,10 +193,14 @@ def mesh_train_step(bundle, opt_cfg: optim.AdamWConfig, grad_shardings, *,
     6. AdamW on every block, clipped by the global norm (each block counted
        once, in leaf then rank order), the schedule replicated.
 
-    At a (1, 1) mesh every gather is the block itself and every sum has one
-    term, so the step is the one-device step's bitwise.  Training does not
-    enter ``sharding.context.use`` (nor does the reference's): the MoE runs
-    its local path on each data shard."""
+    At a model axis of 1 no tensor-parallel code runs, and at a (1, 1)
+    mesh every gather is the block itself and every sum has one term, so
+    the step is the one-device step's bitwise.
+
+    ``data_shards`` runs the forward and backward of the first that many
+    data shards only (the dry run's: the others repeat them by
+    construction); the loss and the update are then not the global
+    batch's."""
     cfg = bundle.cfg
     shardings = tree_leaves(grad_shardings)
     if not shardings or not all(isinstance(s, rules_lib.NamedSharding) for s in shardings):
@@ -168,6 +215,11 @@ def mesh_train_step(bundle, opt_cfg: optim.AdamWConfig, grad_shardings, *,
     coords = rules_lib.data_coords(mesh)
     devices = [mesh.device(c) for c in coords]
     n_data = len(coords)
+    run = coords[:data_shards] if data_shards else coords
+    tp = mesh.shape.get("model", 1)
+
+    def model_parallel(coord):
+        return shctx.model_parallel(mesh, coord) if tp > 1 else contextlib.nullcontext()
     kw = {"policies": policies} if policies else {}
 
     def train_step(opt_state: optim.OptState, batch: dict):
@@ -238,18 +290,22 @@ def mesh_train_step(bundle, opt_cfg: optim.AdamWConfig, grad_shardings, *,
             return {id(t): gt for t, gt in zip(leaves, g)}
 
         with ctx:
-            for d, dev in enumerate(devices):
+            for d, coord in enumerate(run):
                 if aux is not None:
                     aux.begin_shard()
-                loss_d, met_d = bundle.loss_fn(shard_view(params, dev), mbs[d],
-                                               stem_cfg=stem_cfg, remat=remat, **kw)
-                outs.append((loss_d.detach(), {k: v.detach() for k, v in met_d.items()}))
-                pending.append(loss_d)
-                if aux is None:     # nothing couples the shards: free this graph now
-                    grads.append(backward(pending.pop()))
+                with model_parallel(coord):
+                    loss_d, met_d = bundle.loss_fn(shard_view(params, devices[d]), mbs[d],
+                                                   stem_cfg=stem_cfg, remat=remat, **kw)
+                    outs.append((loss_d.detach(), {k: v.detach() for k, v in met_d.items()}))
+                    pending.append(loss_d)
+                    if aux is None:     # nothing couples the shards: free this graph now
+                        grads.append(backward(pending.pop()))
                 del loss_d, met_d
             aux_total = aux.finish() if aux is not None else None
-            grads += [backward(loss_d) for loss_d in pending]
+            for d in range(len(pending)):
+                with model_parallel(run[d]):
+                    grads.append(backward(pending[d]))
+                pending[d] = None
             del pending
         if n_data == 1:
             loss, metrics = outs[0]
@@ -266,10 +322,7 @@ def mesh_train_step(bundle, opt_cfg: optim.AdamWConfig, grad_shardings, *,
             # each shard's gradient blocks leave ``grads`` as they are
             # reduced, so the arch-dtype gradients and their fp32 sums are
             # not all alive at once
-            contrib = [p.map_blocks(lambda t, g=g: g.pop(id(t), None)
-                                    if g.get(id(t)) is not None else torch.zeros_like(t))
-                       for g in grads]
-            return arrays.reduce_into(m, contrib)
+            return arrays.reduce_into(m, [_contribution(p, g) for g in grads])
         return loss, metrics, tree_map(one, master, params)
 
     return train_step

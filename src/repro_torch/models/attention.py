@@ -10,6 +10,19 @@ Full-sequence attention runs the policy-sparse path
 sequence holds at least two whole blocks, and the dense arm
 (``dense_attention_auto``) otherwise.  Windowed (local) attention runs as a
 chunked band (``local_attention``), so its cost scales with N * window.
+
+Tensor-parallel ``apply_full`` (its heads split over the model axis:
+``sharding.arrays.ModelShards``, inside ``sharding.context.
+model_parallel``): each model shard projects its block of query heads,
+normalizes and rotates them, attends over them on its own device and
+applies its row block of ``wo``; the shards' outputs are summed
+(``reduce_from_model_shards``).  KV heads split with them when the rules
+split ``kv_heads`` too; otherwise K / V are projected once on the lead
+shard and each shard is sent the KV heads its query heads read.  Where a
+KV group's query heads fall on several shards (``tp > hk``) and the policy
+pools its metric over the group (``group_reduce``), each shard computes its
+heads' metric, the group's shards exchange them and each pools the whole
+group's, so every shard selects as the whole group does.
 """
 from __future__ import annotations
 
@@ -23,11 +36,15 @@ from repro_torch.core import chunked as chunked_lib
 from repro_torch.core import decode as decode_lib
 from repro_torch.core import policy as policy_lib
 from repro_torch.core.decode import DEFAULT_BUDGET_FRAC
+from repro_torch.core import metric as metric_lib
 from repro_torch.core.sparse_attention import (dense_attention,
                                                dense_attention_auto,
                                                sparse_attention)
+from repro_torch.kernels import cost as cost_lib
 from repro_torch.models import common
 from repro_torch.runtime import paged as paged_lib
+from repro_torch.sharding import arrays
+from repro_torch.sharding import context as shctx
 from repro_torch.sharding import serving as serving_lib
 
 
@@ -56,22 +73,35 @@ def init(ini: common.Initializer, cfg: ArchConfig) -> dict:
     return p
 
 
+def _heads(x, w, b, norm, positions, cfg: ArchConfig, use_rope: bool):
+    """x (b, s, d) projected by w (d, h, dh), plus the bias b, normed by
+    ``norm`` and rotated (each when given): (b, h, s, dh)."""
+    y = torch.einsum("bsd,dhk->bhsk", x, w)
+    if b is not None:
+        y = y + b[None, :, None, :]
+    if norm is not None:
+        y = common.rms_norm(y, norm)
+    return common.apply_rope(y, positions, cfg.rope_theta) if use_rope else y
+
+
+def _q(params, x, cfg: ArchConfig, positions, use_rope: bool):
+    """x (b, s, d) -> q (b, hq, s, dh)."""
+    return _heads(x, params["wq"], params["bq"] if cfg.qkv_bias else None,
+                  params["q_norm"] if cfg.qk_norm else None, positions, cfg, use_rope)
+
+
+def _kv(params, x, cfg: ArchConfig, positions, use_rope: bool):
+    """x (b, s, d) -> k, v (b, hk, s, dh)."""
+    k = _heads(x, params["wk"], params["bk"] if cfg.qkv_bias else None,
+               params["k_norm"] if cfg.qk_norm else None, positions, cfg, use_rope)
+    v = _heads(x, params["wv"], params["bv"] if cfg.qkv_bias else None, None,
+               positions, cfg, False)
+    return k, v
+
+
 def _project(params, x, cfg: ArchConfig, positions, *, use_rope: bool = True):
     """x: (b, s, d) -> q (b, hq, s, dh), k, v (b, hk, s, dh)."""
-    q = torch.einsum("bsd,dhk->bhsk", x, params["wq"])
-    k = torch.einsum("bsd,dhk->bhsk", x, params["wk"])
-    v = torch.einsum("bsd,dhk->bhsk", x, params["wv"])
-    if cfg.qkv_bias:
-        q = q + params["bq"][None, :, None, :]
-        k = k + params["bk"][None, :, None, :]
-        v = v + params["bv"][None, :, None, :]
-    if cfg.qk_norm:
-        q = common.rms_norm(q, params["q_norm"])
-        k = common.rms_norm(k, params["k_norm"])
-    if use_rope:
-        q = common.apply_rope(q, positions, cfg.rope_theta)
-        k = common.apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return (_q(params, x, cfg, positions, use_rope), *_kv(params, x, cfg, positions, use_rope))
 
 
 def _out_proj(o, x, params):
@@ -131,15 +161,97 @@ def _local(q, k, v, window: int):
                            v.repeat_interleave(group, dim=1), window)
 
 
-def sparse_or_dense(q, k, v, pol, n: int, causal: bool, return_stats: bool):
-    """The policy-sparse path for causal sequences of >= 2 whole blocks,
-    the dense arm otherwise.  Returns (o, StemStats | None)."""
-    if pol is not None and causal and n % pol.block_size == 0 \
-            and n // pol.block_size >= 2:
+def takes_sparse_path(pol, n: int, causal: bool) -> bool:
+    """Whether ``sparse_or_dense`` runs the policy-sparse path."""
+    return pol is not None and causal and n % pol.block_size == 0 \
+        and n // pol.block_size >= 2
+
+
+def sparse_or_dense(q, k, v, pol, n: int, causal: bool, return_stats: bool,
+                    scores=None):
+    """The policy-sparse path for causal sequences of >= 2 whole blocks
+    (``scores``: the metric to select by, else the policy's own), the dense
+    arm otherwise.  Returns (o, StemStats | None)."""
+    if takes_sparse_path(pol, n, causal):
         if return_stats:
-            return sparse_attention(q, k, v, pol, return_stats=True)
-        return sparse_attention(q, k, v, pol), None
+            return sparse_attention(q, k, v, pol, return_stats=True, scores=scores)
+        return sparse_attention(q, k, v, pol, scores=scores), None
     return dense_attention_auto(q, k, v, causal=causal), None
+
+
+def _group_pooled_scores(qs: list, ks: list, vs: list, pol, group: int, mp) -> list:
+    """Each model shard's rows of its KV group's pooled metric, when a
+    group's ``group`` query heads fall on several shards of ``mp`` (each
+    shard ``hl = group / n`` of them, ``qs[t]`` / ``ks[t]`` / ``vs[t]`` its
+    heads and its one KV head): every shard's raw metric, then on each
+    shard its group's metrics gathered in head order and reduced by
+    ``pol.group_reduce``, as the whole group's would be."""
+    hl = qs[0].shape[1]
+    per = group // hl                        # shards a group spans
+    with torch.no_grad():
+        raw = []
+        for t in range(mp.tp):
+            with mp.on(t):
+                raw.append(pol.metric.prefill_scores(qs[t], ks[t], vs[t],
+                                                     block_size=pol.block_size))
+        out = []
+        for t in range(mp.tp):
+            with mp.on(t):
+                first = t // per * per
+                parts = []
+                for u in range(first, first + per):
+                    if u != t:
+                        cost_lib.note_collective("all-gather", raw[u].numel()
+                                                 * raw[u].element_size(), mp.coords[t])
+                    parts.append(raw[u].to(qs[t].device))
+                pooled = metric_lib.group_reduce_metric(torch.cat(parts, dim=1), group,
+                                                        pol.group_reduce)
+                out.append(pooled[:, (t - first) * hl:(t - first + 1) * hl])
+    return out
+
+
+def _apply_full_tp(params, x, cfg: ArchConfig, mp, *, positions, pol, window,
+                   use_rope: bool, causal: bool):
+    """``apply_full`` over the model shards of ``mp`` (the module
+    docstring)."""
+    h, hk = params["wq"].shape[1], params["wk"].shape[1]
+    hl, group = h // mp.tp, h // hk
+    if hl % group and group % hl:
+        raise NotImplementedError(f"{mp.tp} model shards split {h} query heads into "
+                                  f"blocks of {hl}, neither a multiple nor a divisor "
+                                  f"of the GQA group {group}")
+    kv_split = isinstance(params["wk"], arrays.ModelShards)
+    shard = lambda t: {k: v.parts[t] if isinstance(v, arrays.ModelShards) else v
+                       for k, v in params.items()}
+    xs = arrays.to_model_shards(x, mp)
+    qs, ks, vs = [], [], []
+    if not kv_split:
+        # K / V once on the lead shard; each shard gets the KV heads it reads
+        k, v = _kv(params, x, cfg, positions, use_rope)
+        kv = [(t * hl // group, ((t + 1) * hl - 1) // group + 1) for t in range(mp.tp)]
+        ks, vs = arrays.to_model_shards(k, mp, 1, kv), arrays.to_model_shards(v, mp, 1, kv)
+    for t in range(mp.tp):
+        with mp.on(t):
+            qs.append(_q(shard(t), xs[t], cfg, positions, use_rope))
+            if kv_split:
+                k, v = _kv(shard(t), xs[t], cfg, positions, use_rope)
+                ks.append(k)
+                vs.append(v)
+    n = x.shape[1]
+    scores = [None] * mp.tp
+    if window is None and takes_sparse_path(pol, n, causal) \
+            and pol.group_reduce != "none" and hl < group:
+        scores = _group_pooled_scores(qs, ks, vs, pol, group, mp)
+    outs = []
+    for t in range(mp.tp):
+        with mp.on(t):
+            if window is not None:
+                o = _local(qs[t], ks[t], vs[t], window)
+            else:
+                o, _ = sparse_or_dense(qs[t], ks[t], vs[t], pol, n, causal, False,
+                                       scores[t])
+            outs.append(_out_proj(o, x, {"wo": params["wo"].parts[t]}))
+    return arrays.reduce_from_model_shards(outs, mp, x.dtype)
 
 
 def apply_full(params, x, cfg: ArchConfig, *, positions, stem_cfg=None,
@@ -148,8 +260,14 @@ def apply_full(params, x, cfg: ArchConfig, *, positions, stem_cfg=None,
     """Training / prefill attention over the full sequence.  ``stem_cfg``:
     any policy spelling or None (dense).  ``return_stats`` also returns the
     sparse path's ``StemStats`` (None when the dense arm or the windowed
-    path ran).  ``window`` runs local attention (no policy)."""
+    path ran).  ``window`` runs local attention (no policy).  With its
+    heads in ``ModelShards`` it runs tensor-parallel (the module docstring;
+    no stats)."""
     pol = policy_lib.as_policy_opt(stem_cfg)
+    if isinstance(params["wq"], arrays.ModelShards) and not return_stats:
+        return _apply_full_tp(params, x, cfg, shctx.model_parallel_state(),
+                              positions=positions, pol=pol, window=window,
+                              use_rope=use_rope, causal=causal)
     q, k, v = _project(params, x, cfg, positions, use_rope=use_rope)
     if window is not None:
         o, stats = _local(q, k, v, window), None

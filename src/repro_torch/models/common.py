@@ -7,7 +7,17 @@ Parameters are nested dicts of tensors with the reference's tree layout.
 ``Initializer`` draws them from an explicit ``torch.Generator`` with the
 reference's shapes and scales (normal / sqrt(fan_in), fan_in = the product
 of all but the last dimension); JAX and PyTorch give different numbers from
-one seed, so tests carry the JAX weights across with ``weights.py``.  Every
+one seed, so tests carry the JAX weights across with ``weights.py``.
+
+Vocab-parallel embedding, logits and CE: inside
+``sharding.context.model_parallel``, a table whose vocab dim is split over
+the model axis (``sharding.arrays.ModelShards``) is read by each model
+shard for the ids in its range, zero elsewhere, and summed; the logits stay
+in per-shard vocab blocks (``VocabShards``: no device holds the ``(b, s,
+vocab)`` logits), and ``cross_entropy`` reduces each row's max, sum of
+exponentials and target logit across the shards in fp32, in rank order.
+
+Every
 leaf is drawn with the reference's tuple of *logical* axis names
 (``sharding/rules.py`` maps them to mesh axes); the initializer keeps each
 leaf's axes beside it, so ``axes_tree`` gives the reference's axes tree
@@ -20,6 +30,8 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.kernels import cost as cost_lib
+from repro_torch.sharding import arrays
 from repro_torch.sharding import context as shctx
 
 
@@ -195,25 +207,94 @@ def embed_init(ini: Initializer, vocab: int, d_model: int) -> torch.Tensor:
                       dtype=torch.float32)
 
 
-def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
-                 dtype=torch.bfloat16) -> torch.Tensor:
+class VocabShards:
+    """Logits in vocab blocks: ``parts[t]`` (b, s, hi - lo) fp32 on model
+    shard ``t``'s device, ``bounds[t]`` = (lo, hi), over ``mp``'s shards."""
+
+    def __init__(self, parts: list, bounds: list, mp):
+        self.parts, self.bounds, self.mp = parts, bounds, mp
+
+
+def embed_lookup(table, tokens: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    if isinstance(table, arrays.ModelShards):
+        mp = shctx.model_parallel_state()
+        ids = arrays.to_model_shards(tokens, mp)
+        parts = []
+        for t, (lo, hi) in enumerate(table.bounds):
+            with mp.on(t):
+                local = ids[t].long() - lo
+                hit = (local >= 0) & (local < hi - lo)
+                rows = table.parts[t][torch.where(hit, local, 0)]
+                parts.append(torch.where(hit[..., None], rows, 0.0))
+        return arrays.reduce_from_model_shards(parts, mp, torch.float32).to(dtype)
     return table[tokens.long()].to(dtype)
 
 
-def lm_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+def head_logits(x: torch.Tensor, head, equation: str):
+    """fp32 ``einsum(equation, x, head)`` over the vocab dim of ``head``: a
+    tensor, or its ``ModelShards`` (then ``VocabShards``)."""
+    if not isinstance(head, arrays.ModelShards):
+        return torch.einsum(equation, x.float(), head.float())
+    mp = shctx.model_parallel_state()
+    xs = arrays.to_model_shards(x, mp)
+    parts = []
+    for t in range(mp.tp):
+        with mp.on(t):
+            parts.append(torch.einsum(equation, xs[t].float(), head.parts[t].float()))
+    return VocabShards(parts, head.bounds, mp)
+
+
+def lm_logits(x: torch.Tensor, table):
     """Tied LM head in float32: (b, s, d) @ (vocab, d)^T -> (b, s, vocab)."""
-    return torch.einsum("bsd,vd->bsv", x.float(), table.float())
+    return head_logits(x, table, "bsd,vd->bsv")
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+def _vocab_parallel_nll(logits: VocabShards, labels: torch.Tensor) -> torch.Tensor:
+    """Each row's lse - target logit, its max, sum of exponentials and
+    target reduced across the vocab blocks in rank order in fp32, on the
+    lead shard."""
+    mp = logits.mp
+    lead = mp.devices[0]
+    ids = arrays.to_model_shards(labels, mp)
+    maxes = []
+    for t, part in enumerate(logits.parts):
+        with mp.on(t):
+            maxes.append(part.detach().amax(dim=-1))
+    with mp.on(0):
+        row_max = maxes[0]
+        for t, m in enumerate(maxes):
+            cost_lib.note_collective("reduce", m.numel() * 4, mp.coords[t])
+            row_max = row_max if t == 0 else torch.maximum(row_max, m.to(lead))
+    row_maxes = arrays.to_model_shards(row_max, mp)
+    sums, tgts = [], []
+    for t, (part, (lo, hi)) in enumerate(zip(logits.parts, logits.bounds)):
+        with mp.on(t):
+            sums.append(torch.exp(part - row_maxes[t][..., None]).sum(dim=-1))
+            local = ids[t].long() - lo
+            hit = (local >= 0) & (local < hi - lo)
+            got = torch.take_along_dim(part, torch.where(hit, local, 0)[..., None],
+                                       dim=-1)[..., 0]
+            tgts.append(torch.where(hit, got, 0.0))
+    total = arrays.reduce_from_model_shards(sums, mp, torch.float32)
+    tgt = arrays.reduce_from_model_shards(tgts, mp, torch.float32)
+    return torch.log(total) + row_max - tgt
+
+
+def cross_entropy(logits, labels: torch.Tensor,
                   mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Mean next-token CE over unmasked positions, fp32 logsumexp.  Inside
+    """Mean next-token CE over unmasked positions, fp32 logsumexp (of
+    ``VocabShards`` logits: vocab-parallel).  Inside
     ``sharding.context.data_parallel`` over several shards the mean is the
     global batch's: this shard's sum over the global count."""
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.take_along_dim(logits, labels.long()[..., None], dim=-1)[..., 0]
-    nll = lse - tgt
+    if isinstance(logits, VocabShards) and len(logits.parts) > 1:
+        nll = _vocab_parallel_nll(logits, labels)
+    else:
+        if isinstance(logits, VocabShards):       # one shard holds every row
+            logits = logits.parts[0]
+        logits = logits.float()
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.take_along_dim(logits, labels.long()[..., None], dim=-1)[..., 0]
+        nll = lse - tgt
     dp = shctx.data_parallel_state()
     if dp is not None and dp.n_shards > 1:
         if mask is None:

@@ -16,7 +16,10 @@ not ``prefill(n + 1)``.
 
 Parameters keep the reference's tree: ``embed``, ``dec_pos``,
 ``enc_layers`` / ``dec_layers`` (leaves stacked along a leading layer
-axis), ``enc_norm`` and ``final_norm``.
+axis), ``enc_norm`` and ``final_norm``.  In a mesh train step with a model
+axis above 1 the layers are gathered whole onto each data shard's model-0
+device (``materialize(whole=True)``), while the embedding, the tied
+logits and the CE run vocab-parallel (``models/common.py``).
 """
 from __future__ import annotations
 
@@ -98,7 +101,7 @@ def encode(params, frames, cfg: ArchConfig, *, remat: bool = True):
     positions = torch.arange(n, device=frames.device)
 
     def body(layer, x):
-        layer = arrays.materialize(layer, x.device)     # blocks gathered at use
+        layer = arrays.materialize(layer, x.device, whole=True)   # gathered at use
         h = common.layer_norm_simple(x, layer["norm1"])
         x = x + attention.apply_full(layer["attn"], h, cfg, positions=positions,
                                      use_rope=False, causal=False)
@@ -139,7 +142,7 @@ def loss_fn(params, batch: dict, cfg: ArchConfig, *, stem_cfg=None,
     positions = torch.arange(batch["tokens"].shape[1], device=x.device)
 
     def body(layer, x, enc):
-        layer = arrays.materialize(layer, x.device)     # blocks gathered at use
+        layer = arrays.materialize(layer, x.device, whole=True)   # gathered at use
         h = common.layer_norm_simple(x, layer["norm1"])
         x = x + attention.apply_full(layer["self_attn"], h, cfg,
                                      positions=positions, stem_cfg=stem_cfg,

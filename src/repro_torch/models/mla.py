@@ -12,6 +12,14 @@ two whole blocks, the dense arm otherwise.  The OAM value term reads the
 expanded values handed to ``sparse_attention``.  Decode attends densely
 over the latent cache with the up-projections absorbed into the query and
 the output (fp32 scores and probabilities).
+
+Tensor-parallel ``_full`` (``w_uq`` / ``w_uk`` / ``w_uv`` / ``wo`` split by
+heads: ``sharding.arrays.ModelShards``, inside
+``sharding.context.model_parallel``): the down projections ``w_dq``,
+``w_dkv``, ``w_kr`` and the latent norms run once on the lead shard, whose
+normed query latent, KV latent and rope key are copied to every shard;
+each shard expands its heads, attends over them and applies its rows of
+``wo``; the outputs are summed.
 """
 from __future__ import annotations
 
@@ -23,6 +31,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import policy as policy_lib
 from repro_torch.models import attention, common
+from repro_torch.sharding import arrays
+from repro_torch.sharding import context as shctx
 
 
 class MLACache(NamedTuple):
@@ -52,10 +62,18 @@ def init(ini: common.Initializer, cfg: ArchConfig) -> dict:
 
 def _queries(params, x, cfg: ArchConfig, positions):
     """x (b, s, d) -> q_nope (b, h, s, nope), q_rope (b, h, s, rope)."""
+    return _query_heads(_query_latent(params, x), params["w_uq"], cfg, positions)
+
+
+def _query_latent(params, x):
+    """x (b, s, d) -> the normed query latent (b, s, q_rank)."""
+    return common.rms_norm(torch.einsum("bsd,dr->bsr", x, params["w_dq"]), params["q_norm"])
+
+
+def _query_heads(cq, w_uq, cfg: ArchConfig, positions):
+    """The query latent up-projected by ``w_uq``'s heads: (q_nope, q_rope)."""
     m = cfg.mla
-    cq = common.rms_norm(torch.einsum("bsd,dr->bsr", x, params["w_dq"]),
-                         params["q_norm"])
-    q = torch.einsum("bsr,rhk->bhsk", cq, params["w_uq"])
+    q = torch.einsum("bsr,rhk->bhsk", cq, w_uq)
     q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
     return q_nope, common.apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -74,13 +92,15 @@ def _expand(params, c, kr, cfg: ArchConfig):
     concatenated to every head — and values (b, h, s, v)."""
     k_nope = torch.einsum("bsr,rhk->bhsk", c, params["w_uk"])
     v = torch.einsum("bsr,rhk->bhsk", c, params["w_uv"])
-    kr_h = kr[:, None].expand(kr.shape[0], cfg.num_heads, *kr.shape[1:])
+    kr_h = kr[:, None].expand(kr.shape[0], k_nope.shape[1], *kr.shape[1:])
     return torch.cat([k_nope, kr_h], dim=-1), v
 
 
 def _full(params, x, cfg: ArchConfig, positions, stem_cfg, return_stats: bool):
     """Full-sequence attention: (out (b, s, d), StemStats | None, the
     latents c and kr)."""
+    if isinstance(params["w_uq"], arrays.ModelShards) and not return_stats:
+        return _full_tp(params, x, cfg, positions, stem_cfg, shctx.model_parallel_state())
     q_nope, q_rope = _queries(params, x, cfg, positions)
     c, kr = _latents(params, x, cfg, positions)
     k, v = _expand(params, c, kr, cfg)
@@ -89,6 +109,23 @@ def _full(params, x, cfg: ArchConfig, positions, stem_cfg, return_stats: bool):
         torch.cat([q_nope, q_rope], dim=-1), k, v,
         policy_lib.as_policy_opt(stem_cfg), x.shape[1], True, return_stats)
     return torch.einsum("bhsk,hkd->bsd", o, params["wo"]), stats, c, kr
+
+
+def _full_tp(params, x, cfg: ArchConfig, positions, stem_cfg, mp):
+    """``_full`` over the model shards of ``mp`` (the module docstring)."""
+    c, kr = _latents(params, x, cfg, positions)
+    cqs, cs, krs = (arrays.to_model_shards(t, mp) for t in (_query_latent(params, x), c, kr))
+    pol = policy_lib.as_policy_opt(stem_cfg)
+    outs = []
+    for t in range(mp.tp):
+        with mp.on(t):
+            q_nope, q_rope = _query_heads(cqs[t], params["w_uq"].parts[t], cfg, positions)
+            k, v = _expand({"w_uk": params["w_uk"].parts[t], "w_uv": params["w_uv"].parts[t]},
+                           cs[t], krs[t], cfg)
+            o, _ = attention.sparse_or_dense(torch.cat([q_nope, q_rope], dim=-1), k, v, pol,
+                                             x.shape[1], True, False)
+            outs.append(torch.einsum("bhsk,hkd->bsd", o, params["wo"].parts[t]))
+    return arrays.reduce_from_model_shards(outs, mp, x.dtype), None, c, kr
 
 
 def apply_full(params, x, cfg: ArchConfig, *, positions, stem_cfg=None,

@@ -22,6 +22,14 @@ to another shard's experts add nothing there, and the shards' outputs are
 summed in rank order on the data shard's model-0 device: the reference's
 ``psum``.  Routing and capacity are the local path's.
 
+In the mesh train step's tensor-parallel compute (inside
+``sharding.context.model_parallel``, whose model axis divides ``E``) the
+same split runs for one data shard: its model shards' experts each on its
+own device, x and the routing copied to them (``to_model_shards``), the
+outputs summed (``reduce_from_model_shards``).  The router is gathered
+whole and runs once on the lead shard; the dense parts (the shared expert,
+the residual MLP) run tensor-parallel in ``models/mlp.py``.
+
 Covers plain top-k routed experts, a shared expert (deepseek) and the
 parallel dense residual FFN (arctic), and the Switch load-balance aux
 loss.  Inside ``sharding.context.data_parallel`` with a ``GlobalAux`` the
@@ -136,43 +144,53 @@ def expert_ffn(x, experts, pos, keep, weights, wg, wu, wd, *, capacity: int,
 def _expert_parallel(params, x, experts, pos, keep, weights, cap: int,
                      activation: str, mesh) -> torch.Tensor:
     """The expert-parallel branch: every (data, model) coordinate's experts
-    on its own device, the model shards' outputs summed in rank order."""
-    E, n_model = params["w_gate"].shape[0], mesh.shape["model"]
-    e_local = E // n_model
+    on its own device, each data shard's model shards' outputs summed in
+    rank order (``_expert_model_shards``)."""
     coords = rules_lib.data_coords(mesh)
     b = x.shape[0]
     if b % len(coords):
         raise ValueError(f"expert parallelism splits {b} rows over {len(coords)} "
                          "data shards")
     rows = b // len(coords)
-    model_dim = mesh.axis_names.index("model")
     ys = []
     for di, coord in enumerate(coords):
         sl = slice(di * rows, (di + 1) * rows)
-        lead = mesh.device(coord)
-        y = None
-        for m in range(n_model):
-            dev = mesh.device(coord[:model_dim] + (m,) + coord[model_dim + 1:])
-            block = (m * e_local, (m + 1) * e_local)
-            wg, wu, wd = (_expert_block(params[k], block, dev)
-                          for k in ("w_gate", "w_up", "w_down"))
-            part = expert_ffn(x[sl].to(dev), experts[sl].to(dev), pos[sl].to(dev),
-                              keep[sl].to(dev), weights[sl].to(dev), wg, wu, wd,
-                              capacity=cap, activation=activation,
-                              e_offset=m * e_local).to(lead)
-            y = part if y is None else y + part
-        ys.append(y.to(x.device))
+        mp = shctx.model_shards_of(mesh, coord)
+        ys.append(_expert_model_shards(
+            params, x[sl].to(mp.devices[0]), experts[sl], pos[sl], keep[sl], weights[sl],
+            cap, activation, mp).to(x.device))
     return torch.cat(ys) if len(ys) > 1 else ys[0]
 
 
-def _expert_block(table, block: tuple, device) -> torch.Tensor:
+def _expert_block(table, block: tuple, device, coord=None) -> torch.Tensor:
     """Experts ``[block[0], block[1])`` of an expert table on ``device``:
     the blocks of a ShardedArray that hold them, gathered over every other
-    axis (the FSDP all-gather over data), or a slice of a tensor."""
+    axis (the FSDP all-gather over data) for mesh coordinate ``coord``, or
+    a slice of a tensor."""
     if isinstance(table, arrays.ShardedArray):
         return table.gather(device, region=(block,) + tuple(
-            (0, n) for n in table.shape[1:]))
+            (0, n) for n in table.shape[1:]), coord=coord)
     return table[block[0]:block[1]].to(device)
+
+
+def _expert_model_shards(params, x, experts, pos, keep, weights, cap: int,
+                         activation: str, mp) -> torch.Tensor:
+    """The expert-parallel branch over one data shard's model shards
+    (``mp``): each shard's ``E / tp`` experts on its own device, the
+    outputs summed in rank order."""
+    e_local = params["w_gate"].shape[0] // mp.tp
+    xs, ws, es, ps, ks = (arrays.to_model_shards(t.to(mp.devices[0]), mp)
+                          for t in (x, weights, experts, pos, keep))
+    parts = []
+    for t in range(mp.tp):
+        with mp.on(t):
+            block = (t * e_local, (t + 1) * e_local)
+            wg, wu, wd = (_expert_block(params[k], block, mp.devices[t], mp.coords[t])
+                          for k in ("w_gate", "w_up", "w_down"))
+            parts.append(expert_ffn(xs[t], es[t], ps[t], ks[t], ws[t], wg, wu, wd,
+                                    capacity=cap, activation=activation,
+                                    e_offset=t * e_local))
+    return arrays.reduce_from_model_shards(parts, mp, x.dtype)
 
 
 class _DeferredAux(torch.autograd.Function):
@@ -244,8 +262,11 @@ def apply(params: dict, x: torch.Tensor, moe: MoEConfig,
     E = moe.num_experts
     params = arrays.materialize(params, x.device)
     gates, weights, experts, pos, keep, cap = route(params, x, moe)
-    ctx = shctx.current()
-    if ctx is not None and ctx[1].shape.get("model", 1) > 1 \
+    ctx, mp = shctx.current(), shctx.model_parallel_state()
+    if mp is not None and E % mp.tp == 0:
+        y = _expert_model_shards(params, x, experts, pos, keep, weights, cap,
+                                 activation, mp)
+    elif ctx is not None and ctx[1].shape.get("model", 1) > 1 \
             and E % ctx[1].shape["model"] == 0:
         y = _expert_parallel(params, x, experts, pos, keep, weights, cap,
                              activation, ctx[1])

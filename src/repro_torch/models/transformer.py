@@ -269,17 +269,24 @@ def _sublayer_full(params, x, cfg: ArchConfig, kind: str, *, positions,
     return (x, aux, stats) if return_stats else (x, aux)
 
 
+WHOLE_MIXERS = ("rec", "ssd")   # mixers computed whole on the lead model shard
+
+
 def _group_full(params, x, cfg, kinds, *, positions, stem_cfg):
     """The layer group's sub-layers in order: (x, summed aux loss).  A
     parameter held in blocks (``sharding.arrays.ShardedArray``: the mesh
     train step's FSDP and model-axis blocks) is gathered onto ``x``'s device
     here, inside the (rematerialized) layer body, so it lives only while
-    the layer runs."""
-    params = arrays.materialize(params, x.device)
+    the layer runs; inside ``sharding.context.model_parallel`` its
+    model-axis blocks stay blocks (``arrays.ModelShards``, each on its
+    shard's device: attention, MLA and the MLPs compute tensor-parallel),
+    but for the RG-LRU and SSD mixers (``WHOLE_MIXERS``), gathered whole."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, k in enumerate(kinds):
-        x, a = _sublayer_full(params[f"sub{i}"], x, cfg, k,
-                              positions=positions, stem_cfg=stem_cfg)
+        sub = {name: arrays.materialize(v, x.device,
+                                        whole=name == "mixer" and k in WHOLE_MIXERS)
+               for name, v in params[f"sub{i}"].items()}
+        x, a = _sublayer_full(sub, x, cfg, k, positions=positions, stem_cfg=stem_cfg)
         aux = aux + a
     return x, aux
 
@@ -560,10 +567,12 @@ def prefill_kv_pages_suffix(params, tokens, true_len, start: int, pools,
 
 
 def _logits(params, x, cfg: ArchConfig):
+    """fp32 logits (b, s, vocab), or a ``common.VocabShards`` of them when
+    the head's vocab dim is in model shards."""
     x = common.rms_norm(x, params["final_norm"])
     if cfg.tie_embeddings:
         return common.lm_logits(x, params["embed"])
-    return torch.einsum("bsd,dv->bsv", x.float(), params["head"].float())
+    return common.head_logits(x, params["head"], "bsd,dv->bsv")
 
 
 def _layer_pool(pools, si: int, sub: str, layer: int):

@@ -16,13 +16,36 @@ once).  The reference's collectives become copies in a fixed order:
 
 Gathers are differentiable, so a forward that gathers the blocks of its
 parameters gives each block its gradient.
+
+Tensor parallelism (inside ``sharding.context.model_parallel``, model
+axis ``tp > 1``): ``materialize`` gives a parameter split over the model
+axis as ``ModelShards``, each model shard's block on its own device (for
+FSDP leaves first gathered over the data axis), and the model code joins
+the shards' work with two differentiable collectives, Megatron's f / g
+pair, every sum in rank order in fp32:
+
+* ``to_model_shards``: forward, one tensor (or each shard's slice of it)
+  copied to every model shard's device; backward, the shards' gradients
+  summed onto the source;
+* ``reduce_from_model_shards``: forward, the shards' partial products
+  summed on the lead shard's device; backward, the gradient copied to
+  every shard.
+
+Every gather, reduce, broadcast and sum reports its bytes to the dry run's
+counter (``kernels.cost.note_collective``) at the coordinate that moves
+them; a block that already is the region needed moves nothing.  On
+``meta`` devices (the dry run's production grid) every coordinate holds
+tensors of its own, so each coordinate's work and memory are its own.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
+from repro_torch.kernels import cost as cost_lib
+from repro_torch.sharding import context as shctx
 from repro_torch.sharding.rules import NamedSharding
 
 
@@ -85,7 +108,11 @@ class ShardedArray:
         if self.sharding.spec and self.sharding.spec[0] is not None:
             raise ValueError(f"the layer dim of {self!r} is split")
         rows = {}
-        blocks = {c: rows.setdefault(id(t), t[i]) for c, t in self.blocks.items()}
+        blocks = {}
+        for c, t in self.blocks.items():
+            if id(t) not in rows:
+                rows[id(t)] = t[i]
+            blocks[c] = rows[id(t)]
         return ShardedArray(NamedSharding(self.mesh, tuple(self.sharding.spec[1:])),
                             self.shape[1:], self.dtype, blocks)
 
@@ -95,20 +122,43 @@ class ShardedArray:
         return self.map_blocks(lambda t: t.to(dtype), dtype)
 
     def map_blocks(self, fn, dtype=None) -> "ShardedArray":
-        """``fn`` of each stored tensor (shared tensors stay shared)."""
-        done = {}
-        blocks = {c: done[id(t)] if id(t) in done else done.setdefault(id(t), fn(t))
-                  for c, t in self.blocks.items()}
+        """``fn`` of each stored tensor (shared tensors stay shared), run
+        for the first coordinate holding it."""
+        done, blocks = {}, {}
+        for c, t in self.blocks.items():
+            if id(t) not in done:
+                with shctx.at(c):
+                    done[id(t)] = fn(t)
+            blocks[c] = done[id(t)]
         return ShardedArray(self.sharding, self.shape, dtype or self.dtype, blocks)
 
-    def gather(self, device, dtype=None, region: Optional[tuple] = None) -> torch.Tensor:
+    def gather(self, device, dtype=None, region: Optional[tuple] = None,
+               coord=None) -> torch.Tensor:
         """The ``region`` ((start, stop) a dim; default all) on ``device``
-        in ``dtype``: the all-gather of the blocks it overlaps."""
+        in ``dtype``: the all-gather of the blocks it overlaps, for mesh
+        coordinate ``coord`` (default ``sharding.context.coordinate()``),
+        whose own copy of a block is read first."""
         device = torch.device(device)
         dtype = dtype or self.dtype
-        region = region or tuple((0, n) for n in self.shape)
+        region = tuple(region or ((0, n) for n in self.shape))
+        coord = coord if coord is not None else shctx.coordinate()
+        if coord is None:
+            return self._gather(device, dtype, region, None)
+        if cost_lib.tally() is not None and not _within(region, self.index(coord)):
+            cost_lib.note_collective("all-gather", _nbytes(region, dtype), coord)
+        with shctx.at(coord):
+            return self._gather(device, dtype, region, coord)
+
+    def _gather(self, device, dtype, region, coord) -> torch.Tensor:
+        own = self.blocks.get(coord) if coord is not None else None
+        if own is not None:
+            bounds = self.index(coord)
+            if _within(region, bounds):         # coord's own block holds it
+                src = tuple(slice(r0 - b0, r1 - b0) for (r0, r1), (b0, _) in zip(region, bounds))
+                part = own[src] if any(s != slice(0, n) for s, n in zip(src, own.shape)) else own
+                return part.to(device=device, dtype=dtype)
         parts = []
-        for bounds, t in self._blocks_on(device):
+        for bounds, t in self._blocks_on(device, coord):
             lo = [max(a, r0) for (a, _), (r0, _) in zip(bounds, region)]
             hi = [min(b, r1) for (_, b), (_, r1) in zip(bounds, region)]
             if all(l < h for l, h in zip(lo, hi)):
@@ -126,14 +176,31 @@ class ShardedArray:
             out[dst] = t[src].to(device=device, dtype=dtype)
         return out
 
-    def _blocks_on(self, device) -> list:
-        """Each block once, in rank order, preferring the copy on
-        ``device``."""
+    def _blocks_on(self, device, coord=None) -> list:
+        """Each block once, in rank order, preferring the copy ``coord``
+        holds, then a copy on ``device``."""
+        own = self.blocks.get(coord) if coord is not None else None
         pick: dict = {}
         for _, bounds, t in self.distinct():
-            if bounds not in pick or (t.device == device and pick[bounds].device != device):
+            cur = pick.get(bounds)
+            if cur is None or t is own or (
+                    cur is not own and t.device == device and cur.device != device):
                 pick[bounds] = t
         return list(pick.items())
+
+
+def _within(region, bounds) -> bool:
+    return all(b0 <= r0 and r1 <= b1 for (r0, r1), (b0, b1) in zip(region, bounds))
+
+
+def _nbytes(region, dtype) -> int:
+    return math.prod(r1 - r0 for r0, r1 in region) * torch.empty((), dtype=dtype).element_size()
+
+
+def _key(coord, device, bounds) -> tuple:
+    """Which coordinates share one tensor: those holding the same block on
+    the same device, but on ``meta`` devices none (the dry run's)."""
+    return (coord if device.type == "meta" else device, bounds)
 
 
 def place(t: torch.Tensor, sharding: NamedSharding, dtype=None, *,
@@ -147,9 +214,10 @@ def place(t: torch.Tensor, sharding: NamedSharding, dtype=None, *,
     made, blocks = {}, {}
     for coord, idx in sharding.indices(t.shape).items():
         dev = sharding.mesh.device(coord)
-        key = (dev, _norm(idx, t.shape))
+        key = _key(coord, dev, _norm(idx, t.shape))
         if key not in made:
-            made[key] = t[idx].to(device=dev, dtype=dtype, copy=copy).contiguous()
+            with shctx.at(coord):
+                made[key] = t[idx].to(device=dev, dtype=dtype, copy=copy).contiguous()
         blocks[coord] = made[key]
     return ShardedArray(sharding, t.shape, dtype, blocks)
 
@@ -162,9 +230,9 @@ def relayout(arr: ShardedArray, sharding: NamedSharding, dtype=None) -> ShardedA
     made, blocks = {}, {}
     for coord, idx in sharding.indices(arr.shape).items():
         dev = sharding.mesh.device(coord)
-        key = (dev, _norm(idx, arr.shape))
+        key = _key(coord, dev, _norm(idx, arr.shape))
         if key not in made:
-            made[key] = arr.gather(dev, dtype, key[1])
+            made[key] = arr.gather(dev, dtype, key[1], coord=coord)
         blocks[coord] = made[key]
     return ShardedArray(sharding, arr.shape, dtype, blocks)
 
@@ -177,28 +245,177 @@ def reduce_into(target: ShardedArray, contributions: list) -> ShardedArray:
     sums: dict = {}
     blocks = {}
     for coord, bounds, t in target.distinct():
-        if bounds in sums:
-            blocks[id(t)] = sums[bounds].to(t.device)
-            continue
-        total = None
-        for g in contributions:
-            part = g.gather(t.device, torch.float32, bounds)
-            total = part if total is None else total + part
-        sums[bounds] = blocks[id(t)] = total
+        cost_lib.note_collective("reduce-scatter", _nbytes(bounds, torch.float32), coord)
+        with shctx.at(coord):
+            if bounds in sums:
+                blocks[id(t)] = sums[bounds].to(t.device)
+                continue
+            total = None
+            for g in contributions:
+                part = g._gather(t.device, torch.float32, bounds, coord)
+                total = part if total is None else total + part
+            sums[bounds] = blocks[id(t)] = total
     return ShardedArray(target.sharding, target.shape, torch.float32,
                         {c: blocks[id(t)] for c, t in target.blocks.items()})
 
 
-def materialize(tree, device):
+def materialize(tree, device, whole: bool = False):
     """``tree`` with every ShardedArray gathered onto ``device`` (tensors
     pass through), but a MoE FFN's expert tables (a dict with a
     ``router``): ``models/moe.py`` gathers them itself, each model shard
-    its own under expert parallelism."""
+    its own under expert parallelism.  Inside
+    ``sharding.context.model_parallel`` (and unless ``whole``) a leaf split
+    over the model axis becomes its ``ModelShards`` instead; a MoE router
+    is always gathered whole."""
     if isinstance(tree, dict):
         moe = "router" in tree
         return {k: (v if moe and k in ("w_gate", "w_up", "w_down")
-                    else materialize(v, device))
+                    else materialize(v, device, whole or (moe and k == "router")))
                 for k, v in tree.items()}
     if isinstance(tree, ShardedArray):
+        mp = shctx.model_parallel_state()
+        if mp is not None and not whole:
+            return model_view(tree, mp)
         return tree.gather(device)
     return tree
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism
+# ---------------------------------------------------------------------------
+
+class ModelShards:
+    """A parameter's model-axis blocks as one data shard's model shards
+    read them: ``parts[t]`` is the block of shard ``t`` (the whole of every
+    other dim), on that shard's device; ``dim`` is the split dim and
+    ``bounds[t]`` the block's (start, stop) along it."""
+
+    def __init__(self, parts: list, dim: int, bounds: list, shape):
+        self.parts, self.dim, self.bounds = parts, dim, bounds
+        self.shape = torch.Size(shape)
+
+    def __repr__(self) -> str:
+        return f"ModelShards(shape={tuple(self.shape)}, dim={self.dim}, tp={len(self.parts)})"
+
+
+def model_dim(sharding: NamedSharding) -> Optional[int]:
+    """The dim a sharding splits over the model axis alone, or None."""
+    for i, e in enumerate(sharding.spec):
+        if e == "model" or e == ("model",):
+            return i
+    return None
+
+
+def model_view(arr: ShardedArray, mp):
+    """``arr`` as the model shards of ``mp`` (a
+    ``sharding.context.ModelParallel``) read it: ``ModelShards`` when its
+    spec splits a dim over the model axis alone, else the whole array on
+    the lead shard's device.  Each block is gathered over the other axes
+    (FSDP's data axis) onto its shard's device; differentiable."""
+    dim = model_dim(arr.sharding)
+    if dim is None:
+        return arr.gather(mp.devices[0], coord=mp.coords[0])
+    parts, bounds = [], []
+    for c, dev in zip(mp.coords, mp.devices):
+        own = arr.index(c)
+        region = tuple(own[i] if i == dim else (0, n) for i, n in enumerate(arr.shape))
+        parts.append(arr.gather(dev, region=region, coord=c))
+        bounds.append(own[dim])
+    return ModelShards(parts, dim, bounds, arr.shape)
+
+
+def _acc(dtype) -> torch.dtype:
+    """The dtype the collectives sum in: fp32, or the parts' if wider."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _part_bytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class _ToShards(torch.autograd.Function):
+    """``to_model_shards``: the f of Megatron's f / g pair."""
+
+    @staticmethod
+    def forward(ctx, x, mp, dim, bounds):
+        ctx.mp, ctx.dim, ctx.bounds = mp, dim, bounds
+        ctx.shape, ctx.dtype, ctx.device = x.shape, x.dtype, x.device
+        outs = []
+        for t, (c, dev) in enumerate(zip(mp.coords, mp.devices)):
+            with shctx.at(c):
+                part = x if bounds is None else x.narrow(dim, bounds[t][0],
+                                                         bounds[t][1] - bounds[t][0])
+                out = part.to(dev)
+                # a shard on the source's device reads an alias, so each
+                # shard's tensors are its own (the dry run's counter
+                # attributes the backward's ops by them)
+                outs.append(out.view_as(out))
+                cost_lib.note_collective("broadcast", _part_bytes(out), c)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mp, dim, bounds = ctx.mp, ctx.dim, ctx.bounds
+        total = None
+        with shctx.at(mp.coords[0]):
+            for t, g in enumerate(grads):
+                if g is None:
+                    continue
+                cost_lib.note_collective("reduce", _part_bytes(g), mp.coords[t])
+                g = g.to(device=ctx.device, dtype=_acc(ctx.dtype))
+                if bounds is None:
+                    total = g if total is None else total + g
+                    continue
+                if total is None:
+                    total = torch.zeros(ctx.shape, dtype=_acc(ctx.dtype), device=ctx.device)
+                total.narrow(dim, bounds[t][0], bounds[t][1] - bounds[t][0]).add_(g)
+            if total is not None:
+                total = total.to(ctx.dtype)
+        return total, None, None, None
+
+
+def to_model_shards(x: torch.Tensor, mp, dim: Optional[int] = None,
+                    bounds: Optional[list] = None) -> list:
+    """``x`` (on the lead shard's device) copied to every model shard of
+    ``mp`` (a ``sharding.context.ModelParallel``), or with ``bounds`` each
+    shard's slice [start, stop) along ``dim``.  Backward: the shards'
+    gradients summed onto ``x``'s device in rank order in fp32 (in fp64 for
+    fp64; slices that overlap add)."""
+    return list(_ToShards.apply(x, mp, dim, bounds))
+
+
+class _SumShards(torch.autograd.Function):
+    """``reduce_from_model_shards``: the g of Megatron's f / g pair."""
+
+    @staticmethod
+    def forward(ctx, mp, dtype, *parts):
+        ctx.mp = mp
+        ctx.meta = [(p.device, p.dtype) for p in parts]
+        lead = mp.devices[0]
+        total = None
+        with shctx.at(mp.coords[0]):
+            for t, p in enumerate(parts):
+                cost_lib.note_collective("reduce", _part_bytes(p), mp.coords[t])
+                p = p.to(device=lead, dtype=_acc(p.dtype))
+                total = p if total is None else total + p
+            return total.to(dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mp = ctx.mp
+        out = []
+        for t, (dev, dtype) in enumerate(ctx.meta):
+            with shctx.at(mp.coords[t]):
+                g = grad.to(device=dev, dtype=dtype)
+                out.append(g.view_as(g))
+                cost_lib.note_collective("broadcast", _part_bytes(g), mp.coords[t])
+        return (None, None, *out)
+
+
+def reduce_from_model_shards(parts: list, mp, dtype=None) -> torch.Tensor:
+    """The sum of the model shards' ``parts`` (one a shard of ``mp``, equal
+    shapes), in rank order in fp32 (fp64 for fp64) on the lead shard's
+    device, cast to
+    ``dtype`` (default the parts').  Backward: the gradient copied to every
+    shard."""
+    return _SumShards.apply(mp, dtype or parts[0].dtype, *parts)

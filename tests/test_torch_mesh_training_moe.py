@@ -3,8 +3,9 @@ expert-parallel MoE branch, against the reference.
 
 * The train step: the reduced arctic-480b (MoE, FSDP), deepseek-v3-671b
   (MLA, shared expert, MTP, FSDP) and pixtral-12b (patch positions, FSDP),
-  fp32, on the meshes (1, 1), (2, 1), (4, 1), (2, 4) with microbatches 1
-  and 2, against the reference's sharded ``make_train_step``, under the
+  fp32, on the meshes (1, 1), (2, 1), (4, 1), (2, 4), (1, 2), (1, 4), (2,
+  2) with microbatches 1 and 2 (tensor-parallel where the model axis is
+  above 1), against the reference's sharded ``make_train_step``, under the
   rules of ``tests/test_torch_mesh_training.py`` (its subprocess, run for
   these configs).  The MoE aux loss is a product of means over the global
   batch, so the port's data shards combine their expert statistics
