@@ -144,9 +144,10 @@ Phases:
                 4096, a sparse prefill), 8 new tokens, under "fused" and
                 "gather": in fp32 at full width with the depth cut to 4
                 layers (streams equal, or parted within 1e-3), and in bf16
-                at 4 and 40 layers, reported with where the executors'
-                chunk selections first differ, beside the 40-layer engine
-                trace under "dense" (no selection to flip); peak memory.
+                at 4 and 20 of its 40 layers, reported with where the
+                executors' chunk selections first differ, beside the
+                20-layer engine trace under "dense" (no selection to flip);
+                peak memory.
  10. overload — full-width qwen3-0.6b, "stem" at paper defaults
                 (budget_frac 0.5, chunk 1024), pools sized by
                 EngineConfig.for_trace, counters zeroed before each arm and
@@ -167,8 +168,8 @@ Phases:
                 preempt a prefilling and a decoding victim and restore
                 both, the chaos arm counts one alloc denial, one step
                 failure and one restore failure and aborts nothing; fp32
-                at 4 layers the three arms' streams are equal, bf16 at 28
-                layers reported (check_partings); HP TTFT / TPOT, LP TPOT,
+                at 4 layers the three arms' streams are equal, bf16 at 8
+                of the 28 layers reported (check_partings); HP TTFT / TPOT, LP TPOT,
                 wall, offload peak bytes and the restore bandwidth EMA per
                 arm.  (c) The CLI (serve.main) with --hp-every 2
                 --max-waiting 6 --chaos: no failed request, its
@@ -329,7 +330,7 @@ Phases:
                 attention version called;
                 ms a step, tokens/s, peak memory, the backward kernels'
                 share of the step (CUDA events around each call).  (c) fp32
-                at full width with the depth cut to 4 layers: one step's
+                at full width with the depth cut to 2 layers: one step's
                 loss, grad_norm and every gradient leaf under "fused" ==
                 "gather" (within 1e-4 of each leaf's max|g|); 10 steps ==
                 8 steps, a checkpoint, --restore and 2 more, bitwise;
@@ -341,7 +342,7 @@ Phases:
                 one card: the shards share it, so no mesh can be faster
                 here; on a machine with enough cards each shard on its
                 own).  (a) fp32, full-width qwen3-0.6b with the depth cut
-                to 4 layers: phase 4's chunked trace ("stem", budget 0.5,
+                to 2 layers: phase 4's chunked trace ("stem", budget 0.5,
                 chunk 1024, 2 slots a group) on one device (sync), then on
                 meshes (1, 2), (2, 1) and (2, 2) through the sync and the
                 async loop: greedy streams exactly the one-device run's;
@@ -366,7 +367,7 @@ Phases:
                 on one card.
  17. mesh training — launch/steps.mesh_train_step and the CLI over a
                 device grid (every shard on cuda:0 on one card).  (a) fp32
-                qwen3-0.6b at full width, 4 layers, b 4 x 1024, dense and
+                qwen3-0.6b at full width, 2 layers, b 4 x 1024, dense and
                 --stem, 3 steps on one device and on meshes (1, 1), (2, 1),
                 (4, 1), (2, 2), (1, 2), (1, 4) (tensor-parallel where the
                 model axis is above 1): (1, 1) bitwise the one-device step,
@@ -398,6 +399,17 @@ Phases:
                 devices: each coordinate's argument bytes equal the bytes
                 (a) placed on the card for it, its flash calls (a)'s
                 launches over data x model x steps, at (a)'s heads.
+                (h) mamba2-370m (4 layers), recurrentgemma-2b (4) and
+                whisper-medium (2 + 2) at full width, fp32, b 4 x 1024
+                (whisper over 1500 frames), 3 steps on one device and at
+                (1, 1), (1, 2), (2, 2): the SSD by heads, the RG-LRU by
+                channels, whisper's attention by heads; (1, 1) bitwise one
+                device, losses within 1e-6 and grad norms within 1e-5,
+                launches data x model times the (1, 1) run's at 1 / model
+                of its heads, argument bytes at (1, 2) / (2, 2) equal to
+                the dry run's; whisper in bf16 at (1, 2) beside one
+                device: losses within 1e-2, flash twice as often at half
+                the heads.
 
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}.  Any failed phase raises (non-zero exit).
@@ -2043,15 +2055,20 @@ def _glm_cli(fixed, cfg, bundle, params, policy, executor, rec=None,
     return res, (tap.rows() if fixed else tap.rows), sels.calls
 
 
+# glm4-9b's deep bf16 arms: 20 of its 40 layers (full depth until phase 17
+# (h) needed the time)
+GLM4_DEEP_LAYERS = 20
+
+
 def glm4_runs(recs: dict) -> dict:
     """glm4-9b (32 query / 2 KV heads: GQA group 16; untied fp32 head)
     through the CLI's engine and fixed-batch modes under "fused" and
     "gather".  fp32 at full width with the depth cut to 4 of 40 layers:
     streams equal or parted within 1e-3 (raises otherwise).  bf16 at 4 and
-    at 40 layers: reported (streams, parting steps, margins, where the two
-    executors' chunk selections first differ), with the 40-layer engine
-    trace also under the "dense" policy, where no selection can flip; peak
-    memory of each configuration."""
+    at ``GLM4_DEEP_LAYERS`` layers: reported (streams, parting steps,
+    margins, where the two executors' chunk selections first differ), with
+    the deep engine trace also under the "dense" policy, where no selection
+    can flip; peak memory of each configuration."""
     out = {}
     stem = policy_lib.get_policy("stem").with_updates(**CLI_POLICY)
     dense = policy_lib.get_policy("dense").with_updates(**CLI_POLICY,
@@ -2059,7 +2076,7 @@ def glm4_runs(recs: dict) -> dict:
     # (dtype, layers, arms: (name, fixed batch?, policy))
     plan = (("float32", 4, (("engine", False, stem), ("fixed-batch", True, stem))),
             ("bfloat16", 4, (("engine", False, stem),)),
-            ("bfloat16", GLM4_9B.num_layers, (("engine", False, stem),
+            ("bfloat16", GLM4_DEEP_LAYERS, (("engine", False, stem),
                                               ("fixed-batch", True, stem),
                                               ("engine/dense", False, dense))))
     for dtype, depth, arms in plan:
@@ -2397,11 +2414,16 @@ def overload_arms(dtype: str, layers: int, plan=None) -> tuple:
     return runs, rows, plan
 
 
+# Phase 10 (b)'s bf16 arms: 8 of qwen3-0.6b's 28 layers (full depth until
+# phase 17 (h) needed the time)
+P10_BF16_LAYERS = 8
+
+
 def overload_phase() -> dict:
     """Phase 10.  (1) The forced preempt / restore, bf16, full depth.  (2)
     The overload trace under FCFS, SLO and SLO + chaos: fp32 at 4 layers
-    (streams of the three arms equal), bf16 at 28 (reported with
-    ``check_partings``).  (3) The CLI with --hp-every 2 --max-waiting 6
+    (streams of the three arms equal), bf16 at ``P10_BF16_LAYERS`` (reported
+    with ``check_partings``).  (3) The CLI with --hp-every 2 --max-waiting 6
     --chaos."""
     out, launches = {}, {}
     bundle = registry.build(QWEN3_0_6B)
@@ -2419,14 +2441,14 @@ def overload_phase() -> dict:
                        "float32", strict=False, phase="phase10")
         if runs32[arm]["tokens"] != runs32["slo"]["tokens"]:
             raise AssertionError(f"phase 10: fp32 streams of slo and {arm} differ")
-    runs16, rows16, _ = overload_arms("bfloat16", 28, plan)
+    runs16, rows16, _ = overload_arms("bfloat16", P10_BF16_LAYERS, plan)
     out["plan"] = dataclasses.asdict(plan)
     out["bf16_partings"] = {
-        arm: check_partings(f"bf16/28 slo vs {arm}", runs16["slo"]["tokens"],
+        arm: check_partings(f"bf16/{P10_BF16_LAYERS} slo vs {arm}", runs16["slo"]["tokens"],
                             rows16["slo"], runs16[arm]["tokens"], rows16[arm],
                             "bfloat16", strict=False, phase="phase10")
         for arm in ("fcfs", "slo+chaos")}
-    for tag, runs in (("fp32/4", runs32), ("bf16/28", runs16)):
+    for tag, runs in (("fp32/4", runs32), (f"bf16/{P10_BF16_LAYERS}", runs16)):
         for arm, run in runs.items():
             out[f"{tag}/{arm}"] = {k: v for k, v in run.items() if k != "tokens"}
             launches[f"{tag}/{arm}"] = run["launches"]
@@ -4003,7 +4025,7 @@ TRAIN_PAIRS = {
     "d256": ((1, 8, 1, 256, 256, 4096), "paper"),        # gemma-2b
 }
 P15 = dict(b=2, hq=16, hk=8, d=128, n=4096, pairs=TRAIN_PAIRS, fp32_heads=8, fp32_n=1024,
-           seq=4096, batch=2, steps=12, check_layers=4, restart_steps=10,
+           seq=4096, batch=2, steps=12, check_layers=2, restart_steps=10,
            restart_at=8, fail_at=6, family_steps=6)
 TRAIN_SOURCES = {"flash_attention_bwd": (flash_kern, "flash_attention.cu",
                                          "src/repro/kernels/flash_attention.py:34",
@@ -4961,17 +4983,18 @@ def _local_head_calls(rec, hk: int, hq: int, arm: str) -> dict:
 
 
 def mesh_fp32_arms() -> dict:
-    """(a) fp32, full width, 4 layers: the single-device sync run, then each
-    mesh through the sync and the async loop, its streams exactly the
-    single-device run's, every kernel call recorded and held against its
-    plain version (1e-4) at the shard's heads."""
-    cfg = QWEN3_0_6B.replace(num_layers=4, dtype="float32")
+    """(a) fp32, full width, 2 layers (4 until phase 17 (h) needed the
+    time): the single-device sync run, then each mesh through the sync and
+    the async loop, its streams exactly the single-device run's, every
+    kernel call recorded and held against its plain version (1e-4) at the
+    shard's heads."""
+    cfg = QWEN3_0_6B.replace(num_layers=2, dtype="float32")
     bundle = registry.build(cfg)
     params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0),
                                 device="cuda")
     want, single, _ = _mesh_serve(bundle, params, "a/single")
     out, launches = {"single": single}, {"a/single": single["launches"]}
-    log("[phase16] (a) fp32 4 layers a/single: " + json.dumps(single))
+    log(f"[phase16] (a) fp32 {cfg.num_layers} layers a/single: " + json.dumps(single))
     for mesh in MESHES:
         for loop, depth in (("sync", 0), ("async", 1)):
             arm = f"a/{mesh[0]}x{mesh[1]}/{loop}"
@@ -4987,7 +5010,7 @@ def mesh_fp32_arms() -> dict:
             run["heads"] = _local_head_calls(rec, cfg.num_kv_heads // mesh[1],
                                              cfg.num_heads // mesh[1], arm)
             out[arm], launches[arm] = run, run["launches"]
-            log(f"[phase16] (a) fp32 4 layers {arm}: " + json.dumps(run))
+            log(f"[phase16] (a) fp32 {cfg.num_layers} layers {arm}: " + json.dumps(run))
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5062,7 +5085,7 @@ def mesh_preempt_arm(bundle, params) -> dict:
 
 def mesh_phase() -> dict:
     """Phase 16: mesh serving (on one card every shard of a mesh sits on
-    cuda:0; ``mesh_devices``).  (a) fp32 4 layers, meshes (1, 2), (2, 1),
+    cuda:0; ``mesh_devices``).  (a) fp32 2 layers, meshes (1, 2), (2, 1),
     (2, 2), sync and async; (b) bf16 8 layers, mesh (2, 2) beside one
     device; (c) tp = 2 preempt and restore; (d) the CLI's --mesh."""
     t_start = time.perf_counter()
@@ -5135,7 +5158,7 @@ TRAIN_MESHES = ((1, 1), (2, 1), (4, 1), (2, 2), (1, 2), (1, 4))
 # (3 / 3b, 4 / 4b, 5, 6 in PERF.md's kernel table)
 P17_COUNTERS = ("block_sparse_attention", "block_sparse_attention_bwd", "flash_attention",
                 "flash_attention_bwd", "antidiag_pool", "value_magnitude")
-P17 = dict(fp32_layers=4, fp32_batch=4, fp32_seq=1024, fp32_steps=3, lr=3e-4,
+P17 = dict(fp32_layers=2, fp32_batch=4, fp32_seq=1024, fp32_steps=3, lr=3e-4,
            cli_steps=6, cli_batch=2, cli_seq=4096, fsdp_layers=4, fsdp_batch=2,
            fsdp_seq=1024, ep_seq=1024, ckpt_steps=4, ckpt_at=2, ckpt_seq=512, tp_steps=4)
 
@@ -5157,7 +5180,9 @@ def _p17_setup(cfg, shape, batch: int, seq: int):
     av, ax = bundle.abstract_params()
     psh = rules_lib.param_shardings(cfg, mesh, av, ax)
     ssh = steps_lib.opt_state_shardings(cfg, mesh, psh, av)
-    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch)
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+                           kind="encdec" if cfg.encdec else "lm", d_model=cfg.d_model,
+                           frames=cfg.encdec.encoder_frames if cfg.encdec else 0)
     bsh = rules_lib.batch_sharding(cfg, mesh, {
         k: torch.empty(v.shape, device="meta") for k, v in data.batch_at(0).items()})
     return bundle, mesh, ssh, bsh, psh, data
@@ -5614,6 +5639,165 @@ def train_mesh_dryrun_arm(a: dict, sizes: dict = P17) -> dict:
     return out
 
 
+# (h): the SSD, RG-LRU and encoder-decoder families, tensor-parallel
+P17H = dict(archs=((MAMBA2_370M, 4, 0), (RECURRENTGEMMA_2B, 4, 0), (WHISPER_MEDIUM, 2, 2)),
+            batch=4, seq=1024, steps=3, meshes=((1, 1), (1, 2), (2, 2)), bf16_steps=3)
+
+
+def _p17h_cfg(base, layers: int, enc_layers: int, dtype: str):
+    """``base`` at full width with its depth cut (whisper's encoder too)."""
+    kw = dict(dtype=dtype, num_layers=layers, train_microbatches=1)
+    if base.encdec is not None:
+        kw["encdec"] = dataclasses.replace(base.encdec, encoder_layers=enc_layers)
+    return dataclasses.replace(base, **kw)
+
+
+def _p17h_batch(data, i: int, mesh=None, bsh=None) -> dict:
+    """Step ``i``'s batch on cuda:0, or in ``bsh``'s blocks over ``mesh``;
+    whisper's frames in bf16, as the dry run's input specs hold them."""
+    from repro_torch.sharding import arrays
+    out = {}
+    for k, v in data.batch_at(i).items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        t = t.to(torch.bfloat16) if k == "frames" else t
+        out[k] = t.to("cuda") if mesh is None else arrays.place(t, bsh[k], copy=False)
+    return out
+
+
+def _p17h_steps(bundle, opt_cfg, data, steps: int, mesh=None, ssh=None, bsh=None):
+    """``steps`` steps from the seed-0 state, one device or over ``mesh``:
+    (losses, grad norms, ms a step, peak GiB above what was allocated when
+    the run began, launches, heads a call, the argument bytes by
+    coordinate, seconds; the final master on the card)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.optim.adamw import tree_leaves
+    t_start = time.perf_counter()
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()      # the arm's one-device master, if any
+    step = steps_lib.make_train_step(bundle, opt_cfg,
+                                     grad_shardings=None if mesh is None else ssh.master)
+    state = _p17_state(bundle, opt_cfg, ssh)
+    args = None if mesh is None else {"_".join(map(str, c)): n for c, n in dryrun.argument_bytes(
+        mesh, state, _p17h_batch(data, 0, mesh, bsh)).items()}
+    losses, norms, ms = [], [], []
+    reset_all_launches()
+    with kernel_heads() as calls:
+        for i in range(steps):
+            batch = _p17h_batch(data, i, mesh, bsh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+    master = [t.gather("cuda") if mesh is not None else t for t in tree_leaves(state.master)]
+    out = dict(losses=losses, grad_norms=norms, step_ms=float(np.median(ms[1:])),
+               step_ms_all=ms, peak_gib=(torch.cuda.max_memory_allocated() - held) / 2 ** 30,
+               launches=_p17_counts(), heads={k: sorted(v) for k, v in calls.items()},
+               arg_bytes=args, s=time.perf_counter() - t_start)
+    del state, step
+    return out, master
+
+
+def train_mesh_families_arm(sizes: dict = P17H) -> dict:
+    """(h) mamba2-370m (SSD), recurrentgemma-2b (RG-LRU + local attention)
+    and whisper-medium (encoder-decoder) at full width, depth cut, fp32, b
+    4 x 1024 (whisper over its 1500 frames), ``steps`` steps on one device
+    and at (1, 1), (1, 2), (2, 2), tensor-parallel where the model axis is
+    above 1: (1, 1) bitwise one device, the others' losses within 1e-6 and
+    grad norms within 1e-5 (relative); each kernel launched data x model
+    times as often as at (1, 1), each call at 1 / model of its heads
+    (whisper's flash forward / backward; the SSD and RG-LRU run no kernel
+    of the port, recurrentgemma's windowed attention its banded plain
+    path); the argument bytes at (1, 2) / (2, 2) equal the dry run's
+    (``launch/dryrun.count_step`` on ``meta`` devices).  Then whisper in
+    bf16 at (1, 2) beside one device: losses within 1e-2, flash launched
+    twice as often at half the heads.  Step ms and peak GiB of every run."""
+    from repro_torch import optim as optim_lib
+    from repro_torch.configs.base import RunShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    b, n, steps = sizes["batch"], sizes["seq"], sizes["steps"]
+    opt_cfg = optim_lib.AdamWConfig(peak_lr=3e-4, warmup_steps=2, decay_steps=10,
+                                    grad_dtype=None)
+    out = {}
+    for base, layers, enc in sizes["archs"]:
+        cfg = _p17h_cfg(base, layers, enc, "float32")
+        bundle, _, _, _, _, data = _p17_setup(cfg, (1, 1), b, n)
+        one, want = _p17h_steps(bundle, opt_cfg, data, steps)
+        runs = {}
+        for shape in sizes["meshes"]:
+            bundle, mesh, ssh, bsh, _, data = _p17_setup(cfg, shape, b, n)
+            r, master = _p17h_steps(bundle, opt_cfg, data, steps, mesh, ssh, bsh)
+            tag = f"{base.name} {shape[0]}x{shape[1]}"
+            r["master_max_abs"] = max(float((a - w).abs().max()) for a, w in zip(master, want))
+            rel = {k: max(abs(g - w) / abs(w) for g, w in zip(r[k], one[k]))
+                   for k in ("losses", "grad_norms")}
+            if shape == (1, 1) and (r["losses"] != one["losses"] or r["grad_norms"] !=
+                                    one["grad_norms"] or r["master_max_abs"] != 0.0):
+                raise AssertionError(f"phase 17 (h) {tag}: not the one-device step's bits")
+            if not (rel["losses"] <= 1e-6 and rel["grad_norms"] <= 1e-5):
+                raise AssertionError(f"phase 17 (h) {tag}: losses / grad norms {r['losses']} "
+                                     f"{r['grad_norms']} vs one device {one['losses']} "
+                                     f"{one['grad_norms']} (rel err {rel})")
+            r["rel_err"] = rel
+            runs[f"{shape[0]}x{shape[1]}"] = r
+            del master
+        base_l, base_h = runs["1x1"]["launches"], runs["1x1"]["heads"]
+        for tag, r in runs.items():
+            n_data, n_model = (int(x) for x in tag.split("x"))
+            for k in P17_COUNTERS:
+                want_h = sorted([h // n_model for h in base_h[k]] * (n_data * n_model))
+                if r["launches"][k] != n_data * n_model * base_l[k] or r["heads"][k] != want_h:
+                    raise AssertionError(f"phase 17 (h) {base.name} {tag}: {k} launches "
+                                         f"{r['launches'][k]} heads {sorted(set(r['heads'][k]))}"
+                                         f" vs (1, 1) {base_l[k]} at {sorted(set(base_h[k]))}")
+            if tag != "1x1":
+                grid = (n_data, n_model)
+                meta = mesh_lib.make_mesh(grid, ("data", "model"),
+                                          [torch.device("meta")] * (n_data * n_model))
+                t0 = time.perf_counter()
+                _, dargs, _ = dryrun.count_step(cfg, meta, RunShape("phase17_h", n, b, "train"))
+                got = {"_".join(map(str, c)): v for c, v in dargs.items()}
+                if got != r["arg_bytes"]:
+                    raise AssertionError(f"phase 17 (h) {base.name} {tag}: dry-run argument "
+                                         f"bytes {got} vs the card's {r['arg_bytes']}")
+                r["dryrun_s"] = time.perf_counter() - t0
+        if base is WHISPER_MEDIUM and not base_l["flash_attention"]:
+            raise AssertionError("phase 17 (h) whisper-medium launched no flash kernel")
+        out[base.name] = dict(one_device=one, meshes=runs, layers=layers, encoder_layers=enc)
+        del want
+        log(f"[phase17] (h) fp32 {base.name} {layers}" + (f" + {enc}" if enc else "") +
+            f" layers, b {b} x {n}: one device {one['step_ms']:.1f} ms a step "
+            f"{one['peak_gib']:.2f} GiB ({one['s']:.1f} s); " + json.dumps(
+                {t: {k: r.get(k) for k in ("losses", "rel_err", "master_max_abs", "step_ms",
+                                           "peak_gib", "launches", "s", "dryrun_s")}
+                 for t, r in runs.items()}))
+    # whisper in bf16 at (1, 2) beside one device
+    cfg = _p17h_cfg(WHISPER_MEDIUM, 2, 2, "bfloat16")
+    opt16 = optim_lib.AdamWConfig(peak_lr=3e-4, warmup_steps=2, decay_steps=10)
+    bundle, _, _, _, _, data = _p17_setup(cfg, (1, 1), b, n)
+    a, _ = _p17h_steps(bundle, opt16, data, sizes["bf16_steps"])
+    bundle, mesh, ssh, bsh, _, data = _p17_setup(cfg, (1, 2), b, n)
+    m, _ = _p17h_steps(bundle, opt16, data, sizes["bf16_steps"], mesh, ssh, bsh)
+    diff = max(abs(x - y) for x, y in zip(a["losses"], m["losses"]))
+    if not diff <= 1e-2:
+        raise AssertionError(f"phase 17 (h) bf16 whisper (1, 2): losses {m['losses']} vs one "
+                             f"device {a['losses']} (max diff {diff:.3e})")
+    for k in ("flash_attention", "flash_attention_bwd"):
+        if not a["launches"][k] or m["launches"][k] != 2 * a["launches"][k] or \
+                sorted(set(m["heads"][k])) != sorted({h // 2 for h in a["heads"][k]}):
+            raise AssertionError(f"phase 17 (h) bf16 whisper: {k} launches "
+                                 f"{m['launches'][k]} heads {sorted(set(m['heads'][k]))} vs "
+                                 f"one device {a['launches'][k]} {sorted(set(a['heads'][k]))}")
+    out["whisper_bf16"] = dict(one_device=a, mesh_1x2=m, max_loss_diff=diff)
+    log("[phase17] (h) bf16 whisper-medium 2 + 2 layers, one device vs (1, 2): " + json.dumps(
+        {k: {f: v[f] for f in ("losses", "step_ms", "peak_gib", "launches")}
+         for k, v in (("one_device", a), ("mesh_1x2", m))}) + f", max |loss diff| {diff:.3e}")
+    return out
+
+
 def mesh_training_phase() -> dict:
     """Phase 17: mesh training, every shard of a mesh on cuda:0 on one card
     (``mesh_devices``)."""
@@ -5622,7 +5806,8 @@ def mesh_training_phase() -> dict:
     for key, arm in (("a", train_mesh_fp32_arms), ("b", train_mesh_cli_arms),
                      ("c", train_mesh_fsdp_arm), ("d", train_mesh_expert_parallel_arm),
                      ("e", train_mesh_checkpoint_arm), ("f", train_mesh_tp_arm),
-                     ("g", lambda: train_mesh_dryrun_arm(out["a"]))):
+                     ("g", lambda: train_mesh_dryrun_arm(out["a"])),
+                     ("h", train_mesh_families_arm)):
         t0 = time.perf_counter()
         out[key] = arm()
         arm_s[key] = time.perf_counter() - t0
@@ -5632,6 +5817,9 @@ def mesh_training_phase() -> dict:
                        for t, r in out["a"][arm]["meshes"].items()}
     out["launches"]["b/mesh_2x1"] = out["b"]["mesh_2x1"]["launches"]
     out["launches"]["f/mesh_1x2"] = out["f"]["mesh_1x2"]["launches"]
+    for arch, r in out["h"].items():
+        for tag, run in r["meshes"].items() if "meshes" in r else (("1x2", r["mesh_1x2"]),):
+            out["launches"][f"h/{arch}/{tag}"] = run["launches"]
     out["s"] = time.perf_counter() - t_start
     log(f"[phase17] done in {out['s']:.1f} s (arms: " +
         ", ".join(f"{k} {v:.1f}" for k, v in arm_s.items()) + ")")

@@ -168,19 +168,19 @@ def mesh_train_step(bundle, opt_cfg: optim.AdamWConfig, grad_shardings, *,
        of the batch over its model shards, inside
        ``sharding.context.model_parallel`` (forward and backward): every dim
        the rules split over ``model`` is computed by each model shard on its
-       own block on its own device (attention by heads, the MLPs by
-       ``mlp``, the embedding, logits and CE by ``vocab``, MoE experts by
-       ``experts``), every dim they leave whole once on the data shard's
-       model-0 device, which holds the residual stream, the norms and the
-       router, and copies its results to the shards that read them
+       own block on its own device (attention, the encoder-decoder's cross
+       attention and the SSD by heads, the MLPs by ``mlp``, the RG-LRU by
+       its ``rnn`` channels, the embedding, logits and CE by ``vocab``, MoE
+       experts by ``experts``), every dim they leave whole once on the data
+       shard's model-0 device, which holds the residual stream, the norms
+       and the router, and copies its results to the shards that read them
        (``arrays.to_model_shards`` / ``reduce_from_model_shards``).  The
        top-level leaves are taken first, each layer group's blocks inside
-       the layer body (``models/transformer._group_full``; FSDP blocks
-       gathered over data there), freed after, and taken again by a
-       rematerialized backward.  The SSD and RG-LRU mixers and the
-       encoder-decoder's layers are gathered whole onto model 0.  With
-       ``microbatches`` the global batch splits into that many consecutive
-       row blocks, each split over the shards;
+       the layer body (``models/transformer._group_full``, the
+       encoder-decoder's layer bodies; FSDP blocks gathered over data
+       there), freed after, and taken again by a rematerialized backward.
+       With ``microbatches`` the global batch splits into that many
+       consecutive row blocks, each split over the shards;
     3. under ``sharding.context.data_parallel`` the CE is the global mean
        and the MoE aux loss the global batch's (``moe.GlobalAux``: every
        shard's forward runs before any backward);

@@ -22,7 +22,9 @@ shard and each shard is sent the KV heads its query heads read.  Where a
 KV group's query heads fall on several shards (``tp > hk``) and the policy
 pools its metric over the group (``group_reduce``), each shard computes its
 heads' metric, the group's shards exchange them and each pools the whole
-group's, so every shard selects as the whole group does.
+group's, so every shard selects as the whole group does.  The
+encoder-decoder's cross attention splits the same way (``cross_kv``,
+``apply_cross``).
 """
 from __future__ import annotations
 
@@ -466,15 +468,41 @@ def init_cross(ini: common.Initializer, cfg: ArchConfig) -> dict:
 
 
 def cross_kv(params, enc_out):
-    """Cross-attention K/V of the encoder output (b, F, d): (b, h, F, dh)."""
+    """Cross-attention K/V of the encoder output (b, F, d): (b, h, F, dh).
+    With its heads in ``ModelShards`` (inside ``sharding.context.
+    model_parallel``): lists of each model shard's heads' K / V, on its
+    device."""
+    if isinstance(params["wk"], arrays.ModelShards):
+        mp = shctx.model_parallel_state()
+        es, ks, vs = arrays.to_model_shards(enc_out, mp), [], []
+        for t in range(mp.tp):
+            with mp.on(t):
+                ks.append(torch.einsum("bsd,dhk->bhsk", es[t], params["wk"].parts[t]))
+                vs.append(torch.einsum("bsd,dhk->bhsk", es[t], params["wv"].parts[t]))
+        return ks, vs
     k = torch.einsum("bsd,dhk->bhsk", enc_out, params["wk"])
     v = torch.einsum("bsd,dhk->bhsk", enc_out, params["wv"])
     return k, v
 
 
+def _cross(wq, wo, x, ck, cv, head_dim: int):
+    q = torch.einsum("bsd,dhk->bhsk", x, wq)
+    o = dense_attention_auto(q, ck, cv, causal=False, scale=head_dim ** -0.5)
+    return torch.einsum("bhsk,hkd->bsd", o, wo)
+
+
 def apply_cross(params, x, ck, cv, head_dim: int):
     """Bidirectional cross attention: the decoder's x attends the encoder's
-    K/V (the plain non-causal path of ``dense_attention_auto``)."""
-    q = torch.einsum("bsd,dhk->bhsk", x, params["wq"])
-    o = dense_attention_auto(q, ck, cv, causal=False, scale=head_dim ** -0.5)
-    return torch.einsum("bhsk,hkd->bsd", o, params["wo"])
+    K/V (the plain non-causal path of ``dense_attention_auto``).  With its
+    heads in ``ModelShards`` (``ck`` / ``cv``: ``cross_kv``'s lists) each
+    model shard attends its heads and applies its row block of ``wo``; the
+    partial products are summed (``reduce_from_model_shards``)."""
+    if isinstance(params["wq"], arrays.ModelShards):
+        mp = shctx.model_parallel_state()
+        xs, outs = arrays.to_model_shards(x, mp), []
+        for t in range(mp.tp):
+            with mp.on(t):
+                outs.append(_cross(params["wq"].parts[t], params["wo"].parts[t], xs[t],
+                                   ck[t], cv[t], head_dim))
+        return arrays.reduce_from_model_shards(outs, mp, x.dtype)
+    return _cross(params["wq"], params["wo"], x, ck, cv, head_dim)

@@ -17,9 +17,13 @@ not ``prefill(n + 1)``.
 Parameters keep the reference's tree: ``embed``, ``dec_pos``,
 ``enc_layers`` / ``dec_layers`` (leaves stacked along a leading layer
 axis), ``enc_norm`` and ``final_norm``.  In a mesh train step with a model
-axis above 1 the layers are gathered whole onto each data shard's model-0
-device (``materialize(whole=True)``), while the embedding, the tied
-logits and the CE run vocab-parallel (``models/common.py``).
+axis above 1 each layer's model-axis blocks stay blocks
+(``arrays.materialize`` inside ``sharding.context.model_parallel``): the
+encoder's and the decoder's self attention and the cross attention run by
+heads (``attention.apply_full``, ``cross_kv``, ``apply_cross``), the MLPs
+by ``mlp``, and the embedding, the tied logits and the CE by ``vocab``
+(``models/common.py``); the norms and positions stay on each data shard's
+model-0 device, which holds the residual stream.
 """
 from __future__ import annotations
 
@@ -101,17 +105,31 @@ def encode(params, frames, cfg: ArchConfig, *, remat: bool = True):
     positions = torch.arange(n, device=frames.device)
 
     def body(layer, x):
-        layer = arrays.materialize(layer, x.device, whole=True)   # gathered at use
-        h = common.layer_norm_simple(x, layer["norm1"])
-        x = x + attention.apply_full(layer["attn"], h, cfg, positions=positions,
-                                     use_rope=False, causal=False)
-        h = common.layer_norm_simple(x, layer["norm2"])
-        return x + mlp.apply(layer["ffn"], h, "gelu_mlp")
+        return enc_layer(arrays.materialize(layer, x.device), x, cfg,   # gathered at use
+                         positions=positions)
 
     body = _remat(body, remat)
     for layer in _layers(params["enc_layers"], cfg.encdec.encoder_layers):
         x = body(layer, x)
     return common.layer_norm_simple(x, params["enc_norm"])
+
+
+def enc_layer(layer, x, cfg: ArchConfig, *, positions):
+    """One encoder layer: bidirectional self attention, then the MLP."""
+    h = common.layer_norm_simple(x, layer["norm1"])
+    x = x + attention.apply_full(layer["attn"], h, cfg, positions=positions,
+                                 use_rope=False, causal=False)
+    h = common.layer_norm_simple(x, layer["norm2"])
+    return x + mlp.apply(layer["ffn"], h, "gelu_mlp")
+
+
+def dec_layer(layer, x, enc, cfg: ArchConfig, *, positions, stem_cfg=None):
+    """One decoder layer of ``loss_fn``: causal self attention (no RoPE),
+    cross attention over the encoder states ``enc``, the MLP."""
+    h = common.layer_norm_simple(x, layer["norm1"])
+    x = x + attention.apply_full(layer["self_attn"], h, cfg, positions=positions,
+                                 stem_cfg=stem_cfg, use_rope=False)
+    return _cross_ffn(layer, x, *attention.cross_kv(layer["cross_attn"], enc), cfg)
 
 
 def _dec_embed(params, tokens, cfg: ArchConfig, start=0):
@@ -142,12 +160,8 @@ def loss_fn(params, batch: dict, cfg: ArchConfig, *, stem_cfg=None,
     positions = torch.arange(batch["tokens"].shape[1], device=x.device)
 
     def body(layer, x, enc):
-        layer = arrays.materialize(layer, x.device, whole=True)   # gathered at use
-        h = common.layer_norm_simple(x, layer["norm1"])
-        x = x + attention.apply_full(layer["self_attn"], h, cfg,
-                                     positions=positions, stem_cfg=stem_cfg,
-                                     use_rope=False)
-        return _cross_ffn(layer, x, *attention.cross_kv(layer["cross_attn"], enc), cfg)
+        return dec_layer(arrays.materialize(layer, x.device), x, enc, cfg,  # gathered at use
+                         positions=positions, stem_cfg=stem_cfg)
 
     body = _remat(body, remat)
     for layer in _layers(params["dec_layers"], cfg.num_layers):

@@ -18,6 +18,18 @@ chunks a sequential carry.  The reference's ``associative_scan`` sums in
 another order, so the two agree to rounding, not bitwise.  Decode is the
 O(1) recurrence; it writes the new state into the state's tensors in
 place, as attention decode writes its cache.
+
+Tensor-parallel ``apply_full`` (its ``rnn`` leaves in ``sharding.arrays.
+ModelShards``, inside ``sharding.context.model_parallel``): each model
+shard computes its channels' columns of ``w_in`` and ``w_gate_branch`` and
+the conv on them.  The gates contract over the full width (``w_a`` /
+``w_x`` are ``("rnn_in", "rnn")``), so the conv output is all-gathered once
+(``arrays.take``) and each shard applies its output columns of ``w_a`` /
+``w_x``; ``b_a``, ``b_x``, ``lam`` and the scan run per channel, and
+``w_out``'s row blocks give partial products, summed
+(``reduce_from_model_shards``).  Where the model axis does not divide the
+width, the rules leave every ``rnn`` leaf whole and the block computes
+whole on the lead shard, as the reference does.
 """
 from __future__ import annotations
 
@@ -28,6 +40,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, RGLRUConfig
 from repro_torch.models import common
+from repro_torch.sharding import arrays
+from repro_torch.sharding import context as shctx
 
 _C = 8.0
 SCAN_CHUNK = 64
@@ -66,13 +80,16 @@ def _conv1d(x, w, b):
     return sum(pads[:, i:i + n, :] * w[i] for i in range(cw)) + b
 
 
-def _gates(params, xc):
-    """(log a, b) of the linear recurrence h = a h + b, both fp32."""
+def _gates(params, xc, xc_own=None):
+    """(log a, b) of the linear recurrence h = a h + b, both fp32.  The gates
+    contract over ``xc``'s full width; ``xc_own`` (default ``xc``) is the
+    conv output at the gates' own channels."""
+    xc_own = xc if xc_own is None else xc_own
     r = torch.sigmoid(torch.einsum("bsw,wu->bsu", xc, params["w_a"]) + params["b_a"])
     i = torch.sigmoid(torch.einsum("bsw,wu->bsu", xc, params["w_x"]) + params["b_x"])
     log_a = -_C * F.softplus(params["lam"].float()) * r.float()
     mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
-    return log_a, mult * (i.float() * xc.float())
+    return log_a, mult * (i.float() * xc_own.float())
 
 
 def linear_scan(log_a, b, chunk: int = SCAN_CHUNK):
@@ -126,8 +143,35 @@ def _forward(params, x):
     return out, h, xb
 
 
+def _apply_full_tp(params, x, mp):
+    """``apply_full`` over the model shards of ``mp`` (the module
+    docstring)."""
+    shard = lambda t: {k: v.parts[t] for k, v in params.items()}
+    xs = arrays.to_model_shards(x, mp)
+    gates, xcs = [], []
+    for t in range(mp.tp):
+        with mp.on(t):
+            _, gate, xc = _branches(shard(t), xs[t])
+            gates.append(gate)
+            xcs.append(xc)
+    w = params["w_out"]
+    full = arrays.take(arrays.ModelShards(xcs, 2, w.bounds, xcs[0].shape[:2] + w.shape[:1]),
+                       mp, [[(0, w.shape[0])]] * mp.tp)
+    outs = []
+    for t in range(mp.tp):
+        with mp.on(t):
+            h = linear_scan(*_gates(shard(t), full[t], xcs[t]))
+            outs.append(torch.einsum("bsw,wd->bsd", h.to(x.dtype) * gates[t],
+                                     shard(t)["w_out"]))
+    return arrays.reduce_from_model_shards(outs, mp, x.dtype)
+
+
 def apply_full(params, x, cfg: ArchConfig):
-    """Training / prefill over the full sequence: x (b, n, d)."""
+    """Training / prefill over the full sequence: x (b, n, d).  With its
+    leaves in ``ModelShards`` it runs tensor-parallel (the module
+    docstring)."""
+    if isinstance(params["w_out"], arrays.ModelShards):
+        return _apply_full_tp(params, x, shctx.model_parallel_state())
     return _forward(params, x)[0]
 
 

@@ -10,6 +10,20 @@ attention-like einsums within chunks of ``chunk_size`` tokens and a
 sequential pass over chunks for the carried state (O(N Q d) work, N / Q
 sequential steps).  Decode is the O(1) recurrence; it writes the new state
 into the state's tensors in place, as attention decode writes its cache.
+
+Tensor-parallel ``apply_full`` (its ``rnn`` / ``heads`` leaves in
+``sharding.arrays.ModelShards``, inside ``sharding.context.
+model_parallel``): each model shard takes its heads' columns of the packed
+``w_in`` (``z | x | B | C | dt``) and of the conv (``x | B | C``), with
+``B`` and ``C`` whole (the state is shared by every head), from whichever
+shards hold them (``arrays.take``: the blocks are cut evenly over the
+packed dim, not at the segments).  It runs the conv on its channels, the
+chunked scan on its heads and ``y * silu(z)`` on its channels; the gated
+RMSNorm over ``d_inner`` sums the shards' squares in rank order before
+the scale, and ``w_out``'s row blocks give partial products, summed
+(``reduce_from_model_shards``).  Where the rules leave ``heads`` whole
+(the model axis does not divide them) the block computes whole on the lead
+shard, as the reference does.
 """
 from __future__ import annotations
 
@@ -20,6 +34,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, SSDConfig
 from repro_torch.models import common
+from repro_torch.sharding import arrays
+from repro_torch.sharding import context as shctx
 
 
 class SSDState(NamedTuple):
@@ -70,8 +86,11 @@ def _conv_silu(xbc, params):
     return F.silu(out + params["conv_b"])
 
 
-def _ssm_inputs(xbc, dt, params, cfg: ArchConfig):
-    s, d_inner, heads, _ = _dims(cfg)
+def _ssm_inputs(xbc, dt, params, cfg: ArchConfig, heads=None):
+    """``heads``: how many heads ``xbc`` / ``dt`` carry (default all)."""
+    s, d_inner, all_heads, _ = _dims(cfg)
+    heads = heads or all_heads
+    d_inner = heads * s.head_dim
     xi, B, C = torch.split(xbc, [d_inner, s.state_dim, s.state_dim], dim=-1)
     b, n = xi.shape[0], xi.shape[1]
     xh = xi.reshape(b, n, heads, s.head_dim)
@@ -146,8 +165,69 @@ def _forward(params, x, cfg: ArchConfig):
     return torch.einsum("bse,ed->bsd", y, params["w_out"]), S_final, xbc_raw
 
 
+def _shard_ranges(cfg: ArchConfig, t: int, hl: int) -> dict:
+    """Model shard ``t``'s (dim, column ranges) of each leaf: its ``hl``
+    heads' columns of z, x and dt in the packed ``w_in`` with B and C
+    whole, the same of the conv's x | B | C, its channels of ``norm`` /
+    ``w_out`` and its heads of ``a_log`` / ``dt_bias`` / ``d_skip``."""
+    s, d_inner, heads, _ = _dims(cfg)
+    N = s.state_dim
+    ch = (t * hl * s.head_dim, (t + 1) * hl * s.head_dim)
+    dt0 = 2 * d_inner + 2 * N
+    w_in = [ch, (d_inner + ch[0], d_inner + ch[1]), (2 * d_inner, dt0),
+            (dt0 + t * hl, dt0 + (t + 1) * hl)]
+    conv = [ch, (d_inner, d_inner + 2 * N)]
+    own = [(t * hl, (t + 1) * hl)]
+    return {"w_in": (1, w_in), "conv_w": (1, conv), "conv_b": (0, conv), "norm": (0, [ch]),
+            "w_out": (0, [ch]), "a_log": (0, own), "dt_bias": (0, own), "d_skip": (0, own)}
+
+
+def _apply_full_tp(params, x, cfg: ArchConfig, mp):
+    """``apply_full`` over the model shards of ``mp`` (the module
+    docstring)."""
+    s, d_inner, heads, _ = _dims(cfg)
+    hl = heads // mp.tp
+    rng = [_shard_ranges(cfg, t, hl) for t in range(mp.tp)]
+    shards = [{} for _ in range(mp.tp)]
+    for name, (dim, _) in rng[0].items():
+        for t, part in enumerate(arrays.take(params[name], mp, [r[name][1] for r in rng], dim)):
+            shards[t][name] = part
+    xs = arrays.to_model_shards(x, mp)
+    b, n = x.shape[0], x.shape[1]
+    ys, sq = [], []
+    for t in range(mp.tp):
+        with mp.on(t):
+            p = shards[t]
+            z, xbc, dt = torch.split(torch.einsum("bsd,de->bse", xs[t], p["w_in"]),
+                                     [hl * s.head_dim, hl * s.head_dim + 2 * s.state_dim,
+                                      hl], dim=-1)
+            xh, B, C, dtv, ld = _ssm_inputs(_conv_silu(xbc, p), dt, p, cfg, hl)
+            y, _ = _chunked_ssd(xh, B, C, dtv, ld, s.chunk_size, p["d_skip"])
+            y = (y.reshape(b, n, hl * s.head_dim).to(x.dtype) * F.silu(z)).float()
+            ys.append(y)
+            # this shard's share of the mean square (exactly the mean at tp 1)
+            sq.append(torch.mean(y * y, dim=-1, keepdim=True) * (y.shape[-1] / d_inner))
+    var = arrays.to_model_shards(arrays.reduce_from_model_shards(sq, mp), mp)
+    outs = []
+    for t in range(mp.tp):
+        with mp.on(t):
+            y = ys[t] * torch.rsqrt(var[t] + 1e-6)
+            y = (y * (1.0 + shards[t]["norm"].float())).to(x.dtype)
+            outs.append(torch.einsum("bse,ed->bsd", y, shards[t]["w_out"]))
+    return arrays.reduce_from_model_shards(outs, mp, x.dtype)
+
+
 def apply_full(params, x, cfg: ArchConfig):
-    """Training / prefill over the full sequence: x (b, n, d)."""
+    """Training / prefill over the full sequence: x (b, n, d).  With its
+    leaves in ``ModelShards`` it runs tensor-parallel (the module
+    docstring)."""
+    if any(isinstance(v, arrays.ModelShards) for v in params.values()):
+        mp = shctx.model_parallel_state()
+        if isinstance(params["a_log"], arrays.ModelShards):
+            return _apply_full_tp(params, x, cfg, mp)
+        # the rules leave the heads whole: the whole block on the lead shard
+        params = {k: arrays.take(v, mp, [[(0, v.shape[v.dim])]] + [[]] * (mp.tp - 1))[0]
+                  if isinstance(v, arrays.ModelShards) else v for k, v in params.items()}
     return _forward(params, x, cfg)[0]
 
 

@@ -269,9 +269,6 @@ def _sublayer_full(params, x, cfg: ArchConfig, kind: str, *, positions,
     return (x, aux, stats) if return_stats else (x, aux)
 
 
-WHOLE_MIXERS = ("rec", "ssd")   # mixers computed whole on the lead model shard
-
-
 def _group_full(params, x, cfg, kinds, *, positions, stem_cfg):
     """The layer group's sub-layers in order: (x, summed aux loss).  A
     parameter held in blocks (``sharding.arrays.ShardedArray``: the mesh
@@ -279,13 +276,11 @@ def _group_full(params, x, cfg, kinds, *, positions, stem_cfg):
     here, inside the (rematerialized) layer body, so it lives only while
     the layer runs; inside ``sharding.context.model_parallel`` its
     model-axis blocks stay blocks (``arrays.ModelShards``, each on its
-    shard's device: attention, MLA and the MLPs compute tensor-parallel),
-    but for the RG-LRU and SSD mixers (``WHOLE_MIXERS``), gathered whole."""
+    shard's device: attention, MLA, the MLPs and the RG-LRU and SSD mixers
+    compute tensor-parallel)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, k in enumerate(kinds):
-        sub = {name: arrays.materialize(v, x.device,
-                                        whole=name == "mixer" and k in WHOLE_MIXERS)
-               for name, v in params[f"sub{i}"].items()}
+        sub = {name: arrays.materialize(v, x.device) for name, v in params[f"sub{i}"].items()}
         x, a = _sublayer_full(sub, x, cfg, k, positions=positions, stem_cfg=stem_cfg)
         aux = aux + a
     return x, aux

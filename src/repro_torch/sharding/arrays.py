@@ -21,15 +21,19 @@ Tensor parallelism (inside ``sharding.context.model_parallel``, model
 axis ``tp > 1``): ``materialize`` gives a parameter split over the model
 axis as ``ModelShards``, each model shard's block on its own device (for
 FSDP leaves first gathered over the data axis), and the model code joins
-the shards' work with two differentiable collectives, Megatron's f / g
-pair, every sum in rank order in fp32:
+the shards' work with differentiable collectives, Megatron's f / g pair
+and a regrouping built on the f, every sum in rank order in fp32:
 
 * ``to_model_shards``: forward, one tensor (or each shard's slice of it)
   copied to every model shard's device; backward, the shards' gradients
   summed onto the source;
 * ``reduce_from_model_shards``: forward, the shards' partial products
   summed on the lead shard's device; backward, the gradient copied to
-  every shard.
+  every shard;
+* ``take``: each shard's column ranges of a tensor whose blocks do not
+  line up with them (the SSD's packed projections; an all-gather of the
+  shards' activations), the pieces other shards hold sent as
+  ``to_model_shards`` sends, from the holder's device.
 
 Every gather, reduce, broadcast and sum reports its bytes to the dry run's
 counter (``kernels.cost.note_collective``) at the coordinate that moves
@@ -333,33 +337,58 @@ def _part_bytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _ranges(b) -> list:
+    """A shard's ``bounds`` entry as a list of (start, stop) ranges: one
+    pair, or a list of them."""
+    return [b] if isinstance(b, tuple) and b and isinstance(b[0], int) else list(b)
+
+
+def _cut(x, dim: int, ranges: list):
+    """The ``ranges`` of ``x`` along ``dim``, concatenated in order."""
+    parts = [x.narrow(dim, a, b - a) for a, b in ranges]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+
+
+def _merged(ranges: list) -> list:
+    """Sorted (start, stop) ranges with adjacent ones joined."""
+    out: list = []
+    for a, b in ranges:
+        if out and out[-1][1] == a:
+            out[-1] = (out[-1][0], b)
+        else:
+            out.append((a, b))
+    return out
+
+
 class _ToShards(torch.autograd.Function):
-    """``to_model_shards``: the f of Megatron's f / g pair."""
+    """``to_model_shards``: the f of Megatron's f / g pair, from model shard
+    ``src``'s device (the lead's, unless ``take`` sends another shard's
+    block)."""
 
     @staticmethod
-    def forward(ctx, x, mp, dim, bounds):
-        ctx.mp, ctx.dim, ctx.bounds = mp, dim, bounds
+    def forward(ctx, x, mp, dim, bounds, src=0):
+        ctx.mp, ctx.dim, ctx.bounds, ctx.src = mp, dim, bounds, src
         ctx.shape, ctx.dtype, ctx.device = x.shape, x.dtype, x.device
         outs = []
         for t, (c, dev) in enumerate(zip(mp.coords, mp.devices)):
             with shctx.at(c):
-                part = x if bounds is None else x.narrow(dim, bounds[t][0],
-                                                         bounds[t][1] - bounds[t][0])
+                part = x if bounds is None else _cut(x, dim, _ranges(bounds[t]) or [(0, 0)])
                 out = part.to(dev)
                 # a shard on the source's device reads an alias, so each
                 # shard's tensors are its own (the dry run's counter
                 # attributes the backward's ops by them)
                 outs.append(out.view_as(out))
-                cost_lib.note_collective("broadcast", _part_bytes(out), c)
+                if out.numel():
+                    cost_lib.note_collective("broadcast", _part_bytes(out), c)
         return tuple(outs)
 
     @staticmethod
     def backward(ctx, *grads):
         mp, dim, bounds = ctx.mp, ctx.dim, ctx.bounds
         total = None
-        with shctx.at(mp.coords[0]):
+        with shctx.at(mp.coords[ctx.src]):
             for t, g in enumerate(grads):
-                if g is None:
+                if g is None or not g.numel():
                     continue
                 cost_lib.note_collective("reduce", _part_bytes(g), mp.coords[t])
                 g = g.to(device=ctx.device, dtype=_acc(ctx.dtype))
@@ -368,20 +397,62 @@ class _ToShards(torch.autograd.Function):
                     continue
                 if total is None:
                     total = torch.zeros(ctx.shape, dtype=_acc(ctx.dtype), device=ctx.device)
-                total.narrow(dim, bounds[t][0], bounds[t][1] - bounds[t][0]).add_(g)
+                off = 0
+                for a, b in _ranges(bounds[t]):
+                    total.narrow(dim, a, b - a).add_(g.narrow(dim, off, b - a))
+                    off += b - a
             if total is not None:
                 total = total.to(ctx.dtype)
-        return total, None, None, None
+        return total, None, None, None, None
 
 
 def to_model_shards(x: torch.Tensor, mp, dim: Optional[int] = None,
                     bounds: Optional[list] = None) -> list:
     """``x`` (on the lead shard's device) copied to every model shard of
     ``mp`` (a ``sharding.context.ModelParallel``), or with ``bounds`` each
-    shard's slice [start, stop) along ``dim``.  Backward: the shards'
-    gradients summed onto ``x``'s device in rank order in fp32 (in fp64 for
-    fp64; slices that overlap add)."""
+    shard's slice [start, stop) along ``dim`` (or its list of such ranges,
+    concatenated in order).  Backward: the shards' gradients summed onto
+    ``x``'s device in rank order in fp32 (in fp64 for fp64; slices that
+    overlap add)."""
     return list(_ToShards.apply(x, mp, dim, bounds))
+
+
+def take(src, mp, ranges: list, dim: Optional[int] = None) -> list:
+    """Each model shard ``t`` of ``mp`` gets ``ranges[t]`` (sorted, disjoint
+    (start, stop) pairs along the split dim), concatenated in order on its
+    own device, of ``src``: ``ModelShards`` (parameter blocks, or the
+    shards' activations) whose blocks need not line up with the ranges, or
+    a whole tensor on the lead shard's device (split along ``dim``).  A
+    shard with no ranges gets None.
+
+    A shard's pieces of its own block are slices of it; the pieces other
+    shards hold come through ``to_model_shards``' mechanism from the
+    holder's device, so the backward sends each piece's gradient to the
+    block it was cut from (summed there in rank order in fp32)."""
+    if isinstance(src, ModelShards):
+        parts, bounds, dim = src.parts, src.bounds, src.dim
+    else:
+        parts, bounds = [src], [(0, src.shape[dim])]
+    ranges = [_merged(r) for r in ranges]
+    pieces = [[] for _ in range(mp.tp)]
+    for s, (part, (b0, b1)) in enumerate(zip(parts, bounds)):
+        want = [[(max(a, b0) - b0, min(b, b1) - b0) for a, b in ranges[t]
+                 if max(a, b0) < min(b, b1)] for t in range(mp.tp)]
+        local = want[s]
+        want[s] = []
+        sent = _ToShards.apply(part, mp, dim, want, s) if any(want) else None
+        for t in range(mp.tp):
+            if t == s and local:
+                with mp.on(t):
+                    pieces[t].append(part if local == [(0, part.shape[dim])]
+                                     else _cut(part, dim, local))
+            elif want[t]:
+                pieces[t].append(sent[t])
+    out = []
+    for t, p in enumerate(pieces):
+        with mp.on(t):
+            out.append(None if not p else p[0] if len(p) == 1 else torch.cat(p, dim=dim))
+    return out
 
 
 class _SumShards(torch.autograd.Function):

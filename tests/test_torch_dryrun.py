@@ -33,10 +33,16 @@ over the model axis at (2, 2) (its products there are the whole ``d_ff``
 and vocab; 1.68x the split count), so the comparison would measure that
 choice.  The collective counts of both are printed.
 
+The SSD, RG-LRU and whisper layers of the reduced configs count below
+their (1, 1) count on the lead model shard of a (1, 4) ``meta`` mesh, and
+no model-axis leaf of a dry-run step is gathered whole inside
+``model_parallel``.
+
 (iv) ``--arch qwen3-0.6b`` and ``--arch gemma-2b`` on the 16 x 16 grid of
 ``meta`` devices write every key of the reference's record; the seconds
 each took on the CPU are printed (PERF.md quotes them).
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -312,6 +318,80 @@ def test_dot_flops_against_the_reference_hlo(arch, shape, ref):
     assert all(o <= lead.flops_by_op["dot"] for o in others)
     assert lead.kernel_calls["flash_attention"] == 2 * cfg.num_layers * cfg.train_microbatches \
         + (cfg.train_microbatches if cfg.mtp else 0)
+
+
+# ---------------------------------------------------------------------------
+# the SSD, RG-LRU and encoder-decoder layers by model shard
+# ---------------------------------------------------------------------------
+
+def _layer_flops(cfg, shape, build, fn, *shapes) -> float:
+    """The lead model shard's counted flops of ``fn`` forward and backward
+    over ``build``'s parameters in the rules' blocks on a meta mesh of
+    ``shape`` (inside ``model_parallel`` when the model axis is above 1)."""
+    from repro_torch.models import common
+    from repro_torch.sharding import rules
+    mesh = _meta_mesh(shape)
+    ini = common.Initializer(torch.Generator(), torch.float32, "meta")
+    params = build(ini)
+    sh = rules.param_shardings(cfg, mesh, params, ini.axes_tree(params))
+    placed = rules.tree_map(lambda t, s: arrays.place(t, s).map_blocks(
+        lambda b: b.requires_grad_()), params, sh)
+    inputs = [torch.empty(s, device="meta", requires_grad=True) for s in shapes]
+    mode = cost_analysis.CostMode(default=(0, 0))
+    ctx = shctx.model_parallel(mesh, (0, 0)) if shape[1] > 1 else contextlib.nullcontext()
+    with ctx, kernel_cost.counting(mode), mode:
+        fn(arrays.materialize(placed, "meta"), *inputs).sum().backward()
+    return mode.costs[(0, 0)].flops
+
+
+def _mixer_layers(arch):
+    """(config, [(name, build, fn, input shapes)]): the arch's SSD, RG-LRU
+    or encoder / decoder layers, as the mesh step runs them."""
+    from repro_torch.models import encdec, rglru, ssd
+    cfg = _cfg(arch)
+    b, s, d = 2, 64, cfg.d_model
+    if arch == "mamba2-370m":
+        return cfg, [("ssd", lambda ini: ssd.init(ini, cfg),
+                      lambda p, x: ssd.apply_full(p, x, cfg), (b, s, d))]
+    if arch == "recurrentgemma-2b":
+        return cfg, [("rglru", lambda ini: rglru.init(ini, cfg),
+                      lambda p, x: rglru.apply_full(p, x, cfg), (b, s, d))]
+    pos = torch.arange(s, device="meta")
+    f = cfg.encdec.encoder_frames
+    return cfg, [("encoder", lambda ini: encdec._init_enc_layer(ini, cfg),
+                  lambda p, x: encdec.enc_layer(p, x, cfg, positions=pos), (b, f, d)),
+                 ("decoder", lambda ini: encdec._init_dec_layer(ini, cfg),
+                  lambda p, x, e: encdec.dec_layer(p, x, e, cfg, positions=pos),
+                  (b, s, d), (b, f, d))]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-2b", "whisper-medium"])
+def test_mixer_layers_count_their_share(arch, monkeypatch):
+    """On a (1, 4) ``meta`` mesh the reduced configs' SSD / RG-LRU / whisper
+    layers count below the (1, 1) count on the lead model shard, forward
+    and backward; and in the whole dry-run step no model-axis leaf is
+    gathered whole inside ``model_parallel`` (each model shard reads only
+    its own model block of it)."""
+    cfg, layers = _mixer_layers(arch)
+    for name, build, fn, *shapes in layers:
+        one = _layer_flops(cfg, (1, 1), build, fn, *shapes)
+        lead = _layer_flops(cfg, (1, 4), build, fn, *shapes)
+        print(f"[{arch} {name}] lead model shard at (1, 4): {lead:.4e} flops, "
+              f"(1, 1): {one:.4e} (ratio {lead / one:.3f})")
+        assert lead < 0.5 * one, (name, lead, one)
+    wide = []
+    gather = arrays.ShardedArray.gather
+
+    def spy(self, device, dtype=None, region=None, coord=None):
+        dim = arrays.model_dim(self.sharding)
+        if dim is not None and shctx.model_parallel_state() is not None:
+            lo, hi = (region or tuple((0, n) for n in self.shape))[dim]
+            if hi - lo > self.shape[dim] // self.mesh.shape["model"]:
+                wide.append((tuple(self.shape), self.sharding.spec))
+        return gather(self, device, dtype, region, coord)
+    monkeypatch.setattr(arrays.ShardedArray, "gather", spy)
+    dryrun.count_step(cfg, _meta_mesh((1, 4)), SHAPE)
+    assert not wide, wide
 
 
 # ---------------------------------------------------------------------------

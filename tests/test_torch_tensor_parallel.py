@@ -7,8 +7,11 @@ gives the model-axis blocks as ``ModelShards``: attention by heads (GQA
 with whole groups, with groups split over shards under a group-pooled Stem
 metric, with KV heads the rules leave whole; the windowed path), MLA by
 heads, both MLP forms by ``mlp``, the embedding, logits and CE by
-``vocab`` (a masked CE too), and the MoE FFN's dense parts beside its
-experts.  The forward output and the gradient of every parameter (its
+``vocab`` (a masked CE too), the MoE FFN's dense parts beside its
+experts, the SSD by heads (the packed ``w_in`` / conv blocks cut inside a
+segment; heads the rules leave whole), the RG-LRU by channels (a width
+the rules leave whole), the cross attention and whisper's encoder and
+decoder layers by heads and ``mlp``.  The forward output and the gradient of every parameter (its
 blocks' gradients put together) equal the whole computation on plain
 tensors within 1e-6 of the largest |value| in fp32 (the shards' sums run
 in another order); at tp 1 bitwise.  The two collectives' backward is
@@ -211,6 +214,82 @@ def test_moe_dense_parts_and_experts(arch, tp):
     assert isinstance(views["/w_gate"], arrays.ShardedArray)     # experts at use
     assert not isinstance(views["/router"], arrays.ModelShards)  # the router whole
     check(fn, lambda ini: moe.init(ini, cfg.d_model, cfg.moe, cfg.activation), cfg, tp, x)
+
+
+# ---------------------------------------------------------------------------
+# the SSD, the RG-LRU and the encoder-decoder's layers
+# ---------------------------------------------------------------------------
+
+SSD = {
+    # the reduced mamba2-370m: w_in's 296 packed columns (z | x | B | C | dt)
+    # cut at 148 (inside x) at tp 2 and every 74 at tp 4, the conv's 160 at
+    # 80 / 40; every shard takes its heads' columns from other shards' blocks
+    "packed_cut": dict(d_model=64),
+    # 6 heads: split at tp 2 (w_in's 230 columns cut at 115, inside x); at
+    # tp 4 the rules leave the heads and w_in whole while the conv, the norm
+    # and w_out split: the block computes whole on the lead shard
+    "heads_whole_at_4": dict(d_model=48),
+}
+
+
+@pytest.mark.parametrize("tp", TPS)
+@pytest.mark.parametrize("case", sorted(SSD))
+def test_ssd_by_heads(case, tp):
+    from repro_torch.models import ssd
+    cfg = _cfg("mamba2-370m", **SSD[case])
+    heads = cfg.ssd.expand * cfg.d_model // cfg.ssd.head_dim
+    x = _x((B, S, cfg.d_model))
+    split = ("/a_log", "/w_in", "/conv_w", "/norm", "/w_out") if heads % tp == 0 else \
+        ("/conv_w", "/norm", "/w_out")
+    views = check(lambda p, x: ssd.apply_full(p, x, cfg), lambda ini: ssd.init(ini, cfg),
+                  cfg, tp, x, split=split)
+    assert isinstance(views["/a_log"], arrays.ModelShards) == (heads % tp == 0)
+
+
+@pytest.mark.parametrize("tp", TPS)
+@pytest.mark.parametrize("width", [64, 66], ids=["split", "whole_at_4"])
+def test_rglru_by_channels(width, tp):
+    from repro_torch.models import rglru
+    cfg = _cfg("recurrentgemma-2b")
+    cfg = dataclasses.replace(cfg, rglru=dataclasses.replace(cfg.rglru, lru_width=width))
+    x = _x((B, S, cfg.d_model))
+    names = ("/w_in", "/w_gate_branch", "/conv_w", "/w_a", "/w_x", "/lam", "/w_out")
+    views = check(lambda p, x: rglru.apply_full(p, x, cfg), lambda ini: rglru.init(ini, cfg),
+                  cfg, tp, x, split=names if width % tp == 0 else ())
+    assert all(isinstance(views[k], arrays.ModelShards) == (width % tp == 0) for k in names)
+
+
+FRAMES = 24
+
+
+@pytest.mark.parametrize("tp", TPS)
+def test_cross_attention_by_heads(tp):
+    cfg = _cfg("whisper-medium")
+    x, enc = _x((B, S, cfg.d_model)), _x((B, FRAMES, cfg.d_model), seed=8)
+    fn = lambda p, x, enc: attention.apply_cross(p, x, *attention.cross_kv(p, enc),
+                                                 cfg.head_dim)
+    check(fn, lambda ini: attention.init_cross(ini, cfg), cfg, tp, x, enc,
+          split=("/wq", "/wk", "/wv", "/wo"))
+
+
+@pytest.mark.parametrize("tp", TPS)
+@pytest.mark.parametrize("layer", ["encoder", "decoder", "decoder_stem"])
+def test_whisper_layers_by_heads_and_mlp(layer, tp):
+    from repro_torch.models import encdec
+    cfg = _cfg("whisper-medium")
+    x, enc = _x((B, S, cfg.d_model)), _x((B, FRAMES, cfg.d_model), seed=8)
+    pos = torch.arange(S)
+    if layer == "encoder":
+        fn = lambda p, x: encdec.enc_layer(p, x, cfg, positions=pos)
+        views = check(fn, lambda ini: encdec._init_enc_layer(ini, cfg), cfg, tp, x,
+                      split=("/attn/wq", "/attn/wk", "/attn/wo", "/ffn/w_in", "/ffn/w_out"))
+    else:
+        pol = POLICY if layer == "decoder_stem" else None
+        fn = lambda p, x, enc: encdec.dec_layer(p, x, enc, cfg, positions=pos, stem_cfg=pol)
+        views = check(fn, lambda ini: encdec._init_dec_layer(ini, cfg), cfg, tp, x, enc,
+                      split=("/self_attn/wq", "/self_attn/wo", "/cross_attn/wq",
+                             "/cross_attn/wk", "/cross_attn/wo", "/ffn/w_in"))
+    assert not isinstance(views["/norm1"], arrays.ModelShards)
 
 
 # ---------------------------------------------------------------------------
