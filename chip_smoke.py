@@ -71,7 +71,8 @@ Phases:
   3c. parent  — with a tree of the parent commit (--parent DIR, or git
                 archive HEAD^ in a git checkout): the (128, 128) flash and
                 block-sparse instances and the paged chunk lane built from
-                both trees, each run in its own process on phase 3's bf16
+                both trees (the parent's in a process started beside phase
+                2's build), each run in its own process on phase 3's bf16
                 inputs (16 / 8 heads, 16k tokens, stem's selection; the
                 chunk lane's 1024-token chunk): outputs bitwise equal to
                 the parent's, and each one's device time, timed parent,
@@ -144,9 +145,9 @@ Phases:
                 4096, a sparse prefill), 8 new tokens, under "fused" and
                 "gather": in fp32 at full width with the depth cut to 4
                 layers (streams equal, or parted within 1e-3), and in bf16
-                at 4 and 20 of its 40 layers, reported with where the
+                at 4 and 10 of its 40 layers, reported with where the
                 executors' chunk selections first differ, beside the
-                20-layer engine trace under "dense" (no selection to flip);
+                10-layer engine trace under "dense" (no selection to flip);
                 peak memory.
  10. overload — full-width qwen3-0.6b, "stem" at paper defaults
                 (budget_frac 0.5, chunk 1024), pools sized by
@@ -168,7 +169,7 @@ Phases:
                 preempt a prefilling and a decoding victim and restore
                 both, the chaos arm counts one alloc denial, one step
                 failure and one restore failure and aborts nothing; fp32
-                at 4 layers the three arms' streams are equal, bf16 at 8
+                at 4 layers the three arms' streams are equal, bf16 at 4
                 of the 28 layers reported (check_partings); HP TTFT / TPOT, LP TPOT,
                 wall, offload peak bytes and the restore bandwidth EMA per
                 arm.  (c) The CLI (serve.main) with --hp-every 2
@@ -187,7 +188,7 @@ Phases:
                 arm's kernel calls recorded and held against their plain
                 versions), also under prefix_evict="hit-rate" with a pool
                 that forces reclaims of cached pages and through the async
-                loop; bf16 at 8 of the 28 layers reported
+                loop; bf16 at 4 of the 28 layers reported
                 (check_partings); the late
                 tenants' TTFT.  (b) fp32, 4 layers: a sharer preempted by a
                 priority-1 request snapshots its private pages only, its
@@ -196,7 +197,7 @@ Phases:
                 10 (b)'s trace through the sync and the async loop, fp32 at
                 4 layers (also with a mid-stream EOS: a lookahead step
                 discarded; and under the CLI's chaos plan with its restore
-                failure at the async run's first restore) and bf16 at 8
+                failure at the async run's first restore) and bf16 at 4
                 layers: streams bitwise equal, host_syncs <= 2 * finished,
                 step_calls <= id_fetches <= 2 * step_calls, nothing in
                 flight at the end, every _dispatch run under
@@ -332,9 +333,9 @@ Phases:
                 share of the step (CUDA events around each call).  (c) fp32
                 at full width with the depth cut to 2 layers: one step's
                 loss, grad_norm and every gradient leaf under "fused" ==
-                "gather" (within 1e-4 of each leaf's max|g|); 10 steps ==
-                8 steps, a checkpoint, --restore and 2 more, bitwise;
-                run_with_restarts around --fail-at 6 resumes from the
+                "gather" (within 1e-4 of each leaf's max|g|); 6 steps ==
+                4 steps, a checkpoint, --restore and 2 more, bitwise;
+                run_with_restarts around --fail-at 5 resumes from the
                 step-4 checkpoint and its losses equal the uninterrupted
                 run's, bitwise.
  16. mesh     — mesh serving (EngineConfig(mesh=(dp, tp)),
@@ -410,6 +411,31 @@ Phases:
                 the dry run's; whisper in bf16 at (1, 2) beside one
                 device: losses within 1e-2, flash twice as often at half
                 the heads.
+ 18. mesh prefill / serve — launch/steps.py mesh_prefill_step and
+                mesh_serve_step, every shard of a mesh on cuda:0: the
+                prefill, then 16 greedy serve steps with ragged
+                cache_lens on the first (the last row a quarter of the
+                prompt); counters zeroed before each run and read after.
+                (a) fp32 qwen3-0.6b at full width, 2 layers, b 4 x 4096,
+                stem (the CLI's geometry: the prefill's selection and the
+                policy-sparse decode) and dense, at (1, 1), (2, 1), (1,
+                2), (2, 2) beside one device: (1, 1) bitwise, the rest
+                with every step's logits within 1e-4 and the ids equal,
+                every coordinate's cache block within 1e-4 of one
+                device's slice (relative above 1), the pos leaves equal.
+                (b) bf16 gemma-2b at full width and depth (one KV head:
+                its cache split by sequence), b 2 x 8192, stem, (1, 2)
+                beside one device: logits within 3e-2 of the row's max
+                until the streams part; prefill ms, ms a token, peak
+                memory.  (c) bf16 qwen3-0.6b at full depth, b 4 x 4096,
+                stem, (1, 2) and (2, 2) beside one device: block-sparse,
+                pool and vmag launched data x model times one device's
+                count at 1 / model of its heads; ms and memory.  (d) The
+                dry run (launch/dryrun.count_cell) of (a)'s and (b)'s
+                configs at their meshes on meta devices: each
+                coordinate's argument bytes equal what the card placed,
+                and the block-sparse pairs counted by the budgets equal
+                kernels.cost.causal_pairs of the card's selections.
 
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}.  Any failed phase raises (non-zero exit).
@@ -417,6 +443,7 @@ Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last line
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -1242,7 +1269,24 @@ def parent_tree(arg) -> pathlib.Path | None:
     return dest
 
 
-def parent_ab_phase(records: dict, parent) -> dict:
+PARENT_BUILD = ("import sys; sys.path.insert(0, sys.argv[1] + '/src'); "
+                "from repro_torch.kernels import _build; _build.build_all()")
+
+
+def start_parent_build(parent):
+    """The parent tree's kernels built in a process of their own, started
+    beside phase 2's build so that phase 3c finds them built (None without
+    a parent tree).  Killed at exit if still running."""
+    if parent is None:
+        return None
+    proc = subprocess.Popen([sys.executable, "-c", PARENT_BUILD, str(parent)],
+                            cwd=str(parent), stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def parent_ab_phase(records: dict, parent, build=None) -> dict:
     """Phase 3c: the (128, 128) flash and block-sparse instances and the
     paged chunk lane, which this tile's shapes share, built from this tree
     and from the parent commit's, each in its own process, on phase 3's
@@ -1252,10 +1296,15 @@ def parent_ab_phase(records: dict, parent) -> dict:
     CLI's stem selection; each tree's own forward gives o and lse):
     outputs bitwise equal, and each row's device time, timed parent,
     change, change, parent, within 5 % of the parent's.  Skipped (logged)
-    without a parent tree."""
+    without a parent tree.  ``build``: the parent's kernel build started by
+    ``start_parent_build``, waited for here."""
     if parent is None:
         log("[ab] no parent tree (--parent DIR, or a git checkout): A/B skipped")
         return {}
+    if build is not None:
+        built, _ = build.communicate()
+        if build.returncode != 0:
+            raise RuntimeError(f"[ab] the parent tree's kernel build failed:\n{built[-4000:]}")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(31)
     n, hq, hk, d, bs = 16384, 16, 8, 128, 128
@@ -2055,9 +2104,9 @@ def _glm_cli(fixed, cfg, bundle, params, policy, executor, rec=None,
     return res, (tap.rows() if fixed else tap.rows), sels.calls
 
 
-# glm4-9b's deep bf16 arms: 20 of its 40 layers (full depth until phase 17
-# (h) needed the time)
-GLM4_DEEP_LAYERS = 20
+# glm4-9b's deep bf16 arms: 10 of its 40 layers (full depth until phase 17
+# (h) needed the time, 20 until phase 18 did)
+GLM4_DEEP_LAYERS = 10
 
 
 def glm4_runs(recs: dict) -> dict:
@@ -2414,9 +2463,9 @@ def overload_arms(dtype: str, layers: int, plan=None) -> tuple:
     return runs, rows, plan
 
 
-# Phase 10 (b)'s bf16 arms: 8 of qwen3-0.6b's 28 layers (full depth until
-# phase 17 (h) needed the time)
-P10_BF16_LAYERS = 8
+# Phase 10 (b)'s bf16 arms: 4 of qwen3-0.6b's 28 layers (full depth until
+# phase 17 (h) needed the time, 8 until phase 18 did)
+P10_BF16_LAYERS = 4
 
 
 def overload_phase() -> dict:
@@ -2813,9 +2862,9 @@ def profile_loops(profile: bool) -> dict:
     return out
 
 
-# Phase 11's bf16 arms: 8 of qwen3-0.6b's 28 layers (full depth until
-# phase 17 needed the time)
-P11_BF16_LAYERS = 8
+# Phase 11's bf16 arms: 4 of qwen3-0.6b's 28 layers (full depth until
+# phase 17 needed the time, 8 until phase 18 did)
+P11_BF16_LAYERS = 4
 
 
 def prefix_async_phase(profile: bool = False) -> dict:
@@ -4025,8 +4074,8 @@ TRAIN_PAIRS = {
     "d256": ((1, 8, 1, 256, 256, 4096), "paper"),        # gemma-2b
 }
 P15 = dict(b=2, hq=16, hk=8, d=128, n=4096, pairs=TRAIN_PAIRS, fp32_heads=8, fp32_n=1024,
-           seq=4096, batch=2, steps=12, check_layers=2, restart_steps=10,
-           restart_at=8, fail_at=6, family_steps=6)
+           seq=4096, batch=2, steps=12, check_layers=2, restart_steps=6,
+           restart_at=4, fail_at=5, family_steps=6)
 TRAIN_SOURCES = {"flash_attention_bwd": (flash_kern, "flash_attention.cu",
                                          "src/repro/kernels/flash_attention.py:34",
                                          "src/repro/core/sparse_attention.py:157"),
@@ -5826,6 +5875,350 @@ def mesh_training_phase() -> dict:
     return out
 
 
+# Phase 18: the mesh fixed-batch prefill and serve steps
+P18 = dict(a_layers=2, a_batch=4, a_seq=4096, steps=16,
+           a_meshes=((1, 1), (2, 1), (1, 2), (2, 2)), b_batch=2, b_seq=8192,
+           c_batch=4, c_seq=4096, c_meshes=((1, 2), (2, 2)))
+P18_COUNTERS = ("block_sparse_attention", "flash_attention", "antidiag_pool", "value_magnitude")
+# (b)'s logits: within 3e-2 of the row's max |one device's| (in units of the
+# p_bf16 kernel rule's 1e-2: 18 bf16 layers whose shards round their partial
+# products apart; the card read 1.77e-2 for the prefill's, 0.67-0.79e-2 after)
+P18_BF16_RULE = 3.0
+
+
+def _p18_max_len(n: int, steps: int, policy, tp: int = 2) -> int:
+    """The cache capacity: the prompt and ``steps`` tokens, in whole blocks
+    of the policy on each of ``tp`` sequence shards."""
+    unit = policy.block_size * tp
+    return -(-(n + steps) // unit) * unit
+
+
+def _p18_mesh(shape, dev: str):
+    from repro_torch.launch import mesh as mesh_lib
+    devices = mesh_devices(shape) if dev == "cuda" else [dev] * (shape[0] * shape[1])
+    return mesh_lib.make_mesh(shape, ("data", "model"), devices)
+
+
+@contextlib.contextmanager
+def selection_pairs():
+    """The causal pairs (``kernels.cost.causal_pairs``) of the selection
+    each block-sparse call is given while the block runs."""
+    from repro_torch.kernels.cost import causal_pairs
+    seen = []
+    fn = bsa_kern.block_sparse_attention
+
+    def rec(q, k, v, indices, slot_mask=None, *, block_size=128, live_counts=None, **kw):
+        cnt = slot_mask.sum(-1, dtype=torch.int32) if live_counts is None else live_counts
+        seen.append(causal_pairs(indices, cnt, block_size))
+        return fn(q, k, v, indices, slot_mask, block_size=block_size, live_counts=live_counts,
+                  **kw)
+    bsa_kern.block_sparse_attention = rec
+    try:
+        yield seen
+    finally:
+        bsa_kern.block_sparse_attention = fn
+
+
+def _p18_run(bundle, params, tokens, lens, policy, max_len: int, steps: int, shape=None,
+             dev: str = "cuda") -> dict:
+    """The prefill and ``steps`` greedy serve steps (``cache_lens`` on the
+    first), policy-sparse under a policy, on one device (``shape`` None)
+    or over a mesh of ``shape`` whose shards share the card: every step's
+    logits (fp32, whole), the greedy ids, the final caches, the prefill ms
+    (of a second call: the first, untimed, takes the first-call costs),
+    the median ms of a decode step, the peak GiB, the launches and each
+    kernel call's heads, the block-sparse selections' causal pairs and each
+    coordinate's argument bytes (the parameters and the batch; the
+    parameters, the tokens and the prefill's caches)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.sharding import arrays
+    from repro_torch.sharding import rules as rules_lib
+    cfg = bundle.cfg
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    if shape is None:
+        args = params
+        prefill = steps_lib.make_prefill_step(bundle, max_len=max_len, stem_cfg=policy)
+        serve = steps_lib.make_serve_step(bundle, stem_cfg=policy)
+        batch = {"tokens": tokens}
+        whole = lambda lg: lg.float()
+    else:
+        mesh = _p18_mesh(shape, dev)
+        av, ax = bundle.abstract_params()
+        psh = rules_lib.param_shardings(cfg, mesh, av, ax)
+        args = rules_lib.tree_map(lambda t, sh: arrays.place(t, sh), params, psh)
+        bsh = rules_lib.batch_sharding(cfg, mesh, {"tokens": tokens})
+        batch = {"tokens": arrays.place(tokens, bsh["tokens"])}
+        prefill = steps_lib.mesh_prefill_step(bundle, mesh, max_len=max_len, stem_cfg=policy)
+        serve = steps_lib.mesh_serve_step(bundle, mesh, stem_cfg=policy)
+        whole = lambda lg: lg.gather(tokens.device)
+    prefill(args, batch)            # warm-up (first-call costs); untimed, uncounted
+    _free()
+    reset_all_launches()
+    logits, ids, ms = [], [], []
+    with kernel_heads() as calls, selection_pairs() as pairs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, caches = prefill(args, batch)
+        torch.cuda.synchronize()
+        out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        if shape is not None:
+            mesh_bytes = lambda trees: {"_".join(map(str, c)): n
+                                        for c, n in dryrun.block_bytes(mesh, trees).items()}
+            out["arg_bytes"] = {"prefill": mesh_bytes([args, batch]),
+                                "decode": mesh_bytes([args, caches])}
+            tok = rules_lib.batch_sharding(cfg, mesh, {"t": tokens[:, :1]})["t"]
+            for c, n in arrays.place(tokens[:, :1], tok).blocks.items():
+                out["arg_bytes"]["decode"]["_".join(map(str, c))] += n.numel() * n.element_size()
+        for s in range(steps + 1):
+            logits.append(whole(lg))
+            ids.append(logits[-1].argmax(-1).to(torch.int32)[:, None])
+            if s == steps:
+                break
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, caches = serve(args, ids[-1], caches, lens if s == 0 else None)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    out.update(logits=logits, ids=torch.cat(ids, dim=1), caches=caches,
+               decode_ms=float(np.median(ms[1:])), peak_gib=torch.cuda.max_memory_allocated()
+               / 2 ** 30, launches={k: read_all_launches()[k] for k in P18_COUNTERS},
+               heads={k: sorted(set(v)) for k, v in calls.items() if k in P18_COUNTERS},
+               pairs=float(sum(pairs)))
+    return out
+
+
+def _cache_paths(tree, pre: str = "") -> list:
+    """(path, leaf) of a cache tree (lists, dicts, NamedTuple caches)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _cache_paths(tree[k], f"{pre}/{k}")]
+    if hasattr(tree, "_fields"):
+        return [x for f, v in zip(tree._fields, tree) for x in _cache_paths(v, f"{pre}/{f}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in _cache_paths(v, f"{pre}/{i}")]
+    return [(pre, tree)]
+
+
+def _p18_cache_diff(mesh_caches, one_caches) -> float:
+    """Max |block - one device's slice| / max(1, |slice|) over every cache
+    block at every coordinate (the fp32 rule: absolute up to 1, relative
+    above; the shards' K / V projections are GEMMs of other shapes, summed
+    in another order); the ``pos`` leaves must be equal."""
+    worst = 0.0
+    ones = dict(_cache_paths(one_caches))
+    for path, leaf in _cache_paths(mesh_caches):
+        ref = ones[path]
+        for c in leaf.mesh.coords():
+            part = ref[tuple(slice(a, b) for a, b in leaf.index(c))]
+            blk = leaf.blocks[c]
+            if path.endswith("pos"):
+                if not torch.equal(blk, part):
+                    raise AssertionError(f"phase 18: {path} at {c} {blk} vs {part}")
+                continue
+            part = part.float()
+            worst = max(worst, float(((blk.float() - part).abs()
+                                      / part.abs().clamp(min=1.0)).max()))
+    return worst
+
+
+def _p18_setup(cfg, n: int, b: int, steps: int, dev: str, seed: int):
+    bundle, params, info = _draw(cfg, seed, cfg.name, tag="phase18")
+    policy = cli_stem_policy(n)
+    rng = np.random.RandomState(seed)
+    tokens = torch.as_tensor(rng.randint(0, cfg.vocab_size, size=(b, n)), dtype=torch.int32,
+                             device=dev)
+    # ragged rows: the last row a quarter of the prompt (inside the first
+    # sequence block of a cache split in two)
+    lens = torch.tensor([n - 37 * i for i in range(b - 1)] + [n // 4], dtype=torch.int32,
+                        device=dev)
+    return bundle, params, tokens, lens, policy, _p18_max_len(n, steps, policy)
+
+
+def mesh_serving_fp32_arms(sizes: dict = P18, dev: str = "cuda") -> dict:
+    """(a) fp32 qwen3-0.6b at published widths, depth cut, b 4 x 4096,
+    ragged ``cache_lens``, stem (the prefill's selection and the
+    policy-sparse decode) and dense: the mesh prefill and ``steps`` greedy
+    serve steps at each of ``a_meshes`` beside one device: (1, 1) bitwise,
+    the rest with every step's logits within 1e-4 and the ids equal, each
+    coordinate's final cache block within 1e-4 of one device's slice
+    (relative above 1: ``_p18_cache_diff``; the card reads ~1e-5: the
+    shards' GEMMs of other shapes move the residual stream by ~1e-5
+    relative over two layers)."""
+    cfg = dataclasses.replace(QWEN3_0_6B, dtype="float32", num_layers=sizes["a_layers"])
+    n, b, steps = sizes["a_seq"], sizes["a_batch"], sizes["steps"]
+    bundle, params, tokens, lens, policy, max_len = _p18_setup(cfg, n, b, steps, dev, 0)
+    out = {}
+    for arm, pol in (("stem", policy), ("dense", None)):
+        one = _p18_run(bundle, params, tokens, lens, pol, max_len, steps, dev=dev)
+        runs = {}
+        for shape in sizes["a_meshes"]:
+            tag = f"{shape[0]}x{shape[1]}"
+            r = _p18_run(bundle, params, tokens, lens, pol, max_len, steps, shape, dev)
+            errs = [float((x - y).abs().max()) for x, y in zip(r["logits"], one["logits"])]
+            cache = _p18_cache_diff(r["caches"], one["caches"])
+            if shape == (1, 1):
+                if any(errs) or cache or not torch.equal(r["ids"], one["ids"]):
+                    raise AssertionError(f"phase 18 (a) {arm} (1, 1): not bitwise one device "
+                                         f"(logits {max(errs):.3e}, caches {cache:.3e})")
+            elif max(errs) > 1e-4 or cache > 1e-4 or not torch.equal(r["ids"], one["ids"]):
+                raise AssertionError(f"phase 18 (a) {arm} {tag}: logits {max(errs):.3e}, "
+                                     f"caches {cache:.3e}, ids equal "
+                                     f"{torch.equal(r['ids'], one['ids'])}")
+            runs[tag] = dict(max_logit_err=max(errs), max_cache_err=cache,
+                             prefill_ms=r["prefill_ms"], decode_ms=r["decode_ms"],
+                             peak_gib=r["peak_gib"], launches=r["launches"],
+                             heads=r["heads"], pairs=r["pairs"], arg_bytes=r["arg_bytes"])
+            del r
+        out[arm] = dict(one_device={k: one[k] for k in (
+            "prefill_ms", "decode_ms", "peak_gib", "launches", "heads", "pairs")},
+            meshes=runs, max_len=max_len)
+        del one
+    log("[phase18] (a) fp32 qwen3-0.6b 2 layers, b 4 x 4096: " + json.dumps(
+        {arm: {"one_device": r["one_device"], "meshes": {t: {k: v for k, v in m.items()
+                                                            if k != "arg_bytes"}
+                                                        for t, m in r["meshes"].items()}}
+         for arm, r in out.items()}))
+    return out
+
+
+def _p_bf16_err(got, want) -> float:
+    """max |got - want| over 1e-2 of the row's max |want|: within 1 under
+    the p_bf16 rule."""
+    return float(((got - want).abs() / (1e-2 * want.abs().amax(-1, keepdim=True))).max())
+
+
+def mesh_serving_bf16_arm(sizes: dict = P18, dev: str = "cuda", cfg=None) -> dict:
+    """(b) bf16 gemma-2b at published widths and full depth (1 KV head: its
+    cache split by sequence), b 2 x 8192, stem, (1, 2) beside one device:
+    every step's logits within ``P18_BF16_RULE`` x 1e-2 of the row's max
+    until the greedy streams part (the step where they part, if they do),
+    the prefill ms, the ms a decode token and the peak GiB of both."""
+    cfg = cfg or GEMMA_2B
+    n, b, steps = sizes["b_seq"], sizes["b_batch"], sizes["steps"]
+    bundle, params, tokens, lens, policy, max_len = _p18_setup(cfg, n, b, steps, dev, 1)
+    one = _p18_run(bundle, params, tokens, lens, policy, max_len, steps, dev=dev)
+    r = _p18_run(bundle, params, tokens, lens, policy, max_len, steps, (1, 2), dev)
+    same = (r["ids"] == one["ids"]).all(dim=0)
+    part = int((~same).nonzero()[0, 0]) if not bool(same.all()) else None
+    upto = steps + 1 if part is None else part + 1
+    errs = [_p_bf16_err(x, y) for x, y in zip(r["logits"][:upto], one["logits"][:upto])]
+    if max(errs) > P18_BF16_RULE:
+        raise AssertionError(f"phase 18 (b): (1, 2) logits over the p_bf16 rule: {errs}")
+    out = dict(max_len=max_len, parted_at=part, p_bf16_err=max(errs),
+               one_device={k: one[k] for k in ("prefill_ms", "decode_ms", "peak_gib",
+                                               "launches", "pairs")},
+               mesh_1x2={k: r[k] for k in ("prefill_ms", "decode_ms", "peak_gib", "launches",
+                                           "pairs", "arg_bytes")})
+    log("[phase18] (b) bf16 gemma-2b 18 layers, b 2 x 8192, stem, one device vs (1, 2): "
+        + json.dumps({k: v for k, v in out.items() if k != "mesh_1x2"})
+        + " mesh_1x2 " + json.dumps({k: v for k, v in out["mesh_1x2"].items()
+                                     if k != "arg_bytes"}))
+    del r, one, params
+    return out
+
+
+def mesh_serving_deep_arm(sizes: dict = P18, dev: str = "cuda", cfg=None) -> dict:
+    """(c) bf16 qwen3-0.6b at full depth, b 4 x 4096, stem, at each of
+    ``c_meshes`` beside one device: the prefill ms, the ms a decode token
+    and the peak GiB; kernels 3 / 5 / 6 launched data x model times one
+    device's count, each call at 1 / model of its heads."""
+    cfg = cfg or QWEN3_0_6B
+    n, b, steps = sizes["c_seq"], sizes["c_batch"], sizes["steps"]
+    bundle, params, tokens, lens, policy, max_len = _p18_setup(cfg, n, b, steps, dev, 2)
+    one = _p18_run(bundle, params, tokens, lens, policy, max_len, steps, dev=dev)
+    out = {"one_device": {k: one[k] for k in ("prefill_ms", "decode_ms", "peak_gib",
+                                              "launches", "heads")}}
+    for shape in sizes["c_meshes"]:
+        r = _p18_run(bundle, params, tokens, lens, policy, max_len, steps, shape, dev)
+        for k in ("block_sparse_attention", "antidiag_pool", "value_magnitude"):
+            want = shape[0] * shape[1] * one["launches"][k]
+            heads = sorted({h // shape[1] for h in one["heads"][k]})
+            if not one["launches"][k] or r["launches"][k] != want or r["heads"][k] != heads:
+                raise AssertionError(f"phase 18 (c) {shape}: {k} launches "
+                                     f"{r['launches'][k]} heads {r['heads'][k]} vs "
+                                     f"{want} at {heads}")
+        out[f"{shape[0]}x{shape[1]}"] = {k: r[k] for k in (
+            "prefill_ms", "decode_ms", "peak_gib", "launches", "heads")}
+        del r
+    log("[phase18] (c) bf16 qwen3-0.6b 28 layers, b 4 x 4096, stem: " + json.dumps(out))
+    del one, params
+    return out
+
+
+def mesh_serving_dryrun_arm(a: dict, b: dict, sizes: dict = P18, gemma=None) -> dict:
+    """(d) The dry run (``launch/dryrun.count_cell``) of (a)'s and (b)'s
+    configs at their meshes on ``meta`` devices: each coordinate's
+    argument bytes of the prefill cell (parameters, batch) and of the decode
+    cell (parameters, tokens, caches) equal what the card placed for it, and
+    the block-sparse pairs the dry run counts by the budgets (its first data
+    shard's, times the data shards) equal ``causal_pairs`` of the card's
+    selections."""
+    from repro_torch.configs.base import RunShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    cases = [(dataclasses.replace(QWEN3_0_6B, dtype="float32", num_layers=sizes["a_layers"]),
+              sizes["a_seq"], sizes["a_batch"], a["stem"]["max_len"],
+              {t: m for t, m in a["stem"]["meshes"].items()}),
+             (gemma or GEMMA_2B, sizes["b_seq"], sizes["b_batch"], b["max_len"],
+              {"1x2": b["mesh_1x2"]})]
+    out = {}
+    for cfg, n, bsz, max_len, runs in cases:
+        policy = cli_stem_policy(n)
+        for tag, r in runs.items():
+            grid = tuple(int(x) for x in tag.split("x"))
+            mesh = mesh_lib.make_mesh(grid, ("data", "model"),
+                                      [torch.device("meta")] * (grid[0] * grid[1]))
+            got, pairs = {}, None
+            for kind, seq in (("prefill", n), ("decode", max_len)):
+                costs, args, _, secs = dryrun.count_cell(
+                    cfg, mesh, RunShape(f"p18_{kind}", seq, bsz, kind), stem_cfg=policy)
+                got[kind] = {"_".join(map(str, c)): v for c, v in args.items()}
+                if got[kind] != r["arg_bytes"][kind]:
+                    raise AssertionError(f"phase 18 (d) {cfg.name} {tag} {kind}: argument "
+                                         f"bytes {got[kind]} vs the card's "
+                                         f"{r['arg_bytes'][kind]}")
+                if kind == "prefill":
+                    counted = {}
+                    for cost in costs.values():
+                        for rule, p in cost.kernel_pairs.items():
+                            counted[rule] = counted.get(rule, 0.0) + p
+                    pairs = counted.get("budgets", 0.0) * grid[0]
+                    if set(counted) != {"budgets"} or pairs != r["pairs"]:
+                        raise AssertionError(f"phase 18 (d) {cfg.name} {tag}: pairs counted "
+                                             f"{counted} x {grid[0]} vs the card's "
+                                             f"{r['pairs']}")
+            out[f"{cfg.name}/{tag}"] = dict(pairs=pairs, arg_bytes_lead={
+                k: v["0_0"] for k, v in got.items()})
+    log("[phase18] (d) dry run on meta devices: " + json.dumps(out))
+    return out
+
+
+def mesh_serving_phase(sizes: dict = P18, dev: str = "cuda") -> dict:
+    """Phase 18: the mesh fixed-batch prefill and serve steps, every shard
+    of a mesh on cuda:0 (``mesh_devices``)."""
+    t_start = time.perf_counter()
+    out, arm_s = {}, {}
+    for key, arm in (("a", lambda: mesh_serving_fp32_arms(sizes, dev)),
+                     ("b", lambda: mesh_serving_bf16_arm(sizes, dev)),
+                     ("c", lambda: mesh_serving_deep_arm(sizes, dev)),
+                     ("d", lambda: mesh_serving_dryrun_arm(out["a"], out["b"], sizes))):
+        t0 = time.perf_counter()
+        out[key] = arm()
+        arm_s[key] = time.perf_counter() - t0
+        log(f"[timing] phase 18 ({key}): {arm_s[key]:.1f} s")
+    out["arm_s"] = arm_s
+    out["launches"] = {f"a/{arm}/{t}": r["launches"] for arm in ("stem", "dense")
+                       for t, r in out["a"][arm]["meshes"].items()}
+    out["launches"]["b/mesh_1x2"] = out["b"]["mesh_1x2"]["launches"]
+    for t in sizes["c_meshes"]:
+        out["launches"][f"c/{t[0]}x{t[1]}"] = out["c"][f"{t[0]}x{t[1]}"]["launches"]
+    out["s"] = time.perf_counter() - t_start
+    log(f"[phase18] done in {out['s']:.1f} s (arms: " +
+        ", ".join(f"{k} {v:.1f}" for k, v in arm_s.items()) + ")")
+    return out
+
+
 def phase_clock():
     """A function that logs the seconds since its last call (or since this
     call) under a phase's name: the proof's time by phase."""
@@ -5869,7 +6262,9 @@ def main() -> None:
                      ("TRITON_CACHE_DIR", "triton")):
         os.environ.setdefault(var, str(ROOT / "build" / sub))
 
-    # Phase 2: build.
+    # Phase 2: build (the parent tree's kernels, for phase 3c, beside it).
+    parent = parent_tree(args.parent)
+    parent_build = start_parent_build(parent)
     t0 = time.perf_counter()
     libs = _build.build_all()
     log(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
@@ -5882,7 +6277,7 @@ def main() -> None:
     prefill_kernel_phase(records)
     prefill_head_dim_phase(records)
     stamp("phase 3")
-    parent_ab_phase(records, parent_tree(args.parent))
+    parent_ab_phase(records, parent, parent_build)
     AB_INPUTS.clear()
     stamp("phase 3c")
 
@@ -5952,6 +6347,12 @@ def main() -> None:
     stamp("phase 17")
     p17_launches = lambda key: {arm: n.get(key, 0) for arm, n in p17["launches"].items()}
 
+    # Phase 18: the mesh fixed-batch prefill and serve steps (every shard
+    # of a mesh on this one card).
+    p18 = mesh_serving_phase()
+    stamp("phase 18")
+    p18_launches = lambda key: {arm: n.get(key, 0) for arm, n in p18["launches"].items()}
+
     kernels = []
     for key in ("score/decode", "score/chunk", "attend/decode", "attend/chunk"):
         kernel, lane = key.split("/")
@@ -5988,6 +6389,7 @@ def main() -> None:
             phase15_launches=p15_launches(counter),
             phase16_launches=p16_launches(counter),
             phase17_launches=p17_launches(counter),
+            phase18_launches=p18_launches(counter),
             max_abs_err=max(r["max_abs_err"]
                             for r in records[f"{key}/prefill"].values()),
             ms=rec["ms"], host_ms=rec["host_ms"], plain_ms=rec["plain_ms"],

@@ -443,6 +443,27 @@ class SparsityPolicy:
         return self.schedule.prefill_budgets(
             nq, nk, block_size=self.block_size, kv_len=kv_len)
 
+    def prefill_live_counts(self, seq_len: int, kv_len: Optional[int] = None):
+        """The live count of each query-block row of the prefill's selection
+        where the lengths alone fix it, else None.  A budget-driven
+        selector keeps min(budget, causal blocks) of every row; when every
+        row's budget also holds its forced sink and local blocks (which
+        outrank the rest), and local blocks are forced, the diagonal block
+        is always among them.  A threshold selector's counts depend on the
+        data: None."""
+        if not self.selector.budget_driven or self.local_blocks < 1:
+            return None
+        kv_len = seq_len if kv_len is None else kv_len
+        budgets = np.asarray(self.prefill_budgets(seq_len, kv_len), dtype=np.int64)
+        nk = -(-kv_len // self.block_size)
+        diag = np.arange(len(budgets)) + (nk - len(budgets))
+        sink = np.minimum(self.sink_blocks, diag + 1)
+        local = np.minimum(self.local_blocks, diag + 1)
+        both = np.maximum(0, sink - np.maximum(0, diag - self.local_blocks + 1))
+        if np.any(budgets < sink + local - both):
+            return None
+        return np.minimum(budgets, diag + 1)
+
     def prefill_scores(self, q, k, v) -> torch.Tensor:
         m = self.metric.prefill_scores(q, k, v, block_size=self.block_size)
         group = q.shape[1] // k.shape[1]

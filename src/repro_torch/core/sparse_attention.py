@@ -255,10 +255,14 @@ def _gather_exec(q, k, v, sel, *, policy, scale, indices, slot_mask, dedup,
 
 def _fused_executor(q, k, v, sel, *, policy, scale, indices, slot_mask,
                     live_counts, dedup, **_):
+    # on meta tensors (the dry run) the kernel counts the pairs the budgets
+    # fix, where they fix them
+    known = (policy.prefill_live_counts(q.shape[2], k.shape[2])
+             if q.device.type == "meta" else None)
     return bsa_kernels.attention(
         q.contiguous(), k.contiguous(), v.contiguous(), indices.contiguous(),
         live_counts.contiguous(), block_size=policy.block_size, scale=scale,
-        group_dedup=dedup)
+        group_dedup=dedup, known_counts=known)
 
 
 policy_lib.register_executor("dense", _dense_oracle_executor,

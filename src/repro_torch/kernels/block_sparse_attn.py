@@ -153,7 +153,7 @@ def block_sparse_attention_plain(q, k, v, indices, live_counts, *,
 def block_sparse_attention(q, k, v, indices, slot_mask=None, *,
                            block_size: int = 128, scale=None,
                            group_dedup: bool = False, live_counts=None,
-                           return_lse: bool = False):
+                           return_lse: bool = False, known_counts=None):
     """Sparse causal attention over selected key blocks.
 
     q: (b, hq, n, d); k: (b, hk, n, d); v: (b, hk, n, dv); indices: (b,
@@ -163,14 +163,18 @@ def block_sparse_attention(q, k, v, indices, slot_mask=None, *,
     take the plain version; CUDA tensors launch the kernel.  Returns (b,
     hq, n, dv); with ``return_lse`` the pair (out, lse), lse (b, hq, n)
     fp32 each row's natural-log log-sum-exp, +inf for a row that saw no
-    key (the backward's input)."""
+    key (the backward's input).  ``known_counts`` (numpy (nq,), every
+    (batch, head) row's live counts where the lengths alone fix them:
+    ``SparsityPolicy.prefill_live_counts``) lets the shape-only path on
+    ``meta`` tensors count the selection's pairs exactly."""
     cnt = (slot_mask.sum(dim=-1, dtype=torch.int32) if live_counts is None
            else live_counts)
     if q.device.type == "meta":
         b, hq, n, _ = q.shape
         out = torch.empty((b, hq, n, v.shape[-1]), dtype=q.dtype, device=q.device)
-        cost.note_kernel("block_sparse_attention",
-                         *_meta_bytes_flops(q, k, v, indices, block_size, group_dedup), like=q)
+        nbytes, flops, pairs = _meta_bytes_flops(q, k, v, indices, block_size, group_dedup,
+                                                 known_counts)
+        cost.note_kernel("block_sparse_attention", nbytes, flops, like=q, pairs=pairs)
         if not return_lse:
             return out
         return out, torch.empty((b, hq, n), dtype=torch.float32, device=q.device)
@@ -225,16 +229,27 @@ def block_sparse_attention(q, k, v, indices, slot_mask=None, *,
     return (out, lse) if return_lse else out
 
 
-def _meta_bytes_flops(q, k, v, indices, bs: int, group_dedup: bool) -> tuple:
-    """``kernels.cost.bsa_bytes_flops`` from a selection's shape alone
-    (``meta`` tensors carry no data): every slot live, below the diagonal
-    and a block of its own (at most every key block of every KV head)."""
+def _meta_bytes_flops(q, k, v, indices, bs: int, group_dedup: bool,
+                      known_counts=None) -> tuple:
+    """``kernels.cost.bsa_bytes_flops`` on ``meta`` tensors (no data):
+    (bytes, flops, (rule, causal pairs of the selection's rows)).  With
+    ``known_counts`` the pairs are the budgets' (``cost.budget_pairs``,
+    exact) and each KV head's blocks are read at most once; without, every
+    slot is counted live, below the diagonal and a block of its own (at
+    most every key block of every KV head)."""
     d, dv, es = q.shape[-1], v.shape[-1], q.element_size()
-    blocks = min(indices.numel(), k.shape[0] * k.shape[1] * (k.shape[2] // bs))
-    heads = q.shape[1] // k.shape[1] if group_dedup else 1
+    b, hk, nk = k.shape[0], k.shape[1], k.shape[2] // bs
+    rows = indices.numel() // indices.shape[-1] // indices.shape[2]   # batch x heads
+    if known_counts is not None:
+        pairs = ("budgets", cost.budget_pairs(known_counts, bs, rows))
+        blocks = min(rows * int(sum(known_counts)), b * hk * nk)
+    else:
+        pairs = ("bound", cost.selected_pairs_bound(indices, bs))
+        blocks = min(indices.numel(), b * hk * nk)
+    heads = q.shape[1] // hk if group_dedup else 1
     nbytes = (q.numel() * (d + dv) // d * es + blocks * bs * (d + dv) * es
               + indices.numel() * 4 + indices.numel() // indices.shape[-1] * 4)
-    return nbytes, 2.0 * (d + dv) * cost.selected_pairs_bound(indices, bs) * heads
+    return nbytes, 2.0 * (d + dv) * pairs[1] * heads, pairs
 
 
 def _live_mask(idx: torch.Tensor, live_counts: torch.Tensor, nq: int) -> torch.Tensor:
@@ -448,14 +463,16 @@ class _Attention(torch.autograd.Function):
 
 
 def attention(q, k, v, indices, live_counts, *, block_size: int, scale=None,
-              group_dedup: bool = False) -> torch.Tensor:
+              group_dedup: bool = False, known_counts=None) -> torch.Tensor:
     """Differentiable block-sparse causal attention:
     ``block_sparse_attention`` forward, ``block_sparse_attention_bwd``
     backward (kernels on a CUDA tensor, the plain versions on the CPU).  A
     call that needs no gradient (serving, or under ``torch.no_grad``) is
-    the plain forward call: no lse is stored."""
+    the plain forward call: no lse is stored.  ``known_counts`` as
+    ``block_sparse_attention`` takes it."""
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
         return block_sparse_attention(q, k, v, indices, block_size=block_size, scale=scale,
-                                      group_dedup=group_dedup, live_counts=live_counts)
+                                      group_dedup=group_dedup, live_counts=live_counts,
+                                      known_counts=known_counts)
     return _Attention.apply(q, k, v, indices, live_counts, block_size, scale,
                             group_dedup)

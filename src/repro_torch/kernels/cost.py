@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 HBM_BYTES_S = 3.35e12        # H100 SXM data sheet
@@ -93,6 +94,15 @@ def vmag_bytes_flops(v, out) -> tuple:
     return v.numel() * v.element_size() + out.numel() * 4, 2.0 * v.numel()
 
 
+def budget_pairs(counts, bs: int, rows: int) -> float:
+    """The causal pairs of ``rows`` selection rows (batch x heads) whose
+    query-block rows keep ``counts`` (numpy) live blocks, the diagonal one
+    among them: (count - 1) B^2 + B (B + 1) / 2 a row of a live block."""
+    c = np.asarray(counts, dtype=np.float64)
+    c = c[c > 0]
+    return float(rows * ((c - 1) * bs * bs + bs * (bs + 1) / 2).sum())
+
+
 def selected_pairs_bound(idx, bs: int) -> float:
     """The causal pairs a block-sparse call's selection can hold at most,
     from its shape alone: every slot live and below the diagonal (a
@@ -125,13 +135,18 @@ def counting(counter):
         _TALLY[0] = prev
 
 
-def note_kernel(name: str, nbytes: float, flops: float, like: torch.Tensor) -> None:
+def note_kernel(name: str, nbytes: float, flops: float, like: torch.Tensor,
+                pairs=None) -> None:
     """A kernel's shape-only call on ``meta`` tensors: its work and the
     query heads it was given (``like``: its first input, whose
-    coordinate the counter knows)."""
+    coordinate the counter knows); ``pairs`` (rule, count): the causal
+    pairs of a block-sparse call and the rule that counted them, "budgets"
+    or "bound", for a counter with a ``kernel_pairs`` method."""
     if _TALLY[0] is not None:
         heads = like.shape[1] if like.dim() == 4 else None
         _TALLY[0].kernel(name, float(flops), float(nbytes), heads, like)
+        if pairs is not None and hasattr(_TALLY[0], "kernel_pairs"):
+            _TALLY[0].kernel_pairs(pairs[0], float(pairs[1]), like)
 
 
 def note_collective(kind: str, nbytes: float, coord) -> None:

@@ -21,7 +21,9 @@ A coordinate's ``Cost`` has the reference's fields:
   (``["elementwise"]``, reductions included, as the reference counts
   them), and a kernel's by the formulas its bound uses
   (``kernels/cost.py``; ``["kernel"]``, with its calls and the query heads
-  each was given in ``kernel_calls`` / ``kernel_heads``);
+  each was given in ``kernel_calls`` / ``kernel_heads``, and a
+  block-sparse call's causal pairs by the rule that counted them in
+  ``kernel_pairs``);
 * ``bytes``: operands + results of every operator (the no-fusion bound);
   ``bytes_min``: only matrix products, index gathers / scatters, sorts,
   reductions, kernels and collectives (the fusion-ideal count);
@@ -89,6 +91,7 @@ class Cost:
     bytes_by_opcode: dict = dataclasses.field(default_factory=dict)
     kernel_calls: dict = dataclasses.field(default_factory=dict)
     kernel_heads: dict = dataclasses.field(default_factory=dict)
+    kernel_pairs: dict = dataclasses.field(default_factory=dict)
     live: int = 0
     peak: int = 0
 
@@ -172,6 +175,11 @@ class CostMode(TorchDispatchMode):
         cost._add("bytes_by_opcode", "kernel", nbytes)
         cost._add("kernel_calls", name, 1)
         cost.kernel_heads.setdefault(name, []).append(heads)
+
+    def kernel_pairs(self, rule: str, pairs: float, like) -> None:
+        """A block-sparse call's causal pairs, by the rule that counted
+        them ("budgets": exact; "bound": every slot live)."""
+        self.costs[self.coord_of([like])]._add("kernel_pairs", rule, pairs)
 
     def collective(self, kind: str, nbytes: float, coord) -> None:
         cost = self.costs[coord if coord is not None else self.coord_of([])]

@@ -1,29 +1,42 @@
 """Step functions (port of ``make_train_step``, ``make_unified_step``,
 ``make_monolithic_prefill``, ``make_prefill_step``, ``set_cache_positions``,
-``make_serve_step``, ``opt_state_shardings``, ``train_arg_shardings`` and
-``abstract_opt_state`` from ``repro/launch/steps.py``).  PyTorch runs
-eagerly, so each step is a plain closure; the reference's trace counting
-has no counterpart here, its ``shard_map`` + ``vmap`` over the serving
-mesh becomes a loop over the slot groups (``make_unified_step(smesh=)``),
-its sharded train step a loop over the data shards
-(``make_train_step(grad_shardings=)``), and the page extract / restore /
-copy steps are the engine's direct calls of ``runtime/offload.py`` and
-``runtime/paged.py``."""
+``make_serve_step``, ``default_stem_cfg``, ``opt_state_shardings``,
+``train_arg_shardings`` and ``abstract_opt_state`` from
+``repro/launch/steps.py``).  PyTorch runs eagerly, so each step is a plain
+closure; the reference's trace counting has no counterpart here, its
+``shard_map`` + ``vmap`` over the serving mesh becomes a loop over the slot
+groups (``make_unified_step(smesh=)``), its sharded train step a loop over
+the data shards (``make_train_step(grad_shardings=)``), its prefill and
+serve steps lowered under the dry run's shardings a loop over the data
+shards too (``mesh_prefill_step``, ``mesh_serve_step``), and the page
+extract / restore / copy steps are the engine's direct calls of
+``runtime/offload.py`` and ``runtime/paged.py``."""
 from __future__ import annotations
 
 import contextlib
+import types
 from typing import Optional
 
 import torch
 
 from repro_torch import optim
 from repro_torch.core import policy as policy_lib
+from repro_torch.core.config import StemConfig
 from repro_torch.models import attention, mla, moe, transformer
 from repro_torch.optim.adamw import tree_leaves, tree_map
 from repro_torch.sharding import arrays
 from repro_torch.sharding import context as shctx
 from repro_torch.sharding import rules as rules_lib
 from repro_torch.sharding.arrays import ShardedArray
+
+
+PAPER_STEM = StemConfig()   # paper defaults: B=128, mu=0.7, beta=0.2, floor 54
+
+
+def default_stem_cfg(cfg) -> Optional[StemConfig]:
+    """The prefill policy of the dry run's serving cells: the paper's
+    defaults where the arch uses Stem."""
+    return PAPER_STEM if cfg.use_stem else None
 
 
 def loss_and_grads(bundle, master, batch: dict, *, stem_cfg=None, policies=None,
@@ -493,6 +506,11 @@ def set_cache_positions(caches, cache_lens):
     so the position leaf becomes ``(n_layers, b)`` and each layer reads its
     ``(b,)`` row."""
     def fix(c):
+        if isinstance(c, (attention.KVCache, mla.MLACache)) and isinstance(c.pos, ShardedArray):
+            mesh = c.pos.mesh       # a mesh step's caches: the positions replicated
+            lens = torch.as_tensor(cache_lens, dtype=torch.int32, device=mesh.devices[0])
+            pos = lens.expand((c[0].shape[0],) + lens.shape).contiguous()
+            return c._replace(pos=arrays.place(pos, rules_lib.NamedSharding(mesh, ())))
         if isinstance(c, (attention.KVCache, mla.MLACache)):
             lens = torch.as_tensor(cache_lens, dtype=torch.int32,
                                    device=c.pos.device)
@@ -501,6 +519,8 @@ def set_cache_positions(caches, cache_lens):
             return {k: fix(v) for k, v in c.items()}
         if isinstance(c, list):
             return [fix(v) for v in c]
+        if isinstance(c, tuple) and hasattr(c, "_fields"):     # DecLayerCache
+            return type(c)(*(fix(v) for v in c))
         return c
     return fix(caches)
 
@@ -523,6 +543,235 @@ def make_serve_step(bundle, *, stem_cfg=None, budget_frac: float = 1.0):
             return bundle.decode_step(params, tokens, caches)
         return bundle.decode_step(params, tokens, caches,
                                   stem_cfg=stem_cfg, budget_frac=budget_frac)
+    return serve_step
+
+
+def _cache_map(fn, tree, *rest, field=None):
+    """``fn(field, leaf, *rest_leaves)`` over a cache tree (lists, dicts and
+    NamedTuple caches; ``field`` the leaf's NamedTuple field name)."""
+    if isinstance(tree, list):
+        return [_cache_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    if isinstance(tree, dict):
+        return {k: _cache_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_cache_map(fn, v, *(r[i] for r in rest), field=f)
+                            for i, (f, v) in enumerate(zip(tree._fields, tree))))
+    return fn(field, tree, *rest)
+
+
+class _MeshServing:
+    """What the mesh prefill and serve steps share: the data shards of
+    ``mesh`` (each one's model-0 coordinate, device and model shards), the
+    first ``data_shards`` of them run, and the assembly of the shards'
+    outputs into ``ShardedArray``s in the reference's output shardings."""
+
+    def __init__(self, bundle, mesh, data_shards: Optional[int]):
+        self.cfg, self.mesh = bundle.cfg, mesh
+        values, axes = bundle.abstract_params()
+        self.param_sh = rules_lib.param_shardings(self.cfg, mesh, values, axes)
+        self.coords = rules_lib.data_coords(mesh)
+        self.devices = [mesh.device(c) for c in self.coords]
+        self.run = self.coords[:data_shards] if data_shards else self.coords
+        self.tp = mesh.shape.get("model", 1)
+        self.model_coords = [shctx.model_shards_of(mesh, c).coords if self.tp > 1 else (c,)
+                             for c in self.coords]
+
+    def model_parallel(self, coord):
+        return (shctx.model_parallel(self.mesh, coord) if self.tp > 1
+                else contextlib.nullcontext())
+
+    def shards(self, batch_size: int) -> list:
+        """[(data shard, its rows [lo, hi))] to run: each data shard its
+        block of the batch where the data axes divide it; else (the rules
+        replicate the batch: the long-context cell's one row) the first
+        data shard every row, its outputs every data shard's, which only a
+        run of that one shard may take (``data_shards=1``)."""
+        n = len(self.coords)
+        if batch_size % n:
+            if len(self.run) > 1:
+                raise ValueError(f"a batch of {batch_size} rows does not split over {n} "
+                                 "data shards (the rules replicate it; run one data "
+                                 "shard: data_shards=1)")
+            return [(0, (0, batch_size))]
+        return [(d, (d * batch_size // n, (d + 1) * batch_size // n))
+                for d in range(len(self.run))]
+
+    def outputs(self, outs: list, batch_size: int) -> list:
+        """The run data shards' outputs, one a data shard: the first
+        shard's for every shard where the batch is replicated."""
+        return outs * len(self.coords) if batch_size % len(self.coords) else outs
+
+    def assemble(self, outs: list, sharding, shape, dtype) -> ShardedArray:
+        """The ShardedArray whose blocks are the run data shards' outputs:
+        ``outs[d]`` data shard ``d``'s (a tensor, or one part a model shard:
+        ``arrays.ModelShards`` / ``common.VocabShards``).  Each block must be
+        the sharding's block at its coordinate; a data shard not run (the
+        dry run's) gets empty blocks."""
+        idx = sharding.indices(shape)
+        blocks = {}
+        for d, (dc, mcs) in enumerate(zip(self.coords, self.model_coords)):
+            for t, c in enumerate(mcs):
+                want = tuple(len(range(*sl.indices(n))) for sl, n in zip(idx[c], shape))
+                if d >= len(outs):
+                    with shctx.at(c):
+                        blocks[c] = torch.empty(want, dtype=dtype, device=self.mesh.device(c))
+                    continue
+                leaf = outs[d]
+                blk = leaf.parts[t] if hasattr(leaf, "parts") else leaf
+                if tuple(blk.shape) != want:
+                    raise AssertionError(f"the block at {c} is {tuple(blk.shape)}, its "
+                                         f"sharding {sharding.spec} of {tuple(shape)} "
+                                         f"gives {want}")
+                blocks[c] = blk.to(self.mesh.device(c))
+        return ShardedArray(sharding, shape, dtype, blocks)
+
+    def logits(self, outs: list, batch_size: int) -> ShardedArray:
+        """The last-position logits in the reference's ``("batch", "vocab")``
+        sharding, left split by vocab."""
+        rules = rules_lib.logical_rules(self.cfg, self.mesh)
+        shape = (batch_size, self.cfg.padded_vocab)
+        sh = rules_lib.NamedSharding(self.mesh, rules_lib.spec_for(
+            shape, ("batch", "vocab"), rules, self.mesh))
+        return self.assemble(outs, sh, shape, torch.float32)
+
+    def positions(self, outs: list, old: Optional[ShardedArray], sharding) -> ShardedArray:
+        """A ``pos`` leaf, replicated: the data shards' (L,) positions (one
+        value for every row: the first shard's) or their (L, b) rows
+        concatenated (a data shard not run keeps its old rows, advanced)."""
+        lead = self.devices[0]
+        if outs[0].ndim == 1 or (old is not None and old.shape[1] == outs[0].shape[1]):
+            return arrays.place(outs[0].to(lead), sharding, copy=False)
+        rows = [o.to(lead) for o in outs]
+        if len(rows) < len(self.coords):
+            full = old.gather(lead)
+            per = full.shape[1] // len(self.coords)
+            rows += [full[:, d * per:(d + 1) * per] + 1
+                     for d in range(len(rows), len(self.coords))]
+        return arrays.place(torch.cat(rows, dim=1), sharding, copy=False)
+
+
+def mesh_prefill_step(bundle, mesh, *, max_len: int, stem_cfg=None, policies=None,
+                      data_shards: Optional[int] = None):
+    """The one-shot prefill over a ``TrainMesh`` (ref ``make_prefill_step``
+    under ``jax.jit`` with the dry run's shardings): (params, batch) ->
+    (last-position logits, caches).
+
+    ``params`` is a ``ShardedArray`` tree in ``rules.param_shardings``'
+    blocks (``arrays.place``), ``batch`` maps names to ``ShardedArray``s of
+    ``rules.batch_sharding`` or to tensors.  Each data shard, in rank
+    order, runs ``bundle.prefill`` on its rows over its model shards
+    inside ``sharding.context.model_parallel`` (at a model axis above 1),
+    as ``mesh_train_step``'s forward does: attention and MLA by heads, the
+    MLPs by ``mlp``, the SSD and RG-LRU by their heads / channels, MoE
+    experts, the embedding and logits by ``vocab``.  Every cache leaf is
+    made at its coordinate in ``rules.cache_shardings``' layout (KV caches
+    by KV heads where the rules split them, else by sequence; MLA's latents
+    by sequence; the SSD / RG-LRU states and conv tails by heads /
+    channels; the positions replicated).
+
+    Returns the logits as a ``ShardedArray`` (b, padded vocab) in the
+    reference's ``("batch", "vocab")`` sharding (split by vocab over the
+    model axis, never gathered whole) and the caches as a tree of
+    ``ShardedArray``s in ``rules.cache_shardings``.  At a (1, 1) mesh every
+    block is the one-device step's tensor, bitwise.
+
+    ``data_shards`` runs the first that many data shards only (the dry
+    run's); the other shards' output blocks are left empty."""
+    ms = _MeshServing(bundle, mesh, data_shards)
+    kw = {"policies": policies} if policies else {}
+
+    def prefill_step(params, batch: dict):
+        B = next(iter(batch.values())).shape[0]
+        logits, caches = [], []
+        for d, (lo, hi) in ms.shards(B):
+            coord, dev = ms.coords[d], ms.devices[d]
+            mb = {k: _rows(v, lo, hi, dev) for k, v in batch.items()}
+            with ms.model_parallel(coord):
+                lg, cache = bundle.prefill(shard_view(params, dev), mb, max_len=max_len,
+                                           stem_cfg=stem_cfg, **kw)
+            logits.append(lg)
+            caches.append(cache)
+        logits, caches = ms.outputs(logits, B), ms.outputs(caches, B)
+        n_data = len(ms.coords) if B % len(ms.coords) == 0 else 1
+
+        def whole(field, leaf):
+            """The global leaf's shape and dtype (no tensor: nothing is
+            allocated, nothing counted)."""
+            shape = tuple(leaf.shape)
+            if len(shape) >= 2:
+                shape = (shape[0], shape[1] * n_data) + shape[2:]
+            return types.SimpleNamespace(shape=torch.Size(shape), dtype=getattr(
+                leaf, "dtype", None) or leaf.parts[0].dtype)
+        shapes = _cache_map(whole, caches[0])
+        cache_sh = rules_lib.cache_shardings(ms.cfg, mesh, shapes)
+
+        def build(field, shape, sh, *outs):
+            if field == "pos":
+                return ms.positions(list(outs), None, sh)
+            return ms.assemble(list(outs), sh, shape.shape, shape.dtype)
+        return ms.logits(logits, B), _cache_map(build, shapes, cache_sh, *caches)
+
+    return prefill_step
+
+
+def mesh_serve_step(bundle, mesh, *, stem_cfg=None, budget_frac: float = 1.0,
+                    data_shards: Optional[int] = None):
+    """The decode step over a ``TrainMesh`` (ref ``make_serve_step`` under
+    ``jax.jit`` with the dry run's shardings, its caches donated):
+    (params, tokens, caches[, cache_lens]) -> (logits, caches).
+
+    ``params`` as ``mesh_prefill_step`` takes them, ``tokens`` (b, 1) a
+    ``ShardedArray`` of ``rules.batch_sharding`` or a tensor, ``caches``
+    the tree of ``ShardedArray``s ``mesh_prefill_step`` returns.
+    ``cache_lens`` ((b,) int) pins every KV / latent cache's write
+    positions per row (``set_cache_positions``: the ragged path); pass it
+    on the first step only.  Each data shard decodes its rows over its
+    model shards inside ``sharding.context.model_parallel``, every cache
+    block read and written in place at its coordinate (a KV cache split by
+    sequence writes each row's token on the shard holding its position and
+    combines the shards' partial softmaxes: ``attention.apply_decode``).
+    Returns the logits as ``mesh_prefill_step`` does and the caches: the
+    same blocks, updated, with new ``pos`` leaves (replicated).  With
+    ``stem_cfg`` the decode is policy-sparse, as ``make_serve_step``'s.
+    At a (1, 1) mesh the step is the one-device step's, bitwise.
+
+    ``data_shards`` as in ``mesh_prefill_step``: the caches of the data
+    shards not run are left as they were."""
+    ms = _MeshServing(bundle, mesh, data_shards)
+    kw = {} if stem_cfg is None else {"stem_cfg": stem_cfg, "budget_frac": budget_frac}
+
+    def serve_step(params, tokens, caches, cache_lens=None):
+        if cache_lens is not None:
+            caches = set_cache_positions(caches, cache_lens)
+        B = tokens.shape[0]
+        logits, poss = [], []
+        for d, (lo, hi) in ms.shards(B):
+            coord, dev = ms.coords[d], ms.devices[d]
+
+            def view(field, leaf):
+                if field == "pos":
+                    region = None if len(leaf.shape) == 1 else ((0, leaf.shape[0]), (lo, hi))
+                    return leaf.gather(dev, region=region, coord=coord)
+                if ms.tp == 1:
+                    return leaf.blocks[coord]
+                mcs = ms.model_coords[d]
+                dim = arrays.model_dim(leaf.sharding)
+                return arrays.ModelShards(
+                    [leaf.blocks[c] for c in mcs], dim,
+                    None if dim is None else [leaf.index(c)[dim] for c in mcs],
+                    (leaf.shape[0], hi - lo) + tuple(leaf.shape[2:]))
+            with ms.model_parallel(coord):
+                lg, new = bundle.decode_step(shard_view(params, dev), _rows(tokens, lo, hi, dev),
+                                             _cache_map(view, caches), **kw)
+            logits.append(lg)
+            poss.append(new)
+
+        def build(field, leaf, *outs):
+            if field == "pos":
+                return ms.positions(list(outs), leaf, leaf.sharding)
+            return leaf
+        return ms.logits(ms.outputs(logits, B), B), _cache_map(build, caches, *poss)
+
     return serve_step
 
 

@@ -212,10 +212,19 @@ def _group_pooled_scores(qs: list, ks: list, vs: list, pol, group: int, mp) -> l
     return out
 
 
-def _apply_full_tp(params, x, cfg: ArchConfig, mp, *, positions, pol, window,
-                   use_rope: bool, causal: bool):
-    """``apply_full`` over the model shards of ``mp`` (the module
-    docstring)."""
+def _shard(params, t: int) -> dict:
+    """Model shard ``t``'s leaves: its block of each ``ModelShards``, the
+    rest as given."""
+    return {k: v.parts[t] if isinstance(v, arrays.ModelShards) else v
+            for k, v in params.items()}
+
+
+def _tp_project(params, x, cfg: ArchConfig, mp, positions, use_rope: bool):
+    """Each model shard's queries (its block of heads) and the K / V its
+    query heads read, on its device: (xs, qs, ks, vs, kv).  KV heads split
+    with the query heads when the rules split ``kv_heads``; otherwise K / V
+    are projected once on the lead shard (``kv``: that whole (k, v), else
+    None) and each shard is sent the KV heads its query heads read."""
     h, hk = params["wq"].shape[1], params["wk"].shape[1]
     hl, group = h // mp.tp, h // hk
     if hl % group and group % hl:
@@ -223,23 +232,28 @@ def _apply_full_tp(params, x, cfg: ArchConfig, mp, *, positions, pol, window,
                                   f"blocks of {hl}, neither a multiple nor a divisor "
                                   f"of the GQA group {group}")
     kv_split = isinstance(params["wk"], arrays.ModelShards)
-    shard = lambda t: {k: v.parts[t] if isinstance(v, arrays.ModelShards) else v
-                       for k, v in params.items()}
     xs = arrays.to_model_shards(x, mp)
-    qs, ks, vs = [], [], []
+    qs, ks, vs, kv = [], [], [], None
     if not kv_split:
-        # K / V once on the lead shard; each shard gets the KV heads it reads
-        k, v = _kv(params, x, cfg, positions, use_rope)
-        kv = [(t * hl // group, ((t + 1) * hl - 1) // group + 1) for t in range(mp.tp)]
-        ks, vs = arrays.to_model_shards(k, mp, 1, kv), arrays.to_model_shards(v, mp, 1, kv)
+        kv = _kv(params, x, cfg, positions, use_rope)
+        rng = [(t * hl // group, ((t + 1) * hl - 1) // group + 1) for t in range(mp.tp)]
+        ks, vs = (arrays.to_model_shards(t, mp, 1, rng) for t in kv)
     for t in range(mp.tp):
         with mp.on(t):
-            qs.append(_q(shard(t), xs[t], cfg, positions, use_rope))
+            qs.append(_q(_shard(params, t), xs[t], cfg, positions, use_rope))
             if kv_split:
-                k, v = _kv(shard(t), xs[t], cfg, positions, use_rope)
+                k, v = _kv(_shard(params, t), xs[t], cfg, positions, use_rope)
                 ks.append(k)
                 vs.append(v)
-    n = x.shape[1]
+    return xs, qs, ks, vs, kv
+
+
+def _tp_attend(qs, ks, vs, pol, mp, n: int, group: int, *, window,
+               causal: bool) -> list:
+    """Each model shard's attention over its heads (a KV group of ``group``
+    query heads split over shards pools its metric across them): the
+    outputs, one a shard."""
+    hl = qs[0].shape[1]
     scores = [None] * mp.tp
     if window is None and takes_sparse_path(pol, n, causal) \
             and pol.group_reduce != "none" and hl < group:
@@ -248,11 +262,25 @@ def _apply_full_tp(params, x, cfg: ArchConfig, mp, *, positions, pol, window,
     for t in range(mp.tp):
         with mp.on(t):
             if window is not None:
-                o = _local(qs[t], ks[t], vs[t], window)
+                outs.append(_local(qs[t], ks[t], vs[t], window))
             else:
-                o, _ = sparse_or_dense(qs[t], ks[t], vs[t], pol, n, causal, False,
-                                       scores[t])
-            outs.append(_out_proj(o, x, {"wo": params["wo"].parts[t]}))
+                outs.append(sparse_or_dense(qs[t], ks[t], vs[t], pol, n, causal, False,
+                                            scores[t])[0])
+    return outs
+
+
+def _apply_full_tp(params, x, cfg: ArchConfig, mp, *, positions, pol, window,
+                   use_rope: bool, causal: bool):
+    """``apply_full`` over the model shards of ``mp`` (the module
+    docstring)."""
+    _, qs, ks, vs, _ = _tp_project(params, x, cfg, mp, positions, use_rope)
+    group = params["wq"].shape[1] // params["wk"].shape[1]
+    os_ = _tp_attend(qs, ks, vs, pol, mp, x.shape[1], group, window=window,
+                     causal=causal)
+    outs = []
+    for t in range(mp.tp):
+        with mp.on(t):
+            outs.append(_out_proj(os_[t], x, {"wo": params["wo"].parts[t]}))
     return arrays.reduce_from_model_shards(outs, mp, x.dtype)
 
 
@@ -292,6 +320,18 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                    pos=torch.zeros((), dtype=torch.int32, device=device))
 
 
+def _cache_of(k, v, n: int, max_len: int, window):
+    """The prompt's K / V (b, hk, n, dh) as the cache holds them: padded to
+    ``max_len``, or the trailing ``L = min(max_len, window)`` keys rolled
+    onto their ring slots (position p at slot p % L)."""
+    if window is not None:
+        L = min(max_len, window)
+        return (torch.roll(k[:, :, -L:], shifts=n % L, dims=2),
+                torch.roll(v[:, :, -L:], shifts=n % L, dims=2))
+    pad = max_len - k.shape[2]
+    return F.pad(k, (0, 0, 0, pad)), F.pad(v, (0, 0, 0, pad))
+
+
 def prefill_into_cache(params, x, cfg: ArchConfig, *, positions, max_len: int,
                        stem_cfg=None, window: Optional[int] = None,
                        use_rope: bool = True):
@@ -301,22 +341,101 @@ def prefill_into_cache(params, x, cfg: ArchConfig, *, positions, max_len: int,
     Windowed: local attention, and the trailing ``L = min(max_len,
     window)`` keys rolled onto their ring slots (position p at slot p % L).
     As in the reference, a prompt shorter than L leaves a cache of n slots,
-    and decode then rings over those n (its window shrinks to n)."""
+    and decode then rings over those n (its window shrinks to n).
+
+    With its heads in ``ModelShards`` (inside ``sharding.context.
+    model_parallel``) the attention runs as ``apply_full``'s and the
+    cache's ``k`` / ``v`` are ``ModelShards`` in ``rules.cache_shardings``'
+    layout: each shard's KV heads where the rules split them, else each
+    shard's block of the (ring) slots for every KV head, cut from the K / V
+    projected once on the lead shard (whole on every shard where the model
+    axis divides neither).  Where the rules leave the query heads whole
+    the attention runs on the lead shard and the cache is cut the same
+    way."""
     pol = policy_lib.as_policy_opt(stem_cfg)
-    q, k, v = _project(params, x, cfg, positions, use_rope=use_rope)
     n = x.shape[1]
+    pos = torch.tensor(n, dtype=torch.int32, device=x.device)
+    if isinstance(params["wq"], arrays.ModelShards):
+        mp = shctx.model_parallel_state()
+        _, qs, ks, vs, kv = _tp_project(params, x, cfg, mp, positions, use_rope)
+        group = params["wq"].shape[1] // params["wk"].shape[1]
+        os_ = _tp_attend(qs, ks, vs, pol, mp, n, group, window=window, causal=True)
+        outs, cks, cvs = [], [], []
+        for t in range(mp.tp):
+            with mp.on(t):
+                outs.append(_out_proj(os_[t], x, {"wo": params["wo"].parts[t]}))
+                if kv is None:
+                    ck, cv = _cache_of(ks[t], vs[t], n, max_len, window)
+                    cks.append(ck)
+                    cvs.append(cv)
+        if kv is None:
+            wk = params["wk"]
+            shape = (x.shape[0], wk.shape[1], cks[0].shape[2], wk.shape[2])
+            ck = arrays.ModelShards(cks, 1, wk.bounds, shape)
+            cv = arrays.ModelShards(cvs, 1, wk.bounds, shape)
+        else:
+            ck, cv = (arrays.cache_blocks(c, mp, (2,))
+                      for c in _cache_of(*kv, n, max_len, window))
+        return (arrays.reduce_from_model_shards(outs, mp, x.dtype),
+                KVCache(k=ck, v=cv, pos=pos))
+    q, k, v = _project(params, x, cfg, positions, use_rope=use_rope)
     if window is not None:
         o = _local(q, k, v, window)
-        L = min(max_len, window)
-        ck = torch.roll(k[:, :, -L:], shifts=n % L, dims=2)
-        cv = torch.roll(v[:, :, -L:], shifts=n % L, dims=2)
     else:
         o, _ = sparse_or_dense(q, k, v, pol, n, True, False)
-        pad = max_len - k.shape[2]
-        ck, cv = F.pad(k, (0, 0, 0, pad)), F.pad(v, (0, 0, 0, pad))
-    cache = KVCache(k=ck, v=cv, pos=torch.tensor(n, dtype=torch.int32,
-                                                 device=x.device))
-    return _out_proj(o, x, params), cache
+    ck, cv = _cache_of(k, v, n, max_len, window)
+    mp = shctx.model_parallel_state()
+    if mp is not None:      # the rules leave the heads whole: the cache's blocks
+        ck, cv = arrays.cache_blocks(ck, mp, (2,)), arrays.cache_blocks(cv, mp, (2,))
+    return _out_proj(o, x, params), KVCache(k=ck, v=cv, pos=pos)
+
+
+def _check_sparse_decode(cache_len: int, window, pol) -> None:
+    if window is not None:
+        raise NotImplementedError(
+            "policy-sparse decode needs global attention, not windowed")
+    if cache_len % pol.block_size != 0:
+        raise ValueError(
+            f"policy-sparse decode needs the cache capacity to be a "
+            f"multiple of the policy block size, but cache len {cache_len} % "
+            f"block {pol.block_size} != 0. Allocate the cache padded to "
+            f"a block/page multiple — ceil(max_len / {pol.block_size}) "
+            f"* {pol.block_size} — as the paged engine does with whole "
+            f"pages (per-row valid lengths may still be ragged; only "
+            f"the buffer capacity must align).")
+
+
+def _decode_attend(q, k_new, v_new, cache: KVCache, cfg: ArchConfig, *, window,
+                   pol, budget_frac: float):
+    """Write the step's K / V into ``cache`` (in place) and attend: (o (b,
+    hq, 1, dh), the cache with ``pos`` advanced)."""
+    pos = cache.pos
+    b = q.shape[0]
+    L = cache.k.shape[2]
+    posv = pos.expand(b)                                         # (b,)
+    ar = torch.arange(L, device=q.device)[None, :]
+    if window is None:
+        ck, cv = common.update_cache(cache.k, cache.v, pos, k_new, v_new)
+        valid = ar <= posv[:, None]                              # (b, L)
+    else:
+        ck, cv = common.update_ring_cache(cache.k, cache.v, pos, k_new, v_new, L)
+        slot_age = posv[:, None] - ((posv[:, None] - ar) % L)
+        valid = (slot_age >= 0) & (slot_age > posv[:, None] - L)
+    new_cache = KVCache(k=ck, v=cv, pos=pos + 1)
+    if pol is not None:
+        summary = decode_lib.summarize_cache(ck, cv, pol)
+        return decode_lib.sparse_decode_attention(
+            q, ck, cv, summary, posv + 1, pol, budget_frac=budget_frac), new_cache
+    h = q.shape[1]
+    hk = ck.shape[1]
+    group = h // hk
+    s = torch.einsum("bhgd,bhkd->bhgk",
+                     q[:, :, 0].reshape(b, hk, group, -1).float(),
+                     ck.float()) * (cfg.head_dim ** -0.5)
+    s = torch.where(valid[:, None, None, :], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgk,bhkd->bhgd", p, cv.float())
+    return o.reshape(b, h, 1, cfg.head_dim), new_cache
 
 
 def apply_decode(params, x, cfg: ArchConfig, cache: KVCache, *,
@@ -334,54 +453,229 @@ def apply_decode(params, x, cfg: ArchConfig, cache: KVCache, *,
     (O(L) a step: the fixed-batch reference arm of the paged engine, not a
     serving path), then the policy's metric and budget rule select blocks
     and the step attends over them only.  ``window`` treats the cache as a
-    ring of ``cache.k.shape[2]`` slots (no policy)."""
+    ring of ``cache.k.shape[2]`` slots (no policy).
+
+    With its heads and the cache in ``ModelShards`` (a mesh serve step)
+    the step runs over the model shards: ``_apply_decode_tp``."""
+    pol = policy_lib.as_policy(stem_cfg) if stem_cfg is not None else None
+    if pol is not None:
+        # validate before any projection: the summaries need whole blocks
+        _check_sparse_decode(cache.k.shape[2], window, pol)
     pos = cache.pos
-    b = x.shape[0]
-    if stem_cfg is not None:
-        # Validate before any projection: the summaries need whole blocks.
-        if window is not None:
-            raise NotImplementedError(
-                "policy-sparse decode needs global attention, not windowed")
-        pol = policy_lib.as_policy(stem_cfg)
-        L0 = cache.k.shape[2]
-        if L0 % pol.block_size != 0:
-            raise ValueError(
-                f"policy-sparse decode needs the cache capacity to be a "
-                f"multiple of the policy block size, but cache len {L0} % "
-                f"block {pol.block_size} != 0. Allocate the cache padded to "
-                f"a block/page multiple — ceil(max_len / {pol.block_size}) "
-                f"* {pol.block_size} — as the paged engine does with whole "
-                f"pages (per-row valid lengths may still be ragged; only "
-                f"the buffer capacity must align).")
     rope_pos = pos[None] if pos.ndim == 0 else pos[:, None]      # (1,)|(b,1)
+    if isinstance(cache.k, arrays.ModelShards):
+        return _apply_decode_tp(params, x, cfg, cache, shctx.model_parallel_state(),
+                                rope_pos=rope_pos, window=window, use_rope=use_rope,
+                                pol=pol, budget_frac=budget_frac)
     q, k_new, v_new = _project(params, x, cfg, rope_pos, use_rope=use_rope)
-    L = cache.k.shape[2]
-    posv = pos.expand(b)                                         # (b,)
-    ar = torch.arange(L, device=x.device)[None, :]
-    if window is None:
-        ck, cv = common.update_cache(cache.k, cache.v, pos, k_new, v_new)
-        valid = ar <= posv[:, None]                              # (b, L)
-    else:
-        ck, cv = common.update_ring_cache(cache.k, cache.v, pos, k_new, v_new, L)
-        slot_age = posv[:, None] - ((posv[:, None] - ar) % L)
-        valid = (slot_age >= 0) & (slot_age > posv[:, None] - L)
-    new_cache = KVCache(k=ck, v=cv, pos=pos + 1)
-    if stem_cfg is not None:
-        summary = decode_lib.summarize_cache(ck, cv, pol)
-        o = decode_lib.sparse_decode_attention(
-            q, ck, cv, summary, posv + 1, pol, budget_frac=budget_frac)
-        return _out_proj(o, x, params), new_cache
-    h = q.shape[1]
-    hk = ck.shape[1]
-    group = h // hk
-    s = torch.einsum("bhgd,bhkd->bhgk",
-                     q[:, :, 0].reshape(b, hk, group, -1).float(),
-                     ck.float()) * (cfg.head_dim ** -0.5)
-    s = torch.where(valid[:, None, None, :], s, -1e30)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgk,bhkd->bhgd", p, cv.float())
-    o = o.reshape(b, h, 1, cfg.head_dim)
+    o, new_cache = _decode_attend(q, k_new, v_new, cache, cfg, window=window, pol=pol,
+                                  budget_frac=budget_frac)
     return _out_proj(o, x, params), new_cache
+
+
+def _partial_softmax(s, keep, pv):
+    """One shard's share of a softmax: the scores ``s`` (..., n) of its
+    keys masked by ``keep``, in fp32, and ``pv(p)`` the probabilities'
+    product with its values: (row max (..., 1), row sum (..., 1),
+    unnormalized output).  A row with no key kept adds zero weight: its max
+    is -1e30, its sum and output 0."""
+    s = torch.where(keep, s, -1e30)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(keep, torch.exp(s - m), 0.0)
+    return m, p.sum(dim=-1, keepdim=True), pv(p)
+
+
+def combine_partials(parts: list, mp) -> torch.Tensor:
+    """The softmax-weighted output of the shards' ``_partial_softmax``
+    results ((shard, (m, l, acc)) pairs), combined on the lead shard in
+    rank order in fp32 (a row that no shard kept a key of: zeros)."""
+    lead = mp.devices[0]
+    got = []
+    with mp.on(0):
+        for t, (m, l, acc) in parts:
+            if t:
+                cost_lib.note_collective("reduce", (m.numel() + l.numel() + acc.numel()) * 4,
+                                         mp.coords[t])
+            got.append((m.to(lead), l.to(lead), acc.to(lead)))
+        top = got[0][0]
+        for m, _, _ in got[1:]:
+            top = torch.maximum(top, m)
+        total = acc_sum = None
+        for m, l, acc in got:
+            w = torch.exp(m - top)
+            total = l * w if total is None else total + l * w
+            acc_sum = acc * w if acc_sum is None else acc_sum + acc * w
+        return acc_sum / torch.where(total > 0, total, torch.ones_like(total))
+
+
+def write_owned(part, lo: int, slot, own, new, dim: int = 2) -> None:
+    """Each row's ``new`` (size 1 along ``dim``) written at its slot
+    ``slot`` (a scalar or (b,)) of ``part``, whose slots along ``dim`` start
+    at ``lo``, where ``own`` (the slot lies in the part) holds; in place.
+    ``dim`` is 2 for a KV cache (b, hk, n, dh), 1 for MLA's (b, n, r)."""
+    li = torch.clamp(slot - lo, 0, part.shape[dim] - 1).long()
+    new = new.to(part.dtype)
+    if slot.ndim == 0:
+        li = li.reshape(1)
+        part.index_copy_(dim, li, torch.where(own, new, part.index_select(dim, li)))
+        return
+    bidx = torch.arange(part.shape[0], device=part.device)
+    if dim == 2:
+        part[bidx, :, li] = torch.where(own[:, None, None], new[:, :, 0], part[bidx, :, li])
+    else:
+        part[bidx, li] = torch.where(own[:, None], new[:, 0], part[bidx, li])
+
+
+def _apply_decode_tp(params, x, cfg: ArchConfig, cache: KVCache, mp, *, rope_pos,
+                     window, use_rope: bool, pol, budget_frac: float):
+    """``apply_decode`` over the model shards of ``mp``, the cache in
+    ``ModelShards`` (``rules.cache_shardings``' layout):
+
+    * split by KV heads: each shard projects its heads, writes its KV heads'
+      new K / V and decodes them as one device does (policy-sparse: it
+      summarizes and selects its own heads); ``wo``'s row blocks give
+      partial products, summed in rank order;
+    * split by sequence (slots), or whole on every shard: each shard
+      projects its query heads and they are all-gathered (where the rules
+      leave the heads whole, the lead projects them, sends them to every
+      shard and applies ``wo`` itself); the new K / V,
+      projected once on the lead shard, are written only on the shard
+      whose slots hold the row's position (on every shard when whole); each
+      shard computes the fp32 partial softmax of its valid slots, and the
+      partials are combined on the lead shard in rank order
+      (``combine_partials``).  Policy-sparse: each shard summarizes its own
+      blocks (kernels 5-6) and scores them, the scores are gathered in
+      rank order, one selection is made on the lead shard, and each shard
+      attends the selected blocks it holds."""
+    ck, cv, pos = cache.k, cache.v, cache.pos
+    b = x.shape[0]
+    h, hk, dh = params["wq"].shape[1], ck.shape[1], ck.shape[3]
+    hl = h // mp.tp
+    xs = arrays.to_model_shards(x, mp)
+    poss = arrays.to_model_shards(pos, mp)
+    new_cache = KVCache(k=ck, v=cv, pos=pos + 1)
+    if ck.dim == 1:
+        outs = []
+        for t in range(mp.tp):
+            with mp.on(t):
+                p = _shard(params, t)
+                q, k_new, v_new = _project(p, xs[t], cfg, rope_pos.to(xs[t].device),
+                                           use_rope=use_rope)
+                o, _ = _decode_attend(q, k_new, v_new,
+                                      KVCache(ck.parts[t], cv.parts[t], poss[t]), cfg,
+                                      window=window, pol=pol, budget_frac=budget_frac)
+                outs.append(_out_proj(o, xs[t], {"wo": p["wo"]}))
+        return arrays.reduce_from_model_shards(outs, mp, x.dtype), new_cache
+    heads_split = isinstance(params["wq"], arrays.ModelShards)
+    if heads_split:
+        qs = []
+        for t in range(mp.tp):
+            with mp.on(t):
+                qs.append(_q(_shard(params, t), xs[t], cfg, rope_pos.to(xs[t].device),
+                             use_rope))
+        q_all = arrays.take(arrays.ModelShards(qs, 1, arrays.even_bounds(h, mp.tp),
+                                               (b, h, 1, dh)), mp, [[(0, h)]] * mp.tp)
+    else:                   # the rules leave the heads whole: on the lead shard
+        q_all = arrays.to_model_shards(_q(params, x, cfg, rope_pos, use_rope), mp)
+    k_new, v_new = _kv(params, x, cfg, rope_pos, use_rope)
+    ks, vs = arrays.to_model_shards(k_new, mp), arrays.to_model_shards(v_new, mp)
+    L = ck.shape[2]
+    bounds = ck.seq_bounds(2)
+    owners = range(mp.tp) if ck.dim == 2 else range(1)
+    for t in range(mp.tp):
+        with mp.on(t):
+            lo, hi = bounds[t]
+            slot = poss[t] if window is None else poss[t] % L
+            own = (slot >= lo) & (slot < hi)
+            write_owned(ck.parts[t], lo, slot, own, ks[t])
+            write_owned(cv.parts[t], lo, slot, own, vs[t])
+    group = h // hk
+    if pol is not None:
+        parts = _sparse_partials(q_all, ck, cv, poss, bounds, owners, pol, budget_frac, mp)
+    else:
+        parts = []
+        for t in owners:
+            with mp.on(t):
+                lo, hi = bounds[t]
+                posv = poss[t].expand(b)[:, None]
+                g = torch.arange(lo, hi, device=posv.device)[None, :]
+                if window is None:
+                    valid = g <= posv
+                else:
+                    age = posv - ((posv - g) % L)
+                    valid = (age >= 0) & (age > posv - L)
+                qg = q_all[t][:, :, 0].reshape(b, hk, group, dh).float()
+                s = torch.einsum("bhgd,bhkd->bhgk", qg, ck.parts[t].float()) \
+                    * (cfg.head_dim ** -0.5)
+                vt = cv.parts[t].float()
+                parts.append((t, _partial_softmax(
+                    s, valid[:, None, None, :],
+                    lambda p: torch.einsum("bhgk,bhkd->bhgd", p, vt))))
+    o = combine_partials(parts, mp).reshape(b, h, 1, dh)
+    if pol is not None:
+        o = o.to(q_all[0].dtype)
+    if not heads_split:
+        return _out_proj(o, x, params), new_cache
+    os_ = arrays.to_model_shards(o, mp, 1, params["wo"].bounds)
+    outs = []
+    for t in range(mp.tp):
+        with mp.on(t):
+            outs.append(_out_proj(os_[t], xs[t], {"wo": params["wo"].parts[t]}))
+    return arrays.reduce_from_model_shards(outs, mp, x.dtype), new_cache
+
+
+def _sparse_partials(q_all, ck, cv, poss, bounds, owners, pol, budget_frac: float,
+                     mp) -> list:
+    """Policy-sparse decode over a cache split by sequence: each owning
+    shard's summaries and scores of its blocks, one selection over the
+    scores gathered in rank order (on the lead shard), then each shard's
+    partial softmax over the selected blocks it holds."""
+    b, hk, L, dh = ck.shape
+    bs = pol.block_size
+    if any(lo % bs or hi % bs for lo, hi in bounds):
+        raise NotImplementedError(
+            f"policy-sparse decode over a cache split by sequence needs each shard's "
+            f"slots {bounds} in whole blocks of {bs}")
+    scores = []
+    with torch.no_grad():
+        for t in owners:
+            with mp.on(t):
+                summary = decode_lib.summarize_cache(ck.parts[t], cv.parts[t], pol)
+                scores.append(pol.decode_scores(q_all[t], summary.k_groups, summary.v_mag))
+        with mp.on(0):
+            lead = mp.devices[0]
+            for t, m in zip(owners, scores):
+                if t:
+                    cost_lib.note_collective("all-gather", m.numel() * 4, mp.coords[t])
+            m = torch.cat([m.to(lead) for m in scores], dim=-1)
+            lens = poss[0].expand(b) + 1
+            sel = pol.decode_select(m, lens, budget_frac=budget_frac)
+    idxs = arrays.to_model_shards(sel.indices, mp)
+    lives = arrays.to_model_shards(sel.live, mp)
+    parts = []
+    for t in owners:
+        with mp.on(t):
+            lo, hi = bounds[t]
+            nb = (hi - lo) // bs
+            local = idxs[t].long() - lo // bs                     # (b, hk, g, kmax)
+            mine = lives[t] & (local >= 0) & (local < nb)
+            at = torch.clamp(local, 0, nb - 1)[..., None, None]
+            group = q_all[t].shape[1] // hk
+            kb = ck.parts[t].reshape(b, hk, 1, nb, bs, dh)
+            vb = cv.parts[t].reshape(b, hk, 1, nb, bs, cv.shape[3])
+            gk = torch.take_along_dim(kb, at, dim=3)           # (b, hk, g, kmax, bs, dh)
+            gv = torch.take_along_dim(vb, at, dim=3)
+            lens = poss[t].expand(b) + 1
+            tok = idxs[t].long()[..., None] * bs + torch.arange(bs, device=gk.device)
+            keep = (tok < lens[:, None, None, None, None]) & mine[..., None]
+            qg = q_all[t].reshape(b, hk, group, 1, dh).float()
+            s = torch.einsum("bhgqd,bhgnkd->bhgqnk", qg, gk.float()) * (dh ** -0.5)
+            n = s.shape[-2] * bs
+            gvf = gv.reshape(b, hk, group, n, gv.shape[-1]).float()
+            parts.append((t, _partial_softmax(
+                s.reshape(b, hk, group, 1, n), keep.reshape(b, hk, group, 1, n),
+                lambda p: torch.einsum("bhgqn,bhgnd->bhgqd", p, gvf))))
+    return parts
 
 
 def apply_decode_paged(params, x, cfg: ArchConfig, pool, page_table,

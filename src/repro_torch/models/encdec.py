@@ -23,7 +23,11 @@ encoder's and the decoder's self attention and the cross attention run by
 heads (``attention.apply_full``, ``cross_kv``, ``apply_cross``), the MLPs
 by ``mlp``, and the embedding, the tied logits and the CE by ``vocab``
 (``models/common.py``); the norms and positions stay on each data shard's
-model-0 device, which holds the residual stream.
+model-0 device, which holds the residual stream.  In a mesh serve step
+(``prefill`` / ``decode_step`` inside ``model_parallel``) the decoder's
+self-attention cache and the cross-attention K / V are ``ModelShards`` in
+``rules.cache_shardings``' layout (by heads where the model axis divides
+them), each model shard attending its own.
 """
 from __future__ import annotations
 
@@ -33,8 +37,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention, common, mlp
-from repro_torch.models.transformer import _index, _remat, _stack
+from repro_torch.models.transformer import _index, _remat, _stack, last_position
 from repro_torch.sharding import arrays
+from repro_torch.sharding import context as shctx
 
 MAX_DEC_POS = 65536   # rows of the learned decoder position table
 
@@ -137,6 +142,8 @@ def _dec_embed(params, tokens, cfg: ArchConfig, start=0):
     into the table, as the reference's ``dynamic_slice`` does)."""
     x = common.embed_lookup(params["embed"], tokens, cfg.torch_dtype)
     n = tokens.shape[1]
+    if torch.is_tensor(start) and start.device.type == "meta":
+        start = 0               # shape-only (the dry run): which rows is not known
     start = min(max(int(start), 0), MAX_DEC_POS - n)
     return x + params["dec_pos"][start:start + n][None].to(cfg.torch_dtype)
 
@@ -182,16 +189,24 @@ def prefill(params, batch: dict, cfg: ArchConfig, *, max_len: int,
     x = _dec_embed(params, batch["tokens"], cfg)
     positions = torch.arange(batch["tokens"].shape[1], device=x.device)
     caches = []
+    mp = shctx.model_parallel_state()
     for layer in _layers(params["dec_layers"], cfg.num_layers):
+        layer = arrays.materialize(layer, x.device)
         h = common.layer_norm_simple(x, layer["norm1"])
         sa, cache = attention.prefill_into_cache(
             layer["self_attn"], h, cfg, positions=positions, max_len=max_len,
             stem_cfg=stem_cfg)
         ck, cv = attention.cross_kv(layer["cross_attn"], enc)
         x = _cross_ffn(layer, x + sa, ck, cv, cfg)
+        if isinstance(ck, list):        # by heads, as cross_kv split them
+            wk = layer["cross_attn"]["wk"]
+            shape = (enc.shape[0], wk.shape[1], enc.shape[1], wk.shape[2])
+            ck, cv = (arrays.ModelShards(c, 1, wk.bounds, shape) for c in (ck, cv))
+        elif mp is not None:
+            ck, cv = arrays.cache_blocks(ck, mp, (2,)), arrays.cache_blocks(cv, mp, (2,))
         caches.append(DecLayerCache(self_cache=cache, cross_k=ck, cross_v=cv))
     x = common.layer_norm_simple(x, params["final_norm"])
-    return common.lm_logits(x[:, -1:], params["embed"])[:, 0], _stack(caches)
+    return last_position(common.lm_logits(x[:, -1:], params["embed"])), _stack(caches)
 
 
 @torch.no_grad()
@@ -202,16 +217,29 @@ def decode_step(params, tokens, caches: DecLayerCache, cfg: ArchConfig):
     x = _dec_embed(params, tokens, cfg, start=caches.self_cache.pos[0])
     new_pos = []
     for li, layer in enumerate(_layers(params["dec_layers"], cfg.num_layers)):
+        layer = arrays.materialize(layer, x.device)
         h = common.layer_norm_simple(x, layer["norm1"])
         view = attention.KVCache(*(leaf[li] for leaf in caches.self_cache))
         sa, view = attention.apply_decode(layer["self_attn"], h, cfg, view,
                                           use_rope=False)
         new_pos.append(view.pos)
-        x = _cross_ffn(layer, x + sa, caches.cross_k[li], caches.cross_v[li], cfg)
+        ck, cv = (_cross_view(c[li]) for c in (caches.cross_k, caches.cross_v))
+        x = _cross_ffn(layer, x + sa, ck, cv, cfg)
     x = common.layer_norm_simple(x, params["final_norm"])
     caches = caches._replace(
         self_cache=caches.self_cache._replace(pos=torch.stack(new_pos)))
-    return common.lm_logits(x, params["embed"])[:, 0], caches
+    return last_position(common.lm_logits(x, params["embed"])), caches
+
+
+def _cross_view(c):
+    """One layer's cross-attention K or V as ``attention.apply_cross``
+    reads it: a tensor, each model shard's heads (a list), or the leaf
+    whole on the lead shard where the rules do not split it by heads."""
+    if not isinstance(c, arrays.ModelShards):
+        return c
+    if c.dim == 1:
+        return c.parts
+    return arrays.lead_whole(c, shctx.model_parallel_state())
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int, frames: int,

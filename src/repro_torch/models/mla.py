@@ -19,7 +19,11 @@ heads: ``sharding.arrays.ModelShards``, inside
 ``w_dkv``, ``w_kr`` and the latent norms run once on the lead shard, whose
 normed query latent, KV latent and rope key are copied to every shard;
 each shard expands its heads, attends over them and applies its rows of
-``wo``; the outputs are summed.
+``wo``; the outputs are summed.  In a mesh serve step the latent cache is
+split by sequence (``rules.cache_shardings``): the prefill cuts each
+shard's slots from the lead's latents, and the decode computes the
+absorbed queries by heads, all-gathers them, and combines the shards'
+partial softmaxes over their slots (``attention.combine_partials``).
 """
 from __future__ import annotations
 
@@ -150,13 +154,19 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 def prefill_into_cache(params, x, cfg: ArchConfig, *, positions, max_len: int,
                        stem_cfg=None):
     """Prefill attention and the latent cache for decode: (out, MLACache
-    with c_kv / k_rope padded to max_len and stored in bf16)."""
+    with c_kv / k_rope padded to max_len and stored in bf16).  With its
+    heads in ``ModelShards`` the latents are ``ModelShards`` of each model
+    shard's slots (whole on every shard where the model axis does not
+    divide ``max_len``)."""
     out, _, c, kr = _full(params, x, cfg, positions, stem_cfg, False)
     pad = max_len - x.shape[1]
-    cache = MLACache(
-        c_kv=F.pad(c, (0, 0, 0, pad)).to(torch.bfloat16),
-        k_rope=F.pad(kr, (0, 0, 0, pad)).to(torch.bfloat16),
-        pos=torch.tensor(x.shape[1], dtype=torch.int32, device=x.device))
+    c_kv = F.pad(c, (0, 0, 0, pad)).to(torch.bfloat16)
+    k_rope = F.pad(kr, (0, 0, 0, pad)).to(torch.bfloat16)
+    mp = shctx.model_parallel_state()
+    if mp is not None:
+        c_kv, k_rope = arrays.cache_blocks(c_kv, mp, (1,)), arrays.cache_blocks(k_rope, mp, (1,))
+    cache = MLACache(c_kv=c_kv, k_rope=k_rope,
+                     pos=torch.tensor(x.shape[1], dtype=torch.int32, device=x.device))
     return out, cache
 
 
@@ -169,11 +179,14 @@ def apply_decode(params, x, cfg: ArchConfig, cache: MLACache):
 
     Absorbed attention: score = (q_nope W_UK) . c + q_rope . k_rope, the
     latent output p . c then W_UV and wo; scores, probabilities and the
-    latent output in fp32."""
+    latent output in fp32.  With the cache in ``ModelShards``:
+    ``_apply_decode_tp``."""
     m = cfg.mla
     pos = cache.pos
     b = x.shape[0]
     rope_pos = pos[None] if pos.ndim == 0 else pos[:, None]
+    if isinstance(cache.c_kv, arrays.ModelShards):
+        return _apply_decode_tp(params, x, cfg, cache, shctx.model_parallel_state(), rope_pos)
     q_nope, q_rope = _queries(params, x, cfg, rope_pos)
     c_new, kr_new = _latents(params, x, cfg, rope_pos)
     ck, ckr = cache.c_kv, cache.k_rope
@@ -198,3 +211,70 @@ def apply_decode(params, x, cfg: ArchConfig, cache: MLACache):
     o = torch.einsum("bhsr,rhk->bhsk", o_lat.to(x.dtype), params["w_uv"])
     out = torch.einsum("bhsk,hkd->bsd", o, params["wo"])
     return out, MLACache(c_kv=ck, k_rope=ckr, pos=pos + 1)
+
+
+def _apply_decode_tp(params, x, cfg: ArchConfig, cache: MLACache, mp, rope_pos):
+    """``apply_decode`` over the model shards of ``mp``, the latents split
+    by sequence (or whole on every shard): the query latent and the new
+    latents once on the lead shard; each shard's absorbed queries (its
+    heads of ``w_uq`` / ``w_uk``; the lead's, all heads, where the rules
+    leave them whole), all-gathered; each row's latents
+    written on the shard holding its position; each shard's fp32 partial
+    softmax over its valid slots, combined on the lead shard in rank
+    order; ``w_uv`` and ``wo`` by heads, the partial products summed."""
+    m = cfg.mla
+    ck, ckr, pos = cache.c_kv, cache.k_rope, cache.pos
+    b, h = x.shape[0], params["w_uq"].shape[1]
+    c_new, kr_new = _latents(params, x, cfg, rope_pos)
+    heads_split = isinstance(params["w_uq"], arrays.ModelShards)
+    if heads_split:
+        cqs = arrays.to_model_shards(_query_latent(params, x), mp)
+        qa, qr = [], []
+        for t in range(mp.tp):
+            with mp.on(t):
+                q_nope, q_rope = _query_heads(cqs[t], params["w_uq"].parts[t], cfg,
+                                              rope_pos.to(cqs[t].device))
+                qa.append(torch.einsum("bhsk,rhk->bhsr", q_nope, params["w_uk"].parts[t]))
+                qr.append(q_rope)
+        bounds = params["w_uq"].bounds
+        every = [[(0, h)]] * mp.tp
+        q_abs = arrays.take(arrays.ModelShards(qa, 1, bounds, (b, h, 1, qa[0].shape[-1])),
+                            mp, every)
+        q_rope = arrays.take(arrays.ModelShards(qr, 1, bounds, (b, h, 1, qr[0].shape[-1])),
+                             mp, every)
+    else:                   # the rules leave the heads whole: on the lead shard
+        q_nope, q_rope = _queries(params, x, cfg, rope_pos)
+        q_abs = arrays.to_model_shards(torch.einsum("bhsk,rhk->bhsr", q_nope,
+                                                    params["w_uk"]), mp)
+        q_rope = arrays.to_model_shards(q_rope, mp)
+    cs, krs, poss = (arrays.to_model_shards(t, mp) for t in (c_new, kr_new, pos))
+    slots = ck.seq_bounds(1)
+    parts = []
+    for t in range(mp.tp):
+        with mp.on(t):
+            lo, hi = slots[t]
+            own = (poss[t] >= lo) & (poss[t] < hi)
+            attention.write_owned(ck.parts[t], lo, poss[t], own, cs[t], dim=1)
+            attention.write_owned(ckr.parts[t], lo, poss[t], own, krs[t], dim=1)
+            if t and ck.dim is None:
+                continue                    # whole on every shard: the lead attends
+            cf = ck.parts[t].float()
+            s = torch.einsum("bhsr,blr->bhsl", q_abs[t].float(), cf)
+            s = s + torch.einsum("bhsk,blk->bhsl", q_rope[t].float(), ckr.parts[t].float())
+            s = s * (m.nope_head_dim + m.rope_head_dim) ** -0.5
+            g = torch.arange(lo, hi, device=cf.device)[None, :]
+            valid = g <= poss[t].expand(b)[:, None]
+            parts.append((t, attention._partial_softmax(
+                s, valid[:, None, None, :], lambda p: torch.einsum("bhsl,blr->bhsr", p, cf))))
+    o_lat = attention.combine_partials(parts, mp)
+    new_cache = MLACache(c_kv=ck, k_rope=ckr, pos=pos + 1)
+    if not heads_split:
+        o = torch.einsum("bhsr,rhk->bhsk", o_lat.to(x.dtype), params["w_uv"])
+        return torch.einsum("bhsk,hkd->bsd", o, params["wo"]), new_cache
+    os_ = arrays.to_model_shards(o_lat.to(x.dtype), mp, 1, params["w_uv"].bounds)
+    outs = []
+    for t in range(mp.tp):
+        with mp.on(t):
+            o = torch.einsum("bhsr,rhk->bhsk", os_[t], params["w_uv"].parts[t])
+            outs.append(torch.einsum("bhsk,hkd->bsd", o, params["wo"].parts[t]))
+    return arrays.reduce_from_model_shards(outs, mp, x.dtype), new_cache

@@ -29,7 +29,11 @@ the conv on them.  The gates contract over the full width (``w_a`` /
 ``w_out``'s row blocks give partial products, summed
 (``reduce_from_model_shards``).  Where the model axis does not divide the
 width, the rules leave every ``rnn`` leaf whole and the block computes
-whole on the lead shard, as the reference does.
+whole on the lead shard, as the reference does.  In a mesh serve step the
+state and the conv tail are ``ModelShards`` of the same channels
+(``rules.cache_shardings``): the prefill keeps each shard's, and the
+decode steps each shard's channels, the conv output all-gathered for the
+gates as in ``apply_full``.
 """
 from __future__ import annotations
 
@@ -85,8 +89,13 @@ def _gates(params, xc, xc_own=None):
     contract over ``xc``'s full width; ``xc_own`` (default ``xc``) is the
     conv output at the gates' own channels."""
     xc_own = xc if xc_own is None else xc_own
-    r = torch.sigmoid(torch.einsum("bsw,wu->bsu", xc, params["w_a"]) + params["b_a"])
-    i = torch.sigmoid(torch.einsum("bsw,wu->bsu", xc, params["w_x"]) + params["b_x"])
+    # a decode from fresh caches (fp32 conv tails) promotes as the
+    # reference's einsum does; equal dtypes are left as they are
+    dt = torch.promote_types(xc.dtype, params["w_a"].dtype)
+    r = torch.sigmoid(torch.einsum("bsw,wu->bsu", xc.to(dt), params["w_a"].to(dt))
+                      + params["b_a"])
+    i = torch.sigmoid(torch.einsum("bsw,wu->bsu", xc.to(dt), params["w_x"].to(dt))
+                      + params["b_x"])
     log_a = -_C * F.softplus(params["lam"].float()) * r.float()
     mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
     return log_a, mult * (i.float() * xc_own.float())
@@ -145,25 +154,28 @@ def _forward(params, x):
 
 def _apply_full_tp(params, x, mp):
     """``apply_full`` over the model shards of ``mp`` (the module
-    docstring)."""
+    docstring): (out, each shard's h (b, s, w / tp) fp32, each shard's
+    conv input xb)."""
     shard = lambda t: {k: v.parts[t] for k, v in params.items()}
     xs = arrays.to_model_shards(x, mp)
-    gates, xcs = [], []
+    gates, xcs, xbs = [], [], []
     for t in range(mp.tp):
         with mp.on(t):
-            _, gate, xc = _branches(shard(t), xs[t])
+            xb, gate, xc = _branches(shard(t), xs[t])
             gates.append(gate)
             xcs.append(xc)
+            xbs.append(xb)
     w = params["w_out"]
     full = arrays.take(arrays.ModelShards(xcs, 2, w.bounds, xcs[0].shape[:2] + w.shape[:1]),
                        mp, [[(0, w.shape[0])]] * mp.tp)
-    outs = []
+    outs, hs = [], []
     for t in range(mp.tp):
         with mp.on(t):
             h = linear_scan(*_gates(shard(t), full[t], xcs[t]))
+            hs.append(h)
             outs.append(torch.einsum("bsw,wd->bsd", h.to(x.dtype) * gates[t],
                                      shard(t)["w_out"]))
-    return arrays.reduce_from_model_shards(outs, mp, x.dtype)
+    return arrays.reduce_from_model_shards(outs, mp, x.dtype), hs, xbs
 
 
 def apply_full(params, x, cfg: ArchConfig):
@@ -171,7 +183,7 @@ def apply_full(params, x, cfg: ArchConfig):
     leaves in ``ModelShards`` it runs tensor-parallel (the module
     docstring)."""
     if isinstance(params["w_out"], arrays.ModelShards):
-        return _apply_full_tp(params, x, shctx.model_parallel_state())
+        return _apply_full_tp(params, x, shctx.model_parallel_state())[0]
     return _forward(params, x)[0]
 
 
@@ -186,19 +198,35 @@ def init_state(cfg: ArchConfig, batch: int, dtype=torch.float32,
 
 
 def prefill_into_state(params, x, cfg: ArchConfig):
-    """Full-sequence output and the final recurrent state for decode."""
-    out, h, xb = _forward(params, x)
+    """Full-sequence output and the final recurrent state for decode.
+    With its leaves in ``ModelShards`` the state's ``h`` and ``conv`` are
+    ``ModelShards`` of each model shard's channels (whole on every shard
+    where the rules leave the width whole)."""
     cw = cfg.rglru.conv_width
-    state = RGLRUState(h=h[:, -1].contiguous(),
-                       conv=xb[:, -(cw - 1):].to(x.dtype).contiguous(),
-                       pos=torch.tensor(x.shape[1], dtype=torch.int32, device=x.device))
-    return out, state
+    pos = torch.tensor(x.shape[1], dtype=torch.int32, device=x.device)
+    mp = shctx.model_parallel_state()
+    if isinstance(params["w_out"], arrays.ModelShards):
+        out, hs, xbs = _apply_full_tp(params, x, mp)
+        w, bounds = params["w_out"].shape[0], params["w_out"].bounds
+        b = x.shape[0]
+        h = arrays.ModelShards([t[:, -1].contiguous() for t in hs], 1, bounds, (b, w))
+        conv = arrays.ModelShards([t[:, -(cw - 1):].to(x.dtype).contiguous() for t in xbs], 2,
+                                  bounds, (b, cw - 1, w))
+        return out, RGLRUState(h=h, conv=conv, pos=pos)
+    out, h, xb = _forward(params, x)
+    h, conv = h[:, -1].contiguous(), xb[:, -(cw - 1):].to(x.dtype).contiguous()
+    if mp is not None:          # the width whole: the state on every shard
+        h, conv = arrays.cache_blocks(h, mp), arrays.cache_blocks(conv, mp)
+    return out, RGLRUState(h=h, conv=conv, pos=pos)
 
 
 def apply_decode(params, x, cfg: ArchConfig, state: RGLRUState):
     """One step: x (b, 1, d).  Writes the new ``h`` and conv tail into
     ``state``'s tensors in place; returns (out, state with ``pos``
-    advanced)."""
+    advanced).  With the state in ``ModelShards`` each model shard steps
+    its channels (``_apply_decode_tp``)."""
+    if isinstance(state.h, arrays.ModelShards):
+        return _apply_decode_tp(params, x, cfg, state, shctx.model_parallel_state())
     xb = torch.einsum("bsd,dw->bsw", x, params["w_in"])[:, 0]          # (b, w)
     gate = F.gelu(torch.einsum("bsd,dw->bsw", x, params["w_gate_branch"]),
                   approximate="tanh")[:, 0]
@@ -211,3 +239,44 @@ def apply_decode(params, x, cfg: ArchConfig, state: RGLRUState):
     state.h.copy_(h_new)
     state.conv.copy_(hist[:, 1:])
     return out, state._replace(pos=state.pos + 1)
+
+
+def _apply_decode_tp(params, x, cfg: ArchConfig, state: RGLRUState, mp):
+    """``apply_decode`` over the model shards of ``mp``: each shard's
+    channels of the conv and the recurrence, the conv output all-gathered
+    for the gates, ``w_out``'s row blocks summed; or, where the rules leave
+    the width whole, the step on the lead shard, its state copied to every
+    shard."""
+    if state.h.dim is None:
+        whole = {k: arrays.lead_whole(v, mp) if isinstance(v, arrays.ModelShards) else v
+                 for k, v in params.items()}
+        h, conv = state.h.parts[0], state.conv.parts[0]
+        out, _ = apply_decode(whole, x, cfg, RGLRUState(h=h, conv=conv, pos=state.pos))
+        arrays.write_back(state.h, h, mp)
+        arrays.write_back(state.conv, conv, mp)
+        return out, state._replace(pos=state.pos + 1)
+    shard = lambda t: {k: v.parts[t] for k, v in params.items()}
+    xs = arrays.to_model_shards(x, mp)
+    gates, xcs, hists = [], [], []
+    for t in range(mp.tp):
+        with mp.on(t):
+            p = shard(t)
+            xb = torch.einsum("bsd,dw->bsw", xs[t], p["w_in"])[:, 0]
+            gates.append(F.gelu(torch.einsum("bsd,dw->bsw", xs[t], p["w_gate_branch"]),
+                                approximate="tanh")[:, 0])
+            hist = torch.cat([state.conv.parts[t], xb[:, None]], dim=1)
+            hists.append(hist)
+            xcs.append((hist * p["conv_w"][None]).sum(dim=1) + p["conv_b"])
+    w = params["w_out"]
+    full = arrays.take(arrays.ModelShards(xcs, 1, w.bounds, (x.shape[0], w.shape[0])),
+                       mp, [[(0, w.shape[0])]] * mp.tp)
+    outs = []
+    for t in range(mp.tp):
+        with mp.on(t):
+            log_a, b = _gates(shard(t), full[t][:, None], xcs[t][:, None])
+            h_new = torch.exp(log_a[:, 0]) * state.h.parts[t] + b[:, 0]
+            y = (h_new.to(x.dtype) * gates[t])[:, None]
+            outs.append(torch.einsum("bsw,wd->bsd", y, shard(t)["w_out"]))
+            state.h.parts[t].copy_(h_new)
+            state.conv.parts[t].copy_(hists[t][:, 1:])
+    return arrays.reduce_from_model_shards(outs, mp, x.dtype), state._replace(pos=state.pos + 1)

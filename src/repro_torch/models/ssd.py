@@ -24,6 +24,14 @@ the scale, and ``w_out``'s row blocks give partial products, summed
 (``reduce_from_model_shards``).  Where the rules leave ``heads`` whole
 (the model axis does not divide them) the block computes whole on the lead
 shard, as the reference does.
+
+In a mesh serve step (``rules.cache_shardings``) the state ``h`` is split
+by heads and the conv tail evenly over its packed ``x | B | C`` columns:
+the prefill keeps each shard's heads' final state and regroups the shards'
+conv inputs into the tail's blocks (``arrays.take``); the decode takes
+each shard's heads' columns of the tail (with B and C whole), steps its
+heads, sums the gated RMSNorm's squares across the shards as
+``apply_full`` does, and regroups the new tail back into its blocks.
 """
 from __future__ import annotations
 
@@ -182,29 +190,24 @@ def _shard_ranges(cfg: ArchConfig, t: int, hl: int) -> dict:
             "w_out": (0, [ch]), "a_log": (0, own), "dt_bias": (0, own), "d_skip": (0, own)}
 
 
-def _apply_full_tp(params, x, cfg: ArchConfig, mp):
-    """``apply_full`` over the model shards of ``mp`` (the module
-    docstring)."""
-    s, d_inner, heads, _ = _dims(cfg)
-    hl = heads // mp.tp
+def _shard_params(params, mp, hl: int, cfg: ArchConfig) -> list:
+    """Each model shard's columns of every leaf (``_shard_ranges``), cut
+    from whichever shards hold them."""
     rng = [_shard_ranges(cfg, t, hl) for t in range(mp.tp)]
     shards = [{} for _ in range(mp.tp)]
     for name, (dim, _) in rng[0].items():
         for t, part in enumerate(arrays.take(params[name], mp, [r[name][1] for r in rng], dim)):
             shards[t][name] = part
-    xs = arrays.to_model_shards(x, mp)
-    b, n = x.shape[0], x.shape[1]
-    ys, sq = [], []
-    for t in range(mp.tp):
+    return shards
+
+
+def _gated_out(ys, shards, x, mp, d_inner: int):
+    """The shards' ``y * silu(z)`` (fp32, their channels) through the gated
+    RMSNorm over ``d_inner`` (each shard's share of the mean square summed
+    in rank order) and ``w_out``'s row blocks, the partial products summed."""
+    sq = []
+    for t, y in enumerate(ys):
         with mp.on(t):
-            p = shards[t]
-            z, xbc, dt = torch.split(torch.einsum("bsd,de->bse", xs[t], p["w_in"]),
-                                     [hl * s.head_dim, hl * s.head_dim + 2 * s.state_dim,
-                                      hl], dim=-1)
-            xh, B, C, dtv, ld = _ssm_inputs(_conv_silu(xbc, p), dt, p, cfg, hl)
-            y, _ = _chunked_ssd(xh, B, C, dtv, ld, s.chunk_size, p["d_skip"])
-            y = (y.reshape(b, n, hl * s.head_dim).to(x.dtype) * F.silu(z)).float()
-            ys.append(y)
             # this shard's share of the mean square (exactly the mean at tp 1)
             sq.append(torch.mean(y * y, dim=-1, keepdim=True) * (y.shape[-1] / d_inner))
     var = arrays.to_model_shards(arrays.reduce_from_model_shards(sq, mp), mp)
@@ -217,6 +220,42 @@ def _apply_full_tp(params, x, cfg: ArchConfig, mp):
     return arrays.reduce_from_model_shards(outs, mp, x.dtype)
 
 
+def _conv_columns(xbcs, cfg: ArchConfig, hl: int):
+    """The shards' conv inputs (each its heads' x columns, then B and C) as
+    ``ModelShards`` of disjoint column blocks of the packed ``x | B | C``
+    (B and C held by the last shard), for ``arrays.take``."""
+    s, d_inner, _, conv_dim = _dims(cfg)
+    tp, w = len(xbcs), hl * s.head_dim
+    parts = [p[..., :w] for p in xbcs[:-1]] + [xbcs[-1]]
+    bounds = [(t * w, (t + 1) * w) for t in range(tp - 1)] + [((tp - 1) * w, conv_dim)]
+    return arrays.ModelShards(parts, xbcs[0].dim() - 1, bounds,
+                              tuple(xbcs[0].shape[:-1]) + (conv_dim,))
+
+
+def _apply_full_tp(params, x, cfg: ArchConfig, mp):
+    """``apply_full`` over the model shards of ``mp`` (the module
+    docstring): (out, each shard's final state, each shard's raw conv
+    input)."""
+    s, d_inner, heads, _ = _dims(cfg)
+    hl = heads // mp.tp
+    shards = _shard_params(params, mp, hl, cfg)
+    xs = arrays.to_model_shards(x, mp)
+    b, n = x.shape[0], x.shape[1]
+    ys, states, xbcs = [], [], []
+    for t in range(mp.tp):
+        with mp.on(t):
+            p = shards[t]
+            z, xbc, dt = torch.split(torch.einsum("bsd,de->bse", xs[t], p["w_in"]),
+                                     [hl * s.head_dim, hl * s.head_dim + 2 * s.state_dim,
+                                      hl], dim=-1)
+            xh, B, C, dtv, ld = _ssm_inputs(_conv_silu(xbc, p), dt, p, cfg, hl)
+            y, S = _chunked_ssd(xh, B, C, dtv, ld, s.chunk_size, p["d_skip"])
+            ys.append((y.reshape(b, n, hl * s.head_dim).to(x.dtype) * F.silu(z)).float())
+            states.append(S)
+            xbcs.append(xbc)
+    return _gated_out(ys, shards, x, mp, d_inner), states, xbcs
+
+
 def apply_full(params, x, cfg: ArchConfig):
     """Training / prefill over the full sequence: x (b, n, d).  With its
     leaves in ``ModelShards`` it runs tensor-parallel (the module
@@ -224,10 +263,9 @@ def apply_full(params, x, cfg: ArchConfig):
     if any(isinstance(v, arrays.ModelShards) for v in params.values()):
         mp = shctx.model_parallel_state()
         if isinstance(params["a_log"], arrays.ModelShards):
-            return _apply_full_tp(params, x, cfg, mp)
+            return _apply_full_tp(params, x, cfg, mp)[0]
         # the rules leave the heads whole: the whole block on the lead shard
-        params = {k: arrays.take(v, mp, [[(0, v.shape[v.dim])]] + [[]] * (mp.tp - 1))[0]
-                  if isinstance(v, arrays.ModelShards) else v for k, v in params.items()}
+        params = _whole_params(params, mp)
     return _forward(params, x, cfg)[0]
 
 
@@ -242,20 +280,59 @@ def init_state(cfg: ArchConfig, batch: int, dtype=torch.bfloat16,
         pos=torch.zeros((), dtype=torch.int32, device=device))
 
 
+def _whole_params(params, mp) -> dict:
+    """Every leaf whole on the lead model shard (the rules leave the heads
+    whole)."""
+    return {k: arrays.lead_whole(v, mp) if isinstance(v, arrays.ModelShards) else v
+            for k, v in params.items()}
+
+
 def prefill_into_state(params, x, cfg: ArchConfig):
     """Full-sequence output and the state for decode: the final SSD state
-    and the last conv_width - 1 raw conv inputs."""
-    out, S_final, xbc_raw = _forward(params, x, cfg)
+    and the last conv_width - 1 raw conv inputs.  With its leaves in
+    ``ModelShards`` the state's ``h`` is ``ModelShards`` of each model
+    shard's heads and ``conv`` of its even block of the packed columns
+    (each whole on every shard where the model axis does not divide it)."""
     cw = cfg.ssd.conv_width
-    state = SSDState(h=S_final, conv=xbc_raw[:, -(cw - 1):].to(x.dtype).contiguous(),
-                     pos=torch.tensor(x.shape[1], dtype=torch.int32, device=x.device))
-    return out, state
+    pos = torch.tensor(x.shape[1], dtype=torch.int32, device=x.device)
+    mp = shctx.model_parallel_state()
+    if mp is not None and isinstance(params["a_log"], arrays.ModelShards):
+        s, _, heads, conv_dim = _dims(cfg)
+        hl = heads // mp.tp
+        out, states, xbcs = _apply_full_tp(params, x, cfg, mp)
+        b = x.shape[0]
+        h = arrays.ModelShards(states, 1, arrays.even_bounds(heads, mp.tp),
+                               (b, heads, s.head_dim, s.state_dim))
+        tails = _conv_columns([t[:, -(cw - 1):].to(x.dtype) for t in xbcs], cfg, hl)
+        return out, SSDState(h=h, conv=_tail_blocks(tails, mp, conv_dim), pos=pos)
+    if mp is not None:
+        params = _whole_params(params, mp)
+    out, S_final, xbc_raw = _forward(params, x, cfg)
+    h, conv = S_final, xbc_raw[:, -(cw - 1):].to(x.dtype).contiguous()
+    if mp is not None:
+        h, conv = arrays.cache_blocks(h, mp), arrays.cache_blocks(conv, mp, (2,))
+    return out, SSDState(h=h, conv=conv, pos=pos)
+
+
+def _tail_blocks(tails: arrays.ModelShards, mp, conv_dim: int) -> arrays.ModelShards:
+    """The shards' conv tails (``_conv_columns``) regrouped into the
+    cache's blocks: even blocks of the packed columns, or the whole tail on
+    every shard where the model axis does not divide them."""
+    if conv_dim % mp.tp == 0:
+        bounds = arrays.even_bounds(conv_dim, mp.tp)
+        parts = arrays.take(tails, mp, [[bd] for bd in bounds])
+        return arrays.ModelShards([p.contiguous() for p in parts], 2, bounds, tails.shape)
+    parts = arrays.take(tails, mp, [[(0, conv_dim)]] * mp.tp)
+    return arrays.ModelShards([p.contiguous() for p in parts], None, None, tails.shape)
 
 
 def apply_decode(params, x, cfg: ArchConfig, state: SSDState):
     """One step of the recurrence: x (b, 1, d).  Writes the new ``h`` and
     conv tail into ``state``'s tensors in place; returns (out, state with
-    ``pos`` advanced)."""
+    ``pos`` advanced).  With the state in ``ModelShards``:
+    ``_apply_decode_tp``."""
+    if isinstance(state.h, arrays.ModelShards):
+        return _apply_decode_tp(params, x, cfg, state, shctx.model_parallel_state())
     s, d_inner, heads, conv_dim = _dims(cfg)
     z, xbc, dt = _split_proj(params, x, cfg)
     hist = torch.cat([state.conv, xbc], dim=1)                 # (b, cw, conv_dim)
@@ -273,4 +350,51 @@ def apply_decode(params, x, cfg: ArchConfig, state: SSDState):
     out = torch.einsum("bse,ed->bsd", y, params["w_out"])
     state.h.copy_(h_new)
     state.conv.copy_(hist[:, 1:])
+    return out, state._replace(pos=state.pos + 1)
+
+
+def _apply_decode_tp(params, x, cfg: ArchConfig, state: SSDState, mp):
+    """``apply_decode`` over the model shards of ``mp`` (the module
+    docstring); where the rules leave the heads whole, the step on the lead
+    shard, its state written back to every shard's blocks."""
+    s, d_inner, heads, conv_dim = _dims(cfg)
+    if state.h.dim is None:
+        h, tail = state.h.parts[0], arrays.lead_whole(state.conv, mp).clone()
+        out, _ = apply_decode(_whole_params(params, mp), x, cfg,
+                              SSDState(h=h, conv=tail, pos=state.pos))
+        arrays.write_back(state.h, h, mp)
+        arrays.write_back(state.conv, tail, mp)
+        return out, state._replace(pos=state.pos + 1)
+    hl = heads // mp.tp
+    shards = _shard_params(params, mp, hl, cfg)
+    conv = state.conv
+    held = conv if conv.dim is not None else arrays.ModelShards(
+        conv.parts[:1], 2, [(0, conv_dim)], conv.shape)
+    own = arrays.take(held, mp, [_shard_ranges(cfg, t, hl)["conv_w"][1] for t in range(mp.tp)])
+    xs = arrays.to_model_shards(x, mp)
+    b, p_dim = x.shape[0], s.head_dim
+    ys, hists = [], []
+    for t in range(mp.tp):
+        with mp.on(t):
+            p = shards[t]
+            z, xbc, dt = torch.split(torch.einsum("bsd,de->bse", xs[t], p["w_in"]),
+                                     [hl * p_dim, hl * p_dim + 2 * s.state_dim, hl], dim=-1)
+            hist = torch.cat([own[t], xbc], dim=1)
+            hists.append(hist)
+            xbc_c = F.silu((hist * p["conv_w"][None]).sum(1) + p["conv_b"])
+            xh, B, C, dtv, ld = _ssm_inputs(xbc_c[:, None], dt, p, cfg, hl)
+            a = torch.exp(ld[:, 0])
+            dbx = torch.einsum("bh,bN,bhp->bhpN", dtv[:, 0], B[:, 0].float(),
+                               xh[:, 0].float())
+            h_new = state.h.parts[t] * a[..., None, None] + dbx
+            y = torch.einsum("bN,bhpN->bhp", C[:, 0].float(), h_new)
+            y = y + p["d_skip"][None, :, None] * xh[:, 0].float()
+            ys.append((y.reshape(b, 1, hl * p_dim).to(x.dtype) * F.silu(z)).float())
+            state.h.parts[t].copy_(h_new)
+    out = _gated_out(ys, shards, x, mp, d_inner)
+    new = _tail_blocks(_conv_columns([h[:, 1:] for h in hists], cfg, hl), mp, conv_dim)
+    for t in range(mp.tp):
+        with mp.on(t):
+            if conv.parts[t].data_ptr() != new.parts[t].data_ptr():
+                conv.parts[t].copy_(new.parts[t])
     return out, state._replace(pos=state.pos + 1)

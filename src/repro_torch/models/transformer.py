@@ -124,6 +124,8 @@ def _with_ffn(params, x, cfg: ArchConfig, kind: str):
 
 
 def _stack(trees: list) -> Any:
+    if isinstance(trees[0], arrays.ModelShards):  # a mesh step's cache blocks
+        return arrays.stack_shards(trees)
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
     if isinstance(trees[0], tuple):               # NamedTuple caches
@@ -472,7 +474,7 @@ def prefill(params, batch: dict, cfg: ArchConfig, *, max_len: int,
         layer_caches = []
         for start, length, pol in _policy_runs(eff[off:off + n]):
             for layer in range(start, start + length):
-                layer_params = _index(seg, layer)
+                layer_params = arrays.materialize(_index(seg, layer), x.device)
                 cache = {}
                 for i, k in enumerate(kinds):
                     x, _, cache[f"sub{i}"] = _sublayer_prefill(
@@ -486,7 +488,7 @@ def prefill(params, batch: dict, cfg: ArchConfig, *, max_len: int,
     else:
         lp = torch.as_tensor(last_pos, device=x.device).long().expand(x.shape[0])
         x_last = torch.take_along_dim(x, lp[:, None, None], dim=1)
-    return _logits(params, x_last, cfg)[:, 0], caches
+    return last_position(_logits(params, x_last, cfg)), caches
 
 
 def prefill_kv_pages(params, tokens: torch.Tensor, true_len, pools,
@@ -559,6 +561,14 @@ def prefill_kv_pages_suffix(params, tokens, true_len, start: int, pools,
         torch.zeros((1,), dtype=torch.int32, device=dev), cfg,
         stem_cfg=stem_cfg, chunk=chunk)
     return chunk_logits[0], pools
+
+
+def last_position(logits):
+    """(b, 1, vocab) logits -> (b, vocab), or the same of each block of
+    ``common.VocabShards``."""
+    if isinstance(logits, common.VocabShards):
+        return common.VocabShards([p[:, 0] for p in logits.parts], logits.bounds, logits.mp)
+    return logits[:, 0]
 
 
 def _logits(params, x, cfg: ArchConfig):
@@ -728,7 +738,7 @@ def decode_step(params, tokens, caches, cfg: ArchConfig, *, stem_cfg=None,
         seg_cache = caches[si]
         new_pos = {f"sub{i}": [] for i, _ in enumerate(kinds)}
         for layer in range(n):
-            layer_params = _index(seg, layer)
+            layer_params = arrays.materialize(_index(seg, layer), x.device)
             for i, k in enumerate(kinds):
                 c = seg_cache[f"sub{i}"]       # a cache or recurrent state
                 view = type(c)(*(leaf[layer] for leaf in c))
@@ -738,4 +748,4 @@ def decode_step(params, tokens, caches, cfg: ArchConfig, *, stem_cfg=None,
                 new_pos[f"sub{i}"].append(view.pos)
         new_caches.append({key: seg_cache[key]._replace(pos=torch.stack(ps))
                            for key, ps in new_pos.items()})
-    return _logits(params, x, cfg)[:, 0], new_caches
+    return last_position(_logits(params, x, cfg)), new_caches

@@ -292,14 +292,61 @@ class ModelShards:
     """A parameter's model-axis blocks as one data shard's model shards
     read them: ``parts[t]`` is the block of shard ``t`` (the whole of every
     other dim), on that shard's device; ``dim`` is the split dim and
-    ``bounds[t]`` the block's (start, stop) along it."""
+    ``bounds[t]`` the block's (start, stop) along it.
 
-    def __init__(self, parts: list, dim: int, bounds: list, shape):
+    A serve-step cache leaf is held the same way (its blocks updated in
+    place), and may be whole on every shard: ``dim`` and ``bounds`` None."""
+
+    def __init__(self, parts: list, dim: Optional[int], bounds: Optional[list], shape):
         self.parts, self.dim, self.bounds = parts, dim, bounds
         self.shape = torch.Size(shape)
 
     def __repr__(self) -> str:
         return f"ModelShards(shape={tuple(self.shape)}, dim={self.dim}, tp={len(self.parts)})"
+
+    def __getitem__(self, i: int) -> "ModelShards":
+        """Layer ``i`` of a stacked leaf (its leading dim unsplit): views."""
+        return ModelShards([p[i] for p in self.parts],
+                           None if self.dim is None else self.dim - 1, self.bounds,
+                           self.shape[1:])
+
+    def seq_bounds(self, dim: int) -> list:
+        """Each shard's (start, stop) along ``dim``: its block's, or the
+        whole dim where the leaf is not split along it."""
+        if self.dim == dim:
+            return list(self.bounds)
+        return [(0, self.shape[dim])] * len(self.parts)
+
+
+def stack_shards(items: list) -> ModelShards:
+    """Per-layer ``ModelShards`` of one layout stacked along a new leading
+    dim, each shard's blocks on its own device."""
+    first = items[0]
+    return ModelShards([torch.stack([it.parts[t] for it in items])
+                        for t in range(len(first.parts))],
+                       None if first.dim is None else first.dim + 1, first.bounds,
+                       (len(items),) + tuple(first.shape))
+
+
+def even_bounds(n: int, tp: int) -> list:
+    return [(t * n // tp, (t + 1) * n // tp) for t in range(tp)]
+
+
+def cache_blocks(x: torch.Tensor, mp, dims: tuple = ()) -> ModelShards:
+    """A cache leaf computed whole on the lead model shard as the model
+    shards of ``mp`` hold it (``rules.cache_shardings``): split evenly
+    along the first of ``dims`` the model axis divides, each shard's block
+    a tensor of its own on its device, else whole on every shard."""
+    for dim in dims:
+        if x.shape[dim] % mp.tp == 0:
+            bounds = even_bounds(x.shape[dim], mp.tp)
+            parts = to_model_shards(x, mp, dim, bounds)
+            own = []
+            for t, p in enumerate(parts):
+                with mp.on(t):
+                    own.append(p.clone(memory_format=torch.contiguous_format))
+            return ModelShards(own, dim, bounds, x.shape)
+    return ModelShards(to_model_shards(x, mp), None, None, x.shape)
 
 
 def model_dim(sharding: NamedSharding) -> Optional[int]:
@@ -326,6 +373,26 @@ def model_view(arr: ShardedArray, mp):
         parts.append(arr.gather(dev, region=region, coord=c))
         bounds.append(own[dim])
     return ModelShards(parts, dim, bounds, arr.shape)
+
+
+def lead_whole(ms: ModelShards, mp) -> torch.Tensor:
+    """A cache leaf's ``ModelShards`` whole on the lead model shard (its
+    blocks gathered there in rank order; the lead's own where it is whole
+    on every shard)."""
+    if ms.dim is None:
+        return ms.parts[0]
+    return take(ms, mp, [[(0, ms.shape[ms.dim])]] + [[]] * (mp.tp - 1))[0]
+
+
+def write_back(ms: ModelShards, whole: torch.Tensor, mp) -> None:
+    """``whole`` (on the lead model shard) copied into a cache leaf's
+    blocks, in place: each shard its block of it, or all of it where the
+    leaf is whole on every shard."""
+    parts = to_model_shards(whole, mp, ms.dim, ms.bounds)
+    for t, (dst, src) in enumerate(zip(ms.parts, parts)):
+        if dst.data_ptr() != src.data_ptr():
+            with mp.on(t):
+                dst.copy_(src)
 
 
 def _acc(dtype) -> torch.dtype:

@@ -406,7 +406,7 @@ KEYS = ("flops_per_device", "bytes_per_device", "bytes_per_device_nofusion",
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma-2b"])
 def test_production_grid_record(arch, tmp_path):
     t0 = time.time()
-    dryrun.main(["--arch", arch, "--out", str(tmp_path)])
+    dryrun.main(["--arch", arch, "--shape", "train_4k", "--out", str(tmp_path)])
     seconds = time.time() - t0
     rec = json.loads((tmp_path / f"{arch}__train_4k__pod.json").read_text())
     print(f"[{arch}] dry run on the 16 x 16 grid in {seconds:.1f} s on the CPU: "
@@ -424,14 +424,22 @@ def test_production_grid_record(arch, tmp_path):
     assert 0 < rec["model_flops_ratio"] < 1
 
 
-def test_cli_refuses_what_is_not_ported(tmp_path):
-    for argv in (["--shape", "prefill_32k"], ["--shape", "decode_32k"], ["--stem"]):
-        with pytest.raises(SystemExit) as e:
-            dryrun.main(argv + ["--out", str(tmp_path)])
-        assert e.value.code == 2
+def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """``--stem`` (no counterpart in the reference's dry run) exits 2, an
+    unknown arch 1; a decode cell, refused before the serving steps were
+    ported, now runs and the CLI exits 0 (qwen3-0.6b cut to one layer)."""
+    with pytest.raises(SystemExit) as e:
+        dryrun.main(["--stem", "--out", str(tmp_path)])
+    assert e.value.code == 2
     with pytest.raises(SystemExit) as e:
         dryrun.main(["--arch", "no-such-arch", "--out", str(tmp_path)])
     assert e.value.code == 1
+    get = t_configs.get_config
+    monkeypatch.setattr(dryrun.configs, "get_config",
+                        lambda name: get(name).replace(num_layers=1))
+    dryrun.main(["--arch", "qwen3-0.6b", "--shape", "decode_32k", "--out", str(tmp_path)])
+    rec = json.loads((tmp_path / "qwen3-0.6b__decode_32k__pod.json").read_text())
+    assert rec["shape"] == "decode_32k" and rec["memory"]["argument_bytes"] > 0
 
 
 def test_kernel_cost_formulas():
