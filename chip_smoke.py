@@ -436,6 +436,27 @@ Phases:
                 coordinate's argument bytes equal what the card placed,
                 and the block-sparse pairs counted by the budgets equal
                 kernels.cost.causal_pairs of the card's selections.
+ 19. examples — the four examples' main (examples/*_torch.py) on the
+                card, every kernel call of the phase recorded and held
+                against its plain version (kernels/replay.py, the
+                backward's dq / dk / dv and the forwards' saved lse
+                included): quickstart (b 2, 8 / 4 heads, 4096, d 64,
+                fp32) and long-context prefill (16384, 4 / 2 heads) under
+                "fused" (block-sparse, pool and vmag launched), then
+                their run on the same inputs under "gather": outputs
+                within 1e-4, budgets, density and every selection equal;
+                serve_stem's four arms (dense, stem at budget_frac 0.5,
+                streaming, monolithic stem; reduced qwen3-0.6b, fp32,
+                page 32) through the serving CLI, each again with
+                --executor gather: greedy streams equal, both paged
+                kernels launched in the chunked stem arm; train_lm
+                (qwen3-100m, fp32, b 8 x 512) for 60 steps with its
+                checkpoints in a temporary directory: finite losses, the
+                last below the first, the step-50 checkpoint written, the
+                flash forward and backward launched, and the recorded
+                backward with dq x 0.9 failing its check (the fp32
+                gradient limit scales with the gradients).  Every entry of the
+                kernels line gains phase19_launches (each arm's count).
 
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}.  Any failed phase raises (non-zero exit).
@@ -447,6 +468,7 @@ import atexit
 import contextlib
 import dataclasses
 import gc
+import importlib.util
 import json
 import os
 import pathlib
@@ -454,6 +476,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -1629,16 +1652,27 @@ def parity_phase(monolithic: bool) -> dict:
     return result
 
 
-@dataclasses.dataclass(frozen=True)
-class RecordingTopK(policy_lib.TopKSelector):
-    """TopKSelector that keeps every selection it makes (indices, live
-    counts); it reaches the path through the policy's selector slot."""
-    selections: list = dataclasses.field(default_factory=list, compare=False)
+@contextlib.contextmanager
+def recorded_selections():
+    """Every selection a ``TopKSelector`` makes inside the block, as
+    (indices, live counts, budgets) copies."""
+    sels, select = [], policy_lib.TopKSelector.select
 
-    def select(self, *a, **kw):
-        sel = super().select(*a, **kw)
-        self.selections.append((sel.indices.clone(), sel.live_counts.clone()))
+    def recording(self, *a, **kw):
+        sel = select(self, *a, **kw)
+        sels.append((sel.indices.clone(), sel.live_counts.clone(), sel.budgets.clone()))
         return sel
+    policy_lib.TopKSelector.select = recording
+    try:
+        yield sels
+    finally:
+        policy_lib.TopKSelector.select = select
+
+
+def selections_equal(a: list, b: list) -> bool:
+    """Two runs' recorded selections: as many, each part exactly equal."""
+    return len(a) == len(b) > 0 and all(
+        all(torch.equal(x, y) for x, y in zip(sa, sb)) for sa, sb in zip(a, b))
 
 
 def prefill_parity_phase() -> dict:
@@ -1653,18 +1687,15 @@ def prefill_parity_phase() -> dict:
         0, cfg.vocab_size, size=(1, 4096)), device="cuda")
     runs = {}
     for executor in ("fused", "gather"):
-        rec = RecordingTopK(sink_blocks=policy.selector.sink_blocks,
-                            local_blocks=policy.selector.local_blocks)
-        logits, _ = transformer.prefill(
-            params, {"tokens": tokens}, cfg, max_len=4096,
-            stem_cfg=dataclasses.replace(
-                policy.with_updates(executor=executor), selector=rec))
-        torch.cuda.synchronize()
-        runs[executor] = (logits, rec.selections)
+        with recorded_selections() as sels:
+            logits, _ = transformer.prefill(
+                params, {"tokens": tokens}, cfg, max_len=4096,
+                stem_cfg=policy.with_updates(executor=executor))
+            torch.cuda.synchronize()
+        runs[executor] = (logits, sels)
     (lf, sf), (lg, sg) = runs["fused"], runs["gather"]
     diff = float((lf - lg).abs().max())
-    same = len(sf) == len(sg) == cfg.num_layers and all(
-        torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in zip(sf, sg))
+    same = selections_equal(sf, sg) and len(sf) == cfg.num_layers
     result = dict(max_logit_diff=diff, selections_equal=same)
     log("[parity] prefill " + json.dumps(result))
     if diff > 1e-4 or not same:
@@ -4122,18 +4153,11 @@ def check_grads(name: str, got: tuple, want: tuple, p_bf16: bool = False) -> flo
 
 
 def check_lse(name: str, got: torch.Tensor, want: torch.Tensor) -> None:
-    """The forward kernel's saved log-sum-exp against the plain forward's:
-    +inf in the same rows (no key seen), elsewhere within 1e-5 of its
-    scale (the same fp32 row sums taken in another order)."""
-    inf = torch.isinf(want)
-    if not torch.equal(torch.isinf(got), inf) or not bool((got[inf] > 0).all()):
-        raise AssertionError(f"{name}: the saved lse's +inf rows differ")
-    err = float((got - want)[~inf].abs().max())
-    limit = 1e-5 * float(want[~inf].abs().max())
+    """The forward kernel's saved log-sum-exp against the plain forward's
+    under ``replay.check_lse``, logged."""
+    err, limit, n_inf = replay.check_lse(name, got, want)
     log(f"[train] {name} lse: max |kernel - plain| {err:.3e} (limit {limit:.3e}); "
-        f"{int(inf.sum())} rows saw no key")
-    if not err <= limit:
-        raise AssertionError(f"{name}: the saved lse disagrees with the plain forward's")
+        f"{n_inf} rows saw no key")
 
 
 def check_library_bwd(name: str, lib: tuple, want: tuple) -> None:
@@ -6219,6 +6243,199 @@ def mesh_serving_phase(sizes: dict = P18, dev: str = "cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the four examples on the card
+# ---------------------------------------------------------------------------
+
+# The kernels each example's run must launch (the serve example: its
+# chunked stem arm).
+P19_NEED = {
+    "quickstart": ("block_sparse_attention", "antidiag_pool", "value_magnitude"),
+    "longcontext": ("block_sparse_attention", "antidiag_pool", "value_magnitude"),
+    "serve/stem": ("score/decode", "score/chunk", "attend/decode", "attend/chunk"),
+    "train": ("flash_attention", "flash_attention_bwd"),
+}
+P19_TRAIN_STEPS = 60      # past the example's step-50 checkpoint
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (the examples are no package)."""
+    spec = importlib.util.spec_from_file_location(f"example_{name}",
+                                                  ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_attention_arm(key: str, name: str, dev: str) -> dict:
+    """quickstart / long-context prefill: the example's ``main`` on the card
+    (the fused executor: block-sparse, pool and vmag kernels), then its
+    ``run`` on the same inputs under "gather": outputs within the fp32
+    rule (1e-4), budgets, density and every selection exactly equal, and
+    every kernel call of both runs held against its plain version."""
+    ex = load_example(name)
+    torch.cuda.synchronize()
+    with replay.Recorder() as rec:
+        reset_all_launches()
+        with recorded_selections() as fused_sels:
+            t0 = time.perf_counter()
+            fused = ex.main(["--device", dev])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = _need(read_all_launches(), P19_NEED[key], f"phase 19 {key}")
+        cfg = ex.StemConfig(**ex.STEM_KWARGS)
+        with recorded_selections() as gather_sels:
+            gather = ex.run(*ex.make_inputs(ex.SEED, dev),
+                            dataclasses.replace(cfg, backend="gather"))
+        torch.cuda.synchronize()
+    report = rec.check()
+    diff = float((fused["out"] - gather["out"]).abs().max())
+    same = selections_equal(fused_sels, gather_sels)
+    res = dict(wall_s=wall, density=fused["density"],
+               err_vs_dense={k: fused[k] for k in ("max_err", "mean_err", "quarter_err")
+                             if k in fused},
+               fused_vs_gather=diff, selections_equal=same,
+               budgets_equal=bool(np.array_equal(fused["budgets"], gather["budgets"])),
+               launches=launches, kernel_calls=report)
+    log(f"[phase19] {key}: " + json.dumps({k: v for k, v in res.items()
+                                           if k != "kernel_calls"}))
+    if not (diff <= 1e-4 and same and res["budgets_equal"]
+            and fused["density"] == gather["density"]):
+        raise AssertionError(f"phase 19 {key}: fused != gather: {res}")
+    if not all(np.isfinite(v).all() for v in res["err_vs_dense"].values()):
+        raise AssertionError(f"phase 19 {key}: error against dense not finite")
+    return res
+
+
+def example_serve_arm(dev: str) -> dict:
+    """serve_stem: the example's four arms through the serving CLI on the
+    card (fp32, --reduced), each arm's launches counted alone, then each
+    arm again with ``--executor gather``: greedy streams equal, every
+    kernel call of the eight runs held against its plain version."""
+    ex = load_example("serve_stem_torch")
+    cli, runs = serve_lib.main, []
+
+    def counted(argv):
+        torch.cuda.synchronize()
+        reset_all_launches()
+        out = cli(argv)
+        torch.cuda.synchronize()
+        runs.append((out, read_all_launches()))
+        return out
+    t0 = time.perf_counter()
+    with replay.Recorder() as rec:
+        serve_lib.main = counted
+        try:
+            fused = ex.main(["--device", dev])
+        finally:
+            serve_lib.main = cli
+        wall = time.perf_counter() - t0
+        gather = {arm: cli(ex.COMMON + extra + ["--device", dev, "--executor", "gather"])
+                  for arm, _, extra in ex.ARMS}
+    report = rec.check()
+    arms = [arm for arm, _, _ in ex.ARMS]
+    launches = {f"serve/{arm}": n for arm, (_, n) in zip(arms, runs)}
+    _need(launches["serve/stem"], P19_NEED["serve/stem"], "phase 19 serve/stem")
+    equal = {arm: fused[arm]["tokens"] == gather[arm]["tokens"] for arm in arms}
+    res = dict(wall_s=wall, streams_equal=equal,
+               tok_s={arm: fused[arm]["throughput_tok_s"] for arm in arms},
+               launches=launches, kernel_calls=report)
+    log("[phase19] serve: " + json.dumps({k: v for k, v in res.items()
+                                          if k != "kernel_calls"}))
+    if not all(equal.values()):
+        raise AssertionError(f"phase 19 serve: fused and gather streams differ: {equal}")
+    return res
+
+
+def planted_dq_fails(rec: "replay.Recorder", key: str = "flash_attention_bwd") -> str:
+    """The check has teeth at the run's gradient scale: the recorded
+    backward calls with dq scaled by 0.9 must fail ``rec.check`` on
+    ``key``/dq.  Returns its message; the recorded calls are put back."""
+    sound = rec.calls[key]
+    rec.calls[key] = [(a, (out[0] * 0.9, *out[1:])) for a, out in sound]
+    try:
+        rec.check()
+    except AssertionError as e:
+        if f"{key}/dq" not in str(e):
+            raise
+        return str(e)
+    finally:
+        rec.calls[key] = sound
+    raise AssertionError(f"phase 19: {key} with dq x 0.9 passed its check")
+
+
+def example_train_arm(dev: str) -> dict:
+    """train_lm: the example's ``main`` for 60 steps on the card
+    (qwen3-100m, fp32, b 8 x 512, the flash forward and backward kernels),
+    its checkpoints in a temporary directory: finite losses, the last
+    below the first, the step-50 checkpoint written, every kernel call
+    held against its plain version, and the recorded backward with dq
+    off by a tenth failing that check."""
+    ex = load_example("train_lm_torch")
+    from repro_torch.checkpoint import CheckpointManager
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt:
+        torch.cuda.synchronize()
+        reset_all_launches()
+        with replay.Recorder() as rec:
+            t0 = time.perf_counter()
+            out = ex.main(["--steps", str(P19_TRAIN_STEPS), "--checkpoint-dir", ckpt,
+                           "--device", dev])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = _need(read_all_launches(), P19_NEED["train"], "phase 19 train")
+        saved = CheckpointManager(ckpt).steps()
+    report = rec.check()
+    planted = planted_dq_fails(rec)
+    losses = out["losses"]
+    res = dict(wall_s=wall, first_loss=losses[0], last_loss=losses[-1],
+               step_ms=float(np.median(out["step_ms"][1:])), checkpoints=saved,
+               planted_dq_x09=planted, launches=launches, kernel_calls=report)
+    log("[phase19] train: " + json.dumps({k: v for k, v in res.items()
+                                          if k != "kernel_calls"}))
+    if not (len(losses) == P19_TRAIN_STEPS and np.isfinite(losses).all()
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"phase 19 train: losses {losses[0]} -> {losses[-1]}")
+    if 50 not in saved:
+        raise AssertionError(f"phase 19 train: no step-50 checkpoint ({saved})")
+    return res
+
+
+def examples_phase(dev: str = "cuda") -> dict:
+    """Phase 19: the four examples' ``main`` on the card (see the module
+    docstring)."""
+    t_start = time.perf_counter()
+    out = {"quickstart": example_attention_arm("quickstart", "quickstart_torch", dev),
+           "longcontext": example_attention_arm("longcontext",
+                                                "longcontext_prefill_torch", dev)}
+    _free()
+    out["serve"] = example_serve_arm(dev)
+    out["train"] = example_train_arm(dev)
+    _free()
+    for arm in ("quickstart", "longcontext", "serve", "train"):
+        log(f"[phase19] {arm} kernel calls (checked / made, share of the limit): "
+            + json.dumps({k: (r["checked"], r["of"], r["share_of_limit"])
+                          for k, r in out[arm]["kernel_calls"].items()}))
+    out["launches"] = {"quickstart": out["quickstart"]["launches"],
+                       "longcontext": out["longcontext"]["launches"],
+                       **out["serve"]["launches"], "train": out["train"]["launches"]}
+    out["s"] = time.perf_counter() - t_start
+    log(f"[phase19] done in {out['s']:.1f} s")
+    return out
+
+
+def entry_counter(entry: dict) -> str:
+    """The launch counter of a kernels-line entry."""
+    name = entry["name"]
+    if name.startswith("paged_"):
+        return name[len("paged_"):]
+    if "part_of" in entry:
+        return entry["part_of"] + "_wgmma"
+    m = re.fullmatch(r"(\w+)\[wgmma (\d+)x(\d+)\]", name)
+    return wgmma_counter(m[1], int(m[2]), int(m[3])) if m else name
+
+
 def phase_clock():
     """A function that logs the seconds since its last call (or since this
     call) under a phase's name: the proof's time by phase."""
@@ -6353,6 +6570,10 @@ def main() -> None:
     stamp("phase 18")
     p18_launches = lambda key: {arm: n.get(key, 0) for arm, n in p18["launches"].items()}
 
+    # Phase 19: the four examples on the card.
+    p19 = examples_phase()
+    stamp("phase 19")
+
     kernels = []
     for key in ("score/decode", "score/chunk", "attend/decode", "attend/chunk"):
         kernel, lane = key.split("/")
@@ -6480,6 +6701,9 @@ def main() -> None:
                        ("value_magnitude", ("whisper",))):
         by_name[key]["whisper_shapes"] = {
             lane: records[f"{key}/{lane}"]["bfloat16"] for lane in lanes}
+    for entry in kernels:
+        entry["phase19_launches"] = {arm: n.get(entry_counter(entry), 0)
+                                     for arm, n in p19["launches"].items()}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

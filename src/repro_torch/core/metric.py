@@ -2,7 +2,8 @@
 ``repro/core/metric.py``).
 
 Anti-diagonal group-mean pooling, block max-pooled value magnitude, the
-one-shot prefill's blockwise routing scores and OAM metric (Eq. 7), and the
+one-shot prefill's blockwise routing scores and OAM metric (Eq. 7; its
+``StemConfig`` wrapper ``oam_metric``), and the
 chunk / decode routing scores read off pooled page summaries.  Shapes use
 the (batch, heads, seq, head_dim) convention.
 
@@ -116,6 +117,14 @@ def oam_scores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                  group, dim=1)                # (b, hq, nk)
     mag = torch.clamp(mv, min=0.0).to(route.dtype)
     return route + beta * mag[..., None, :]
+
+
+def oam_metric(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg) -> torch.Tensor:
+    """Flag-record (``StemConfig``) wrapper over ``oam_scores``;
+    ``metric="sam"`` zeroes the value-magnitude term (the ablation)."""
+    return oam_scores(q, k, v, block_size=cfg.block_size, stride=cfg.stride,
+                      pooling=cfg.pooling,
+                      beta=cfg.beta if cfg.metric == "oam" else 0.0)
 
 
 def chunk_routing_scores(q: torch.Tensor, k_groups: torch.Tensor, *,

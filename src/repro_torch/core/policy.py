@@ -1,7 +1,9 @@
 """Composable sparsity policies: metric x schedule x selector (+ executor).
 
 Port of ``repro/core/policy.py``, the paged executors' mesh-sharding
-contract included: the OAM / routing-only (SAM, XAttention) / streaming metrics, the four budget
+contract included: the ``BlockMetric`` / ``BudgetSchedule`` / ``Selector``
+protocols (``runtime_checkable``; every built-in satisfies its own), the
+OAM / routing-only (SAM, XAttention) / streaming metrics, the four budget
 schedules, the top-k selector with forced sink/local floors and the
 cumulative-mass (XAttention) selector, the frozen ``SparsityPolicy``, the
 metric/schedule/selector/policy registries (``as_policy``,
@@ -20,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable, Optional, Union
+from typing import Any, Callable, Optional, Protocol, Union, runtime_checkable
 
 import numpy as np
 import torch
@@ -33,6 +35,73 @@ from repro_torch.core.config import (StemConfig, k_start_blocks_for,
                                      validate_sparse_segment)
 
 NEG_INF = selection_lib.NEG_INF
+
+
+# ---------------------------------------------------------------------------
+# Protocols (the structural contracts a user's own metric, schedule or
+# selector is written to)
+# ---------------------------------------------------------------------------
+
+@runtime_checkable
+class BlockMetric(Protocol):
+    """Scores key blocks per query row; higher = more important."""
+
+    def prefill_scores(self, q, k, v, *, block_size: int) -> torch.Tensor:
+        """(b, hq, sq, d) x (b, hk, sk, d) -> (b, hq, nq, nk)."""
+        ...
+
+    def decode_scores(self, q, k_groups, v_mag) -> torch.Tensor:
+        """One decode query vs pooled cache-block summaries.
+
+        q: (b, hq, 1, d); k_groups: (b, hk, n, stride, d); v_mag: (b, hk, n).
+        Returns (b, hk, group, n) float32.
+        """
+        ...
+
+    def chunk_scores(self, q, k_groups, v_mag, *, block_size: int) -> torch.Tensor:
+        """A chunk of queries vs pooled cache-block summaries (chunked
+        prefill, ``core/chunked.py``).  Must reproduce ``prefill_scores`` on
+        full key blocks so chunked selection matches one-shot prefill.
+
+        q: (b, hq, C, d) with C % block_size == 0; k_groups / v_mag as in
+        ``decode_scores``.  Returns (b, hq, nc, n).
+        """
+        ...
+
+
+@runtime_checkable
+class BudgetSchedule(Protocol):
+    """Per-query-row block budgets (static for prefill, per-row for decode)."""
+
+    def prefill_budgets(self, nq: int, nk: int, *, block_size: int,
+                        kv_len: int) -> np.ndarray:
+        """Static int32 numpy budgets of shape (nq,), causally clamped."""
+        ...
+
+    def decode_budgets(self, n_valid, n_forced, budget_frac: float):
+        """(b,) int32 budgets for one decode step (n_valid/n_forced: (b,))."""
+        ...
+
+    def decode_budget_bound(self, nblk: int, forced_bound: int,
+                            budget_frac: float) -> int:
+        """Static top-k width: upper bound on any row's decode budget."""
+        ...
+
+
+@runtime_checkable
+class Selector(Protocol):
+    """Turns (metric, budgets) into a concrete block selection."""
+
+    budget_driven: bool  # True: k_max = max budget; False: threshold, k_max = nk
+
+    def select(self, metric, budgets, k_max: int, *,
+               with_block_mask: bool) -> selection_lib.BlockSelection:
+        ...
+
+    def select_decode(self, metric, cache_lens, *, block_size: int,
+                      schedule: BudgetSchedule,
+                      budget_frac: float) -> selection_lib.DecodeSelection:
+        ...
 
 
 # ---------------------------------------------------------------------------
@@ -667,7 +736,7 @@ def get_executor(name: str) -> ExecutorSpec:
     """Resolve a prefill backend, importing the module that registers the
     built-in ones."""
     if name not in _EXECUTORS:
-        from repro_torch.core import sparse_attention  # noqa: F401 (registers)
+        import repro_torch.core.sparse_attention  # noqa: F401 (registers)
     return _lookup(_EXECUTORS, "executor", name)
 
 

@@ -98,6 +98,8 @@ def main(argv=None, devices=None) -> dict:
     for is_set, msg in _UNPORTED:
         if is_set(args):
             raise SystemExit(f"train: no counterpart in the port: {msg}")
+    if devices is None:
+        devices = train_devices(args.device)
 
     from repro_torch import configs, optim
     from repro_torch.checkpoint import CheckpointManager
@@ -114,8 +116,7 @@ def main(argv=None, devices=None) -> dict:
     if args.reduced:
         cfg = configs.reduced(cfg).replace(dtype="float32")
     bundle = registry.build(cfg)
-    mesh = mesh_lib.make_train_mesh(train_devices(args.device) if devices is None
-                                    else devices)
+    mesh = mesh_lib.make_train_mesh(devices)
     device = mesh.devices[0]
 
     stem_cfg = None

@@ -24,6 +24,7 @@ reference's record; qwen3-0.6b's KV cache is 1.75 GiB of the coordinate's
 arguments.  The seconds each took on the CPU are printed (PERF.md quotes
 them).
 """
+import importlib
 import json
 import math
 import os
@@ -154,7 +155,7 @@ def test_budget_pairs_equal_the_selection_at_paper_defaults(monkeypatch):
     """One layer of 4096 tokens at the paper's defaults (block 128, TPD
     floor 54, 4 sink + 4 local blocks): the pairs the shape-only path
     counts by the budgets equal the real selection's, exactly."""
-    from repro_torch.core import sparse_attention as sa
+    sa = importlib.import_module("repro_torch.core.sparse_attention")  # not the function
     seen = _spy_block_sparse(monkeypatch)
     gen = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn((1, h, 4096, 64), generator=gen) for h in (4, 2, 2))
@@ -172,7 +173,7 @@ def test_threshold_selector_keeps_the_bound():
     """A selector whose live counts depend on the data (XAttention's
     cumulative mass) is counted by the bound, and the record says so."""
     from repro_torch.core import policy as policy_lib
-    from repro_torch.core import sparse_attention as sa
+    sa = importlib.import_module("repro_torch.core.sparse_attention")  # not the function
     pol = policy_lib.get_policy("xattention").with_updates(block_size=16, stride=4)
     assert pol.prefill_live_counts(128) is None
     q = torch.empty((1, 2, 128, 16), device="meta")

@@ -1,7 +1,8 @@
-"""The port stands alone: no file of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports JAX, the reference package ``repro`` or
-``ml_dtypes`` (the card's machine has none), and importing ``repro_torch``
-pulls none of them into the process."""
+"""The port stands alone: no file of ``src/repro_torch/``, no
+``examples/*_torch.py`` and not ``chip_smoke.py`` imports JAX, the
+reference package ``repro`` or ``ml_dtypes`` (the card's machine has none),
+importing ``repro_torch`` pulls none of them into the process, and the
+package's modules import in any order (no import cycle)."""
 import ast
 import os
 import pathlib
@@ -11,7 +12,8 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+         + sorted((ROOT / "examples").glob("*_torch.py")) + [ROOT / "chip_smoke.py"])
 
 
 def _forbidden(name: str) -> bool:
@@ -46,10 +48,29 @@ def test_import_leaves_jax_out():
             "repro_torch.optim, repro_torch.optim.adamw, repro_torch.data, "
             "repro_torch.data.pipeline, repro_torch.checkpoint, "
             "repro_torch.checkpoint.manager, repro_torch.runtime.fault_tolerance, "
-            "repro_torch.runtime.straggler, repro_torch.launch.train; "
+            "repro_torch.runtime.straggler, repro_torch.launch.train, "
+            "repro_torch.core, repro_torch.runtime, repro_torch.sharding; "
+            "from repro_torch.runtime import StemEngine; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'ml_dtypes')]; print(bad); "
             "sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("first", ["repro_torch.core", "repro_torch.kernels.paged_attn"])
+def test_import_first_in_fresh_process(first):
+    """``repro_torch.core`` (whose modules import the kernel wrappers) and
+    ``repro_torch.kernels.paged_attn`` (which imports core's stages) each
+    import first in a fresh process, and the package exports resolve; no
+    import builds a kernel (the build stays at first use)."""
+    code = (f"import sys, {first}; import repro_torch.core as c; "
+            "from repro_torch.core import StemConfig, stem_attention, schedule_for; "
+            "from repro_torch.kernels import _build, paged_attn; "
+            "assert c.TopKSelector and paged_attn.score_pages; "
+            "print(sorted(_build._LIBS)); sys.exit(1 if _build._LIBS else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)

@@ -24,6 +24,8 @@ and block-sparse attention (and the products of their tensor-core tile),
 and the metric pooling (both load widths, every block size and stride the
 port uses, the engine's shapes) / value-magnitude kernels.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -1356,7 +1358,7 @@ def test_dense_attention_auto_routes_by_form_on_card(cuda, dtype):
     cross-attention: 300 queries over 1500 frames) and masked attention
     (local windows) run the plain path, launching nothing, and equal the
     CPU run."""
-    from repro_torch.core import sparse_attention as t_sa
+    t_sa = importlib.import_module("repro_torch.core.sparse_attention")  # not the function
     dt = getattr(torch, dtype)
     gen = torch.Generator(device=cuda).manual_seed(65)
     enc = [torch.randn((1, 4, 1500, 64), generator=gen, device=cuda).to(dt)

@@ -103,3 +103,49 @@ def test_recorder_check_rejects_an_output_off_its_plain_version():
     out[0, 1, 0, 2] = float("nan")
     with pytest.raises(AssertionError, match="not finite"):
         rec.check()
+
+
+@pytest.mark.parametrize("part", ["dq", "dk", "dv"])
+def test_recorder_check_rejects_a_gradient_off_by_a_tenth_at_a_small_scale(part):
+    """A backward at the scale of a mean loss over many tokens (do ~ 1e-6,
+    as a training step gives the attention): the recorded gradients pass,
+    and one of them off by a tenth, or zeroed, fails; an absolute fp32 1e-4
+    would pass both."""
+    from repro_torch.kernels import flash_attention as t_fa
+
+    gen = torch.Generator().manual_seed(2)
+    q, k, v = (torch.randn((1, h, 16, 8), generator=gen) for h in (4, 2, 2))
+    do = 1e-6 * torch.randn((1, 4, 16, 8), generator=gen)
+    with replay.Recorder() as rec:
+        o, lse = t_fa.flash_attention(q, k, v, return_lse=True)
+        t_fa.flash_attention_bwd(q, k, v, o, do, lse=lse)
+    rec.check()
+    grad = rec.calls["flash_attention_bwd"][0][1][("dq", "dk", "dv").index(part)]
+    assert 0 < float(grad.abs().max()) < 1e-4
+    grad.mul_(0.9)
+    with pytest.raises(AssertionError, match=f"flash_attention_bwd/{part}"):
+        rec.check()
+    grad.zero_()
+    with pytest.raises(AssertionError, match=f"flash_attention_bwd/{part}"):
+        rec.check()
+
+
+def test_recorder_check_holds_the_saved_lse():
+    """A forward's saved lse: equal +inf rows, else within 1e-5 of the
+    largest |lse| (the rule ``replay.check_lse`` keeps for chip_smoke.py's
+    training phase too)."""
+    from repro_torch.kernels import flash_attention as t_fa
+
+    gen = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn((1, h, 16, 8), generator=gen) for h in (4, 2, 2))
+    with replay.Recorder() as rec:
+        t_fa.flash_attention(q, k, v, return_lse=True)
+    assert rec.check()["flash_attention"]["share_of_limit"] == 0.0
+    lse = rec.calls["flash_attention"][0][1][1]
+    scale = float(lse.abs().max())
+    lse[0, 1, 5] += 2e-5 * scale
+    with pytest.raises(AssertionError, match="lse disagrees"):
+        rec.check()
+    lse[0, 1, 5] = float("inf")
+    with pytest.raises(AssertionError, match=r"\+inf rows differ"):
+        rec.check()

@@ -14,6 +14,7 @@ Selections (indices, slot masks, live counts, budgets) must be exactly
 equal; float outputs agree within 1e-4 in fp32 (both sides sum in fp32 in
 different orders) and within 2 bf16 ulps + 1e-3 * max|ref| in bf16 (the
 two frameworks round the fp32 result to bf16 at different points)."""
+import importlib
 import pathlib
 import re
 import sys
@@ -34,7 +35,6 @@ from repro.kernels import ref as j_ref
 from repro_torch.core import chunked as t_chunked
 from repro_torch.core import policy as t_policy
 from repro_torch.core import selection as t_selection
-from repro_torch.core import sparse_attention as t_sa
 from repro_torch.core.config import StemConfig as TStem
 from repro_torch import kernels as t_kernels
 from repro_torch.kernels import block_sparse_attn as t_bsa
@@ -42,6 +42,8 @@ from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels import stem_metric as t_sm
 
 j_sa = sys.modules["repro.core.sparse_attention"]
+# the module: the package exports the function of the same name
+t_sa = importlib.import_module("repro_torch.core.sparse_attention")
 torch.set_num_threads(1)
 
 TOL = 1e-4
